@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py
 
-Drives `predictionio_tpu_torch`'s main path on the card: builds the CUDA
-kernels from `predictionio_tpu_torch/csrc` with nvcc, holds each kernel
-against its plain PyTorch version at the shapes the main path gives it,
-trains rank-200 explicit ALS on synthetic MovieLens-20M-shaped ratings
-(138,493 users x 26,744 items x 20M generated ratings, seeded, of which
-the preparator's dedup keeps 11.3M distinct pairs; 2 iterations) through
-the preparator and `ALSAlgorithm.train`, and serves the model
-over `POST /queries.json` on 127.0.0.1. Prints one JSON line per phase,
-then the kernels line, the card's name and power limit as nvidia-smi
-reports them, and as its last line
+Drives `predictionio_tpu_torch`'s two paths on the card. It builds the
+CUDA kernels from `predictionio_tpu_torch/csrc` with nvcc (one nvcc per
+source, all started together) and holds each kernel against its plain
+PyTorch version at the shapes its path gives it. Then:
+
+- the recommendation path: rank-200 explicit ALS on synthetic
+  MovieLens-20M-shaped ratings (138,493 users x 26,744 items x 20M
+  generated ratings, seeded, of which the preparator's dedup keeps 11.3M
+  distinct pairs; 2 iterations) through the preparator and
+  `ALSAlgorithm.train` (every solve through the CG kernel), served over
+  `POST /queries.json`;
+- the similar-product path: the same 20M (user, item) pairs as view
+  events summed into counts, all 26,744 items $set with synthetic
+  categories, rank-200 implicit ALS (alpha 1, lam 0.01, 2 iterations)
+  through the data source, preparator and `ALSAlgorithm.train` with
+  solver 'chol_cuda' (every solve through the Cholesky kernel), served
+  over `POST /queries.json` with category, black-list and white-list
+  filters.
+
+Prints one JSON line per phase, then the kernels line, the card's name
+and power limit as nvidia-smi reports them, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 Exits non-zero, before printing any result, when CUDA is unavailable, when
@@ -42,8 +53,11 @@ F32_FLOPS_PER_S = 67e12
 RATE_NOTE = ("H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s f32 on CUDA cores "
              "(data sheet, 700 W)")
 
+DATA = (138_493, 26_744, 20_000_000)   # users, items, generated ratings:
+#                                        data/synthetic.py's ML-20M shape
 RANK = 200
 LAM = 0.01
+ALPHA = 1.0
 ITERATIONS = 2
 WORK_BUDGET = 1 << 20
 KERNEL_REL_TOL = 1e-4     # kernel vs plain CG: same algorithm, same
@@ -52,6 +66,12 @@ ROUNDING_FACTOR = 4       # on real systems: 4x f32 rounding's reading
 FAULT_MARGIN = 10         # a planted fault must move x by >= this many
 #                           tolerances, or the check could not see it
 CHOL_REL_TOL = 1e-2       # trained rows (fixed-iteration CG) vs Cholesky
+CHOL_KERNEL_TOL = 1e-4    # Cholesky kernel vs its plain version: the floor
+#                           of the tolerance, ROUNDING_FACTOR x the plain
+#                           version's f32-vs-f64 reading where larger
+SP_QUERIES = 30           # similar-product queries served
+TIE_ATOL = 1e-5           # a served swap is allowed only between items
+#                           whose float64 cosine sums differ by less
 
 
 class SmokeFailure(RuntimeError):
@@ -207,8 +227,9 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     per_source = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log("cg_solve").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in per_source}
     info = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
@@ -265,10 +286,7 @@ def phase_kernel() -> dict:
 
 def phase_train():
     """The main path's train: data source -> preparator -> ALS train."""
-    from predictionio_tpu_torch.data.synthetic import (ML20M_ITEMS,
-                                                       ML20M_RATINGS,
-                                                       ML20M_USERS,
-                                                       synthetic_ml20m)
+    from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
     from predictionio_tpu_torch.models.common import RatingsData
     from predictionio_tpu_torch.models.recommendation import (
         ALSAlgorithm, ALSAlgorithmParams, DataSourceParams,
@@ -276,8 +294,7 @@ def phase_train():
     from predictionio_tpu_torch.ops.solve import COUNTS
 
     t0 = time.perf_counter()
-    u, i, r = synthetic_ml20m(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS,
-                              seed=0)
+    u, i, r = synthetic_ml20m(*DATA, seed=0)
     td = RecommendationDataSource(
         DataSourceParams(RatingsData(u, i, r))).read_training()
     data_s = time.perf_counter() - t0
@@ -318,7 +335,7 @@ def phase_train():
     check(finite, "trained factors are not finite")
     check(np.isfinite(rmse), "train RMSE is not finite")
     resolve_check(model.als, coo)
-    return algo, model, launches
+    return algo, model, launches, coo.nnz
 
 
 def resolve_check(als, coo) -> None:
@@ -338,7 +355,7 @@ def resolve_check(als, coo) -> None:
                key=lambda b: b.shape[0])
     for batch in (primal, dual):
         rows = torch.from_numpy(batch.rows).cuda().long()
-        kind, A, rhs, M = normal_equations(
+        kind, A, rhs, to_rows = normal_equations(
             U, torch.from_numpy(batch.idx).cuda().long(),
             torch.from_numpy(batch.val).cuda(),
             torch.from_numpy(batch.mask).cuda(), LAM, RANK)
@@ -346,9 +363,7 @@ def resolve_check(als, coo) -> None:
         iters = 48 if kind == "primal" else K + 8
         held = hold_kernel(A, rhs, iters, f"real {kind} bucket K={K}")
         xk, xc = cg_solve_cuda(A, rhs, iters), cholesky_solve(A, rhs)
-        if kind == "dual":
-            xk = torch.bmm(xk.unsqueeze(1), M).squeeze(1)
-            xc = torch.bmm(xc.unsqueeze(1), M).squeeze(1)
+        xk, xc = to_rows(xk), to_rows(xc)
         real = rows >= 0
         trained = V[rows[real]]
         out = {"kind": kind, "K": K, "B": batch.shape[0], **held,
@@ -436,6 +451,398 @@ def phase_serve(algo, model) -> None:
         server.stop()
 
 
+def chol_cost(B: int, R: int):
+    """(bytes, flops) one batched Cholesky solve must spend: A's lower
+    triangle (all the kernel reads of a symmetric A) and b read once, x
+    written once; R^3/3 flops to factor and 2R^2 to substitute, per
+    system."""
+    return 4 * B * (R * (R + 1) // 2 + 2 * R), B * (R ** 3 // 3 + 2 * R * R)
+
+
+# Planted faults of the Cholesky check (`chol_faults`). On a system
+# I + E with a small coupling E (the implicit path's eig-SMW dual systems)
+# a skipped trailing update, A22 -= L21 L21^T with L21 ~ E, moves x only to
+# second order in E; the other two move it to first order.
+CHOL_FAULTS = ("no_back_substitution", "skipped_forward_update",
+               "skipped_trailing_update")
+FIRST_ORDER_CHOL_FAULTS = CHOL_FAULTS[:2]
+
+
+def chol_faults(A: torch.Tensor, b: torch.Tensor, names) -> dict:
+    """The planted faults in `names`, built from the plain solve's own
+    pieces:
+    - no_back_substitution: x = y, the forward substitution's answer;
+    - skipped_forward_update: panel p = n_panels // 2's forward update
+      b_p -= L[p, :p] y[:p] left out, so y_p solves L_pp y_p = b_p (the
+      forward substitution run with L[p, :p] zeroed), then the true back
+      substitution;
+    - skipped_trailing_update: the middle panel p's trailing update
+      A22 -= L21 L21^T left out. That factors A + E exactly, with
+      E = L21 L21^T on panel p's trailing block, so it is computed as the
+      plain solve of A + E.
+    The last two are absent when R is one panel."""
+    from predictionio_tpu_torch.ops.solve import (CHOL_PANEL, chol_back,
+                                                  chol_factor, chol_forward,
+                                                  pad_to_panel)
+    R = b.shape[1]
+    Ap, bp = pad_to_panel(A, b)
+    L = chol_factor(Ap)
+    n_panels = Ap.shape[1] // CHOL_PANEL
+    faults = {}
+    if "no_back_substitution" in names:
+        faults["no_back_substitution"] = chol_forward(L, bp)[:, :R]
+    if n_panels > 1 and "skipped_forward_update" in names:
+        c0 = n_panels // 2 * CHOL_PANEL
+        Lf = L.clone()
+        Lf[:, c0:c0 + CHOL_PANEL, :c0] = 0.0
+        faults["skipped_forward_update"] = chol_back(
+            L, chol_forward(Lf, bp))[:, :R]
+    if n_panels > 1 and "skipped_trailing_update" in names:
+        c0 = (n_panels - 1) // 2 * CHOL_PANEL
+        r0 = c0 + CHOL_PANEL
+        L21 = L[:, r0:, c0:r0]
+        Af = Ap.clone()
+        Af[:, r0:, r0:] += torch.bmm(L21, L21.transpose(1, 2))
+        Lf = chol_factor(Af)
+        faults["skipped_trailing_update"] = chol_back(
+            Lf, chol_forward(Lf, bp))[:, :R]
+    return faults
+
+
+def hold_chol(A: torch.Tensor, b: torch.Tensor, where: str, faults):
+    """The Cholesky kernel against its plain version, and both against the
+    plain version in float64. The tolerance is CHOL_KERNEL_TOL, or
+    ROUNDING_FACTOR times what float32 rounding moves the plain version
+    (its f32 run against its f64 run) where that is larger. Each planted
+    fault named in `faults` (`chol_faults`) must miss the plain version by
+    FAULT_MARGIN tolerances. Fails the run otherwise; returns (readings,
+    kernel x)."""
+    from predictionio_tpu_torch.ops.solve import chol_solve, chol_solve_cuda
+    xk = chol_solve_cuda(A, b)
+    check(bool(torch.isfinite(xk).all()), f"{where}: non-finite x")
+    xp = chol_solve(A, b)
+    x64 = chol_solve(A.double(), b.double())
+    rounding = rel_err(xp.double(), x64)
+    tol = max(CHOL_KERNEL_TOL, ROUNDING_FACTOR * rounding)
+    out = {"rel_err": rel_err(xk, xp), "abs_err": (xk - xp).abs().max().item(),
+           "kernel_vs_f64": rel_err(xk.double(), x64),
+           "plain_vs_f64": rounding, "tolerance": tol}
+    del x64
+    margins = {name: rel_err(xf, xp) / tol
+               for name, xf in chol_faults(A, b, faults).items()}
+    out.update({f"fault_{name}_margin": m for name, m in margins.items()})
+    check(out["rel_err"] <= tol,
+          f"{where}: Cholesky kernel vs plain rel err {out['rel_err']:.3g} "
+          f"> {tol:.3g}")
+    check(out["kernel_vs_f64"] <= tol,
+          f"{where}: Cholesky kernel vs float64 rel err "
+          f"{out['kernel_vs_f64']:.3g} > {tol:.3g}")
+    for name, m in margins.items():
+        check(m >= FAULT_MARGIN,
+              f"{where}: the check cannot see the planted fault {name} (it "
+              f"moves x by only {m:.3g} tolerances)")
+    return out, xk
+
+
+def phase_chol_kernel() -> dict:
+    """The Cholesky kernel at the implicit path's shapes (primal R = rank
+    and the eig-SMW dual K < rank, B = work budget / K), an odd B and an R
+    that is not a multiple of 8, on systems whose spectrum spreads over
+    ~1e3-1e4 (`hard_systems`)."""
+    from predictionio_tpu_torch.ops.solve import (chol_max_rank, chol_solve,
+                                                  chol_solve_cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    shapes = [(RANK, WORK_BUDGET // RANK)]                      # primal
+    shapes += [(k, WORK_BUDGET // k) for k in (8, 24, 56, 144, 192)
+               if k < RANK]                                     # dual
+    shapes += [(RANK, 1001), (27, 4099)]       # odd B; R % 8 != 0
+    rows = []
+    for R, B in shapes:
+        A, b = hard_systems(B, R, gen)
+        held, _ = hold_chol(A, b, f"chol phase R={R} B={B}",
+                            CHOL_FAULTS)
+        cond = torch.linalg.cond(A[:8].double())
+        row = {"R": R, "B": B, **held,
+               "cond_of_8": [float(cond.min()), float(cond.max())],
+               "kernel_ms": cuda_ms(lambda: chol_solve_cuda(A, b), 5),
+               "plain_ms": cuda_ms(lambda: chol_solve(A, b), 2),
+               "library_ms": cuda_ms(
+                   lambda: torch.linalg.solve(A, b.unsqueeze(-1)), 3)}
+        nbytes, flops = chol_cost(B, R)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        row["bytes"], row["flops"], row["rates"] = nbytes, flops, RATE_NOTE
+        emit("chol_kernel", **row)
+        rows.append(row)
+        del A, b
+    for R in (RANK, 27):        # plan padding rows: A = reg*I, b = 0
+        A = (LAM * torch.eye(R, device="cuda")).expand(3, R, R).contiguous()
+        x0 = chol_solve_cuda(A, torch.zeros(3, R, device="cuda"))
+        check(bool((x0 == 0).all()), f"padding systems (R={R}) did not "
+              "solve to exactly 0")
+    emit("chol_kernel_padding", exact_zero=True,
+         max_rank=chol_max_rank(torch.device("cuda")))
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def similar_training_data():
+    """The implicit path's data: synthetic_ml20m's (user, item) pairs as
+    view events of value 1 (string ids), every item $set with 1-3
+    synthetic categories."""
+    from predictionio_tpu_torch.data.synthetic import (
+        synthetic_item_categories, synthetic_ml20m)
+    from predictionio_tpu_torch.models.common import RatingsData
+    from predictionio_tpu_torch.models.similarproduct import Item
+    n_users, n_items, n_ratings = DATA
+    u, i, _ = synthetic_ml20m(n_users, n_items, n_ratings, seed=0)
+    cats = synthetic_item_categories(n_items, seed=0)
+    items = {str(k): Item(cats[k], properties={"categories": list(cats[k])})
+             for k in range(n_items)}
+    views = RatingsData(u.astype(f"U{len(str(n_users))}"),
+                        i.astype(f"U{len(str(n_items))}"),
+                        np.ones(len(u), dtype=np.float32))
+    return items, views
+
+
+def phase_implicit_train(explicit_pairs: int):
+    """The similar-product path's train: data source -> preparator ->
+    implicit ALSAlgorithm.train with solver 'chol_cuda'."""
+    from predictionio_tpu_torch.models.similarproduct import (
+        ALSAlgorithm, ALSAlgorithmParams, DataSourceParams,
+        SimilarProductDataSource, SimilarProductPreparator)
+    from predictionio_tpu_torch.ops.solve import COUNTS
+
+    t0 = time.perf_counter()
+    items, views = similar_training_data()
+    td = SimilarProductDataSource(DataSourceParams(
+        items=items, view_events=views)).read_training()
+    pd = SimilarProductPreparator().prepare(td)
+    data_s = time.perf_counter() - t0
+    algo = ALSAlgorithm(ALSAlgorithmParams(
+        rank=RANK, num_iterations=ITERATIONS, lam=LAM, alpha=ALPHA, seed=0,
+        solver="chol_cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    model = algo.train(pd)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(vars(COUNTS))
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    tel = algo.last_train_telemetry
+    finite = all(bool(np.isfinite(t).all()) for t in (
+        model.user_factors, model.item_factors_raw,
+        model.item_factors_normalized))
+    emit("implicit_train", users=len(model.user_ix), items=len(model.item_ix),
+         view_events=len(views), distinct_pairs=tel["ratings"], rank=RANK,
+         iterations=ITERATIONS, lam=LAM, alpha=ALPHA, solver="chol_cuda",
+         data_s=data_s, train_s=train_s, **tel, launch_counts=counts,
+         peak_device_gb_over_start=peak_gb, factors_finite=finite)
+    check(counts["chol_solve"] > 0, "the Cholesky kernel was never launched")
+    check(counts["chol_solve"] == tel["solver_calls"],
+          f"{counts['chol_solve']} Cholesky kernel launches for "
+          f"{tel['solver_calls']} solver calls")
+    for name in ("chol_solve_plain", "cg_solve_plain", "cg_solve"):
+        check(counts[name] == 0, f"{name} ran {counts[name]} times on the "
+              "implicit path")
+    check(finite, "trained factors are not finite")
+    check(tel["ratings"] == explicit_pairs,
+          f"{tel['ratings']} distinct view pairs, but the explicit path's "
+          f"dedup kept {explicit_pairs} of the same pairs")
+    implicit_resolve_check(algo, model, td)
+    return algo, model, counts["chol_solve"]
+
+
+def implicit_resolve_check(algo, model, td) -> None:
+    """Re-solve one primal and one dual item-side bucket of the trained
+    model from its final user table (the item half-sweep ran last, on the
+    Gram of exactly that table) and hold the kernel on these real systems
+    with `hold_chol` (all planted faults on the primal bucket, the
+    first-order ones on the dual); the trained item rows must equal the
+    re-solve. On the primal bucket also read how far 48 iterations of the CG kernel
+    (the card's 'auto' solver) land from the Cholesky answer: a reading,
+    not a check."""
+    from predictionio_tpu_torch.ops.als import gram_eig, implicit_equations
+    from predictionio_tpu_torch.ops.ratings import plan_for_items
+    from predictionio_tpu_torch.ops.solve import (CG_PRIMAL_ITERS,
+                                                  cg_solve_cuda)
+    _, _, coo = algo._build_ratings(td)
+    U = torch.tensor(model.user_factors, device="cuda")
+    V = torch.tensor(model.item_factors_raw, device="cuda")
+    gram = gram_eig(U)
+    plan = plan_for_items(coo, work_budget=WORK_BUDGET)
+    primal = max((b for b in plan.batches if b.shape[1] >= RANK),
+                 key=lambda b: b.shape[0])
+    dual = max((b for b in plan.batches if b.shape[1] < RANK),
+               key=lambda b: b.shape[0])
+    for batch in (primal, dual):
+        rows = torch.from_numpy(batch.rows).cuda().long()
+        kind, A, rhs, to_rows = implicit_equations(
+            U, gram, torch.from_numpy(batch.idx).cuda().long(),
+            torch.from_numpy(batch.val).cuda(),
+            torch.from_numpy(batch.mask).cuda(), LAM, ALPHA, RANK)
+        K = batch.shape[1]
+        coupling = (A - torch.diag_embed(A.diagonal(dim1=1, dim2=2))
+                    ).abs().max().item() if kind == "dual" else None
+        # the dual systems are I + E with a small E: hold the faults that
+        # move x to first order in E there (see CHOL_FAULTS)
+        held, xk = hold_chol(
+            A, rhs, f"real implicit {kind} bucket K={K}",
+            CHOL_FAULTS if kind == "primal" else FIRST_ORDER_CHOL_FAULTS)
+        real = rows >= 0
+        out = {"kind": kind, "K": K, "B": batch.shape[0],
+               "max_abs_offdiag": coupling, **held,
+               "trained_vs_resolve_rel": rel_err(V[rows[real]],
+                                                 to_rows(xk)[real])}
+        if kind == "primal":
+            xcg = cg_solve_cuda(A, rhs, CG_PRIMAL_ITERS)
+            out["cg48_vs_cholesky_rel"] = rel_err(xcg, xk)
+            out["cg48_rows_vs_cholesky_rows_rel"] = rel_err(
+                to_rows(xcg)[real], to_rows(xk)[real])
+        emit("implicit_resolve", **out)
+        check(out["trained_vs_resolve_rel"] <= KERNEL_REL_TOL,
+              f"trained implicit {kind} rows differ from a kernel re-solve "
+              f"by {out['trained_vs_resolve_rel']:.3g}")
+        del A, rhs, xk
+
+
+def f64_cosine_top(T64: np.ndarray, algo, model, query, k: int):
+    """Float64 reference of the served answer: summed cosines of the
+    re-normalized query rows against the served normalized table, under
+    the same candidate mask and the score > 0 rule. Returns (scores with
+    -inf where excluded, top ids)."""
+    from predictionio_tpu_torch.models.common import resolve_ids
+    q_ix = resolve_ids(model.item_ix, query.items)
+    Q = T64[q_ix]
+    Q = Q / np.maximum(np.linalg.norm(Q, axis=1, keepdims=True), 1e-12)
+    s = T64 @ Q.sum(axis=0)
+    s = np.where(algo._build_mask(model, query, q_ix) & (s > 0), s,
+                 -np.inf)
+    top = np.argsort(-s, kind="stable")[:k]
+    return s, top[np.isfinite(s[top])]
+
+
+def held_to_f64(got_ids, s64, top, model, what: str) -> bool:
+    """True when the served ids equal the float64 top-k; False for a swap
+    between items whose float64 scores tie within TIE_ATOL; fails the run
+    otherwise."""
+    want = model.item_ix.ids_of(top)
+    if got_ids == want:
+        return True
+    got_ix = [model.item_ix[g] for g in got_ids]
+    check(len(got_ids) == len(want)
+          and bool(np.isfinite(s64[got_ix]).all())
+          and np.allclose(np.sort(s64[got_ix])[::-1], s64[top], rtol=0,
+                          atol=TIE_ATOL),
+          f"{what}: served {got_ids} != float64 top {want}")
+    return False
+
+
+def phase_similar_serve(algo, model) -> None:
+    """Serve the implicit model over HTTP; hold every answer against a
+    float64 cosine top-k, and batch_predict against the single answers."""
+    from predictionio_tpu_torch.core import Engine, EngineParams, \
+        TrainResult
+    from predictionio_tpu_torch.core.base import FirstServing
+    from predictionio_tpu_torch.models.similarproduct import Query
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    engine = Engine({}, {}, {"als": type(algo)}, {"": FirstServing})
+    server = EngineServer(ServerConfig(ip="127.0.0.1", port=0), engine,
+                          EngineParams(serving_params=("", None)),
+                          TrainResult(models=[model], algorithms=[algo]))
+    T64 = model.item_factors_normalized.astype(np.float64)
+    n_items = len(model.item_ix)
+    cats = sorted({c for cs in model.item_categories if cs for c in cs})
+    rng = np.random.default_rng(3)
+    queries = []
+    for n in range(SP_QUERIES):
+        q_ix = rng.choice(n_items, 1 + n % 3, replace=False)
+        q = {"items": model.item_ix.ids_of(q_ix), "num": 10}
+        _, top = f64_cosine_top(T64, algo, model, Query.from_dict(q), 10)
+        if n % 3 == 1:
+            q["categories"] = [str(c) for c in
+                               rng.choice(cats, 1 + n % 2, replace=False)]
+        if n % 5 == 2:      # the best five and some others
+            q["blackList"] = model.item_ix.ids_of(np.concatenate(
+                [top[:5], rng.choice(n_items, 20)]))
+        if n % 5 == 4:      # a few of the best among 300 others
+            q["whiteList"] = model.item_ix.ids_of(np.concatenate(
+                [top[::3], rng.choice(n_items, 300)]))
+        queries.append(q)
+    server.start(background=True)
+    try:
+        url = f"http://127.0.0.1:{server.config.port}/queries.json"
+        lat, exact, ties, single = [], 0, 0, []
+        for q in queries:
+            t0 = time.perf_counter()
+            status, body = post(url, json.dumps(q).encode())
+            lat.append(time.perf_counter() - t0)
+            check(status == 200, f"query {q} answered {status}")
+            got = [s["item"] for s in body["itemScores"]]
+            check(len(got) > 0, f"query {q} answered no items")
+            s64, top = f64_cosine_top(T64, algo, model, Query.from_dict(q),
+                                      q["num"])
+            if held_to_f64(got, s64, top, model, f"query {q}"):
+                exact += 1
+            else:
+                ties += 1
+            single.append(body["itemScores"])
+        t0 = time.perf_counter()
+        status, body = post(url, b'{"items": ["no-such-item"], "num": 10}')
+        lat.append(time.perf_counter() - t0)
+        check(status == 200 and body == {"itemScores": []},
+              f"unknown item answered {status} {body}")
+        status, _ = post(url, b'{"items": ')
+        check(status == 400, f"malformed body answered {status}")
+        status, _ = post(url, b'{"num": 3}')
+        check(status == 400, f"body without items answered {status}")
+        batched = dict(algo.batch_predict(
+            model, [(n, Query.from_dict(q)) for n, q in enumerate(queries)]))
+        batch_exact = 0
+        for n, q in enumerate(queries):
+            got = [s.item for s in batched[n].item_scores]
+            want = [s["item"] for s in single[n]]
+            if got == want:
+                batch_exact += 1
+                check(np.allclose([s.score for s in batched[n].item_scores],
+                                  [s["score"] for s in single[n]], rtol=0,
+                                  atol=TIE_ATOL),
+                      f"query {q}: batch_predict scores differ")
+                continue
+            s64, top = f64_cosine_top(T64, algo, model, Query.from_dict(q),
+                                      q["num"])
+            held_to_f64(got, s64, top, model, f"batch_predict {q}")
+        ms = np.array(lat) * 1e3
+        emit("similar_serve", queries=len(lat), ids_equal_f64=exact,
+             f32_tie_swaps=ties, batch_equal_single=batch_exact,
+             with_categories=sum("categories" in q for q in queries),
+             with_black_list=sum("blackList" in q for q in queries),
+             with_white_list=sum("whiteList" in q for q in queries),
+             unknown_items_empty=True, malformed_400=True,
+             p50_ms=float(np.percentile(ms, 50)),
+             p99_ms=float(np.percentile(ms, 99)))
+    finally:
+        server.stop()
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 max_abs_err: float, max_rel_err: float, timed: dict,
+                 timed_shape: dict) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
+            "ms": timed["kernel_ms"], "kernel_ms": timed["kernel_ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "library_call": "torch.linalg.solve",
+            "timed_shape": timed_shape}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
@@ -443,23 +850,28 @@ def main() -> int:
         return 2
     info = phase_device()
     kern = phase_kernel()
-    algo, model, launches = phase_train()
+    chol = phase_chol_kernel()
+    algo, model, cg_launches, pairs = phase_train()
     phase_serve(algo, model)
-    primal = kern["rows"][0]
-    line = {"kernels": [{
-        "name": "cg_solve", "route": "cuda",
-        "source": "predictionio_tpu_torch/csrc/cg_solve.cu",
-        "replaces": "predictionio_tpu/ops/solve.py:208 (_cg_kernel)",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
-        "max_rel_err": max(r["max_rel_err"] for r in kern["rows"]),
-        "ms": primal["kernel_ms"], "kernel_ms": primal["kernel_ms"],
-        "plain_ms": primal["plain_ms"], "bound_ms": primal["bound_ms"],
-        "bound_by": primal["bound_by"],
-        "library_ms": primal["library_ms"],
-        "library_call": "torch.linalg.solve",
-        "timed_shape": {"B": primal["B"], "R": primal["R"],
-                        "iters": primal["iters"]}}]}
+    del algo, model
+    sp_algo, sp_model, chol_launches = phase_implicit_train(pairs)
+    phase_similar_serve(sp_algo, sp_model)
+    cg_primal, chol_primal = kern["rows"][0], chol["rows"][0]
+    line = {"kernels": [
+        kernel_entry("cg_solve", "cg_solve.cu",
+                     "predictionio_tpu/ops/solve.py:208 (_cg_kernel)",
+                     cg_launches,
+                     max(r["max_abs_err"] for r in kern["rows"]),
+                     max(r["max_rel_err"] for r in kern["rows"]), cg_primal,
+                     {"B": cg_primal["B"], "R": cg_primal["R"],
+                      "iters": cg_primal["iters"]}),
+        kernel_entry("chol_solve", "chol_solve.cu",
+                     "predictionio_tpu/ops/solve.py:406 (_chol_kernel -> "
+                     "_blocked_cholesky_solve :285)",
+                     chol_launches,
+                     max(r["abs_err"] for r in chol["rows"]),
+                     max(r["rel_err"] for r in chol["rows"]), chol_primal,
+                     {"B": chol_primal["B"], "R": chol_primal["R"]})]}
     print(json.dumps(line), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Bidirectional id maps: string entity ids <-> dense integer indices.
 
 The port's copy of `predictionio_tpu/data/bimap.py` (`BiMap`,
-`EntityIdIxMap`), cut to what the recommendation preparator and serve
-path use. Ids are assigned in sorted order, so every build of the same
-id set gives the same dense indices as the reference package.
+`EntityIdIxMap`), cut to what the recommendation and similar-product
+templates use. Ids are assigned in sorted order, so every build of the
+same id set gives the same dense indices as the reference package.
 """
 
 from __future__ import annotations
@@ -50,12 +50,21 @@ class EntityIdIxMap:
         for k, v in id_to_ix.items():
             ids[int(v)] = k
         self._ids = np.array(ids, dtype=object)
+        self._sorted_view = None
 
     @staticmethod
     def from_ids(ids: Iterable[str]) -> "EntityIdIxMap":
         """Map whose dense index i is the i-th id, in the given order (a
         model's table rows already fix the order)."""
         return EntityIdIxMap(BiMap({str(k): i for i, k in enumerate(ids)}))
+
+    @staticmethod
+    def build(keys) -> "EntityIdIxMap":
+        """Dense indices by sorted order of the distinct keys (the
+        reference's `build(keys, sort=True)`), by one np.unique pass, which
+        orders strings as `sorted` does."""
+        uniq = np.unique(np.asarray(keys).astype(str))
+        return EntityIdIxMap(BiMap({str(k): i for i, k in enumerate(uniq)}))
 
     @staticmethod
     def build_with_indices(ids: np.ndarray
@@ -86,6 +95,30 @@ class EntityIdIxMap:
 
     def ids_of(self, ixs) -> List[str]:
         return [str(x) for x in self._ids[np.asarray(ixs, dtype=np.int64)]]
+
+    def to_indices(self, entity_ids: Iterable[str]) -> np.ndarray:
+        """id -> index per element; unknown ids map to -1."""
+        return np.array([self._bimap.get(e, -1) for e in entity_ids],
+                        dtype=np.int32)
+
+    def to_indices_array(self, ids: np.ndarray) -> np.ndarray:
+        """Vectorized id -> index for numpy id arrays (unknowns -> -1):
+        binary search against a sorted view of the key table, built once
+        per map."""
+        arr = np.asarray(ids)
+        if arr.dtype == object:
+            arr = arr.astype(str)
+        keys = self._ids.astype(str)
+        if len(keys) == 0 or arr.size == 0:
+            return np.full(arr.shape, -1, dtype=np.int32)
+        if self._sorted_view is None:
+            order = np.argsort(keys)
+            self._sorted_view = (keys[order], order.astype(np.int32))
+        sorted_keys, order = self._sorted_view
+        pos = np.searchsorted(sorted_keys, arr)
+        pos_safe = np.clip(pos, 0, len(sorted_keys) - 1)
+        hit = sorted_keys[pos_safe] == arr
+        return np.where(hit, order[pos_safe], -1).astype(np.int32)
 
     @property
     def ids(self) -> np.ndarray:

@@ -4,7 +4,8 @@
 reference repo: the same numpy RNG calls in the same order, so the same
 seed gives the same arrays. `small_ratings` is a small heavy-tailed
 sample on which both ALS routes (primal and dual) occur at rank 16, for
-parity checks and rounding readings.
+parity checks and rounding readings. `synthetic_item_categories` gives
+each item 1-3 categories, a fixture for the similar-product filters.
 """
 
 from __future__ import annotations
@@ -50,3 +51,14 @@ def small_ratings(seed=5, n_users=90, n_items=150, nnz=1800):
     ii = (pair % n_items).astype(np.int32)
     vv = rng.integers(1, 6, ui.size).astype(np.float32)
     return ui, ii, vv, n_users, n_items
+
+
+def synthetic_item_categories(n_items, n_categories=20, seed=0):
+    """Each item gets 1-3 distinct categories out of `n_categories`
+    ("c0", "c1", ...), numpy-seeded. Returns a list of tuples, by item
+    index."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 4, n_items)
+    return [tuple(f"c{c}" for c in sorted(rng.choice(n_categories, k,
+                                                     replace=False)))
+            for k in sizes]

@@ -7,8 +7,8 @@ columnar `RatingsData` training payload.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence
+from dataclasses import dataclass, field
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -17,11 +17,20 @@ from predictionio_tpu_torch.data.bimap import EntityIdIxMap
 
 @dataclass(frozen=True)
 class ItemScore:
+    """Optional item properties ride along in the result JSON (the
+    similar-product template's `return_properties`)."""
     item: str
     score: float
+    properties: Optional[Mapping] = field(default=None, compare=False)
 
     def to_dict(self):
-        return {"item": self.item, "score": float(self.score)}
+        d = {"item": self.item, "score": float(self.score)}
+        if self.properties:
+            # a property named "item"/"score" never clobbers the wire
+            # fields
+            d.update({k: v for k, v in self.properties.items()
+                      if k not in ("item", "score")})
+        return d
 
 
 @dataclass(frozen=True)
@@ -58,9 +67,25 @@ class RatingsData:
         return int(self.vals.shape[0])
 
 
+def resolve_ids(ix_map: EntityIdIxMap, ids: Optional[Sequence[str]]
+                ) -> np.ndarray:
+    """String ids -> known dense indices (unknown ids dropped)."""
+    if not ids:
+        return np.array([], dtype=np.int32)
+    ixs = ix_map.to_indices(list(ids))
+    return ixs[ixs >= 0]
+
+
 def top_scores_to_result(ix_map: EntityIdIxMap, scores: np.ndarray,
-                         idx: np.ndarray) -> ItemScoreResult:
-    """Dense (scores, item indices) -> the wire result."""
+                         idx: np.ndarray,
+                         properties_of=None) -> ItemScoreResult:
+    """Dense (scores, item indices) -> the wire result. `properties_of`:
+    optional callable dense index -> property dict merged into each
+    ItemScore's JSON."""
     items = ix_map.ids_of(idx) if len(idx) else []
+    if properties_of is None:
+        return ItemScoreResult(tuple(
+            ItemScore(item, float(s)) for item, s in zip(items, scores)))
     return ItemScoreResult(tuple(
-        ItemScore(item, float(s)) for item, s in zip(items, scores)))
+        ItemScore(item, float(s), properties_of(int(i)))
+        for item, s, i in zip(items, scores, idx)))

@@ -1,0 +1,382 @@
+"""Similar-product engine template: implicit ALS + cosine similarity.
+
+The port's counterpart of `predictionio_tpu/models/similarproduct.py`
+(`Item`, `ViewEvent`, `LikeEvent`, `TrainingData`, `Query`,
+`SimilarProductPreparator`, `ALSAlgorithmParams`, `ItemMetadataModel`,
+`SimilarProductModel`, `ALSAlgorithm` with `_build_ratings`, `train`,
+`_build_mask`, `predict` and `batch_predict`, `LikeAlgorithm` and the
+engine factory). View events are summed into counts per (user, item),
+trained with implicit ALS, and a query scores every item by its summed
+cosine similarity to the query items' factors, under category, white-list,
+black-list and year filters.
+
+The data source takes the events and item properties through its params
+(the event-store read is ROADMAP.md queue A item 7). DIMSUM, fold-in and
+the pipelined `batch_predict_begin` are later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
+                                         EngineParams, FirstServing,
+                                         P2LAlgorithm, Params, Preparator,
+                                         SanityCheck)
+from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.models.common import (ItemScoreResult,
+                                                  RatingsData, resolve_ids,
+                                                  top_scores_to_result)
+from predictionio_tpu_torch.ops.als import ALSConfig, als_train
+from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
+from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
+                                                   cosine_top_k,
+                                                   masked_top_k_batch,
+                                                   normalize_rows,
+                                                   unpack_top_k_rows)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class Item:
+    categories: Optional[Tuple[str, ...]] = None
+    properties: Optional[dict] = None   # the full $set property bag
+
+
+@dataclass(frozen=True)
+class ViewEvent:
+    user: str
+    item: str
+    t: int = 0
+
+
+@dataclass(frozen=True)
+class LikeEvent:
+    """like (True) or dislike (False)."""
+    user: str
+    item: str
+    like: bool
+    t: int = 0
+
+
+@dataclass
+class TrainingData(SanityCheck):
+    """view_events/like_events are columnar (RatingsData: a view is 1, a
+    like +1, a dislike -1); ViewEvent/LikeEvent row lists are
+    converted."""
+    users: Dict[str, dict]
+    items: Dict[str, Item]
+    view_events: RatingsData
+    like_events: Optional[RatingsData] = None
+
+    def __post_init__(self):
+        if isinstance(self.view_events, (list, tuple)):
+            self.view_events = RatingsData(
+                np.array([v.user for v in self.view_events], dtype=str),
+                np.array([v.item for v in self.view_events], dtype=str),
+                np.ones(len(self.view_events), dtype=np.float32),
+                np.array([v.t for v in self.view_events], dtype=np.int64))
+        if isinstance(self.like_events, (list, tuple)):
+            self.like_events = RatingsData(
+                np.array([e.user for e in self.like_events], dtype=str),
+                np.array([e.item for e in self.like_events], dtype=str),
+                np.array([1.0 if e.like else -1.0
+                          for e in self.like_events], dtype=np.float32),
+                np.array([e.t for e in self.like_events], dtype=np.int64))
+
+    def sanity_check(self):
+        if not len(self.view_events):
+            raise ValueError("view_events is empty; check the data source")
+        if not self.items:
+            raise ValueError("items is empty; check the data source")
+
+
+@dataclass(frozen=True)
+class Query:
+    items: Tuple[str, ...]
+    num: int
+    categories: Optional[Tuple[str, ...]] = None
+    white_list: Optional[Tuple[str, ...]] = None
+    black_list: Optional[Tuple[str, ...]] = None
+    # only items with year > recommend_from_year (undated items pass)
+    recommend_from_year: Optional[int] = None
+
+    @staticmethod
+    def from_dict(d: dict) -> "Query":
+        """camelCase wire keys. Raises KeyError for a missing field,
+        ValueError/TypeError for a malformed one (the server answers 400
+        for both)."""
+        def opt(key):
+            v = d.get(key)
+            return tuple(v) if v is not None else None
+        rfy = d.get("recommendFromYear")
+        return Query(items=tuple(d["items"]), num=int(d["num"]),
+                     categories=opt("categories"),
+                     white_list=opt("whiteList"),
+                     black_list=opt("blackList"),
+                     recommend_from_year=(int(rfy) if rfy is not None
+                                          else None))
+
+
+@dataclass
+class PreparedData:
+    td: TrainingData
+
+
+@dataclass(frozen=True, eq=False)
+class DataSourceParams(Params):
+    """The training data itself (the event-store read is a later
+    slice)."""
+    items: Optional[Dict[str, Item]] = None
+    view_events: Optional[RatingsData] = None
+    like_events: Optional[RatingsData] = None
+
+
+class SimilarProductDataSource(DataSource):
+    def __init__(self, params: Optional[DataSourceParams] = None):
+        super().__init__(params or DataSourceParams())
+
+    def read_training(self) -> TrainingData:
+        p = self.params
+        if p.items is None or p.view_events is None:
+            raise ValueError("DataSourceParams.items and .view_events are "
+                             "not set")
+        return TrainingData(users={}, items=dict(p.items),
+                            view_events=p.view_events,
+                            like_events=p.like_events)
+
+
+class SimilarProductPreparator(Preparator):
+    def prepare(self, td: TrainingData) -> PreparedData:
+        return PreparedData(td)
+
+
+@dataclass(frozen=True)
+class ALSAlgorithmParams(Params):
+    rank: int = 10
+    num_iterations: int = 20
+    lam: float = 0.01
+    alpha: float = 1.0
+    seed: Optional[int] = None
+    # property keys copied onto each ItemScore (missing -> null)
+    return_properties: Tuple[str, ...] = ()
+    solver: str = "auto"           # ops/solve.py spd_solve
+    device: Optional[str] = None   # None = the card; "cpu" only if asked
+
+
+@dataclass(kw_only=True)
+class ItemMetadataModel:
+    """Id maps + item metadata shared by the similar-product models."""
+    item_ix: EntityIdIxMap
+    items: Dict[str, Item]
+    item_categories: List[Optional[set]]      # by dense index
+    item_years: Optional[np.ndarray] = None   # float32, NaN = undated
+
+    @staticmethod
+    def derive_years(items: Dict[str, Item],
+                     item_ix: EntityIdIxMap) -> np.ndarray:
+        years = np.full(len(item_ix), np.nan, dtype=np.float32)
+        for ix in range(len(item_ix)):
+            item = items.get(item_ix.id_of(ix))
+            y = (item.properties or {}).get("year") if item else None
+            if y is not None:
+                years[ix] = float(y)
+        return years
+
+    @classmethod
+    def metadata_kwargs(cls, items: Dict[str, Item],
+                        item_ix: EntityIdIxMap) -> dict:
+        """Constructor kwargs for the shared fields, derived once from the
+        training data's items."""
+        item_categories = []
+        for ix in range(len(item_ix)):
+            item = items.get(item_ix.id_of(ix))
+            item_categories.append(
+                set(item.categories) if item and item.categories else None)
+        return dict(item_ix=item_ix, items=dict(items),
+                    item_categories=item_categories,
+                    item_years=cls.derive_years(items, item_ix))
+
+    def properties_of(self, keys: Tuple[str, ...]):
+        """ItemScore property passthrough: requested keys always present,
+        missing -> None."""
+        if not keys:
+            return None
+
+        def get(ix: int):
+            item = self.items.get(self.item_ix.id_of(ix))
+            p = (item.properties if item and item.properties else {})
+            return {k: p.get(k) for k in keys}
+        return get
+
+
+@dataclass(kw_only=True)
+class SimilarProductModel(ItemMetadataModel):
+    """Normalized item factors (served, on `device`) + id maps + item
+    metadata; the raw factors and the user side ride along."""
+    item_factors_normalized: np.ndarray   # [I, R] L2-normalized rows
+    device: torch.device
+    item_factors_raw: Optional[np.ndarray] = None   # [I, R]
+    user_factors: Optional[np.ndarray] = None       # [U, R]
+    user_ix: Optional[EntityIdIxMap] = None
+    _table: Optional[torch.Tensor] = field(default=None, repr=False,
+                                           compare=False)
+
+    def table(self) -> torch.Tensor:
+        """The normalized item table on the model's device (uploaded
+        once)."""
+        if self._table is None:
+            self._table = torch.tensor(self.item_factors_normalized,
+                                       device=self.device)
+        return self._table
+
+
+class ALSAlgorithm(P2LAlgorithm):
+    QUERY_CLASS = Query
+
+    def __init__(self, params: Optional[ALSAlgorithmParams] = None):
+        super().__init__(params or ALSAlgorithmParams())
+        self.last_train_telemetry: dict = {}
+
+    def _build_ratings(self, td: TrainingData
+                       ) -> Tuple[EntityIdIxMap, EntityIdIxMap, RatingsCOO]:
+        """View counts, ((u, i), 1).reduceByKey(_ + _). The item
+        vocabulary covers every $set item (so items without views still
+        resolve) and every viewed item; users are those with views."""
+        if not len(td.view_events):
+            raise ValueError("No view events to train on")
+        views = td.view_events
+        user_ix, ui = EntityIdIxMap.build_with_indices(views.users)
+        item_ix = EntityIdIxMap.build(np.concatenate(
+            [np.array(list(td.items), dtype=str), views.items.astype(str)]))
+        ii = item_ix.to_indices_array(views.items)
+        ui, ii, counts = dedup_ratings(ui, ii, views.vals, policy="sum")
+        return user_ix, item_ix, RatingsCOO(ui, ii, counts,
+                                            len(user_ix), len(item_ix))
+
+    def train(self, pd: PreparedData) -> SimilarProductModel:
+        td = pd.td
+        p = self.params
+        user_ix, item_ix, coo = self._build_ratings(td)
+        cfg = ALSConfig(rank=p.rank, iterations=p.num_iterations, lam=p.lam,
+                        implicit_prefs=True, alpha=p.alpha,
+                        seed=p.seed if p.seed is not None else 0,
+                        solver=p.solver)
+        self.last_train_telemetry = {"ratings": coo.nnz}
+        model = als_train(coo, cfg, device=p.device,
+                          telemetry=self.last_train_telemetry)
+        return SimilarProductModel(
+            item_factors_normalized=normalize_rows(model.item_factors),
+            device=model.device, item_factors_raw=model.item_factors,
+            user_factors=model.user_factors, user_ix=user_ix,
+            **ItemMetadataModel.metadata_kwargs(td.items, item_ix))
+
+    @staticmethod
+    def _build_mask(model: ItemMetadataModel, query: Query,
+                    q_ix: np.ndarray) -> np.ndarray:
+        """Candidate mask shared by the single and batched paths; the
+        query items are excluded."""
+        white = (resolve_ids(model.item_ix, query.white_list)
+                 if query.white_list is not None else None)
+        black = resolve_ids(model.item_ix, query.black_list or ())
+        mask = build_filter_mask(
+            len(model.item_ix), exclude=np.concatenate([q_ix, black]),
+            white_list=white, item_categories=model.item_categories,
+            categories=set(query.categories) if query.categories else None)
+        if query.recommend_from_year is not None and \
+                model.item_years is not None:
+            dated = ~np.isnan(model.item_years)
+            mask &= ~(dated & (model.item_years <= query.recommend_from_year))
+        return mask
+
+    def predict(self, model: SimilarProductModel, query: Query
+                ) -> ItemScoreResult:
+        q_ix = resolve_ids(model.item_ix, query.items)
+        if len(q_ix) == 0:
+            logger.info("No productFeatures vector for query items %s.",
+                        query.items)
+            return ItemScoreResult(())
+        scores, idx = cosine_top_k(model.table(),
+                                   model.item_factors_normalized[q_ix],
+                                   query.num,
+                                   self._build_mask(model, query, q_ix))
+        return top_scores_to_result(
+            model.item_ix, scores, idx,
+            properties_of=model.properties_of(self.params.return_properties))
+
+    def batch_predict(self, model: SimilarProductModel, queries):
+        """The cosine score is linear over the query items, so each query
+        collapses to one summed normalized vector and the whole batch is
+        one masked matmul + top-k."""
+        out = {ix: ItemScoreResult(()) for ix, _ in queries}
+        rows = []  # (ix, query, qsum [R], mask [I])
+        for ix, q in queries:
+            q_ix = resolve_ids(model.item_ix, q.items)
+            if len(q_ix) == 0:
+                logger.info("No productFeatures vector for query items %s.",
+                            q.items)
+                continue
+            rows.append((ix, q,
+                         model.item_factors_normalized[q_ix].sum(axis=0),
+                         self._build_mask(model, q, q_ix)))
+        if rows:
+            scores, idx = masked_top_k_batch(
+                model.table(), np.stack([r[2] for r in rows]),
+                np.stack([r[3] for r in rows]),
+                max(q.num for _, q, _, _ in rows))
+            props_of = model.properties_of(self.params.return_properties)
+            for row, (ix, q, _, _) in enumerate(rows):
+                s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
+                out[ix] = top_scores_to_result(model.item_ix, s, i,
+                                               properties_of=props_of)
+        return list(out.items())
+
+
+class LikeAlgorithm(ALSAlgorithm):
+    """Implicit ALS on like/dislike events: the latest event per (user,
+    item) wins, like = +1, dislike = -1 (confidence with preference 0).
+    Served by the same cosine scan as ALSAlgorithm."""
+
+    def _build_ratings(self, td: TrainingData
+                       ) -> Tuple[EntityIdIxMap, EntityIdIxMap, RatingsCOO]:
+        likes = td.like_events
+        if likes is None or not len(likes):
+            raise ValueError("No like/dislike events to train on "
+                             "(set like_events on the data source)")
+        user_ix, ui = EntityIdIxMap.build_with_indices(likes.users)
+        item_ix = EntityIdIxMap.build(np.concatenate(
+            [np.array(list(td.items), dtype=str), likes.items.astype(str)]))
+        ii = item_ix.to_indices_array(likes.items)
+        ui, ii, vals = dedup_ratings(ui, ii, likes.vals, likes.ts,
+                                     policy="latest")
+        return user_ix, item_ix, RatingsCOO(ui, ii, vals,
+                                            len(user_ix), len(item_ix))
+
+
+class SimilarProductEngineFactory(EngineFactory):
+    @classmethod
+    def apply(cls) -> Engine:
+        return Engine({"": SimilarProductDataSource},
+                      {"": SimilarProductPreparator},
+                      {"als": ALSAlgorithm, "likealgo": LikeAlgorithm},
+                      {"": FirstServing})
+
+    @classmethod
+    def engine_params(cls, items: Dict[str, Item], view_events: RatingsData,
+                      algorithm: Optional[ALSAlgorithmParams] = None,
+                      like_events: Optional[RatingsData] = None
+                      ) -> EngineParams:
+        return EngineParams(
+            data_source_params=("", DataSourceParams(
+                items=items, view_events=view_events,
+                like_events=like_events)),
+            preparator_params=("", None),
+            algorithm_params_list=[("als",
+                                    algorithm or ALSAlgorithmParams())],
+            serving_params=("", None))

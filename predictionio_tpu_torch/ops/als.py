@@ -1,18 +1,27 @@
-"""Explicit alternating least squares on one CUDA card.
+"""Alternating least squares (explicit and implicit) on one CUDA card.
 
 The port's counterpart of `predictionio_tpu/ops/als.py` (train:
 `ALSConfig`, `ALSModel`, `_init_factors`, `_dual_system_solve`,
-`_scatter_rows`, `_solve_batch`, `_run_side`, `als_train`; serve:
-`recommend_products`, `users_topk`, `predict_ratings`, `als_rmse`).
+`_scatter_rows`, `_solve_batch`, `_gram_eig_impl`, `_run_side`,
+`als_train`; serve: `recommend_products`, `users_topk`,
+`predict_ratings`, `als_rmse`).
 
-Math parity with the reference (ALS-WR, MLlib 1.3 explicit): minimize
-sum (r - x.v)^2 + lam * (n_u |x|^2 + n_i |v|^2). Each half-iteration
-walks the host solve plan (ops/ratings.py) bucket by bucket: gather the
-counterpart rows, form the normal equations, solve, scatter. Buckets whose
-padded length K >= rank solve the [B, R, R] primal system; buckets with
-K < rank solve the exact [B, K, K] Woodbury dual
-(M M^T + reg I_K) z = y, x = M^T z. On the card every CG solve, primal
-and dual, goes to the hand-written kernel (`ops/solve.cg_solve_cuda`).
+Math parity with the reference (MLlib 1.3):
+  explicit  ALS-WR: minimize sum (r - x.v)^2 + lam * (n_u |x|^2 + ...).
+  implicit  Hu-Koren: confidence c = 1 + alpha |r|, preference
+            p = 1(r > 0); solve (G + V^T (C - I) V + reg I) x = V^T C p
+            with G = V^T V over the real rows, once per half-sweep.
+            Negative ratings add confidence with preference 0.
+Each half-iteration walks the host solve plan (ops/ratings.py) bucket by
+bucket: gather the counterpart rows, form the normal equations, solve,
+scatter. Buckets whose padded length K >= rank solve the [B, R, R] primal
+system. Buckets with K < rank solve an exact K-dim dual: explicit, the
+Woodbury (M M^T + reg I_K) z = y, x = M^T z; implicit, Sherman-Morrison-
+Woodbury through the eigenbasis of G (`eigh` once per half-sweep), in the
+D^1/2 form that stays exact where the confidence is 0. On the card the
+solver named by `ALSConfig.solver` runs every solve, primal and dual:
+'cg_cuda' (the 'auto' default) through `csrc/cg_solve.cu`, 'chol_cuda'
+through `csrc/chol_solve.cu`.
 
 Differences from the reference, by design:
 - PyTorch runs eagerly: there is no scan/jit; the plan stays a list of
@@ -22,9 +31,9 @@ Differences from the reference, by design:
   saves the table copy a functional update would make.
 - All arithmetic is float32 on both devices (the reference's non-TPU
   default); TF32 is off (see device.py).
-- The implicit (Hu-Koren) branches, `sweep_chunk` merging,
-  `fuse_iteration` and the sharded layouts are later slices
-  (ROADMAP.md); `implicit_prefs=True` raises NotImplementedError.
+- `dual_solve` (always 'auto' here), `compute_dtype`, `factor_dtype`,
+  `sweep_chunk` merging, `fuse_iteration` and the sharded layouts are
+  later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ class ALSConfig:
     rank: int = 10
     iterations: int = 10
     lam: float = 0.01                  # MLlib's lambda_
-    implicit_prefs: bool = False       # not ported yet: raises
+    implicit_prefs: bool = False
+    alpha: float = 1.0                 # implicit confidence scale
     lambda_scaling: str = "nratings"   # 'nratings' (ALS-WR) | 'constant'
     seed: int = 0
     work_budget: int = 1 << 20         # B*K per solve batch
@@ -137,48 +147,121 @@ def _scatter_rows(factors_out: torch.Tensor, rows: torch.Tensor,
     factors_out[safe] = x.to(factors_out.dtype)
 
 
+def _regularizer(mask: torch.Tensor, lam: float,
+                 nratings_reg: bool) -> torch.Tensor:
+    """Per-entity ridge: lam * max(n, 1) (ALS-WR) or lam."""
+    n = mask.sum(dim=-1)                            # ratings per entity
+    return lam * n.clamp(min=1.0) if nratings_reg else torch.full_like(n,
+                                                                       lam)
+
+
+def _primal(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def normal_equations(counter_factors: torch.Tensor, idx: torch.Tensor,
                      val: torch.Tensor, mask: torch.Tensor, lam: float,
                      rank: int, nratings_reg: bool = True):
-    """The system one [B, K] batch solves.
+    """The explicit system one [B, K] batch solves.
 
-    Returns ('primal', A [B,R,R], b [B,R], None) when K >= rank, else
-    ('dual', A [B,K,K], y [B,K], M [B,K,R]) with x = M^T z."""
+    Returns (kind, A, rhs, to_rows): ('primal', A [B,R,R], b [B,R]) when
+    K >= rank, else ('dual', A [B,K,K], y [B,K]) with rows x = M^T z;
+    `to_rows` maps the solve's answer to the factor rows."""
     Vg = counter_factors[idx]                       # [B, K, R] gather
     K = idx.shape[1]
-    n = mask.sum(dim=-1)                            # ratings per entity
-    reg = lam * n.clamp(min=1.0) if nratings_reg else torch.full_like(n,
-                                                                      lam)
+    reg = _regularizer(mask, lam, nratings_reg)
     Vm = Vg * mask[..., None]
     if K < rank:
         A = torch.bmm(Vm, Vm.transpose(1, 2))       # [B, K, K]
         A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
-        return "dual", A, val * mask, Vm
+        return ("dual", A, val * mask,
+                lambda z: torch.bmm(z.unsqueeze(1), Vm).squeeze(1))
     A = torch.bmm(Vm.transpose(1, 2), Vg)           # [B, R, R]
     A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
     b = torch.bmm((val * mask).unsqueeze(1), Vg).squeeze(1)
-    return "primal", A, b, None
+    return "primal", A, b, _primal
+
+
+def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
+                       mask, lam: float, alpha: float, rank: int,
+                       nratings_reg: bool = True):
+    """The implicit (Hu-Koren) system one [B, K] batch solves, with
+    `gram` = (G, w, Q) of the counterpart table (`gram_eig`).
+
+    Primal (K >= rank): A = G + sum_k (alpha |r_k|) v_k v_k^T + reg I,
+    b = sum_k (1 + alpha |r_k|) 1(r_k > 0) v_k, over the real entries.
+    Dual (K < rank): with B = G + reg I = Q diag(w+ + reg) Q^T (w+ the
+    eigenvalues clamped at 0) and D = diag(alpha |r|), Sherman-Morrison-
+    Woodbury gives x = B^-1 b - B^-1 V^T D^1/2 z where
+    (I_K + D^1/2 V B^-1 V^T D^1/2) z = D^1/2 V B^-1 b.
+    Returns (kind, A, rhs, to_rows) as `normal_equations`."""
+    G, w, Q = gram
+    Vg = counter_factors[idx]                       # [B, K, R] gather
+    K = idx.shape[1]
+    reg = _regularizer(mask, lam, nratings_reg)
+    absval = val.abs()
+    conf_minus_1 = (alpha * absval) * mask          # c - 1, 0 on padding
+    # preference p = 1(r > 0): negative signals add confidence to A only
+    pos = (val > 0).to(val.dtype) * mask
+    b = torch.bmm(((1.0 + alpha * absval) * pos).unsqueeze(1),
+                  Vg).squeeze(1)                    # [B, R]
+    if K >= rank:
+        A = G + torch.bmm((Vg * conf_minus_1[..., None]).transpose(1, 2),
+                          Vg)
+        A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
+        return "primal", A, b, _primal
+    # G is PSD: clamp eigh's roundoff-negative tail, so a small reg never
+    # meets a negative eigenvalue and flips the sign of 1/denom
+    denom = w.clamp(min=0.0)[None, :] + reg[:, None]          # [B, R]
+    inv = 1.0 / denom
+    Vq = torch.matmul(Vg, Q)                                  # [B, K, R]
+    del Vg
+    bq_d = torch.matmul(b, Q) * inv
+    u = torch.matmul(bq_d, Q.T)                               # B^-1 b
+    W = torch.bmm(Vq * inv[:, None, :], Vq.transpose(1, 2))   # [B, K, K]
+    dhalf = torch.sqrt(conf_minus_1)                          # [B, K]
+    M = dhalf[:, :, None] * W * dhalf[:, None, :]
+    del W
+    M.diagonal(dim1=1, dim2=2).add_(1.0)
+    t = torch.bmm(Vq, bq_d.unsqueeze(-1)).squeeze(-1)         # V B^-1 b
+
+    def to_rows(z: torch.Tensor) -> torch.Tensor:
+        s = torch.bmm((dhalf * z).unsqueeze(1), Vq).squeeze(1)
+        return u - torch.matmul(s * inv, Q.T)
+    return "dual", M, dhalf * t, to_rows
+
+
+def gram_eig(factors: torch.Tensor):
+    """G = F^T F and its eigendecomposition (w ascending, Q columns), once
+    per implicit half-sweep and shared by every entity's solve. `factors`
+    holds the real rows only (not the dummy tail row)."""
+    G = factors.T @ factors
+    w, Q = torch.linalg.eigh(G)
+    return G, w, Q
 
 
 def _solve_batch(factors_out, counter_factors, rows, idx, val, mask,
-                 lam: float, *, rank: int, solver: str,
-                 nratings_reg: bool = True,
-                 solver_iters: Optional[int] = None,
-                 dual_iters_cap: Optional[int] = None,
-                 dual_plain_below: int = 0) -> None:
-    """Solve one [B, K] batch of explicit normal equations and scatter
-    the rows into `factors_out` (in place)."""
-    kind, A, rhs, M = normal_equations(counter_factors, idx, val, mask,
-                                       lam, rank, nratings_reg)
+                 cfg: "ALSConfig", solver: str, gram=None) -> None:
+    """Solve one [B, K] batch of normal equations (implicit when `gram`
+    is given) and scatter the rows into `factors_out` (in place)."""
+    nratings_reg = cfg.lambda_scaling == "nratings"
+    if gram is not None:
+        kind, A, rhs, to_rows = implicit_equations(
+            counter_factors, gram, idx, val, mask, cfg.lam, cfg.alpha,
+            cfg.rank, nratings_reg)
+    else:
+        kind, A, rhs, to_rows = normal_equations(
+            counter_factors, idx, val, mask, cfg.lam, cfg.rank,
+            nratings_reg)
     if kind == "dual":
         z = _dual_system_solve(A, rhs, idx.shape[1], solver,
-                               iters_cap=dual_iters_cap,
-                               plain_below=dual_plain_below)
-        x = torch.bmm(z.unsqueeze(1), M).squeeze(1)
+                               iters_cap=cfg.dual_iters_cap,
+                               plain_below=cfg.dual_plain_below)
     else:
-        x = spd_solve(A, rhs, method=solver,
-                      iters=solver_iters or CG_PRIMAL_ITERS)
-    _scatter_rows(factors_out, rows, x)
+        z = spd_solve(A, rhs, method=solver,
+                      iters=cfg.solver_iters or CG_PRIMAL_ITERS)
+    del A
+    _scatter_rows(factors_out, rows, to_rows(z))
 
 
 DeviceBatch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -199,15 +282,11 @@ def _upload_plan(plan: SolvePlan, device: torch.device,
 
 def _run_side(batches: Sequence[DeviceBatch], factors: torch.Tensor,
               counter_factors: torch.Tensor, cfg: ALSConfig,
-              solver: str) -> None:
+              solver: str, gram=None) -> None:
     """One half-iteration: solve every batch of one side in place."""
     for rows, idx, val, mask in batches:
-        _solve_batch(factors, counter_factors, rows, idx, val, mask,
-                     cfg.lam, rank=cfg.rank, solver=solver,
-                     nratings_reg=(cfg.lambda_scaling == "nratings"),
-                     solver_iters=cfg.solver_iters,
-                     dual_iters_cap=cfg.dual_iters_cap,
-                     dual_plain_below=cfg.dual_plain_below)
+        _solve_batch(factors, counter_factors, rows, idx, val, mask, cfg,
+                     solver, gram)
 
 
 # ---------------------------------------------------------------------------
@@ -225,17 +304,12 @@ def _init_factors(n: int, rank: int, seed: int, salt: int) -> np.ndarray:
 
 def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
               telemetry: Optional[dict] = None) -> ALSModel:
-    """Train explicit ALS on `device` (default: the card).
+    """Train explicit or implicit ALS on `device` (default: the card).
 
     `telemetry`, when a dict, receives per-phase wall times (plan_s,
     upload_s, iters_s, s_per_iter, fetch_s, and iter_s, one per
     iteration), each closed by a device synchronize, and `solver_calls`,
     the number of batched solves run."""
-    if cfg.implicit_prefs:
-        raise NotImplementedError(
-            "implicit ALS (the Gram+eigh Sherman-Morrison-Woodbury branch "
-            "of _solve_batch) is not ported yet: ROADMAP.md queue A, "
-            "'implicit ALS'")
     dev = resolve_device(device)
     solver = resolve_solver(cfg.solver, dev)
     t0 = time.perf_counter()
@@ -282,9 +356,14 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
         t_it = time.perf_counter()
         # the span a profiler reads one iteration's device time from
         # (scripts/profile_torch_als.py); it ends after the synchronize
+        # (the implicit Grams and their eigh run inside it)
         with torch.profiler.record_function("als_iteration"):
-            _run_side(user_batches, U, V, cfg, solver)
-            _run_side(item_batches, V, U, cfg, solver)
+            gram_v = (gram_eig(V[:ratings.n_items]) if cfg.implicit_prefs
+                      else None)
+            _run_side(user_batches, U, V, cfg, solver, gram_v)
+            gram_u = (gram_eig(U[:ratings.n_users]) if cfg.implicit_prefs
+                      else None)
+            _run_side(item_batches, V, U, cfg, solver, gram_u)
             calls += len(user_batches) + len(item_batches)
             synchronize(dev)
         tel["iter_s"].append(time.perf_counter() - t_it)

@@ -7,14 +7,21 @@ The port's counterpart of `predictionio_tpu/ops/solve.py`:
 - `cg_solve`: the plain PyTorch batched Jacobi-preconditioned CG, the same
   arithmetic as the reference's `cg_solve`/`_cg_kernel`.
 - `cg_solve_cuda`: the wrapper of the hand-written Hopper kernel
-  `csrc/cg_solve.cu`, which replaces the TPU's `_cg_kernel`. On a CUDA
-  tensor it launches the kernel or raises; it takes the plain `cg_solve`
-  only for a tensor on the CPU.
+  `csrc/cg_solve.cu`, which replaces the TPU's `_cg_kernel`.
+- `chol_solve`: the plain PyTorch blocked Cholesky solve, a port of the
+  reference's `_blocked_cholesky_solve` (panel width 8, pivots
+  `sqrt(max(d, 1e-30))`, identity padding to a whole panel). Unlike
+  `torch.linalg.cholesky` it never refuses a pivot: it clamps as the
+  reference does.
+- `chol_solve_cuda`: the wrapper of the hand-written Hopper kernel
+  `csrc/chol_solve.cu`, which replaces the TPU's `_chol_kernel`.
+
+A kernel wrapper given CUDA tensors launches its kernel or raises; it
+takes its plain version only for tensors on the CPU.
 
 `spd_solve` dispatches by method name; `resolve_solver('auto', device)` is
 `'cg_cuda'` on a CUDA device and `'cholesky'` on the CPU (what the
-reference picks off the TPU). The reference's Cholesky and Schulz Pallas
-kernels are alternates that the default path does not run; they are
+reference picks off the TPU). The reference's Schulz Pallas kernel is
 still to be ported (ROADMAP.md, queue B).
 """
 
@@ -34,15 +41,17 @@ CG_PRIMAL_ITERS = 48
 @dataclass
 class LaunchCounts:
     """Launches on this process's main path, so a run can show that it
-    went through the kernel. `cg_solve` counts CUDA kernel launches (one
-    per wrapper call that launched); `cg_solve_plain` counts calls of the
-    plain PyTorch CG."""
+    went through the kernels. `cg_solve` and `chol_solve` count CUDA
+    kernel launches (one per wrapper call that launched); `*_plain` count
+    calls of the plain PyTorch versions."""
     cg_solve: int = 0
     cg_solve_plain: int = 0
+    chol_solve: int = 0
+    chol_solve_plain: int = 0
 
     def reset(self) -> None:
-        self.cg_solve = 0
-        self.cg_solve_plain = 0
+        for name in self.__dataclass_fields__:
+            setattr(self, name, 0)
 
 
 COUNTS = LaunchCounts()
@@ -151,6 +160,173 @@ def cg_solve_cuda(A: torch.Tensor, b: torch.Tensor,
     return x
 
 
+CHOL_PANEL = 8
+
+
+def pad_to_panel(A: torch.Tensor, b: torch.Tensor, panel: int = CHOL_PANEL):
+    """Pad R to a multiple of `panel` with an identity block (the padding
+    rows decouple and solve to 0), as the reference does."""
+    B, R = b.shape
+    pad = (-R) % panel
+    if not pad:
+        return A, b
+    Ap = torch.zeros(B, R + pad, R + pad, dtype=A.dtype, device=A.device)
+    Ap[:, :R, :R] = A
+    Ap[:, R:, R:] = torch.eye(pad, dtype=A.dtype, device=A.device)
+    return Ap, torch.cat([b, b.new_zeros(B, pad)], dim=1)
+
+
+def chol_factor(A: torch.Tensor, panel: int = CHOL_PANEL) -> torch.Tensor:
+    """Blocked right-looking Cholesky of SPD A [B,R,R] (R a multiple of
+    `panel`): L with L L^T = A, read from A's lower triangle. Per panel:
+    the diagonal block by a column loop with pivots sqrt(max(d, 1e-30)),
+    the rows below by forward substitution with it, then the trailing
+    update A22 -= L21 L21^T."""
+    A = A.clone()
+    R = A.shape[-1]
+    L = torch.zeros_like(A)
+    for c0 in range(0, R, panel):
+        r0 = c0 + panel
+        A11 = A[:, c0:r0, c0:r0]
+        L11 = torch.zeros_like(A11)
+        for c in range(panel):
+            d = torch.sqrt(torch.clamp(A11[:, c, c], min=1e-30))
+            col = A11[:, :, c] / d[:, None]
+            col[:, :c] = 0.0                        # lower part only
+            L11[:, :, c] = col
+            A11 = A11 - col[:, :, None] * col[:, None, :]
+        L[:, c0:r0, c0:r0] = L11
+        if r0 == R:
+            break
+        A21 = A[:, r0:, c0:r0]
+        L21 = torch.zeros_like(A21)
+        for c in range(panel):
+            acc = A21[:, :, c]
+            for k in range(c):
+                acc = acc - L21[:, :, k] * L11[:, c, k][:, None]
+            L21[:, :, c] = acc / L11[:, c, c][:, None]
+        L[:, r0:, c0:r0] = L21
+        A[:, r0:, r0:] -= torch.bmm(L21, L21.transpose(1, 2))
+    return L
+
+
+def chol_forward(L: torch.Tensor, b: torch.Tensor,
+                 panel: int = CHOL_PANEL) -> torch.Tensor:
+    """Blocked forward substitution L y = b."""
+    y = torch.zeros_like(b)
+    for c0 in range(0, b.shape[1], panel):
+        r0 = c0 + panel
+        rhs = b[:, c0:r0] - torch.bmm(L[:, c0:r0, :c0],
+                                      y[:, :c0, None]).squeeze(-1)
+        L11 = L[:, c0:r0, c0:r0]
+        for c in range(panel):
+            acc = rhs[:, c]
+            for k in range(c):
+                acc = acc - L11[:, c, k] * y[:, c0 + k]
+            y[:, c0 + c] = acc / L11[:, c, c]
+    return y
+
+
+def chol_back(L: torch.Tensor, y: torch.Tensor,
+              panel: int = CHOL_PANEL) -> torch.Tensor:
+    """Blocked back substitution L^T x = y."""
+    x = torch.zeros_like(y)
+    for c0 in reversed(range(0, y.shape[1], panel)):
+        r0 = c0 + panel
+        rhs = y[:, c0:r0] - torch.bmm(L[:, r0:, c0:r0].transpose(1, 2),
+                                      x[:, r0:, None]).squeeze(-1)
+        L11 = L[:, c0:r0, c0:r0]
+        for c in reversed(range(panel)):
+            acc = rhs[:, c]
+            for k in range(c + 1, panel):
+                acc = acc - L11[:, k, c] * x[:, c0 + k]
+            x[:, c0 + c] = acc / L11[:, c, c]
+    return x
+
+
+def chol_solve(A: torch.Tensor, b: torch.Tensor,
+               panel: int = CHOL_PANEL) -> torch.Tensor:
+    """Batched blocked Cholesky solve of SPD A [B,R,R] x = b [B,R] — the
+    plain version of the CUDA kernel (the reference's
+    `_blocked_cholesky_solve`), in A's dtype."""
+    COUNTS.chol_solve_plain += 1
+    R = b.shape[1]
+    Ap, bp = pad_to_panel(A, b, panel)
+    L = chol_factor(Ap, panel)
+    return chol_back(L, chol_forward(L, bp, panel), panel)[:, :R]
+
+
+_chol_ready = False
+
+
+def _chol_lib() -> ctypes.CDLL:
+    global _chol_ready
+    lib = _build.load("chol_solve")
+    if not _chol_ready:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pio_chol_solve_f32.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.pio_chol_solve_f32.restype = ci
+        lib.pio_chol_solve_max_rank.argtypes = []
+        lib.pio_chol_solve_max_rank.restype = ci
+        lib.pio_chol_error_string.argtypes = [ci]
+        lib.pio_chol_error_string.restype = ctypes.c_char_p
+        _chol_ready = True
+    return lib
+
+
+def chol_max_rank(device: torch.device) -> int:
+    """Largest R the Cholesky kernel takes on `device` (its padded system
+    must fit in one block's shared memory: 232 on an H100)."""
+    with torch.cuda.device(device):
+        R = _chol_lib().pio_chol_solve_max_rank()
+    if R < 0:
+        raise RuntimeError(f"CUDA error {-R} querying shared memory")
+    return R
+
+
+def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched blocked Cholesky solve through the Hopper kernel
+    `csrc/chol_solve.cu`.
+
+    A: [B, R, R] f32 contiguous SPD (only its lower triangle is read),
+    b: [B, R] f32 contiguous, both on one CUDA device, R up to
+    `chol_max_rank`. Returns x [B, R]. A CPU tensor takes the plain
+    `chol_solve`; any other device raises."""
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return chol_solve(A, b)
+    if A.device.type != "cuda" or b.device != A.device:
+        raise ValueError(f"chol_solve_cuda needs A and b on one CUDA "
+                         f"device, got {A.device} and {b.device}")
+    if A.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"chol_solve_cuda takes float32, got {A.dtype} and "
+                        f"{b.dtype}")
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or b.shape != A.shape[:2]:
+        raise ValueError(f"chol_solve_cuda needs A [B,R,R] and b [B,R], "
+                         f"got {tuple(A.shape)} and {tuple(b.shape)}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("chol_solve_cuda needs contiguous A and b")
+    B, R = b.shape
+    max_rank = chol_max_rank(A.device)
+    if R > max_rank:
+        raise ValueError(f"chol_solve_cuda takes R <= {max_rank} (the "
+                         f"padded system must fit in shared memory), got "
+                         f"{R}")
+    x = torch.empty_like(b)
+    if B == 0:
+        return x
+    lib = _chol_lib()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.pio_chol_solve_f32(A.data_ptr(), b.data_ptr(),
+                                     x.data_ptr(), B, R, stream)
+    if err != 0:
+        msg = lib.pio_chol_error_string(err).decode()
+        raise RuntimeError(f"chol_solve kernel launch failed at B={B} "
+                           f"R={R}: CUDA error {err} ({msg})")
+    COUNTS.chol_solve += 1
+    return x
+
+
 def resolve_solver(method: str, device: torch.device) -> str:
     """'auto' -> 'cg_cuda' on a CUDA device, 'cholesky' on the CPU."""
     if method != "auto":
@@ -158,9 +334,13 @@ def resolve_solver(method: str, device: torch.device) -> str:
     return "cg_cuda" if torch.device(device).type == "cuda" else "cholesky"
 
 
+_PALLAS_COUNTERPART = {"cg_pallas": "cg_cuda", "chol_pallas": "chol_cuda"}
+
+
 def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto",
               iters: Optional[int] = None) -> torch.Tensor:
-    """Batched SPD solve. method: 'auto' | 'cholesky' | 'cg' | 'cg_cuda'."""
+    """Batched SPD solve. method: 'auto' | 'cholesky' | 'cg' | 'cg_cuda' |
+    'chol_blocked' | 'chol_cuda'. `iters` is the CG iteration count."""
     method = resolve_solver(method, A.device)
     if method == "cholesky":
         return cholesky_solve(A, b)
@@ -168,8 +348,16 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto",
         return cg_solve(A, b, iters or CG_PRIMAL_ITERS)
     if method == "cg_cuda":
         return cg_solve_cuda(A, b, iters or CG_PRIMAL_ITERS)
-    if method in ("schulz", "schulz_pallas", "chol_pallas", "chol_blocked"):
+    if method == "chol_blocked":
+        return chol_solve(A, b)
+    if method == "chol_cuda":
+        return chol_solve_cuda(A, b)
+    if method in _PALLAS_COUNTERPART:
+        raise ValueError(
+            f"solver {method!r} is the TPU's Pallas kernel; on the card "
+            f"use {_PALLAS_COUNTERPART[method]!r}")
+    if method in ("schulz", "schulz_pallas", "schulz_cuda"):
         raise NotImplementedError(
             f"solver {method!r} is not ported yet (ROADMAP.md queue B: the "
-            "Cholesky and Schulz kernels); use 'cg_cuda' or 'cholesky'")
+            "Schulz kernel); use 'chol_cuda', 'cg_cuda' or 'cholesky'")
     raise ValueError(f"unknown solver {method!r}")

@@ -1,20 +1,25 @@
 """Carry a model trained by the JAX reference into the port.
 
-`from_jax_model` takes the reference `ALSModel`'s host numpy tables and
-the id lists of its vocabularies (`EntityIdIxMap._ids`, in dense-index
-order) and builds the port's `RecommendationModel` on `device`. It takes
-plain arrays, so this module imports nothing of the reference package.
+`from_jax_model` takes the reference recommendation `ALSModel`'s host
+numpy tables and the id lists of its vocabularies (`EntityIdIxMap._ids`,
+in dense-index order) and builds the port's `RecommendationModel` on
+`device`. `from_jax_similarproduct_model` does the same for the
+similar-product `SimilarProductModel` (its tables, id lists and item
+metadata). Both take plain arrays and dicts, so this module imports
+nothing of the reference package.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.recommendation import RecommendationModel
+from predictionio_tpu_torch.models.similarproduct import (
+    Item, ItemMetadataModel, SimilarProductModel)
 from predictionio_tpu_torch.ops.als import ALSModel
 
 
@@ -33,3 +38,38 @@ def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
     als.tables()
     return RecommendationModel(als, EntityIdIxMap.from_ids(user_ids),
                                EntityIdIxMap.from_ids(item_ids))
+
+
+def from_jax_similarproduct_model(
+        item_factors_normalized, item_ids: Sequence[str],
+        items: Dict[str, Item], item_factors_raw=None, user_factors=None,
+        user_ids: Optional[Sequence[str]] = None,
+        device=None) -> SimilarProductModel:
+    """Row i of the item tables belongs to `item_ids[i]` (of the user
+    table to `user_ids[i]`). `items` is the item metadata by id, as the
+    port's `Item` (categories and the $set properties); categories and
+    years are derived from it as the reference derives them. The
+    normalized table is uploaded to `device` (default: the card)."""
+    T = np.ascontiguousarray(item_factors_normalized, dtype=np.float32)
+    if T.ndim != 2 or T.shape[0] != len(item_ids):
+        raise ValueError(f"item table {T.shape} does not match "
+                         f"{len(item_ids)} items")
+    for name, table, ids in (("item_factors_raw", item_factors_raw,
+                              item_ids),
+                             ("user_factors", user_factors, user_ids)):
+        if table is not None and (ids is None or np.shape(table) !=
+                                  (len(ids), T.shape[1])):
+            raise ValueError(f"{name} {np.shape(table)} does not match its "
+                             f"ids at rank {T.shape[1]}")
+    item_ix = EntityIdIxMap.from_ids(item_ids)
+    model = SimilarProductModel(
+        item_factors_normalized=T, device=resolve_device(device),
+        item_factors_raw=(None if item_factors_raw is None else
+                          np.asarray(item_factors_raw, dtype=np.float32)),
+        user_factors=(None if user_factors is None else
+                      np.asarray(user_factors, dtype=np.float32)),
+        user_ix=(None if user_ids is None else
+                 EntityIdIxMap.from_ids(user_ids)),
+        **ItemMetadataModel.metadata_kwargs(items, item_ix))
+    model.table()
+    return model

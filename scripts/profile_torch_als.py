@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
 """Where one ALS iteration of the PyTorch/CUDA port spends device time.
 
-    python3 scripts/profile_torch_als.py [--rank 200] [--lam 0.01] [--seed 0]
+    python3 scripts/profile_torch_als.py [--template recommendation]
+        [--rank 200] [--lam 0.01] [--alpha 1.0] [--seed 0]
 
 Builds synthetic MovieLens-20M-shaped ratings (seeded) and trains them
-through the port's entry points, the preparator and `ALSAlgorithm.train`
-(2 iterations, solver 'auto', so every CG solve goes through the kernel),
-under `torch.profiler`. Reads the second iteration from its
-`als_iteration` span (the first carries cuBLAS warm-up) and prints one
-JSON line: the iteration's wall time, the device's busy share (summed
-kernel time over wall time; kernels run on one stream), device time by
-kernel and by kind, and the card's name and power limit as nvidia-smi
-reports them. Needs a CUDA card.
+through the port's entry points, under `torch.profiler`, for 2
+iterations:
+
+- `--template recommendation` (default): explicit ALS through the
+  preparator and `ALSAlgorithm.train`, solver 'auto', so every solve goes
+  through the CG kernel;
+- `--template similarproduct`: the same (user, item) pairs as view events
+  (counts), every item $set with synthetic categories, implicit ALS
+  through the data source, preparator and `ALSAlgorithm.train` with
+  solver 'chol_cuda', so every solve goes through the Cholesky kernel.
+
+Reads the second iteration from its `als_iteration` span (the first
+carries cuBLAS warm-up; the span also covers the implicit Grams and their
+eigh) and prints one JSON line: the iteration's wall time, the device's
+busy share (summed kernel time over wall time; kernels run on one
+stream), device time by kernel and by kind, the same reading of the first
+iteration (`iteration_1`, without the kernel list) beside it, and the
+card's name and power limit as nvidia-smi reports them. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -23,26 +35,32 @@ import subprocess
 import sys
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from predictionio_tpu_torch.data.synthetic import (  # noqa: E402
-    ML20M_ITEMS, ML20M_RATINGS, ML20M_USERS, synthetic_ml20m)
+    ML20M_ITEMS, ML20M_RATINGS, ML20M_USERS, synthetic_item_categories,
+    synthetic_ml20m)
 from predictionio_tpu_torch.device import resolve_device  # noqa: E402
 from predictionio_tpu_torch.models.common import RatingsData  # noqa: E402
-from predictionio_tpu_torch.models.recommendation import (  # noqa: E402
-    ALSAlgorithm, ALSAlgorithmParams, DataSourceParams,
-    RecommendationDataSource, RecommendationPreparator)
+from predictionio_tpu_torch.models import recommendation as rec  # noqa
+from predictionio_tpu_torch.models import similarproduct as sp  # noqa: E402
 
 
 def kind_of(name: str) -> str:
     n = name.lower()
     if "cg_solve" in n:
         return "cg_solve kernel"
+    if "chol_solve" in n:
+        return "chol_solve kernel"
+    if "syev" in n or "sytrd" in n or "stedc" in n or "ormtr" in n or \
+            "orgtr" in n or "steqr" in n or "lapack" in n:
+        return "eigh (cuSOLVER)"
     if "gemm" in n or "sm90" in n or "cutlass" in n or "xmma" in n:
-        return "matmul (Gram, rhs, dual x = M^T z)"
+        return "matmul (Gram, rhs, dual products)"
     if "index" in n or "gather" in n or "scatter" in n:
         return "gather / scatter"
     if "memcpy" in n or "memset" in n:
@@ -50,38 +68,10 @@ def kind_of(name: str) -> str:
     return "elementwise / reduction"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rank", type=int, default=200)
-    ap.add_argument("--lam", type=float, default=0.01)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-
-    u, i, r = synthetic_ml20m(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS,
-                              seed=args.seed)
-    td = RecommendationDataSource(
-        DataSourceParams(RatingsData(u, i, r))).read_training()
-    pd = RecommendationPreparator().prepare(td)
-    algo = ALSAlgorithm(ALSAlgorithmParams(
-        rank=args.rank, num_iterations=2, lam=args.lam, seed=args.seed,
-        solver="auto"))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        algo.train(pd)
-    events = prof.events()
-    spans = sorted((ev for ev in events if ev.name == "als_iteration"
-                    and ev.device_type == torch.autograd.DeviceType.CPU),
-                   key=lambda ev: ev.time_range.start)
-    if len(spans) != 2:
-        raise RuntimeError(f"expected 2 als_iteration spans, got "
-                           f"{len(spans)}")
-    lo, hi = spans[1].time_range.start, spans[1].time_range.end
-
+def breakdown(events, span) -> dict:
+    """Device time by kernel inside one `als_iteration` span, and the
+    span's wall time."""
+    lo, hi = span.time_range.start, span.time_range.end
     by_name = defaultdict(float)
     launches = defaultdict(int)
     for ev in events:
@@ -97,22 +87,74 @@ def main() -> int:
         by_kind[kind_of(name)] += ms
     device_ms = sum(by_name.values())
     wall_ms = (hi - lo) / 1e3
-    coo = pd.ratings_coo
-    tel = algo.last_train_telemetry
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({
-        "what": "iteration 2 of a 2-iteration ALSAlgorithm.train "
-                "(both half-sweeps)",
-        "rank": args.rank, "lam": args.lam, "users": coo.n_users,
-        "items": coo.n_items, "ratings": coo.nnz,
-        "solver_calls": tel["solver_calls"], "iter_s": tel["iter_s"],
+    return {
         "wall_ms": wall_ms,
         "device_ms": device_ms if device_ms > 0 else "not measured",
         "busy_share": (device_ms / wall_ms) if device_ms > 0
         else "not measured",
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms": ms, "launches": launches[n]}
-                        for n, ms in top],
+                        for n, ms in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--template", default="recommendation",
+                    choices=["recommendation", "similarproduct"])
+    ap.add_argument("--rank", type=int, default=200)
+    ap.add_argument("--lam", type=float, default=0.01)
+    ap.add_argument("--alpha", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+
+    u, i, r = synthetic_ml20m(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS,
+                              seed=args.seed)
+    if args.template == "recommendation":
+        td = rec.RecommendationDataSource(
+            rec.DataSourceParams(RatingsData(u, i, r))).read_training()
+        pd = rec.RecommendationPreparator().prepare(td)
+        algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(
+            rank=args.rank, num_iterations=2, lam=args.lam, seed=args.seed,
+            solver="auto"))
+    else:
+        cats = synthetic_item_categories(ML20M_ITEMS, seed=args.seed)
+        items = {str(k): sp.Item(c, properties={"categories": list(c)})
+                 for k, c in enumerate(cats)}
+        views = RatingsData(u.astype("U6"), i.astype("U5"),
+                            np.ones(len(u), dtype=np.float32))
+        td = sp.SimilarProductDataSource(sp.DataSourceParams(
+            items=items, view_events=views)).read_training()
+        pd = sp.SimilarProductPreparator().prepare(td)
+        algo = sp.ALSAlgorithm(sp.ALSAlgorithmParams(
+            rank=args.rank, num_iterations=2, lam=args.lam,
+            alpha=args.alpha, seed=args.seed, solver="chol_cuda"))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        algo.train(pd)
+    events = prof.events()
+    spans = sorted((ev for ev in events if ev.name == "als_iteration"
+                    and ev.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda ev: ev.time_range.start)
+    if len(spans) != 2:
+        raise RuntimeError(f"expected 2 als_iteration spans, got "
+                           f"{len(spans)}")
+    first, second = (breakdown(events, span) for span in spans)
+    tel = algo.last_train_telemetry
+    print(json.dumps({
+        "what": f"iteration 2 of a 2-iteration {args.template} "
+                "ALSAlgorithm.train (both half-sweeps)",
+        "template": args.template, "rank": args.rank, "lam": args.lam,
+        "alpha": args.alpha if args.template == "similarproduct" else None,
+        "solver_calls": tel["solver_calls"], "iter_s": tel["iter_s"],
+        **second,
+        "iteration_1": {k: v for k, v in first.items()
+                        if k != "top_kernels"},
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
     return 0
 

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""How far float32 rounding alone moves a small explicit ALS train.
+"""How far float32 rounding alone moves a small ALS train.
 
     python3 scripts/torch_als_rounding.py
 
-Trains `predictionio_tpu_torch`'s explicit ALS on `small_ratings()` (the
-data of tests/test_torch_als.py and tests/test_torch_cuda.py: rank 16, 3
-iterations, work budget 512, seed 2) at lam 0.1 and 0.01, and prints one
-JSON line per (lam, solver) with the largest factor difference over the
+Trains `predictionio_tpu_torch`'s ALS on `small_ratings()` (the data of
+tests/test_torch_als.py, tests/test_torch_implicit.py and
+tests/test_torch_cuda.py: rank 16, 3 iterations, work budget 512, seed 2):
+explicit at lam 0.1 and 0.01 with solvers 'cg' and 'cholesky', and
+implicit (the values read as view counts, alpha 1, lam 0.01) with solvers
+'chol_cuda' and 'cholesky', with and without negative (dislike) entries.
+Prints one JSON line per case with the largest factor difference over the
 largest factor magnitude between:
 
 - `f32_vs_f64`: the float32 train and the float64 train on the CPU, the
   size of float32 rounding for this data;
 - `card_vs_cpu` (only where a CUDA card is present): the float32 train on
-  the card (every CG solve through the kernel) and on the CPU.
+  the card (every solve through the kernel: CG for explicit, Cholesky for
+  implicit) and on the CPU.
 
 The parity tests take their tolerances from these readings. A card
 reading is printed with the card's name and power limit.
@@ -44,11 +48,25 @@ def spread(m, ref) -> float:
                             (m.item_factors, ref.item_factors)))
 
 
+def reading(coo, kw, card_solver, smi) -> dict:
+    """f32 vs f64 on the CPU; card vs CPU with `card_solver` on the card
+    when there is a card and a solver to run there."""
+    f32 = A.als_train(coo, A.ALSConfig(**kw), device="cpu")
+    f64 = A.als_train(coo, A.ALSConfig(dtype="float64", **kw), device="cpu")
+    out = {"f32_vs_f64": spread(f32, f64)}
+    if smi is not None and card_solver is not None:
+        on_card = A.als_train(coo, A.ALSConfig(**{**kw,
+                                                  "solver": card_solver}),
+                              device="cuda")
+        out["card_vs_cpu"] = spread(on_card, f32)
+        out["nvidia_smi"] = smi
+    return out
+
+
 def main() -> int:
     coo = RatingsCOO(*small_ratings())
-    card = torch.cuda.is_available()
     smi = None
-    if card:
+    if torch.cuda.is_available():
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -57,18 +75,25 @@ def main() -> int:
         for solver in ("cg", "cholesky"):
             kw = dict(rank=16, iterations=3, lam=lam, seed=2,
                       work_budget=512, solver=solver)
-            f32 = A.als_train(coo, A.ALSConfig(**kw), device="cpu")
-            f64 = A.als_train(coo, A.ALSConfig(dtype="float64", **kw),
-                              device="cpu")
-            line = {"lam": lam, "solver": solver,
-                    "f32_vs_f64": spread(f32, f64)}
-            if card and solver == "cg":
-                on_card = A.als_train(
-                    coo, A.ALSConfig(**{**kw, "solver": "auto"}),
-                    device="cuda")
-                line["card_vs_cpu"] = spread(on_card, f32)
-                line["nvidia_smi"] = smi
-            print(json.dumps(line), flush=True)
+            line = {"lam": lam, "solver": solver}
+            card_solver = "auto" if solver == "cg" else None
+            print(json.dumps({**line, **reading(coo, kw, card_solver,
+                                                smi)}), flush=True)
+    for negatives in (False, True):
+        vals = coo.rating.copy()
+        if negatives:
+            vals[::5] *= -1
+        data = RatingsCOO(coo.user_idx, coo.item_idx, vals, coo.n_users,
+                          coo.n_items)
+        for solver in ("chol_cuda", "cholesky"):
+            kw = dict(rank=16, iterations=3, lam=0.01, seed=2,
+                      work_budget=512, solver=solver, implicit_prefs=True,
+                      alpha=1.0)
+            line = {"implicit": True, "negatives": negatives, "lam": 0.01,
+                    "alpha": 1.0, "solver": solver}
+            card_solver = "chol_cuda" if solver == "chol_cuda" else None
+            print(json.dumps({**line, **reading(data, kw, card_solver,
+                                                smi)}), flush=True)
     return 0
 
 

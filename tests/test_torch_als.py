@@ -119,11 +119,18 @@ def test_dual_cutoff_routes_small_k_to_the_plain_cg(data):
 
 
 def test_implicit_prefs_not_ported_yet(data):
+    """Implicit ALS is ported now (tests/test_torch_implicit.py holds it
+    to the reference): `implicit_prefs=True` trains instead of raising,
+    and gives other factors than the explicit train of the same data."""
     ui, ii, vv, n_u, n_i = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.als_train(TCOO(ui, ii, vv, n_u, n_i),
-                     TA.ALSConfig(rank=RANK, implicit_prefs=True),
-                     device="cpu")
+    kw = dict(rank=RANK, iterations=2, work_budget=512, solver="cholesky")
+    implicit = TA.als_train(TCOO(ui, ii, vv, n_u, n_i),
+                            TA.ALSConfig(implicit_prefs=True, **kw),
+                            device="cpu")
+    explicit = TA.als_train(TCOO(ui, ii, vv, n_u, n_i), TA.ALSConfig(**kw),
+                            device="cpu")
+    assert np.isfinite(implicit.item_factors).all()
+    assert not np.allclose(implicit.item_factors, explicit.item_factors)
 
 
 def test_sentinel_raises_on_first_iteration_breach(data):

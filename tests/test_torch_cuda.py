@@ -1,5 +1,7 @@
 """The CUDA kernels on the card: each held against its plain PyTorch
-version, and the ALS train on the card against the same train on the CPU.
+version, and the ALS trains (explicit through the CG kernel, implicit
+through the Cholesky kernel) on the card against the same trains on the
+CPU.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -21,11 +23,18 @@ from predictionio_tpu_torch.ops.ratings import RatingsCOO
 pytestmark = pytest.mark.cuda
 
 CG_REL_TOL = 1e-4      # same algorithm and iterations, sums in another order
+# Cholesky kernel vs its plain version: the same factorisation with sums in
+# another order; the tolerance is 4x what f32 rounding moves the plain
+# version (its f32 run against its f64 run), never below 1e-4
+CHOL_REL_TOL = 1e-4
 FAULT_MARGIN = 10      # a planted fault moves x by >= 10 tolerances
 # ALS factors, of the largest factor magnitude, as test_torch_als: 1e-4 at
 # lam=0.1; at lam=0.01, 4x the f32-vs-f64 reading of 1.0e-4
 # (scripts/torch_als_rounding.py)
 FACTOR_TOL = {0.1: 1e-4, 0.01: 4e-4}
+# implicit ALS factors: 4x the f32-vs-f64 reading of 3.7e-6, as
+# tests/test_torch_implicit.py
+IMPLICIT_FACTOR_TOL = 1.5e-5
 
 
 @pytest.fixture()
@@ -126,3 +135,73 @@ def test_als_train_on_the_card_goes_through_the_kernel(cuda, lam):
     for a, b in ((on_cpu.user_factors, on_card.user_factors),
                  (on_cpu.item_factors, on_card.item_factors)):
         assert np.abs(a - b).max() <= FACTOR_TOL[lam] * np.abs(a).max()
+
+
+def chol_tolerance(A, b):
+    """max(CHOL_REL_TOL, 4x the plain version's f32-vs-f64 reading)."""
+    x32 = T.chol_solve(A, b)
+    rounding = rel(x32.double(), T.chol_solve(A.double(), b.double()))
+    return x32, max(CHOL_REL_TOL, 4 * rounding)
+
+
+@pytest.mark.parametrize("R,B", [(200, 37), (27, 41), (5, 9), (192, 16)])
+def test_chol_kernel_matches_plain(cuda, R, B):
+    """R = 200 (the primal route), 192 (a dual bucket), 27 (not a multiple
+    of the panel width 8) and 5 (below one panel)."""
+    A, b = hard_systems(B, R, seed=R + 7, device=cuda)
+    xk = T.chol_solve_cuda(A, b)
+    torch.cuda.synchronize()
+    xp, tol = chol_tolerance(A, b)
+    assert torch.isfinite(xk).all()
+    assert rel(xk, xp) <= tol
+
+
+def test_chol_kernel_reads_only_the_lower_triangle(cuda):
+    A, b = hard_systems(6, 40, seed=3, device=cuda)
+    junk = torch.triu(torch.full_like(A, float("nan")), diagonal=1)
+    xk = T.chol_solve_cuda(torch.tril(A) + torch.nan_to_num(junk, 7.0), b)
+    assert rel(xk, T.chol_solve_cuda(A, b)) == 0.0
+
+
+def test_chol_kernel_padding_solves_to_zero(cuda):
+    for R in (8, 27, 200):
+        A = (0.01 * torch.eye(R, device=cuda)).expand(4, R, R).contiguous()
+        x = T.chol_solve_cuda(A, torch.zeros(4, R, device=cuda))
+        assert torch.equal(x, torch.zeros_like(x))
+
+
+def test_chol_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    A, b = hard_systems(2, 16, seed=0, device=cuda)
+    with pytest.raises(TypeError):
+        T.chol_solve_cuda(A.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        T.chol_solve_cuda(A.transpose(1, 2), b)
+    R = T.chol_max_rank(cuda) + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        T.chol_solve_cuda(torch.eye(R, device=cuda)[None].contiguous(),
+                          torch.zeros(1, R, device=cuda))
+
+
+@pytest.mark.parametrize("negatives", [False, True])
+def test_implicit_train_on_the_card_goes_through_the_chol_kernel(cuda,
+                                                                 negatives):
+    """Every implicit solve, primal and eig-SMW dual, is a launch of the
+    Cholesky kernel; the factors match the same train on the CPU (the
+    plain blocked Cholesky) within IMPLICIT_FACTOR_TOL."""
+    ui, ii, vv, n_u, n_i = small_ratings()
+    if negatives:
+        vv = vv.copy()
+        vv[::5] *= -1
+    coo = RatingsCOO(ui, ii, vv, n_u, n_i)
+    kw = dict(rank=16, iterations=3, lam=0.01, work_budget=512, seed=2,
+              implicit_prefs=True, alpha=1.0, solver="chol_cuda")
+    T.COUNTS.reset()
+    tel = {}
+    on_card = TA.als_train(coo, TA.ALSConfig(**kw), device=cuda,
+                           telemetry=tel)
+    assert T.COUNTS.chol_solve == tel["solver_calls"] > 0
+    assert T.COUNTS.chol_solve_plain == T.COUNTS.cg_solve == 0
+    on_cpu = TA.als_train(coo, TA.ALSConfig(**kw), device="cpu")
+    for a, b in ((on_cpu.user_factors, on_card.user_factors),
+                 (on_cpu.item_factors, on_card.item_factors)):
+        assert np.abs(a - b).max() <= IMPLICIT_FACTOR_TOL * np.abs(a).max()

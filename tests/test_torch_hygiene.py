@@ -103,6 +103,26 @@ def test_entry_points_default_to_the_card(no_cuda):
                           device="cpu").als.device.type == "cpu"
 
 
+def test_similarproduct_entry_points_default_to_the_card(no_cuda):
+    from predictionio_tpu_torch.models import similarproduct as TS
+    from predictionio_tpu_torch.weights import from_jax_similarproduct_model
+    td = TS.TrainingData(
+        users={}, items={"x": TS.Item(("c",)), "y": TS.Item(("c",))},
+        view_events=[TS.ViewEvent("u1", "x"), TS.ViewEvent("u2", "y"),
+                     TS.ViewEvent("u2", "x")])
+    pd = TS.SimilarProductPreparator().prepare(td)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TS.ALSAlgorithm(TS.ALSAlgorithmParams(rank=2)).train(pd)
+    model = TS.ALSAlgorithm(TS.ALSAlgorithmParams(
+        rank=2, num_iterations=1, device="cpu")).train(pd)
+    assert model.device.type == "cpu" and model.table().device.type == "cpu"
+    T = np.eye(2, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from_jax_similarproduct_model(T, ["x", "y"], td.items)
+    assert from_jax_similarproduct_model(
+        T, ["x", "y"], td.items, device="cpu").device.type == "cpu"
+
+
 def test_resolving_the_card_turns_tf32_off(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)

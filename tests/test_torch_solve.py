@@ -134,10 +134,22 @@ def test_resolve_solver_by_device():
 
 
 def test_spd_solve_rejects_unported_and_unknown_methods():
+    """The dispatch: the two Cholesky names solve, the TPU's Pallas names
+    raise a ValueError naming their CUDA counterparts, Schulz is still to
+    port (ROADMAP.md queue B) and raises NotImplementedError."""
     A, b = als_like(2, 10, 8, seed=0)
     A, b = torch.from_numpy(A), torch.from_numpy(b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.spd_solve(A, b, method="schulz_pallas")
+    truth = T.cholesky_solve(A.double(), b.double()).float()
+    for method in ("chol_cuda", "chol_blocked"):
+        torch.testing.assert_close(T.spd_solve(A, b, method=method), truth,
+                                   rtol=2e-3, atol=2e-4)
+    for method, cuda in (("cg_pallas", "cg_cuda"),
+                         ("chol_pallas", "chol_cuda")):
+        with pytest.raises(ValueError, match=cuda):
+            T.spd_solve(A, b, method=method)
+    for method in ("schulz", "schulz_pallas", "schulz_cuda"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.spd_solve(A, b, method=method)
     with pytest.raises(ValueError):
         T.spd_solve(A, b, method="qr")
 
