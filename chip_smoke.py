@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives `predictionio_tpu_torch`'s two paths on the card. It builds the
+Drives `predictionio_tpu_torch`'s three paths on the card. It builds the
 CUDA kernels from `predictionio_tpu_torch/csrc` with nvcc (one nvcc per
 source, all started together) and holds each kernel against its plain
 PyTorch version at the shapes its path gives it. Then:
@@ -20,7 +20,12 @@ PyTorch version at the shapes its path gives it. Then:
   through the data source, preparator and `ALSAlgorithm.train` with
   solver 'chol_cuda' (every solve through the Cholesky kernel), served
   over `POST /queries.json` with category, black-list and white-list
-  filters.
+  filters;
+- the Schulz path: the recommendation template on the first path's
+  prepared data with the reference's full-scale Schulz configuration
+  (solver 'schulz_cuda', compute dtype bfloat16, sweep chunk 4; 2
+  iterations), every solve through the Newton-Schulz kernel, served over
+  `POST /queries.json`.
 
 Prints one JSON line per phase, then the kernels line, the card's name
 and power limit as nvidia-smi reports them, and as its last line
@@ -47,11 +52,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): device memory
-# rate and float32 rate outside the tensor cores.
+# rate, float32 rate outside the tensor cores, bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 RATE_NOTE = ("H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s f32 on CUDA cores "
              "(data sheet, 700 W)")
+BF16_RATE_NOTE = ("H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 on tensor cores "
+                  "(data sheet, dense, 700 W)")
 
 DATA = (138_493, 26_744, 20_000_000)   # users, items, generated ratings:
 #                                        data/synthetic.py's ML-20M shape
@@ -72,6 +80,19 @@ CHOL_KERNEL_TOL = 1e-4    # Cholesky kernel vs its plain version: the floor
 SP_QUERIES = 30           # similar-product queries served
 TIE_ATOL = 1e-5           # a served swap is allowed only between items
 #                           whose float64 cosine sums differ by less
+SCHULZ_STEPS = 18         # the primal Schulz solve's own default
+SCHULZ_KERNEL_TOL = 1e-4  # Schulz kernel vs its plain version: the floor
+#                           of max(., ROUNDING_FACTOR x the plain version's
+#                           f32-vs-f64-sum reading), per shape and checkpoint
+SCHULZ_DUAL_SHAPES = ((8, 4375), (176, 5957))   # (K, B): the Schulz path's
+#                           smallest-K and largest-work dual batches at the
+#                           ML-20M shape (tests/test_torch_compute_dtype.py)
+PLAN_BATCHES = 98         # solver calls per iteration at the ML-20M shape
+#                           (33 user + 65 item batches, 98 distinct shapes,
+#                           so sweep chunk 4 merges none)
+KAPPA_HARD = 1e3          # the half-steps fault is held where kappa' =
+#                           ||A||_inf / lambda_min reaches this
+SCHULZ_QUERIES = 8        # Schulz-trained model's queries served
 
 
 class SmokeFailure(RuntimeError):
@@ -119,8 +140,8 @@ def cg_cost(B: int, R: int, iters: int):
     return nbytes, flops
 
 
-def bound(nbytes: int, flops: int):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -335,7 +356,7 @@ def phase_train():
     check(finite, "trained factors are not finite")
     check(np.isfinite(rmse), "train RMSE is not finite")
     resolve_check(model.als, coo)
-    return algo, model, launches, coo.nnz
+    return algo, model, launches, pd, (sample, rmse)
 
 
 def resolve_check(als, coo) -> None:
@@ -389,9 +410,10 @@ def post(url: str, body: bytes):
         return e.code, json.loads(e.read())
 
 
-def phase_serve(algo, model) -> None:
-    """Serve the trained model over HTTP; hold every answer against a
-    float64 numpy top-k on the served tables."""
+def phase_serve(algo, model, phase: str = "serve",
+                n_users: int = 31) -> None:
+    """Serve the trained model over HTTP; hold the answers for `n_users`
+    known users against a float64 numpy top-k on the served tables."""
     from predictionio_tpu_torch.core import Engine, EngineParams, \
         TrainResult
     from predictionio_tpu_torch.core.base import FirstServing
@@ -406,7 +428,7 @@ def phase_serve(algo, model) -> None:
         url = f"http://127.0.0.1:{server.config.port}/queries.json"
         U64 = model.als.user_factors.astype(np.float64)
         V64 = model.als.item_factors.astype(np.float64)
-        users = np.random.default_rng(2).choice(len(model.user_ix), 31,
+        users = np.random.default_rng(2).choice(len(model.user_ix), n_users,
                                                 replace=False)
         lat, exact, ties = [], 0, 0
         for uix in users:
@@ -443,7 +465,7 @@ def phase_serve(algo, model) -> None:
                 f"http://127.0.0.1:{server.config.port}/", timeout=60) as r:
             check(r.status == 200, "GET / failed")
         ms = np.array(lat) * 1e3
-        emit("serve", queries=len(lat), ids_equal_f64=exact,
+        emit(phase, queries=len(lat), ids_equal_f64=exact,
              f32_tie_swaps=ties, unknown_user_empty=True,
              malformed_400=True, p50_ms=float(np.percentile(ms, 50)),
              p99_ms=float(np.percentile(ms, 99)))
@@ -828,6 +850,273 @@ def phase_similar_serve(algo, model) -> None:
         server.stop()
 
 
+def schulz_cost(B: int, R: int, iters: int):
+    """(bytes, flops) one batched Schulz solve must spend: A and b read
+    once, x written once; two R x R x R products a step (4 iters R^3
+    flops), x = X b and two refinements (10 R^2), per system."""
+    return 4 * B * (R * R + 2 * R), B * (4 * iters * R ** 3 + 10 * R * R)
+
+
+def schulz_iterates(A: torch.Tensor, steps: int, cd: str, snap: int):
+    """A copy of the plain `schulz_solve`'s loop that runs exactly `steps`
+    steps and also returns the iterate after `snap` steps."""
+    from predictionio_tpu_torch.ops.solve import round_operand
+    R = A.shape[-1]
+    alpha = 1.0 / torch.clamp(A.abs().sum(dim=-1).amax(dim=-1), min=1e-30)
+    X = alpha[:, None, None] * torch.eye(R, dtype=A.dtype, device=A.device)
+    Ac = round_operand(A, cd)
+    X_snap = X
+    for step in range(steps):
+        Xc = round_operand(X, cd)
+        X = 2.0 * X - torch.bmm(Xc, round_operand(torch.bmm(Ac, Xc), cd))
+        if step + 1 == snap:
+            X_snap = X
+    return X, X_snap
+
+
+def schulz_refine(A_res: torch.Tensor, X: torch.Tensor, b: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The plain version's tail: x = X b, then n refinements
+    x += X (b - A_res x)."""
+    x = torch.bmm(X, b.unsqueeze(-1)).squeeze(-1)
+    for _ in range(n):
+        r = b - torch.bmm(A_res, x.unsqueeze(-1)).squeeze(-1)
+        x = x + torch.bmm(X, r.unsqueeze(-1)).squeeze(-1)
+    return x
+
+
+# Planted faults of the Schulz check (`hold_schulz`), each a copy of the
+# plain version with one change: the two refinements left out; the
+# refinement residual taken against the bf16-rounded A (bf16 mode only);
+# the iteration stopped at half its steps (held where kappa' >= KAPPA_HARD,
+# where half the steps cannot have converged).
+SCHULZ_FAULTS = ("no_refinement", "rounded_residual", "half_steps")
+
+
+def kappa_prime(A: torch.Tensor) -> float:
+    """max over the first 8 systems of ||A||_inf / lambda_min."""
+    A8 = A[:8].double()
+    lam = torch.linalg.eigvalsh(A8)[:, 0]
+    return float((A8.abs().sum(dim=-1).amax(dim=-1) / lam).max())
+
+
+def schulz_checkpoints(iters: int):
+    return sorted({1, 2, 5, iters})
+
+
+def hold_schulz(A: torch.Tensor, b: torch.Tensor, iters: int, cd: str,
+                where: str, gate_faults: bool = True) -> dict:
+    """The Schulz kernel against the plain `schulz_solve` at checkpoints
+    1, 2, 5 and `iters` steps. The tolerance there is SCHULZ_KERNEL_TOL,
+    or ROUNDING_FACTOR times what the order of the f32 sums moves the
+    plain version (its f32-sum run against its f64-sum run with the same
+    bf16 rounding points) where that is larger. The planted faults
+    (SCHULZ_FAULTS) are read against the kernel at every checkpoint; with
+    `gate_faults` each that applies must miss it by FAULT_MARGIN
+    tolerances at some checkpoint. Fails the run otherwise; returns the
+    readings."""
+    from predictionio_tpu_torch.ops.solve import (round_operand,
+                                                  schulz_solve,
+                                                  schulz_solve_cuda)
+    A64, b64 = A.double(), b.double()
+    kappa = kappa_prime(A)
+    applies = {"no_refinement": True, "rounded_residual": cd == "bfloat16",
+               "half_steps": kappa >= KAPPA_HARD}
+    per_k = []
+    for k in schulz_checkpoints(iters):
+        xk = schulz_solve_cuda(A, b, k, cd)
+        check(bool(torch.isfinite(xk).all()),
+              f"{where}: non-finite x after {k} steps")
+        xp = schulz_solve(A, b, k, cd)
+        rounding = rel_err(xp.double(), schulz_solve(A64, b64, k, cd))
+        tol = max(SCHULZ_KERNEL_TOL, ROUNDING_FACTOR * rounding)
+        X, X_half = schulz_iterates(A, k, cd, k // 2)
+        faults = {"no_refinement": schulz_refine(A, X, b, 0),
+                  "rounded_residual": schulz_refine(round_operand(A, cd), X,
+                                                    b, 2),
+                  "half_steps": schulz_refine(A, X_half, b, 2)}
+        row = {"k": k, "rel_err": rel_err(xk, xp),
+               "abs_err": (xk - xp).abs().max().item(),
+               "rounding": rounding, "tolerance": tol,
+               "copy_equals_plain": bool(torch.equal(
+                   schulz_refine(A, X, b, 2), xp))}
+        row.update({f: rel_err(x, xk) / tol for f, x in faults.items()})
+        per_k.append(row)
+        del X, X_half, faults
+    out = {"kappa_prime_max_of_8": kappa,
+           "max_rel_err": max(c["rel_err"] for c in per_k),
+           "max_abs_err": max(c["abs_err"] for c in per_k),
+           "max_rounding": max(c["rounding"] for c in per_k),
+           "max_tolerance": max(c["tolerance"] for c in per_k)}
+    for f in SCHULZ_FAULTS:
+        out[f"fault_{f}_margin"] = (max(c[f] for c in per_k) if applies[f]
+                                    else None)
+    emit("schulz_checkpoints", where=where, compute_dtype=cd,
+         per_checkpoint=per_k)
+    for c in per_k:
+        check(c["copy_equals_plain"], f"{where}: the faults' copy of the "
+              f"plain Schulz differs from it after {c['k']} steps")
+        check(c["rel_err"] <= c["tolerance"],
+              f"{where}: Schulz kernel vs plain rel err {c['rel_err']:.3g} "
+              f"> {c['tolerance']:.3g} after {c['k']} steps ({cd})")
+    if gate_faults:
+        for f in SCHULZ_FAULTS:
+            m = out[f"fault_{f}_margin"]
+            if m is not None:
+                check(m >= FAULT_MARGIN,
+                      f"{where}: the check cannot see the planted fault "
+                      f"{f} (it moves x by only {m:.3g} tolerances)")
+    return out
+
+
+def phase_schulz_kernel() -> dict:
+    """The Schulz kernel at the Schulz path's shapes: the primal R = rank
+    with 18 steps in both compute dtypes, the path's dual extremes
+    (K + 8 steps, bf16 as every dual solve), an odd B and an R that is
+    not a multiple of 8, on systems whose spectrum spreads over ~1e3-1e4
+    (`hard_systems`). Each shape is timed (the kernel, the plain version
+    and `torch.linalg.solve`) beside its bound."""
+    from predictionio_tpu_torch.ops.solve import (schulz_max_rank,
+                                                  schulz_solve,
+                                                  schulz_solve_cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    B0 = WORK_BUDGET // RANK
+    shapes = [(RANK, B0, SCHULZ_STEPS, "bfloat16"),
+              (RANK, B0, SCHULZ_STEPS, "float32")]
+    shapes += [(K, B, K + 8, "bfloat16") for K, B in SCHULZ_DUAL_SHAPES]
+    shapes += [(RANK, 1001, SCHULZ_STEPS, "bfloat16"),
+               (27, 4099, SCHULZ_STEPS, "bfloat16")]
+    rows = []
+    for R, B, iters, cd in shapes:
+        A, b = hard_systems(B, R, gen)
+        row = {"R": R, "B": B, "iters": iters, "compute_dtype": cd,
+               **hold_schulz(A, b, iters, cd,
+                             f"schulz phase R={R} B={B} {cd}")}
+        nbytes, flops = schulz_cost(B, R, iters)
+        reps = 1 if flops > 1e13 else 3   # the K = 176 dual: ~24 TFLOP
+        row.update(
+            kernel_ms=cuda_ms(lambda: schulz_solve_cuda(A, b, iters, cd),
+                              reps),
+            plain_ms=cuda_ms(lambda: schulz_solve(A, b, iters, cd), reps),
+            library_ms=cuda_ms(
+                lambda: torch.linalg.solve(A, b.unsqueeze(-1)), 3))
+        bf16 = cd == "bfloat16"
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        row["bytes"], row["flops"] = nbytes, flops
+        row["rates"] = BF16_RATE_NOTE if bf16 else RATE_NOTE
+        emit("schulz_kernel", **row)
+        rows.append(row)
+        del A, b
+    for R in (RANK, 27):        # plan padding rows: A = reg*I, b = 0
+        A = (LAM * torch.eye(R, device="cuda")).expand(3, R, R).contiguous()
+        for cd in ("bfloat16", "float32"):
+            x0 = schulz_solve_cuda(A, torch.zeros(3, R, device="cuda"),
+                                   SCHULZ_STEPS, cd)
+            check(bool((x0 == 0).all()), f"padding systems (R={R}, {cd}) "
+                  "did not solve to exactly 0")
+    x0 = schulz_solve_cuda(torch.zeros(0, 8, 8, device="cuda"),
+                           torch.zeros(0, 8, device="cuda"))
+    check(x0.shape == (0, 8), "an empty batch did not solve to empty x")
+    check(rows[0]["kappa_prime_max_of_8"] >= KAPPA_HARD,
+          "the primal systems are too well conditioned to hold the "
+          "half-steps fault")
+    emit("schulz_kernel_padding", exact_zero=True, empty_batch=True,
+         max_rank=schulz_max_rank(torch.device("cuda")))
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def phase_schulz_train(pd, cg_rmse):
+    """The Schulz path's train: the train phase's prepared data through
+    `ALSAlgorithm.train` with the reference's full-scale Schulz
+    configuration; every solve through the Schulz kernel."""
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm, ALSAlgorithmParams)
+    from predictionio_tpu_torch.ops.als import predict_ratings
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    algo = ALSAlgorithm(ALSAlgorithmParams(
+        rank=RANK, num_iterations=ITERATIONS, lam=LAM, seed=0,
+        solver="schulz_cuda", compute_dtype="bfloat16", sweep_chunk=4))
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    model = algo.train(pd)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(vars(COUNTS))
+    tel = algo.last_train_telemetry
+    U, V = model.als.tables()
+    finite = bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())
+    sample, cg_rmse_100k = cg_rmse
+    coo = pd.ratings_coo
+    pred = predict_ratings(model.als, coo.user_idx[sample],
+                           coo.item_idx[sample])
+    rmse = float(np.sqrt(np.mean((pred - coo.rating[sample]) ** 2)))
+    emit("schulz_train", rank=RANK, iterations=ITERATIONS, lam=LAM,
+         solver="schulz_cuda", compute_dtype="bfloat16", sweep_chunk=4,
+         train_s=train_s, **tel, launch_counts=counts, factors_finite=finite,
+         train_rmse_100k=rmse, cg_train_rmse_100k=cg_rmse_100k)
+    launches = counts["schulz_solve"]
+    check(launches > 0, "the Schulz kernel was never launched")
+    check(launches == tel["solver_calls"] == ITERATIONS * PLAN_BATCHES,
+          f"{launches} Schulz kernel launches for {tel['solver_calls']} "
+          f"solver calls (expected {ITERATIONS * PLAN_BATCHES})")
+    for name in ("schulz_solve_plain", "cg_solve", "cg_solve_plain",
+                 "chol_solve", "chol_solve_plain"):
+        check(counts[name] == 0, f"{name} ran {counts[name]} times on the "
+              "Schulz path")
+    check(finite, "trained factors are not finite")
+    check(np.isfinite(rmse), "train RMSE is not finite")
+    return algo, model, launches
+
+
+def phase_schulz_resolve(als, coo) -> None:
+    """Re-solve one real primal (K = 208) and one real dual item-side
+    bucket from the final user table with the Schulz path's arithmetic
+    (bf16 equations, 18 bf16 steps primal, K + 8 dual): the trained item
+    rows came from the kernel on exactly these systems, so they must be
+    equal. On these real lam = 0.01 systems the kernel is held against
+    the plain version at every checkpoint (the planted faults read, not
+    gated), and its answer read against a float64 Cholesky solve of the
+    same systems: whether 18 bf16 steps converge here."""
+    from predictionio_tpu_torch.ops.als import normal_equations
+    from predictionio_tpu_torch.ops.ratings import plan_for_items
+    from predictionio_tpu_torch.ops.solve import (cholesky_solve,
+                                                  schulz_solve_cuda)
+    U, V = als.tables()
+    plan = plan_for_items(coo, work_budget=WORK_BUDGET)
+    primal = next(b for b in plan.batches if b.shape[1] >= RANK)
+    dual = max((b for b in plan.batches if b.shape[1] < RANK),
+               key=lambda b: b.shape[0])
+    for batch in (primal, dual):
+        rows = torch.from_numpy(batch.rows).cuda().long()
+        kind, A, rhs, to_rows = normal_equations(
+            U, torch.from_numpy(batch.idx).cuda().long(),
+            torch.from_numpy(batch.val).cuda(),
+            torch.from_numpy(batch.mask).cuda(), LAM, RANK,
+            compute_dtype="bfloat16")
+        K = batch.shape[1]
+        iters = SCHULZ_STEPS if kind == "primal" else K + 8
+        held = hold_schulz(A, rhs, iters, "bfloat16",
+                           f"real Schulz {kind} bucket K={K}",
+                           gate_faults=False)
+        z = schulz_solve_cuda(A, rhs, iters, "bfloat16")
+        z64 = cholesky_solve(A.double(), rhs.double())
+        xk = to_rows(z)
+        real = rows >= 0
+        out = {"kind": kind, "K": K, "B": batch.shape[0], **held,
+               "trained_vs_resolve_max_abs": (
+                   V[rows[real]] - xk[real]).abs().max().item(),
+               "solve_vs_f64_cholesky_rel": rel_err(z[real].double(),
+                                                    z64[real])}
+        emit("schulz_resolve", **out)
+        check(out["trained_vs_resolve_max_abs"] == 0.0,
+              f"trained Schulz {kind} rows differ from a kernel re-solve "
+              f"by {out['trained_vs_resolve_max_abs']:.3g}")
+        del A, rhs, z, z64, xk
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  max_abs_err: float, max_rel_err: float, timed: dict,
                  timed_shape: dict) -> dict:
@@ -851,12 +1140,19 @@ def main() -> int:
     info = phase_device()
     kern = phase_kernel()
     chol = phase_chol_kernel()
-    algo, model, cg_launches, pairs = phase_train()
+    schulz = phase_schulz_kernel()
+    algo, model, cg_launches, pd, cg_rmse = phase_train()
     phase_serve(algo, model)
     del algo, model
-    sp_algo, sp_model, chol_launches = phase_implicit_train(pairs)
+    sp_algo, sp_model, chol_launches = phase_implicit_train(
+        pd.ratings_coo.nnz)
     phase_similar_serve(sp_algo, sp_model)
+    del sp_algo, sp_model
+    s_algo, s_model, schulz_launches = phase_schulz_train(pd, cg_rmse)
+    phase_schulz_resolve(s_model.als, pd.ratings_coo)
+    phase_serve(s_algo, s_model, "schulz_serve", SCHULZ_QUERIES)
     cg_primal, chol_primal = kern["rows"][0], chol["rows"][0]
+    schulz_primal = schulz["rows"][0]
     line = {"kernels": [
         kernel_entry("cg_solve", "cg_solve.cu",
                      "predictionio_tpu/ops/solve.py:208 (_cg_kernel)",
@@ -871,7 +1167,17 @@ def main() -> int:
                      chol_launches,
                      max(r["abs_err"] for r in chol["rows"]),
                      max(r["rel_err"] for r in chol["rows"]), chol_primal,
-                     {"B": chol_primal["B"], "R": chol_primal["R"]})]}
+                     {"B": chol_primal["B"], "R": chol_primal["R"]}),
+        kernel_entry("schulz_solve", "schulz_solve.cu",
+                     "predictionio_tpu/ops/solve.py:91 (_schulz_kernel, "
+                     "pallas_call :146)",
+                     schulz_launches,
+                     max(r["max_abs_err"] for r in schulz["rows"]),
+                     max(r["max_rel_err"] for r in schulz["rows"]),
+                     schulz_primal,
+                     {"B": schulz_primal["B"], "R": schulz_primal["R"],
+                      "iters": schulz_primal["iters"],
+                      "compute_dtype": schulz_primal["compute_dtype"]})]}
     print(json.dumps(line), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,10 @@ class ALSAlgorithmParams(Params):
     num_iterations: int = 10
     lam: float = 0.01
     seed: Optional[int] = None
+    # products' operand dtype (ops/als.py ALSConfig); None = float32 on
+    # the card and on the CPU, the reference's answer off the TPU
+    compute_dtype: Optional[str] = None
+    sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
@@ -142,7 +146,9 @@ class ALSAlgorithm(P2LAlgorithm):
             raise ValueError("No ratings to train on")
         cfg = ALSConfig(rank=p.rank, iterations=p.num_iterations, lam=p.lam,
                         seed=p.seed if p.seed is not None else 0,
-                        solver=p.solver)
+                        solver=p.solver,
+                        compute_dtype=p.compute_dtype or "float32",
+                        sweep_chunk=p.sweep_chunk)
         self.last_train_telemetry = {}
         model = als_train(pd.ratings_coo, cfg, device=p.device,
                           telemetry=self.last_train_telemetry)

@@ -164,8 +164,12 @@ class ALSAlgorithmParams(Params):
     lam: float = 0.01
     alpha: float = 1.0
     seed: Optional[int] = None
+    # products' operand dtype (ops/als.py ALSConfig); None = float32 on
+    # the card and on the CPU, the reference's answer off the TPU
+    compute_dtype: Optional[str] = None
     # property keys copied onto each ItemScore (missing -> null)
     return_properties: Tuple[str, ...] = ()
+    sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
@@ -267,7 +271,9 @@ class ALSAlgorithm(P2LAlgorithm):
         cfg = ALSConfig(rank=p.rank, iterations=p.num_iterations, lam=p.lam,
                         implicit_prefs=True, alpha=p.alpha,
                         seed=p.seed if p.seed is not None else 0,
-                        solver=p.solver)
+                        solver=p.solver,
+                        compute_dtype=p.compute_dtype or "float32",
+                        sweep_chunk=p.sweep_chunk)
         self.last_train_telemetry = {"ratings": coo.nnz}
         model = als_train(coo, cfg, device=p.device,
                           telemetry=self.last_train_telemetry)

@@ -21,7 +21,15 @@ Woodbury through the eigenbasis of G (`eigh` once per half-sweep), in the
 D^1/2 form that stays exact where the confidence is 0. On the card the
 solver named by `ALSConfig.solver` runs every solve, primal and dual:
 'cg_cuda' (the 'auto' default) through `csrc/cg_solve.cu`, 'chol_cuda'
-through `csrc/chol_solve.cu`.
+through `csrc/chol_solve.cu`, 'schulz_cuda' through `csrc/schulz_solve.cu`.
+
+`ALSConfig.compute_dtype` is the operand dtype of the normal equations'
+products, as in the reference: 'bfloat16' rounds every operand the
+reference casts to bf16 and multiplies in float32 (a product of two bf16
+values is exact there), so sums stay float32. The primal Schulz solve
+follows it; the dual solves take `spd_solve`'s default, bf16, as the
+reference's `_dual_system_solve` does. `ALSConfig.sweep_chunk` merges
+that many same-shape batches of a half-sweep into one solver call.
 
 Differences from the reference, by design:
 - PyTorch runs eagerly: there is no scan/jit; the plan stays a list of
@@ -29,11 +37,10 @@ Differences from the reference, by design:
 - Factor tables are updated in place (`_scatter_rows`): a batch reads
   only the counterpart table, so the in-place write is safe, and it
   saves the table copy a functional update would make.
-- All arithmetic is float32 on both devices (the reference's non-TPU
-  default); TF32 is off (see device.py).
-- `dual_solve` (always 'auto' here), `compute_dtype`, `factor_dtype`,
-  `sweep_chunk` merging, `fuse_iteration` and the sharded layouts are
-  later slices (ROADMAP.md).
+- Sums are float32 on both devices (TF32 is off, see device.py); the
+  bf16 compute dtype rounds operands, it never multiplies in bf16.
+- `dual_solve` (always 'auto' here), `factor_dtype`, `fuse_iteration`
+  and the sharded layouts are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ from predictionio_tpu_torch.device import resolve_device, synchronize
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
                                                 plan_for_items,
                                                 plan_for_users)
-from predictionio_tpu_torch.ops.solve import (CG_PRIMAL_ITERS,
-                                              resolve_solver, spd_solve)
+from predictionio_tpu_torch.ops.solve import (COMPUTE_DTYPES,
+                                              resolve_solver, round_operand,
+                                              spd_solve)
 
 logger = logging.getLogger(__name__)
 
@@ -67,7 +75,9 @@ class ALSConfig:
     seed: int = 0
     work_budget: int = 1 << 20         # B*K per solve batch
     solver: str = "auto"               # see ops/solve.py spd_solve
-    solver_iters: Optional[int] = None  # primal CG iterations (None = 48)
+    solver_iters: Optional[int] = None
+    # Primal solver steps; None = the solver's own default (CG 48,
+    # Schulz 18). The dual solves run K+8 (or min(K+8, dual_iters_cap)).
     dual_iters_cap: Optional[int] = None  # cap on the dual CG's K+8
     dual_plain_below: int = 0
     # Dual systems with K below this go to the plain PyTorch CG instead of
@@ -78,9 +88,18 @@ class ALSConfig:
     sentinel: bool = True              # per-iteration finite/norm check
     sentinel_norm_cap: float = 1e4
     dtype: str = "float32"
-    # Factor and solve dtype. The card's kernel takes float32 only;
+    # Factor and solve dtype. The card's kernels take float32 only;
     # 'float64' on the CPU gives the reading of float32 rounding
-    # (scripts/torch_als_rounding.py).
+    # (scripts/torch_als_rounding.py); with compute_dtype='bfloat16' it
+    # rounds operands to bf16 and back to float64.
+    compute_dtype: str = "float32"
+    # Operand dtype of the normal equations' products and the primal
+    # Schulz solve (module docstring); 'float32' is the reference's
+    # default off the TPU.
+    sweep_chunk: int = 0
+    # Merge this many same-shape batches of a half-sweep into one solver
+    # call over chunk*B systems (the batches are independent). 0 = auto:
+    # 1 (the reference's answer off a single TPU).
 
     def __post_init__(self):
         if self.dual_iters_cap is not None and self.dual_iters_cap < 1:
@@ -95,6 +114,12 @@ class ALSConfig:
         if self.lambda_scaling not in ("nratings", "constant"):
             raise ValueError("lambda_scaling must be 'nratings' or "
                              f"'constant', got {self.lambda_scaling!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{COMPUTE_DTYPES}, got {self.compute_dtype!r}")
+        if self.sweep_chunk < 0:
+            raise ValueError("sweep_chunk must be >= 0, got "
+                             f"{self.sweep_chunk}")
 
 
 @dataclass
@@ -132,8 +157,10 @@ class ALSModel:
 def _dual_system_solve(M: torch.Tensor, y: torch.Tensor, K: int,
                        solver: str, iters_cap: Optional[int] = None,
                        plain_below: int = 0) -> torch.Tensor:
-    """Solve the K-dim dual system with K+8 CG iterations (finite
-    termination <= K plus a roundoff margin), optionally capped."""
+    """Solve the K-dim dual system with K+8 solver steps (CG's finite
+    termination <= K plus a roundoff margin), optionally capped. Like the
+    reference it passes no compute dtype: a Schulz dual solve runs its
+    products on bf16 operands whatever `ALSConfig.compute_dtype` is."""
     method = "cg" if (K < plain_below and solver == "cg_cuda") else solver
     iters = K + 8 if iters_cap is None else min(K + 8, iters_cap)
     return spd_solve(M, y, method=method, iters=iters)
@@ -161,30 +188,37 @@ def _primal(x: torch.Tensor) -> torch.Tensor:
 
 def normal_equations(counter_factors: torch.Tensor, idx: torch.Tensor,
                      val: torch.Tensor, mask: torch.Tensor, lam: float,
-                     rank: int, nratings_reg: bool = True):
-    """The explicit system one [B, K] batch solves.
+                     rank: int, nratings_reg: bool = True,
+                     compute_dtype: str = "float32"):
+    """The explicit system one [B, K] batch solves, its products on
+    `compute_dtype` operands (the gathered rows, the masked ratings, the
+    dual answer z) with sums in the factors' dtype.
 
     Returns (kind, A, rhs, to_rows): ('primal', A [B,R,R], b [B,R]) when
     K >= rank, else ('dual', A [B,K,K], y [B,K]) with rows x = M^T z;
     `to_rows` maps the solve's answer to the factor rows."""
-    Vg = counter_factors[idx]                       # [B, K, R] gather
+    cd = compute_dtype
+    Vc = round_operand(counter_factors[idx], cd)    # [B, K, R] gather
     K = idx.shape[1]
     reg = _regularizer(mask, lam, nratings_reg)
-    Vm = Vg * mask[..., None]
+    Vm = Vc * mask[..., None]                       # exact: mask is 0/1
     if K < rank:
         A = torch.bmm(Vm, Vm.transpose(1, 2))       # [B, K, K]
         A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
         return ("dual", A, val * mask,
-                lambda z: torch.bmm(z.unsqueeze(1), Vm).squeeze(1))
-    A = torch.bmm(Vm.transpose(1, 2), Vg)           # [B, R, R]
+                lambda z: torch.bmm(round_operand(z, cd).unsqueeze(1),
+                                    Vm).squeeze(1))
+    A = torch.bmm(Vm.transpose(1, 2), Vc)           # [B, R, R]
     A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
-    b = torch.bmm((val * mask).unsqueeze(1), Vg).squeeze(1)
+    b = torch.bmm(round_operand(val * mask, cd).unsqueeze(1),
+                  Vc).squeeze(1)
     return "primal", A, b, _primal
 
 
 def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
                        mask, lam: float, alpha: float, rank: int,
-                       nratings_reg: bool = True):
+                       nratings_reg: bool = True,
+                       compute_dtype: str = "float32"):
     """The implicit (Hu-Koren) system one [B, K] batch solves, with
     `gram` = (G, w, Q) of the counterpart table (`gram_eig`).
 
@@ -194,40 +228,49 @@ def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
     eigenvalues clamped at 0) and D = diag(alpha |r|), Sherman-Morrison-
     Woodbury gives x = B^-1 b - B^-1 V^T D^1/2 z where
     (I_K + D^1/2 V B^-1 V^T D^1/2) z = D^1/2 V B^-1 b.
+    Every operand the reference's `_solve_batch` casts to
+    `compute_dtype` is rounded here (the gathered rows, the confidences,
+    Q, b, V Q, 1/denom, B^-1 b's eigen coefficients, D^1/2 z, s/denom);
+    sums stay in the factors' dtype.
     Returns (kind, A, rhs, to_rows) as `normal_equations`."""
     G, w, Q = gram
-    Vg = counter_factors[idx]                       # [B, K, R] gather
+    cd = compute_dtype
+    Vc = round_operand(counter_factors[idx], cd)    # [B, K, R] gather
     K = idx.shape[1]
     reg = _regularizer(mask, lam, nratings_reg)
     absval = val.abs()
     conf_minus_1 = (alpha * absval) * mask          # c - 1, 0 on padding
     # preference p = 1(r > 0): negative signals add confidence to A only
     pos = (val > 0).to(val.dtype) * mask
-    b = torch.bmm(((1.0 + alpha * absval) * pos).unsqueeze(1),
-                  Vg).squeeze(1)                    # [B, R]
+    b = torch.bmm(round_operand((1.0 + alpha * absval) * pos,
+                                cd).unsqueeze(1), Vc).squeeze(1)  # [B, R]
     if K >= rank:
-        A = G + torch.bmm((Vg * conf_minus_1[..., None]).transpose(1, 2),
-                          Vg)
+        Vw = Vc * round_operand(conf_minus_1, cd)[..., None]
+        A = G + torch.bmm(Vw.transpose(1, 2), Vc)
         A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
         return "primal", A, b, _primal
     # G is PSD: clamp eigh's roundoff-negative tail, so a small reg never
     # meets a negative eigenvalue and flips the sign of 1/denom
     denom = w.clamp(min=0.0)[None, :] + reg[:, None]          # [B, R]
     inv = 1.0 / denom
-    Vq = torch.matmul(Vg, Q)                                  # [B, K, R]
-    del Vg
-    bq_d = torch.matmul(b, Q) * inv
-    u = torch.matmul(bq_d, Q.T)                               # B^-1 b
-    W = torch.bmm(Vq * inv[:, None, :], Vq.transpose(1, 2))   # [B, K, K]
+    Qc = round_operand(Q, cd)
+    Vq = round_operand(torch.matmul(Vc, Qc), cd)              # [B, K, R]
+    del Vc
+    bq_d = torch.matmul(round_operand(b, cd), Qc) * inv
+    bq_c = round_operand(bq_d, cd)
+    u = torch.matmul(bq_c, Qc.T)                              # B^-1 b
+    W = torch.bmm(Vq * round_operand(inv, cd)[:, None, :],
+                  Vq.transpose(1, 2))                         # [B, K, K]
     dhalf = torch.sqrt(conf_minus_1)                          # [B, K]
     M = dhalf[:, :, None] * W * dhalf[:, None, :]
     del W
     M.diagonal(dim1=1, dim2=2).add_(1.0)
-    t = torch.bmm(Vq, bq_d.unsqueeze(-1)).squeeze(-1)         # V B^-1 b
+    t = torch.bmm(Vq, bq_c.unsqueeze(-1)).squeeze(-1)         # V B^-1 b
 
     def to_rows(z: torch.Tensor) -> torch.Tensor:
-        s = torch.bmm((dhalf * z).unsqueeze(1), Vq).squeeze(1)
-        return u - torch.matmul(s * inv, Q.T)
+        s = torch.bmm(round_operand(dhalf * z, cd).unsqueeze(1),
+                      Vq).squeeze(1)
+        return u - torch.matmul(round_operand(s * inv, cd), Qc.T)
     return "dual", M, dhalf * t, to_rows
 
 
@@ -248,18 +291,18 @@ def _solve_batch(factors_out, counter_factors, rows, idx, val, mask,
     if gram is not None:
         kind, A, rhs, to_rows = implicit_equations(
             counter_factors, gram, idx, val, mask, cfg.lam, cfg.alpha,
-            cfg.rank, nratings_reg)
+            cfg.rank, nratings_reg, cfg.compute_dtype)
     else:
         kind, A, rhs, to_rows = normal_equations(
             counter_factors, idx, val, mask, cfg.lam, cfg.rank,
-            nratings_reg)
+            nratings_reg, cfg.compute_dtype)
     if kind == "dual":
         z = _dual_system_solve(A, rhs, idx.shape[1], solver,
                                iters_cap=cfg.dual_iters_cap,
                                plain_below=cfg.dual_plain_below)
     else:
-        z = spd_solve(A, rhs, method=solver,
-                      iters=cfg.solver_iters or CG_PRIMAL_ITERS)
+        z = spd_solve(A, rhs, method=solver, iters=cfg.solver_iters,
+                      compute_dtype=cfg.compute_dtype)
     del A
     _scatter_rows(factors_out, rows, to_rows(z))
 
@@ -267,17 +310,53 @@ def _solve_batch(factors_out, counter_factors, rows, idx, val, mask,
 DeviceBatch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _upload_plan(plan: SolvePlan, device: torch.device,
-                 dtype: torch.dtype = torch.float32) -> List[DeviceBatch]:
-    """Every batch's (rows, idx, val, mask) on the device, once per
-    train: the plan is constant across iterations."""
+def resolve_sweep_chunk(chunk: int) -> int:
+    """0 (auto) -> 1: the reference merges by default only on a single
+    TPU, where its solver calls carry a fixed cost; a caller asks for more
+    by name."""
+    return chunk or 1
+
+
+HostBatch = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def merge_batches(plan: SolvePlan, chunk: int) -> List[HostBatch]:
+    """The plan's (rows, idx, val, mask) batches with every `chunk`
+    same-shape batches concatenated into one of chunk*B systems, as the
+    reference's `_upload_plan` groups them: shapes in sorted order, each
+    shape's batches in plan order, m = min(chunk, n) batches per merge,
+    and the n mod m that do not fill one stay batches of their own. The
+    batches of a half-sweep are independent, so merging changes no
+    answer. chunk <= 1 keeps the plan as it is."""
+    batches = [(b.rows, b.idx, b.val, b.mask) for b in plan.batches]
+    if chunk <= 1:
+        return batches
+    by_shape = {}
+    for b in batches:
+        by_shape.setdefault(b[1].shape, []).append(b)
     out = []
-    for b in plan.batches:
-        out.append((torch.from_numpy(b.rows).to(device).long(),
-                    torch.from_numpy(b.idx).to(device).long(),
-                    torch.from_numpy(b.val).to(device, dtype),
-                    torch.from_numpy(b.mask).to(device, dtype)))
+    for shape in sorted(by_shape):
+        bs = by_shape[shape]
+        m = min(chunk, len(bs))
+        n_full = len(bs) // m * m
+        for lo in range(0, n_full, m):
+            out.append(tuple(np.concatenate([b[f] for b in bs[lo:lo + m]])
+                             for f in range(4)))
+        out.extend(bs[n_full:])
     return out
+
+
+def _upload_plan(plan: SolvePlan, device: torch.device,
+                 dtype: torch.dtype = torch.float32,
+                 chunk: int = 1) -> List[DeviceBatch]:
+    """Every (merged, see `merge_batches`) batch's (rows, idx, val, mask)
+    on the device, once per train: the plan is constant across
+    iterations."""
+    return [(torch.from_numpy(rows).to(device).long(),
+             torch.from_numpy(idx).to(device).long(),
+             torch.from_numpy(val).to(device, dtype),
+             torch.from_numpy(mask).to(device, dtype))
+            for rows, idx, val, mask in merge_batches(plan, chunk)]
 
 
 def _run_side(batches: Sequence[DeviceBatch], factors: torch.Tensor,
@@ -309,7 +388,7 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
     `telemetry`, when a dict, receives per-phase wall times (plan_s,
     upload_s, iters_s, s_per_iter, fetch_s, and iter_s, one per
     iteration), each closed by a device synchronize, and `solver_calls`,
-    the number of batched solves run."""
+    the number of batched solves run (after `sweep_chunk` merging)."""
     dev = resolve_device(device)
     solver = resolve_solver(cfg.solver, dev)
     t0 = time.perf_counter()
@@ -335,8 +414,9 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
                                        1).astype(np.float32)).to(dev, dtype)
     V = torch.from_numpy(_init_factors(ratings.n_items, cfg.rank, cfg.seed,
                                        2).astype(np.float32)).to(dev, dtype)
-    user_batches = _upload_plan(user_plan, dev, dtype)
-    item_batches = _upload_plan(item_plan, dev, dtype)
+    chunk = resolve_sweep_chunk(cfg.sweep_chunk)
+    user_batches = _upload_plan(user_plan, dev, dtype, chunk)
+    item_batches = _upload_plan(item_plan, dev, dtype, chunk)
     synchronize(dev)
     tel["upload_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -15,14 +15,20 @@ The port's counterpart of `predictionio_tpu/ops/solve.py`:
   reference does.
 - `chol_solve_cuda`: the wrapper of the hand-written Hopper kernel
   `csrc/chol_solve.cu`, which replaces the TPU's `_chol_kernel`.
+- `schulz_solve`: the plain PyTorch Newton-Schulz inverse iteration, a
+  port of the reference's `schulz_solve`/`_schulz_kernel`: products in
+  `compute_dtype` (bfloat16 operands, float32 sums) from X0 = I/||A||_inf,
+  then x = X b and two float32 refinements.
+- `schulz_solve_cuda`: the wrapper of the hand-written Hopper kernel
+  `csrc/schulz_solve.cu`, which replaces the TPU's `_schulz_kernel`.
 
 A kernel wrapper given CUDA tensors launches its kernel or raises; it
 takes its plain version only for tensors on the CPU.
 
 `spd_solve` dispatches by method name; `resolve_solver('auto', device)` is
 `'cg_cuda'` on a CUDA device and `'cholesky'` on the CPU (what the
-reference picks off the TPU). The reference's Schulz Pallas kernel is
-still to be ported (ROADMAP.md, queue B).
+reference picks off the TPU). `iters=None` means each iterative solver's
+own default (CG 48, Schulz 18), as in the reference.
 """
 
 from __future__ import annotations
@@ -36,18 +42,25 @@ import torch
 from predictionio_tpu_torch.ops import _build
 
 CG_PRIMAL_ITERS = 48
+# the reference's `_schulz_iters_default`: quadratic convergence, the error
+# after k steps ~ (1 - 1/kappa)^(2^k); 18 doublings resolve kappa ~ 1e4 to
+# f32 eps with margin
+SCHULZ_ITERS = 18
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
 class LaunchCounts:
     """Launches on this process's main path, so a run can show that it
-    went through the kernels. `cg_solve` and `chol_solve` count CUDA
-    kernel launches (one per wrapper call that launched); `*_plain` count
-    calls of the plain PyTorch versions."""
+    went through the kernels. `cg_solve`, `chol_solve` and `schulz_solve`
+    count CUDA kernel launches (one per wrapper call that launched);
+    `*_plain` count calls of the plain PyTorch versions."""
     cg_solve: int = 0
     cg_solve_plain: int = 0
     chol_solve: int = 0
     chol_solve_plain: int = 0
+    schulz_solve: int = 0
+    schulz_solve_plain: int = 0
 
     def reset(self) -> None:
         for name in self.__dataclass_fields__:
@@ -327,6 +340,137 @@ def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def round_operand(t: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """`t` as a product operand in `compute_dtype`, kept in `t`'s dtype:
+    rounded to bfloat16 (round to nearest even) and back for 'bfloat16',
+    unchanged for 'float32'. A product of two bfloat16 values is exact in
+    float32, so rounding the operands and multiplying in float32 is the
+    reference's bf16 product with `preferred_element_type=float32`."""
+    if compute_dtype == "bfloat16":
+        return t.to(torch.bfloat16).to(t.dtype)
+    if compute_dtype == "float32":
+        return t
+    raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got "
+                     f"{compute_dtype!r}")
+
+
+def schulz_solve(A: torch.Tensor, b: torch.Tensor,
+                 iters: Optional[int] = None,
+                 compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Batched SPD solve by Newton-Schulz iteration — the plain version of
+    the CUDA kernel (the reference's `schulz_solve`). X0 = I/||A||_inf;
+    each step X <- 2X - X (A X) with both products on `compute_dtype`
+    operands (A rounded once, X before each product, A X before the
+    second) and sums in A's dtype; then x = X b and two refinements
+    x += X (b - A x) with the unrounded A and X. Never uses a bfloat16
+    matmul (on the CPU it returns bfloat16): rounds, then multiplies in
+    A's dtype."""
+    COUNTS.schulz_solve_plain += 1
+    R = A.shape[-1]
+    iters = iters or SCHULZ_ITERS
+    alpha = 1.0 / torch.clamp(A.abs().sum(dim=-1).amax(dim=-1), min=1e-30)
+    X = alpha[:, None, None] * torch.eye(R, dtype=A.dtype, device=A.device)
+    Ac = round_operand(A, compute_dtype)
+    for _ in range(iters):
+        Xc = round_operand(X, compute_dtype)
+        Y = torch.bmm(Ac, Xc)
+        X = 2.0 * X - torch.bmm(Xc, round_operand(Y, compute_dtype))
+    x = torch.bmm(X, b.unsqueeze(-1)).squeeze(-1)
+    for _ in range(2):
+        r = b - torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
+        x = x + torch.bmm(X, r.unsqueeze(-1)).squeeze(-1)
+    return x
+
+
+_schulz_ready = False
+
+
+def _schulz_lib() -> ctypes.CDLL:
+    global _schulz_ready
+    lib = _build.load("schulz_solve")
+    if not _schulz_ready:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pio_schulz_solve_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp,
+                                             vp]
+        lib.pio_schulz_solve_f32.restype = ci
+        lib.pio_schulz_workspace_floats.argtypes = [ci, ci, ci]
+        lib.pio_schulz_workspace_floats.restype = ctypes.c_longlong
+        lib.pio_schulz_max_rank.argtypes = []
+        lib.pio_schulz_max_rank.restype = ci
+        lib.pio_schulz_error_string.argtypes = [ci]
+        lib.pio_schulz_error_string.restype = ctypes.c_char_p
+        _schulz_ready = True
+    return lib
+
+
+def schulz_max_rank(device: torch.device) -> int:
+    """Largest R the Schulz kernel takes on `device` (its R x R product
+    AX must fit in one block's shared memory: 224 on an H100)."""
+    with torch.cuda.device(device):
+        R = _schulz_lib().pio_schulz_max_rank()
+    if R < 0:
+        raise RuntimeError(f"CUDA error {-R} querying shared memory")
+    return R
+
+
+def schulz_solve_cuda(A: torch.Tensor, b: torch.Tensor,
+                      iters: Optional[int] = None,
+                      compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Batched Newton-Schulz solve through the Hopper kernel
+    `csrc/schulz_solve.cu`.
+
+    A: [B, R, R] f32 contiguous SPD, b: [B, R] f32 contiguous, both on one
+    CUDA device, R up to `schulz_max_rank`; `iters` Schulz steps (None:
+    18); products on `compute_dtype` ('bfloat16' or 'float32') operands.
+    Returns x [B, R]. A CPU tensor takes the plain `schulz_solve`; any
+    other device raises."""
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return schulz_solve(A, b, iters, compute_dtype)
+    if A.device.type != "cuda" or b.device != A.device:
+        raise ValueError(f"schulz_solve_cuda needs A and b on one CUDA "
+                         f"device, got {A.device} and {b.device}")
+    if A.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"schulz_solve_cuda takes float32, got {A.dtype} "
+                        f"and {b.dtype}")
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or b.shape != A.shape[:2]:
+        raise ValueError(f"schulz_solve_cuda needs A [B,R,R] and b [B,R], "
+                         f"got {tuple(A.shape)} and {tuple(b.shape)}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("schulz_solve_cuda needs contiguous A and b")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    B, R = b.shape
+    iters = iters or SCHULZ_ITERS
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    max_rank = schulz_max_rank(A.device)
+    if R > max_rank:
+        raise ValueError(f"schulz_solve_cuda takes R <= {max_rank} (A X "
+                         f"must fit in shared memory), got {R}")
+    x = torch.empty_like(b)
+    if B == 0:
+        return x
+    lib = _schulz_lib()
+    bf16 = int(compute_dtype == "bfloat16")
+    with torch.cuda.device(A.device):
+        n = lib.pio_schulz_workspace_floats(B, R, bf16)
+        if n < 0:
+            raise RuntimeError(f"CUDA error {-n} sizing the Schulz "
+                               f"workspace at B={B} R={R}")
+        work = torch.empty(n, dtype=torch.float32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.pio_schulz_solve_f32(A.data_ptr(), b.data_ptr(),
+                                       x.data_ptr(), B, R, int(iters), bf16,
+                                       work.data_ptr(), stream)
+    if err != 0:
+        msg = lib.pio_schulz_error_string(err).decode()
+        raise RuntimeError(f"schulz_solve kernel launch failed at B={B} "
+                           f"R={R}: CUDA error {err} ({msg})")
+    COUNTS.schulz_solve += 1
+    return x
+
+
 def resolve_solver(method: str, device: torch.device) -> str:
     """'auto' -> 'cg_cuda' on a CUDA device, 'cholesky' on the CPU."""
     if method != "auto":
@@ -334,13 +478,18 @@ def resolve_solver(method: str, device: torch.device) -> str:
     return "cg_cuda" if torch.device(device).type == "cuda" else "cholesky"
 
 
-_PALLAS_COUNTERPART = {"cg_pallas": "cg_cuda", "chol_pallas": "chol_cuda"}
+_PALLAS_COUNTERPART = {"cg_pallas": "cg_cuda", "chol_pallas": "chol_cuda",
+                       "schulz_pallas": "schulz_cuda"}
 
 
 def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto",
-              iters: Optional[int] = None) -> torch.Tensor:
+              iters: Optional[int] = None,
+              compute_dtype: str = "bfloat16") -> torch.Tensor:
     """Batched SPD solve. method: 'auto' | 'cholesky' | 'cg' | 'cg_cuda' |
-    'chol_blocked' | 'chol_cuda'. `iters` is the CG iteration count."""
+    'chol_blocked' | 'chol_cuda' | 'schulz' | 'schulz_cuda'. `iters` is the
+    iterative solvers' step count, None for each one's own default (CG 48,
+    Schulz 18); `compute_dtype` the Schulz products' operand dtype, as in
+    the reference (bfloat16 unless the caller says otherwise)."""
     method = resolve_solver(method, A.device)
     if method == "cholesky":
         return cholesky_solve(A, b)
@@ -352,12 +501,11 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto",
         return chol_solve(A, b)
     if method == "chol_cuda":
         return chol_solve_cuda(A, b)
+    if method in ("schulz", "schulz_cuda"):
+        fn = schulz_solve if method == "schulz" else schulz_solve_cuda
+        return fn(A, b, iters or SCHULZ_ITERS, compute_dtype)
     if method in _PALLAS_COUNTERPART:
         raise ValueError(
             f"solver {method!r} is the TPU's Pallas kernel; on the card "
             f"use {_PALLAS_COUNTERPART[method]!r}")
-    if method in ("schulz", "schulz_pallas", "schulz_cuda"):
-        raise NotImplementedError(
-            f"solver {method!r} is not ported yet (ROADMAP.md queue B: the "
-            "Schulz kernel); use 'chol_cuda', 'cg_cuda' or 'cholesky'")
     raise ValueError(f"unknown solver {method!r}")

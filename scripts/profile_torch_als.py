@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_als.py [--template recommendation]
         [--rank 200] [--lam 0.01] [--alpha 1.0] [--seed 0]
+        [--solver auto] [--compute-dtype float32] [--sweep-chunk 0]
 
 Builds synthetic MovieLens-20M-shaped ratings (seeded) and trains them
 through the port's entry points, under `torch.profiler`, for 2
@@ -15,6 +16,12 @@ iterations:
   (counts), every item $set with synthetic categories, implicit ALS
   through the data source, preparator and `ALSAlgorithm.train` with
   solver 'chol_cuda', so every solve goes through the Cholesky kernel.
+
+`--solver`, `--compute-dtype` and `--sweep-chunk` override the
+template's solver and pass the algorithm params of the same names; the
+Schulz path is `--solver schulz_cuda --compute-dtype bfloat16
+--sweep-chunk 4` (every solve through the Newton-Schulz kernel, the
+normal equations' products on bf16 operands with f32 sums).
 
 Reads the second iteration from its `als_iteration` span (the first
 carries cuBLAS warm-up; the span also covers the implicit Grams and their
@@ -56,6 +63,8 @@ def kind_of(name: str) -> str:
         return "cg_solve kernel"
     if "chol_solve" in n:
         return "chol_solve kernel"
+    if "schulz_solve" in n:
+        return "schulz_solve kernel"
     if "syev" in n or "sytrd" in n or "stedc" in n or "ormtr" in n or \
             "orgtr" in n or "steqr" in n or "lapack" in n:
         return "eigh (cuSOLVER)"
@@ -106,7 +115,15 @@ def main() -> int:
     ap.add_argument("--lam", type=float, default=0.01)
     ap.add_argument("--alpha", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--solver", default=None,
+                    help="default: 'auto' (recommendation), 'chol_cuda' "
+                         "(similarproduct)")
+    ap.add_argument("--compute-dtype", default=None,
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--sweep-chunk", type=int, default=0)
     args = ap.parse_args()
+    extra = dict(compute_dtype=args.compute_dtype,
+                 sweep_chunk=args.sweep_chunk)
     resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -120,7 +137,7 @@ def main() -> int:
         pd = rec.RecommendationPreparator().prepare(td)
         algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(
             rank=args.rank, num_iterations=2, lam=args.lam, seed=args.seed,
-            solver="auto"))
+            solver=args.solver or "auto", **extra))
     else:
         cats = synthetic_item_categories(ML20M_ITEMS, seed=args.seed)
         items = {str(k): sp.Item(c, properties={"categories": list(c)})
@@ -132,7 +149,8 @@ def main() -> int:
         pd = sp.SimilarProductPreparator().prepare(td)
         algo = sp.ALSAlgorithm(sp.ALSAlgorithmParams(
             rank=args.rank, num_iterations=2, lam=args.lam,
-            alpha=args.alpha, seed=args.seed, solver="chol_cuda"))
+            alpha=args.alpha, seed=args.seed,
+            solver=args.solver or "chol_cuda", **extra))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -150,6 +168,9 @@ def main() -> int:
         "what": f"iteration 2 of a 2-iteration {args.template} "
                 "ALSAlgorithm.train (both half-sweeps)",
         "template": args.template, "rank": args.rank, "lam": args.lam,
+        "solver": algo.params.solver,
+        "compute_dtype": args.compute_dtype or "float32",
+        "sweep_chunk": args.sweep_chunk,
         "alpha": args.alpha if args.template == "similarproduct" else None,
         "solver_calls": tel["solver_calls"], "iter_s": tel["iter_s"],
         **second,

@@ -4,19 +4,26 @@
     python3 scripts/torch_als_rounding.py
 
 Trains `predictionio_tpu_torch`'s ALS on `small_ratings()` (the data of
-tests/test_torch_als.py, tests/test_torch_implicit.py and
-tests/test_torch_cuda.py: rank 16, 3 iterations, work budget 512, seed 2):
-explicit at lam 0.1 and 0.01 with solvers 'cg' and 'cholesky', and
-implicit (the values read as view counts, alpha 1, lam 0.01) with solvers
-'chol_cuda' and 'cholesky', with and without negative (dislike) entries.
-Prints one JSON line per case with the largest factor difference over the
-largest factor magnitude between:
+tests/test_torch_als.py, tests/test_torch_implicit.py,
+tests/test_torch_compute_dtype.py and tests/test_torch_cuda.py: rank 16,
+3 iterations, work budget 512, seed 2): explicit at lam 0.1 and 0.01 with
+solvers 'cg' and 'cholesky', and with 'schulz' at compute dtypes float32
+and bfloat16; implicit (the values read as view counts, alpha 1, lam
+0.01) with solvers 'chol_cuda' and 'cholesky', with and without negative
+(dislike) entries, and with 'schulz' at bfloat16. Prints one JSON line per
+case with the largest factor difference over the largest factor magnitude
+between:
 
 - `f32_vs_f64`: the float32 train and the float64 train on the CPU, the
-  size of float32 rounding for this data;
+  size of float32 rounding for this data (with bfloat16 compute both
+  round the same operands to bf16, so it is what the order of the f32
+  sums moves through those roundings);
 - `card_vs_cpu` (only where a CUDA card is present): the float32 train on
   the card (every solve through the kernel: CG for explicit, Cholesky for
-  implicit) and on the CPU.
+  implicit, Schulz for the Schulz cases) and on the CPU.
+
+A train whose sentinel finds non-finite factors prints `diverged` instead
+(explicit Schulz at lam 0.01 and bfloat16 does, as the reference's does).
 
 The parity tests take their tolerances from these readings. A card
 reading is printed with the card's name and power limit.
@@ -36,6 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from predictionio_tpu_torch.data.synthetic import small_ratings  # noqa: E402
+from predictionio_tpu_torch.guard.sentinels import NumericalFault  # noqa
 from predictionio_tpu_torch.ops import als as A  # noqa: E402
 from predictionio_tpu_torch.ops.ratings import RatingsCOO  # noqa: E402
 
@@ -51,7 +59,10 @@ def spread(m, ref) -> float:
 def reading(coo, kw, card_solver, smi) -> dict:
     """f32 vs f64 on the CPU; card vs CPU with `card_solver` on the card
     when there is a card and a solver to run there."""
-    f32 = A.als_train(coo, A.ALSConfig(**kw), device="cpu")
+    try:
+        f32 = A.als_train(coo, A.ALSConfig(**kw), device="cpu")
+    except NumericalFault as fault:
+        return {"diverged": str(fault)}
     f64 = A.als_train(coo, A.ALSConfig(dtype="float64", **kw), device="cpu")
     out = {"f32_vs_f64": spread(f32, f64)}
     if smi is not None and card_solver is not None:
@@ -79,6 +90,12 @@ def main() -> int:
             card_solver = "auto" if solver == "cg" else None
             print(json.dumps({**line, **reading(coo, kw, card_solver,
                                                 smi)}), flush=True)
+        for cd in ("float32", "bfloat16"):
+            kw = dict(rank=16, iterations=3, lam=lam, seed=2,
+                      work_budget=512, solver="schulz", compute_dtype=cd)
+            line = {"lam": lam, "solver": "schulz", "compute_dtype": cd}
+            print(json.dumps({**line, **reading(coo, kw, "schulz_cuda",
+                                                smi)}), flush=True)
     for negatives in (False, True):
         vals = coo.rating.copy()
         if negatives:
@@ -94,6 +111,13 @@ def main() -> int:
             card_solver = "chol_cuda" if solver == "chol_cuda" else None
             print(json.dumps({**line, **reading(data, kw, card_solver,
                                                 smi)}), flush=True)
+    kw = dict(rank=16, iterations=3, lam=0.01, seed=2, work_budget=512,
+              solver="schulz", compute_dtype="bfloat16",
+              implicit_prefs=True, alpha=1.0)
+    line = {"implicit": True, "negatives": False, "lam": 0.01,
+            "alpha": 1.0, "solver": "schulz", "compute_dtype": "bfloat16"}
+    print(json.dumps({**line, **reading(coo, kw, "schulz_cuda", smi)}),
+          flush=True)
     return 0
 
 

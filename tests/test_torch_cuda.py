@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: each held against its plain PyTorch
 version, and the ALS trains (explicit through the CG kernel, implicit
-through the Cholesky kernel) on the card against the same trains on the
-CPU.
+through the Cholesky kernel, explicit and implicit at bf16 compute through
+the Schulz kernel) on the card against the same trains on the CPU.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -205,3 +205,92 @@ def test_implicit_train_on_the_card_goes_through_the_chol_kernel(cuda,
     for a, b in ((on_cpu.user_factors, on_card.user_factors),
                  (on_cpu.item_factors, on_card.item_factors)):
         assert np.abs(a - b).max() <= IMPLICIT_FACTOR_TOL * np.abs(a).max()
+
+
+def factor_spread(m, ref):
+    """max |m - ref| over max |ref|, across both factor tables."""
+    return max(float(np.abs(a.astype(np.float64) - b).max()
+                     / np.abs(b).max())
+               for a, b in ((m.user_factors, ref.user_factors),
+                            (m.item_factors, ref.item_factors)))
+
+
+def schulz_tolerance(A, b, iters, cd):
+    """max(1e-4, 4x the plain Schulz's f32-vs-f64-sum reading)."""
+    x32 = T.schulz_solve(A, b, iters, cd)
+    rounding = rel(x32.double(),
+                   T.schulz_solve(A.double(), b.double(), iters, cd))
+    return x32, max(1e-4, 4 * rounding)
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("R,B,iters", [(200, 9, 18), (176, 5, 184),
+                                       (27, 33, 18), (8, 65, 16),
+                                       (5, 7, 13)])
+def test_schulz_kernel_matches_plain(cuda, R, B, iters, cd):
+    """At checkpoints 1, 2, 5 and `iters` steps (before convergence a
+    wrong step shows directly): the primal R = 200, the path's K = 176
+    and K = 8 duals, R = 27 (not a multiple of 8) and R = 5."""
+    A, b = hard_systems(B, R, seed=R + 11, device=cuda)
+    for k in sorted({1, 2, 5, iters}):
+        xk = T.schulz_solve_cuda(A, b, k, cd)
+        torch.cuda.synchronize()
+        xp, tol = schulz_tolerance(A, b, k, cd)
+        assert torch.isfinite(xk).all()
+        assert rel(xk, xp) <= tol
+
+
+def test_schulz_kernel_padding_and_empty_batch(cuda):
+    for R in (8, 27, 200):
+        A = (0.01 * torch.eye(R, device=cuda)).expand(4, R, R).contiguous()
+        for cd in ("bfloat16", "float32"):
+            x = T.schulz_solve_cuda(A, torch.zeros(4, R, device=cuda), 18,
+                                    cd)
+            assert torch.equal(x, torch.zeros_like(x))
+    x = T.schulz_solve_cuda(torch.zeros(0, 8, 8, device=cuda),
+                            torch.zeros(0, 8, device=cuda))
+    assert x.shape == (0, 8)
+
+
+def test_schulz_kernel_is_deterministic(cuda):
+    A, b = hard_systems(40, 64, seed=5, device=cuda)
+    assert torch.equal(T.schulz_solve_cuda(A, b, 20),
+                       T.schulz_solve_cuda(A, b, 20))
+
+
+def test_schulz_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    A, b = hard_systems(2, 16, seed=0, device=cuda)
+    with pytest.raises(TypeError):
+        T.schulz_solve_cuda(A.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        T.schulz_solve_cuda(A.transpose(1, 2), b)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        T.schulz_solve_cuda(A, b, 18, "float16")
+    R = T.schulz_max_rank(cuda) + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        T.schulz_solve_cuda(torch.eye(R, device=cuda)[None].contiguous(),
+                            torch.zeros(1, R, device=cuda))
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_bf16_schulz_train_on_the_card_goes_through_the_kernel(cuda,
+                                                               implicit):
+    """Every solve, primal and dual, is a launch of the Schulz kernel; the
+    factors match the same train on the CPU (the plain Schulz) within 4x
+    the CPU train's own f32-vs-f64 reading (never below 1e-4)."""
+    coo = RatingsCOO(*small_ratings())
+    kw = dict(rank=16, iterations=3, lam=0.1 if not implicit else 0.01,
+              work_budget=512, seed=2, solver="schulz_cuda",
+              compute_dtype="bfloat16", sweep_chunk=4,
+              implicit_prefs=implicit)
+    T.COUNTS.reset()
+    tel = {}
+    on_card = TA.als_train(coo, TA.ALSConfig(**kw), device=cuda,
+                           telemetry=tel)
+    assert T.COUNTS.schulz_solve == tel["solver_calls"] > 0
+    assert T.COUNTS.schulz_solve_plain == T.COUNTS.cg_solve == 0
+    on_cpu = TA.als_train(coo, TA.ALSConfig(**kw), device="cpu")
+    f64 = TA.als_train(coo, TA.ALSConfig(dtype="float64", **kw),
+                       device="cpu")
+    tol = max(1e-4, 4 * factor_spread(on_cpu, f64))
+    assert factor_spread(on_card, on_cpu) <= tol

@@ -134,24 +134,39 @@ def test_resolve_solver_by_device():
 
 
 def test_spd_solve_rejects_unported_and_unknown_methods():
-    """The dispatch: the two Cholesky names solve, the TPU's Pallas names
-    raise a ValueError naming their CUDA counterparts, Schulz is still to
-    port (ROADMAP.md queue B) and raises NotImplementedError."""
+    """The dispatch: the two Cholesky names and the two Schulz names
+    solve, the TPU's Pallas names raise a ValueError naming their CUDA
+    counterparts, and an unknown name raises. Nothing is left unported."""
     A, b = als_like(2, 10, 8, seed=0)
     A, b = torch.from_numpy(A), torch.from_numpy(b)
     truth = T.cholesky_solve(A.double(), b.double()).float()
-    for method in ("chol_cuda", "chol_blocked"):
+    for method in ("chol_cuda", "chol_blocked", "schulz", "schulz_cuda"):
         torch.testing.assert_close(T.spd_solve(A, b, method=method), truth,
                                    rtol=2e-3, atol=2e-4)
     for method, cuda in (("cg_pallas", "cg_cuda"),
-                         ("chol_pallas", "chol_cuda")):
+                         ("chol_pallas", "chol_cuda"),
+                         ("schulz_pallas", "schulz_cuda")):
         with pytest.raises(ValueError, match=cuda):
-            T.spd_solve(A, b, method=method)
-    for method in ("schulz", "schulz_pallas", "schulz_cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.spd_solve(A, b, method=method)
     with pytest.raises(ValueError):
         T.spd_solve(A, b, method="qr")
+
+
+@pytest.mark.parametrize("method", ["schulz", "schulz_cuda"])
+def test_spd_solve_resolves_each_solvers_own_step_count(method,
+                                                        monkeypatch):
+    """`iters=None` reaches a Schulz solver as its own default, 18 steps
+    (the reference's `_schulz_iters_default`), never CG's 48; an explicit
+    count and the compute dtype pass through unchanged."""
+    seen = []
+    for name in ("schulz_solve", "schulz_solve_cuda"):
+        monkeypatch.setattr(
+            T, name, lambda A, b, iters, cd: seen.append((iters, cd)) or b)
+    A, b = als_like(2, 10, 8, seed=0)
+    A, b = torch.from_numpy(A), torch.from_numpy(b)
+    T.spd_solve(A, b, method=method)
+    T.spd_solve(A, b, method=method, iters=13, compute_dtype="float32")
+    assert seen == [(18, "bfloat16"), (13, "float32")]
 
 
 def test_cuda_wrapper_never_falls_back_off_the_cpu():
