@@ -84,9 +84,13 @@ SCHULZ_STEPS = 18         # the primal Schulz solve's own default
 SCHULZ_KERNEL_TOL = 1e-4  # Schulz kernel vs its plain version: the floor
 #                           of max(., ROUNDING_FACTOR x the plain version's
 #                           f32-vs-f64-sum reading), per shape and checkpoint
-SCHULZ_DUAL_SHAPES = ((8, 4375), (176, 5957))   # (K, B): the Schulz path's
-#                           smallest-K and largest-work dual batches at the
-#                           ML-20M shape (tests/test_torch_compute_dtype.py)
+SCHULZ_DUAL_SHAPES = ((8, 4375), (176, 5957),   # (K, B): the Schulz path's
+                      (56, 9053), (120, 6323),  # dual batches at the ML-20M
+                      (144, 6778))              # shape: the smallest K, the
+#                           two largest-work batches (176 and 144, 49 % of
+#                           the path's flops), and K = 56 and 120, padded to
+#                           64 and 128 in the bf16 kernel's geometries
+#                           (tests/test_torch_compute_dtype.py)
 PLAN_BATCHES = 98         # solver calls per iteration at the ML-20M shape
 #                           (33 user + 65 item batches, 98 distinct shapes,
 #                           so sweep chunk 4 merges none)
@@ -969,16 +973,49 @@ def hold_schulz(A: torch.Tensor, b: torch.Tensor, iters: int, cd: str,
     return out
 
 
+def sass_tensor_core_check() -> dict:
+    """The bf16 Schulz kernel's SASS (`cuobjdump --dump-sass` of the built
+    library, the `cuobjdump` beside `nvcc`) must hold tensor-core MMA
+    instructions (HMMA or HGMMA) in every bf16 instantiation. Returns the
+    count per kernel function; fails the run otherwise."""
+    from pathlib import Path
+    from predictionio_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass",
+                          str(_build.library_path("schulz_solve"))],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    mma = {f: n for f, n in counts.items() if "schulz_solve_mma" in f}
+    fma = {f: n for f, n in counts.items() if "schulz_solve_fma" in f}
+    emit("schulz_sass", tensor_core_instructions_bf16=mma,
+         tensor_core_instructions_f32=fma)
+    check(len(mma) > 0, "no bf16 Schulz kernel in the library's SASS")
+    for f, n in mma.items():
+        check(n > 0, f"the bf16 Schulz kernel {f} has no HMMA/HGMMA "
+              "instruction: it does not run on the tensor cores")
+    return mma
+
+
 def phase_schulz_kernel() -> dict:
     """The Schulz kernel at the Schulz path's shapes: the primal R = rank
     with 18 steps in both compute dtypes, the path's dual extremes
     (K + 8 steps, bf16 as every dual solve), an odd B and an R that is
     not a multiple of 8, on systems whose spectrum spreads over ~1e3-1e4
     (`hard_systems`). Each shape is timed (the kernel, the plain version
-    and `torch.linalg.solve`) beside its bound."""
+    and `torch.linalg.solve`) beside its bound, with the kernel's
+    achieved TFLOP/s and its share of the bound. The bf16 kernel's SASS
+    must hold tensor-core instructions."""
     from predictionio_tpu_torch.ops.solve import (schulz_max_rank,
                                                   schulz_solve,
                                                   schulz_solve_cuda)
+    sass = sass_tensor_core_check()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     B0 = WORK_BUDGET // RANK
@@ -989,6 +1026,7 @@ def phase_schulz_kernel() -> dict:
                (27, 4099, SCHULZ_STEPS, "bfloat16")]
     rows = []
     for R, B, iters, cd in shapes:
+        t_row = time.perf_counter()
         A, b = hard_systems(B, R, gen)
         row = {"R": R, "B": B, "iters": iters, "compute_dtype": cd,
                **hold_schulz(A, b, iters, cd,
@@ -1005,11 +1043,14 @@ def phase_schulz_kernel() -> dict:
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
         row["bytes"], row["flops"] = nbytes, flops
+        row["achieved_tflops"] = flops / row["kernel_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         row["rates"] = BF16_RATE_NOTE if bf16 else RATE_NOTE
+        row["row_s"] = time.perf_counter() - t_row
         emit("schulz_kernel", **row)
         rows.append(row)
         del A, b
-    for R in (RANK, 27):        # plan padding rows: A = reg*I, b = 0
+    for R in (RANK, 120, 27, 16):   # plan padding rows: A = reg*I, b = 0
         A = (LAM * torch.eye(R, device="cuda")).expand(3, R, R).contiguous()
         for cd in ("bfloat16", "float32"):
             x0 = schulz_solve_cuda(A, torch.zeros(3, R, device="cuda"),
@@ -1023,9 +1064,10 @@ def phase_schulz_kernel() -> dict:
           "the primal systems are too well conditioned to hold the "
           "half-steps fault")
     emit("schulz_kernel_padding", exact_zero=True, empty_batch=True,
-         max_rank=schulz_max_rank(torch.device("cuda")))
+         max_rank={cd: schulz_max_rank(torch.device("cuda"), cd)
+                   for cd in ("bfloat16", "float32")})
     torch.cuda.empty_cache()
-    return {"rows": rows}
+    return {"rows": rows, "sass": sass}
 
 
 def phase_schulz_train(pd, cg_rmse):

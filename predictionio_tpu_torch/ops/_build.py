@@ -98,6 +98,11 @@ def build_all(names: Iterable[str] = None) -> dict:
     return secs
 
 
+def library_path(name: str) -> Path:
+    """Where the library built from `csrc/<name>.cu` by this tree lives."""
+    return _target(name)
+
+
 def build_log(name: str) -> str:
     """`nvcc`'s output (ptxas register/shared-memory/spill report) for the
     current build of `name`, or '' when it was not built by this tree."""

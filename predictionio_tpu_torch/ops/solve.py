@@ -395,7 +395,7 @@ def _schulz_lib() -> ctypes.CDLL:
         lib.pio_schulz_solve_f32.restype = ci
         lib.pio_schulz_workspace_floats.argtypes = [ci, ci, ci]
         lib.pio_schulz_workspace_floats.restype = ctypes.c_longlong
-        lib.pio_schulz_max_rank.argtypes = []
+        lib.pio_schulz_max_rank.argtypes = [ci]
         lib.pio_schulz_max_rank.restype = ci
         lib.pio_schulz_error_string.argtypes = [ci]
         lib.pio_schulz_error_string.restype = ctypes.c_char_p
@@ -403,11 +403,15 @@ def _schulz_lib() -> ctypes.CDLL:
     return lib
 
 
-def schulz_max_rank(device: torch.device) -> int:
-    """Largest R the Schulz kernel takes on `device` (its R x R product
-    AX must fit in one block's shared memory: 224 on an H100)."""
+def schulz_max_rank(device: torch.device,
+                    compute_dtype: str = "bfloat16") -> int:
+    """Largest R the Schulz kernel takes on `device` in `compute_dtype`:
+    bfloat16, R padded to 16 at most 208 (rnd(X) and Y in one block's
+    shared memory, rnd(A) in registers); float32, its R x R product A X in
+    one block's shared memory (224 on an H100)."""
     with torch.cuda.device(device):
-        R = _schulz_lib().pio_schulz_max_rank()
+        R = _schulz_lib().pio_schulz_max_rank(
+            int(compute_dtype == "bfloat16"))
     if R < 0:
         raise RuntimeError(f"CUDA error {-R} querying shared memory")
     return R
@@ -444,10 +448,11 @@ def schulz_solve_cuda(A: torch.Tensor, b: torch.Tensor,
     iters = iters or SCHULZ_ITERS
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
-    max_rank = schulz_max_rank(A.device)
+    max_rank = schulz_max_rank(A.device, compute_dtype)
     if R > max_rank:
-        raise ValueError(f"schulz_solve_cuda takes R <= {max_rank} (A X "
-                         f"must fit in shared memory), got {R}")
+        raise ValueError(f"schulz_solve_cuda takes R <= {max_rank} in "
+                         f"{compute_dtype} (its working set must fit in "
+                         f"shared memory), got {R}")
     x = torch.empty_like(b)
     if B == 0:
         return x

@@ -311,12 +311,10 @@ def test_template_params_reach_the_train(module, monkeypatch):
         ("float32", 0, "auto"), ("bfloat16", 4, "schulz_cuda")]
 
 
-def test_ml20m_plan_has_98_distinct_shapes_per_iteration():
-    """The headline shape (synthetic ML-20M, `latest` dedup, work budget
-    1M): 33 user-side and 65 item-side batches, every one of its own
-    shape, so `sweep_chunk=4` merges nothing there and the Schulz path
-    makes 98 solver calls per iteration. The shapes chip_smoke.py holds
-    the Schulz kernel at are the path's own."""
+@pytest.fixture(scope="module")
+def ml20m_plans():
+    """The headline shape's solve plans, built once for this module:
+    synthetic ML-20M, `latest` dedup, work budget 1M (~11 s, ~2 GB)."""
     n_users, n_items = 138_493, 26_744
     u, i, v = synthetic_ml20m(n_users, n_items, 20_000_000, seed=0)
     # every id occurs, so the preparator's sorted vocabularies are the
@@ -324,9 +322,18 @@ def test_ml20m_plan_has_98_distinct_shapes_per_iteration():
     assert np.bincount(i, minlength=n_items).min() > 0
     ui, ii, vals = dedup_ratings(u, i, v, None, "latest")
     coo = TCOO(ui, ii, vals, n_users, n_items)
+    return (coo, plan_for_users(coo, work_budget=1 << 20),
+            plan_for_items(coo, work_budget=1 << 20))
+
+
+def test_ml20m_plan_has_98_distinct_shapes_per_iteration(ml20m_plans):
+    """The headline shape (synthetic ML-20M, `latest` dedup, work budget
+    1M): 33 user-side and 65 item-side batches, every one of its own
+    shape, so `sweep_chunk=4` merges nothing there and the Schulz path
+    makes 98 solver calls per iteration. The shapes chip_smoke.py holds
+    the Schulz kernel at are the path's own."""
+    coo, pu, pi = ml20m_plans
     assert coo.nnz == 11_305_133
-    pu = plan_for_users(coo, work_budget=1 << 20)
-    pi = plan_for_items(coo, work_budget=1 << 20)
     assert (len(pu.batches), len(pi.batches)) == (33, 65)
     shapes = [b.shape for b in pu.batches + pi.batches]
     assert len(set(shapes)) == 98
@@ -336,3 +343,27 @@ def test_ml20m_plan_has_98_distinct_shapes_per_iteration():
                                                                        208)
     assert max((b.shape for b in pi.batches if b.shape[1] < 200),
                key=lambda s: s[0]) == (2966, 48)
+
+
+def test_chip_smoke_schulz_shapes_are_the_path_duals(ml20m_plans):
+    """Every (K, B) at which chip_smoke.py holds the Schulz kernel is a
+    dual batch of the ML-20M plan (K < rank 200), and they include the
+    two batches that carry half of the Schulz path's flops, (5,957, 176)
+    and (6,778, 144), by 4 steps R^3 per system with K + 8 steps."""
+    import chip_smoke
+    _, pu, pi = ml20m_plans
+    duals = {(b.shape[1], b.shape[0]) for b in pu.batches + pi.batches
+             if b.shape[1] < chip_smoke.RANK}
+    held = set(chip_smoke.SCHULZ_DUAL_SHAPES)
+    assert held <= duals
+    assert {(176, 5957), (144, 6778)} <= held
+
+    def flops(K, B, steps):
+        return 4 * steps * K ** 3 * B
+
+    R = chip_smoke.RANK   # a primal batch (K >= R) solves R x R systems
+    total = sum(flops(R, B, chip_smoke.SCHULZ_STEPS) if K >= R
+                else flops(K, B, K + 8)
+                for B, K in (b.shape for b in pu.batches + pi.batches))
+    top2 = flops(176, 5957, 184) + flops(144, 6778, 152)
+    assert 0.45 < top2 / total < 0.55, top2 / total

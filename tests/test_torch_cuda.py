@@ -226,11 +226,15 @@ def schulz_tolerance(A, b, iters, cd):
 @pytest.mark.parametrize("cd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("R,B,iters", [(200, 9, 18), (176, 5, 184),
                                        (27, 33, 18), (8, 65, 16),
-                                       (5, 7, 13)])
+                                       (5, 7, 13), (16, 41, 24),
+                                       (32, 19, 40), (56, 11, 64),
+                                       (120, 6, 128), (144, 5, 152)])
 def test_schulz_kernel_matches_plain(cuda, R, B, iters, cd):
     """At checkpoints 1, 2, 5 and `iters` steps (before convergence a
-    wrong step shows directly): the primal R = 200, the path's K = 176
-    and K = 8 duals, R = 27 (not a multiple of 8) and R = 5."""
+    wrong step shows directly): the primal R = 200, the path's duals
+    K = 8, 16, 32, 56, 120, 144 and 176 with K + 8 steps (the bf16
+    kernel's packed, shared-memory-master and workspace-master
+    geometries), R = 27 (not a multiple of 8 or 16) and R = 5."""
     A, b = hard_systems(B, R, seed=R + 11, device=cuda)
     for k in sorted({1, 2, 5, iters}):
         xk = T.schulz_solve_cuda(A, b, k, cd)
@@ -241,7 +245,10 @@ def test_schulz_kernel_matches_plain(cuda, R, B, iters, cd):
 
 
 def test_schulz_kernel_padding_and_empty_batch(cuda):
-    for R in (8, 27, 200):
+    """Plan padding systems solve to exactly 0 in every geometry: packed
+    (R = 8, 16, 27), master X in shared memory (120) and in the
+    workspace (200)."""
+    for R in (8, 16, 27, 120, 200):
         A = (0.01 * torch.eye(R, device=cuda)).expand(4, R, R).contiguous()
         for cd in ("bfloat16", "float32"):
             x = T.schulz_solve_cuda(A, torch.zeros(4, R, device=cuda), 18,
@@ -252,10 +259,14 @@ def test_schulz_kernel_padding_and_empty_batch(cuda):
     assert x.shape == (0, 8)
 
 
-def test_schulz_kernel_is_deterministic(cuda):
-    A, b = hard_systems(40, 64, seed=5, device=cuda)
-    assert torch.equal(T.schulz_solve_cuda(A, b, 20),
-                       T.schulz_solve_cuda(A, b, 20))
+@pytest.mark.parametrize("R,B", [(64, 40), (176, 140), (200, 140)])
+def test_schulz_kernel_is_deterministic(cuda, R, B):
+    """Bitwise equal over two calls, at R = 176 and 200 (the bf16 master X
+    in the L2-resident workspace) with more systems than SMs."""
+    A, b = hard_systems(B, R, seed=5, device=cuda)
+    for cd in ("bfloat16", "float32"):
+        assert torch.equal(T.schulz_solve_cuda(A, b, 20, cd),
+                           T.schulz_solve_cuda(A, b, 20, cd))
 
 
 def test_schulz_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -266,10 +277,12 @@ def test_schulz_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         T.schulz_solve_cuda(A.transpose(1, 2), b)
     with pytest.raises(ValueError, match="compute_dtype"):
         T.schulz_solve_cuda(A, b, 18, "float16")
-    R = T.schulz_max_rank(cuda) + 1
-    with pytest.raises(ValueError, match="shared memory"):
-        T.schulz_solve_cuda(torch.eye(R, device=cuda)[None].contiguous(),
-                            torch.zeros(1, R, device=cuda))
+    assert T.schulz_max_rank(cuda, "bfloat16") >= 200
+    for cd in ("bfloat16", "float32"):
+        R = T.schulz_max_rank(cuda, cd) + 1
+        with pytest.raises(ValueError, match="shared memory"):
+            T.schulz_solve_cuda(torch.eye(R, device=cuda)[None].contiguous(),
+                                torch.zeros(1, R, device=cuda), 18, cd)
 
 
 @pytest.mark.parametrize("implicit", [False, True])
