@@ -91,6 +91,18 @@ SCHULZ_DUAL_SHAPES = ((8, 4375), (176, 5957),   # (K, B): the Schulz path's
 #                           the path's flops), and K = 56 and 120, padded to
 #                           64 and 128 in the bf16 kernel's geometries
 #                           (tests/test_torch_compute_dtype.py)
+# (R, B, iters) of the CG kernel phase: the primal, the duals K (K + 8
+# steps; K = 8 and 24 take the warp geometry, the rest registers), an odd
+# B, and R = 256 (the stream kernel reading A from global memory)
+CG_KERNEL_SHAPES = ([(RANK, WORK_BUDGET // RANK, 48)]
+                    + [(k, WORK_BUDGET // k, k + 8)
+                       for k in (8, 24, 56, 144, 192)]
+                    + [(RANK, 1001, 48), (256, 129, 48)])
+# (R, B) of the Cholesky kernel phase: the primal, the duals (K = 8 and 24
+# packed, 8 a block), an odd B, and R % 8 != 0 (packed)
+CHOL_KERNEL_SHAPES = ([(RANK, WORK_BUDGET // RANK)]
+                      + [(k, WORK_BUDGET // k) for k in (8, 24, 56, 144, 192)]
+                      + [(RANK, 1001), (27, 4099)])
 PLAN_BATCHES = 98         # solver calls per iteration at the ML-20M shape
 #                           (33 user + 65 item batches, 98 distinct shapes,
 #                           so sweep chunk 4 merges none)
@@ -244,6 +256,29 @@ def hold_kernel(A: torch.Tensor, b: torch.Tensor, iters: int,
     return out
 
 
+def ptxas_functions(log: str) -> dict:
+    """{kernel function: {"registers", "spill_stores", "spill_loads"}} from
+    `nvcc -Xptxas -v` output (its "Function properties for F" line, the
+    spill line below it, then F's "Used N registers" line)."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_device() -> dict:
     from predictionio_tpu_torch.ops import _build
     from predictionio_tpu_torch.device import resolve_device
@@ -252,8 +287,7 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     per_source = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_functions(_build.build_log(name))
              for name in per_source}
     info = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -265,24 +299,29 @@ def phase_device() -> dict:
 
 def phase_kernel() -> dict:
     """Kernel vs plain vs Cholesky at the main path's shapes, with the
-    reading of two planted faults to show that the check can see them."""
-    from predictionio_tpu_torch.ops.solve import (cg_solve, cg_solve_cuda,
-                                                  cg_uses_shared_memory,
+    reading of two planted faults to show that the check can see them, at
+    CG_KERNEL_SHAPES."""
+    from predictionio_tpu_torch.ops.solve import (cg_device_geometry,
+                                                  cg_geometry,
+                                                  cg_smem_optin, cg_solve,
+                                                  cg_solve_cuda,
                                                   cholesky_solve)
+    optin = cg_smem_optin()
+    mirror = [R for R in range(1, 2049)
+              if cg_geometry(R, optin) != cg_device_geometry(R)]
+    check(not mirror, f"ops/solve.py:cg_geometry differs from the kernel's "
+          f"own choice at R = {mirror[:8]}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = [(RANK, WORK_BUDGET // RANK, 48)]                   # primal
-    shapes += [(k, WORK_BUDGET // k, k + 8)
-               for k in (8, 24, 56, 144, 192)]                  # dual
-    shapes += [(RANK, 1001, 48),                                 # odd B
-               (256, 129, 48)]                       # global-memory branch
     rows = []
-    for R, B, iters in shapes:
+    for R, B, iters in CG_KERNEL_SHAPES:
         A, b = hard_systems(B, R, gen)
         row = {"R": R, "B": B, "iters": iters,
-               "a_in_shared_memory": cg_uses_shared_memory(R),
+               "geometry": cg_device_geometry(R),
                **hold_kernel(A, b, iters, f"kernel phase R={R} B={B}")}
         xk, xc = cg_solve_cuda(A, b, iters), cholesky_solve(A, b)
+        row["bitwise_repeat"] = bool(torch.equal(
+            xk, cg_solve_cuda(A, b, iters)))
         row["kernel_vs_cholesky_rel"] = rel_err(xk, xc)
         row["plain_vs_cholesky_rel"] = rel_err(cg_solve(A, b, iters), xc)
         row.update(
@@ -293,17 +332,24 @@ def phase_kernel() -> dict:
         nbytes, flops = cg_cost(B, R, iters)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
         row["bytes"], row["flops"], row["rates"] = nbytes, flops, RATE_NOTE
+        row["achieved_tflops"] = flops / row["kernel_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         emit("kernel", **row)
+        check(row["bitwise_repeat"], f"two CG kernel launches differ at "
+              f"R={R} B={B}")
         # the issue's bar on these systems: 1e-4 whatever rounding reads
         check(row["max_rel_err"] <= KERNEL_REL_TOL,
               f"kernel vs plain CG rel err {row['max_rel_err']:.3g} > "
               f"{KERNEL_REL_TOL} at R={R} B={B}")
         rows.append(row)
         del A, b, xk, xc
-    # plan padding rows: A = reg*I, b = 0 must solve to exactly 0
-    A = (LAM * torch.eye(RANK, device="cuda")).expand(3, RANK, RANK)
-    x0 = cg_solve_cuda(A.contiguous(), torch.zeros(3, RANK, device="cuda"))
-    check(bool((x0 == 0).all()), "padding systems did not solve to 0")
+    # plan padding rows: A = reg*I, b = 0 must solve to exactly 0, in
+    # every geometry
+    for R in (RANK, 8, 27, 56, 232, 256):
+        A = (LAM * torch.eye(R, device="cuda")).expand(3, R, R)
+        x0 = cg_solve_cuda(A.contiguous(), torch.zeros(3, R, device="cuda"))
+        check(bool((x0 == 0).all()), f"padding systems (R={R}, "
+              f"{cg_device_geometry(R)}) did not solve to 0")
     emit("kernel_padding", exact_zero=True)
     torch.cuda.empty_cache()
     return {"rows": rows}
@@ -575,21 +621,34 @@ def phase_chol_kernel() -> dict:
     and the eig-SMW dual K < rank, B = work budget / K), an odd B and an R
     that is not a multiple of 8, on systems whose spectrum spreads over
     ~1e3-1e4 (`hard_systems`)."""
-    from predictionio_tpu_torch.ops.solve import (chol_max_rank, chol_solve,
-                                                  chol_solve_cuda)
+    from predictionio_tpu_torch.ops.solve import (chol_device_threads,
+                                                  chol_layout,
+                                                  chol_max_rank,
+                                                  chol_rank_limit,
+                                                  chol_solve,
+                                                  chol_solve_cuda,
+                                                  cg_smem_optin)
+    max_rank = chol_max_rank(torch.device("cuda"))
+    check(max_rank == chol_rank_limit(cg_smem_optin()),
+          f"the Cholesky kernel takes R <= {max_rank}, ops/solve.py:"
+          f"chol_rank_limit says {chol_rank_limit(cg_smem_optin())}")
+    mirror = [R for R in range(1, max_rank + 1)
+              if chol_layout(R)[1] != chol_device_threads(R)]
+    check(not mirror, f"ops/solve.py:chol_layout's threads differ from the "
+          f"kernel's at R = {mirror[:8]}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    shapes = [(RANK, WORK_BUDGET // RANK)]                      # primal
-    shapes += [(k, WORK_BUDGET // k) for k in (8, 24, 56, 144, 192)
-               if k < RANK]                                     # dual
-    shapes += [(RANK, 1001), (27, 4099)]       # odd B; R % 8 != 0
     rows = []
-    for R, B in shapes:
+    for R, B in CHOL_KERNEL_SHAPES:
         A, b = hard_systems(B, R, gen)
         held, _ = hold_chol(A, b, f"chol phase R={R} B={B}",
                             CHOL_FAULTS)
         cond = torch.linalg.cond(A[:8].double())
-        row = {"R": R, "B": B, **held,
+        geometry, threads, per_block, smem = chol_layout(R)
+        row = {"R": R, "B": B, "geometry": geometry, "threads": threads,
+               "systems_per_block": per_block, "smem_bytes": smem, **held,
+               "bitwise_repeat": bool(torch.equal(chol_solve_cuda(A, b),
+                                                  chol_solve_cuda(A, b))),
                "cond_of_8": [float(cond.min()), float(cond.max())],
                "kernel_ms": cuda_ms(lambda: chol_solve_cuda(A, b), 5),
                "plain_ms": cuda_ms(lambda: chol_solve(A, b), 2),
@@ -598,7 +657,11 @@ def phase_chol_kernel() -> dict:
         nbytes, flops = chol_cost(B, R)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
         row["bytes"], row["flops"], row["rates"] = nbytes, flops, RATE_NOTE
+        row["achieved_tflops"] = flops / row["kernel_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         emit("chol_kernel", **row)
+        check(row["bitwise_repeat"], f"two Cholesky kernel launches differ "
+              f"at R={R} B={B}")
         rows.append(row)
         del A, b
     for R in (RANK, 27):        # plan padding rows: A = reg*I, b = 0
@@ -606,8 +669,7 @@ def phase_chol_kernel() -> dict:
         x0 = chol_solve_cuda(A, torch.zeros(3, R, device="cuda"))
         check(bool((x0 == 0).all()), f"padding systems (R={R}) did not "
               "solve to exactly 0")
-    emit("chol_kernel_padding", exact_zero=True,
-         max_rank=chol_max_rank(torch.device("cuda")))
+    emit("chol_kernel_padding", exact_zero=True, max_rank=max_rank)
     torch.cuda.empty_cache()
     return {"rows": rows}
 
@@ -697,6 +759,15 @@ def implicit_resolve_check(algo, model, td) -> None:
     _, _, coo = algo._build_ratings(td)
     U = torch.tensor(model.user_factors, device="cuda")
     V = torch.tensor(model.item_factors_raw, device="cuda")
+    # the fit on 100k observed pairs: predicted preference u.v against 1
+    sample = torch.from_numpy(np.random.default_rng(1).choice(
+        coo.nnz, min(100_000, coo.nnz), replace=False)).cuda()
+    pred = (U[torch.from_numpy(coo.user_idx).cuda()[sample].long()]
+            * V[torch.from_numpy(coo.item_idx).cuda()[sample].long()]
+            ).sum(dim=1)
+    rmse = float(torch.sqrt(((pred - 1.0) ** 2).mean()))
+    emit("implicit_fit", preference_rmse_100k=rmse)
+    check(np.isfinite(rmse), "implicit preference RMSE is not finite")
     gram = gram_eig(U)
     plan = plan_for_items(coo, work_budget=WORK_BUDGET)
     primal = max((b for b in plan.batches if b.shape[1] >= RANK),

@@ -10,36 +10,58 @@
 //     diagonal (so L_cc = a_cc / d, as in the reference);
 //   - the rows below the panel by forward substitution with that block,
 //     L21[i][c] = (a_ic - sum_{k<c} L21[i][k] L11[c][k]) / L11[c][c];
-//   - the trailing update A22 -= L21 L21^T (lower triangle only);
+//   - the trailing update A22 -= L21 L21^T (lower triangle only), each
+//     element's 8-term dot product summed in k order and then subtracted;
 // then forward substitution L y = b and back substitution L^T x = y, each
-// a panel at a time (8x8 triangle, then one update of the rest).
-// Only the lower triangle of A is read. Plan padding systems (A = reg*I,
-// b = 0) solve to exactly 0.
+// a panel at a time (an 8x8 triangle by division, then one update of the
+// rest). Only the lower triangle of A is read. Plan padding systems
+// (A = reg*I, b = 0) solve to exactly 0.
 //
 // What bounds it on an H100: per system ~R^3/3 flops (factorisation) plus
 // 2R^2 (substitutions) against 4(R(R+1)/2 + 2R) bytes (A's lower triangle
 // and b read once, x written once). At R = 200 that is ~33 flops per byte,
 // above the card's 67 TFLOP/s : 3.35 TB/s = 20 balance point, so the f32
 // FMAs bound it (from R ~ 120 up; the small dual systems are bound by
-// bytes). The design reads A once and feeds every FMA from shared memory
-// and registers:
-//   - one CTA per system, no batch padding;
-//   - A copied once into dynamic shared memory (164 KB at R = 200, after
-//     cudaFuncSetAttribute) and factored there in place;
-//   - the row stride is the padded R plus 4 floats, so the 16-byte row
-//     segments that neighbouring threads read (an L21 row of a panel)
-//     fall in distinct banks;
-//   - the trailing update walks the lower triangle in 32x32 tiles, one
-//     warp per tile: each lane keeps its column's 8 panel values in
-//     registers, so an element costs one shared-memory load and one
-//     store for 8 FMAs;
-//   - every reduction runs in a fixed order with no atomics, so results
-//     are deterministic.
-// The pivots and the 8x8 triangles are sequential (one warp, shuffles);
-// this first kernel does not overlap them with the trailing update, and
-// the card is left idle while a CTA loads its A (one 164 KB CTA fits an
-// SM). A system whose padded A does not fit in shared memory (R > 232 on
-// an H100) is refused: the wrapper raises before launching.
+// bytes). What held the first port at 31x that bound was not the FMAs but
+// the serial chain of each panel: a 164 KB block filled an SM, one warp
+// factored the 8x8 block while six waited, three block barriers a panel,
+// a trailing update of 8 FMAs per shared-memory round trip, and nothing
+// overlapped a block's load of A. This design:
+//   - stores the padded lower triangle packed, as 8x8 tiles (tile (I, J),
+//     J <= I, row-major, 68 floats apart so that neighbouring tiles start
+//     in different banks): 88 KB at R = 200, so two blocks share an SM and
+//     one block's load of A and its serial panel steps overlap the other's
+//     trailing updates;
+//   - one block barrier a panel, and look-ahead. While warps 1-7 do panel
+//     J's trailing update on tile columns J + 2 on, warp 0 first brings
+//     tile column J + 1 up to date (with the forward update of its rows),
+//     then factors panel J + 1's diagonal block (each 8-lane group by
+//     width-8 shuffles) and leaves L11 in a slot; a named barrier lets
+//     the other warps take it, and then every thread solves rows of panel
+//     J + 1 with L11 in registers while the team's last thread solves the
+//     panel's 8 entries of y = L^-1 b (the forward substitution is fused
+//     into the factorisation). Blocks of 64 and 128 threads (Rp <= 128),
+//     which have no warps to spare, take the same steps in two phases with
+//     a barrier between them. A trailing unit is a 4x4 quarter of a tile:
+//     8 panel values of 4 rows and of 4 columns in registers, 128 FMAs for
+//     24 shared-memory accesses of 16 bytes;
+//   - the back substitution takes one barrier a panel: every thread solves
+//     the panel's 8x8 transposed triangle itself, then updates its rows
+//     above;
+//   - small systems pack: at Rp <= 32 a team of 8 lanes solves one system
+//     (8 systems a 64-thread block, 4 a warp) and synchronises by
+//     __syncwarp, with no block barrier;
+//   - every sum runs in a fixed order with no atomics, so results are
+//     deterministic.
+// Measured against alternatives on an H100 (scripts/solve_variants.py,
+// scripts/compare_solve_kernels.py): tiles 64 floats apart, without the
+// pad, were 12-23 % slower at R = 56-200; each thread factoring the
+// diagonal block in its own registers, without shuffles, was slower at
+// every shape (by 38 % at Rp = 8); look-ahead gained 4-6 % at R >= 144 and
+// lost 12 % at R = 56 (64 threads), where it is off.
+// A system whose packed triangle does not fit in one block's shared
+// memory (R > 320 on an H100) is refused: the wrapper raises before
+// launching.
 //
 // Plain C interface, bound with ctypes (predictionio_tpu_torch/ops/
 // solve.py:chol_solve_cuda). The kernel launches on the caller's stream,
@@ -47,23 +69,50 @@
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kPanel = 8;
+constexpr int kTile = 68;            // floats between tiles: 8x8 + 4
+constexpr int kPackedMaxRp = 32;     // packed geometry: Rp <= 32
+constexpr int kPackedTeam = 8;       // lanes a system
+constexpr int kPackedBlock = 64;     // 8 systems a block
 constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int padded_rank(int R) {
   return (R + kPanel - 1) / kPanel * kPanel;
 }
-// Row stride in floats: a multiple of 4 (16-byte rows) that is 4 mod 8,
-// so 8 consecutive rows' 16-byte segments cover all 32 banks once.
-__host__ __device__ inline int row_stride(int Rp) { return Rp + 4; }
+
+// Floats one system takes: the packed tiles, then v [Rp] (b, then y, then
+// the back substitution's right-hand sides), xs [Rp] (x) and two slots
+// [64] that carry a panel's L11 to its tile.
+__host__ __device__ inline int system_floats(int R) {
+  const int nT = padded_rank(R) / kPanel;
+  return nT * (nT + 1) / 2 * kTile + 2 * padded_rank(R) +
+         2 * kPanel * kPanel;
+}
+
+int block_threads(int R) {
+  const int Rp = padded_rank(R);
+  if (Rp <= kPackedMaxRp) return kPackedBlock;
+  if (Rp <= 64) return 64;
+  if (Rp <= 128) return 128;
+  return kMaxThreads;
+}
 
 size_t smem_bytes_for(int R) {
-  const int Rp = padded_rank(R);
-  return ((size_t)Rp * row_stride(Rp) + Rp) * sizeof(float);
+  const int per_block = padded_rank(R) <= kPackedMaxRp
+                            ? kPackedBlock / kPackedTeam : 1;
+  return (size_t)system_floats(R) * per_block * sizeof(float);
+}
+
+__device__ __forceinline__ float* tile(float* L, int I, int J) {
+  return L + (I * (I + 1) / 2 + J) * kTile;
+}
+__device__ __forceinline__ const float* tile(const float* L, int I, int J) {
+  return L + (I * (I + 1) / 2 + J) * kTile;
 }
 
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -78,192 +127,299 @@ __device__ __forceinline__ void store8(float* p, const float v[8]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Factor the 8x8 diagonal block at (c0, c0) in place. Called by one whole
-// warp; lane l < 8 owns row c0 + l.
-__device__ void factor_diagonal(float* L, int ld, int c0, int lane) {
-  const int l = lane & (kPanel - 1);
-  float* row = L + (size_t)(c0 + l) * ld + c0;
-  float a[kPanel], out[kPanel];
-  load8(row, a);
+// Factor the 8x8 diagonal tile D. Called by whole warps; in each group of
+// 8 lanes, lane l owns row l, and gets that row of L11 in `out` (zero
+// above the diagonal). Entries of D above the diagonal are never read.
+__device__ __forceinline__ void factor_diagonal(const float* D, int l,
+                                                float out[kPanel]) {
+  float a[kPanel];
+  load8(D + l * kPanel, a);
 #pragma unroll
   for (int c = 0; c < kPanel; ++c) {
-    const float acc = __shfl_sync(kFull, a[c], c);
+    const float acc = __shfl_sync(kFull, a[c], c, kPanel);
     const float d = sqrtf(fmaxf(acc, 1e-30f));
     const float col = (l >= c) ? a[c] / d : 0.f;
     out[c] = col;
 #pragma unroll
     for (int k = 0; k < kPanel; ++k) {
-      const float colk = __shfl_sync(kFull, col, k);
+      const float colk = __shfl_sync(kFull, col, k, kPanel);
       a[k] -= col * colk;
     }
   }
-  if (lane < kPanel) store8(row, out);
 }
 
-// L21 row i of the panel at c0: forward substitution with L11.
-__device__ __forceinline__ void panel_row(float* L, int ld, int c0, int i) {
-  float* row = L + (size_t)i * ld + c0;
-  const float* L11 = L + (size_t)c0 * ld + c0;
+// (row, column) of the lower-triangle tile number t, row-major.
+__device__ __forceinline__ void tri_index(int t, int& a, int& b) {
+  a = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (a * (a + 1) / 2 > t) --a;
+  while ((a + 1) * (a + 2) / 2 <= t) ++a;
+  b = t - a * (a + 1) / 2;
+}
+
+// A22 -= L21 L21^T for one unit of panel J's trailing update: the 4x4
+// quarter (rh, ch) of trailing tile (ti, tj), counted from the panel's
+// first trailing tile, tj <= ti. The 8 panel values of its 4 rows and 4
+// columns stay in registers: 128 FMAs for 24 accesses of 16 bytes.
+__device__ __forceinline__ void trailing_unit(float* L, int J, int ti,
+                                              int tj, int rh, int ch) {
+  const float* Li = tile(L, J + 1 + ti, J) + rh * 4 * kPanel;
+  const float* Lk = tile(L, J + 1 + tj, J) + ch * 4 * kPanel;
+  float li[4][kPanel], lk[4][kPanel];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    load8(Li + r * kPanel, li[r]);
+    load8(Lk + r * kPanel, lk[r]);
+  }
+  float* o = tile(L, J + 1 + ti, J + 1 + tj) + rh * 4 * kPanel + ch * 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float4 ov = *reinterpret_cast<float4*>(o + r * kPanel);
+    float s4[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) s = fmaf(li[r][k], lk[c][k], s);
+      s4[c] = s;
+    }
+    ov.x -= s4[0]; ov.y -= s4[1]; ov.z -= s4[2]; ov.w -= s4[3];
+    *reinterpret_cast<float4*>(o + r * kPanel) = ov;
+  }
+}
+
+// Row rr below panel J: L21[rr] = forward substitution with L11.
+__device__ __forceinline__ void panel_row(float* L, int J, int rr,
+                                          const float l11[kPanel][kPanel]) {
+  float* row = tile(L, J + 1 + rr / kPanel, J) + (rr % kPanel) * kPanel;
   float a[kPanel];
   load8(row, a);
 #pragma unroll
   for (int c = 0; c < kPanel; ++c) {
     float acc = a[c];
 #pragma unroll
-    for (int k = 0; k < c; ++k) acc -= a[k] * L11[(size_t)c * ld + k];
-    a[c] = acc / L11[(size_t)c * ld + c];
+    for (int k = 0; k < c; ++k) acc -= a[k] * l11[c][k];
+    a[c] = acc / l11[c][c];
   }
   store8(row, a);
 }
 
-// A22 -= L21 L21^T on the lower triangle of rows/cols r0..Rp-1, where L21
-// sits in columns c0..c0+7. Tiles of 32x32 in the lower triangle go to
-// warps round-robin; lane = column within the tile.
-__device__ void trailing_update(float* L, int ld, int c0, int r0, int Rp,
-                                int warp, int n_warps, int lane) {
-  const int n_tiles_1d = (Rp - r0 + 31) / 32;
-  const int n_tiles = n_tiles_1d * (n_tiles_1d + 1) / 2;
-  for (int t = warp; t < n_tiles; t += n_warps) {
-    int ti = 0, rem = t;               // t -> (ti, tj), tj <= ti
-    while (rem > ti) { rem -= ti + 1; ++ti; }
-    const int tj = rem;
-    const int j = r0 + 32 * tj + lane;
-    float lj[kPanel];
-    if (j < Rp) load8(L + (size_t)j * ld + c0, lj);
-    const int i_lo = r0 + 32 * ti;
-    const int i_hi = min(i_lo + 32, Rp);
-    for (int i = i_lo; i < i_hi; ++i) {
-      float li[kPanel];
-      load8(L + (size_t)i * ld + c0, li);   // same address in every lane
-      if (j <= i) {
-        float s = 0.f;
+// Panel J's 8 entries of y = L^-1 b, in place in v.
+__device__ __forceinline__ void panel_y(float* v, int J,
+                                        const float l11[kPanel][kPanel]) {
+  float y[kPanel];
+  load8(v + J * kPanel, y);
 #pragma unroll
-        for (int k = 0; k < kPanel; ++k) s = fmaf(li[k], lj[k], s);
-        L[(size_t)i * ld + j] -= s;
-      }
-    }
+  for (int c = 0; c < kPanel; ++c) {
+    float acc = y[c];
+#pragma unroll
+    for (int k = 0; k < c; ++k) acc -= l11[c][k] * y[k];
+    y[c] = acc / l11[c][c];
   }
+  store8(v + J * kPanel, y);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The forward update of row rr below panel J: v -= L21[rr] . y_J.
+__device__ __forceinline__ void forward_row(const float* L, float* v, int J,
+                                            int rr) {
+  float lr[kPanel], y[kPanel];
+  load8(tile(L, J + 1 + rr / kPanel, J) + (rr % kPanel) * kPanel, lr);
+  load8(v + J * kPanel, y);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPanel; ++k) s = fmaf(lr[k], y[k], s);
+  v[(J + 1) * kPanel + rr] -= s;
+}
+
+__device__ __forceinline__ void load_l11(const float* slot,
+                                         float l11[kPanel][kPanel]) {
+#pragma unroll
+  for (int r = 0; r < kPanel; ++r) load8(slot + r * kPanel, l11[r]);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// kPacked: 8-lane teams, 8 systems a block (Rp <= 32). kAhead: look-ahead
+// by warp 0 (256-thread blocks, Rp > 128); an instantiation of its own,
+// since its registers would cost the smaller blocks occupancy.
+template <bool kPacked, bool kAhead>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 chol_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                  float* __restrict__ x, int R) {
+                  float* __restrict__ x, int batch, int R) {
   extern __shared__ __align__(16) float smem[];
   const int Rp = padded_rank(R);
-  const int ld = row_stride(Rp);
-  float* L = smem;                       // [Rp][ld]; L in place of A
-  float* v = smem + (size_t)Rp * ld;     // [Rp]: b, then y, then x
-  const size_t sys = blockIdx.x;
+  const int nT = Rp / kPanel;
+  const int T = kPacked ? kPackedTeam : blockDim.x;      // team size
+  const int t = kPacked ? (threadIdx.x % kPackedTeam) : threadIdx.x;
+  const int team = kPacked ? threadIdx.x / kPackedTeam : 0;
+  float* L = smem + (size_t)team * system_floats(R);
+  float* v = L + nT * (nT + 1) / 2 * kTile;
+  float* xs = v + Rp;
+  float* slots = xs + Rp;                  // two 8x8 slots for L11
+  const long long s_raw =
+      kPacked ? (long long)blockIdx.x * (blockDim.x / kPackedTeam) + team
+              : (long long)blockIdx.x;
+  const bool live = s_raw < batch;  // teams past the batch run a copy
+  const size_t sys = live ? (size_t)s_raw : (size_t)batch - 1;
   const float* Ag = A + sys * (size_t)R * R;
   const float* bg = b + sys * (size_t)R;
-  float* xg = x + sys * (size_t)R;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = nt >> 5;
 
-  // A -> shared memory (lower triangle and diagonal are all that is read),
-  // identity block on the padding rows, b -> v.
-  if ((R & 3) == 0 && (reinterpret_cast<size_t>(Ag) & 15) == 0) {
-    const int q_row = R >> 2;
-    const float4* src = reinterpret_cast<const float4*>(Ag);
-    for (int q = tid; q < R * q_row; q += nt) {
-      const int i = q / q_row;
-      const int j = (q - i * q_row) << 2;
-      if (j <= i)
-        *reinterpret_cast<float4*>(L + (size_t)i * ld + j) = __ldg(src + q);
-    }
-  } else {
-    for (int q = tid; q < R * R; q += nt) {
-      const int i = q / R;
-      const int j = q - i * R;
-      if (j <= i) L[(size_t)i * ld + j] = __ldg(Ag + q);
-    }
-  }
-  for (int q = tid; q < (Rp - R) * Rp; q += nt) {
-    const int i = R + q / Rp;
-    const int j = q % Rp;
-    L[(size_t)i * ld + j] = (i == j) ? 1.f : 0.f;
-  }
-  for (int i = tid; i < Rp; i += nt) v[i] = i < R ? __ldg(bg + i) : 0.f;
-  __syncthreads();
+  auto sync = [] {
+    if (kPacked) __syncwarp(); else __syncthreads();
+  };
 
-  const int n_panels = Rp / kPanel;
-  for (int p = 0; p < n_panels; ++p) {
-    const int c0 = p * kPanel;
-    const int r0 = c0 + kPanel;
-    if (warp == 0) factor_diagonal(L, ld, c0, lane);
-    __syncthreads();
-    if (r0 == Rp) break;
-    for (int i = r0 + tid; i < Rp; i += nt) panel_row(L, ld, c0, i);
-    __syncthreads();
-    trailing_update(L, ld, c0, r0, Rp, warp, n_warps, lane);
-    __syncthreads();
-  }
-
-  // Forward substitution L y = b, a panel at a time.
-  for (int p = 0; p < n_panels; ++p) {
-    const int c0 = p * kPanel;
-    const int r0 = c0 + kPanel;
-    if (warp == 0) {
-      const int l = lane & (kPanel - 1);
-      float lrow[kPanel];
-      load8(L + (size_t)(c0 + l) * ld + c0, lrow);
-      float rhs = v[c0 + l], y = 0.f;
+  // A's lower triangle -> packed tiles (zero above the diagonal of the
+  // diagonal tiles), the identity on the padding rows, b -> v.
+  const bool vec = (R & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(Ag) & 15) == 0;
+  const int q_row = Rp / 4;
+  for (int q = t; q < Rp * q_row; q += T) {
+    const int i = q / q_row;
+    const int j = (q - i * q_row) * 4;
+    if (j > i) continue;
+    float e[4];
+    if (vec && i < R && j < R) {
+      const float4 g =
+          __ldg(reinterpret_cast<const float4*>(Ag + (size_t)i * R + j));
+      e[0] = g.x; e[1] = g.y; e[2] = g.z; e[3] = g.w;
+    } else {
 #pragma unroll
-      for (int c = 0; c < kPanel; ++c) {
-        const float yc = __shfl_sync(kFull, rhs, c) /
-                         __shfl_sync(kFull, lrow[c], c);
-        if (l > c) rhs -= lrow[c] * yc;
-        if (l == c) y = yc;
+      for (int k = 0; k < 4; ++k)
+        e[k] = (i < R && j + k < R) ? __ldg(Ag + (size_t)i * R + j + k)
+                                    : (i == j + k ? 1.f : 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (j + k > i) e[k] = 0.f;
+    *reinterpret_cast<float4*>(tile(L, i / kPanel, j / kPanel) +
+                               (i % kPanel) * kPanel + j % kPanel) =
+        make_float4(e[0], e[1], e[2], e[3]);
+  }
+  for (int i = t; i < Rp; i += T) v[i] = i < R ? __ldg(bg + i) : 0.f;
+  sync();
+
+  // Panel 0's first phase: L11 (every 8-lane group), the rows below, y's
+  // panel; L11 waits in slot 0 for its tile.
+  {
+    float out[kPanel];
+    factor_diagonal(tile(L, 0, 0), threadIdx.x & 7, out);
+    float l11[kPanel][kPanel];
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+#pragma unroll
+      for (int k = 0; k <= c; ++k)
+        l11[c][k] = __shfl_sync(kFull, out[k], c, kPanel);
+    for (int rr = t; rr < kPanel * (nT - 1); rr += T)
+      panel_row(L, 0, rr, l11);
+    if (t < kPanel) store8(slots + t * kPanel, out);
+    if (t == T - 1) panel_y(v, 0, l11);
+  }
+  sync();
+
+  for (int J = 0; J < nT; ++J) {
+    const int m = nT - 1 - J;               // tiles below the panel
+    float* slot = slots + (J & 1) * kPanel * kPanel;
+    float* next = slots + ((J + 1) & 1) * kPanel * kPanel;
+    // Panel J's L11 into its tile; nothing below reads tile (J, J).
+    for (int q = t; q < 2 * kPanel; q += T)
+      *reinterpret_cast<float4*>(tile(L, J, J) + 4 * q) =
+          *reinterpret_cast<const float4*>(slot + 4 * q);
+    if (m == 0) break;
+    // Panel J's trailing update and forward update, and panel J + 1's
+    // diagonal block, whose L11 goes to the other slot.
+    float l11[kPanel][kPanel];
+    if (!kAhead) {
+      const int n_units = 4 * (m * (m + 1) / 2);
+      for (int u = t; u < n_units; u += T) {
+        int ti, tj;
+        tri_index(u >> 2, ti, tj);
+        const int rh = (u >> 1) & 1, ch = u & 1;
+        if (ti == tj && ch > rh) continue;  // above the diagonal
+        trailing_unit(L, J, ti, tj, rh, ch);
       }
-      if (lane < kPanel) v[c0 + l] = y;
-    }
-    __syncthreads();
-    for (int i = r0 + tid; i < Rp; i += nt) {
-      float li[kPanel];
-      load8(L + (size_t)i * ld + c0, li);
-      float s = v[i];
+      for (int rr = t; rr < kPanel * m; rr += T) forward_row(L, v, J, rr);
+      sync();
+      float out[kPanel];
+      factor_diagonal(tile(L, J + 1, J + 1), threadIdx.x & 7, out);
 #pragma unroll
-      for (int k = 0; k < kPanel; ++k) s -= li[k] * v[c0 + k];
-      v[i] = s;
-    }
-    __syncthreads();
-  }
-
-  // Back substitution L^T x = y, last panel first.
-  for (int p = n_panels - 1; p >= 0; --p) {
-    const int c0 = p * kPanel;
-    if (warp == 0) {
-      const int l = lane & (kPanel - 1);
-      float rhs = v[c0 + l], xl = 0.f;
+      for (int c = 0; c < kPanel; ++c)
 #pragma unroll
-      for (int c = kPanel - 1; c >= 0; --c) {
-        const float* Lc = L + (size_t)(c0 + c) * ld + c0;  // row c of L11
-        const float xc = __shfl_sync(kFull, rhs, c) / Lc[c];
-        if (l < c) rhs -= Lc[l] * xc;
-        if (l == c) xl = xc;
+        for (int k = 0; k <= c; ++k)
+          l11[c][k] = __shfl_sync(kFull, out[k], c, kPanel);
+      if (t < kPanel) store8(next + t * kPanel, out);
+    } else if (threadIdx.x < 32) {
+      // Look-ahead: warp 0 first brings tile column J + 1 up to date,
+      // with the forward update of its 8 rows, then factors its diagonal
+      // block while the other warps finish the rest of the update.
+      const int lane = threadIdx.x;
+      for (int u = lane; u < 4 * m; u += 32) {
+        const int ti = u >> 2, rh = (u >> 1) & 1, ch = u & 1;
+        if (ti == 0 && ch > rh) continue;   // above the diagonal
+        trailing_unit(L, J, ti, 0, rh, ch);
       }
-      if (lane < kPanel) v[c0 + l] = xl;
+      if (lane < kPanel) forward_row(L, v, J, lane);
+      __syncwarp();
+      float out[kPanel];
+      factor_diagonal(tile(L, J + 1, J + 1), lane & 7, out);
+      if (lane < kPanel) store8(next + lane * kPanel, out);
+      __syncwarp();
+      named_arrive(1, blockDim.x);
+    } else {
+      const int u0 = threadIdx.x - 32, ut = blockDim.x - 32;
+      const int n_units = 4 * (m * (m - 1) / 2);  // tile columns >= J + 2
+      for (int u = u0; u < n_units; u += ut) {
+        int ti, tj;
+        tri_index(u >> 2, ti, tj);
+        const int rh = (u >> 1) & 1, ch = u & 1;
+        if (ti == tj && ch > rh) continue;  // above the diagonal
+        trailing_unit(L, J, ti + 1, tj + 1, rh, ch);
+      }
+      for (int rr = kPanel + u0; rr < kPanel * m; rr += ut)
+        forward_row(L, v, J, rr);
+      named_sync(1, blockDim.x);
     }
-    __syncthreads();
-    for (int i = tid; i < c0; i += nt) {
-      float s = v[i];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k)
-        s -= L[(size_t)(c0 + k) * ld + i] * v[c0 + k];
-      v[i] = s;
-    }
-    __syncthreads();
+    // Panel J + 1's rows below and its entries of y, with L11 in
+    // registers (its column is up to date, and no other thread writes it).
+    if (kAhead) load_l11(next, l11);
+    for (int rr = t; rr < kPanel * (m - 1); rr += T)
+      panel_row(L, J + 1, rr, l11);
+    if (t == T - 1) panel_y(v, J + 1, l11);
+    sync();
   }
-  for (int i = tid; i < R; i += nt) xg[i] = v[i];
-}
+  sync();
 
-int threads_for(int R) {
-  const int Rp = padded_rank(R);
-  const int t = (Rp + 31) / 32 * 32;
-  return t < kMaxThreads ? t : kMaxThreads;
+  // Back substitution L^T x = y, last panel first; xs holds x.
+  for (int J = nT - 1; J >= 0; --J) {
+    const int c0 = J * kPanel;
+    const float* D = tile(L, J, J);
+    float d[kPanel][kPanel], rhs[kPanel], xv[kPanel];
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) load8(D + k * kPanel, d[k]);
+    load8(v + c0, rhs);
+#pragma unroll
+    for (int c = kPanel - 1; c >= 0; --c) {
+      float acc = rhs[c];
+#pragma unroll
+      for (int k = c + 1; k < kPanel; ++k) acc -= d[k][c] * xv[k];
+      xv[c] = acc / d[c][c];
+    }
+    if (t == 0) store8(xs + c0, xv);
+    for (int i = t; i < c0; i += T) {
+      const float* col = tile(L, J, i / kPanel) + i % kPanel;
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) s = fmaf(col[k * kPanel], xv[k], s);
+      v[i] -= s;
+    }
+    sync();
+  }
+  if (live)
+    for (int i = t; i < R; i += T) x[sys * R + i] = xs[i];
 }
 
 int optin_smem(int* err) {
@@ -280,8 +436,8 @@ int optin_smem(int* err) {
 
 extern "C" {
 
-// Largest R whose padded system fits in shared memory on the current
-// device; negative: a CUDA error while querying it.
+// Largest R whose packed system fits in one block's shared memory on the
+// current device; negative: a CUDA error while querying it.
 int pio_chol_solve_max_rank() {
   int err = 0;
   const size_t optin = (size_t)optin_smem(&err);
@@ -290,6 +446,10 @@ int pio_chol_solve_max_rank() {
   while (smem_bytes_for(R + kPanel) <= optin) R += kPanel;
   return R;
 }
+
+// Threads per block for an R x R system (64 in the packed geometry, which
+// holds 8 systems a block; one system a block above it).
+int pio_chol_solve_threads(int R) { return R > 0 ? block_threads(R) : 0; }
 
 // x[s] = A[s]^-1 b[s] for s < batch. A: [batch, R, R], b, x: [batch, R],
 // all contiguous f32 on the current device. Returns a cudaError_t.
@@ -302,12 +462,19 @@ int pio_chol_solve_f32(const float* A, const float* b, float* x, int batch,
   if (err) return err;
   const size_t bytes = smem_bytes_for(R);
   if (bytes > optin) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = block_threads(R);
+  const bool packed = padded_rank(R) <= kPackedMaxRp;
+  const bool ahead = threads == kMaxThreads;
+  auto kernel = packed ? chol_solve_kernel<true, false>
+                : ahead ? chol_solve_kernel<false, true>
+                        : chol_solve_kernel<false, false>;
+  const int per_block = packed ? kPackedBlock / kPackedTeam : 1;
   cudaError_t e = cudaFuncSetAttribute(
-      chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  chol_solve_kernel<<<batch, threads_for(R), bytes,
-                      static_cast<cudaStream_t>(stream)>>>(A, b, x, R);
+  kernel<<<(batch + per_block - 1) / per_block, threads, bytes, s>>>(
+      A, b, x, batch, R);
   return (int)cudaGetLastError();
 }
 

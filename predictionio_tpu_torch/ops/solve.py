@@ -112,8 +112,10 @@ def _cg_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pio_cg_solve_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.pio_cg_solve_f32.restype = ci
-        lib.pio_cg_solve_uses_smem.argtypes = [ci]
-        lib.pio_cg_solve_uses_smem.restype = ci
+        lib.pio_cg_solve_geometry.argtypes = [ci]
+        lib.pio_cg_solve_geometry.restype = ci
+        lib.pio_cg_solve_smem_optin.argtypes = []
+        lib.pio_cg_solve_smem_optin.restype = ci
         lib.pio_cg_solve_max_rank.argtypes = []
         lib.pio_cg_solve_max_rank.restype = ci
         lib.pio_cuda_error_string.argtypes = [ci]
@@ -122,13 +124,72 @@ def _cg_lib() -> ctypes.CDLL:
     return lib
 
 
-def cg_uses_shared_memory(R: int) -> bool:
-    """True when the kernel holds an R x R system in shared memory on the
-    current CUDA device (False: it reads A from global memory)."""
-    flag = _cg_lib().pio_cg_solve_uses_smem(int(R))
-    if flag < 0:
-        raise RuntimeError(f"CUDA error {-flag} querying shared memory")
-    return bool(flag)
+# Opt-in shared memory of one block on an H100 (227 KB), in bytes.
+H100_SMEM_OPTIN = 232_448
+# The CG kernel's geometries (csrc/cg_solve.cu), by the code its
+# `pio_cg_solve_geometry` returns: a team of lanes per system with A's rows
+# in registers (R <= 32); one block per system with A in registers and
+# the next system's A staged in shared memory (R <= 208); the stream
+# kernel with A in shared memory, or read from global memory.
+CG_GEOMETRIES = ("warp", "registers", "shared", "global")
+CG_WARP_MAX_RANK = 32
+CG_REG_MAX_RANK = 208
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def cg_register_layout(R: int):
+    """(lanes sharing a row pair, columns of A per lane, threads per
+    block) of the registers geometry: each thread holds two rows over the
+    columns of its slice; two lanes a row pair up to R = 104, four above
+    it."""
+    H = 4 if R > CG_REG_MAX_RANK // 2 else 2
+    CW = -(-R // H)
+    CW += CW & 1
+    return H, CW, ((R + 1) // 2 * H + 31) // 32 * 32
+
+
+def cg_register_smem_bytes(R: int) -> int:
+    """Shared memory of a registers-geometry block: the stage of the next
+    A and b, p (slice stride padded so the slices start in different
+    banks) and two reduction buffers."""
+    H, CW, _ = cg_register_layout(R)
+    stride = _round4(CW)
+    if (stride // 4) % 4 == 0:
+        stride += 4
+    return 4 * (_round4(R * R) + _round4(R) + H * stride + 32)
+
+
+def cg_geometry(R: int, smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """The geometry the CG kernel takes for an R x R system on a device
+    with `smem_optin` bytes of shared memory a block (mirrors
+    csrc/cg_solve.cu:geometry_for)."""
+    if R <= CG_WARP_MAX_RANK:
+        return "warp"
+    if R <= CG_REG_MAX_RANK and cg_register_smem_bytes(R) <= smem_optin:
+        return "registers"
+    if 4 * (_round4(R) + 64 + R * R) <= smem_optin:
+        return "shared"
+    return "global"
+
+
+def cg_device_geometry(R: int) -> str:
+    """The geometry the built kernel takes for R on the current CUDA
+    device (`cg_geometry` with the device's shared memory)."""
+    code = _cg_lib().pio_cg_solve_geometry(int(R))
+    if code < 0:
+        raise RuntimeError(f"CUDA error {-code} querying shared memory")
+    return CG_GEOMETRIES[code]
+
+
+def cg_smem_optin() -> int:
+    """Opt-in shared memory per block of the current CUDA device."""
+    n = _cg_lib().pio_cg_solve_smem_optin()
+    if n < 0:
+        raise RuntimeError(f"CUDA error {-n} querying shared memory")
+    return n
 
 
 def cg_solve_cuda(A: torch.Tensor, b: torch.Tensor,
@@ -281,20 +342,61 @@ def _chol_lib() -> ctypes.CDLL:
         lib.pio_chol_solve_f32.restype = ci
         lib.pio_chol_solve_max_rank.argtypes = []
         lib.pio_chol_solve_max_rank.restype = ci
+        lib.pio_chol_solve_threads.argtypes = [ci]
+        lib.pio_chol_solve_threads.restype = ci
         lib.pio_chol_error_string.argtypes = [ci]
         lib.pio_chol_error_string.restype = ctypes.c_char_p
         _chol_ready = True
     return lib
 
 
+# The Cholesky kernel's layout (csrc/chol_solve.cu): the padded lower
+# triangle packed as 8x8 tiles, 68 floats apart, then v and x [Rp] each
+# and two 64-float slots that carry a panel's L11 to its tile;
+# up to Rp = 32 a team of 8 lanes takes a system, 8 systems a 64-thread
+# block ("packed"); above it one block a system ("block").
+CHOL_TILE_FLOATS = 68
+CHOL_PACKED_MAX_RP = 32
+CHOL_PACKED_SYSTEMS = 8
+
+
+def chol_layout(R: int):
+    """(geometry, threads per block, systems per block, shared-memory
+    bytes per block) of the Cholesky kernel for an R x R system."""
+    Rp = -(-R // CHOL_PANEL) * CHOL_PANEL
+    nT = Rp // CHOL_PANEL
+    floats = nT * (nT + 1) // 2 * CHOL_TILE_FLOATS + 2 * Rp + 128
+    if Rp <= CHOL_PACKED_MAX_RP:
+        return ("packed", 64, CHOL_PACKED_SYSTEMS,
+                4 * floats * CHOL_PACKED_SYSTEMS)
+    threads = 64 if Rp <= 64 else 128 if Rp <= 128 else 256
+    return "block", threads, 1, 4 * floats
+
+
+def chol_rank_limit(smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """Largest R (a multiple of the panel) whose block fits in
+    `smem_optin` bytes of shared memory: 320 on an H100 (mirrors
+    csrc/chol_solve.cu:pio_chol_solve_max_rank)."""
+    R = 0
+    while chol_layout(R + CHOL_PANEL)[3] <= smem_optin:
+        R += CHOL_PANEL
+    return R
+
+
 def chol_max_rank(device: torch.device) -> int:
-    """Largest R the Cholesky kernel takes on `device` (its padded system
-    must fit in one block's shared memory: 232 on an H100)."""
+    """Largest R the Cholesky kernel takes on `device` (its packed system
+    must fit in one block's shared memory: 320 on an H100)."""
     with torch.cuda.device(device):
         R = _chol_lib().pio_chol_solve_max_rank()
     if R < 0:
         raise RuntimeError(f"CUDA error {-R} querying shared memory")
     return R
+
+
+def chol_device_threads(R: int) -> int:
+    """Threads per block the built Cholesky kernel launches for R (the
+    second entry of `chol_layout`)."""
+    return _chol_lib().pio_chol_solve_threads(int(R))
 
 
 def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

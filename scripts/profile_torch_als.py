@@ -28,9 +28,11 @@ carries cuBLAS warm-up; the span also covers the implicit Grams and their
 eigh) and prints one JSON line: the iteration's wall time, the device's
 busy share (summed kernel time over wall time; kernels run on one
 stream), device time by kernel and by kind, the same reading of the first
-iteration (`iteration_1`, without the kernel list) beside it, and the
-card's name and power limit as nvidia-smi reports them. Needs a CUDA
-card.
+iteration (`iteration_1`, without the kernel list) beside it, the
+second iteration's solver calls (`solver_iteration_2`: their count, the
+solve kernel's summed device time and the calls' summed bound from
+`chip_smoke.py`'s cost model), and the card's name and power limit as
+nvidia-smi reports them. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -55,11 +57,53 @@ from predictionio_tpu_torch.device import resolve_device  # noqa: E402
 from predictionio_tpu_torch.models.common import RatingsData  # noqa: E402
 from predictionio_tpu_torch.models import recommendation as rec  # noqa
 from predictionio_tpu_torch.models import similarproduct as sp  # noqa: E402
+from predictionio_tpu_torch.ops import als as als_ops  # noqa: E402
+from predictionio_tpu_torch.ops.solve import (  # noqa: E402
+    CG_PRIMAL_ITERS, SCHULZ_ITERS, resolve_solver)
+import chip_smoke  # noqa: E402  (the kernels' cost model and peak rates)
+
+
+def record_solver_calls(calls: list):
+    """Wrap the ALS module's `spd_solve` so that every call appends its
+    (method, B, R, steps, compute dtype) to `calls`."""
+    solve = als_ops.spd_solve
+
+    def recording(A, b, method="auto", iters=None, compute_dtype="bfloat16"):
+        calls.append((resolve_solver(method, A.device), A.shape[0],
+                      A.shape[-1], iters, compute_dtype))
+        return solve(A, b, method, iters, compute_dtype)
+    als_ops.spd_solve = recording
+
+
+def solver_bound_ms(calls) -> dict:
+    """The summed bound of these solver calls (`chip_smoke.py`'s cost model:
+    bytes over 3.35 TB/s or flops over the peak of their type, the larger
+    of the two, per call), with the count of calls bound each way."""
+    total, by = 0.0, {"bytes": 0, "operations": 0}
+    for method, B, R, iters, cd in calls:
+        if method == "cg_cuda":
+            nbytes, flops = chip_smoke.cg_cost(B, R, iters or CG_PRIMAL_ITERS)
+            rate = chip_smoke.F32_FLOPS_PER_S
+        elif method == "chol_cuda":
+            (nbytes, flops), rate = (chip_smoke.chol_cost(B, R),
+                                     chip_smoke.F32_FLOPS_PER_S)
+        elif method == "schulz_cuda":
+            nbytes, flops = chip_smoke.schulz_cost(B, R,
+                                                   iters or SCHULZ_ITERS)
+            rate = (chip_smoke.BF16_FLOPS_PER_S if cd == "bfloat16"
+                    else chip_smoke.F32_FLOPS_PER_S)
+        else:
+            continue
+        ms, kind = chip_smoke.bound(nbytes, flops, rate)
+        total += ms
+        by[kind] += 1
+    return {"calls": len(calls), "bound_ms": total, "bound_by": by}
 
 
 def kind_of(name: str) -> str:
     n = name.lower()
-    if "cg_solve" in n:
+    if any(k in n for k in ("cg_solve", "cg_reg_kernel", "cg_warp_kernel",
+                            "cg_stream_kernel")):
         return "cg_solve kernel"
     if "chol_solve" in n:
         return "chol_solve kernel"
@@ -153,6 +197,8 @@ def main() -> int:
             solver=args.solver or "chol_cuda", **extra))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    calls = []
+    record_solver_calls(calls)
     with torch.profiler.profile(activities=acts) as prof:
         algo.train(pd)
     events = prof.events()
@@ -164,6 +210,14 @@ def main() -> int:
                            f"{len(spans)}")
     first, second = (breakdown(events, span) for span in spans)
     tel = algo.last_train_telemetry
+    if len(calls) != tel["solver_calls"] or len(calls) % 2:
+        raise RuntimeError(f"recorded {len(calls)} solver calls, telemetry "
+                           f"says {tel['solver_calls']}")
+    solver = solver_bound_ms(calls[len(calls) // 2:])
+    kernel = next((k for k in second["by_kind_ms"] if k.endswith("kernel")),
+                  None)
+    solver["kernel_ms"] = second["by_kind_ms"].get(kernel, "not measured")
+    solver["kernel"] = kernel
     print(json.dumps({
         "what": f"iteration 2 of a 2-iteration {args.template} "
                 "ALSAlgorithm.train (both half-sweeps)",
@@ -173,7 +227,7 @@ def main() -> int:
         "sweep_chunk": args.sweep_chunk,
         "alpha": args.alpha if args.template == "similarproduct" else None,
         "solver_calls": tel["solver_calls"], "iter_s": tel["iter_s"],
-        **second,
+        **second, "solver_iteration_2": solver,
         "iteration_1": {k: v for k, v in first.items()
                         if k != "top_kernels"},
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))

@@ -77,10 +77,14 @@ def rel(x, ref):
     return ((x - ref).abs().max() / ref.abs().max()).item()
 
 
+CG_GEOMETRY = {8: "warp", 40: "registers", 200: "registers", 256: "global"}
+
+
 @pytest.mark.parametrize("R,B,iters", [(8, 33, 16), (40, 17, 48),
                                        (200, 5, 48), (256, 3, 48)])
 def test_cg_kernel_matches_plain(cuda, R, B, iters):
     """Held at every checkpoint, so the early iterates pin the algorithm;
+    R = 8 packs four systems a warp, 40 and 200 hold A in registers, and
     R = 256 takes the branch that reads A from global memory."""
     A, b = hard_systems(B, R, seed=R, device=cuda)
     for k in sorted({1, 2, 4, iters // 2, iters}):
@@ -88,7 +92,46 @@ def test_cg_kernel_matches_plain(cuda, R, B, iters):
         torch.cuda.synchronize()
         assert torch.isfinite(xk).all()
         assert rel(xk, T.cg_solve(A, b, k)) <= CG_REL_TOL
-    assert T.cg_uses_shared_memory(R) == (R <= 200)
+    assert T.cg_device_geometry(R) == CG_GEOMETRY[R] == T.cg_geometry(
+        R, T.cg_smem_optin())
+
+
+@pytest.mark.parametrize("R,B,iters", [(5, 3, 13), (16, 21, 24),
+                                       (27, 37, 35), (32, 9, 40),
+                                       (33, 11, 41), (104, 7, 48),
+                                       (105, 5, 48), (197, 139, 48),
+                                       (208, 4, 48), (209, 3, 48),
+                                       (240, 3, 48), (241, 2, 48)])
+def test_cg_kernel_at_geometry_borders(cuda, R, B, iters):
+    """Each side of every geometry's border: the team sizes of the warp
+    geometry (8, 16, 32 lanes; R = 27 not a multiple of 4), one and two
+    lanes a row in the registers geometry (R = 104 / 105), its largest R
+    (208), the shared-memory stream kernel (209, 240) and the
+    global-memory one (241); B = 139 is more systems than SMs, so the
+    persistent blocks take several systems each through the stage."""
+    A, b = hard_systems(B, R, seed=R + 3, device=cuda)
+    for k in sorted({1, 2, iters}):
+        xk = T.cg_solve_cuda(A, b, k)
+        torch.cuda.synchronize()
+        assert rel(xk, T.cg_solve(A, b, k)) <= CG_REL_TOL
+    assert T.cg_device_geometry(R) == T.cg_geometry(R, T.cg_smem_optin())
+
+
+def test_cg_geometry_mirror_matches_the_kernel(cuda):
+    """ops/solve.py:cg_geometry is the kernel's own choice at every R."""
+    optin = T.cg_smem_optin()
+    assert all(T.cg_geometry(R, optin) == T.cg_device_geometry(R)
+               for R in range(1, T._cg_lib().pio_cg_solve_max_rank() + 1))
+
+
+@pytest.mark.parametrize("R,B", [(8, 1001), (24, 301), (56, 140),
+                                 (144, 140), (200, 300), (256, 5)])
+def test_cg_kernel_is_deterministic(cuda, R, B):
+    """Two launches are bit-equal in every geometry, with more systems
+    than SMs (persistent blocks, packed teams)."""
+    A, b = hard_systems(B, R, seed=R + 5, device=cuda)
+    assert torch.equal(T.cg_solve_cuda(A, b, R + 8),
+                       T.cg_solve_cuda(A, b, R + 8))
 
 
 @pytest.mark.parametrize("R,iters", [(8, 16), (200, 48)])
@@ -106,9 +149,10 @@ def test_cg_check_sees_planted_faults(cuda, R, iters):
 
 
 def test_cg_kernel_padding_solves_to_zero(cuda):
-    A = (0.01 * torch.eye(24, device=cuda)).expand(4, 24, 24).contiguous()
-    x = T.cg_solve_cuda(A, torch.zeros(4, 24, device=cuda), 48)
-    assert torch.equal(x, torch.zeros_like(x))
+    for R in (24, 8, 56, 200, 232, 256):
+        A = (0.01 * torch.eye(R, device=cuda)).expand(4, R, R).contiguous()
+        x = T.cg_solve_cuda(A, torch.zeros(4, R, device=cuda), 48)
+        assert torch.equal(x, torch.zeros_like(x))
 
 
 def test_cg_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -154,6 +198,41 @@ def test_chol_kernel_matches_plain(cuda, R, B):
     xp, tol = chol_tolerance(A, b)
     assert torch.isfinite(xk).all()
     assert rel(xk, xp) <= tol
+
+
+@pytest.mark.parametrize("R,B", [(25, 17), (32, 9), (33, 13), (64, 7),
+                                 (65, 7), (128, 5), (129, 5), (232, 4),
+                                 (320, 2)])
+def test_chol_kernel_at_geometry_borders(cuda, R, B):
+    """Each side of the packed geometry's border (Rp = 32 / 40), of the
+    64-, 128- and 256-thread blocks, R = 232 (the first kernel's limit)
+    and the largest R the packed tiles fit (320 on an H100)."""
+    if R > T.chol_max_rank(cuda):
+        pytest.skip(f"R = {R} exceeds this card's shared memory")
+    A, b = hard_systems(B, R, seed=R + 9, device=cuda)
+    xk = T.chol_solve_cuda(A, b)
+    torch.cuda.synchronize()
+    xp, tol = chol_tolerance(A, b)
+    assert rel(xk, xp) <= tol
+    assert T.chol_device_threads(R) == T.chol_layout(R)[1]
+
+
+def test_chol_layout_mirror_matches_the_kernel(cuda):
+    """ops/solve.py's chol_layout and chol_rank_limit are the kernel's
+    own threads and limit at every R."""
+    max_rank = T.chol_max_rank(cuda)
+    assert max_rank == T.chol_rank_limit(T.cg_smem_optin()) >= 232
+    assert all(T.chol_device_threads(R) == T.chol_layout(R)[1]
+               for R in range(1, max_rank + 1))
+
+
+@pytest.mark.parametrize("R,B", [(8, 1001), (27, 301), (56, 140),
+                                 (200, 300)])
+def test_chol_kernel_is_deterministic(cuda, R, B):
+    """Two launches are bit-equal, packed (8 systems a block) and one
+    system a block, with more systems than SMs."""
+    A, b = hard_systems(B, R, seed=R + 13, device=cuda)
+    assert torch.equal(T.chol_solve_cuda(A, b), T.chol_solve_cuda(A, b))
 
 
 def test_chol_kernel_reads_only_the_lower_triangle(cuda):
