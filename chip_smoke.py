@@ -25,7 +25,17 @@ PyTorch version at the shapes its path gives it. Then:
   prepared data with the reference's full-scale Schulz configuration
   (solver 'schulz_cuda', compute dtype bfloat16, sweep chunk 4; 2
   iterations), every solve through the Newton-Schulz kernel, served over
-  `POST /queries.json`.
+  `POST /queries.json`;
+- the product path (`pio train` -> `pio deploy`): a SQLite event store
+  populated through the bulk import with 5M synthetic `rate` events
+  (138,493 users x 26,744 items, seed 0) and one `$set` per item
+  (categories, creationYear); `create_workflow_main` on an engine.json
+  variant trains rank-200 ALS (lam 0.05, 2 iterations, every solve
+  through the CG kernel) and persists the engine instance; a fresh
+  `EngineServer.load()` restores it onto the card and serves base,
+  category and creationYear queries over HTTP, each held against a
+  float64 top-k under the reference's mask, built from the items' seeded
+  metadata; a retrain then swaps in on `POST /reload`.
 
 Prints one JSON line per phase, then the kernels line, the card's name
 and power limit as nvidia-smi reports them, and as its last line
@@ -42,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -109,6 +120,15 @@ PLAN_BATCHES = 98         # solver calls per iteration at the ML-20M shape
 KAPPA_HARD = 1e3          # the half-steps fault is held where kappa' =
 #                           ||A||_inf / lambda_min reaches this
 SCHULZ_QUERIES = 8        # Schulz-trained model's queries served
+# the product path: events in the store -> `pio train` -> persisted
+# instance -> `pio deploy` (bench.py's bench_product_path at full scale)
+STORE_DATA = (138_493, 26_744, 5_000_000)   # users, items, rate events
+STORE_LAM = 0.05
+STORE_SEEDS = (1, 2)      # the first train's, and the retrain's /reload
+STORE_APP = "smokeapp"
+STORE_CHUNK = 500_000     # rows a bulk import call
+STORE_QUERIES = 30        # known-user queries of each kind served
+STORE_YEARS = (1950, 2020)   # creationYear range of the items
 
 
 class SmokeFailure(RuntimeError):
@@ -367,7 +387,7 @@ def phase_train():
     t0 = time.perf_counter()
     u, i, r = synthetic_ml20m(*DATA, seed=0)
     td = RecommendationDataSource(
-        DataSourceParams(RatingsData(u, i, r))).read_training()
+        DataSourceParams(ratings=RatingsData(u, i, r))).read_training()
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pd = RecommendationPreparator().prepare(td)
@@ -392,7 +412,7 @@ def phase_train():
     pred = predict_ratings(model.als, coo.user_idx[sample],
                            coo.item_idx[sample])
     rmse = float(np.sqrt(np.mean((pred - coo.rating[sample]) ** 2)))
-    emit("train", users=coo.n_users, items=coo.n_items, ratings=coo.nnz,
+    emit("train", users=coo.n_users, items=coo.n_items,
          rank=RANK, iterations=ITERATIONS, lam=LAM, data_s=data_s,
          prepare_s=prepare_s, train_s=train_s,
          **{k: v for k, v in tel.items()},
@@ -821,9 +841,10 @@ def f64_cosine_top(T64: np.ndarray, algo, model, query, k: int):
     return s, top[np.isfinite(s[top])]
 
 
-def held_to_f64(got_ids, s64, top, model, what: str) -> bool:
+def held_to_f64(got_ids, s64, top, model, what: str,
+                atol: float = TIE_ATOL) -> bool:
     """True when the served ids equal the float64 top-k; False for a swap
-    between items whose float64 scores tie within TIE_ATOL; fails the run
+    between items whose float64 scores tie within `atol`; fails the run
     otherwise."""
     want = model.item_ix.ids_of(top)
     if got_ids == want:
@@ -832,7 +853,7 @@ def held_to_f64(got_ids, s64, top, model, what: str) -> bool:
     check(len(got_ids) == len(want)
           and bool(np.isfinite(s64[got_ix]).all())
           and np.allclose(np.sort(s64[got_ix])[::-1], s64[top], rtol=0,
-                          atol=TIE_ATOL),
+                          atol=atol),
           f"{what}: served {got_ids} != float64 top {want}")
     return False
 
@@ -1230,6 +1251,347 @@ def phase_schulz_resolve(als, coo) -> None:
         del A, rhs, z, z64, xk
 
 
+def use_store(workdir: str) -> None:
+    """Point this process (and the children it starts) at a SQLite event
+    store and a localfs model store under `workdir`."""
+    for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(workdir, "pio")
+
+
+def store_items() -> tuple:
+    """The item metadata the store is populated with, by item number k
+    (id "i{k}"): 1-3 of 20 categories, and a creationYear."""
+    from predictionio_tpu_torch.data.synthetic import \
+        synthetic_item_categories
+    n_items = STORE_DATA[1]
+    return (synthetic_item_categories(n_items, seed=0),
+            np.random.default_rng(5).integers(*STORE_YEARS, n_items))
+
+
+def store_truth(model) -> tuple:
+    """`store_items` by the model's dense item index (categories as sets,
+    years): what the served filters are held to, made from the seeds and
+    not from the port's property fold or its filters."""
+    cats, years = store_items()
+    ks = [int(i[1:]) for i in model.item_ix.ids]
+    return [set(cats[k]) for k in ks], years[ks]
+
+
+def populate_store(app_id: int) -> int:
+    """The product path's events, through the bulk import
+    (`insert_columnar`): synthetic_ml20m's 5M ratings as `rate` events
+    (one millisecond apart), then one `$set` per item with 1-3 of 20
+    categories and a creationYear. The rate events carry ids in
+    insertion order, so the primary-key index grows by appends (the
+    import's speed only: the training read never sees an id). Returns the
+    events written."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
+    ev = Storage.get_events()
+    n_users, n_items, nnz = STORE_DATA
+    ui, ii, vv = synthetic_ml20m(n_users, n_items, nnz, seed=0)
+
+    def time_str(ms: int) -> str:
+        sec, ms = divmod(1000 + ms, 1000)
+        mi, sec = divmod(sec, 60)
+        hh, mi = divmod(mi, 60)
+        return "1970-01-01T%02d:%02d:%02d.%03dZ" % (hh, mi, sec, ms)
+
+    for lo in range(0, len(vv), STORE_CHUNK):
+        hi = min(lo + STORE_CHUNK, len(vv))
+        ev.insert_columnar(ColumnarBatch(
+            hi - lo, "rate", "user", [f"u{int(u)}" for u in ui[lo:hi]],
+            target_entity_type="item",
+            target_entity_id=[f"i{int(i)}" for i in ii[lo:hi]],
+            properties=[{"rating": float(v)} for v in vv[lo:hi]],
+            event_time=[time_str(j) for j in range(lo, hi)],
+            event_id=[f"{j:032x}" for j in range(lo, hi)]), app_id)
+    cats, years = store_items()
+    ev.insert_columnar(ColumnarBatch(
+        n_items, "$set", "item", [f"i{k}" for k in range(n_items)],
+        properties=[{"categories": list(cats[k]),
+                     "creationYear": int(years[k])}
+                    for k in range(n_items)],
+        event_time=time_str(len(vv))), app_id)
+    return len(vv) + n_items
+
+
+def store_variant(path: str, seed: int) -> None:
+    """The engine.json of the product path: the recommendation template
+    reading the store with item properties, rank-200 ALS on the card
+    (solver 'auto'), creationYear returned on each item."""
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "recommendation",
+            "datasource": {"params": {"app_name": STORE_APP,
+                                      "read_items": True}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "num_iterations": ITERATIONS,
+                "lam": STORE_LAM, "seed": seed, "solver": "auto",
+                "return_properties": ["creationYear"]}}]}, f)
+
+
+def workflow_train(path: str, phase: str) -> tuple:
+    """`create_workflow_main` on the variant at `path` (what `pio train`
+    calls), with every kernel count set to 0 just before and read just
+    after. Returns (instance id, the TrainResult it persisted, launches
+    of the CG kernel)."""
+    from predictionio_tpu_torch.core.engine import Engine
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    trained = []
+    engine_train = Engine.train
+
+    def keep(self, *args, **kwargs):
+        # the trained models, held to what deploy restores
+        trained.append(engine_train(self, *args, **kwargs))
+        return trained[-1]
+
+    tel = {}
+    Engine.train = keep
+    try:
+        COUNTS.reset()
+        t0 = time.perf_counter()
+        iid = create_workflow_main(WorkflowConfig(engine_variant=path),
+                                   telemetry=tel)
+        torch.cuda.synchronize()
+        workflow_s = time.perf_counter() - t0
+        counts = dict(vars(COUNTS))
+    finally:
+        Engine.train = engine_train
+    (algo_tel,) = tel.pop("algorithms")
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    launches = counts["cg_solve"]
+    emit(phase, instance=iid, status=inst.status, workflow_s=workflow_s,
+         **tel, **algo_tel, launch_counts=counts)
+    check(inst.status == "COMPLETED", f"engine instance {iid} is "
+          f"{inst.status}")
+    check(launches > 0, "the CG kernel was never launched")
+    check(launches == algo_tel["solver_calls"],
+          f"{launches} CG kernel launches for {algo_tel['solver_calls']} "
+          "solver calls")
+    for name in ("cg_solve_plain", "chol_solve", "chol_solve_plain",
+                 "schulz_solve", "schulz_solve_plain"):
+        check(counts[name] == 0, f"{name} ran {counts[name]} times in the "
+              f"{phase} train: every solve must be the CG kernel")
+    return iid, trained[0], launches
+
+
+def blob_check(iid: str, trained) -> dict:
+    """The persisted blob unpickles in a process that sees no card (it
+    holds host numpy only), and its tables are the trained ones, bit for
+    bit."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendation import \
+        RecommendationEngineFactory
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        "from predictionio_tpu_torch.data.storage.registry import Storage\n"
+        "from predictionio_tpu_torch.models.recommendation import \\\n"
+        "    RecommendationEngineFactory\n"
+        f"blob = Storage.get_model_data_models().get({iid!r}).models\n"
+        "(m,) = RecommendationEngineFactory.apply().deserialize_models(\n"
+        f"    blob, {iid!r})\n"
+        "print(torch.cuda.is_available(), m.als.device, m.als._tables,\n"
+        "      m.als.user_factors.shape, m.als.item_factors.shape)\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"the blob did not unpickle without a card: "
+          f"{out.stderr[-2000:]}")
+    model = trained.models[0]
+    U, V = model.als.user_factors, model.als.item_factors
+    want = f"False None None {U.shape} {V.shape}"
+    check(out.stdout.strip() == want,
+          f"blob read without a card: {out.stdout.strip()!r} != {want!r}")
+    blob = Storage.get_model_data_models().get(iid).models
+    (restored,) = RecommendationEngineFactory.apply().deserialize_models(
+        blob, iid)
+    equal = (np.array_equal(restored.als.user_factors, U)
+             and np.array_equal(restored.als.item_factors, V)
+             and restored.item_properties == model.item_properties
+             and list(restored.item_ix.ids) == list(model.item_ix.ids))
+    check(equal, "the restored model differs from the trained one")
+    return {"blob_bytes": len(blob), "unpickles_without_card": True,
+            "restored_bit_equal": True}
+
+
+def phase_store_train(workdir: str) -> tuple:
+    """The product path's train: populate the store under `workdir`
+    (`populate_store`, set-up), then `create_workflow_main` on an
+    engine.json variant."""
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    t0 = time.perf_counter()
+    app_id = Storage.get_meta_data_apps().insert(App(0, STORE_APP))
+    events = populate_store(app_id)
+    emit("store_populate", events=events, items=STORE_DATA[1],
+         populate_s=time.perf_counter() - t0,
+         note="set-up: the bulk import, not a measurement of train")
+    path = os.path.join(workdir, "engine.json")
+    store_variant(path, STORE_SEEDS[0])
+    iid, trained, launches = workflow_train(path, "store_train")
+    emit("store_blob", instance=iid, **blob_check(iid, trained))
+    return path, iid, trained, launches
+
+
+def dot_tolerance(u64: np.ndarray, V64: np.ndarray) -> np.ndarray:
+    """Per item: the float32 dot product's rounding bound,
+    n * 2^-24 * sum_i |u_i v_i| over the rank n."""
+    return len(u64) * 2.0 ** -24 * (np.abs(V64) @ np.abs(u64))
+
+
+def hold_served(body: dict, query: dict, model, U64, V64, truth,
+                what: str) -> bool:
+    """Hold one served answer against the float64 top-k over the
+    persisted tables under the reference's mask, built here from the
+    items' true metadata (`store_truth`): an item must share one of the
+    query's categories, and be of its creationYear or later. Held: the
+    ids (a swap only between items whose float64 scores tie within 1e-6
+    of the largest, the serve phases' rule), each score within the f32
+    dot's rounding bound, and each item's creationYear. Returns whether
+    the ids were exact."""
+    cats, years = truth
+    uix = model.user_ix[query["user"]]
+    s64 = V64 @ U64[uix]
+    allowed = np.ones(len(years), dtype=bool)
+    if query.get("categories"):
+        want = set(query["categories"])
+        allowed &= np.array([bool(c & want) for c in cats])
+    if query.get("creationYear") is not None:
+        allowed &= years >= query["creationYear"]
+    s64 = np.where(allowed, s64, -np.inf)
+    top = np.argsort(-s64, kind="stable")[:query["num"]]
+    top = top[np.isfinite(s64[top])]
+    got = [s["item"] for s in body["itemScores"]]
+    scale = float(np.abs(s64[top]).max()) if len(top) else 1.0
+    exact = held_to_f64(got, s64, top, model, what, atol=1e-6 * scale)
+    got_ix = np.array([model.item_ix[g] for g in got], dtype=np.int64)
+    served = np.array([s["score"] for s in body["itemScores"]])
+    tol = dot_tolerance(U64[uix], V64[got_ix])
+    check(bool((np.abs(served - s64[got_ix]) <= tol).all()),
+          f"{what}: scores off the float64 scores by more than the f32 "
+          "rounding bound")
+    check([s.get("creationYear") for s in body["itemScores"]]
+          == [int(years[i]) for i in got_ix],
+          f"{what}: creationYear does not ride on each item")
+    return exact
+
+
+def store_queries(model, truth, rng) -> list:
+    """STORE_QUERIES known-user queries of each kind: base, categories,
+    creationYear, and both; categories drawn from the items' true ones."""
+    n_users = len(model.user_ix)
+    cats = sorted(set().union(*truth[0]))
+    out = []
+    for kind in ("base", "categories", "creationYear", "both"):
+        for n in range(STORE_QUERIES):
+            q = {"user": model.user_ix.id_of(int(rng.integers(n_users))),
+                 "num": 10}
+            if kind in ("categories", "both"):
+                q["categories"] = [str(c) for c in rng.choice(
+                    cats, 1 + n % 2, replace=False)]
+            if kind in ("creationYear", "both"):
+                q["creationYear"] = int(rng.integers(*STORE_YEARS))
+            out.append(q)
+    return out
+
+
+def serve_and_hold(url: str, model, rng, what: str) -> dict:
+    """POST `store_queries`, hold each answer (`hold_served`); latencies
+    in ms, the first query's apart."""
+    truth = store_truth(model)
+    queries = store_queries(model, truth, rng)
+    U64 = model.als.user_factors.astype(np.float64)
+    V64 = model.als.item_factors.astype(np.float64)
+    lat, exact = [], 0
+    for q in queries:
+        t0 = time.perf_counter()
+        status, body = post(url + "/queries.json", json.dumps(q).encode())
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(status == 200, f"{what}: query {q} answered {status}")
+        exact += hold_served(body, q, model, U64, V64, truth,
+                             f"{what} query {q}")
+    kinds = ["+".join(k for k in ("categories", "creationYear") if k in q)
+             or "base" for q in queries]
+    ms = np.array(lat[1:])
+    return {"queries": len(lat), "ids_equal_f64": exact,
+            "f32_tie_swaps": len(lat) - exact, "first_query_ms": lat[0],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "p50_ms_by_kind": {k: float(np.percentile(
+                [t for t, kk in zip(lat[1:], kinds[1:]) if kk == k], 50))
+                for k in dict.fromkeys(kinds)}}
+
+
+def phase_store_deploy(path: str, iid: str, trained) -> int:
+    """The product path's deploy: a fresh server restores the instance
+    from storage (not the trained object), serves base and filtered
+    queries over HTTP, then hot-swaps to a retrain on /reload. Returns
+    the retrain's CG kernel launches."""
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    t0 = time.perf_counter()
+    server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                       engine_variant=path)).load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    server.start(background=True)
+    url = f"http://127.0.0.1:{server.config.port}"
+    try:
+        check(server.engine_instance.id == iid,
+              f"deployed {server.engine_instance.id}, trained {iid}")
+        (model,) = server.models
+        U, V = model.als.tables()
+        U0, V0 = trained.models[0].als.tables()
+        check(U.device.type == "cuda" and torch.equal(U, U0)
+              and torch.equal(V, V0),
+              "the restored tables on the card differ from the trained ones")
+        out = serve_and_hold(url, model, np.random.default_rng(4),
+                             "store_deploy")
+        status, body = post(url + "/queries.json",
+                            b'{"user": "no-such-user", "num": 10}')
+        check(status == 200 and body == {"itemScores": []},
+              f"unknown user answered {status} {body}")
+        user = model.user_ix.id_of(0)
+        status, body = post(url + "/queries.json", json.dumps(
+            {"user": user, "num": 10, "categories": ["no-such"]}).encode())
+        check(status == 200 and body == {"itemScores": []},
+              f"a category no item has answered {status} {body}")
+        for bad in (b'{"user": ', b'{"num": 3}',
+                    b'{"user": "u1", "num": 3, "creationYear": "x"}'):
+            status, _ = post(url + "/queries.json", bad)
+            check(status == 400, f"malformed body {bad} answered {status}")
+        emit("store_deploy", instance=iid, load_s=load_s,
+             tables_bit_equal=True, unknown_user_empty=True,
+             unknown_category_empty=True, malformed_400=True, **out)
+
+        store_variant(path, STORE_SEEDS[1])
+        new_iid, _, launches = workflow_train(path, "store_retrain")
+        t0 = time.perf_counter()
+        status, body = post(url + "/reload", b"")
+        reload_s = time.perf_counter() - t0
+        check(status == 200, f"/reload answered {status} {body}")
+        with urllib.request.urlopen(url + "/", timeout=60) as r:
+            named = json.loads(r.read())["engineInstanceId"]
+        check(named == new_iid, f"GET / names {named}, not the retrained "
+              f"instance {new_iid}")
+        (model,) = server.models
+        check(server.algorithms[0].params.seed == STORE_SEEDS[1],
+              "the reloaded engine params are not the retrain's")
+        out = serve_and_hold(url, model, np.random.default_rng(6),
+                             "store_reload")
+        emit("store_reload", instance=new_iid, reload_s=reload_s, **out)
+        return launches
+    finally:
+        server.stop()
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  max_abs_err: float, max_rel_err: float, timed: dict,
                  timed_shape: dict) -> dict:
@@ -1250,20 +1612,33 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this test needs a GPU",
               file=sys.stderr)
         return 2
-    info = phase_device()
-    kern = phase_kernel()
-    chol = phase_chol_kernel()
-    schulz = phase_schulz_kernel()
-    algo, model, cg_launches, pd, cg_rmse = phase_train()
-    phase_serve(algo, model)
-    del algo, model
-    sp_algo, sp_model, chol_launches = phase_implicit_train(
-        pd.ratings_coo.nnz)
-    phase_similar_serve(sp_algo, sp_model)
-    del sp_algo, sp_model
-    s_algo, s_model, schulz_launches = phase_schulz_train(pd, cg_rmse)
-    phase_schulz_resolve(s_model.als, pd.ratings_coo)
-    phase_serve(s_algo, s_model, "schulz_serve", SCHULZ_QUERIES)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pio_smoke_store_") as workdir:
+        use_store(workdir)
+        try:
+            info = phase_device()
+            kern = phase_kernel()
+            chol = phase_chol_kernel()
+            schulz = phase_schulz_kernel()
+            algo, model, cg_launches, pd, cg_rmse = phase_train()
+            phase_serve(algo, model)
+            del algo, model
+            sp_algo, sp_model, chol_launches = phase_implicit_train(
+                pd.ratings_coo.nnz)
+            phase_similar_serve(sp_algo, sp_model)
+            del sp_algo, sp_model
+            s_algo, s_model, schulz_launches = phase_schulz_train(pd,
+                                                                  cg_rmse)
+            phase_schulz_resolve(s_model.als, pd.ratings_coo)
+            phase_serve(s_algo, s_model, "schulz_serve", SCHULZ_QUERIES)
+            del s_algo, s_model
+            path, iid, trained, store_launches = phase_store_train(workdir)
+            cg_launches += store_launches
+            cg_launches += phase_store_deploy(path, iid, trained)
+        finally:
+            from predictionio_tpu_torch.data.storage import registry
+            registry.clear_cache()
+    emit("done", wall_s=time.perf_counter() - t_start)
     cg_primal, chol_primal = kern["rows"][0], chol["rows"][0]
     schulz_primal = schulz["rows"][0]
     line = {"kernels": [

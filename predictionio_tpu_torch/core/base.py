@@ -1,27 +1,20 @@
 """DASE base components: DataSource, Preparator, Algorithm, Serving.
 
-The port's counterpart of `predictionio_tpu/core/base.py` (and the
-`Params` marker of `core/params.py`), cut to what the recommendation
-template needs to train and serve. Persistence and the L/P2L/P placement
-taxonomy are later slices.
+The port's counterpart of `predictionio_tpu/core/base.py`, cut to what
+the templates need to train, persist and serve. An algorithm decides how
+its model persists (`make_persistent_model`) and puts a restored model on
+its device (`place_model`); the L/P placement taxonomy is a later slice.
 """
 
 from __future__ import annotations
 
 import abc
-import dataclasses
 import inspect
 from typing import Any, List, Optional, Sequence, Tuple
 
-
-@dataclasses.dataclass(frozen=True)
-class Params:
-    """Marker base class for component parameters."""
-
-
-@dataclasses.dataclass(frozen=True)
-class EmptyParams(Params):
-    pass
+# EmptyParams is re-exported for the templates
+from predictionio_tpu_torch.core.params import (EmptyParams,  # noqa: F401
+                                                Params)
 
 
 def make_component(cls, params: Optional[Params] = None):
@@ -81,6 +74,17 @@ class Algorithm(abc.ABC):
                       ) -> List[Tuple[int, Any]]:
         """Bulk predict; the default maps predict()."""
         return [(ix, self.predict(model, q)) for ix, q in queries]
+
+    def make_persistent_model(self, model):
+        """How a trained model persists: the model itself (pickled as
+        host numpy), a PersistentModel (it saves itself and a manifest is
+        stored), or RETRAIN (re-trained at deploy)."""
+        return model
+
+    def place_model(self, model):
+        """Put a model restored from storage on this algorithm's device
+        before it serves; the default serves it as it is."""
+        return model
 
     @property
     def query_class(self):

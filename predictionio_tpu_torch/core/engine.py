@@ -1,24 +1,65 @@
-"""The Engine: chains DASE components into the train pipeline.
+"""The Engine: chains DASE components into the train pipeline, persists
+what it trained and restores it for serving.
 
-The port's counterpart of the train/serve parts of
-`predictionio_tpu/core/engine.py`: `EngineParams`, `Engine.train` (read ->
-sanity check -> prepare -> train every algorithm) and the component
-factories the engine server uses. Evaluation, persistence and engine.json
-parsing are later slices.
+The port's counterpart of `predictionio_tpu/core/engine.py`:
+`EngineParams`, `Engine.train` (read -> sanity check ->
+prepare -> train every algorithm), the persistence steps
+(`make_serializable_models`, `serialize_models`, `deserialize_models`,
+`prepare_deploy`; Engine.scala:196-282) and the engine.json params
+(`json_to_engine_params`, `engine_params_to_json`; Engine.scala:353).
+Evaluation is a later slice.
+
+A model blob holds host numpy only (`utils/arrays.to_host`), and it is
+read back through a restricted unpickler that accepts only the classes
+models are made of in this package, numpy's array rebuilders and plain
+builtins, each by a plain name: a blob the JAX package wrote
+names `predictionio_tpu.*` classes and is refused with a ValueError,
+without importing that package.
 """
 
 from __future__ import annotations
 
+import io
 import logging
+import pickle
+import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 from predictionio_tpu_torch.core.base import (Algorithm, DataSource,
                                               EmptyParams, Preparator,
                                               Serving, make_component,
                                               run_sanity_check)
+from predictionio_tpu_torch.core.params import (Params, params_from_dict,
+                                                params_to_dict)
+from predictionio_tpu_torch.core.persistence import (
+    REFERENCE_PACKAGE, RETRAIN, PersistentModel, PersistentModelManifest,
+    load_persistent_model)
+from predictionio_tpu_torch.utils.arrays import to_host
 
 logger = logging.getLogger(__name__)
+
+#: builtins a model blob may name (containers and scalars, nothing that
+#: runs code)
+_SAFE_BUILTINS = frozenset({
+    "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
+    "int", "list", "object", "range", "set", "slice", "str", "tuple"})
+#: what numpy's arrays, scalars and dtypes pickle through
+_SAFE_NUMPY = frozenset(
+    [("numpy", "ndarray"), ("numpy", "dtype")]
+    + [(f"numpy.{core}.{mod}", name)
+       for core in ("core", "_core")
+       for mod, name in (("multiarray", "_reconstruct"),
+                         ("multiarray", "scalar"),
+                         ("numeric", "_frombuffer"))])
+#: the modules whose classes a model is made of; a class elsewhere in the
+#: package (a server, a storage client, a build step) may not be named
+_MODEL_MODULES = ("predictionio_tpu_torch.models.",
+                  "predictionio_tpu_torch.ops.als.",
+                  "predictionio_tpu_torch.ops.ratings.",
+                  "predictionio_tpu_torch.data.bimap.",
+                  "predictionio_tpu_torch.data.datamap.",
+                  "predictionio_tpu_torch.core.persistence.")
 
 
 @dataclass(frozen=True)
@@ -35,6 +76,46 @@ class EngineParams:
 class TrainResult:
     models: List[Any]                # one per algorithm
     algorithms: List[Algorithm]      # the instances that trained them
+
+
+def _build_params(cls, raw: Optional[dict]):
+    pc: Optional[Type[Params]] = getattr(cls, "PARAMS_CLASS", None)
+    if pc is not None:
+        return params_from_dict(pc, raw)
+    return raw if raw else EmptyParams()
+
+
+class _ModelUnpickler(pickle.Unpickler):
+    """Resolves only numpy's array and dtype rebuilders, safe builtins and
+    the classes of this package that models are made of, each by a plain
+    name in the module that defines it: a dotted name (protocol 4 looks
+    those up attribute by attribute) is refused."""
+
+    def __init__(self, blob: bytes, instance_id: str):
+        super().__init__(io.BytesIO(blob))
+        self.instance_id = instance_id
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] == REFERENCE_PACKAGE:
+            raise ValueError(
+                f"the model of engine instance {self.instance_id!r} was "
+                f"written by the JAX package (it names {module}.{name}); "
+                "predictionio_tpu_torch cannot load it: retrain with this "
+                "package")
+        if "." not in name:
+            if ((module, name) in _SAFE_NUMPY
+                    or (module == "builtins" and name in _SAFE_BUILTINS)):
+                return super().find_class(module, name)
+            if (module + ".").startswith(_MODEL_MODULES):
+                try:
+                    obj = super().find_class(module, name)
+                except (ImportError, AttributeError):
+                    obj = None
+                if isinstance(obj, type) and obj.__module__ == module:
+                    return obj
+        raise ValueError(f"the model of engine instance "
+                         f"{self.instance_id!r} names {module}.{name}, "
+                         "which a model blob may not hold")
 
 
 class Engine:
@@ -79,12 +160,20 @@ class Engine:
         return make_component(self._lookup(self.serving_class_map, name,
                                            "serving"), params)
 
-    def train(self, engine_params: EngineParams,
-              sanity_check: bool = True) -> TrainResult:
+    def train(self, engine_params: EngineParams, sanity_check: bool = True,
+              telemetry: Optional[dict] = None) -> TrainResult:
+        """`telemetry`, when a dict, receives the wall time of each stage:
+        read_s, prepare_s and train_s (all algorithms)."""
+        tel = telemetry if telemetry is not None else {}
+        t0 = time.perf_counter()
         td = self.make_data_source(engine_params).read_training()
         run_sanity_check(td, sanity_check)
+        tel["read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         pd = self.make_preparator(engine_params).prepare(td)
         run_sanity_check(pd, sanity_check)
+        tel["prepare_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         algorithms = self.make_algorithms(engine_params)
         models = []
         for i, algo in enumerate(algorithms):
@@ -93,11 +182,93 @@ class Engine:
             model = algo.train(pd)
             run_sanity_check(model, sanity_check)
             models.append(model)
+        tel["train_s"] = time.perf_counter() - t0
         return TrainResult(models=models, algorithms=algorithms)
+
+    # -- persistence (Engine.scala:282, :196-265) --------------------------
+    def make_serializable_models(self, train_result: TrainResult,
+                                 instance_id: str,
+                                 engine_params: EngineParams) -> List[Any]:
+        """Per algorithm: model | PersistentModelManifest | RETRAIN."""
+        out = []
+        for (_, params), algo, model in zip(
+                engine_params.algorithm_params_list,
+                train_result.algorithms, train_result.models):
+            decision = algo.make_persistent_model(model)
+            if (isinstance(decision, PersistentModel)
+                    and decision.save(instance_id, params)):
+                decision = PersistentModelManifest(
+                    type(decision).loader_name())
+            out.append(decision)
+        return out
+
+    def serialize_models(self, serializable_models: List[Any]) -> bytes:
+        return pickle.dumps([to_host(m) for m in serializable_models],
+                            protocol=pickle.HIGHEST_PROTOCOL)
+
+    def deserialize_models(self, blob: bytes,
+                           instance_id: str = "") -> List[Any]:
+        """Unpickle a blob `serialize_models` wrote; `instance_id` names
+        the instance in the error when the blob is refused."""
+        return _ModelUnpickler(blob, instance_id).load()
+
+    def prepare_deploy(self, engine_params: EngineParams,
+                       persisted_models: List[Any], instance_id: str,
+                       sanity_check: bool = True) -> TrainResult:
+        """Restore models for serving (Engine.scala:196-265): manifests
+        are loaded through their loader, RETRAIN models re-run the train
+        pipeline, and every model is put on its algorithm's device."""
+        algorithms = self.make_algorithms(engine_params)
+        retrained: Optional[TrainResult] = None
+        if any(m is RETRAIN for m in persisted_models):
+            logger.info("Some models request retrain-on-deploy; re-training")
+            retrained = self.train(engine_params, sanity_check)
+        models = []
+        for i, (m, algo) in enumerate(zip(persisted_models, algorithms)):
+            if m is RETRAIN:
+                m = retrained.models[i]
+            elif isinstance(m, PersistentModelManifest):
+                m = load_persistent_model(
+                    m, instance_id, engine_params.algorithm_params_list[i][1])
+            models.append(algo.place_model(m))
+        return TrainResult(models=models, algorithms=algorithms)
+
+    # -- engine.json params (Engine.scala:353 jValueToEngineParams) --------
+    def json_to_engine_params(self, variant: dict) -> EngineParams:
+        def one(slot_key: str, class_map: Dict[str, type]):
+            block = variant.get(slot_key) or {}
+            name = block.get("name", "")
+            cls = self._lookup(class_map, name, slot_key)
+            return (name, _build_params(cls, block.get("params")))
+
+        algo_blocks = variant.get("algorithms")
+        if algo_blocks is None:
+            algo_blocks = [{"name": "", "params": {}}]
+        algos = []
+        for block in algo_blocks:
+            name = block.get("name", "")
+            cls = self._lookup(self.algorithm_class_map, name, "algorithm")
+            algos.append((name, _build_params(cls, block.get("params"))))
+        return EngineParams(
+            data_source_params=one("datasource", self.data_source_class_map),
+            preparator_params=one("preparator", self.preparator_class_map),
+            algorithm_params_list=algos,
+            serving_params=one("serving", self.serving_class_map))
+
+    def engine_params_to_json(self, ep: EngineParams) -> dict:
+        def one(pair):
+            name, params = pair
+            return {"name": name, "params": params_to_dict(params)}
+        return {
+            "datasource": one(ep.data_source_params),
+            "preparator": one(ep.preparator_params),
+            "algorithms": [one(p) for p in ep.algorithm_params_list],
+            "serving": one(ep.serving_params),
+        }
 
 
 class EngineFactory:
-    """Engine + default params provider."""
+    """Engine + default params provider (EngineFactory.scala:28-33)."""
 
     @classmethod
     def apply(cls) -> Engine:

@@ -1,1 +1,2 @@
-"""Host-side data helpers: id maps and synthetic ratings."""
+"""Host-side data: events, property maps, storage, id maps and synthetic
+ratings."""

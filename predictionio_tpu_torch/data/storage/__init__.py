@@ -1,0 +1,11 @@
+"""Storage layer: the env-driven backend registry, metadata DAOs and the
+event store (the port's copy of `predictionio_tpu/data/storage`, cut to
+the sqlite and localfs backends)."""
+
+from predictionio_tpu_torch.data.storage.base import (App, Channel,
+                                                      EngineInstance, Model)
+from predictionio_tpu_torch.data.storage import registry
+from predictionio_tpu_torch.data.storage.registry import Storage
+
+__all__ = ["App", "Channel", "EngineInstance", "Model", "Storage",
+           "registry"]

@@ -66,6 +66,10 @@ class RatingsData:
     def __len__(self) -> int:
         return int(self.vals.shape[0])
 
+    def select(self, mask_or_idx) -> "RatingsData":
+        return RatingsData(self.users[mask_or_idx], self.items[mask_or_idx],
+                           self.vals[mask_or_idx], self.ts[mask_or_idx])
+
 
 def resolve_ids(ix_map: EntityIdIxMap, ids: Optional[Sequence[str]]
                 ) -> np.ndarray:

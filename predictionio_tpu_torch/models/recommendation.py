@@ -1,33 +1,47 @@
-"""Recommendation engine template: explicit ALS on ratings.
+"""Recommendation engine template: explicit ALS on rate/buy events.
 
 The port's counterpart of `predictionio_tpu/models/recommendation.py`
-(`Rating`, `TrainingData`, `Query`, `PreparedData`,
-`RecommendationPreparator`, `ALSAlgorithmParams`, `RecommendationModel`,
-`ALSAlgorithm.train/predict/batch_predict` and the engine factory).
+(`Rating`, `TrainingData`, `Query`, `PreparedData`, `DataSourceParams`,
+`RecommendationDataSource._read_ratings/_ratings_from_cols/_read_items`,
+`RecommendationPreparator`, `ALSAlgorithmParams`, `RecommendationModel`
+with its query filters, `ALSAlgorithm.train/predict/batch_predict` and
+the engine factory). The data source reads rate/buy events from the
+event store (a buy counts as `buy_rating`; duplicate ratings keep the
+latest event) and, for the filter variants, the items' `$set`
+properties; a query may ask for `categories` and `creationYear`.
 
-The data source takes `RatingsData` arrays through its params; reading
-the event store, the filter variants (categories, creationYear, item
-properties), fold-in and the pipelined `batch_predict_begin` are later
-slices (ROADMAP.md).
+A data source may also be handed `RatingsData` arrays through its params
+(`DataSourceParams.ratings`); such params have no JSON form, so an
+engine instance (`workflow.run_train`) cannot be trained from them.
+Reading only touched entities (fold-in), the streamed bulk read, the
+evaluation read, the sharded factor tables and the pipelined
+`batch_predict_begin` are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Tuple
+
+import numpy as np
 
 from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          EngineParams, FirstServing,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.data.store import PEventStore
+from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData,
                                                   top_scores_to_result)
 from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_train,
                                             recommend_products, users_topk)
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
+from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
+                                                   masked_top_k_batch,
+                                                   unpack_top_k_rows)
 
 logger = logging.getLogger(__name__)
 
@@ -44,6 +58,7 @@ class Rating:
 class TrainingData(SanityCheck):
     """`ratings` is columnar; a list of Rating rows is converted."""
     ratings: RatingsData
+    items: Optional[dict] = None  # id -> property dict (read_items)
 
     def __post_init__(self):
         if isinstance(self.ratings, (list, tuple)):
@@ -56,14 +71,24 @@ class TrainingData(SanityCheck):
 
 @dataclass(frozen=True)
 class Query:
+    """The base query is (user, num); the custom-query and
+    filter-by-category variants add creationYear and categories
+    (custom-query/Engine.scala:6, filter-by-category/Engine.scala:6-10)."""
     user: str
     num: int
+    categories: Optional[Tuple[str, ...]] = None
+    creation_year: Optional[int] = None
 
     @staticmethod
     def from_dict(d: dict) -> "Query":
         """Raises KeyError for a missing field, ValueError/TypeError for a
         malformed one (the server answers 400 for both)."""
-        return Query(user=str(d["user"]), num=int(d["num"]))
+        cats = d.get("categories")
+        return Query(user=str(d["user"]), num=int(d["num"]),
+                     categories=tuple(cats) if cats is not None else None,
+                     creation_year=(int(d["creationYear"])
+                                    if d.get("creationYear") is not None
+                                    else None))
 
 
 @dataclass
@@ -71,44 +96,95 @@ class PreparedData:
     ratings_coo: RatingsCOO
     user_ix: EntityIdIxMap
     item_ix: EntityIdIxMap
+    items: Optional[dict] = None  # id -> property dict
 
 
 @dataclass(frozen=True, eq=False)
 class DataSourceParams(Params):
-    """The training ratings themselves (the event-store read is a later
-    slice)."""
+    app_name: str = "default"
+    channel_name: Optional[str] = None
+    event_names: Tuple[str, ...] = ("rate", "buy")
+    buy_rating: float = 4.0  # the rating a buy event counts as
+    # custom-query / filter-by-category variants: read the items' $set
+    # properties (categories, creationYear, ...) for the query filters
+    read_items: bool = False
+    # the training ratings themselves, instead of the event store
     ratings: Optional[RatingsData] = None
 
 
 class RecommendationDataSource(DataSource):
+    PARAMS_CLASS = DataSourceParams
+
     def __init__(self, params: Optional[DataSourceParams] = None):
         super().__init__(params or DataSourceParams())
 
+    def _read_ratings(self) -> RatingsData:
+        """One projected scan into flat numpy arrays (DataSource.scala
+        :20-46 eventsRDD -> ratingsRDD, without per-event objects)."""
+        p = self.params
+        cols = PEventStore.find_columnar(
+            app_name=p.app_name, channel_name=p.channel_name,
+            property_field="rating", entity_type="user",
+            target_entity_type="item", event_names=list(p.event_names))
+        return self._ratings_from_cols(cols, p)
+
+    @staticmethod
+    def _ratings_from_cols(cols, p) -> RatingsData:
+        is_rate = cols["event"] == "rate"
+        missing = is_rate & np.isnan(cols["prop"])
+        if missing.any():
+            raise ValueError(
+                f"{int(missing.sum())} 'rate' event(s) lack the required "
+                f"'rating' property (first entity: "
+                f"{cols['entity_id'][missing][0]!r})")
+        vals = np.where(is_rate, cols["prop"],
+                        np.float32(p.buy_rating)).astype(np.float32)
+        return RatingsData(cols["entity_id"], cols["target_entity_id"],
+                           vals, cols["t"])
+
+    def _read_items(self) -> Optional[dict]:
+        if not self.params.read_items:
+            return None
+        return {eid: dict(pm.fields) for eid, pm in
+                PEventStore.aggregate_properties(
+                    app_name=self.params.app_name,
+                    channel_name=self.params.channel_name,
+                    entity_type="item").items()}
+
     def read_training(self) -> TrainingData:
-        if self.params.ratings is None:
-            raise ValueError("DataSourceParams.ratings is not set")
-        return TrainingData(self.params.ratings)
+        if self.params.ratings is not None:
+            return TrainingData(self.params.ratings)
+        return TrainingData(self._read_ratings(), items=self._read_items())
 
 
 @dataclass(frozen=True)
 class PreparatorParams(Params):
     dedup: str = "latest"
+    # custom-prepartor variant (Preparator.scala:13-27): newline-separated
+    # item ids excluded from training before the vocabulary is built
+    exclude_items_file: Optional[str] = None
 
 
 class RecommendationPreparator(Preparator):
     """Builds the sorted vocabularies and the deduplicated COO."""
+    PARAMS_CLASS = PreparatorParams
 
     def __init__(self, params: Optional[PreparatorParams] = None):
         super().__init__(params or PreparatorParams())
 
     def prepare(self, td: TrainingData) -> PreparedData:
         rd = td.ratings
+        if self.params.exclude_items_file:
+            with open(self.params.exclude_items_file) as f:
+                no_train = sorted({line.strip() for line in f
+                                   if line.strip()})
+            rd = rd.select(~np.isin(rd.items, no_train))
         user_ix, ui = EntityIdIxMap.build_with_indices(rd.users)
         item_ix, ii = EntityIdIxMap.build_with_indices(rd.items)
         ui, ii, vals = dedup_ratings(ui, ii, rd.vals, rd.ts,
                                      self.params.dedup)
         coo = RatingsCOO(ui, ii, vals, len(user_ix), len(item_ix))
-        return PreparedData(coo, user_ix, item_ix)
+        return PreparedData(coo, user_ix, item_ix, items=td.items)
 
 
 @dataclass(frozen=True)
@@ -120,6 +196,9 @@ class ALSAlgorithmParams(Params):
     # products' operand dtype (ops/als.py ALSConfig); None = float32 on
     # the card and on the CPU, the reference's answer off the TPU
     compute_dtype: Optional[str] = None
+    # custom-query variant: property keys copied onto each ItemScore in
+    # the result JSON (e.g. ("creationYear",)); needs read_items
+    return_properties: Tuple[str, ...] = ()
     sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
@@ -130,10 +209,57 @@ class RecommendationModel:
     als: ALSModel
     user_ix: EntityIdIxMap
     item_ix: EntityIdIxMap
+    # by dense item index; present when the data source read items
+    item_properties: Optional[List[Optional[dict]]] = None
+    # derived at train time, so a query's mask is vectorized
+    item_categories: Optional[List[Optional[set]]] = None
+    item_years: Optional[np.ndarray] = None  # float32, NaN = undated
+
+    @staticmethod
+    def derive_filters(item_properties):
+        if item_properties is None:
+            return None, None
+        cats = [set(p["categories"]) if p and p.get("categories") else None
+                for p in item_properties]
+        years = np.array(
+            [float(p["creationYear"])
+             if p and p.get("creationYear") is not None else np.nan
+             for p in item_properties], dtype=np.float32)
+        return cats, years
+
+    def properties_of(self, keys: Tuple[str, ...]):
+        """ItemScore property passthrough: the requested keys are always
+        present (missing -> None/null, the Option[Int] wire shape of
+        custom-query/Engine.scala:12)."""
+        if not keys or self.item_properties is None:
+            return None
+        props = self.item_properties
+
+        def get(ix: int):
+            p = props[ix] or {}
+            return {k: p.get(k) for k in keys}
+        return get
+
+    def allowed_mask(self, query: Query) -> Optional[np.ndarray]:
+        """Candidate mask of the filter variants; None = no filtering.
+        categories: an item must share one (an empty list filters
+        nothing); creationYear: undated items pass, dated items need a
+        year >= the query's (custom-query/ALSAlgorithm.scala:141-148)."""
+        want_cats = set(query.categories) if query.categories else None
+        if want_cats is None and query.creation_year is None:
+            return None
+        mask = build_filter_mask(len(self.item_ix),
+                                 item_categories=self.item_categories,
+                                 categories=want_cats)
+        if query.creation_year is not None and self.item_years is not None:
+            dated = ~np.isnan(self.item_years)
+            mask &= ~(dated & (self.item_years < query.creation_year))
+        return mask
 
 
 class ALSAlgorithm(P2LAlgorithm):
     """Explicit ALS: train on the device, predict = top-k by u . v."""
+    PARAMS_CLASS = ALSAlgorithmParams
     QUERY_CLASS = Query
 
     def __init__(self, params: Optional[ALSAlgorithmParams] = None):
@@ -149,10 +275,25 @@ class ALSAlgorithm(P2LAlgorithm):
                         solver=p.solver,
                         compute_dtype=p.compute_dtype or "float32",
                         sweep_chunk=p.sweep_chunk)
-        self.last_train_telemetry = {}
+        self.last_train_telemetry = {"ratings": pd.ratings_coo.nnz}
         model = als_train(pd.ratings_coo, cfg, device=p.device,
                           telemetry=self.last_train_telemetry)
-        return RecommendationModel(model, pd.user_ix, pd.item_ix)
+        item_properties = None
+        if pd.items is not None:
+            item_properties = [pd.items.get(pd.item_ix.id_of(ix))
+                               for ix in range(len(pd.item_ix))]
+        cats, years = RecommendationModel.derive_filters(item_properties)
+        return RecommendationModel(model, pd.user_ix, pd.item_ix,
+                                   item_properties=item_properties,
+                                   item_categories=cats, item_years=years)
+
+    def place_model(self, model: RecommendationModel
+                    ) -> RecommendationModel:
+        """Upload a restored model's tables to this algorithm's device
+        (`params.device`; None = the card), once, before it serves."""
+        model.als.device = resolve_device(self.params.device)
+        model.als.tables()
+        return model
 
     def predict(self, model: RecommendationModel, query: Query
                 ) -> ItemScoreResult:
@@ -160,21 +301,50 @@ class ALSAlgorithm(P2LAlgorithm):
         if uix < 0:
             logger.info("No prediction for unknown user %s.", query.user)
             return ItemScoreResult(())
-        scores, idx = recommend_products(model.als, uix, query.num)
-        return top_scores_to_result(model.item_ix, scores, idx)
+        props_of = model.properties_of(self.params.return_properties)
+        mask = model.allowed_mask(query)
+        if mask is None:
+            scores, idx = recommend_products(model.als, uix, query.num)
+            return top_scores_to_result(model.item_ix, scores, idx,
+                                        properties_of=props_of)
+        scores, idx = masked_top_k_batch(
+            model.als.tables()[1], model.als.user_factors[[uix]],
+            mask[None], query.num, filter_positive=False)
+        s, i = unpack_top_k_rows(scores[0], idx[0], query.num)
+        return top_scores_to_result(model.item_ix, s, i,
+                                    properties_of=props_of)
 
     def batch_predict(self, model: RecommendationModel, queries):
-        """One batched top-k for every known user in `queries`."""
+        """One batched top-k for the known users without filters, and one
+        masked batched top-k for those whose query carries filters."""
+        props_of = model.properties_of(self.params.return_properties)
         out = {ix: ItemScoreResult(()) for ix, _ in queries}
-        known = [(ix, q, model.user_ix.get(q.user, -1)) for ix, q in queries]
-        known = [(ix, q, u) for ix, q, u in known if u >= 0]
-        if known:
-            k_max = max(q.num for _, q, _ in known)
-            scores, idx = users_topk(model.als, [u for _, _, u in known],
-                                     k_max)
-            for row, (ix, q, _) in enumerate(known):
+        plain, masked = [], []
+        for ix, q in queries:
+            uix = model.user_ix.get(q.user, -1)
+            if uix < 0:
+                logger.info("No prediction for unknown user %s.", q.user)
+                continue
+            mask = model.allowed_mask(q)
+            (plain if mask is None else masked).append((ix, q, uix, mask))
+        if plain:
+            scores, idx = users_topk(model.als,
+                                     [uix for _, _, uix, _ in plain],
+                                     max(q.num for _, q, _, _ in plain))
+            for row, (ix, q, _, _) in enumerate(plain):
                 out[ix] = top_scores_to_result(
-                    model.item_ix, scores[row, :q.num], idx[row, :q.num])
+                    model.item_ix, scores[row, :q.num], idx[row, :q.num],
+                    properties_of=props_of)
+        if masked:
+            scores, idx = masked_top_k_batch(
+                model.als.tables()[1],
+                model.als.user_factors[[uix for _, _, uix, _ in masked]],
+                np.stack([mask for _, _, _, mask in masked]),
+                max(q.num for _, q, _, _ in masked), filter_positive=False)
+            for row, (ix, q, _, _) in enumerate(masked):
+                s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
+                out[ix] = top_scores_to_result(model.item_ix, s, i,
+                                               properties_of=props_of)
         return list(out.items())
 
 
@@ -191,8 +361,9 @@ class RecommendationEngineFactory(EngineFactory):
                       algorithm: Optional[ALSAlgorithmParams] = None,
                       preparator: Optional[PreparatorParams] = None
                       ) -> EngineParams:
+        """Params that train on `ratings` arrays (not the event store)."""
         return EngineParams(
-            data_source_params=("", DataSourceParams(ratings)),
+            data_source_params=("", DataSourceParams(ratings=ratings)),
             preparator_params=("", preparator or PreparatorParams()),
             algorithm_params_list=[("als",
                                     algorithm or ALSAlgorithmParams())],

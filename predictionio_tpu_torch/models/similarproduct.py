@@ -11,7 +11,7 @@ cosine similarity to the query items' factors, under category, white-list,
 black-list and year filters.
 
 The data source takes the events and item properties through its params
-(the event-store read is ROADMAP.md queue A item 7). DIMSUM, fold-in and
+(the event-store read is ROADMAP.md queue A item 1). DIMSUM, fold-in and
 the pipelined `batch_predict_begin` are later slices (ROADMAP.md).
 """
 
@@ -29,6 +29,7 @@ from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData, resolve_ids,
                                                   top_scores_to_result)
@@ -139,6 +140,8 @@ class DataSourceParams(Params):
 
 
 class SimilarProductDataSource(DataSource):
+    PARAMS_CLASS = DataSourceParams
+
     def __init__(self, params: Optional[DataSourceParams] = None):
         super().__init__(params or DataSourceParams())
 
@@ -223,9 +226,10 @@ class ItemMetadataModel:
 @dataclass(kw_only=True)
 class SimilarProductModel(ItemMetadataModel):
     """Normalized item factors (served, on `device`) + id maps + item
-    metadata; the raw factors and the user side ride along."""
+    metadata; the raw factors and the user side ride along. A model
+    restored from storage has no device until its algorithm places it."""
     item_factors_normalized: np.ndarray   # [I, R] L2-normalized rows
-    device: torch.device
+    device: Optional[torch.device]
     item_factors_raw: Optional[np.ndarray] = None   # [I, R]
     user_factors: Optional[np.ndarray] = None       # [U, R]
     user_ix: Optional[EntityIdIxMap] = None
@@ -236,12 +240,17 @@ class SimilarProductModel(ItemMetadataModel):
         """The normalized item table on the model's device (uploaded
         once)."""
         if self._table is None:
+            if self.device is None:
+                raise RuntimeError(
+                    "this SimilarProductModel was restored without a "
+                    "device; its algorithm's place_model puts it on one")
             self._table = torch.tensor(self.item_factors_normalized,
                                        device=self.device)
         return self._table
 
 
 class ALSAlgorithm(P2LAlgorithm):
+    PARAMS_CLASS = ALSAlgorithmParams
     QUERY_CLASS = Query
 
     def __init__(self, params: Optional[ALSAlgorithmParams] = None):
@@ -282,6 +291,14 @@ class ALSAlgorithm(P2LAlgorithm):
             device=model.device, item_factors_raw=model.item_factors,
             user_factors=model.user_factors, user_ix=user_ix,
             **ItemMetadataModel.metadata_kwargs(td.items, item_ix))
+
+    def place_model(self, model: SimilarProductModel
+                    ) -> SimilarProductModel:
+        """Upload a restored model's table to this algorithm's device
+        (`params.device`; None = the card), once, before it serves."""
+        model.device = resolve_device(self.params.device)
+        model.table()
+        return model
 
     @staticmethod
     def _build_mask(model: ItemMetadataModel, query: Query,

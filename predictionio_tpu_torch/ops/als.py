@@ -125,11 +125,13 @@ class ALSConfig:
 @dataclass
 class ALSModel:
     """Trained factorization: host numpy tables plus their copies on
-    `device`, which serving reads (uploaded at most once)."""
+    `device`, which serving reads (uploaded at most once). A model
+    restored from storage has no device (`utils/arrays.to_host` drops it
+    with `_tables`) until its algorithm places it."""
     user_factors: np.ndarray   # [n_users, rank] in the train's dtype
     item_factors: np.ndarray   # [n_items, rank] (float32 unless asked)
     rank: int
-    device: torch.device
+    device: Optional[torch.device]
     _tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, repr=False, compare=False)
 
@@ -144,6 +146,10 @@ class ALSModel:
     def tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(U, V) on the model's device."""
         if self._tables is None:
+            if self.device is None:
+                raise RuntimeError(
+                    "this ALSModel was restored without a device; its "
+                    "algorithm's place_model puts it on one")
             self._tables = (
                 torch.tensor(self.user_factors, device=self.device),
                 torch.tensor(self.item_factors, device=self.device))

@@ -6,10 +6,11 @@ The port's counterpart of `predictionio_tpu/ops/similarity.py`
 `build_filter_mask`, `masked_top_k_batch` computing `_masked_topk_impl`,
 `unpack_top_k_rows`). Score = sum over the query items of cos(q, item);
 items not allowed by the host-built filter mask, or with score <= 0, are
-excluded. Plain PyTorch: one matmul and `torch.topk` over the item table
-resident on the device. The reference's shape buckets, AOT registry,
-packed readback and sharded route are later slices (ROADMAP.md, queue A
-item 5).
+excluded (`masked_top_k_batch` keeps scores <= 0 when asked, for
+explicit-ALS dot scores). Plain PyTorch: one matmul and `torch.topk` over
+the item table resident on the device. The reference's shape buckets, AOT
+registry, packed readback and sharded route are later slices (ROADMAP.md,
+queue A).
 """
 
 from __future__ import annotations
@@ -69,20 +70,25 @@ def build_filter_mask(n_items: int, exclude: Sequence[int] = (),
 
 
 def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
-                       masks: np.ndarray, k: int
+                       masks: np.ndarray, k: int,
+                       filter_positive: bool = True
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Batched masked dot top-k in one matmul for B queries.
 
-    query_vecs [B, R] (already in the scoring space: summed normalized
-    item vectors for cosine), masks [B, I] bool. Items not allowed, or
-    with score <= 0 (the cosine templates' rule), score -inf. Returns host
-    ([B, k'], [B, k']) with k' = min(k, I); callers drop the -inf slots
+    query_vecs [B, R] (already in the scoring space: raw user factors for
+    dot scoring, summed normalized item vectors for cosine), masks [B, I]
+    bool. Items not allowed score -inf; `filter_positive` also drops
+    scores <= 0 (the cosine templates' rule; explicit-ALS callers pass
+    False, since their scores can be negative). Returns host ([B, k'],
+    [B, k']) with k' = min(k, I); callers drop the -inf slots
     (`unpack_top_k_rows`)."""
     dev = item_table.device
     q = torch.as_tensor(np.asarray(query_vecs, dtype=np.float32),
                         device=dev)
     scores = q @ item_table.T
-    allowed = torch.as_tensor(masks, device=dev) & (scores > 0)
+    allowed = torch.as_tensor(masks, device=dev)
+    if filter_positive:
+        allowed = allowed & (scores > 0)
     scores = torch.where(allowed, scores, float("-inf"))
     s, i = torch.topk(scores, min(k, item_table.shape[0]), dim=1)
     return s.cpu().numpy(), i.cpu().numpy()

@@ -1,12 +1,12 @@
 """Carry a model trained by the JAX reference into the port.
 
 `from_jax_model` takes the reference recommendation `ALSModel`'s host
-numpy tables and the id lists of its vocabularies (`EntityIdIxMap._ids`,
-in dense-index order) and builds the port's `RecommendationModel` on
-`device`. `from_jax_similarproduct_model` does the same for the
-similar-product `SimilarProductModel` (its tables, id lists and item
-metadata). Both take plain arrays and dicts, so this module imports
-nothing of the reference package.
+numpy tables, the id lists of its vocabularies (`EntityIdIxMap._ids`,
+in dense-index order) and its item properties, and builds the port's
+`RecommendationModel` on `device`. `from_jax_similarproduct_model` does
+the same for the similar-product `SimilarProductModel` (its tables, id
+lists and item metadata). Both take plain arrays and dicts, so this
+module imports nothing of the reference package.
 """
 
 from __future__ import annotations
@@ -24,20 +24,32 @@ from predictionio_tpu_torch.ops.als import ALSModel
 
 
 def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
-                   item_ids: Sequence[str], rank: int,
-                   device=None) -> RecommendationModel:
+                   item_ids: Sequence[str], rank: int, device=None,
+                   item_properties: Optional[Sequence[Optional[dict]]] = None
+                   ) -> RecommendationModel:
     """Row i of `user_factors` belongs to `user_ids[i]` (likewise for
-    items). The tables are uploaded to `device` (default: the card)."""
+    items). `item_properties` is the reference model's list of item
+    property dicts by dense index (None where an item has none); the
+    query filters' categories and years are derived from it as the
+    reference derives them. The tables are uploaded to `device` (default:
+    the card)."""
     U = np.ascontiguousarray(user_factors, dtype=np.float32)
     V = np.ascontiguousarray(item_factors, dtype=np.float32)
     if U.shape != (len(user_ids), rank) or V.shape != (len(item_ids), rank):
         raise ValueError(
             f"tables {U.shape}/{V.shape} do not match {len(user_ids)} users, "
             f"{len(item_ids)} items at rank {rank}")
+    if item_properties is not None and len(item_properties) != len(item_ids):
+        raise ValueError(f"{len(item_properties)} item property maps for "
+                         f"{len(item_ids)} items")
     als = ALSModel(U, V, rank, resolve_device(device))
     als.tables()
+    props = None if item_properties is None else list(item_properties)
+    cats, years = RecommendationModel.derive_filters(props)
     return RecommendationModel(als, EntityIdIxMap.from_ids(user_ids),
-                               EntityIdIxMap.from_ids(item_ids))
+                               EntityIdIxMap.from_ids(item_ids),
+                               item_properties=props, item_categories=cats,
+                               item_years=years)
 
 
 def from_jax_similarproduct_model(

@@ -1,0 +1,77 @@
+"""The train run with its engine-instance lifecycle record.
+
+The port's counterpart of `run_train` in
+`predictionio_tpu/workflow/core_workflow.py` (the reference's
+CoreWorkflow.runTrain, CoreWorkflow.scala:42-99): EngineInstance INIT ->
+train -> serialize the models -> Models.insert -> COMPLETED, or ABORTED
+when any step raises. The engine params are recorded as JSON on the
+instance, which is how a server that did not train restores them.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import json
+import logging
+import time
+from typing import Optional
+
+from predictionio_tpu_torch.core.engine import Engine, EngineParams
+from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
+from predictionio_tpu_torch.data.storage.registry import Storage
+
+logger = logging.getLogger(__name__)
+
+
+def _now():
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def run_train(engine: Engine, engine_params: EngineParams,
+              engine_id: str = "default", engine_variant: str = "default",
+              engine_factory: str = "", env: Optional[dict] = None,
+              telemetry: Optional[dict] = None) -> str:
+    """Train and persist; returns the EngineInstance id.
+
+    `telemetry`, when a dict, receives the stage wall times (read_s,
+    prepare_s, train_s from `Engine.train`, then serialize_s, persist_s),
+    `model_bytes` (the blob's size) and, under `algorithms`, each
+    algorithm's own `last_train_telemetry` where it keeps one. The
+    instance is recorded at engine version "0" with no batch label, the
+    CLI's defaults; the sanity checks always run."""
+    instances = Storage.get_meta_data_engine_instances()
+    # params with no JSON form (arrays handed to a data source) raise
+    # here, before an instance is recorded
+    ep_json = engine.engine_params_to_json(engine_params)
+    instance = EngineInstance(
+        id="", status="INIT", start_time=_now(), end_time=_now(),
+        engine_id=engine_id, engine_version="0",
+        engine_variant=engine_variant, engine_factory=engine_factory,
+        batch="", env=env or {},
+        data_source_params=json.dumps(ep_json["datasource"]),
+        preparator_params=json.dumps(ep_json["preparator"]),
+        algorithms_params=json.dumps(ep_json["algorithms"]),
+        serving_params=json.dumps(ep_json["serving"]))
+    instance_id = instances.insert(instance)
+    instance = instances.get(instance_id)
+    tel = telemetry if telemetry is not None else {}
+    try:
+        result = engine.train(engine_params, True, tel)
+        tel["algorithms"] = [getattr(a, "last_train_telemetry", {})
+                             for a in result.algorithms]
+        t0 = time.perf_counter()
+        blob = engine.serialize_models(engine.make_serializable_models(
+            result, instance_id, engine_params))
+        tel["serialize_s"] = time.perf_counter() - t0
+        tel["model_bytes"] = len(blob)
+        t0 = time.perf_counter()
+        Storage.get_model_data_models().insert(Model(instance_id, blob))
+        tel["persist_s"] = time.perf_counter() - t0
+        instances.update(instance.with_(status="COMPLETED", end_time=_now()))
+        logger.info("Training completed: engine instance %s", instance_id)
+        return instance_id
+    except Exception:
+        logger.exception("Training failed: engine instance %s",
+                         instance_id)
+        instances.update(instance.with_(status="ABORTED", end_time=_now()))
+        raise

@@ -177,7 +177,7 @@ def main() -> int:
                               seed=args.seed)
     if args.template == "recommendation":
         td = rec.RecommendationDataSource(
-            rec.DataSourceParams(RatingsData(u, i, r))).read_training()
+            rec.DataSourceParams(ratings=RatingsData(u, i, r))).read_training()
         pd = rec.RecommendationPreparator().prepare(td)
         algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(
             rank=args.rank, num_iterations=2, lam=args.lam, seed=args.seed,

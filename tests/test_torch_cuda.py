@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: each held against its plain PyTorch
 version, and the ALS trains (explicit through the CG kernel, implicit
 through the Cholesky kernel, explicit and implicit at bf16 compute through
-the Schulz kernel) on the card against the same trains on the CPU.
+the Schulz kernel) on the card against the same trains on the CPU, and
+the recommendation template's store -> `create_workflow_main` ->
+`EngineServer.load` round trip on the card.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -10,6 +12,9 @@ without one. On a machine with a card and without JAX, run them with
 
 (`tests/conftest.py` configures JAX for the rest of the suite).
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -386,3 +391,78 @@ def test_bf16_schulz_train_on_the_card_goes_through_the_kernel(cuda,
                        device="cpu")
     tol = max(1e-4, 4 * factor_spread(on_cpu, f64))
     assert factor_spread(on_card, on_cpu) <= tol
+
+
+def test_store_train_and_deploy_on_the_card(cuda, tmp_path, monkeypatch):
+    """Events in a SQLite store -> `create_workflow_main` (every solve
+    through the CG kernel) -> a persisted instance -> a server that
+    restores it onto the card; its answers are the CPU train's."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    for k in list(os.environ):
+        if k.startswith("PIO_STORAGE_"):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "pio"))
+    registry.clear_cache()
+    try:
+        ui, ii, vv, _, n_items = small_ratings()
+        app_id = registry.Storage.get_meta_data_apps().insert(App(0, "a"))
+        ev = registry.Storage.get_events()
+        ev.insert_columnar(ColumnarBatch(
+            len(vv), "rate", "user", [f"u{u}" for u in ui], "item",
+            [f"i{i}" for i in ii], [{"rating": float(v)} for v in vv]),
+            app_id)
+        ev.insert_columnar(ColumnarBatch(
+            n_items, "$set", "item", [f"i{i}" for i in range(n_items)],
+            properties=[{"categories": [f"c{i % 3}"],
+                         "creationYear": 1990 + i % 20}
+                        for i in range(n_items)]), app_id)
+        algo = dict(rank=16, num_iterations=3, lam=0.1, seed=2)
+        path = tmp_path / "engine.json"
+        path.write_text(json.dumps({
+            "engineFactory": "recommendation",
+            "datasource": {"params": {"app_name": "a", "read_items": True}},
+            "algorithms": [{"name": "als", "params": algo}]}))
+        T.COUNTS.reset()
+        tel = {}
+        iid = create_workflow_main(WorkflowConfig(engine_variant=str(path)),
+                                   telemetry=tel)
+        assert T.COUNTS.cg_solve == tel["algorithms"][0]["solver_calls"] > 0
+        assert T.COUNTS.cg_solve_plain == 0
+        srv = EngineServer(ServerConfig(engine_variant=str(path))).load()
+        assert srv.engine_instance.id == iid
+        (model,) = srv.models
+        assert model.als.tables()[0].device.type == "cuda"
+        engine = TR.RecommendationEngineFactory.apply()
+        ep = engine.json_to_engine_params({
+            "datasource": {"params": {"app_name": "a", "read_items": True}},
+            "algorithms": [{"name": "als", "params": dict(
+                algo, device="cpu", solver="cg")}]})
+        on_cpu = engine.train(ep).models[0]
+        for a, b in ((on_cpu.als.user_factors, model.als.user_factors),
+                     (on_cpu.als.item_factors, model.als.item_factors)):
+            assert np.abs(a - b).max() <= FACTOR_TOL[0.1] * np.abs(a).max()
+        for body in ({"user": "u3", "num": 5},
+                     {"user": "u3", "num": 5, "categories": ["c1"],
+                      "creationYear": 2000}):
+            got = srv.handle_query(body)["itemScores"]
+            q = TR.Query.from_dict(body)
+            scores = model.als.item_factors.astype(np.float64) @ \
+                model.als.user_factors[model.user_ix[q.user]]
+            mask = model.allowed_mask(q)
+            if mask is not None:
+                scores[~mask] = -np.inf
+            top = np.sort(scores)[::-1][:5]
+            # the served items hold the float64 top-5 scores, in order (a
+            # swap between items tied within f32 rounding is allowed)
+            served = scores[[model.item_ix[s["item"]] for s in got]]
+            np.testing.assert_allclose(served, top, rtol=0,
+                                       atol=1e-5 * np.abs(top).max())
+    finally:
+        registry.clear_cache()

@@ -10,6 +10,10 @@ carried across by `from_jax_model` has the reference's exact tables and
 is held to 1e-5 absolute. The reference's
 batched serve path is held in exact mode (`PIO_SERVE_PACK=exact`), so its
 f16 score packing does not enter the comparison.
+
+The query wire format (`Query.from_dict` with and without `categories`
+and `creationYear`, nulls, malformed fields) and the engine.json params'
+JSON round trip are held exactly.
 """
 
 import json
@@ -189,3 +193,75 @@ def test_server_unknown_user_and_status(server):
         (200, {"itemScores": []})
     with urllib.request.urlopen(server + "/", timeout=30) as r:
         assert r.status == 200 and json.loads(r.read())["status"] == "alive"
+
+
+QUERY_BODIES = [
+    {"user": "u1", "num": 4},
+    {"user": "u1", "num": 4, "categories": ["c1", "c2"]},
+    {"user": "u1", "num": 4, "creationYear": 1995},
+    {"user": "u1", "num": 4, "categories": ["c1"], "creationYear": 1995.0},
+    {"user": "u1", "num": 4, "categories": None, "creationYear": None},
+    {"user": "u1", "num": 4, "categories": []},
+    {"user": 7, "num": "4", "creationYear": "2001"},
+    {"user": "u1", "num": 4, "categories": "ab"},
+]
+MALFORMED_BODIES = [
+    {"num": 4}, {"user": "u1"}, {"user": "u1", "num": "four"},
+    {"user": "u1", "num": 4, "creationYear": "recent"},
+    {"user": "u1", "num": 4, "categories": 3},
+    {"user": "u1", "num": 4, "creationYear": [1990]},
+]
+
+
+@pytest.mark.parametrize("body", QUERY_BODIES)
+def test_query_wire_format_matches_reference(body):
+    q_t, q_j = TR.Query.from_dict(body), JR.Query.from_dict(body)
+    assert (q_t.user, q_t.num, q_t.categories, q_t.creation_year) == \
+        (q_j.user, q_j.num, q_j.categories, q_j.creation_year)
+
+
+@pytest.mark.parametrize("body", MALFORMED_BODIES)
+def test_malformed_query_field_raises_like_reference_and_answers_400(
+        server, body):
+    errors = []
+    for Q in (TR.Query, JR.Query):
+        with pytest.raises((KeyError, ValueError, TypeError)) as e:
+            Q.from_dict(body)
+        errors.append(e.type)
+    assert errors[0] is errors[1]
+    status, resp = _post(server + "/queries.json", json.dumps(body).encode())
+    assert status == 400 and "message" in resp
+
+
+def test_engine_params_json_round_trips():
+    engine = TR.RecommendationEngineFactory.apply()
+    variant = {
+        "datasource": {"params": {"app_name": "a", "channel_name": "ch",
+                                  "event_names": ["rate"], "buy_rating": 3,
+                                  "read_items": True}},
+        "preparator": {"params": {"exclude_items_file": "x.txt"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 8, "num_iterations": 2, "lam": 0.1, "seed": 3,
+            "return_properties": ["creationYear"], "device": "cpu"}}]}
+    ep = engine.json_to_engine_params(variant)
+    assert ep.data_source_params[1].event_names == ("rate",)
+    assert ep.data_source_params[1].buy_rating == 3.0
+    recorded = json.loads(json.dumps(engine.engine_params_to_json(ep)))
+    back = engine.json_to_engine_params(recorded)
+    assert back.algorithm_params_list == ep.algorithm_params_list
+    assert back.preparator_params == ep.preparator_params
+    assert vars(back.data_source_params[1]) == vars(ep.data_source_params[1])
+    # the reference reads the same variant into the same values
+    from predictionio_tpu.models import get_engine_factory
+    ep_j = get_engine_factory("recommendation").apply() \
+        .json_to_engine_params({**variant, "algorithms": [{
+            "name": "als", "params": {
+                k: v for k, v in variant["algorithms"][0]["params"].items()
+                if k != "device"}}]})
+    for slot in ("data_source_params", "preparator_params"):
+        j, t = vars(getattr(ep_j, slot)[1]), vars(getattr(ep, slot)[1])
+        assert {k: t[k] for k in t if k in j} == {k: j[k] for k in t
+                                                  if k in j}
+    with pytest.raises(ValueError, match="Unknown parameter"):
+        engine.json_to_engine_params({"algorithms": [{
+            "name": "als", "params": {"rank": 2, "numIterations": 3}}]})
