@@ -35,7 +35,24 @@ PyTorch version at the shapes its path gives it. Then:
   `EngineServer.load()` restores it onto the card and serves base,
   category and creationYear queries over HTTP, each held against a
   float64 top-k under the reference's mask, built from the items' seeded
-  metadata; a retrain then swaps in on `POST /reload`.
+  metadata; a retrain through the command line (`cli.main(["train",
+  ...])`, what `python -m predictionio_tpu_torch train` runs) then swaps
+  in on `POST /reload`;
+- the serve plane: the similar-product template trained from the same
+  store (`rate` events read as views, rank 200, solver 'chol_cuda', every
+  solve through the Cholesky kernel) through the command line; both
+  templates deployed as `python -m predictionio_tpu_torch deploy`
+  subprocesses at their defaults (micro-batched, two windows in flight,
+  f16 packed readback, warmed before the first query); 32 closed-loop
+  client threads x 20 queries against each, every answer held against a
+  float64 top-k under the seeded mask (ids) and f16 rounding (scores);
+  then `undeploy` for each; then the reference REST bench's shape (16
+  clients, 320 plain queries, micro_batch 32) against an in-process
+  server with two windows in flight and one with one, bursts in ABBA
+  order, every answer held the same way.
+
+The phases before the serve plane hold served scores to f32 and run with
+`PIO_SERVE_PACK=exact`.
 
 Prints one JSON line per phase, then the kernels line, the card's name
 and power limit as nvidia-smi reports them, and as its last line
@@ -48,11 +65,15 @@ is caught. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -129,6 +150,20 @@ STORE_APP = "smokeapp"
 STORE_CHUNK = 500_000     # rows a bulk import call
 STORE_QUERIES = 30        # known-user queries of each kind served
 STORE_YEARS = (1950, 2020)   # creationYear range of the items
+SERVE_CLIENTS = 32        # serve_plane: closed-loop client threads
+SERVE_PER_CLIENT = 20     # queries each client sends
+SERVE_NUM = 10            # num of every serve_plane query: top-k bucket 16
+SERVE_K_BUCKET = 16
+DEPLOY_TIMEOUT_S = 300    # a deploy subprocess answers GET / by then
+F16_REL = 2.0 ** -11      # f16 rounding to nearest, relative
+# inflight_bench: the reference's REST bench shape (bench.py
+# bench_rest_latency: 16 concurrent clients, 320 unfiltered queries,
+# micro_batch 32), timed with 2 windows in flight and with 1, ABBA
+BENCH_CLIENTS = 16
+BENCH_PER_CLIENT = 20
+BENCH_MICRO_BATCH = 32
+BENCH_ORDER = (2, 1, 1, 2)
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class SmokeFailure(RuntimeError):
@@ -142,6 +177,21 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+@contextlib.contextmanager
+def exact_pack():
+    """`PIO_SERVE_PACK=exact` for the phases whose holds are f32-exact;
+    the default f16 readback is held by `serve_plane`."""
+    old = os.environ.get("PIO_SERVE_PACK")
+    os.environ["PIO_SERVE_PACK"] = "exact"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PIO_SERVE_PACK"]
+        else:
+            os.environ["PIO_SERVE_PACK"] = old
 
 
 def nvidia_smi() -> str:
@@ -1333,51 +1383,76 @@ def store_variant(path: str, seed: int) -> None:
                 "return_properties": ["creationYear"]}}]}, f)
 
 
-def workflow_train(path: str, phase: str) -> tuple:
-    """`create_workflow_main` on the variant at `path` (what `pio train`
-    calls), with every kernel count set to 0 just before and read just
-    after. Returns (instance id, the TrainResult it persisted, launches
-    of the CG kernel)."""
+def similar_variant(path: str) -> None:
+    """The engine.json of the similar-product template on the same store:
+    its `rate` events read as views, rank-200 implicit ALS through the
+    Cholesky kernel."""
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "similarproduct",
+            "datasource": {"params": {"app_name": STORE_APP,
+                                      "rate_as_view": True}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "num_iterations": ITERATIONS, "lam": LAM,
+                "alpha": ALPHA, "seed": 0, "solver": "chol_cuda"}}]}, f)
+
+
+def workflow_train(path: str, phase: str, kernel: str = "cg_solve"
+                   ) -> tuple:
+    """`cli.main(["train", "-v", path])` in this process (what `python -m
+    predictionio_tpu_torch train` runs), with every kernel count set to
+    0 just before and read just after; every solve must be `kernel`.
+    Returns (instance id, the TrainResult it persisted, launches of
+    `kernel`)."""
     from predictionio_tpu_torch.core.engine import Engine
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.ops.solve import COUNTS
-    from predictionio_tpu_torch.workflow import (WorkflowConfig,
-                                                 create_workflow_main)
-    trained = []
+    from predictionio_tpu_torch.tools import cli
+    trained, tels = [], []
     engine_train = Engine.train
 
-    def keep(self, *args, **kwargs):
-        # the trained models, held to what deploy restores
-        trained.append(engine_train(self, *args, **kwargs))
+    def keep(self, engine_params, sanity_check=True, telemetry=None,
+             **kwargs):
+        # the trained models, held to what deploy restores, and the
+        # train's telemetry, which run_train goes on filling
+        tels.append(telemetry)
+        trained.append(engine_train(self, engine_params, sanity_check,
+                                    telemetry, **kwargs))
         return trained[-1]
 
-    tel = {}
+    out = io.StringIO()
     Engine.train = keep
     try:
         COUNTS.reset()
         t0 = time.perf_counter()
-        iid = create_workflow_main(WorkflowConfig(engine_variant=path),
-                                   telemetry=tel)
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "-v", path])
         torch.cuda.synchronize()
         workflow_s = time.perf_counter() - t0
         counts = dict(vars(COUNTS))
     finally:
         Engine.train = engine_train
+    said = out.getvalue().strip().splitlines()
+    check(rc == 0 and said and said[-1].startswith(
+        "Training completed. Engine instance ID: "),
+        f"train of {path} exited {rc} saying {said}")
+    iid = said[-1].rsplit(" ", 1)[1]
+    tel = dict(tels[0])
     (algo_tel,) = tel.pop("algorithms")
     inst = Storage.get_meta_data_engine_instances().get(iid)
-    launches = counts["cg_solve"]
-    emit(phase, instance=iid, status=inst.status, workflow_s=workflow_s,
-         **tel, **algo_tel, launch_counts=counts)
+    launches = counts[kernel]
+    emit(phase, template=inst.engine_factory, instance=iid,
+         status=inst.status, workflow_s=workflow_s, **tel, **algo_tel,
+         launch_counts=counts)
     check(inst.status == "COMPLETED", f"engine instance {iid} is "
           f"{inst.status}")
-    check(launches > 0, "the CG kernel was never launched")
+    check(launches > 0, f"the {kernel} kernel was never launched")
     check(launches == algo_tel["solver_calls"],
-          f"{launches} CG kernel launches for {algo_tel['solver_calls']} "
-          "solver calls")
-    for name in ("cg_solve_plain", "chol_solve", "chol_solve_plain",
-                 "schulz_solve", "schulz_solve_plain"):
-        check(counts[name] == 0, f"{name} ran {counts[name]} times in the "
-              f"{phase} train: every solve must be the CG kernel")
+          f"{launches} {kernel} kernel launches for "
+          f"{algo_tel['solver_calls']} solver calls")
+    for name, n in counts.items():
+        check(name == kernel or n == 0, f"{name} ran {n} times in the "
+              f"{phase} train: every solve must be the {kernel} kernel")
     return iid, trained[0], launches
 
 
@@ -1447,15 +1522,15 @@ def dot_tolerance(u64: np.ndarray, V64: np.ndarray) -> np.ndarray:
 
 
 def hold_served(body: dict, query: dict, model, U64, V64, truth,
-                what: str) -> bool:
+                what: str, f16: bool = False) -> bool:
     """Hold one served answer against the float64 top-k over the
     persisted tables under the reference's mask, built here from the
     items' true metadata (`store_truth`): an item must share one of the
     query's categories, and be of its creationYear or later. Held: the
     ids (a swap only between items whose float64 scores tie within 1e-6
     of the largest, the serve phases' rule), each score within the f32
-    dot's rounding bound, and each item's creationYear. Returns whether
-    the ids were exact."""
+    dot's rounding bound (plus f16 rounding, 2^-11 |s|, when `f16`), and
+    each item's creationYear. Returns whether the ids were exact."""
     cats, years = truth
     uix = model.user_ix[query["user"]]
     s64 = V64 @ U64[uix]
@@ -1474,9 +1549,11 @@ def hold_served(body: dict, query: dict, model, U64, V64, truth,
     got_ix = np.array([model.item_ix[g] for g in got], dtype=np.int64)
     served = np.array([s["score"] for s in body["itemScores"]])
     tol = dot_tolerance(U64[uix], V64[got_ix])
+    if f16:
+        tol = tol + F16_REL * np.abs(s64[got_ix])
     check(bool((np.abs(served - s64[got_ix]) <= tol).all()),
-          f"{what}: scores off the float64 scores by more than the f32 "
-          "rounding bound")
+          f"{what}: scores off the float64 scores by more than the "
+          f"{'f16' if f16 else 'f32'} rounding bound")
     check([s.get("creationYear") for s in body["itemScores"]]
           == [int(years[i]) for i in got_ix],
           f"{what}: creationYear does not ride on each item")
@@ -1529,11 +1606,12 @@ def serve_and_hold(url: str, model, rng, what: str) -> dict:
                 for k in dict.fromkeys(kinds)}}
 
 
-def phase_store_deploy(path: str, iid: str, trained) -> int:
+def phase_store_deploy(path: str, iid: str, trained) -> tuple:
     """The product path's deploy: a fresh server restores the instance
     from storage (not the trained object), serves base and filtered
-    queries over HTTP, then hot-swaps to a retrain on /reload. Returns
-    the retrain's CG kernel launches."""
+    queries over HTTP, then hot-swaps on /reload to a retrain through the
+    command line. Returns the retrain's CG kernel launches and the
+    reloaded model."""
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
     t0 = time.perf_counter()
@@ -1568,11 +1646,12 @@ def phase_store_deploy(path: str, iid: str, trained) -> int:
             status, _ = post(url + "/queries.json", bad)
             check(status == 400, f"malformed body {bad} answered {status}")
         emit("store_deploy", instance=iid, load_s=load_s,
-             tables_bit_equal=True, unknown_user_empty=True,
+             warm=server.last_warm, tables_bit_equal=True,
+             unknown_user_empty=True,
              unknown_category_empty=True, malformed_400=True, **out)
 
         store_variant(path, STORE_SEEDS[1])
-        new_iid, _, launches = workflow_train(path, "store_retrain")
+        new_iid, _, launches = workflow_train(path, "cli_train")
         t0 = time.perf_counter()
         status, body = post(url + "/reload", b"")
         reload_s = time.perf_counter() - t0
@@ -1586,10 +1665,435 @@ def phase_store_deploy(path: str, iid: str, trained) -> int:
               "the reloaded engine params are not the retrain's")
         out = serve_and_hold(url, model, np.random.default_rng(6),
                              "store_reload")
-        emit("store_reload", instance=new_iid, reload_s=reload_s, **out)
-        return launches
+        emit("store_reload", instance=new_iid, reload_s=reload_s,
+             warm=server.last_warm, **out)
+        return launches, model
     finally:
         server.stop()
+
+
+def get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def log_tail(path: str, n: int = 3000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def phase_cli_deploy(variants: dict, workdir: str, deps: dict) -> None:
+    """Start `python -m predictionio_tpu_torch deploy --port 0` for each
+    template (all at once, `PIO_SERVE_PACK` unset: the default f16
+    readback), read the port each bound from the line it prints, wait
+    until each answers GET /, then read its warm-up from /stats.json and
+    time its first query. The deployments go into `deps` by template as
+    they start; the caller stops them."""
+    env = {k: v for k, v in os.environ.items() if k != "PIO_SERVE_PACK"}
+    for name, path in variants.items():
+        log = os.path.join(workdir, f"deploy_{name}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch", "deploy",
+                 "-v", path, "--ip", "127.0.0.1", "--port", "0"],
+                cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
+        deps[name] = {"proc": proc, "log": log, "t0": time.perf_counter()}
+    live = re.compile(r"Engine API is live at http://127\.0\.0\.1:(\d+)\.")
+    for name, dep in deps.items():
+        deadline = dep["t0"] + DEPLOY_TIMEOUT_S
+        while True:
+            check(dep["proc"].poll() is None,
+                  f"deploy of {name} exited {dep['proc'].returncode}: "
+                  f"{log_tail(dep['log'])}")
+            if "port" not in dep:
+                with open(dep["log"], errors="replace") as f:
+                    m = live.search(f.read())
+                if m:
+                    dep["port"] = int(m.group(1))
+                    dep["url"] = f"http://127.0.0.1:{dep['port']}"
+            try:
+                if "url" in dep:
+                    status = get_json(dep["url"] + "/")
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() < deadline, f"deploy of {name} not "
+                  f"alive in {DEPLOY_TIMEOUT_S} s: {log_tail(dep['log'])}")
+            time.sleep(0.25)
+        alive_s = time.perf_counter() - dep["t0"]
+        warm = get_json(dep["url"] + "/stats.json")["warm"]
+        check(warm is not None and warm["windows"] > 0,
+              f"deploy of {name} served before a warm-up: {warm}")
+        query = ({"user": "u1", "num": SERVE_NUM}
+                 if name == "recommendation"
+                 else {"items": ["i1"], "num": SERVE_NUM})
+        t0 = time.perf_counter()
+        code, body = post(dep["url"] + "/queries.json",
+                          json.dumps(query).encode())
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(code == 200 and body["itemScores"],
+              f"{name}'s first query answered {code} {body}")
+        emit("cli_deploy", template=name, instance=status[
+            "engineInstanceId"], pid=dep["proc"].pid, alive_s=alive_s,
+             warm=warm, first_query_ms=first_ms)
+
+
+def closed_loop(url: str, per_client: list) -> tuple:
+    """Each client thread POSTs its queries one after another; all start
+    together. Returns ([(query, status, body, ms)], wall seconds)."""
+    results = [None] * len(per_client)
+    start = threading.Barrier(len(per_client) + 1)
+
+    def client(c):
+        out = []
+        start.wait()
+        for q in per_client[c]:
+            t0 = time.perf_counter()
+            code, body = post(url + "/queries.json", json.dumps(q).encode())
+            out.append((q, code, body, (time.perf_counter() - t0) * 1e3))
+        results[c] = out
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(per_client))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    return [r for rs in results for r in rs], wall
+
+
+def rec_plane_queries(model, truth, rng) -> list:
+    """Per client: base, categories, creationYear and both in turn, the
+    last query an unknown user."""
+    cats = sorted(set().union(*truth[0]))
+    out = []
+    for c in range(SERVE_CLIENTS):
+        qs = []
+        for n in range(SERVE_PER_CLIENT - 1):
+            q = {"user": model.user_ix.id_of(int(rng.integers(len(
+                model.user_ix)))), "num": SERVE_NUM}
+            if (c + n) % 4 in (1, 3):
+                q["categories"] = [str(x) for x in rng.choice(
+                    cats, 1 + n % 2, replace=False)]
+            if (c + n) % 4 in (2, 3):
+                q["creationYear"] = int(rng.integers(*STORE_YEARS))
+            qs.append(q)
+        qs.append({"user": f"no-such-user-{c}", "num": SERVE_NUM})
+        out.append(qs)
+    return out
+
+
+def similar_plane_queries(model, rng) -> list:
+    """Per client: 1-3 query items, every other query with 1-2 of the
+    items' categories."""
+    cats = sorted({c for cs in store_items()[0] for c in cs})
+    out = []
+    for c in range(SERVE_CLIENTS):
+        qs = []
+        for n in range(SERVE_PER_CLIENT):
+            q = {"items": model.item_ix.ids_of(rng.choice(
+                len(model.item_ix), 1 + (c + n) % 3, replace=False)),
+                 "num": SERVE_NUM}
+            if (c + n) % 2:
+                q["categories"] = [str(x) for x in rng.choice(
+                    cats, 1 + n % 2, replace=False)]
+            qs.append(q)
+        out.append(qs)
+    return out
+
+
+def hold_similar(body: dict, query: dict, model, T64, cats,
+                 what: str) -> bool:
+    """Hold one similar-product answer against the float64 score of the
+    served sum over the query items' normalized rows, under the mask
+    built from the seeded categories (the query items excluded, score >
+    0): ids as `held_to_f64` (TIE_ATOL), scores within f16 rounding
+    (2^-11 |s|) plus the f32 dot's bound. Returns whether exact."""
+    q_ix = [model.item_ix[i] for i in query["items"]]
+    qsum = T64[q_ix].sum(axis=0)
+    s64 = T64 @ qsum
+    allowed = s64 > 0
+    allowed[q_ix] = False
+    if query.get("categories"):
+        want = set(query["categories"])
+        allowed &= np.array([bool(c & want) for c in cats])
+    s64 = np.where(allowed, s64, -np.inf)
+    top = np.argsort(-s64, kind="stable")[:query["num"]]
+    top = top[np.isfinite(s64[top])]
+    got = [s["item"] for s in body["itemScores"]]
+    exact = held_to_f64(got, s64, top, model, what)
+    got_ix = np.array([model.item_ix[g] for g in got], dtype=np.int64)
+    served = np.array([s["score"] for s in body["itemScores"]])
+    tol = ((RANK + 3) * 2.0 ** -24 * (np.abs(T64[got_ix]) @ np.abs(qsum))
+           + F16_REL * np.abs(s64[got_ix]))
+    check(bool((np.abs(served - s64[got_ix]) <= tol).all()),
+          f"{what}: scores off the float64 scores by more than the f16 "
+          "rounding bound")
+    return exact
+
+
+def stats_delta(before: dict, after: dict) -> dict:
+    """The serve plane's counters over one load, from two /stats.json."""
+    from predictionio_tpu_torch.ops.readback import overlap_frac
+    d = {k: after[k] - before[k] for k in (
+        "batches", "batchedQueries", "immediateBatches", "exitFullBatch",
+        "exitDrainGate", "exitWindow", "exitAdaptive", "shedQueries",
+        "pipelineStalls")}
+    rb0, rb1 = before["readback"], after["readback"]
+    windows = rb1["windows"] - rb0["windows"]
+    nbytes = rb1["bytes"] - rb0["bytes"]
+    d.update(
+        avg_batch=d["batchedQueries"] / max(d["batches"], 1),
+        max_batch=after["maxBatchSize"], d2h_windows=windows,
+        d2h_bytes=nbytes, d2h_bytes_per_window=nbytes / max(windows, 1),
+        d2h_wait_ms_per_window=(rb1["wait_s"] - rb0["wait_s"]) * 1e3
+        / max(windows, 1),
+        d2h_span_ms_per_window=(rb1["span_s"] - rb0["span_s"]) * 1e3
+        / max(windows, 1),
+        overlap_frac=overlap_frac(rb1, rb0),
+        stage_ms_per_window={
+            k: (after["stageSeconds"][k] - before["stageSeconds"][k]) * 1e3
+            / max(d["batches"], 1) for k in after["stageSeconds"]})
+    return d
+
+
+def window_breakdown(name: str, algo, model, queries: list) -> dict:
+    """Where one full window's time goes, measured in this process at the
+    plane's shapes (16 queries, top-k bucket 16): the host's mask
+    building, the device's matmul + top-k + pack (CUDA events), and the
+    answers' JSON serialization."""
+    from predictionio_tpu_torch.ops import readback
+    from predictionio_tpu_torch.ops.als import _users_topk_impl
+    from predictionio_tpu_torch.ops.similarity import _masked_topk_impl
+    qs = [q for q in queries if "categories" in q][:16]
+    t0 = time.perf_counter()
+    if name == "recommendation":
+        Q = [model.als.user_factors[model.user_ix[q["user"]]] for q in qs]
+        masks = [model.allowed_mask(algo.query_class.from_dict(q))
+                 for q in qs]
+    else:
+        Q, masks = [], []
+        for q in qs:
+            query = algo.query_class.from_dict(q)
+            q_ix = model.item_ix.to_indices(list(query.items))
+            Q.append(model.item_factors_normalized[q_ix].sum(axis=0))
+            masks.append(algo._build_mask(model, query, q_ix))
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    table = (model.als.tables()[1] if name == "recommendation"
+             else model.table())
+    qd = torch.tensor(np.stack(Q), device=table.device)
+    md = torch.tensor(np.stack(masks), device=table.device)
+
+    def masked():
+        s_, i_ = _masked_topk_impl(qd, table, md, SERVE_K_BUCKET,
+                                   name != "recommendation")
+        return readback.pack_device(s_, i_, readback.PACK_F16)
+
+    out = {"template": name, "queries": len(qs),
+           "mask_host_ms": mask_ms,
+           "masked_matmul_topk_pack_ms": cuda_ms(masked, 20)}
+    if name == "recommendation":
+        U, V = model.als.tables()
+        ixs = torch.arange(16, device=U.device)
+        out["plain_matmul_topk_pack_ms"] = cuda_ms(
+            lambda: readback.pack_device(
+                *_users_topk_impl(U, V, ixs, SERVE_K_BUCKET),
+                readback.PACK_F16), 20)
+    answers = dict(algo.batch_predict(model, [
+        (k, algo.query_class.from_dict(q)) for k, q in enumerate(qs)]))
+    t0 = time.perf_counter()
+    for r in answers.values():
+        json.dumps(r.to_dict())
+    out["serialize_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
+                      hold) -> dict:
+    """32 closed-loop clients x 20 queries against a deployed process;
+    every answer held after the load (`hold`), the serve plane's counters
+    read from /stats.json around it."""
+    before = get_json(dep["url"] + "/stats.json")
+    results, wall = closed_loop(dep["url"], per_client)
+    after = get_json(dep["url"] + "/stats.json")
+    exact = empty = 0
+    for q, code, body, _ in results:
+        check(code == 200, f"{name} serve_plane query {q} answered {code}")
+        if str(q.get("user", "")).startswith("no-such-user"):
+            check(body == {"itemScores": []},
+                  f"unknown user answered {body}")
+            empty += 1
+            continue
+        exact += hold(body, q, f"{name} serve_plane query {q}")
+    ms = np.array([r[3] for r in results])
+    d = stats_delta(before, after)
+    emit("serve_plane", template=name, clients=SERVE_CLIENTS,
+         queries=len(results), ids_equal_f64=exact,
+         f32_tie_swaps=len(results) - empty - exact, unknown_empty=empty,
+         wall_s=wall, qps=len(results) / wall,
+         p50_ms=float(np.percentile(ms, 50)),
+         p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms.max()),
+         **d, window=window_breakdown(name, algo, model,
+                                      [q for qs in per_client for q in qs]))
+    check(d["batchedQueries"] == len(results),
+          f"{d['batchedQueries']} queries went through the micro-batcher "
+          f"of {len(results)}")
+    check(d["avg_batch"] > 1, f"{name}: realized batch {d['avg_batch']:.3f}"
+          " under 32 clients")
+    slot = 6 * SERVE_K_BUCKET
+    check(d["d2h_windows"] > 0 and d["d2h_bytes"] % slot == 0
+          and d["d2h_windows"] * slot <= d["d2h_bytes"]
+          <= d["d2h_windows"] * slot * 16,
+          f"{name}: {d['d2h_bytes']} d2h bytes over {d['d2h_windows']} "
+          f"windows is not 6 bytes x 16 slots x a pow2 batch <= 16 each")
+    return d
+
+
+def phase_undeploy(deps: dict) -> None:
+    """`python -m predictionio_tpu_torch undeploy` for each deployment;
+    each deploy process must then exit 0."""
+    for name, dep in deps.items():
+        out = subprocess.run(
+            [sys.executable, "-m", "predictionio_tpu_torch", "undeploy",
+             "--ip", "127.0.0.1", "--port", str(dep["port"])], cwd=HERE,
+            capture_output=True, text=True, timeout=120)
+        check(out.returncode == 0, f"undeploy of {name} exited "
+              f"{out.returncode}: {out.stdout}{out.stderr}")
+        try:
+            rc = dep["proc"].wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"the {name} deploy process exited {rc} after "
+              f"undeploy: {log_tail(dep['log'])}")
+        emit("undeploy", template=name, said=out.stdout.strip(),
+             deploy_exit=rc)
+
+
+def phase_inflight_bench(path: str, model, truth) -> dict:
+    """The reference's REST bench shape against the deployed
+    recommendation instance: an in-process server (`load()` from the
+    store, micro_batch 32, the default f16 readback) with
+    `serve_inflight` 2 (the pipelined executor) and one with 1 (the
+    synchronous loop), 16 closed-loop clients x 20 plain queries a
+    burst, after an untimed warm burst on each; bursts in `BENCH_ORDER`.
+    Every answer is held as serve_plane's are. Reads each burst's qps,
+    p50/p99, realized batch, stalls and readback wait."""
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    U64 = model.als.user_factors.astype(np.float64)
+    V64 = model.als.item_factors.astype(np.float64)
+    rng = np.random.default_rng(10)
+    per_client = [[{"user": model.user_ix.id_of(int(rng.integers(len(
+        model.user_ix)))), "num": SERVE_NUM}
+        for _ in range(BENCH_PER_CLIENT)] for _ in range(BENCH_CLIENTS)]
+    servers, runs = {}, []
+    try:
+        for n in sorted(set(BENCH_ORDER)):
+            servers[n] = EngineServer(ServerConfig(
+                ip="127.0.0.1", port=0, engine_variant=path,
+                micro_batch=BENCH_MICRO_BATCH, serve_inflight=n)
+            ).load().start()
+            check(servers[n].batcher.pipelined == (n > 1),
+                  f"serve_inflight={n} did not pick its executor")
+            closed_loop(f"http://127.0.0.1:{servers[n].config.port}",
+                        [qs[:4] for qs in per_client])
+        for n in BENCH_ORDER:
+            srv = servers[n]
+            before = srv.stats()
+            results, wall = closed_loop(
+                f"http://127.0.0.1:{srv.config.port}", per_client)
+            after = srv.stats()
+            for q, code, body, _ in results:
+                check(code == 200, f"inflight_bench query {q} answered "
+                      f"{code}")
+                hold_served(body, q, model, U64, V64, truth,
+                            f"inflight_bench ({n} in flight) query {q}",
+                            f16=True)
+            ms = np.array([r[3] for r in results])
+            d = stats_delta(before, after)
+            runs.append({
+                "inflight": n, "qps": len(results) / wall,
+                "p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99)),
+                "avg_batch": d["avg_batch"],
+                "pipeline_stalls": d["pipelineStalls"],
+                "d2h_wait_ms_per_window": d["d2h_wait_ms_per_window"],
+                "overlap_frac": d["overlap_frac"]})
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    median = {n: {k: float(np.median([r[k] for r in runs
+                                      if r["inflight"] == n]))
+                  for k in ("qps", "p50_ms", "p99_ms", "avg_batch")}
+              for n in servers}
+    emit("inflight_bench", clients=BENCH_CLIENTS,
+         queries=BENCH_CLIENTS * BENCH_PER_CLIENT,
+         micro_batch=BENCH_MICRO_BATCH, runs=runs, median=median)
+    return median
+
+
+def stop_all(deps: dict) -> None:
+    for dep in deps.values():
+        if dep["proc"].poll() is None:
+            dep["proc"].kill()
+            dep["proc"].wait(timeout=60)
+
+
+def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> int:
+    """The serve plane: the similar-product template trained from the
+    store through the command line (`cli_train`), both templates
+    deployed as subprocesses (`cli_deploy`), held under 32 concurrent
+    clients (`serve_plane`) and undeployed (`undeploy`); then the
+    recommendation instance at the reference bench's shape with 2
+    windows in flight and with 1 (`inflight_bench`). Returns the
+    similar-product train's Cholesky kernel launches."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.models import similarproduct as TS
+    sim_path = os.path.join(workdir, "similar.json")
+    similar_variant(sim_path)
+    sim_iid, sim_trained, launches = workflow_train(sim_path, "cli_train",
+                                                    kernel="chol_solve")
+    m = sim_trained.models[0]
+    check(all(bool(np.isfinite(t).all()) for t in (
+        m.user_factors, m.item_factors_raw, m.item_factors_normalized)),
+        "the similar-product factors are not finite")
+    del sim_trained, m
+    sim_algo = TS.ALSAlgorithm(TS.ALSAlgorithmParams(rank=RANK))
+    (sim_model,) = TS.SimilarProductEngineFactory.apply().deserialize_models(
+        Storage.get_model_data_models().get(sim_iid).models, sim_iid)
+    sim_algo.place_model(sim_model)
+    rec_algo = TR.ALSAlgorithm(TR.ALSAlgorithmParams(
+        rank=RANK, return_properties=("creationYear",)))
+    deps = {}
+    try:
+        phase_cli_deploy({"recommendation": rec_path,
+                          "similarproduct": sim_path}, workdir, deps)
+        truth = store_truth(rec_model)
+        U64 = rec_model.als.user_factors.astype(np.float64)
+        V64 = rec_model.als.item_factors.astype(np.float64)
+        phase_serve_plane(
+            "recommendation", deps["recommendation"], rec_algo, rec_model,
+            rec_plane_queries(rec_model, truth, np.random.default_rng(8)),
+            lambda body, q, what: hold_served(body, q, rec_model, U64, V64,
+                                              truth, what, f16=True))
+        del U64, V64
+        T64 = sim_model.item_factors_normalized.astype(np.float64)
+        cats = store_truth(sim_model)[0]
+        phase_serve_plane(
+            "similarproduct", deps["similarproduct"], sim_algo, sim_model,
+            similar_plane_queries(sim_model, np.random.default_rng(9)),
+            lambda body, q, what: hold_similar(body, q, sim_model, T64,
+                                               cats, what))
+        phase_undeploy(deps)
+        phase_inflight_bench(rec_path, rec_model, truth)
+    finally:
+        stop_all(deps)
+    return launches
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -1621,20 +2125,29 @@ def main() -> int:
             chol = phase_chol_kernel()
             schulz = phase_schulz_kernel()
             algo, model, cg_launches, pd, cg_rmse = phase_train()
-            phase_serve(algo, model)
+            with exact_pack():
+                phase_serve(algo, model)
             del algo, model
             sp_algo, sp_model, chol_launches = phase_implicit_train(
                 pd.ratings_coo.nnz)
-            phase_similar_serve(sp_algo, sp_model)
+            with exact_pack():
+                phase_similar_serve(sp_algo, sp_model)
             del sp_algo, sp_model
             s_algo, s_model, schulz_launches = phase_schulz_train(pd,
                                                                   cg_rmse)
             phase_schulz_resolve(s_model.als, pd.ratings_coo)
-            phase_serve(s_algo, s_model, "schulz_serve", SCHULZ_QUERIES)
-            del s_algo, s_model
+            with exact_pack():
+                phase_serve(s_algo, s_model, "schulz_serve",
+                            SCHULZ_QUERIES)
+            del s_algo, s_model, pd
             path, iid, trained, store_launches = phase_store_train(workdir)
             cg_launches += store_launches
-            cg_launches += phase_store_deploy(path, iid, trained)
+            with exact_pack():
+                retrain_launches, rec_model = phase_store_deploy(
+                    path, iid, trained)
+            cg_launches += retrain_launches
+            del trained
+            chol_launches += serve_plane_phases(path, rec_model, workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

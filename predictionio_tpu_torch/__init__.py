@@ -9,11 +9,14 @@ Entry points run on the card (`device="cuda"`, the default) and raise
 `RuntimeError` when CUDA is absent; they run on the CPU only when the
 caller passes `device="cpu"`, as the tests do.
 
-This slice covers the recommendation template's main path: explicit ALS
-training through the hand-written Hopper CG solve kernel
-(`csrc/cg_solve.cu`) and serving over `POST /queries.json`.
+The recommendation and similar-product templates run from the event store
+through `python -m predictionio_tpu_torch train` (explicit and implicit
+ALS on the hand-written Hopper solve kernels, `csrc/`) to `deploy`, whose
+server micro-batches queries as the reference's does.
 """
 
 from predictionio_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

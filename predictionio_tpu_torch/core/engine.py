@@ -62,6 +62,15 @@ _MODEL_MODULES = ("predictionio_tpu_torch.models.",
                   "predictionio_tpu_torch.core.persistence.")
 
 
+class StopAfterReadInterruption(Exception):
+    """`Engine.train(stop_after_read=True)` stopped after the read."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """`Engine.train(stop_after_prepare=True)` stopped after the
+    prepare."""
+
+
 @dataclass(frozen=True)
 class EngineParams:
     """Named params for each DASE slot."""
@@ -161,18 +170,27 @@ class Engine:
                                            "serving"), params)
 
     def train(self, engine_params: EngineParams, sanity_check: bool = True,
-              telemetry: Optional[dict] = None) -> TrainResult:
+              telemetry: Optional[dict] = None,
+              stop_after_read: bool = False,
+              stop_after_prepare: bool = False) -> TrainResult:
         """`telemetry`, when a dict, receives the wall time of each stage:
-        read_s, prepare_s and train_s (all algorithms)."""
+        read_s, prepare_s and train_s (all algorithms). `stop_after_read`
+        / `stop_after_prepare` raise `StopAfterReadInterruption` /
+        `StopAfterPrepareInterruption` once that stage is done (the
+        reference's WorkflowParams, Engine.scala:621-708)."""
         tel = telemetry if telemetry is not None else {}
         t0 = time.perf_counter()
         td = self.make_data_source(engine_params).read_training()
         run_sanity_check(td, sanity_check)
         tel["read_s"] = time.perf_counter() - t0
+        if stop_after_read:
+            raise StopAfterReadInterruption()
         t0 = time.perf_counter()
         pd = self.make_preparator(engine_params).prepare(td)
         run_sanity_check(pd, sanity_check)
         tel["prepare_s"] = time.perf_counter() - t0
+        if stop_after_prepare:
+            raise StopAfterPrepareInterruption()
         t0 = time.perf_counter()
         algorithms = self.make_algorithms(engine_params)
         models = []

@@ -4,18 +4,19 @@ The port's counterpart of `predictionio_tpu/models/recommendation.py`
 (`Rating`, `TrainingData`, `Query`, `PreparedData`, `DataSourceParams`,
 `RecommendationDataSource._read_ratings/_ratings_from_cols/_read_items`,
 `RecommendationPreparator`, `ALSAlgorithmParams`, `RecommendationModel`
-with its query filters, `ALSAlgorithm.train/predict/batch_predict` and
-the engine factory). The data source reads rate/buy events from the
-event store (a buy counts as `buy_rating`; duplicate ratings keep the
-latest event) and, for the filter variants, the items' `$set`
-properties; a query may ask for `categories` and `creationYear`.
+with its query filters, `ALSAlgorithm.train/predict/batch_predict/
+batch_predict_begin` and the engine factory). The data source reads
+rate/buy events from the event store (a buy counts as `buy_rating`;
+duplicate ratings keep the latest event) and, for the filter variants,
+the items' `$set` properties; a query may ask for `categories` and
+`creationYear`.
 
 A data source may also be handed `RatingsData` arrays through its params
 (`DataSourceParams.ratings`); such params have no JSON form, so an
 engine instance (`workflow.run_train`) cannot be trained from them.
 Reading only touched entities (fold-in), the streamed bulk read, the
-evaluation read, the sharded factor tables and the pipelined
-`batch_predict_begin` are later slices (ROADMAP.md).
+evaluation read and the sharded factor tables are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,11 +38,14 @@ from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData,
                                                   top_scores_to_result)
 from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_train,
-                                            recommend_products, users_topk)
+                                            recommend_products,
+                                            users_topk_serve_begin)
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_top_k_batch,
+                                                   masked_top_k_batch_begin,
                                                    unpack_top_k_rows)
+from predictionio_tpu_torch.utils import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -315,8 +319,17 @@ class ALSAlgorithm(P2LAlgorithm):
                                     properties_of=props_of)
 
     def batch_predict(self, model: RecommendationModel, queries):
-        """One batched top-k for the known users without filters, and one
-        masked batched top-k for those whose query carries filters."""
+        """`batch_predict_begin(...)()`."""
+        return self.batch_predict_begin(model, queries)()
+
+    def batch_predict_begin(self, model: RecommendationModel, queries):
+        """The serve window's predict, in two stages: partition the
+        queries into known users without filters (one batched top-k,
+        `users_topk_serve_begin`) and those whose query carries filters
+        (one masked batched top-k, `masked_top_k_batch_begin`), enqueue
+        both now and return `finish() -> [(ix, result)]`, which waits for
+        their results and builds the answers (it may run on another
+        thread)."""
         props_of = model.properties_of(self.params.return_properties)
         out = {ix: ItemScoreResult(()) for ix, _ in queries}
         plain, masked = [], []
@@ -327,25 +340,35 @@ class ALSAlgorithm(P2LAlgorithm):
                 continue
             mask = model.allowed_mask(q)
             (plain if mask is None else masked).append((ix, q, uix, mask))
+        fetches = []
         if plain:
-            scores, idx = users_topk(model.als,
-                                     [uix for _, _, uix, _ in plain],
-                                     max(q.num for _, q, _, _ in plain))
-            for row, (ix, q, _, _) in enumerate(plain):
-                out[ix] = top_scores_to_result(
-                    model.item_ix, scores[row, :q.num], idx[row, :q.num],
-                    properties_of=props_of)
+            fetches.append((plain, users_topk_serve_begin(
+                model.als, [uix for _, _, uix, _ in plain],
+                min(max(q.num for _, q, _, _ in plain), model.als.n_items))))
         if masked:
-            scores, idx = masked_top_k_batch(
+            fetches.append((masked, masked_top_k_batch_begin(
                 model.als.tables()[1],
                 model.als.user_factors[[uix for _, _, uix, _ in masked]],
                 np.stack([mask for _, _, _, mask in masked]),
-                max(q.num for _, q, _, _ in masked), filter_positive=False)
-            for row, (ix, q, _, _) in enumerate(masked):
-                s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
-                out[ix] = top_scores_to_result(model.item_ix, s, i,
-                                               properties_of=props_of)
-        return list(out.items())
+                max(q.num for _, q, _, _ in masked), filter_positive=False)))
+
+        def finish():
+            for rows, fetch in fetches:
+                scores, idx = fetch()
+                for row, (ix, q, _, _) in enumerate(rows):
+                    s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
+                    out[ix] = top_scores_to_result(model.item_ix, s, i,
+                                                   properties_of=props_of)
+            return list(out.items())
+        return finish
+
+    def warm_queries(self, model: RecommendationModel) -> List[Query]:
+        """One query for each serve path a window can take (plain, and
+        masked by a filter), at the smallest top-k bucket: what the
+        deploy warm-up sends through `batch_predict_begin`."""
+        user = model.user_ix.id_of(0)
+        return [Query(user, B.K_FLOOR),
+                Query(user, B.K_FLOOR, creation_year=0)]
 
 
 class RecommendationEngineFactory(EngineFactory):

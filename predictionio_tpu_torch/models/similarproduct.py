@@ -4,15 +4,20 @@ The port's counterpart of `predictionio_tpu/models/similarproduct.py`
 (`Item`, `ViewEvent`, `LikeEvent`, `TrainingData`, `Query`,
 `SimilarProductPreparator`, `ALSAlgorithmParams`, `ItemMetadataModel`,
 `SimilarProductModel`, `ALSAlgorithm` with `_build_ratings`, `train`,
-`_build_mask`, `predict` and `batch_predict`, `LikeAlgorithm` and the
-engine factory). View events are summed into counts per (user, item),
-trained with implicit ALS, and a query scores every item by its summed
-cosine similarity to the query items' factors, under category, white-list,
-black-list and year filters.
+`_build_mask`, `predict`, `batch_predict` and `batch_predict_begin`,
+`LikeAlgorithm`, `SimilarProductDataSource` and the engine factory). View
+events are summed into counts per (user, item), trained with implicit ALS,
+and a query scores every item by its summed cosine similarity to the query
+items' factors, under category, white-list, black-list and year filters.
 
-The data source takes the events and item properties through its params
-(the event-store read is ROADMAP.md queue A item 1). DIMSUM, fold-in and
-the pipelined `batch_predict_begin` are later slices (ROADMAP.md).
+The data source reads the event store as the reference does: users' and
+items' `$set` properties (an item's `categories`), `view` events (and
+`rate` events as views under `rate_as_view`) and, under
+`read_like_events`, `like`/`dislike` events. It may also be handed the
+items and events as arrays through its params; such params have no JSON
+form, so an engine instance (`workflow.run_train`) cannot be trained from
+them. DIMSUM, fold-in and the touched-entity reads are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData, resolve_ids,
@@ -37,9 +43,10 @@ from predictionio_tpu_torch.ops.als import ALSConfig, als_train
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    cosine_top_k,
-                                                   masked_top_k_batch,
+                                                   masked_top_k_batch_begin,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
+from predictionio_tpu_torch.utils import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -132,14 +139,21 @@ class PreparedData:
 
 @dataclass(frozen=True, eq=False)
 class DataSourceParams(Params):
-    """The training data itself (the event-store read is a later
-    slice)."""
+    app_name: str = "default"
+    channel_name: Optional[str] = None
+    # add-rateevent variant: rate events count as views as well
+    rate_as_view: bool = False
+    # multi variant: also read like/dislike events for LikeAlgorithm
+    read_like_events: bool = False
+    # the training data itself, instead of the event store
     items: Optional[Dict[str, Item]] = None
     view_events: Optional[RatingsData] = None
     like_events: Optional[RatingsData] = None
 
 
 class SimilarProductDataSource(DataSource):
+    """(multi/DataSource.scala readTraining: $set user, $set item with
+    categories, view events, like/dislike events)."""
     PARAMS_CLASS = DataSourceParams
 
     def __init__(self, params: Optional[DataSourceParams] = None):
@@ -147,12 +161,43 @@ class SimilarProductDataSource(DataSource):
 
     def read_training(self) -> TrainingData:
         p = self.params
-        if p.items is None or p.view_events is None:
-            raise ValueError("DataSourceParams.items and .view_events are "
-                             "not set")
-        return TrainingData(users={}, items=dict(p.items),
-                            view_events=p.view_events,
-                            like_events=p.like_events)
+        if p.items is not None or p.view_events is not None:
+            if p.items is None or p.view_events is None:
+                raise ValueError("DataSourceParams.items and .view_events "
+                                 "are set together")
+            return TrainingData(users={}, items=dict(p.items),
+                                view_events=p.view_events,
+                                like_events=p.like_events)
+        app, chan = p.app_name, p.channel_name
+        users = {eid: pm.fields for eid, pm in
+                 PEventStore.aggregate_properties(
+                     app_name=app, channel_name=chan,
+                     entity_type="user").items()}
+        items = {}
+        for eid, pm in PEventStore.aggregate_properties(
+                app_name=app, channel_name=chan,
+                entity_type="item").items():
+            cats = pm.get_opt("categories", list)
+            items[eid] = Item(tuple(cats) if cats is not None else None,
+                              properties=pm.fields)
+        vc = PEventStore.find_columnar(
+            app_name=app, channel_name=chan, entity_type="user",
+            event_names=["view", "rate"] if p.rate_as_view else ["view"],
+            target_entity_type="item")
+        views = RatingsData(vc["entity_id"], vc["target_entity_id"],
+                            np.ones(len(vc["t"]), dtype=np.float32),
+                            vc["t"])
+        likes = None
+        if p.read_like_events:
+            lc = PEventStore.find_columnar(
+                app_name=app, channel_name=chan, entity_type="user",
+                event_names=["like", "dislike"], target_entity_type="item")
+            likes = RatingsData(
+                lc["entity_id"], lc["target_entity_id"],
+                np.where(lc["event"] == "like", 1.0, -1.0
+                         ).astype(np.float32), lc["t"])
+        return TrainingData(users=users, items=items, view_events=views,
+                            like_events=likes)
 
 
 class SimilarProductPreparator(Preparator):
@@ -334,9 +379,16 @@ class ALSAlgorithm(P2LAlgorithm):
             properties_of=model.properties_of(self.params.return_properties))
 
     def batch_predict(self, model: SimilarProductModel, queries):
+        """`batch_predict_begin(...)()`."""
+        return self.batch_predict_begin(model, queries)()
+
+    def batch_predict_begin(self, model: SimilarProductModel, queries):
         """The cosine score is linear over the query items, so each query
         collapses to one summed normalized vector and the whole batch is
-        one masked matmul + top-k."""
+        one masked matmul + top-k, enqueued now
+        (`masked_top_k_batch_begin`). Returns `finish() -> [(ix,
+        result)]`, which waits for the result and builds the answers (it
+        may run on another thread)."""
         out = {ix: ItemScoreResult(()) for ix, _ in queries}
         rows = []  # (ix, query, qsum [R], mask [I])
         for ix, q in queries:
@@ -348,17 +400,30 @@ class ALSAlgorithm(P2LAlgorithm):
             rows.append((ix, q,
                          model.item_factors_normalized[q_ix].sum(axis=0),
                          self._build_mask(model, q, q_ix)))
+        fetch = None
         if rows:
-            scores, idx = masked_top_k_batch(
+            fetch = masked_top_k_batch_begin(
                 model.table(), np.stack([r[2] for r in rows]),
                 np.stack([r[3] for r in rows]),
                 max(q.num for _, q, _, _ in rows))
-            props_of = model.properties_of(self.params.return_properties)
-            for row, (ix, q, _, _) in enumerate(rows):
-                s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
-                out[ix] = top_scores_to_result(model.item_ix, s, i,
-                                               properties_of=props_of)
-        return list(out.items())
+
+        def finish():
+            if fetch is not None:
+                scores, idx = fetch()
+                props_of = model.properties_of(
+                    self.params.return_properties)
+                for row, (ix, q, _, _) in enumerate(rows):
+                    s, i = unpack_top_k_rows(scores[row], idx[row], q.num)
+                    out[ix] = top_scores_to_result(model.item_ix, s, i,
+                                                   properties_of=props_of)
+            return list(out.items())
+        return finish
+
+    def warm_queries(self, model: SimilarProductModel) -> List[Query]:
+        """The one serve path a window takes (masked by the query's
+        filters) at the smallest top-k bucket: what the deploy warm-up
+        sends through `batch_predict_begin`."""
+        return [Query((model.item_ix.id_of(0),), B.K_FLOOR)]
 
 
 class LikeAlgorithm(ALSAlgorithm):
@@ -371,7 +436,7 @@ class LikeAlgorithm(ALSAlgorithm):
         likes = td.like_events
         if likes is None or not len(likes):
             raise ValueError("No like/dislike events to train on "
-                             "(set like_events on the data source)")
+                             "(set read_like_events on the data source)")
         user_ix, ui = EntityIdIxMap.build_with_indices(likes.users)
         item_ix = EntityIdIxMap.build(np.concatenate(
             [np.array(list(td.items), dtype=str), likes.items.astype(str)]))

@@ -3,8 +3,9 @@
 The port's counterpart of `predictionio_tpu/ops/als.py` (train:
 `ALSConfig`, `ALSModel`, `_init_factors`, `_dual_system_solve`,
 `_scatter_rows`, `_solve_batch`, `_gram_eig_impl`, `_run_side`,
-`als_train`; serve: `recommend_products`, `users_topk`,
-`predict_ratings`, `als_rmse`).
+`als_train`; serve: `recommend_products`, `batch_predict_dims`,
+`users_topk_serve[_begin]` computing `_users_topk_impl` (the batched
+serve path), `predict_ratings`, `als_rmse`).
 
 Math parity with the reference (MLlib 1.3):
   explicit  ALS-WR: minimize sum (r - x.v)^2 + lam * (n_u |x|^2 + ...).
@@ -54,12 +55,14 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
+from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
                                                 plan_for_items,
                                                 plan_for_users)
 from predictionio_tpu_torch.ops.solve import (COMPUTE_DTYPES,
                                               resolve_solver, round_operand,
                                               spd_solve)
+from predictionio_tpu_torch.utils import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -484,18 +487,55 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
 # Scoring / prediction
 # ---------------------------------------------------------------------------
 
-def users_topk(model: ALSModel, user_ixs, k: int
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """Batched top-k items for known users: gather, u @ V^T, topk.
-    Returns host ([n, k'], [n, k']) with k' = min(k, n_items). The port's
-    tables are exact-size, so the reference's padded-vocabulary mask
-    (`_users_topk_impl`'s n_items mask) has nothing to mask."""
+def batch_predict_dims(model: ALSModel, batch: int, k: int) -> dict:
+    """The padded shape of one batched serve top-k over `model`: the
+    batch bucket `b`, the top-k bucket `k` (a pow2 from 16, at most the
+    item count) and the pack mode `p`; what the serve dispatch pads to
+    and the deploy warm-up covers."""
+    return {"b": B.bucket_batch(batch),
+            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), model.n_items),
+            "p": readback.pack_flag()}
+
+
+def _users_topk_impl(U: torch.Tensor, V: torch.Tensor, ixs: torch.Tensor,
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the users' rows, score every item, top-k."""
+    return torch.topk(torch.matmul(U[ixs], V.T), k, dim=1)
+
+
+def users_topk_serve(model: ALSModel, user_ixs, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """`users_topk_serve_begin(...)()`."""
+    return users_topk_serve_begin(model, user_ixs, k)()
+
+
+def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
+    """The serve path's batched top-k, in two stages: enqueue the work
+    and the copy of its result to the host now, return `finish() ->
+    (scores [n, k_b], idx [n, k_b])` that waits for that copy. The batch
+    pads to its bucket (with user 0) and k to its bucket
+    (`batch_predict_dims`); the result rides `PIO_SERVE_PACK`'s payload
+    (`ops/readback.py`). The tables are exact-size, so the reference's
+    `n_items` mask over padded rows has nothing to mask. `finish` may run
+    on another thread; it is the only wait."""
+    user_ixs = np.asarray(user_ixs, dtype=np.int64)
+    n = user_ixs.shape[0]
+    dims = batch_predict_dims(model, n, k)
+    ixs = np.zeros(dims["b"], dtype=np.int64)
+    ixs[:n] = user_ixs
     U, V = model.tables()
-    ixs = torch.as_tensor(np.asarray(user_ixs, dtype=np.int64),
-                          device=model.device)
-    scores = torch.matmul(U[ixs], V.T)
-    s, i = torch.topk(scores, min(k, model.n_items), dim=1)
-    return s.cpu().numpy(), i.cpu().numpy()
+    scores, idx = _users_topk_impl(U, V, readback.to_device(ixs, U.device),
+                                   dims["k"])
+    if dims["p"]:
+        fetch = readback.begin_fetch_packed(
+            readback.pack_device(scores, idx, dims["p"]), dims["p"])
+    else:
+        fetch = readback.begin_fetch(scores, idx)
+
+    def finish() -> Tuple[np.ndarray, np.ndarray]:
+        s, i = fetch()
+        return s[:n], i[:n]
+    return finish
 
 
 def recommend_products(model: ALSModel, user_ix: int, k: int,

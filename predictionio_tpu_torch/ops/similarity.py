@@ -3,14 +3,16 @@ model's device.
 
 The port's counterpart of `predictionio_tpu/ops/similarity.py`
 (`normalize_rows`, `cosine_top_k` computing `_cosine_topk`,
-`build_filter_mask`, `masked_top_k_batch` computing `_masked_topk_impl`,
-`unpack_top_k_rows`). Score = sum over the query items of cos(q, item);
-items not allowed by the host-built filter mask, or with score <= 0, are
-excluded (`masked_top_k_batch` keeps scores <= 0 when asked, for
-explicit-ALS dot scores). Plain PyTorch: one matmul and `torch.topk` over
-the item table resident on the device. The reference's shape buckets, AOT
-registry, packed readback and sharded route are later slices (ROADMAP.md,
-queue A).
+`build_filter_mask`, `masked_topk_dims`, `masked_top_k_batch[_begin]`
+computing `_masked_topk_impl`, `unpack_top_k_rows`). Score = sum over the
+query items of cos(q, item); items not allowed by the host-built filter
+mask, or with score <= 0, are excluded (`masked_top_k_batch` keeps scores
+<= 0 when asked, for explicit-ALS dot scores). Plain PyTorch: one matmul
+and `torch.topk` over the item table resident on the device. The batched
+path pads its batch and top-k to pow2 buckets (`utils/buckets.py`) and
+returns its result through the packed readback (`ops/readback.py`); the
+item table stays exact-size. The sharded route is a later slice
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from predictionio_tpu_torch.ops import readback
+from predictionio_tpu_torch.utils import buckets as B
 
 
 def normalize_rows(factors: np.ndarray) -> np.ndarray:
@@ -69,6 +74,26 @@ def build_filter_mask(n_items: int, exclude: Sequence[int] = (),
     return mask
 
 
+def masked_topk_dims(n_items: int, batch: int, k: int) -> dict:
+    """The padded shape of one masked top-k: batch bucket `b`, top-k
+    bucket `k` (a pow2 from 16, at most the item count) and the pack
+    mode `p`."""
+    return {"b": B.bucket_batch(batch),
+            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), int(n_items)),
+            "p": readback.pack_flag()}
+
+
+def _masked_topk_impl(q: torch.Tensor, item_table: torch.Tensor,
+                      allowed: torch.Tensor, k: int,
+                      filter_positive: bool):
+    """Score the batch against every item, mask, top-k."""
+    scores = q @ item_table.T
+    if filter_positive:
+        allowed = allowed & (scores > 0)
+    scores = torch.where(allowed, scores, float("-inf"))
+    return torch.topk(scores, k, dim=1)
+
+
 def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
                        masks: np.ndarray, k: int,
                        filter_positive: bool = True
@@ -80,18 +105,41 @@ def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
     bool. Items not allowed score -inf; `filter_positive` also drops
     scores <= 0 (the cosine templates' rule; explicit-ALS callers pass
     False, since their scores can be negative). Returns host ([B, k'],
-    [B, k']) with k' = min(k, I); callers drop the -inf slots
-    (`unpack_top_k_rows`)."""
+    [B, k']) with k' = min(bucketed k, I); callers drop the -inf slots
+    and cut to their own num (`unpack_top_k_rows`). The scores are those
+    `PIO_SERVE_PACK` sends (f16 by default)."""
+    return masked_top_k_batch_begin(item_table, query_vecs, masks, k,
+                                    filter_positive=filter_positive)()
+
+
+def masked_top_k_batch_begin(item_table: torch.Tensor,
+                             query_vecs: np.ndarray, masks: np.ndarray,
+                             k: int, filter_positive: bool = True):
+    """`masked_top_k_batch` in two stages: upload the padded queries and
+    masks, enqueue the ranking and the copy of its result now, and
+    return `finish() -> (scores [B, k'], idx [B, k'])`, which waits for
+    the copy (it may run on another thread). Padding rows are masked
+    out entirely."""
     dev = item_table.device
-    q = torch.as_tensor(np.asarray(query_vecs, dtype=np.float32),
-                        device=dev)
-    scores = q @ item_table.T
-    allowed = torch.as_tensor(masks, device=dev)
-    if filter_positive:
-        allowed = allowed & (scores > 0)
-    scores = torch.where(allowed, scores, float("-inf"))
-    s, i = torch.topk(scores, min(k, item_table.shape[0]), dim=1)
-    return s.cpu().numpy(), i.cpu().numpy()
+    n = query_vecs.shape[0]
+    dims = masked_topk_dims(item_table.shape[0], n, k)
+    qp = np.zeros((dims["b"], query_vecs.shape[1]), dtype=np.float32)
+    qp[:n] = query_vecs
+    mp = np.zeros((dims["b"], item_table.shape[0]), dtype=bool)
+    mp[:n] = masks
+    scores, idx = _masked_topk_impl(
+        readback.to_device(qp, dev), item_table, readback.to_device(mp, dev),
+        dims["k"], filter_positive)
+    if dims["p"]:
+        fetch = readback.begin_fetch_packed(
+            readback.pack_device(scores, idx, dims["p"]), dims["p"])
+    else:
+        fetch = readback.begin_fetch(scores, idx)
+
+    def finish() -> Tuple[np.ndarray, np.ndarray]:
+        s, i = fetch()
+        return s[:n], i[:n]
+    return finish
 
 
 def unpack_top_k_rows(scores_row: np.ndarray, idx_row: np.ndarray,

@@ -1,5 +1,5 @@
-"""A small engine server: `POST /queries.json`, `GET /`, `/reload` and
-`/stop`.
+"""The engine server: `POST /queries.json`, `GET /`, `GET /stats.json`,
+`/reload` and `/stop`.
 
 The port's counterpart of the query and deploy paths of
 `predictionio_tpu/serving/server.py`. Deploy (`EngineServer.load`, what
@@ -7,17 +7,31 @@ The port's counterpart of the query and deploy paths of
 COMPLETED one of its engine id/version/variant -> its engine factory ->
 the model blob -> the engine params from the instance's JSON -> the
 engine's `prepare_deploy`, which puts each model on its algorithm's
-device before the first query. `/reload` restores the latest instance
-again and swaps it in (a hot swap: a query answers from the old or the
-new models, never a mix); `/stop` shuts the server down. A server may
-also be handed a trained engine (`TrainResult`) directly.
+device -> the warm-up -> the swap. The warm-up runs each algorithm's
+`batch_predict_begin(...)()` once for every pow2 batch bucket a window can
+pad to (up to `micro_batch`), on each path its `warm_queries` names, so
+the first query finds every shape cuBLAS and `torch.topk` will see
+already run; it is timed (`/stats.json` `warm`) and a failure fails
+`load()`. `/reload` restores the latest instance again and swaps it in
+(a hot swap: a query answers from the old or the new models, never a
+mix); `/stop` shuts the server down. A server may also be handed a
+trained engine (`TrainResult`) directly.
 
-A query: decode the JSON body with the first algorithm's query class ->
-supplement -> predict with every algorithm -> serve -> `to_dict`. A
-malformed body (bad JSON, not an object, a missing or mistyped field)
-answers 400 with a message, as the reference does. Built on the standard
-library's `ThreadingHTTPServer`; the micro-batcher, result cache,
-telemetry and the other routes are later slices.
+Queries go through the micro-batcher (`serving/batcher.py`) by default
+(`micro_batch` = 16, as the reference's default deploy): each body is
+decoded once, on its request thread, and a window of concurrent queries
+snapshots the model set once, under the lock, supplements its queries
+and starts every algorithm's
+`batch_predict_begin` (a synchronous `batch_predict` for one without
+it); its `finish()` waits for the results (`ops/readback.py`), serves and
+serializes them. With `serve_inflight` > 1 the windows are pipelined.
+`micro_batch` <= 1 answers each request on its own thread through
+`predict`. `X-PIO-Deadline-Ms` gives a query's deadline: a query the
+queue cannot answer in time is shed with 503 and `Retry-After`; a
+malformed value answers 400. A malformed body (bad JSON, not an object,
+a missing or mistyped field) answers 400, as the reference does, and
+fails no other query of its window. The result cache, the metrics and tracing routes, canaries and
+feedback are later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +48,9 @@ from predictionio_tpu_torch.core.engine import (Engine, EngineParams,
                                                 TrainResult)
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.models import get_engine_factory
+from predictionio_tpu_torch.ops import readback
+from predictionio_tpu_torch.serving.batcher import MicroBatcher
+from predictionio_tpu_torch.utils.buckets import batch_ladder
 
 logger = logging.getLogger(__name__)
 
@@ -47,6 +64,38 @@ class ServerConfig:
     engine_id: Optional[str] = None
     engine_version: Optional[str] = None
     engine_variant: str = "engine.json"
+    # > 1 coalesces concurrent queries into one batched device call, on
+    # by default as in the reference; <= 1 answers each on its own
+    micro_batch: int = 16
+    micro_batch_wait_ms: float = 5.0
+    # cap on how long the oldest query may sit in the coalescing stage
+    micro_batch_latency_budget_ms: Optional[float] = None
+    # windows in flight; None reads PIO_SERVE_INFLIGHT (default 2), 1 is
+    # the synchronous loop
+    serve_inflight: Optional[int] = None
+    adaptive_batching: bool = True
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """A thread a connection; a listen backlog for many concurrent
+    clients (the standard library's default is 5)."""
+    daemon_threads = True
+    request_queue_size = 128
+
+
+def _request_deadline_s(headers) -> Optional[float]:
+    """`X-PIO-Deadline-Ms`: how long the client still cares about the
+    answer, in seconds; None when absent."""
+    raw = headers.get("X-PIO-Deadline-Ms")
+    if not raw:
+        return None
+    try:
+        ms = float(raw)
+    except ValueError:
+        raise ValueError(f"bad deadline {raw!r}: want milliseconds")
+    if ms <= 0:
+        raise ValueError("deadline must be positive milliseconds")
+    return ms / 1000.0
 
 
 class EngineServer:
@@ -69,9 +118,19 @@ class EngineServer:
             self.serving = engine.make_serving(engine_params)
         self.request_count = 0
         self.serving_seconds = 0.0
+        self.last_warm: Optional[dict] = None
         self._lock = threading.Lock()
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self.batcher: Optional[MicroBatcher] = None
+        if config.micro_batch > 1:
+            self.batcher = MicroBatcher(
+                self.handle_query_batch, max_batch=config.micro_batch,
+                max_wait_ms=config.micro_batch_wait_ms,
+                latency_budget_ms=config.micro_batch_latency_budget_ms,
+                process_batch_begin=self.handle_query_batch_begin,
+                inflight=config.serve_inflight,
+                adaptive=config.adaptive_batching)
 
     # -- model loading (createServerActorWithEngine, :206-265) -------------
     def load_engine_instance(self):
@@ -94,9 +153,10 @@ class EngineServer:
         return instance
 
     def load(self) -> "EngineServer":
-        """Restore the engine instance and swap it in (the deploy path).
-        The models are restored and placed on their devices before the
-        swap, so a query in flight keeps answering from the old ones."""
+        """Restore the engine instance, warm it and swap it in (the
+        deploy path). The models are restored, placed on their devices
+        and warmed before the swap, so a query in flight keeps answering
+        from the old ones."""
         instance = self.load_engine_instance()
         engine = self.engine
         if engine is None:
@@ -117,6 +177,7 @@ class EngineServer:
             })
         result = engine.prepare_deploy(engine_params, persisted, instance.id)
         serving = engine.make_serving(engine_params)
+        warm = self.warm(result.algorithms, result.models)
         with self._lock:
             self.engine = engine
             self.engine_params = engine_params
@@ -124,9 +185,30 @@ class EngineServer:
             self.algorithms = result.algorithms
             self.models = result.models
             self.serving = serving
-        logger.info("Engine instance %s loaded (%d algorithm(s))",
-                    instance.id, len(result.algorithms))
+            self.last_warm = dict(warm, version=instance.id)
+        logger.info("Engine instance %s loaded (%d algorithm(s)), warmed "
+                    "in %.3f s", instance.id, len(result.algorithms),
+                    warm["seconds"])
         return self
+
+    def warm(self, algorithms, models) -> dict:
+        """Run every algorithm's `batch_predict_begin(...)()` once for
+        each batch bucket a window can pad to, on each of its
+        `warm_queries`. Raises what a warm window raises."""
+        t0 = time.perf_counter()
+        ladder = batch_ladder(self.config.micro_batch)
+        windows = 0
+        for algo, model in zip(algorithms, models):
+            make = getattr(algo, "warm_queries", None)
+            if make is None or not hasattr(algo, "batch_predict_begin"):
+                continue
+            for query in make(model):
+                for b in ladder:
+                    algo.batch_predict_begin(
+                        model, [(i, query) for i in range(b)])()
+                    windows += 1
+        return {"seconds": time.perf_counter() - t0, "windows": windows,
+                "batches": ladder}
 
     def reload(self) -> None:
         """Hot-swap to the latest COMPLETED instance of the loaded one's
@@ -140,29 +222,77 @@ class EngineServer:
         self.load()
 
     # -- queries -----------------------------------------------------------
-    def handle_query(self, query_dict: dict) -> dict:
-        t0 = time.perf_counter()
-        if not isinstance(query_dict, dict):
-            raise ValueError("query must be a JSON object")
+    def _snapshot(self):
         with self._lock:
             algorithms, models, serving = (self.algorithms, self.models,
                                            self.serving)
         if not algorithms:
             raise RuntimeError("no engine is loaded")
+        return algorithms, models, serving
+
+    def decode(self, query_dict, algorithms=None):
+        """The query object of a JSON body, by the first algorithm's query
+        class. Raises ValueError, KeyError or TypeError for a malformed
+        body (the HTTP layer answers 400)."""
+        if not isinstance(query_dict, dict):
+            raise ValueError("query must be a JSON object")
+        if algorithms is None:
+            algorithms = self._snapshot()[0]
         qc = algorithms[0].query_class
-        query = qc.from_dict(query_dict) if qc is not None else query_dict
-        supplemented = serving.supplement(query)
-        predictions: List = [algo.predict(model, supplemented)
-                             for algo, model in zip(algorithms, models)]
-        prediction = serving.serve(query, predictions)
+        return qc.from_dict(query_dict) if qc is not None else query_dict
+
+    @staticmethod
+    def _to_dict(prediction) -> dict:
         out = (prediction.to_dict() if hasattr(prediction, "to_dict")
                else prediction)
-        if not isinstance(out, dict):
-            out = {"result": out}
+        return out if isinstance(out, dict) else {"result": out}
+
+    def handle_query(self, query_dict: dict) -> dict:
+        """One query on the calling thread (`micro_batch` <= 1)."""
+        t0 = time.perf_counter()
+        algorithms, models, serving = self._snapshot()
+        query = self.decode(query_dict, algorithms)
+        supplemented = serving.supplement(query)
+        predictions = [algo.predict(model, supplemented)
+                       for algo, model in zip(algorithms, models)]
+        out = self._to_dict(serving.serve(query, predictions))
         with self._lock:
             self.request_count += 1
             self.serving_seconds += time.perf_counter() - t0
         return out
+
+    def handle_query_batch(self, queries: list) -> List[dict]:
+        return self.handle_query_batch_begin(queries)()
+
+    def handle_query_batch_begin(self, queries: list):
+        """A window's first stage, over queries `answer` has decoded:
+        snapshot the model set (once, under the lock: the window answers
+        from one version whatever swaps in meanwhile), supplement the
+        queries and start every algorithm's batch predict. Returns
+        `finish() -> List[dict]`, the second stage: wait for the results,
+        serve, serialize."""
+        t0 = time.perf_counter()
+        algorithms, models, serving = self._snapshot()
+        indexed = [(i, serving.supplement(q)) for i, q in enumerate(queries)]
+        fetchers = []
+        for algo, model in zip(algorithms, models):
+            begin = getattr(algo, "batch_predict_begin", None)
+            if begin is not None:
+                fetchers.append(begin(model, indexed))
+            else:
+                res = algo.batch_predict(model, indexed)
+                fetchers.append(lambda res=res: res)
+
+        def finish() -> List[dict]:
+            per_algo = [dict(f()) for f in fetchers]
+            out = [self._to_dict(serving.serve(q, [pa[i] for pa in per_algo]))
+                   for i, q in enumerate(queries)]
+            with self._lock:
+                self.request_count += len(queries)
+                self.serving_seconds += (time.perf_counter() - t0) * len(
+                    queries)
+            return out
+        return finish
 
     def status(self) -> dict:
         with self._lock:
@@ -176,17 +306,46 @@ class EngineServer:
                 "requests": n,
                 "avgServingSec": secs / n if n else 0.0}
 
+    def stats(self) -> dict:
+        """`/stats.json`: the status, the micro-batcher's counters (at the
+        top level, as the reference's), the last warm-up and the readback
+        plane's counters."""
+        out = self.status()
+        out["microBatch"] = self.config.micro_batch
+        with self._lock:
+            out["warm"] = self.last_warm
+        if self.batcher is not None:
+            out.update(self.batcher.stats())
+        out["readback"] = readback.stats_snapshot()
+        return out
+
+    def answer(self, query_dict, deadline_s: Optional[float] = None) -> dict:
+        """A `/queries.json` body's answer: `handle_query` when there is
+        no micro-batcher; else decoded here, once (a malformed body raises
+        on its own thread), and the query object goes through the
+        micro-batcher."""
+        if self.batcher is None:
+            return self.handle_query(query_dict)
+        return self.batcher.submit(self.decode(query_dict),
+                                   deadline_s=deadline_s)
+
     def _handler(self):
         server = self
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # one buffered write, no Nagle: a header/body write split
+            # would otherwise wait on delayed ACKs
+            wbufsize = 1 << 16
+            disable_nagle_algorithm = True
 
-            def _send(self, status: int, body: dict):
+            def _send(self, status: int, body: dict, headers=None):
                 data = json.dumps(body).encode("utf-8")
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -212,6 +371,8 @@ class EngineServer:
                 path = self.path.split("?")[0]
                 if path == "/":
                     self._send(200, server.status())
+                elif path == "/stats.json":
+                    self._send(200, server.stats())
                 elif not self._control(path):
                     self._send(404, {"message": f"no route {self.path}"})
 
@@ -225,15 +386,23 @@ class EngineServer:
                     self._send(404, {"message": f"no route {self.path}"})
                     return
                 try:
-                    out = server.handle_query(json.loads(raw or b"null"))
+                    out = server.answer(json.loads(raw or b"null"),
+                                        _request_deadline_s(self.headers))
                 except KeyError as e:
                     self._send(400, {"message": f"missing field {e}"})
                 except (ValueError, TypeError) as e:
                     # json.JSONDecodeError is a ValueError
                     self._send(400, {"message": str(e)})
                 except Exception as e:   # keep serving; report the fault
-                    logger.exception("query failed")
-                    self._send(500, {"message": str(e)})
+                    status = getattr(e, "http_status", None)
+                    if status is None:
+                        logger.exception("query failed")
+                        self._send(500, {"message": str(e)})
+                        return
+                    retry = getattr(e, "retry_after_s", None)
+                    self._send(int(status), {"message": str(e)},
+                               None if retry is None else
+                               {"Retry-After": str(max(1, int(retry + 0.5)))})
                 else:
                     self._send(200, out)
 
@@ -242,23 +411,47 @@ class EngineServer:
 
         return Handler
 
-    def start(self, background: bool = True) -> "EngineServer":
-        self._httpd = ThreadingHTTPServer((self.config.ip, self.config.port),
-                                          self._handler())
-        self._httpd.daemon_threads = True
-        self.config.port = self._httpd.server_address[1]
+    def bind(self, bind_retries: int = 3,
+             retry_delay_s: float = 1.0) -> "EngineServer":
+        """Bind the listening socket (retrying, as the reference's
+        MasterActor, :363-373) and record the bound port in the config
+        (port 0 = any free port)."""
+        for attempt in range(bind_retries):
+            try:
+                httpd = _HTTPServer((self.config.ip, self.config.port),
+                                    self._handler())
+                break
+            except OSError as e:
+                if attempt + 1 == bind_retries:
+                    raise
+                logger.warning("bind %s:%d failed (%s), retry %d/%d",
+                               self.config.ip, self.config.port, e,
+                               attempt + 1, bind_retries)
+                time.sleep(retry_delay_s)
+        self._httpd = httpd
+        self.config.port = httpd.server_address[1]
         logger.info("Engine server started on %s:%d", self.config.ip,
                     self.config.port)
+        return self
+
+    def start(self, background: bool = True) -> "EngineServer":
+        """Serve, binding first unless `bind` has; `background=False`
+        serves on the calling thread until `stop()`."""
+        if self._httpd is None:
+            self.bind()
+        httpd = self._httpd
         if background:
-            self._thread = threading.Thread(target=self._httpd.serve_forever,
+            self._thread = threading.Thread(target=httpd.serve_forever,
                                             name="engine-server",
                                             daemon=True)
             self._thread.start()
         else:
-            self._httpd.serve_forever()
+            httpd.serve_forever()
         return self
 
     def stop(self) -> None:
+        """Stop listening, then stop the micro-batcher (windows already
+        dispatched complete; queued queries fail with 503)."""
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             httpd.shutdown()
@@ -266,3 +459,5 @@ class EngineServer:
         thread, self._thread = self._thread, None
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout=10)
+        if self.batcher is not None:
+            self.batcher.stop()

@@ -1,0 +1,196 @@
+"""The port's command line: `python -m predictionio_tpu_torch`.
+
+The port's counterpart of `version`, `train`, `deploy` and `undeploy` of
+`predictionio_tpu/tools/cli.py` (the reference's Console,
+Console.scala:186-651), with the same flags and messages. `train` runs
+`create_workflow_main` in this process; `deploy` undeploys a stale server
+on the target port, restores and warms the latest trained instance
+(`EngineServer.load`), binds, prints the address it serves on (`--port
+0` binds any free port, and no stale server is looked for) and serves in
+the foreground until `undeploy`, SIGTERM or SIGINT. The device comes from the engine.json's algorithm
+params (`device`; absent = the card, which raises RuntimeError without
+CUDA; `"cpu"` only when named).
+
+The other commands of `bin/pio` (app, accesskey, import, export,
+eventserver, status, build, eval, update and the rest) are not ported:
+run them through the JAX package's `bin/pio` on a machine that has JAX,
+against the same store, or through the storage API.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import threading
+import time
+import urllib.request
+from typing import List, Optional
+
+DESCRIPTION = (
+    "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
+    "here: version, train, deploy, undeploy. Still only in the JAX "
+    "package's bin/pio: app, accesskey, import, export, eventserver, "
+    "status, build, eval, update and the other commands.")
+
+
+def cmd_version(args) -> int:
+    import predictionio_tpu_torch
+    print(predictionio_tpu_torch.__version__)
+    return 0
+
+
+def cmd_train(args) -> int:
+    from predictionio_tpu_torch.core.engine import (
+        StopAfterPrepareInterruption, StopAfterReadInterruption)
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    config = WorkflowConfig(
+        batch=args.batch or "",
+        engine_variant=args.engine_json,
+        engine_id=args.engine_id or "default",
+        engine_version=args.engine_version or "0",
+        engine_factory=args.engine_factory,
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+        verbose=args.verbose)
+    try:
+        instance_id = create_workflow_main(config)
+    except (StopAfterReadInterruption, StopAfterPrepareInterruption) as e:
+        print(f"Training interrupted by {type(e).__name__}.")
+        return 0
+    print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def _serve_foreground(server, label: str) -> int:
+    """Serve a bound server on this thread until `/stop`, SIGTERM or
+    SIGINT. A signal
+    stops the server from a helper thread (stopping from inside the
+    serve loop's own thread would deadlock) and hard-exits with status 1
+    if the teardown has not finished within 15 s."""
+    torn_down = threading.Event()
+
+    def stopper():
+        deadline = time.time() + 15
+        while time.time() < deadline:
+            server.stop()
+            if torn_down.wait(0.5):
+                return
+        print(f"{label}: shutdown did not complete within 15s; "
+              "hard-exiting with status 1.", flush=True)
+        os._exit(1)
+
+    def on_signal(signum, frame):
+        print(f"{label}: received signal {signum}, shutting down.",
+              flush=True)
+        threading.Thread(target=stopper, daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, on_signal)
+    server.start(background=False)
+    torn_down.set()
+    return 0
+
+
+def _stop_stale_server(ip: str, port: int) -> None:
+    """Undeploy a server holding the target port, as the reference's
+    MasterActor does before it binds (CreateServer.scala:288-310)."""
+    stop_ip = ip if ip != "0.0.0.0" else "127.0.0.1"
+    try:
+        req = urllib.request.Request(f"http://{stop_ip}:{port}/stop",
+                                     method="POST", data=b"")
+        urllib.request.urlopen(req, timeout=3).read()
+    except OSError:
+        return    # nothing listens there
+    print(f"Undeployed a stale engine server on port {port}.", flush=True)
+    time.sleep(1)
+
+
+def cmd_deploy(args) -> int:
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    if args.port:
+        _stop_stale_server(args.ip, args.port)
+    config = ServerConfig(
+        ip=args.ip, port=args.port,
+        engine_instance_id=args.engine_instance_id,
+        engine_id=args.engine_id or "default",
+        engine_version=args.engine_version or "0",
+        engine_variant=args.engine_json)
+    server = EngineServer(config).load().bind()
+    print(f"Engine is deployed and running. Engine API is live at "
+          f"http://{config.ip}:{config.port}.", flush=True)
+    return _serve_foreground(server, "engine server")
+
+
+def cmd_undeploy(args) -> int:
+    """POST /stop to the deployed server."""
+    try:
+        req = urllib.request.Request(f"http://{args.ip}:{args.port}/stop",
+                                     method="POST", data=b"")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            resp.read()
+    except OSError as e:
+        print(f"Undeploy failed: {e}")
+        return 1
+    print(f"Undeployed engine server at {args.ip}:{args.port}.")
+    return 0
+
+
+def _add_variant_arg(sp) -> None:
+    """The engine-variant file flag; --variant/-v are the reference's
+    spellings (Console.scala:161)."""
+    sp.add_argument("--engine-json", "--variant", "-v",
+                    dest="engine_json", default="engine.json",
+                    help="engine variant JSON (reference: --variant/-v)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m predictionio_tpu_torch",
+                                description=DESCRIPTION)
+    p.add_argument("--verbose", action="store_true",
+                   help="log at DEBUG; train also logs its engine params")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("version", help="print the port's version"
+                   ).set_defaults(func=cmd_version)
+
+    t = sub.add_parser("train", help="train the engine variant and "
+                       "persist an engine instance")
+    _add_variant_arg(t)
+    t.add_argument("--engine-id")
+    t.add_argument("--engine-version")
+    t.add_argument("--engine-factory")
+    t.add_argument("--batch")
+    t.add_argument("--skip-sanity-check", action="store_true")
+    t.add_argument("--stop-after-read", action="store_true")
+    t.add_argument("--stop-after-prepare", action="store_true")
+    t.set_defaults(func=cmd_train)
+
+    d = sub.add_parser("deploy", help="serve the latest trained instance "
+                       "in the foreground")
+    d.add_argument("--ip", default="0.0.0.0")
+    d.add_argument("--port", type=int, default=8000,
+                   help="0 binds any free port (printed once bound)")
+    _add_variant_arg(d)
+    d.add_argument("--engine-id")
+    d.add_argument("--engine-version")
+    d.add_argument("--engine-instance-id")
+    d.set_defaults(func=cmd_deploy)
+
+    u = sub.add_parser("undeploy", help="stop a deployed engine server")
+    u.add_argument("--ip", default="127.0.0.1")
+    u.add_argument("--port", type=int, default=8000)
+    u.set_defaults(func=cmd_undeploy)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="[%(levelname)s] [%(name)s] %(message)s")
+    return args.func(args)

@@ -28,26 +28,30 @@ def _now():
 
 
 def run_train(engine: Engine, engine_params: EngineParams,
-              engine_id: str = "default", engine_variant: str = "default",
-              engine_factory: str = "", env: Optional[dict] = None,
-              telemetry: Optional[dict] = None) -> str:
+              engine_id: str = "default", engine_version: str = "0",
+              engine_variant: str = "default", engine_factory: str = "",
+              env: Optional[dict] = None, telemetry: Optional[dict] = None,
+              batch: str = "", sanity_check: bool = True,
+              stop_after_read: bool = False,
+              stop_after_prepare: bool = False) -> str:
     """Train and persist; returns the EngineInstance id.
 
     `telemetry`, when a dict, receives the stage wall times (read_s,
     prepare_s, train_s from `Engine.train`, then serialize_s, persist_s),
     `model_bytes` (the blob's size) and, under `algorithms`, each
-    algorithm's own `last_train_telemetry` where it keeps one. The
-    instance is recorded at engine version "0" with no batch label, the
-    CLI's defaults; the sanity checks always run."""
+    algorithm's own `last_train_telemetry` where it keeps one. `batch` is
+    the instance's label; `sanity_check`, `stop_after_read` and
+    `stop_after_prepare` go to `Engine.train` (a stopped train leaves the
+    instance ABORTED and raises the interruption)."""
     instances = Storage.get_meta_data_engine_instances()
     # params with no JSON form (arrays handed to a data source) raise
     # here, before an instance is recorded
     ep_json = engine.engine_params_to_json(engine_params)
     instance = EngineInstance(
         id="", status="INIT", start_time=_now(), end_time=_now(),
-        engine_id=engine_id, engine_version="0",
+        engine_id=engine_id, engine_version=engine_version,
         engine_variant=engine_variant, engine_factory=engine_factory,
-        batch="", env=env or {},
+        batch=batch, env=env or {},
         data_source_params=json.dumps(ep_json["datasource"]),
         preparator_params=json.dumps(ep_json["preparator"]),
         algorithms_params=json.dumps(ep_json["algorithms"]),
@@ -56,7 +60,9 @@ def run_train(engine: Engine, engine_params: EngineParams,
     instance = instances.get(instance_id)
     tel = telemetry if telemetry is not None else {}
     try:
-        result = engine.train(engine_params, True, tel)
+        result = engine.train(engine_params, sanity_check, tel,
+                              stop_after_read=stop_after_read,
+                              stop_after_prepare=stop_after_prepare)
         tel["algorithms"] = [getattr(a, "last_train_telemetry", {})
                              for a in result.algorithms]
         t0 = time.perf_counter()

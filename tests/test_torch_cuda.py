@@ -466,3 +466,70 @@ def test_store_train_and_deploy_on_the_card(cuda, tmp_path, monkeypatch):
                                        atol=1e-5 * np.abs(top).max())
     finally:
         registry.clear_cache()
+
+
+@pytest.mark.parametrize("mode", ["on", "exact"])
+def test_serve_top_k_and_readback_on_the_card(cuda, mode, monkeypatch):
+    """The serve path's batched top-k on the card (a pinned copy and an
+    event, no blocking `.cpu()`) against the same call on the CPU.
+
+    - `pack_device` on the card gives the CPU's payload byte for byte on
+      the same f32 scores (-inf and values past f16's range included);
+    - on each device the served ids are its own f32 top-k's
+      (`PIO_SERVE_PACK=off`) and the served scores are those f32 scores
+      rounded to the pack's width, exactly;
+    - across the devices the ids are equal and the served slots
+      byte-equal wherever the two f32 top-k scores are equal; where
+      cuBLAS summed in another order, the scores agree within one f16
+      step (`on`) or 4 f32 ulps a term of the rank-64 dot (`exact`)."""
+    from predictionio_tpu_torch.ops import readback
+    from predictionio_tpu_torch.ops import similarity as TSim
+    p = {"on": readback.PACK_F16, "exact": readback.PACK_EXACT}[mode]
+    rng = np.random.default_rng(3)
+    sc = (rng.standard_normal((16, 16)) * 3e4).astype(np.float32)
+    sc[0, :3] = -np.inf
+    sc[1, :4] = [65504.0, 65519.0, 65520.0, -7e4]
+    ids = rng.integers(0, 2000, (16, 16))
+    payload = {dev: readback.begin_fetch(readback.pack_device(
+        torch.tensor(sc, device=dev), torch.tensor(ids, device=dev), p))()[0]
+        for dev in ("cpu", "cuda")}
+    assert payload["cuda"].shape == (16, 16, readback.SLOT_BYTES[p])
+    np.testing.assert_array_equal(payload["cuda"], payload["cpu"])
+
+    U = rng.standard_normal((300, 64)).astype(np.float32)
+    V = rng.standard_normal((2000, 64)).astype(np.float32)
+    users = rng.integers(0, 300, 11)
+    masks = rng.random((5, 2000)) < 0.5
+    out = {}
+    for env in ("off", mode):
+        monkeypatch.setenv("PIO_SERVE_PACK", env)
+        for dev in ("cpu", "cuda"):
+            m = TA.ALSModel(U, V, 64, torch.device(dev))
+            before = readback.stats_snapshot()
+            finish = TA.users_topk_serve_begin(m, users, 10)
+            out[env, dev] = finish()
+            after = readback.stats_snapshot()
+            assert after["windows"] - before["windows"] == 1
+            if env == mode:
+                assert after["bytes"] - before["bytes"] == \
+                    16 * 16 * readback.SLOT_BYTES[p]
+            out[env, dev + "_masked"] = TSim.masked_top_k_batch_begin(
+                torch.tensor(V, device=dev), U[:5], masks, 7,
+                filter_positive=False)()
+    width = np.float16 if mode == "on" else np.float32
+    for key in ("cpu", "cpu_masked"):
+        gkey = key.replace("cpu", "cuda")
+        for k in (key, gkey):
+            (s, i), (s32, i32) = out[mode, k], out["off", k]
+            np.testing.assert_array_equal(i, i32)
+            np.testing.assert_array_equal(
+                s, s32.astype(width).astype(np.float32))
+        (s_c, i_c), (s_g, i_g) = out[mode, key], out[mode, gkey]
+        np.testing.assert_array_equal(i_g, i_c)
+        same = out["off", key][0].view(np.uint32) == \
+            out["off", gkey][0].view(np.uint32)
+        assert same.any()
+        np.testing.assert_array_equal(s_g.view(np.uint32)[same],
+                                      s_c.view(np.uint32)[same])
+        rtol = 2.0 ** -10 if mode == "on" else 4 * 2.0 ** -24 * 64
+        np.testing.assert_allclose(s_g, s_c, rtol=rtol, atol=1e-6)

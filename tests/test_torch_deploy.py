@@ -225,7 +225,11 @@ def test_blob_of_a_model_with_device_tables_drops_them():
     np.testing.assert_array_equal(back.item_factors, U[:2])
 
 
-def test_deploy_restores_and_serves_like_the_in_memory_model(trained):
+def test_deploy_restores_and_serves_like_the_in_memory_model(
+        trained, monkeypatch):
+    # the served scores are held bit for bit against predict's f32 ones:
+    # the default f16 readback is held in tests/test_torch_serve_plane.py
+    monkeypatch.setenv("PIO_SERVE_PACK", "exact")
     srv = EngineServer(ServerConfig(port=0,
                                     engine_variant=trained["path_t"]))
     srv.load().start()
@@ -346,7 +350,10 @@ def test_blob_unpickles_where_there_is_no_card(trained):
     assert out.stdout.strip() == f"({N_USERS}, 8) None"
 
 
-def test_reload_picks_the_newer_instance(tmp_env, tmp_path):
+def test_reload_picks_the_newer_instance(tmp_env, tmp_path, monkeypatch):
+    # the answer after /reload is held bit for bit against predict's f32
+    # one: the default f16 readback is held in test_torch_serve_plane.py
+    monkeypatch.setenv("PIO_SERVE_PACK", "exact")
     TReg.clear_cache()
     try:
         populate(seed=3)

@@ -164,7 +164,10 @@ def server(trained):
     srv.stop()
 
 
-def test_server_answers_like_reference(server, trained):
+def test_server_answers_like_reference(server, trained, monkeypatch):
+    # f32 scores against the reference's predict: the default f16
+    # readback is held in tests/test_torch_serve_plane.py
+    monkeypatch.setenv("PIO_SERVE_PACK", "exact")
     _, algo_j, mj, _, _, _, users = trained
     for user in sorted(set(users))[:5]:
         status, body = _post(server + "/queries.json",
