@@ -49,7 +49,20 @@ PyTorch version at the shapes its path gives it. Then:
   then `undeploy` for each; then the reference REST bench's shape (16
   clients, 320 plain queries, micro_batch 32) against an in-process
   server with two windows in flight and one with one, bursts in ABBA
-  order, every answer held the same way.
+  order, every answer held the same way;
+- the online fold-in: the CG kernel held at the shapes the fold plans (B
+  = 16 with inert rows, the primal and duals K = 1-16, a wholly inert
+  batch); 256 fresh `rate` events (48 known users, 8 new users, 4 new
+  items with a `$set`) folded into the deployed recommendation process by
+  `python -m predictionio_tpu_torch update` (the entity-filtered read,
+  the quality gates, a published version, `/reload`), every fold solve a
+  CG launch, untouched rows bit-equal to the deployed ones, touched rows
+  held to a float64 replay of the same two sweeps, 72 queries held to
+  the float64 top-k of the published tables; then the similar-product
+  instance in an in-process server with `attach_scheduler`: two ticks of
+  view events (2 new items), each hot-swapped and held, the second
+  against the first's resident tables (its upload under 1% of the
+  first's), the carried Gram against a recomputed one.
 
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
@@ -163,6 +176,17 @@ BENCH_CLIENTS = 16
 BENCH_PER_CLIENT = 20
 BENCH_MICRO_BATCH = 32
 BENCH_ORDER = (2, 1, 1, 2)
+# the fold-in phases (the reference's `pio update` traffic: max_deltas 256)
+FOLD_K_DUAL = (1, 2, 4, 8, 16)   # dual K of the fold's kernel holds
+FOLD_B = 16                      # the fold's batch floor (_TOUCHED_FLOOR)
+FOLD_INERT = 4                   # inert rows in each held fold batch
+FOLD_USERS, FOLD_PER_USER = 48, 4        # fold_update: known users' rates
+FOLD_NEW_USERS, FOLD_NEW_PER_USER = 8, 6  # ... new users' rates
+FOLD_NEW_ITEMS, FOLD_NEW_ITEM_RATES = 4, 16  # ... new items, rates on them
+FOLD_UNTOUCHED_QUERIES = 16
+FOLD_VIEWS = (64, 32)            # fold_inprocess: views of tick 1, tick 2
+FOLD_NEW_SIMILAR = 2             # new items $set in tick 1
+FOLD_H2D_SHARE = 0.01            # tick 2 uploads under 1% of tick 1's
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1973,10 +1997,11 @@ def phase_undeploy(deps: dict) -> None:
              deploy_exit=rc)
 
 
-def phase_inflight_bench(path: str, model, truth) -> dict:
+def phase_inflight_bench(path: str, iid: str, model, truth) -> dict:
     """The reference's REST bench shape against the deployed
-    recommendation instance: an in-process server (`load()` from the
-    store, micro_batch 32, the default f16 readback) with
+    recommendation instance `iid` (named: the fold has published a newer
+    version by then): an in-process server (`load()` from the store,
+    micro_batch 32, the default f16 readback) with
     `serve_inflight` 2 (the pipelined executor) and one with 1 (the
     synchronous loop), 16 closed-loop clients x 20 plain queries a
     burst, after an untimed warm burst on each; bursts in `BENCH_ORDER`.
@@ -1995,6 +2020,7 @@ def phase_inflight_bench(path: str, model, truth) -> dict:
         for n in sorted(set(BENCH_ORDER)):
             servers[n] = EngineServer(ServerConfig(
                 ip="127.0.0.1", port=0, engine_variant=path,
+                engine_instance_id=iid,
                 micro_batch=BENCH_MICRO_BATCH, serve_inflight=n)
             ).load().start()
             check(servers[n].batcher.pipelined == (n > 1),
@@ -2043,14 +2069,17 @@ def stop_all(deps: dict) -> None:
             dep["proc"].wait(timeout=60)
 
 
-def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> int:
+def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
     """The serve plane: the similar-product template trained from the
     store through the command line (`cli_train`), both templates
     deployed as subprocesses (`cli_deploy`), held under 32 concurrent
-    clients (`serve_plane`) and undeployed (`undeploy`); then the
-    recommendation instance at the reference bench's shape with 2
-    windows in flight and with 1 (`inflight_bench`). Returns the
-    similar-product train's Cholesky kernel launches."""
+    clients (`serve_plane`); `pio update` against the deployed
+    recommendation process (`fold_update`); both undeployed
+    (`undeploy`); then the recommendation instance at the reference
+    bench's shape with 2 windows in flight and with 1
+    (`inflight_bench`), and the similar-product instance folded in
+    process (`fold_inprocess`). Returns the similar-product train's
+    Cholesky kernel launches and the folds' CG kernel launches."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.models import recommendation as TR
     from predictionio_tpu_torch.models import similarproduct as TS
@@ -2089,10 +2118,424 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> int:
             similar_plane_queries(sim_model, np.random.default_rng(9)),
             lambda body, q, what: hold_similar(body, q, sim_model, T64,
                                                cats, what))
+        del T64
+        rec_iid = get_json(deps["recommendation"]["url"] + "/")[
+            "engineInstanceId"]
+        fold_launches = phase_fold_update(rec_path, deps["recommendation"],
+                                          rec_model)
         phase_undeploy(deps)
-        phase_inflight_bench(rec_path, rec_model, truth)
+        phase_inflight_bench(rec_path, rec_iid, rec_model, truth)
     finally:
         stop_all(deps)
+    fold_launches += phase_fold_inprocess(sim_path)
+    return launches, fold_launches
+
+
+def fold_systems(B: int, K: int, n_inert: int, gen: torch.Generator):
+    """A fold batch of B systems at dimension K: `hard_systems` with its
+    last `n_inert` rows inert (a padding row of the fold's plan: mask 0,
+    so A = lam I and b = 0, which must solve to exactly 0)."""
+    A, b = hard_systems(B, K, gen)
+    A[B - n_inert:] = LAM * torch.eye(K, device="cuda")
+    b[B - n_inert:] = 0
+    return A.contiguous(), b.contiguous()
+
+
+def phase_fold_kernel() -> list:
+    """The CG kernel at the shapes the fold plans (B = 16, the fold's
+    batch floor): the primal R = 200 and duals K in FOLD_K_DUAL, each with
+    inert rows, and a wholly inert batch. Each is held against the plain
+    CG at every checkpoint, max(1e-4, 4x its f32-vs-f64 reading); the
+    primal also with `hold_kernel`'s planted faults (a dual CG converges
+    within K of its K+8 steps, which hides them). Two launches must be
+    bit-equal, inert rows exactly 0."""
+    from predictionio_tpu_torch.ops.solve import cg_solve, cg_solve_cuda
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    shapes = ([(RANK, 48, FOLD_INERT)]
+              + [(K, K + 8, FOLD_INERT) for K in FOLD_K_DUAL]
+              + [(8, 16, FOLD_B)])                 # a wholly inert batch
+    for R, iters, n_inert in shapes:
+        A, b = fold_systems(FOLD_B, R, n_inert, gen)
+        where = f"fold shape R={R} B={FOLD_B} inert={n_inert}"
+        row = {"R": R, "B": FOLD_B, "iters": iters, "inert_rows": n_inert}
+        if R == RANK:
+            row.update(hold_kernel(A, b, iters, where))
+        else:
+            per_k = []
+            for k in checkpoints(iters):
+                xp, xk = cg_solve(A, b, k), cg_solve_cuda(A, b, k)
+                rounding = rel_err(xp.double(), cg_solve(
+                    A.double(), b.double(), k)) if n_inert < FOLD_B else 0.0
+                per_k.append({"k": k, "rel_err": rel_err(xk, xp),
+                              "abs_err": (xk - xp).abs().max().item(),
+                              "tolerance": max(KERNEL_REL_TOL,
+                                               ROUNDING_FACTOR * rounding)})
+            emit("checkpoints", where=where, per_checkpoint=per_k)
+            for c in per_k:
+                check(c["rel_err"] <= c["tolerance"]
+                      or (n_inert == FOLD_B and c["abs_err"] == 0),
+                      f"{where}: kernel vs plain CG rel err "
+                      f"{c['rel_err']:.3g} > {c['tolerance']:.3g} after "
+                      f"{c['k']} iterations")
+            row.update(max_rel_err=max(c["rel_err"] for c in per_k),
+                       max_abs_err=max(c["abs_err"] for c in per_k),
+                       max_tolerance=max(c["tolerance"] for c in per_k))
+        xk = cg_solve_cuda(A, b, iters)
+        row["bitwise_repeat"] = bool(torch.equal(xk, cg_solve_cuda(A, b,
+                                                                   iters)))
+        row["inert_exact_zero"] = bool((xk[FOLD_B - n_inert:] == 0).all())
+        row["kernel_ms"] = cuda_ms(lambda: cg_solve_cuda(A, b, iters), 20)
+        row["plain_ms"] = cuda_ms(lambda: cg_solve(A, b, iters), 5)
+        row["bound_ms"], row["bound_by"] = bound(*cg_cost(FOLD_B, R, iters))
+        emit("fold_kernel", **row)
+        check(row["bitwise_repeat"], f"{where}: two launches differ")
+        check(row["inert_exact_zero"], f"{where}: inert rows are not 0")
+        rows.append(row)
+    return rows
+
+
+def fold_truth(model, new_meta: dict) -> tuple:
+    """`store_truth` for a folded model whose vocabulary grew: the seeded
+    metadata of the store's items, and `new_meta` ({id: (categories,
+    year)}) for the items the fold appended."""
+    cats, years = store_items()
+    out_c, out_y = [], []
+    for i in model.item_ix.ids:
+        c, y = (new_meta[i] if i in new_meta
+                else (cats[int(i[1:])], years[int(i[1:])]))
+        out_c.append(set(c))
+        out_y.append(y)
+    return out_c, np.array(out_y)
+
+
+def replay_rows(algo, touched, template_model, td, U0, V0, cfg):
+    """The fold of `td` from the deployed tables (U0, V0) replayed on the
+    host by the plain versions (`solver='cg_cuda'` on CPU tensors runs the
+    plain CG, the card's kernel's algorithm): in float64 and in float32.
+    `template_model` carries the published (grown) maps, so the replay's
+    rows line up with the published tables. Returns (f64 tables, f32
+    tables, touched user indices, touched item indices)."""
+    from predictionio_tpu_torch.online.fold_in import fold_in_coo
+    from predictionio_tpu_torch.ops.als import ALSModel
+    _, _, coo, tu, ti = algo.fold_data(template_model, td, *touched)
+    out = []
+    for dt in (np.float64, np.float32):
+        m, _ = fold_in_coo(ALSModel(U0.astype(dt), V0.astype(dt), RANK,
+                                    None), coo, tu, ti, cfg, device="cpu")
+        out.append((m.user_factors, m.item_factors))
+    return out[0], out[1], np.unique(tu), np.unique(ti)
+
+
+def hold_replay(got: tuple, f64: tuple, f32: tuple, tu, ti,
+                what: str) -> dict:
+    """Touched rows of the card's fold within max(1e-4, 4x the plain
+    replay's f32-vs-f64 reading) of the float64 replay, per table."""
+    out = {}
+    for name, idx, g, r64, r32 in (("user", tu, got[0], f64[0], f32[0]),
+                                    ("item", ti, got[1], f64[1], f32[1])):
+        ref = torch.from_numpy(r64[idx])
+        reading = rel_err(torch.from_numpy(r32[idx]).double(), ref)
+        err = rel_err(torch.from_numpy(g[idx]).double(), ref)
+        tol = max(KERNEL_REL_TOL, ROUNDING_FACTOR * reading)
+        out[name] = {"rows": int(idx.size), "rel_err": err,
+                     "f32_reading": reading, "tolerance": tol}
+        check(err <= tol, f"{what}: touched {name} rows off the float64 "
+              f"replay by {err:.3g} > {tol:.3g}")
+    return out
+
+
+def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
+    """`pio update` against the deployed recommendation process: fresh
+    events after its instance's start (FOLD_USERS known users x
+    FOLD_PER_USER rates, FOLD_NEW_USERS new users x FOLD_NEW_PER_USER, and
+    FOLD_NEW_ITEMS new items, each a `$set` of 1-3 of the 20 categories
+    and a creationYear, with FOLD_NEW_ITEM_RATES rates on them: 256 rates,
+    the reference's max_deltas), then `python -m predictionio_tpu_torch
+    update --engine-port P` (one forced tick, publish, `/reload`). Holds:
+    the entity-filtered read, a passed gate report, every solve a CG
+    launch; untouched rows of the published tables bit-equal to the
+    deployed ones, touched rows within tolerance of a float64 replay;
+    72 queries (the 56 touched users and 16 others, base and categories)
+    against the float64 top-k of the published tables. Returns the CG
+    launches."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.online.fold_in import FoldInConfig
+    app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
+    ev = Storage.get_events()
+    rng = np.random.default_rng(11)
+    n_u, n_i = len(rec_model.user_ix), len(rec_model.item_ix)
+    users = rec_model.user_ix.ids_of(rng.choice(n_u, FOLD_USERS,
+                                                replace=False))
+    new_users = [f"fu{k}" for k in range(FOLD_NEW_USERS)]
+    new_items = [f"fi{k}" for k in range(FOLD_NEW_ITEMS)]
+    cat_names = sorted({c for cs in store_items()[0] for c in cs})
+    new_meta = {i: (tuple(rng.choice(cat_names, int(rng.integers(1, 4)),
+                                     replace=False)),
+                    int(rng.integers(*STORE_YEARS))) for i in new_items}
+    subj = (np.repeat(users, FOLD_PER_USER).tolist()
+            + np.repeat(new_users, FOLD_NEW_PER_USER).tolist()
+            + [users[k % FOLD_USERS] for k in range(FOLD_NEW_ITEM_RATES)])
+    n_known = FOLD_USERS * FOLD_PER_USER + FOLD_NEW_USERS * FOLD_NEW_PER_USER
+    tgt = (rec_model.item_ix.ids_of(rng.integers(0, n_i, n_known))
+           + [new_items[k % FOLD_NEW_ITEMS]
+              for k in range(FOLD_NEW_ITEM_RATES)])
+    ev.insert_columnar(ColumnarBatch(
+        FOLD_NEW_ITEMS, "$set", "item", new_items,
+        properties=[{"categories": list(new_meta[i][0]),
+                     "creationYear": new_meta[i][1]} for i in new_items]),
+        app.id)
+    ev.insert_columnar(ColumnarBatch(
+        len(subj), "rate", "user", subj, "item", tgt,
+        [{"rating": float(r)} for r in rng.integers(1, 6, len(subj))]),
+        app.id)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch", "update", "-v",
+         rec_path, "--engine-port", str(dep["port"])], cwd=HERE,
+        capture_output=True, text=True, timeout=900)
+    update_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"update exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    (algo_rep,) = report["algorithms"]
+    emit("fold_update_report", update_s=update_s, **report)
+    check(report["readPath"] == "entity_filtered",
+          f"the fold read {report['readPath']}")
+    check(report.get("reloaded") is True and report.get("publishedVersion"),
+          "the fold was not published and reloaded")
+    check(report["gateReport"]["passed"], "the fold failed its gates")
+    check(report["events"] == len(subj) + FOLD_NEW_ITEMS,
+          f"{report['events']} fresh events, wrote "
+          f"{len(subj) + FOLD_NEW_ITEMS}")
+    launches = algo_rep["launches"]
+    check(launches == {"cg_solve": algo_rep["solverCalls"]}
+          and algo_rep["solverCalls"] > 0,
+          f"fold solves {algo_rep['solverCalls']} vs launches {launches}: "
+          "every fold solve must be the CG kernel")
+    version = report["publishedVersion"]
+    status = get_json(dep["url"] + "/")
+    check(status["engineInstanceId"] == version,
+          f"the deployed process serves {status['engineInstanceId']}, not "
+          f"the published {version}")
+    (pub,) = TR.RecommendationEngineFactory.apply().deserialize_models(
+        Storage.get_model_data_models().get(version).models, version)
+    check(list(pub.user_ix.ids[:n_u]) == list(rec_model.user_ix.ids)
+          and list(pub.item_ix.ids[:n_i]) == list(rec_model.item_ix.ids)
+          and sorted(pub.user_ix.ids[n_u:]) == new_users
+          and sorted(pub.item_ix.ids[n_i:]) == new_items,
+          "the grown vocabularies moved a deployed index")
+    U0, V0 = rec_model.als.user_factors, rec_model.als.item_factors
+    touched = (sorted(set(subj)), sorted(set(tgt)))
+    tu_all = pub.user_ix.to_indices(touched[0])
+    ti_all = pub.item_ix.to_indices(touched[1])
+    keep_u = np.setdiff1d(np.arange(n_u), tu_all)
+    keep_i = np.setdiff1d(np.arange(n_i), ti_all)
+    check(np.array_equal(pub.als.user_factors[keep_u], U0[keep_u])
+          and np.array_equal(pub.als.item_factors[keep_i], V0[keep_i]),
+          "untouched rows of the published tables differ from the deployed")
+    algo = TR.ALSAlgorithm(TR.ALSAlgorithmParams(rank=RANK, lam=STORE_LAM,
+                                                 device="cpu"))
+    td = TR.RecommendationDataSource(TR.DataSourceParams(
+        app_name=STORE_APP, read_items=True)).read_training_touched(
+            *touched)
+    t0 = time.perf_counter()
+    f64, f32, tu, ti = replay_rows(
+        algo, touched, pub, td, U0, V0,
+        FoldInConfig(lam=STORE_LAM, sweeps=2, solver="cg_cuda"))
+    replay_s = time.perf_counter() - t0
+    held = hold_replay((pub.als.user_factors, pub.als.item_factors), f64,
+                       f32, tu, ti, "fold_update")
+    # the deployed process, after the swap: touched and untouched users
+    truth = fold_truth(pub, new_meta)
+    U64 = pub.als.user_factors.astype(np.float64)
+    V64 = pub.als.item_factors.astype(np.float64)
+    others = [u for u in rec_model.user_ix.ids_of(rng.choice(
+        n_u, 4 * FOLD_UNTOUCHED_QUERIES, replace=False))
+        if u not in set(subj)][:FOLD_UNTOUCHED_QUERIES]
+    queries = []
+    for k, u in enumerate(touched[0] + others):
+        q = {"user": u, "num": SERVE_NUM}
+        if k % 2:
+            q["categories"] = ([new_meta[new_items[k % 4]][0][0]] if k % 4
+                               == 1 else [str(rng.choice(cat_names))])
+        queries.append(q)
+    lat, exact, new_answered = [], 0, 0
+    for q in queries:
+        t0 = time.perf_counter()
+        code, body = post(dep["url"] + "/queries.json",
+                          json.dumps(q).encode())
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(code == 200, f"fold_update query {q} answered {code}")
+        exact += hold_served(body, q, pub, U64, V64, truth,
+                             f"fold_update query {q}", f16=True)
+        if q["user"] in new_users:
+            check(len(body["itemScores"]) > 0,
+                  f"new user {q['user']} got no answer")
+            new_answered += 1
+    emit("fold_update", tick_s=report["tickS"], read_s=report["readS"],
+         read_rows=report["readRows"], wall_s=algo_rep["wallS"],
+         user_rows=algo_rep["userRows"], item_rows=algo_rep["itemRows"],
+         new_users=algo_rep["newUsers"], new_items=algo_rep["newItems"],
+         h2d_bytes=report["h2dBytes"], publish_s=report["publishS"],
+         reload_s=report["reloadS"], update_s=update_s,
+         cg_launches=launches.get("cg_solve", 0), replay_s=replay_s,
+         replay=held, queries=len(queries), ids_equal_f64=exact,
+         new_users_answered=new_answered,
+         first_query_after_swap_ms=lat[0],
+         p50_ms=float(np.percentile(lat, 50)),
+         model_swaps=get_json(dep["url"] + "/stats.json")["modelSwaps"])
+    check(algo_rep["newUsers"] == FOLD_NEW_USERS
+          and algo_rep["newItems"] == FOLD_NEW_ITEMS,
+          f"grew {algo_rep['newUsers']} users, {algo_rep['newItems']} items")
+    check(new_answered == FOLD_NEW_USERS, "a new user went unanswered")
+    return launches.get("cg_solve", 0)
+
+
+def phase_fold_inprocess(sim_path: str) -> int:
+    """The similar-product instance in an in-process `EngineServer` at its
+    defaults with `attach_scheduler`: tick 1 folds FOLD_VIEWS[0] view
+    events (FOLD_NEW_SIMILAR new items with a `$set`), hot-swaps and is
+    held (the `/stats.json` counters; a new item's query against a
+    float64 cosine top-k; touched rows against a float64 replay; the
+    carried Gram against a recomputed one); tick 2 folds FOLD_VIEWS[1]
+    more against the resident tables and must upload under
+    FOLD_H2D_SHARE of tick 1's bytes. The scheduler's cursor is this
+    phase's start, so the ticks fold this phase's events. Returns the CG
+    launches."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import similarproduct as TS
+    from predictionio_tpu_torch.online import (SchedulerConfig,
+                                               attach_scheduler)
+    from predictionio_tpu_torch.online.fold_in import FoldInConfig
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.utils import device_cache
+    app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
+    ev = Storage.get_events()
+    rng = np.random.default_rng(12)
+    server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                       engine_variant=sim_path)).load()
+    server.start()
+    url = f"http://127.0.0.1:{server.config.port}"
+    launches = 0
+    try:
+        (algo,) = server.algorithms
+        cursor = utcnow()
+        sched = attach_scheduler(server, SchedulerConfig(app_name=STORE_APP),
+                                 cursor=cursor)
+        captured = {}
+        read = sched._read_training
+
+        def keep_read(tu, ti):
+            td, info = read(tu, ti)
+            captured.update(td=td, touched=(list(tu), list(ti)))
+            return td, info
+        sched._read_training = keep_read
+        cat_names = sorted({c for cs in store_items()[0] for c in cs})
+        new_items = [f"si{k}" for k in range(FOLD_NEW_SIMILAR)]
+        new_meta = {i: (tuple(rng.choice(cat_names, 2, replace=False)),
+                        None) for i in new_items}
+        ticks = []
+        for t, n_views in enumerate(FOLD_VIEWS):
+            before = server.models[0]
+            n_u, n_i = len(before.user_ix), len(before.item_ix)
+            users = before.user_ix.ids_of(rng.integers(0, n_u, n_views))
+            items = before.item_ix.ids_of(rng.integers(0, n_i, n_views))
+            if t == 0:
+                ev.insert_columnar(ColumnarBatch(
+                    len(new_items), "$set", "item", new_items,
+                    properties=[{"categories": list(new_meta[i][0])}
+                                for i in new_items]), app.id)
+                items[-16:] = [new_items[k % 2] for k in range(16)]
+            ev.insert_columnar(ColumnarBatch(n_views, "view", "user", users,
+                                             "item", items), app.id)
+            COUNTS.reset()
+            report = sched.tick(force=True)
+            counts = dict(vars(COUNTS))
+            check(report is not None, f"tick {t + 1} folded nothing")
+            (rep,) = report["algorithms"]
+            launches += counts["cg_solve"]
+            check(counts["cg_solve"] == rep["solverCalls"] > 0
+                  and sum(counts.values()) == counts["cg_solve"],
+                  f"tick {t + 1}: launches {counts} for "
+                  f"{rep['solverCalls']} fold solves")
+            check(report["gateReport"]["passed"],
+                  f"tick {t + 1} failed its gates")
+            after = server.models[0]
+            check(after is not before, f"tick {t + 1} did not swap")
+            stats = server.stats()
+            check(stats["modelSwaps"] == t + 1 and stats["foldIns"] == t + 1,
+                  f"/stats.json after tick {t + 1}: modelSwaps "
+                  f"{stats['modelSwaps']}, foldIns {stats['foldIns']}")
+            q = {"items": [new_items[t % 2]] if t == 0 else [items[0]],
+                 "num": SERVE_NUM}
+            t0 = time.perf_counter()
+            code, body = post(url + "/queries.json", json.dumps(q).encode())
+            first_ms = (time.perf_counter() - t0) * 1e3
+            check(code == 200 and body["itemScores"],
+                  f"tick {t + 1}: query {q} answered {code} {body}")
+            T64 = after.item_factors_normalized.astype(np.float64)
+            exact = hold_similar(body, q, after, T64,
+                                 fold_truth(after, new_meta)[0],
+                                 f"fold_inprocess tick {t + 1} query {q}")
+            row = {"tick": t + 1, "events": report["events"],
+                   "tick_s": report["tickS"], "read_s": report["readS"],
+                   "read_path": report["readPath"],
+                   "read_rows": report["readRows"], "wall_s": rep["wallS"],
+                   "user_rows": rep["userRows"], "item_rows": rep["itemRows"],
+                   "new_users": rep["newUsers"], "new_items": rep["newItems"],
+                   "h2d_bytes": report["h2dBytes"],
+                   "resident_hit": rep["residentHit"],
+                   "cg_launches": counts["cg_solve"],
+                   "first_query_after_swap_ms": first_ms,
+                   "ids_equal_f64": exact, "model_swaps": stats["modelSwaps"],
+                   "fold_ins": stats["foldIns"]}
+            slot = device_cache.get_resident(
+                f"fold:{type(algo).__name__}:{id(algo)}",
+                (after.user_factors, after.item_factors_raw),
+                sharding="replicated")
+            check(slot is not None, f"tick {t + 1} left no resident tables")
+            gram = {}
+            for name, G, tab in (("user", slot["GU"], slot["U"]),
+                                 ("item", slot["GV"], slot["V"])):
+                ref = tab.double().T @ tab.double()
+                reading = rel_err((tab.T @ tab).double(), ref)
+                err = rel_err(G.double(), ref)
+                gram[name] = {"rel_err": err, "f32_reading": reading}
+                check(err <= max(KERNEL_REL_TOL, ROUNDING_FACTOR * reading),
+                      f"tick {t + 1}: the carried {name} Gram is off a "
+                      f"recomputed one by {err:.3g}")
+            row["gram"] = gram
+            if t == 0:
+                check(rep["newItems"] == FOLD_NEW_SIMILAR
+                      and report["readPath"] == "entity_filtered",
+                      f"tick 1 grew {rep['newItems']} items through "
+                      f"{report['readPath']}")
+                f64, f32, tu, ti = replay_rows(
+                    algo, captured["touched"], after, captured["td"],
+                    before.user_factors, before.item_factors_raw,
+                    FoldInConfig(lam=LAM, alpha=ALPHA, implicit_prefs=True,
+                                 sweeps=2, solver="cg_cuda"))
+                row["replay"] = hold_replay(
+                    (after.user_factors, after.item_factors_raw), f64, f32,
+                    tu, ti, "fold_inprocess tick 1")
+            ticks.append(row)
+            emit("fold_inprocess", **row)
+        check(ticks[1]["resident_hit"] and not ticks[0]["resident_hit"],
+              "tick 2 did not reuse tick 1's device tables")
+        check(ticks[1]["h2d_bytes"]
+              < FOLD_H2D_SHARE * ticks[0]["h2d_bytes"],
+              f"tick 2 uploaded {ticks[1]['h2d_bytes']} bytes, tick 1 "
+              f"{ticks[0]['h2d_bytes']}")
+    finally:
+        server.stop()
     return launches
 
 
@@ -2122,6 +2565,7 @@ def main() -> int:
         try:
             info = phase_device()
             kern = phase_kernel()
+            phase_fold_kernel()
             chol = phase_chol_kernel()
             schulz = phase_schulz_kernel()
             algo, model, cg_launches, pd, cg_rmse = phase_train()
@@ -2147,7 +2591,10 @@ def main() -> int:
                     path, iid, trained)
             cg_launches += retrain_launches
             del trained
-            chol_launches += serve_plane_phases(path, rec_model, workdir)
+            sim_launches, fold_launches = serve_plane_phases(
+                path, rec_model, workdir)
+            chol_launches += sim_launches
+            cg_launches += fold_launches
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

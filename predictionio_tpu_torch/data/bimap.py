@@ -1,9 +1,11 @@
 """Bidirectional id maps: string entity ids <-> dense integer indices.
 
 The port's copy of `predictionio_tpu/data/bimap.py` (`BiMap`,
-`EntityIdIxMap`), cut to what the recommendation and similar-product
-templates use. Ids are assigned in sorted order, so every build of the
-same id set gives the same dense indices as the reference package.
+`EntityIdIxMap` with the fold-in's `grow`), cut to what the
+recommendation and similar-product templates use. Ids are assigned in
+sorted order, so every build of the same id set gives the same dense
+indices as the reference package; `grow` appends unseen ids after them,
+so a grown map is no longer sorted.
 """
 
 from __future__ import annotations
@@ -111,7 +113,10 @@ class EntityIdIxMap:
         keys = self._ids.astype(str)
         if len(keys) == 0 or arr.size == 0:
             return np.full(arr.shape, -1, dtype=np.int32)
-        if self._sorted_view is None:
+        # a view built for fewer keys is stale (the reference re-checks
+        # the length for the same reason)
+        if self._sorted_view is None or len(self._sorted_view[0]) != len(
+                keys):
             order = np.argsort(keys)
             self._sorted_view = (keys[order], order.astype(np.int32))
         sorted_keys, order = self._sorted_view
@@ -124,3 +129,26 @@ class EntityIdIxMap:
     def ids(self) -> np.ndarray:
         """Ids by dense index (object array)."""
         return self._ids
+
+    def grow(self, new_ids: Iterable[str]
+             ) -> "tuple[EntityIdIxMap, np.ndarray]":
+        """Append the unseen ids after the vocabulary, in first-occurrence
+        order, so no existing dense index moves (factor row i keeps its
+        entity across model versions). Returns (grown map, the indices
+        given to the new ids); (self, empty) when nothing is new. The
+        grown map is a new object with its own sorted view."""
+        fresh: List[str] = []
+        seen = set()
+        for e in new_ids:
+            e = str(e)
+            if e not in self._bimap and e not in seen:
+                seen.add(e)
+                fresh.append(e)
+        if not fresh:
+            return self, np.empty(0, dtype=np.int32)
+        base = len(self._bimap)
+        fwd = dict(self._bimap.items())
+        for i, e in enumerate(fresh):
+            fwd[e] = base + i
+        return (EntityIdIxMap(BiMap(fwd)),
+                np.arange(base, base + len(fresh), dtype=np.int32))

@@ -7,7 +7,9 @@ EngineInstances and Models DAOs), their abstract DAOs, and `Events`, one
 synchronous interface for the reference's LEvents (LEvents.scala:37) and
 the bulk-read role of PEvents (PEvents.scala:35), with the default
 `find_columnar` and `aggregate_properties` that a backend without a query
-engine inherits.
+engine inherits, and `columnar_from_union_rows`, the merge an
+entity-filtered pushdown (`find_columnar_by_entities`, the fold-in's
+read) assembles its columns with.
 """
 
 from __future__ import annotations
@@ -266,6 +268,40 @@ class Events(abc.ABC):
 
 def aggregate_event_names():
     return ("$set", "$unset", "$delete")
+
+
+def columnar_from_union_rows(rows_by_id: Dict[str, tuple],
+                             property_field: Optional[str] = None,
+                             limit: Optional[int] = None
+                             ) -> Dict[str, np.ndarray]:
+    """The `find_columnar` columns of an entity-union read: `rows_by_id`
+    maps event id -> (entityid, targetentityid, event, eventtime[,
+    prop]), so a row that matched both the entity and the target side
+    counts once. Sorted by event time (stable: equal times keep the
+    order the rows were read in), `limit` applied after the merge."""
+    rows = sorted(rows_by_id.values(), key=lambda r: int(r[3]))
+    if limit is not None and limit >= 0:
+        rows = rows[:limit]
+    if not rows:
+        out = {"entity_id": np.array([], dtype=str),
+               "target_entity_id": np.array([], dtype=str),
+               "event": np.array([], dtype=str),
+               "t": np.array([], dtype=np.int64)}
+        if property_field is not None:
+            out["prop"] = np.array([], dtype=np.float32)
+        return out
+    ents, tgts, names, ts, *rest = zip(*rows)
+    out = {
+        "entity_id": np.array(ents, dtype=str),
+        "target_entity_id": np.array([x or "" for x in tgts], dtype=str),
+        "event": np.array(names, dtype=str),
+        "t": np.array([int(t) for t in ts], dtype=np.int64),
+    }
+    if property_field is not None:
+        out["prop"] = np.array(
+            [np.nan if v is None else float(v) for v in rest[0]],
+            dtype=np.float32)
+    return out
 
 
 def events_to_columnar(events, property_field: Optional[str] = None

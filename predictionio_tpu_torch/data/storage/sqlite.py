@@ -451,8 +451,16 @@ class SQLEvents(base.Events):
         where, params = self._where(
             app_id, channel_id, start_time, until_time, entity_type,
             entity_id, event_names, target_entity_type, target_entity_id)
-        sql = (f"SELECT * FROM {self.t}{where} ORDER BY eventtime "
-               f"{'DESC' if reversed_order else 'ASC'}")
+        way = "DESC" if reversed_order else "ASC"
+        if entity_id is None:
+            order = f"eventtime {way}"
+        else:
+            # a point read: `+` keeps the planner from walking the whole
+            # time index to skip a sort, so it seeks the entity index;
+            # rowid keeps equal times in insertion order, as the time
+            # index gives them
+            order = f"+eventtime {way}, rowid {way}"
+        sql = f"SELECT * FROM {self.t}{where} ORDER BY {order}"
         if limit is not None and limit >= 0:
             sql += " LIMIT ?"
             params.append(limit)
@@ -503,3 +511,52 @@ class SQLEvents(base.Events):
                 [np.nan if v is None else v for v in rest[0]],
                 dtype=np.float32)
         return out
+
+    #: ids an IN-list statement (far under SQLite's 999-variable floor
+    #: beside the shared filter parameters)
+    _IN_CHUNK = 400
+
+    def find_columnar_by_entities(self, app_id, channel_id=None,
+                                  entity_ids=None, target_entity_ids=None,
+                                  property_field=None, start_time=None,
+                                  until_time=None, entity_type=None,
+                                  target_entity_type=None, event_names=None,
+                                  limit=None):
+        """The entity-filtered read as SQL: one indexed `IN (...)` query
+        an id chunk a side (entityid through {t}_entity, targetentityid
+        through {t}_target), merged on the event id by
+        `base.columnar_from_union_rows`; equal event times in insertion
+        order, as `find_columnar` gives them."""
+        rows_by_id: dict = {}
+        for column, ids in (("entityid", entity_ids),
+                            ("targetentityid", target_entity_ids)):
+            ids = [str(x) for x in (ids or ())]
+            for lo in range(0, len(ids), self._IN_CHUNK):
+                chunk = ids[lo:lo + self._IN_CHUNK]
+                cols = "id, rowid, entityid, targetentityid, event, eventtime"
+                params_pre: list = []
+                if property_field is not None:
+                    cols += ", json_extract(properties, ?)"
+                    params_pre.append(f'$."{property_field}"')
+                where, params = self._where(
+                    app_id, channel_id, start_time, until_time,
+                    entity_type, None, event_names, target_entity_type,
+                    None)
+                where += (f" AND {column} IN "
+                          f"({','.join('?' * len(chunk))})")
+                params.extend(chunk)
+                # named: with an entity type given, the planner would take
+                # the entity index's longer equality prefix and scan every
+                # row of that type
+                indexed = (f" INDEXED BY {self.t}_target"
+                           if column == "targetentityid" else "")
+                for r in self.c.query(
+                        f"SELECT {cols} FROM {self.t}{indexed}{where}",
+                        tuple(params_pre) + tuple(params)):
+                    rows_by_id[r[0]] = r[1:]
+        # insertion (rowid) order before the merge's stable time sort:
+        # equal times then come back as a full scan gives them
+        return base.columnar_from_union_rows(
+            {k: r[1:] for k, r in sorted(rows_by_id.items(),
+                                         key=lambda kv: kv[1][0])},
+            property_field, limit)

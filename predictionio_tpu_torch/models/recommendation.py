@@ -14,7 +14,13 @@ the items' `$set` properties; a query may ask for `categories` and
 A data source may also be handed `RatingsData` arrays through its params
 (`DataSourceParams.ratings`); such params have no JSON form, so an
 engine instance (`workflow.run_train`) cannot be trained from them.
-Reading only touched entities (fold-in), the streamed bulk read, the
+
+Online fold-in (`online/`): `read_training_touched` reads only the
+touched users' and items' complete histories (and the touched items'
+properties) through the store's entity pushdown, and
+`ALSAlgorithm.fold_in` re-solves only those rows of a deployed model
+(`online/fold_in.fold_in_coo`), replaying the preparator's dedup and
+exclusion list on grown vocabularies. The streamed bulk read, the
 evaluation read and the sharded factor tables are later slices
 (ROADMAP.md).
 """
@@ -31,16 +37,20 @@ from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          EngineParams, FirstServing,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
+from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.data.storage.base import aggregate_event_names
 from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData,
                                                   top_scores_to_result)
-from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_train,
-                                            recommend_products,
+from predictionio_tpu_torch.online.fold_in import FoldInConfig, fold_in_coo
+from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_rmse,
+                                            als_train, recommend_products,
                                             users_topk_serve_begin)
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
+from predictionio_tpu_torch.ops.solve import COUNTS
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_top_k_batch,
                                                    masked_top_k_batch_begin,
@@ -63,6 +73,9 @@ class TrainingData(SanityCheck):
     """`ratings` is columnar; a list of Rating rows is converted."""
     ratings: RatingsData
     items: Optional[dict] = None  # id -> property dict (read_items)
+    # an entity-filtered read (read_training_touched): only the touched
+    # entities' complete histories, input to a fold-in, never to a train
+    touched_only: bool = False
 
     def __post_init__(self):
         if isinstance(self.ratings, (list, tuple)):
@@ -160,6 +173,40 @@ class RecommendationDataSource(DataSource):
             return TrainingData(self.params.ratings)
         return TrainingData(self._read_ratings(), items=self._read_items())
 
+    def read_training_touched(self, touched_users,
+                              touched_items) -> TrainingData:
+        """The fold tick's entity-filtered read: the touched users'
+        complete rating histories and every rating on a touched item (the
+        rows the touched-row solves consume, so their dedup and
+        regularizers see whole histories), and the touched items'
+        properties, through the store's pushdown
+        (`find_columnar_by_entities`), not a corpus scan."""
+        p = self.params
+        cols = PEventStore.find_columnar_by_entities(
+            app_name=p.app_name, channel_name=p.channel_name,
+            entity_ids=[str(u) for u in touched_users],
+            target_entity_ids=[str(i) for i in touched_items],
+            property_field="rating", entity_type="user",
+            target_entity_type="item", event_names=list(p.event_names))
+        items = None
+        if p.read_items:
+            items = self._read_items_for([str(i) for i in touched_items])
+        return TrainingData(self._ratings_from_cols(cols, p), items=items,
+                            touched_only=True)
+
+    def _read_items_for(self, item_ids) -> dict:
+        """$set/$unset/$delete folded for the given items only: a point
+        read an item, the app and channel resolved once."""
+        app_id, channel_id = PEventStore.resolve(self.params.app_name,
+                                                 self.params.channel_name)
+        events = []
+        for iid in item_ids:
+            events.extend(PEventStore.events.find(
+                app_id=app_id, channel_id=channel_id, entity_type="item",
+                entity_id=iid, event_names=list(aggregate_event_names())))
+        return {eid: dict(pm.fields)
+                for eid, pm in aggregate_properties(events).items()}
+
 
 @dataclass(frozen=True)
 class PreparatorParams(Params):
@@ -167,6 +214,14 @@ class PreparatorParams(Params):
     # custom-prepartor variant (Preparator.scala:13-27): newline-separated
     # item ids excluded from training before the vocabulary is built
     exclude_items_file: Optional[str] = None
+
+
+def excluded_items(params: PreparatorParams) -> List[str]:
+    """The sorted ids of `exclude_items_file` (none without one)."""
+    if not params.exclude_items_file:
+        return []
+    with open(params.exclude_items_file) as f:
+        return sorted({line.strip() for line in f if line.strip()})
 
 
 class RecommendationPreparator(Preparator):
@@ -178,10 +233,8 @@ class RecommendationPreparator(Preparator):
 
     def prepare(self, td: TrainingData) -> PreparedData:
         rd = td.ratings
-        if self.params.exclude_items_file:
-            with open(self.params.exclude_items_file) as f:
-                no_train = sorted({line.strip() for line in f
-                                   if line.strip()})
+        no_train = excluded_items(self.params)
+        if no_train:
             rd = rd.select(~np.isin(rd.items, no_train))
         user_ix, ui = EntityIdIxMap.build_with_indices(rd.users)
         item_ix, ii = EntityIdIxMap.build_with_indices(rd.items)
@@ -361,6 +414,95 @@ class ALSAlgorithm(P2LAlgorithm):
                                                    properties_of=props_of)
             return list(out.items())
         return finish
+
+    def fold_data(self, model: RecommendationModel, td: TrainingData,
+                  touched_users, touched_items,
+                  preparator_params: Optional[PreparatorParams] = None):
+        """What a fold of `td` into `model` solves: (grown user map, grown
+        item map, the deduplicated COO on them, touched user indices,
+        touched item indices). The preparator's exclusion list and dedup
+        are replayed (prepare() itself would rebuild the vocabularies and
+        move the deployed dense indices); only entities with ratings
+        grow, so a property-only `$set` of an unseen id mints no zero
+        row."""
+        prep = preparator_params or PreparatorParams()
+        rd = td.ratings
+        no_train = excluded_items(prep)
+        if no_train:
+            rd = rd.select(~np.isin(rd.items, no_train))
+            excluded = set(no_train)
+            touched_items = [i for i in touched_items
+                             if str(i) not in excluded]
+        present_u = set(np.unique(rd.users).astype(str))
+        present_i = set(np.unique(rd.items).astype(str))
+        user_ix, _ = model.user_ix.grow(
+            u for u in map(str, touched_users) if u in present_u)
+        item_ix, _ = model.item_ix.grow(
+            i for i in map(str, touched_items) if i in present_i)
+        ui = user_ix.to_indices_array(rd.users)
+        ii = item_ix.to_indices_array(rd.items)
+        keep = (ui >= 0) & (ii >= 0)
+        ui, ii, vals = dedup_ratings(ui[keep], ii[keep], rd.vals[keep],
+                                     rd.ts[keep], prep.dedup)
+        coo = RatingsCOO(ui, ii, vals, len(user_ix), len(item_ix))
+        tu = user_ix.to_indices([str(u) for u in touched_users])
+        ti = item_ix.to_indices([str(i) for i in touched_items])
+        return user_ix, item_ix, coo, tu[tu >= 0], ti[ti >= 0]
+
+    def fold_config(self) -> FoldInConfig:
+        """The fold's solve config from this algorithm's params: two
+        sweeps, the solver left at 'auto' as the reference's template
+        leaves it (so the card's CG kernel), the train's compute dtype."""
+        p = self.params
+        return FoldInConfig(lam=p.lam, sweeps=2,
+                            compute_dtype=p.compute_dtype or "float32",
+                            sweep_chunk=p.sweep_chunk)
+
+    def fold_in(self, model: RecommendationModel, td: TrainingData,
+                touched_users, touched_items,
+                preparator_params: Optional[PreparatorParams] = None
+                ) -> Tuple[RecommendationModel, dict]:
+        """Absorb fresh events without a retrain: grow the vocabularies
+        with the touched entities that have ratings, then re-solve only
+        the touched rows against `td`, the current data of those entities
+        (`fold_data`, `online/fold_in.fold_in_coo`, the train's ALS-WR
+        equations). New items carry `td`'s properties, or None. Returns
+        (new model, report); the report's loss is what the scheduler's
+        drift gate reads, `solverCalls` and `launches` what the fold ran
+        on its device. A tick with nothing solvable returns `model`
+        itself."""
+        user_ix, item_ix, coo, tu, ti = self.fold_data(
+            model, td, touched_users, touched_items, preparator_params)
+        before = dict(vars(COUNTS))
+        new_als, stats = fold_in_coo(
+            model.als, coo, tu, ti, self.fold_config(),
+            device=resolve_device(self.params.device),
+            resident_key=f"fold:{type(self).__name__}:{id(self)}")
+        if stats.degenerate:
+            return model, {"algorithm": type(self).__name__,
+                           "degenerate": True, "wallS": stats.wall_s}
+        item_properties = model.item_properties
+        if item_properties is not None and len(item_ix) > len(
+                item_properties):
+            items = td.items or {}
+            item_properties = list(item_properties) + [
+                items.get(item_ix.id_of(ix))
+                for ix in range(len(item_properties), len(item_ix))]
+        cats, years = RecommendationModel.derive_filters(item_properties)
+        new_model = RecommendationModel(
+            new_als, user_ix, item_ix, item_properties=item_properties,
+            item_categories=cats, item_years=years)
+        return new_model, {
+            "algorithm": type(self).__name__,
+            "loss": als_rmse(new_als, coo),
+            "userRows": stats.n_user_rows, "itemRows": stats.n_item_rows,
+            "newUsers": stats.n_new_users, "newItems": stats.n_new_items,
+            "wallS": stats.wall_s, "residentHit": stats.resident_hit,
+            "sentinelRollback": stats.sentinel_rollback,
+            "guardWallS": stats.guard_wall_s,
+            "solverCalls": stats.solver_calls,
+            "launches": {k: v - before[k] for k, v in vars(COUNTS).items()
+                         if v != before[k]}}
 
     def warm_queries(self, model: RecommendationModel) -> List[Query]:
         """One query for each serve path a window can take (plain, and

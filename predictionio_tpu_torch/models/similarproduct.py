@@ -16,8 +16,14 @@ items' `$set` properties (an item's `categories`), `view` events (and
 `read_like_events`, `like`/`dislike` events. It may also be handed the
 items and events as arrays through its params; such params have no JSON
 form, so an engine instance (`workflow.run_train`) cannot be trained from
-them. DIMSUM, fold-in and the touched-entity reads are later slices
-(ROADMAP.md).
+them.
+
+Online fold-in (`online/`): `read_training_touched` reads only the
+touched entities' events and properties through the store's entity
+pushdown, and `ALSAlgorithm.fold_in` (and `LikeAlgorithm`'s) re-solves
+only the touched rows of the implicit factorization and refreshes the
+normalized serve table; a newly `$set` and viewed item becomes
+recommendable without a retrain. DIMSUM is a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,14 +39,19 @@ from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          EngineParams, FirstServing,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
+from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
+from predictionio_tpu_torch.data.storage.base import aggregate_event_names
 from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
                                                   RatingsData, resolve_ids,
                                                   top_scores_to_result)
-from predictionio_tpu_torch.ops.als import ALSConfig, als_train
+from predictionio_tpu_torch.online.fold_in import FoldInConfig, fold_in_coo
+from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_rmse,
+                                            als_train)
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
+from predictionio_tpu_torch.ops.solve import COUNTS
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    cosine_top_k,
                                                    masked_top_k_batch_begin,
@@ -82,6 +93,10 @@ class TrainingData(SanityCheck):
     items: Dict[str, Item]
     view_events: RatingsData
     like_events: Optional[RatingsData] = None
+    # an entity-filtered read (read_training_touched): only the touched
+    # entities' events and properties, input to a fold-in, never to a
+    # train
+    touched_only: bool = False
 
     def __post_init__(self):
         if isinstance(self.view_events, (list, tuple)):
@@ -198,6 +213,57 @@ class SimilarProductDataSource(DataSource):
                          ).astype(np.float32), lc["t"])
         return TrainingData(users=users, items=items, view_events=views,
                             like_events=likes)
+
+    def read_training_touched(self, touched_users,
+                              touched_items) -> TrainingData:
+        """The fold tick's entity-filtered read: the touched users' whole
+        view (and like) histories and every event on a touched item,
+        through the store's pushdown, and the properties of the touched
+        entities only."""
+        p = self.params
+        app, chan = p.app_name, p.channel_name
+        tu = [str(u) for u in touched_users]
+        ti = [str(i) for i in touched_items]
+        users = {u: dict(pm.fields)
+                 for u, pm in self._aggregate_for("user", tu).items()}
+        items = {}
+        for eid, pm in self._aggregate_for("item", ti).items():
+            cats = pm.get_opt("categories", list)
+            items[eid] = Item(tuple(cats) if cats is not None else None,
+                              properties=dict(pm.fields))
+        vc = PEventStore.find_columnar_by_entities(
+            app_name=app, channel_name=chan, entity_ids=tu,
+            target_entity_ids=ti, entity_type="user",
+            event_names=["view", "rate"] if p.rate_as_view else ["view"],
+            target_entity_type="item")
+        views = RatingsData(vc["entity_id"], vc["target_entity_id"],
+                            np.ones(len(vc["t"]), dtype=np.float32),
+                            vc["t"])
+        likes = None
+        if p.read_like_events:
+            lc = PEventStore.find_columnar_by_entities(
+                app_name=app, channel_name=chan, entity_ids=tu,
+                target_entity_ids=ti, entity_type="user",
+                event_names=["like", "dislike"], target_entity_type="item")
+            likes = RatingsData(
+                lc["entity_id"], lc["target_entity_id"],
+                np.where(lc["event"] == "like", 1.0, -1.0
+                         ).astype(np.float32), lc["t"])
+        return TrainingData(users=users, items=items, view_events=views,
+                            like_events=likes, touched_only=True)
+
+    def _aggregate_for(self, entity_type: str, entity_ids) -> dict:
+        """Properties folded for an id set: a point read an id, the app
+        and channel resolved once."""
+        app_id, channel_id = PEventStore.resolve(self.params.app_name,
+                                                 self.params.channel_name)
+        events = []
+        for eid in entity_ids:
+            events.extend(PEventStore.events.find(
+                app_id=app_id, channel_id=channel_id,
+                entity_type=entity_type, entity_id=eid,
+                event_names=list(aggregate_event_names())))
+        return aggregate_properties(events)
 
 
 class SimilarProductPreparator(Preparator):
@@ -345,6 +411,96 @@ class ALSAlgorithm(P2LAlgorithm):
         model.table()
         return model
 
+    def _fold_users_present(self, td: TrainingData) -> set:
+        """Users with events: the only ones the fold may mint rows for (a
+        user with only a `$set` stays cold-start)."""
+        if not len(td.view_events):
+            return set()
+        return set(np.unique(td.view_events.users).astype(str))
+
+    def _fold_ratings(self, td: TrainingData, user_ix: EntityIdIxMap,
+                      item_ix: EntityIdIxMap) -> RatingsCOO:
+        """`td`'s view counts on fixed (grown) vocabularies: the fold's
+        `_build_ratings`, which would build vocabularies of its own."""
+        views = td.view_events
+        ui = user_ix.to_indices_array(views.users)
+        ii = item_ix.to_indices_array(views.items)
+        keep = (ui >= 0) & (ii >= 0)
+        ui, ii, counts = dedup_ratings(ui[keep], ii[keep], views.vals[keep],
+                                       policy="sum")
+        return RatingsCOO(ui, ii, counts, len(user_ix), len(item_ix))
+
+    def fold_data(self, model: SimilarProductModel, td: TrainingData,
+                  touched_users, touched_items):
+        """What a fold of `td` into `model` solves: (grown user map, grown
+        item map, the COO on them, touched user indices, touched item
+        indices). Users grow only with events; items grow when viewed or
+        `$set`, as train's item vocabulary covers every `$set` item."""
+        present_u = self._fold_users_present(td)
+        user_ix, _ = model.user_ix.grow(
+            u for u in map(str, touched_users) if u in present_u)
+        item_ix, _ = model.item_ix.grow(str(i) for i in touched_items)
+        coo = self._fold_ratings(td, user_ix, item_ix)
+        tu = user_ix.to_indices([str(u) for u in touched_users])
+        ti = item_ix.to_indices([str(i) for i in touched_items])
+        return user_ix, item_ix, coo, tu[tu >= 0], ti[ti >= 0]
+
+    def fold_config(self) -> FoldInConfig:
+        """Implicit, two sweeps, the solver left at 'auto' as the
+        reference's template leaves it (so the card's CG kernel, whatever
+        solver trained the model), the train's compute dtype."""
+        p = self.params
+        return FoldInConfig(lam=p.lam, alpha=p.alpha, implicit_prefs=True,
+                            sweeps=2,
+                            compute_dtype=p.compute_dtype or "float32",
+                            sweep_chunk=p.sweep_chunk)
+
+    def fold_in(self, model: SimilarProductModel, td: TrainingData,
+                touched_users, touched_items, preparator_params=None
+                ) -> Tuple[SimilarProductModel, dict]:
+        """Implicit (Hu-Koren) fold-in: re-solve only the touched user and
+        item rows of the view-count factorization and refresh the
+        normalized serve table. After an entity-filtered read (`td` holds
+        only the touched items' `$set`), untouched items keep the deployed
+        metadata. A model without the raw factors and the user side
+        raises. Returns (new model, report) as the recommendation
+        template's `fold_in`."""
+        if model.item_factors_raw is None or model.user_factors is None \
+                or model.user_ix is None:
+            raise ValueError(
+                "model lacks online-update state; retrain once with this "
+                "build before attaching the delta scheduler")
+        user_ix, item_ix, coo, tu, ti = self.fold_data(
+            model, td, touched_users, touched_items)
+        als = ALSModel(model.user_factors, model.item_factors_raw,
+                       model.item_factors_raw.shape[1], model.device)
+        before = dict(vars(COUNTS))
+        new_als, stats = fold_in_coo(
+            als, coo, tu, ti, self.fold_config(),
+            device=resolve_device(self.params.device),
+            resident_key=f"fold:{type(self).__name__}:{id(self)}")
+        if stats.degenerate:
+            return model, {"algorithm": type(self).__name__,
+                           "degenerate": True, "wallS": stats.wall_s}
+        items = ({**model.items, **td.items} if td.touched_only
+                 else td.items)
+        new_model = SimilarProductModel(
+            item_factors_normalized=normalize_rows(new_als.item_factors),
+            device=new_als.device, item_factors_raw=new_als.item_factors,
+            user_factors=new_als.user_factors, user_ix=user_ix,
+            **ItemMetadataModel.metadata_kwargs(items, item_ix))
+        return new_model, {
+            "algorithm": type(self).__name__,
+            "loss": als_rmse(new_als, coo),
+            "userRows": stats.n_user_rows, "itemRows": stats.n_item_rows,
+            "newUsers": stats.n_new_users, "newItems": stats.n_new_items,
+            "wallS": stats.wall_s, "residentHit": stats.resident_hit,
+            "sentinelRollback": stats.sentinel_rollback,
+            "guardWallS": stats.guard_wall_s,
+            "solverCalls": stats.solver_calls,
+            "launches": {k: v - before[k] for k, v in vars(COUNTS).items()
+                         if v != before[k]}}
+
     @staticmethod
     def _build_mask(model: ItemMetadataModel, query: Query,
                     q_ix: np.ndarray) -> np.ndarray:
@@ -445,6 +601,23 @@ class LikeAlgorithm(ALSAlgorithm):
                                      policy="latest")
         return user_ix, item_ix, RatingsCOO(ui, ii, vals,
                                             len(user_ix), len(item_ix))
+
+    def _fold_users_present(self, td: TrainingData) -> set:
+        if td.like_events is None or not len(td.like_events):
+            return set()
+        return set(np.unique(td.like_events.users).astype(str))
+
+    def _fold_ratings(self, td: TrainingData, user_ix: EntityIdIxMap,
+                      item_ix: EntityIdIxMap) -> RatingsCOO:
+        likes = td.like_events
+        if likes is None or not len(likes):
+            raise ValueError("No like/dislike events to fold in")
+        ui = user_ix.to_indices_array(likes.users)
+        ii = item_ix.to_indices_array(likes.items)
+        keep = (ui >= 0) & (ii >= 0)
+        ui, ii, vals = dedup_ratings(ui[keep], ii[keep], likes.vals[keep],
+                                     likes.ts[keep], policy="latest")
+        return RatingsCOO(ui, ii, vals, len(user_ix), len(item_ix))
 
 
 class SimilarProductEngineFactory(EngineFactory):

@@ -30,8 +30,17 @@ serializes them. With `serve_inflight` > 1 the windows are pipelined.
 queue cannot answer in time is shed with 503 and `Retry-After`; a
 malformed value answers 400. A malformed body (bad JSON, not an object,
 a missing or mistyped field) answers 400, as the reference does, and
-fails no other query of its window. The result cache, the metrics and tracing routes, canaries and
-feedback are later slices.
+fails no other query of its window.
+
+The online fold-in publishes through `swap_models` (in process: the
+scheduler of `online/scheduler.attach_scheduler`) or through `/reload`
+(`python -m predictionio_tpu_torch update` in another process); both warm
+the new models before the swap. `/stats.json` counts the swaps and the
+fold-ins (`modelSwaps`, `foldIns`, `foldInEvents`, `modelVersion`) and
+says when a failed publish left the server on a stale model
+(`publishDegraded`, `publishFailures`, `modelStalenessSec`). The result
+cache, the metrics and tracing routes, canaries (`on_canary_decision` is
+there, and nothing calls it yet) and feedback are later slices.
 """
 
 from __future__ import annotations
@@ -119,6 +128,17 @@ class EngineServer:
         self.request_count = 0
         self.serving_seconds = 0.0
         self.last_warm: Optional[dict] = None
+        # online updates: swaps after the first load, fold-ins that
+        # landed, the version that answers, and a failed publish's mark
+        self.swap_count = 0
+        self.fold_in_count = 0
+        self.fold_in_events = 0
+        self.model_version: Optional[str] = None
+        self.publish_degraded = False
+        self.publish_failures = 0
+        self._last_swap_wall = time.time()
+        # the canary watchdog's callback (a later slice calls it)
+        self.on_canary_decision = None
         self._lock = threading.Lock()
         self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -179,6 +199,8 @@ class EngineServer:
         serving = engine.make_serving(engine_params)
         warm = self.warm(result.algorithms, result.models)
         with self._lock:
+            if self.algorithms:
+                self.swap_count += 1   # a /reload, not the first load
             self.engine = engine
             self.engine_params = engine_params
             self.engine_instance = instance
@@ -186,6 +208,9 @@ class EngineServer:
             self.models = result.models
             self.serving = serving
             self.last_warm = dict(warm, version=instance.id)
+            self.model_version = instance.id
+            self._last_swap_wall = time.time()
+            self.publish_degraded = False
         logger.info("Engine instance %s loaded (%d algorithm(s)), warmed "
                     "in %.3f s", instance.id, len(result.algorithms),
                     warm["seconds"])
@@ -220,6 +245,42 @@ class EngineServer:
             cfg.engine_variant = self.engine_instance.engine_variant
         self.engine_params = None  # re-derive from the new instance
         self.load()
+
+    def swap_models(self, models, version: Optional[str] = None,
+                    fold_in_events: int = 0) -> None:
+        """The in-process hot swap of a fold-in publish: warm the new
+        models (`warm`), then replace the whole model list under the
+        serving lock, so a window answers from the old set or the new,
+        never a mix (a fold makes new model objects and mutates none)."""
+        models = list(models)
+        with self._lock:
+            algorithms = self.algorithms
+        if len(models) != len(algorithms):
+            raise ValueError(f"swap_models got {len(models)} models for "
+                             f"{len(algorithms)} algorithms")
+        warm = self.warm(algorithms, models)
+        with self._lock:
+            self.models = models
+            self.swap_count += 1
+            self.fold_in_count += 1
+            self.fold_in_events += int(fold_in_events)
+            if version is not None:
+                self.model_version = version
+            self.last_warm = dict(warm, version=version)
+            self._last_swap_wall = time.time()
+            self.publish_degraded = False
+        logger.info("Hot-swapped models (swap #%d, version %s)",
+                    self.swap_count, version or "<in-process>")
+
+    def note_publish_failure(self) -> None:
+        """A fold's publish or swap failed: the server keeps answering
+        from its models and says it is stale until a swap lands."""
+        with self._lock:
+            self.publish_degraded = True
+            self.publish_failures += 1
+
+    def model_staleness_s(self) -> float:
+        return max(time.time() - self._last_swap_wall, 0.0)
 
     # -- queries -----------------------------------------------------------
     def _snapshot(self):
@@ -308,12 +369,19 @@ class EngineServer:
 
     def stats(self) -> dict:
         """`/stats.json`: the status, the micro-batcher's counters (at the
-        top level, as the reference's), the last warm-up and the readback
-        plane's counters."""
+        top level, as the reference's), the last warm-up, the swap and
+        fold-in counters and the readback plane's counters."""
         out = self.status()
         out["microBatch"] = self.config.micro_batch
         with self._lock:
             out["warm"] = self.last_warm
+            out.update(modelSwaps=self.swap_count,
+                       foldIns=self.fold_in_count,
+                       foldInEvents=self.fold_in_events,
+                       modelVersion=self.model_version,
+                       publishDegraded=self.publish_degraded,
+                       publishFailures=self.publish_failures)
+        out["modelStalenessSec"] = self.model_staleness_s()
         if self.batcher is not None:
             out.update(self.batcher.stats())
         out["readback"] = readback.stats_snapshot()

@@ -1,25 +1,31 @@
 """The port's command line: `python -m predictionio_tpu_torch`.
 
-The port's counterpart of `version`, `train`, `deploy` and `undeploy` of
-`predictionio_tpu/tools/cli.py` (the reference's Console,
+The port's counterpart of `version`, `train`, `deploy`, `undeploy` and
+`update` of `predictionio_tpu/tools/cli.py` (the reference's Console,
 Console.scala:186-651), with the same flags and messages. `train` runs
 `create_workflow_main` in this process; `deploy` undeploys a stale server
 on the target port, restores and warms the latest trained instance
 (`EngineServer.load`), binds, prints the address it serves on (`--port
 0` binds any free port, and no stale server is looked for) and serves in
-the foreground until `undeploy`, SIGTERM or SIGINT. The device comes from the engine.json's algorithm
-params (`device`; absent = the card, which raises RuntimeError without
-CUDA; `"cpu"` only when named).
+the foreground until `undeploy`, SIGTERM or SIGINT. `update` restores the
+latest instance as deploy does (without serving it), folds the events
+that arrived since into it (`online/scheduler.py`: one forced tick, or a
+loop under `--follow`), publishes each folded model as a new version and
+`POST`s `/reload` to the deployed server (`--engine-port 0`: publish
+only); it prints each fold's report as one JSON line. The device comes
+from the engine.json's algorithm params (`device`; absent = the card,
+which raises RuntimeError without CUDA; `"cpu"` only when named).
 
 The other commands of `bin/pio` (app, accesskey, import, export,
-eventserver, status, build, eval, update and the rest) are not ported:
-run them through the JAX package's `bin/pio` on a machine that has JAX,
-against the same store, or through the storage API.
+eventserver, status, build, eval and the rest) are not ported: run them
+through the JAX package's `bin/pio` on a machine that has JAX, against
+the same store, or through the storage API.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -30,9 +36,9 @@ from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
-    "here: version, train, deploy, undeploy. Still only in the JAX "
+    "here: version, train, deploy, undeploy, update. Still only in the JAX "
     "package's bin/pio: app, accesskey, import, export, eventserver, "
-    "status, build, eval, update and the other commands.")
+    "status, build, eval and the other commands.")
 
 
 def cmd_version(args) -> int:
@@ -140,6 +146,69 @@ def cmd_undeploy(args) -> int:
     return 0
 
 
+def cmd_update(args) -> int:
+    """Fold the fresh events into the deployed engine: one forced tick,
+    or a tick every `--interval` seconds under `--follow` until SIGINT;
+    each folded model is published and the deployed server reloaded."""
+    from predictionio_tpu_torch.online import (DeltaTrainingScheduler,
+                                               ModelVersionRegistry,
+                                               SchedulerConfig)
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    # the latest model, restored as deploy restores it, served nowhere
+    loader = EngineServer(ServerConfig(
+        ip="127.0.0.1", port=0, engine_id=args.engine_id or "default",
+        engine_version=args.engine_version or "0",
+        engine_variant=args.engine_json, micro_batch=0))
+    loader.load()
+    _, ds_params = loader.engine_params.data_source_params
+    app_name = args.app_name or getattr(ds_params, "app_name", None)
+    if not app_name:
+        print("No app name: pass --app-name or set it in the variant's "
+              "datasource params.")
+        return 1
+    config = SchedulerConfig(
+        app_name=app_name,
+        channel_name=getattr(ds_params, "channel_name", None),
+        max_deltas=args.max_deltas, max_staleness_s=args.max_staleness,
+        drift_ratio=args.drift_ratio, poll_interval_s=args.interval)
+    reload_url = (f"http://{args.engine_ip}:{args.engine_port}/reload"
+                  if args.engine_port else None)
+    sched = DeltaTrainingScheduler(
+        engine=loader.engine, engine_params=loader.engine_params,
+        instance=loader.engine_instance, algorithms=loader.algorithms,
+        models=loader.models, config=config,
+        registry=ModelVersionRegistry(), reload_url=reload_url)
+    if not args.follow:
+        report = sched.tick(force=True)
+        print(json.dumps(report or {"message": "no fresh events"}),
+              flush=True)
+        return 0
+    print(f"Following app {app_name!r} (fold at {config.max_deltas} "
+          f"deltas or {config.max_staleness_s:g}s staleness; ^C stops).",
+          flush=True)
+    try:
+        while True:
+            try:
+                report = sched.tick()
+            except Exception:
+                # the fold restored its deltas: keep following
+                logging.getLogger(__name__).exception(
+                    "update tick failed; retrying next interval")
+                report = None
+            if report:
+                print(json.dumps(report), flush=True)
+            if sched.retrain_requested:
+                print("Drift bound exceeded — run `pio train` + "
+                      "redeploy, then restart `pio update --follow`.")
+                return 2
+            time.sleep(config.poll_interval_s)
+    except KeyboardInterrupt:
+        print("Stopped.")
+        print(json.dumps(sched.stats()))
+        return 0
+
+
 def _add_variant_arg(sp) -> None:
     """The engine-variant file flag; --variant/-v are the reference's
     spellings (Console.scala:161)."""
@@ -185,6 +254,34 @@ def build_parser() -> argparse.ArgumentParser:
     u.add_argument("--ip", default="127.0.0.1")
     u.add_argument("--port", type=int, default=8000)
     u.set_defaults(func=cmd_undeploy)
+
+    upd = sub.add_parser(
+        "update", help="online model updates: fold the fresh events into "
+        "the deployed model, publish a version and /reload the server")
+    _add_variant_arg(upd)
+    upd.add_argument("--engine-id")
+    upd.add_argument("--engine-version")
+    upd.add_argument("--app-name",
+                     help="event app (default: the variant's datasource "
+                          "app_name)")
+    upd.add_argument("--engine-ip", default="127.0.0.1",
+                     help="deployed engine server to POST /reload to")
+    upd.add_argument("--engine-port", type=int, default=8000,
+                     help="deployed engine server port (0 = publish "
+                          "only, no reload)")
+    upd.add_argument("--follow", action="store_true",
+                     help="keep tailing until ^C (default: one forced "
+                          "fold-in tick)")
+    upd.add_argument("--interval", type=float, default=2.0,
+                     help="--follow poll cadence seconds")
+    upd.add_argument("--max-deltas", type=int, default=256,
+                     help="fold in after this many fresh events")
+    upd.add_argument("--max-staleness", type=float, default=30.0,
+                     help="... or once the oldest delta is this old (s)")
+    upd.add_argument("--drift-ratio", type=float, default=1.5,
+                     help="fold loss / anchor loss bound that escalates "
+                          "to a full retrain")
+    upd.set_defaults(func=cmd_update)
     return p
 
 

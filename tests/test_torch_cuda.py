@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: each held against its plain PyTorch
 version, and the ALS trains (explicit through the CG kernel, implicit
 through the Cholesky kernel, explicit and implicit at bf16 compute through
-the Schulz kernel) on the card against the same trains on the CPU, and
-the recommendation template's store -> `create_workflow_main` ->
+the Schulz kernel) on the card against the same trains on the CPU, the
+fold-in (every solve through the CG kernel) against the same fold on the
+CPU, and the recommendation template's store -> `create_workflow_main` ->
 `EngineServer.load` round trip on the card.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
@@ -184,6 +185,48 @@ def test_als_train_on_the_card_goes_through_the_kernel(cuda, lam):
     for a, b in ((on_cpu.user_factors, on_card.user_factors),
                  (on_cpu.item_factors, on_card.item_factors)):
         assert np.abs(a - b).max() <= FACTOR_TOL[lam] * np.abs(a).max()
+
+
+@pytest.mark.parametrize("implicit,lam,every_user", [
+    (False, 0.1, False), (False, 0.01, False), (True, 0.1, False),
+    (False, 0.1, True)])    # every user touched: inert batches in the plan
+def test_fold_in_on_the_card_goes_through_the_kernel(cuda, implicit, lam,
+                                                     every_user):
+    """A two-sweep fold of a small model on grown vocabularies: every
+    solve, primal and dual, is a launch of the CG kernel (the template's
+    'auto' solver); the rows match the same fold on the CPU through the
+    plain CG, and the rows it did not touch are the deployed rows."""
+    from predictionio_tpu_torch.online import fold_in as TF
+    ui, ii, vv, n_u, n_i = small_ratings()
+    rng = np.random.default_rng(7)
+    U = (np.abs(rng.standard_normal((n_u, 16))) / 4).astype(np.float32)
+    V = (np.abs(rng.standard_normal((n_i, 16))) / 4).astype(np.float32)
+    eu = np.repeat(np.arange(n_u, n_u + 3), 5)
+    ei = rng.integers(0, n_i + 2, eu.size)
+    coo = RatingsCOO(np.concatenate([ui, eu]).astype(np.int32),
+                     np.concatenate([ii, ei]).astype(np.int32),
+                     np.concatenate([vv, rng.integers(1, 6, eu.size)]
+                                    ).astype(np.float32), n_u + 3, n_i + 2)
+    tu = (np.arange(n_u + 3) if every_user else
+          np.concatenate([rng.choice(n_u, 10, replace=False),
+                          np.arange(n_u, n_u + 3)]))
+    ti = np.concatenate([rng.choice(n_i, 5, replace=False), [n_i, n_i + 1]])
+    kw = dict(lam=lam, implicit_prefs=implicit, sweeps=2,
+              work_budget=128 if every_user else 512)
+    T.COUNTS.reset()
+    on_card, stats = TF.fold_in_coo(TA.ALSModel(U, V, 16, None), coo, tu,
+                                    ti, TF.FoldInConfig(**kw), device=cuda)
+    assert T.COUNTS.cg_solve == stats.solver_calls > 0
+    assert T.COUNTS.cg_solve_plain == T.COUNTS.chol_solve == 0
+    assert on_card.tables()[0].device.type == "cuda"
+    on_cpu, _ = TF.fold_in_coo(TA.ALSModel(U, V, 16, None), coo, tu, ti,
+                               TF.FoldInConfig(solver="cg_cuda", **kw),
+                               device="cpu")
+    for a, b in ((on_cpu.user_factors, on_card.user_factors),
+                 (on_cpu.item_factors, on_card.item_factors)):
+        assert np.abs(a - b).max() <= FACTOR_TOL[lam] * np.abs(a).max()
+    keep = np.setdiff1d(np.arange(n_u), tu)
+    assert np.array_equal(on_card.user_factors[keep], U[keep])
 
 
 def chol_tolerance(A, b):
