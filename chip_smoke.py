@@ -79,6 +79,7 @@ is caught. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -187,6 +188,20 @@ FOLD_UNTOUCHED_QUERIES = 16
 FOLD_VIEWS = (64, 32)            # fold_inprocess: views of tick 1, tick 2
 FOLD_NEW_SIMILAR = 2             # new items $set in tick 1
 FOLD_H2D_SHARE = 0.01            # tick 2 uploads under 1% of tick 1's
+# the result cache (the reference's REST bench row with result_cache=True,
+# bench.py bench_rest_latency: 200 seeded users, 16 closed-loop clients,
+# 320 queries a burst cycling them, an untimed warm burst of the first
+# 64, then 3 timed bursts)
+CACHE_USERS = 200
+CACHE_WARM = 64
+CACHE_BURSTS = 3
+CACHE_FOLD_OTHERS = 200          # cache_fold: untouched users asked
+# the guarded deploy: a quarter of the windows on the candidate, a window
+# the 32-client burst fits in, the reference's 20 samples to judge
+CANARY_FRACTION = 0.25
+CANARY_WINDOW_S = 5.0
+CANARY_MIN_REQUESTS = 20
+CANARY_PER_CLIENT = 8
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -543,15 +558,21 @@ def resolve_check(als, coo) -> None:
               f"{out['kernel_vs_cholesky_rel']:.3g} > {CHOL_REL_TOL}")
 
 
-def post(url: str, body: bytes):
+def post_raw(url: str, body: bytes):
+    """(status, the response's bytes, its headers)."""
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type":
                                           "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=60) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, resp.read(), dict(resp.headers)
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+        return e.code, e.read(), dict(e.headers)
+
+
+def post(url: str, body: bytes):
+    status, data, _ = post_raw(url, body)
+    return status, json.loads(data)
 
 
 def phase_serve(algo, model, phase: str = "serve",
@@ -1765,6 +1786,15 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict) -> None:
 def closed_loop(url: str, per_client: list) -> tuple:
     """Each client thread POSTs its queries one after another; all start
     together. Returns ([(query, status, body, ms)], wall seconds)."""
+    results, wall = closed_loop_raw(url, per_client)
+    return [(q, code, json.loads(data), (t1 - t0) * 1e3)
+            for q, code, data, _, t0, t1 in results], wall
+
+
+def closed_loop_raw(url: str, per_client: list) -> tuple:
+    """`closed_loop` keeping each response's bytes and headers and its
+    send and receive times: ([(query, status, bytes, headers, t_sent,
+    t_received)], wall seconds)."""
     results = [None] * len(per_client)
     start = threading.Barrier(len(per_client) + 1)
 
@@ -1773,8 +1803,9 @@ def closed_loop(url: str, per_client: list) -> tuple:
         start.wait()
         for q in per_client[c]:
             t0 = time.perf_counter()
-            code, body = post(url + "/queries.json", json.dumps(q).encode())
-            out.append((q, code, body, (time.perf_counter() - t0) * 1e3))
+            code, data, headers = post_raw(url + "/queries.json",
+                                           json.dumps(q).encode())
+            out.append((q, code, data, headers, t0, time.perf_counter()))
         results[c] = out
 
     threads = [threading.Thread(target=client, args=(c,))
@@ -1955,17 +1986,20 @@ def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
         exact += hold(body, q, f"{name} serve_plane query {q}")
     ms = np.array([r[3] for r in results])
     d = stats_delta(before, after)
+    # the default deploy's result cache answers a repeated query
+    # before the micro-batcher
+    hits = after["resultCache"]["hits"] - before["resultCache"]["hits"]
     emit("serve_plane", template=name, clients=SERVE_CLIENTS,
-         queries=len(results), ids_equal_f64=exact,
+         queries=len(results), cache_hits=hits, ids_equal_f64=exact,
          f32_tie_swaps=len(results) - empty - exact, unknown_empty=empty,
          wall_s=wall, qps=len(results) / wall,
          p50_ms=float(np.percentile(ms, 50)),
          p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms.max()),
          **d, window=window_breakdown(name, algo, model,
                                       [q for qs in per_client for q in qs]))
-    check(d["batchedQueries"] == len(results),
+    check(d["batchedQueries"] + hits == len(results),
           f"{d['batchedQueries']} queries went through the micro-batcher "
-          f"of {len(results)}")
+          f"and {hits} were cache hits, of {len(results)}")
     check(d["avg_batch"] > 1, f"{name}: realized batch {d['avg_batch']:.3f}"
           " under 32 clients")
     slot = 6 * SERVE_K_BUCKET
@@ -2006,7 +2040,9 @@ def phase_inflight_bench(path: str, iid: str, model, truth) -> dict:
     synchronous loop), 16 closed-loop clients x 20 plain queries a
     burst, after an untimed warm burst on each; bursts in `BENCH_ORDER`.
     Every answer is held as serve_plane's are. Reads each burst's qps,
-    p50/p99, realized batch, stalls and readback wait."""
+    p50/p99, realized batch, stalls and readback wait. The result cache
+    is off, as in the reference's batcher sweeps: the bursts repeat their
+    queries, and hits would bypass the executor it measures."""
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
     U64 = model.als.user_factors.astype(np.float64)
@@ -2020,9 +2056,8 @@ def phase_inflight_bench(path: str, iid: str, model, truth) -> dict:
         for n in sorted(set(BENCH_ORDER)):
             servers[n] = EngineServer(ServerConfig(
                 ip="127.0.0.1", port=0, engine_variant=path,
-                engine_instance_id=iid,
-                micro_batch=BENCH_MICRO_BATCH, serve_inflight=n)
-            ).load().start()
+                engine_instance_id=iid, micro_batch=BENCH_MICRO_BATCH,
+                serve_inflight=n, result_cache=False)).load().start()
             check(servers[n].batcher.pipelined == (n > 1),
                   f"serve_inflight={n} did not pick its executor")
             closed_loop(f"http://127.0.0.1:{servers[n].config.port}",
@@ -2074,10 +2109,12 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
     store through the command line (`cli_train`), both templates
     deployed as subprocesses (`cli_deploy`), held under 32 concurrent
     clients (`serve_plane`); `pio update` against the deployed
-    recommendation process (`fold_update`); both undeployed
-    (`undeploy`); then the recommendation instance at the reference
-    bench's shape with 2 windows in flight and with 1
-    (`inflight_bench`), and the similar-product instance folded in
+    recommendation process (`fold_update`) and `pio rollback` of it
+    (`rollback_cli`); both undeployed (`undeploy`); then the
+    recommendation instance at the reference bench's shape with 2
+    windows in flight and with 1 (`inflight_bench`), with the result
+    cache (`cache_bench`), under a fold (`cache_fold`) and as a guarded
+    deploy (`canary`), and the similar-product instance folded in
     process (`fold_inprocess`). Returns the similar-product train's
     Cholesky kernel launches and the folds' CG kernel launches."""
     from predictionio_tpu_torch.data.storage.registry import Storage
@@ -2121,12 +2158,17 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
         del T64
         rec_iid = get_json(deps["recommendation"]["url"] + "/")[
             "engineInstanceId"]
-        fold_launches = phase_fold_update(rec_path, deps["recommendation"],
-                                          rec_model)
+        fold_launches, version, queries = phase_fold_update(
+            rec_path, deps["recommendation"], rec_model)
+        phase_rollback_cli(rec_path, deps["recommendation"], rec_model,
+                           rec_iid, version, queries)
         phase_undeploy(deps)
         phase_inflight_bench(rec_path, rec_iid, rec_model, truth)
     finally:
         stop_all(deps)
+    phase_cache_bench(rec_path, rec_iid, rec_model, truth)
+    fold_launches += phase_cache_fold(rec_path, rec_iid, rec_model)
+    fold_launches += phase_canary(rec_path, rec_iid, rec_model)
     fold_launches += phase_fold_inprocess(sim_path)
     return launches, fold_launches
 
@@ -2246,7 +2288,7 @@ def hold_replay(got: tuple, f64: tuple, f32: tuple, tu, ti,
     return out
 
 
-def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
+def phase_fold_update(rec_path: str, dep: dict, rec_model) -> tuple:
     """`pio update` against the deployed recommendation process: fresh
     events after its instance's start (FOLD_USERS known users x
     FOLD_PER_USER rates, FOLD_NEW_USERS new users x FOLD_NEW_PER_USER, and
@@ -2257,9 +2299,12 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
     the entity-filtered read, a passed gate report, every solve a CG
     launch; untouched rows of the published tables bit-equal to the
     deployed ones, touched rows within tolerance of a float64 replay;
-    72 queries (the 56 touched users and 16 others, base and categories)
-    against the float64 top-k of the published tables. Returns the CG
-    launches."""
+    72 queries (the 56 touched users and 16 others, base and categories),
+    asked before the update too (so the default deploy's result cache
+    holds them: the known users' answers held to the deployed tables,
+    the new users' empty), against the float64 top-k of the published
+    tables after it, which the `/reload` must have cleared the cache for.
+    Returns (the CG launches, the published version, the queries)."""
     from predictionio_tpu_torch.data.columnar import ColumnarBatch
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.models import recommendation as TR
@@ -2283,6 +2328,36 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
     tgt = (rec_model.item_ix.ids_of(rng.integers(0, n_i, n_known))
            + [new_items[k % FOLD_NEW_ITEMS]
               for k in range(FOLD_NEW_ITEM_RATES)])
+    touched = (sorted(set(subj)), sorted(set(tgt)))
+    others = [u for u in rec_model.user_ix.ids_of(rng.choice(
+        n_u, 4 * FOLD_UNTOUCHED_QUERIES, replace=False))
+        if u not in set(subj)][:FOLD_UNTOUCHED_QUERIES]
+    queries = []
+    for k, u in enumerate(touched[0] + others):
+        q = {"user": u, "num": SERVE_NUM}
+        if k % 2:
+            q["categories"] = ([new_meta[new_items[k % 4]][0][0]] if k % 4
+                               == 1 else [str(rng.choice(cat_names))])
+        queries.append(q)
+    # before the update: the deployed tables' answers, now cached
+    truth0 = store_truth(rec_model)
+    U64 = rec_model.als.user_factors.astype(np.float64)
+    V64 = rec_model.als.item_factors.astype(np.float64)
+    for q in queries:
+        code, body = post(dep["url"] + "/queries.json",
+                          json.dumps(q).encode())
+        check(code == 200, f"fold_update query {q} answered {code} before "
+              "the update")
+        if q["user"] in new_users:
+            check(body == {"itemScores": []},
+                  f"unknown user {q['user']} answered {body}")
+        else:
+            hold_served(body, q, rec_model, U64, V64, truth0,
+                        f"fold_update query {q} before the update",
+                        f16=True)
+    cache0 = get_json(dep["url"] + "/stats.json")["resultCache"]
+    check(cache0["entries"] >= len(queries),
+          f"{cache0['entries']} cache entries after {len(queries)} queries")
     ev.insert_columnar(ColumnarBatch(
         FOLD_NEW_ITEMS, "$set", "item", new_items,
         properties=[{"categories": list(new_meta[i][0]),
@@ -2321,6 +2396,12 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
     check(status["engineInstanceId"] == version,
           f"the deployed process serves {status['engineInstanceId']}, not "
           f"the published {version}")
+    cache1 = get_json(dep["url"] + "/stats.json")["resultCache"]
+    cleared = (cache1["invalidations"].get("reload", 0)
+               - cache0["invalidations"].get("reload", 0))
+    check(cache1["entries"] == 0 and cleared == cache0["entries"],
+          f"the /reload left {cache1['entries']} cache entries, cleared "
+          f"{cleared} of {cache0['entries']}")
     (pub,) = TR.RecommendationEngineFactory.apply().deserialize_models(
         Storage.get_model_data_models().get(version).models, version)
     check(list(pub.user_ix.ids[:n_u]) == list(rec_model.user_ix.ids)
@@ -2329,7 +2410,6 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
           and sorted(pub.item_ix.ids[n_i:]) == new_items,
           "the grown vocabularies moved a deployed index")
     U0, V0 = rec_model.als.user_factors, rec_model.als.item_factors
-    touched = (sorted(set(subj)), sorted(set(tgt)))
     tu_all = pub.user_ix.to_indices(touched[0])
     ti_all = pub.item_ix.to_indices(touched[1])
     keep_u = np.setdiff1d(np.arange(n_u), tu_all)
@@ -2353,16 +2433,6 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
     truth = fold_truth(pub, new_meta)
     U64 = pub.als.user_factors.astype(np.float64)
     V64 = pub.als.item_factors.astype(np.float64)
-    others = [u for u in rec_model.user_ix.ids_of(rng.choice(
-        n_u, 4 * FOLD_UNTOUCHED_QUERIES, replace=False))
-        if u not in set(subj)][:FOLD_UNTOUCHED_QUERIES]
-    queries = []
-    for k, u in enumerate(touched[0] + others):
-        q = {"user": u, "num": SERVE_NUM}
-        if k % 2:
-            q["categories"] = ([new_meta[new_items[k % 4]][0][0]] if k % 4
-                               == 1 else [str(rng.choice(cat_names))])
-        queries.append(q)
     lat, exact, new_answered = [], 0, 0
     for q in queries:
         t0 = time.perf_counter()
@@ -2376,6 +2446,10 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
             check(len(body["itemScores"]) > 0,
                   f"new user {q['user']} got no answer")
             new_answered += 1
+    cache2 = get_json(dep["url"] + "/stats.json")["resultCache"]
+    check(cache2["hits"] == cache1["hits"],
+          f"{cache2['hits'] - cache1['hits']} answers after the /reload came "
+          "from the cache")
     emit("fold_update", tick_s=report["tickS"], read_s=report["readS"],
          read_rows=report["readRows"], wall_s=algo_rep["wallS"],
          user_rows=algo_rep["userRows"], item_rows=algo_rep["itemRows"],
@@ -2387,12 +2461,13 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> int:
          new_users_answered=new_answered,
          first_query_after_swap_ms=lat[0],
          p50_ms=float(np.percentile(lat, 50)),
-         model_swaps=get_json(dep["url"] + "/stats.json")["modelSwaps"])
+         model_swaps=get_json(dep["url"] + "/stats.json")["modelSwaps"],
+         cache_entries_cleared=cleared)
     check(algo_rep["newUsers"] == FOLD_NEW_USERS
           and algo_rep["newItems"] == FOLD_NEW_ITEMS,
           f"grew {algo_rep['newUsers']} users, {algo_rep['newItems']} items")
     check(new_answered == FOLD_NEW_USERS, "a new user went unanswered")
-    return launches.get("cg_solve", 0)
+    return launches.get("cg_solve", 0), version, queries
 
 
 def phase_fold_inprocess(sim_path: str) -> int:
@@ -2409,11 +2484,9 @@ def phase_fold_inprocess(sim_path: str) -> int:
     from predictionio_tpu_torch.data.columnar import ColumnarBatch
     from predictionio_tpu_torch.data.event import utcnow
     from predictionio_tpu_torch.data.storage.registry import Storage
-    from predictionio_tpu_torch.models import similarproduct as TS
     from predictionio_tpu_torch.online import (SchedulerConfig,
                                                attach_scheduler)
     from predictionio_tpu_torch.online.fold_in import FoldInConfig
-    from predictionio_tpu_torch.ops.solve import COUNTS
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
     from predictionio_tpu_torch.utils import device_cache
@@ -2456,18 +2529,9 @@ def phase_fold_inprocess(sim_path: str) -> int:
                 items[-16:] = [new_items[k % 2] for k in range(16)]
             ev.insert_columnar(ColumnarBatch(n_views, "view", "user", users,
                                              "item", items), app.id)
-            COUNTS.reset()
-            report = sched.tick(force=True)
-            counts = dict(vars(COUNTS))
-            check(report is not None, f"tick {t + 1} folded nothing")
+            report, n = cg_tick(sched, f"fold_inprocess tick {t + 1}")
             (rep,) = report["algorithms"]
-            launches += counts["cg_solve"]
-            check(counts["cg_solve"] == rep["solverCalls"] > 0
-                  and sum(counts.values()) == counts["cg_solve"],
-                  f"tick {t + 1}: launches {counts} for "
-                  f"{rep['solverCalls']} fold solves")
-            check(report["gateReport"]["passed"],
-                  f"tick {t + 1} failed its gates")
+            launches += n
             after = server.models[0]
             check(after is not before, f"tick {t + 1} did not swap")
             stats = server.stats()
@@ -2493,7 +2557,7 @@ def phase_fold_inprocess(sim_path: str) -> int:
                    "new_users": rep["newUsers"], "new_items": rep["newItems"],
                    "h2d_bytes": report["h2dBytes"],
                    "resident_hit": rep["residentHit"],
-                   "cg_launches": counts["cg_solve"],
+                   "cg_launches": n,
                    "first_query_after_swap_ms": first_ms,
                    "ids_equal_f64": exact, "model_swaps": stats["modelSwaps"],
                    "fold_ins": stats["foldIns"]}
@@ -2536,6 +2600,494 @@ def phase_fold_inprocess(sim_path: str) -> int:
               f"{ticks[0]['h2d_bytes']}")
     finally:
         server.stop()
+    return launches
+
+
+def phase_rollback_cli(rec_path: str, dep: dict, rec_model, pre_iid: str,
+                       version: str, queries: list) -> None:
+    """`python -m predictionio_tpu_torch rollback --engine-port P` against
+    the deployed recommendation process after `fold_update`: no pin, so
+    it demotes the fold's published `version` (the newest COMPLETED) back
+    to `pre_iid` and `/reload`s. Its lines must be the reference's; the
+    process must serve `pre_iid` again, with the cache cleared, and
+    answer `fold_update`'s queries with the float64 top-k of the
+    pre-update tables (its new users unknown again)."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.online import ROLLEDBACK_STATUS
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch", "rollback", "-v",
+         rec_path, "--engine-port", str(dep["port"])], cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    rollback_s = time.perf_counter() - t0
+    said = out.stdout.strip().splitlines()
+    want = [f"Rolled back to instance {pre_iid}.",
+            f"  demoted {version} -> ROLLEDBACK",
+            f"Reloaded engine server at http://127.0.0.1:{dep['port']}"
+            "/reload."]
+    check(out.returncode == 0 and said == want,
+          f"rollback exited {out.returncode} saying {said}, not {want}: "
+          f"{out.stderr[-2000:]}")
+    check(get_json(dep["url"] + "/")["engineInstanceId"] == pre_iid,
+          "the deployed process does not serve the rolled-back-to version")
+    instances = Storage.get_meta_data_engine_instances()
+    check(instances.get(version).status == ROLLEDBACK_STATUS,
+          f"{version} is {instances.get(version).status}")
+    cache0 = get_json(dep["url"] + "/stats.json")["resultCache"]
+    check(cache0["entries"] == 0, "the rollback's /reload left "
+          f"{cache0['entries']} cache entries")
+    truth = store_truth(rec_model)
+    U64 = rec_model.als.user_factors.astype(np.float64)
+    V64 = rec_model.als.item_factors.astype(np.float64)
+    exact = unknown = 0
+    for q in queries:
+        code, body = post(dep["url"] + "/queries.json",
+                          json.dumps(q).encode())
+        check(code == 200, f"rollback_cli query {q} answered {code}")
+        if rec_model.user_ix.get(q["user"], -1) < 0:
+            check(body == {"itemScores": []}, f"user {q['user']}, unknown "
+                  f"before the update, answered {body}")
+            unknown += 1
+            continue
+        exact += hold_served(body, q, rec_model, U64, V64, truth,
+                             f"rollback_cli query {q}", f16=True)
+    cache1 = get_json(dep["url"] + "/stats.json")["resultCache"]
+    check(cache1["hits"] == cache0["hits"],
+          "an answer after the rollback came from the cache")
+    emit("rollback_cli", said=said, rollback_s=rollback_s, target=pre_iid,
+         demoted=[version], queries=len(queries), ids_equal_f64=exact,
+         unknown_empty=unknown)
+
+
+def answers_by(results) -> tuple:
+    """Per request of `closed_loop_raw`'s results: 'first' when no request
+    of its user was sent before it (it found no entry, so a miss unless
+    another overtook it), 'repeat' when one of its user's answers had
+    arrived before it was sent (its entry was stored, so a hit), else
+    'overlap'. Returns the kinds in the results' order."""
+    by_user = {}
+    for k, (q, _, _, _, t0, t1) in enumerate(results):
+        by_user.setdefault(q["user"], []).append((t0, t1, k))
+    kinds = [None] * len(results)
+    for reqs in by_user.values():
+        reqs.sort()
+        first_done = float("inf")
+        for n, (t0, t1, k) in enumerate(reqs):
+            kinds[k] = ("first" if n == 0 else "repeat" if first_done < t0
+                        else "overlap")
+            first_done = min(first_done, t1)
+    return kinds
+
+
+def phase_cache_bench(path: str, iid: str, model, truth) -> None:
+    """The reference REST bench's row with the result cache on (the
+    default deploy): an in-process server `load()`ed from the store at
+    micro_batch 32, CACHE_USERS seeded plain users, 16 closed-loop
+    clients, 320 queries a burst cycling the users, an untimed warm burst
+    of the first CACHE_WARM, then CACHE_BURSTS timed bursts. Per burst:
+    hits and misses (the cache's counters), qps, p50/p99, and the p50 of
+    first asks (misses) and repeat asks (hits) apart (`answers_by`).
+    Every answer is held as inflight_bench's; every answer of a user is
+    the same bytes, which are the bytes of its cache entry."""
+    from predictionio_tpu_torch.serving.result_cache import query_key
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    U64 = model.als.user_factors.astype(np.float64)
+    V64 = model.als.item_factors.astype(np.float64)
+    rng = np.random.default_rng(13)
+    users = model.user_ix.ids_of(rng.choice(len(model.user_ix), CACHE_USERS,
+                                            replace=False))
+    jobs = [{"user": users[i % CACHE_USERS], "num": SERVE_NUM}
+            for i in range(BENCH_CLIENTS * BENCH_PER_CLIENT)]
+
+    def split(js):
+        return [js[c::BENCH_CLIENTS] for c in range(BENCH_CLIENTS)]
+
+    srv = EngineServer(ServerConfig(
+        ip="127.0.0.1", port=0, engine_variant=path, engine_instance_id=iid,
+        micro_batch=BENCH_MICRO_BATCH)).load().start()
+    cache = srv.result_cache
+    check(cache is not None, "a default deploy has no result cache")
+    url = f"http://127.0.0.1:{srv.config.port}"
+    everything, bursts = [], []
+    try:
+        for b in range(1 + CACHE_BURSTS):
+            before = cache.stats()
+            batched0 = srv.batcher.stats()["batchedQueries"]
+            results, wall = closed_loop_raw(
+                url, split(jobs[:CACHE_WARM] if b == 0 else jobs))
+            after = cache.stats()
+            everything += results
+            kinds = answers_by(everything)[-len(results):]
+            ms = np.array([(t1 - t0) * 1e3 for *_, t0, t1 in results])
+
+            def p50(kind):
+                sel = [m for m, k in zip(ms, kinds) if k == kind]
+                return float(np.percentile(sel, 50)) if sel else None
+            row = {"burst": "warm" if b == 0 else b,
+                   "hits": after["hits"] - before["hits"],
+                   "misses": after["misses"] - before["misses"],
+                   "batched": srv.batcher.stats()["batchedQueries"]
+                   - batched0,
+                   "first_asks": kinds.count("first"),
+                   "repeat_asks": kinds.count("repeat"),
+                   "overlapping_asks": kinds.count("overlap"),
+                   "qps": len(results) / wall,
+                   "p50_ms": float(np.percentile(ms, 50)),
+                   "p99_ms": float(np.percentile(ms, 99)),
+                   "hit_p50_ms": p50("repeat"), "miss_p50_ms": p50("first")}
+            check(row["hits"] + row["misses"] == len(results)
+                  and row["batched"] == row["misses"]
+                  and row["hits"] >= row["repeat_asks"]
+                  and row["misses"] <= row["first_asks"]
+                  + row["overlapping_asks"],
+                  f"cache_bench burst {row['burst']}: {row}")
+            if b:
+                bursts.append(row)
+        stats = cache.stats()
+        bodies = {}
+        for q, code, data, _, _, _ in everything:
+            check(code == 200, f"cache_bench query {q} answered {code}")
+            bodies.setdefault(q["user"], set()).add(data)
+        for u, seen in bodies.items():
+            check(len(seen) == 1, f"user {u} got {len(seen)} different "
+                  "answers: a hit's bytes differ from its miss's")
+            key = query_key({"user": u, "num": SERVE_NUM})
+            check(cache._entries[key].body in seen,
+                  f"user {u}: the cache entry is not the bytes sent")
+            q = {"user": u, "num": SERVE_NUM}
+            hold_served(json.loads(next(iter(seen))), q, model, U64, V64,
+                        truth, f"cache_bench query {q}", f16=True)
+    finally:
+        srv.stop()
+    timed = sum(r["hits"] + r["misses"] for r in bursts)
+    hit_share = sum(r["hits"] for r in bursts) / timed
+    emit("cache_bench", clients=BENCH_CLIENTS, users=CACHE_USERS,
+         queries_per_burst=len(jobs), warm_queries=CACHE_WARM,
+         micro_batch=BENCH_MICRO_BATCH, bursts=bursts,
+         timed_hit_share=hit_share,
+         median_qps=float(np.median([r["qps"] for r in bursts])),
+         cache=stats, answers_held=len(everything))
+    check(hit_share >= 0.6, f"timed hit share {hit_share:.3f} < 0.6")
+
+
+def fold_rates(users: list, rng, model) -> int:
+    """FOLD_PER_USER fresh `rate` events for each of `users` on seeded
+    items of `model` (fold_update's kind of event, no new item); returns
+    the count."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
+    subj = np.repeat(users, FOLD_PER_USER).tolist()
+    Storage.get_events().insert_columnar(ColumnarBatch(
+        len(subj), "rate", "user", subj, "item",
+        model.item_ix.ids_of(rng.integers(0, len(model.item_ix), len(subj))),
+        [{"rating": float(r)} for r in rng.integers(1, 6, len(subj))]),
+        app.id)
+    return len(subj)
+
+
+def cg_tick(sched, what: str) -> tuple:
+    """One forced tick, every kernel count set to 0 just before and read
+    just after: every fold solve must be a CG launch. Returns (report,
+    CG launches)."""
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    COUNTS.reset()
+    report = sched.tick(force=True)
+    counts = dict(vars(COUNTS))
+    check(report is not None and report["gateReport"]["passed"],
+          f"{what}: the tick did not fold and pass its gates: {report}")
+    (rep,) = report["algorithms"]
+    check(counts["cg_solve"] == rep["solverCalls"] > 0
+          and sum(counts.values()) == counts["cg_solve"],
+          f"{what}: launches {counts} for {rep['solverCalls']} fold solves")
+    return report, counts["cg_solve"]
+
+
+def ask_all(url: str, users: list) -> dict:
+    """One plain query a user, in turn: {user: response bytes}."""
+    out = {}
+    for u in users:
+        code, data, _ = post_raw(url + "/queries.json", json.dumps(
+            {"user": u, "num": SERVE_NUM}).encode())
+        check(code == 200, f"query of {u} answered {code}")
+        out[u] = data
+    return out
+
+
+def stale_entries(bodies: dict, model) -> int:
+    """Answers whose ids differ from the float64 top-k of `model`'s
+    tables beyond a tie (what a recompute would answer)."""
+    U64 = model.als.user_factors.astype(np.float64)
+    V64 = model.als.item_factors.astype(np.float64)
+    n = 0
+    for u, data in bodies.items():
+        s64 = V64 @ U64[model.user_ix[u]]
+        top = np.argsort(-s64, kind="stable")[:SERVE_NUM]
+        got = [x["item"] for x in json.loads(data)["itemScores"]]
+        if got != model.item_ix.ids_of(top):
+            got_s = np.sort(s64[[model.item_ix[g] for g in got]])[::-1]
+            n += not np.allclose(got_s, s64[top], rtol=0,
+                                 atol=1e-6 * np.abs(s64[top]).max())
+    return n
+
+
+def phase_cache_fold(path: str, iid: str, model) -> int:
+    """The default deploy's cache under a fold: an in-process server on
+    instance `iid` at its defaults (cache on, canary off) with
+    `attach_scheduler`. FOLD_USERS seeded known users and
+    CACHE_FOLD_OTHERS others are asked (cached), the first get
+    FOLD_PER_USER fresh rates each, one tick folds them (every solve a CG
+    launch) and hot-swaps with the touched ids: the invalidations must be
+    exactly the entries registered under the touched users, every
+    untouched user must hit with its pre-swap bytes, every touched user
+    must miss and get the float64 top-k of the swapped-in tables. The
+    surviving entries that a recompute would answer otherwise are
+    counted, not failed (the documented staleness trade). Then again with
+    PIO_SERVE_CACHE_STRICT=1, whose broader drop is reported. Returns the
+    CG launches."""
+    from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.online import (SchedulerConfig,
+                                               attach_scheduler)
+    from predictionio_tpu_torch.serving.result_cache import query_key
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    rng = np.random.default_rng(14)
+    picks = model.user_ix.ids_of(rng.choice(
+        len(model.user_ix), FOLD_USERS + CACHE_FOLD_OTHERS, replace=False))
+    touched, others = picks[:FOLD_USERS], picks[FOLD_USERS:]
+    srv = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                    engine_variant=path,
+                                    engine_instance_id=iid)).load().start()
+    cache = srv.result_cache
+    url = f"http://127.0.0.1:{srv.config.port}"
+    launches, rows = 0, []
+    try:
+        sched = attach_scheduler(srv, SchedulerConfig(app_name=STORE_APP),
+                                 cursor=utcnow())
+        bodies = ask_all(url, touched + others)
+        for strict in (False, True):
+            if strict:
+                os.environ["PIO_SERVE_CACHE_STRICT"] = "1"
+            check(cache.stats()["entries"] == len(picks),
+                  f"{cache.stats()['entries']} entries for {len(picks)} "
+                  "users asked")
+            registered = {k for u in touched
+                          for k in cache._by_entity.get(f"user:{u}", ())}
+            events = fold_rates(touched, rng, model)
+            dropped0 = cache.invalidations.get("fold_swap", 0)
+            report, n = cg_tick(sched, f"cache_fold (strict {strict})")
+            launches += n
+            dropped = cache.invalidations.get("fold_swap", 0) - dropped0
+            new = srv.models[0]
+            check(new is not model, "the fold did not swap")
+            surviving = [u for u in others if query_key(
+                {"user": u, "num": SERVE_NUM}) in cache._entries]
+            hits0, misses0 = cache.hits, cache.misses
+            after = ask_all(url, others)
+            check(all(after[u] == bodies[u] for u in surviving),
+                  "a surviving entry changed bytes across the swap")
+            check(cache.hits - hits0 == len(surviving)
+                  and cache.misses - misses0 == len(others) - len(surviving),
+                  f"untouched users: {cache.hits - hits0} hits, "
+                  f"{cache.misses - misses0} misses, {len(surviving)} "
+                  "entries survived")
+            if not strict:
+                check(dropped == len(registered) == FOLD_USERS
+                      and len(surviving) == len(others),
+                      f"the swap dropped {dropped} entries; "
+                      f"{len(registered)} were registered under the "
+                      f"touched users, {len(surviving)} of {len(others)} "
+                      "untouched survived")
+            else:
+                check(dropped >= len(registered),
+                      f"strict mode dropped {dropped} < {len(registered)}")
+            stale = stale_entries({u: after[u] for u in surviving}, new)
+            misses0 = cache.misses
+            fresh = ask_all(url, touched)
+            check(cache.misses - misses0 == len(touched),
+                  "a touched user's query hit the cache")
+            truth = store_truth(new)
+            U64 = new.als.user_factors.astype(np.float64)
+            V64 = new.als.item_factors.astype(np.float64)
+            exact = sum(hold_served(
+                json.loads(fresh[u]), {"user": u, "num": SERVE_NUM}, new,
+                U64, V64, truth, f"cache_fold touched user {u}", f16=True)
+                for u in touched)
+            bodies = dict(after, **fresh)
+            model = new
+            rows.append({
+                "strict": strict, "events": events,
+                "tick_s": report["tickS"], "cg_launches": n,
+                "touched_users": report["touchedUsers"],
+                "touched_items": report["touchedItems"],
+                "entries_under_touched_users": len(registered),
+                "invalidated": dropped,
+                "untouched_hits": len(surviving),
+                "untouched_recomputed": len(others) - len(surviving),
+                "stale_surviving_entries": stale,
+                "touched_misses": len(touched),
+                "touched_ids_equal_f64": exact})
+            emit("cache_fold", **rows[-1])
+    finally:
+        os.environ.pop("PIO_SERVE_CACHE_STRICT", None)
+        srv.stop()
+    return launches
+
+
+def phase_canary(path: str, iid: str, model) -> int:
+    """A guarded deploy in process: a server on instance `iid` with
+    canary_fraction CANARY_FRACTION, a CANARY_WINDOW_S window and
+    CANARY_MIN_REQUESTS, `attach_scheduler` with a registry. A fold tick
+    (every solve a CG launch) stages its version; the cache must be
+    bypassed; under 32 clients the `X-PIO-Canary` answers must number
+    the candidate arm's requests, each answer held to the float64 top-k
+    of its arm's tables. After the window the candidate is promoted: the
+    last-good pin names it and the cache is cleared. Then a planted
+    candidate (non-finite creationYear on every item, published past the
+    gates) must roll back on `nan_scores`; the incumbent's answers stay
+    equal to their float64 top-k, the version is ROLLEDBACK, the latest
+    COMPLETED version is not it and the scheduler asks for a retrain.
+    Returns the CG launches."""
+    from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.online import (ROLLEDBACK_STATUS,
+                                               ModelVersionRegistry,
+                                               SchedulerConfig,
+                                               attach_scheduler)
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    rng = np.random.default_rng(15)
+    n_u = len(model.user_ix)
+    reg = ModelVersionRegistry()
+    srv = EngineServer(ServerConfig(
+        ip="127.0.0.1", port=0, engine_variant=path, engine_instance_id=iid,
+        canary_fraction=CANARY_FRACTION, canary_window_s=CANARY_WINDOW_S,
+        canary_min_requests=CANARY_MIN_REQUESTS)).load().start()
+    cache = srv.result_cache
+    url = f"http://127.0.0.1:{srv.config.port}"
+    inst = srv.engine_instance
+    truth = store_truth(model)    # the folds grow no item
+    per_client = [[{"user": model.user_ix.id_of(int(rng.integers(n_u))),
+                    "num": SERVE_NUM} for _ in range(CANARY_PER_CLIENT)]
+                  for _ in range(SERVE_CLIENTS)]
+
+    def held(results, models: dict, what: str) -> dict:
+        """Each answer held to its arm's tables: `models` by tag."""
+        out = {}
+        for q, code, data, headers, _, _ in results:
+            check(code == 200, f"{what} query {q} answered {code}")
+            tag = headers.get("X-PIO-Canary")
+            m = models[tag]
+            hold_served(json.loads(data), q, m, *tables64[id(m)], truth,
+                        f"{what} ({tag or 'incumbent'}) query {q}",
+                        f16=True)
+            out[tag] = out.get(tag, 0) + 1
+        return out
+
+    try:
+        sched = attach_scheduler(srv, SchedulerConfig(app_name=STORE_APP),
+                                 registry=reg, cursor=utcnow())
+        cached = ask_all(url, [qs[0]["user"] for qs in per_client])
+        incumbent = srv.models[0]
+        fold_rates(model.user_ix.ids_of(rng.choice(n_u, 16, replace=False)),
+                   rng, model)
+        report, launches = cg_tick(sched, "canary")
+        version = report["publishedVersion"]
+        t_stage = time.perf_counter()
+        check(srv.canary.active and srv.model_version == iid
+              and srv.models[0] is incumbent,
+              "the fold's version was not staged as a canary")
+        candidate = srv.canary._candidate_models[0]
+        tables64 = {id(m): (m.als.user_factors.astype(np.float64),
+                            m.als.item_factors.astype(np.float64))
+                    for m in (incumbent, candidate)}
+        c0 = cache.stats()
+        again, _ = closed_loop_raw(url, [[{"user": u, "num": SERVE_NUM}
+                                          for u in cached]])
+        c1 = cache.stats()
+        check((c1["hits"], c1["misses"], c1["entries"])
+              == (c0["hits"], c0["misses"], c0["entries"]),
+              f"the cache answered during the canary: {c0} -> {c1}")
+        results, wall = closed_loop_raw(url, per_client)
+        stats = get_json(url + "/stats.json")
+        check(time.perf_counter() - t_stage < CANARY_WINDOW_S
+              and stats["canary"]["active"],
+              "the canary's window closed before its burst was counted")
+        by_arm = held(again + results, {None: incumbent, version: candidate},
+                      "canary")
+        arms = stats["canary"]["arms"]
+        check(by_arm.get(version, 0) == arms["candidate"]["requests"] > 0,
+              f"{by_arm.get(version, 0)} X-PIO-Canary answers, candidate "
+              f"arm {arms['candidate']['requests']} requests")
+        staged = {"tagged": by_arm.get(version, 0),
+                  "untagged": by_arm.get(None, 0), "arms": arms,
+                  "burst_qps": len(results) / wall,
+                  "bypassed_queries": len(again)}
+        time.sleep(max(0.0, t_stage + CANARY_WINDOW_S
+                       - time.perf_counter()) + 0.2)
+        stats = get_json(url + "/stats.json")   # the poll decides
+        last = stats["canary"]["lastDecision"]
+        check(last is not None and last["decision"] == "promote"
+              and srv.model_version == version
+              and srv.models[0] is candidate,
+              f"the clean candidate was not promoted: {last}")
+        pin = reg.last_good(inst.engine_id, inst.engine_version,
+                            inst.engine_variant)
+        check(pin == version and stats["lastGoodVersion"] == version,
+              f"last-good pin {pin}, server {stats['lastGoodVersion']}, "
+              f"promoted {version}")
+        check(stats["resultCache"]["entries"] == 0
+              and stats["resultCache"]["invalidations"].get(
+                  "canary_promote") == c1["entries"],
+              f"the promote left the cache {stats['resultCache']}")
+        promoted = dict(last, pin=pin)
+        bad = dataclasses.replace(candidate, item_properties=[
+            dict(p or {}, creationYear=float("nan"))
+            for p in candidate.item_properties])
+        bad_version = ModelVersionRegistry().publish(
+            srv.engine, srv.engine_params, inst, [bad])
+        srv.swap_models([bad], version=bad_version)
+        check(srv.canary.active, "the planted candidate was not staged")
+        results, _ = closed_loop_raw(url, [qs[:4] for qs in per_client])
+        last = srv.canary.stats()["lastDecision"]
+        check(not srv.canary.active and last["decision"] == "rollback"
+              and last["reason"] == "nan_scores"
+              and srv.models[0] is candidate,
+              f"the planted candidate was not rolled back: {last}")
+        tagged = 0
+        for q, code, data, headers, _, _ in results:
+            check(code == 200, f"canary rollback query {q} answered {code}")
+            if headers.get("X-PIO-Canary"):
+                tagged += 1
+                check(all(x["creationYear"] != x["creationYear"]
+                          for x in json.loads(data)["itemScores"]),
+                      "a candidate answer without its planted NaN")
+        check(tagged > 0, "no window ran on the planted candidate")
+        instances = Storage.get_meta_data_engine_instances()
+        latest = instances.get_latest_completed(
+            inst.engine_id, inst.engine_version, inst.engine_variant)
+        check(instances.get(bad_version).status == ROLLEDBACK_STATUS
+              and latest.id != bad_version
+              and sched.stats()["retrainRequested"]
+              and sched.models[0] is candidate,
+              f"after the rollback: {bad_version} is "
+              f"{instances.get(bad_version).status}, latest {latest.id}, "
+              f"scheduler {sched.stats()}")
+        tables64 = {id(candidate): tables64[id(candidate)]}
+        after, _ = closed_loop_raw(url, [qs[4:] for qs in per_client])
+        held(after, {None: candidate}, "canary after the rollback")
+        emit("canary", fraction=CANARY_FRACTION, window_s=CANARY_WINDOW_S,
+             version=version, tick_s=report["tickS"], cg_launches=launches,
+             staged=staged, promoted=promoted,
+             rollback={"version": bad_version, "decision": last,
+                       "tagged_answers": tagged,
+                       "status": instances.get(bad_version).status,
+                       "latest_completed": latest.id,
+                       "retrain_requested": True},
+             incumbent_answers_held=len(after))
+    finally:
+        srv.stop()
     return launches
 
 

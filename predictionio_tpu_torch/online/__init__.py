@@ -9,12 +9,14 @@ The port's counterpart of `predictionio_tpu/online/`:
   threshold, gates the result and publishes it, asking for a retrain
   when the fold's loss drifts;
 - `registry`: publishes a folded model as a new COMPLETED engine
-  instance, which `/reload` picks up.
+  instance, which `/reload` picks up; pins the last-good version and
+  rolls back to it.
 """
 
 from predictionio_tpu_torch.online.fold_in import (FoldInConfig, FoldInStats,
                                                    fold_in_coo, solve_rows)
 from predictionio_tpu_torch.online.registry import (ONLINE_BATCH_TAG,
+                                                    ROLLEDBACK_STATUS,
                                                     ModelVersionRegistry)
 from predictionio_tpu_torch.online.scheduler import (DeltaTrainingScheduler,
                                                      EntityDelta,
@@ -23,7 +25,7 @@ from predictionio_tpu_torch.online.scheduler import (DeltaTrainingScheduler,
 
 __all__ = [
     "FoldInConfig", "FoldInStats", "fold_in_coo", "solve_rows",
-    "ModelVersionRegistry", "ONLINE_BATCH_TAG",
+    "ModelVersionRegistry", "ONLINE_BATCH_TAG", "ROLLEDBACK_STATUS",
     "DeltaTrainingScheduler", "EntityDelta", "SchedulerConfig",
     "attach_scheduler",
 ]

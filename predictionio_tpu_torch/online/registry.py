@@ -8,8 +8,16 @@ serializes the models through the engine's own path (host numpy only,
 `utils/arrays.to_host`) and marks the row COMPLETED, which is what
 `get_latest_completed`, and so a deploy or a `/reload`, picks up. A
 failed serialization or write leaves the row ABORTED, never INIT.
-Version history is engine-instance history. The last-good pins,
-`demote_version` and `rollback_to` ride with the canary, a later slice.
+Version history is engine-instance history.
+
+The last-good pin (`pin_last_good`, `last_good`) is a crash-atomic JSON
+file at the reference's path, `{PIO_FS_BASEDIR}/guard/last_good_{key}.json`,
+so a pin either package writes the other reads. The canary watchdog pins
+each promoted version; `demote_version` marks a rolled-back one
+`ROLLEDBACK`, and `rollback_to` (`pio rollback`) demotes every version
+newer than its target, so `get_latest_completed`, and so a deploy or a
+`/reload`, resolves the target again. The reference's flight and incident
+records of a rollback belong to the observability plane.
 """
 
 from __future__ import annotations
@@ -17,16 +25,22 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
-from typing import Any, List, Optional, Sequence
+import os
+import re
+from typing import Any, Dict, List, Optional, Sequence
 
 from predictionio_tpu_torch.core.engine import TrainResult
 from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
-from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.storage.registry import Storage, base_dir
 
 logger = logging.getLogger(__name__)
 
 #: `batch` prefix of the instances the online path writes
 ONLINE_BATCH_TAG = "online-fold-in"
+
+#: the status of a version a rollback demoted: no longer COMPLETED, so
+#: `get_latest_completed` (deploy, `/reload`) skips it
+ROLLEDBACK_STATUS = "ROLLEDBACK"
 
 
 def _now() -> _dt.datetime:
@@ -95,3 +109,88 @@ class ModelVersionRegistry:
         return [i for i in self.versions(engine_id, engine_version,
                                          engine_variant)
                 if i.batch.startswith(ONLINE_BATCH_TAG)]
+
+    # -- the last-good pin and rollback ------------------------------------
+    @staticmethod
+    def _pin_path(engine_id: str, engine_version: str,
+                  engine_variant: str) -> str:
+        key = re.sub(r"[^A-Za-z0-9._-]", "_",
+                     f"{engine_id}_{engine_version}_{engine_variant}")
+        return os.path.join(base_dir(), "guard", f"last_good_{key}.json")
+
+    def pin_last_good(self, engine_id: str, engine_version: str,
+                      engine_variant: str, instance_id: str) -> None:
+        """Record `instance_id` as the engine's last-good version: a temp
+        file, fsync, then `os.replace`, so a crash leaves the old pin or
+        the new one."""
+        path = self._pin_path(engine_id, engine_version, engine_variant)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"instanceId": instance_id,
+                       "pinnedAt": _now().isoformat()}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        logger.info("pinned last-known-good %s for %s %s %s",
+                    instance_id, engine_id, engine_version, engine_variant)
+
+    def last_good(self, engine_id: str, engine_version: str,
+                  engine_variant: str) -> Optional[str]:
+        try:
+            with open(self._pin_path(engine_id, engine_version,
+                                     engine_variant)) as f:
+                return json.load(f).get("instanceId")
+        except (FileNotFoundError, ValueError):
+            return None
+
+    def demote_version(self, instance_id: str) -> bool:
+        """Mark one COMPLETED version ROLLEDBACK (the canary's verdict
+        made durable). False when the instance is unknown or not
+        COMPLETED."""
+        inst = self.instances.get(instance_id)
+        if inst is None or inst.status != "COMPLETED":
+            return False
+        self.instances.update(inst.with_(status=ROLLEDBACK_STATUS,
+                                         end_time=_now()))
+        logger.warning("demoted version %s to %s", instance_id,
+                       ROLLEDBACK_STATUS)
+        return True
+
+    def rollback_to(self, engine_id: str, engine_version: str,
+                    engine_variant: str,
+                    target_id: Optional[str] = None) -> Dict[str, Any]:
+        """Demote every COMPLETED version newer than the target (the
+        last-good pin by default, else the previous COMPLETED version)
+        and pin the target. Raises ValueError when there is nothing to
+        roll back to or the target is not a COMPLETED version. Returns
+        `{"target", "demoted"}`."""
+        completed = self.versions(engine_id, engine_version, engine_variant)
+        if not completed:
+            raise ValueError(
+                f"no COMPLETED versions for engine {engine_id} "
+                f"{engine_version} {engine_variant}")
+        target = target_id or self.last_good(engine_id, engine_version,
+                                             engine_variant)
+        if target is None:
+            if len(completed) < 2:
+                raise ValueError(
+                    "no last-good pin and only one COMPLETED version — "
+                    "nothing to roll back to")
+            target = completed[1].id    # newest first: the previous one
+        if target not in [i.id for i in completed]:
+            raise ValueError(
+                f"rollback target {target} is not a COMPLETED version "
+                f"of engine {engine_id} {engine_version} {engine_variant}")
+        demoted = []
+        now = _now()
+        for inst in completed:
+            if inst.id == target:
+                break
+            self.instances.update(inst.with_(status=ROLLEDBACK_STATUS,
+                                             end_time=now))
+            demoted.append(inst.id)
+        self.pin_last_good(engine_id, engine_version, engine_variant, target)
+        logger.warning("rolled back to %s (demoted: %s)", target,
+                       ", ".join(demoted) or "nothing")
+        return {"target": target, "demoted": demoted}

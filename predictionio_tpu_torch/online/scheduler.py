@@ -20,17 +20,24 @@ tick:
    restored; then the drift gate (the fold's loss against the anchor
    loss) may ask for a retrain.
 6. PUBLISH: a new version through the registry, `server.swap_models` of
-   an attached in-process server, `POST reload_url` of a deployed one.
+   an attached in-process server (with the touched user and item ids,
+   so its result cache drops exactly their entries), `POST reload_url` of
+   a deployed one (which clears that server's cache).
 
 Any failure before the publish lands restores the tick's deltas, so the
 next tick folds those events again. The cursor is the largest event time
 seen; the events at that instant are remembered by id, so the
 inclusive re-read does not count them twice.
 
+An attached server's canary verdicts come back through
+`note_canary_decision`: a promote pins the version last-good, a rollback
+re-anchors the scheduler on the models the server serves, demotes the
+version and asks for a retrain.
+
 The reference's tracing spans, flight records, incidents, fleet
-membership, tenant scopes, fold-tick gate, `pio_fold_*` metrics and
-canary feedback belong to planes not ported yet; the report carries the
-span times instead (`readS`, `publishS`, `reloadS`, `tickS`).
+membership, tenant scopes, fold-tick gate and `pio_fold_*` metrics belong
+to planes not ported yet; the report carries the span times instead
+(`readS`, `publishS`, `reloadS`, `tickS`).
 """
 
 from __future__ import annotations
@@ -506,7 +513,9 @@ class DeltaTrainingScheduler:
                     self.config.drift_ratio, self.anchor_loss)
         report["anchorLoss"] = self.anchor_loss
         try:
-            self._publish(new_models, report)
+            self._publish(new_models, report,
+                          touched_entities={"user": touched_users,
+                                            "item": touched_items})
         except Exception:
             # the served model never advanced: fold these events again
             self._restore_deltas(user_deltas, item_deltas, n_events)
@@ -526,7 +535,11 @@ class DeltaTrainingScheduler:
             self._item_deltas = _merge([item_deltas, self._item_deltas])
             self._pending_events += n_events
 
-    def _publish(self, models: Sequence[Any], report: dict) -> None:
+    def _publish(self, models: Sequence[Any], report: dict,
+                 touched_entities: Optional[dict] = None) -> None:
+        """`touched_entities` ({"user": ids, "item": ids}): the rows the
+        fold re-solved, handed to the attached server's swap so its
+        result cache drops only their entries."""
         version = None
         if self.registry is not None:
             with self._lock:
@@ -543,7 +556,8 @@ class DeltaTrainingScheduler:
             report["publishedVersion"] = version
         if self.server is not None:
             self.server.swap_models(models, version=version,
-                                    fold_in_events=report["events"])
+                                    fold_in_events=report["events"],
+                                    touched_entities=touched_entities)
         if self.reload_url is not None:
             t0 = time.perf_counter()
             try:
@@ -633,6 +647,38 @@ class DeltaTrainingScheduler:
             self._thread.join(timeout=10)
             self._thread = None
 
+    def note_canary_decision(self, decision: dict) -> None:
+        """The attached server's canary watchdog decided. A promote pins
+        the version last-good (the durable rollback target). A rollback
+        means the fold's lineage made a model that serves badly where the
+        gates could not see it: re-anchor on what the server serves, ask
+        for a retrain, and demote the version so no `/reload` or restart
+        deploys it."""
+        version = decision.get("candidateVersion")
+        if decision.get("decision") == "promote":
+            if self.registry is not None and version:
+                inst = self.instance
+                try:
+                    self.registry.pin_last_good(
+                        inst.engine_id, inst.engine_version,
+                        inst.engine_variant, version)
+                except Exception:
+                    logger.exception("last-good pin failed")
+            return
+        if decision.get("decision") == "rollback":
+            if self.server is not None:
+                self.models = list(self.server.models)
+            self.retrain_requested = True
+            if self.registry is not None and version:
+                try:
+                    self.registry.demote_version(version)
+                except Exception:
+                    logger.exception("demoting %s failed", version)
+            logger.error(
+                "canary rollback of %s (%s): scheduler re-anchored on "
+                "the serving models and escalated to a full retrain",
+                version, decision.get("reason"))
+
     def stats(self) -> dict:
         with self._lock:
             pending = self._pending_events
@@ -655,12 +701,14 @@ class DeltaTrainingScheduler:
 def attach_scheduler(server, config: SchedulerConfig, registry=None,
                      **kw) -> DeltaTrainingScheduler:
     """A scheduler bound to a loaded in-process `EngineServer`: engine,
-    params, instance and live models come from the server, and every
-    fold hot-swaps it."""
+    params, instance and live models come from the server, every fold
+    hot-swaps it, and its canary verdicts come back to the scheduler."""
     if not server.algorithms:
         raise RuntimeError("server has no engine loaded; call load() first")
-    return DeltaTrainingScheduler(
+    sched = DeltaTrainingScheduler(
         engine=server.engine, engine_params=server.engine_params,
         instance=server.engine_instance, algorithms=server.algorithms,
         models=server.models, config=config, server=server,
         registry=registry, **kw)
+    server.on_canary_decision = sched.note_canary_decision
+    return sched

@@ -38,9 +38,31 @@ scheduler of `online/scheduler.attach_scheduler`) or through `/reload`
 the new models before the swap. `/stats.json` counts the swaps and the
 fold-ins (`modelSwaps`, `foldIns`, `foldInEvents`, `modelVersion`) and
 says when a failed publish left the server on a stale model
-(`publishDegraded`, `publishFailures`, `modelStalenessSec`). The result
-cache, the metrics and tracing routes, canaries (`on_canary_decision` is
-there, and nothing calls it yet) and feedback are later slices.
+(`publishDegraded`, `publishFailures`, `modelStalenessSec`).
+
+The result cache (`serving/result_cache.py`, on by default as in the
+reference; `ServerConfig.result_cache=False` or `PIO_SERVE_CACHE=off`
+turns it off) answers a repeated `/queries.json` body with the response
+bytes its first answer stored: looked up by the request's bytes before
+the JSON parse, then by the canonical query after it, so a hit enters
+neither the micro-batcher nor the device and is never re-encoded. A miss
+reads the cache's generation before it computes, serializes once and
+stores those bytes, and the store is refused if an invalidation landed
+meanwhile. A fold's `swap_models(touched_entities=...)` drops exactly the
+touched users' and items' entries; a swap without them, a `load()` or
+`/reload`, and a canary promote clear the cache.
+
+A guarded deploy (`canary_fraction` > 0, `guard/canary.py`): a swap
+stages the new models as a candidate instead, which answers that share
+of the traffic, chosen once a micro-batch window (once a query without
+the batcher), so a window never mixes the two; its responses carry
+`X-PIO-Canary` and are never cached, and the cache is bypassed while the
+canary runs. The watchdog promotes the candidate (a swap that clears the
+cache) or rolls back to the incumbent, and hands its verdict to
+`on_canary_decision` (the attached scheduler's `note_canary_decision`),
+or, with no scheduler attached, pins or demotes the version in the
+registry. `load()` and `/reload` abandon an undecided canary. The
+metrics and tracing routes, and feedback, are later slices.
 """
 
 from __future__ import annotations
@@ -51,17 +73,26 @@ import threading
 import time
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from predictionio_tpu_torch.core.engine import (Engine, EngineParams,
                                                 TrainResult)
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
+                                                 CanaryConfig,
+                                                 CanaryController,
+                                                 count_nonfinite)
 from predictionio_tpu_torch.models import get_engine_factory
 from predictionio_tpu_torch.ops import readback
+from predictionio_tpu_torch.serving import result_cache as RC
 from predictionio_tpu_torch.serving.batcher import MicroBatcher
 from predictionio_tpu_torch.utils.buckets import batch_ladder
 
 logger = logging.getLogger(__name__)
+
+#: the key a candidate's answer carries out of the predict path; the
+#: HTTP layer turns it into the `X-PIO-Canary` header
+CANARY_TAG = "_pioCanary"
 
 
 @dataclass
@@ -83,6 +114,20 @@ class ServerConfig:
     # the synchronous loop
     serve_inflight: Optional[int] = None
     adaptive_batching: bool = True
+    # the result cache (serving/result_cache.py); PIO_SERVE_CACHE=off
+    # also turns it off
+    result_cache: bool = True
+    result_cache_max_entries: int = 8192
+    result_cache_max_bytes: int = 64 << 20
+    # guarded deploys (guard/canary.py): > 0 stages each swapped-in
+    # version as a candidate answering this share of the traffic until
+    # the watchdog promotes it or rolls it back; 0 swaps at once
+    canary_fraction: float = 0.0
+    canary_window_s: float = 30.0
+    canary_min_requests: int = 20
+    canary_max_error_ratio: float = 2.0
+    canary_max_latency_ratio: float = 3.0
+    canary_nan_tolerance: int = 0
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -137,8 +182,23 @@ class EngineServer:
         self.publish_degraded = False
         self.publish_failures = 0
         self._last_swap_wall = time.time()
-        # the canary watchdog's callback (a later slice calls it)
+        # the version a load or a promote made the rollback anchor
+        self.last_good_version: Optional[str] = None
+        # the canary watchdog's verdict goes here (attach_scheduler sets
+        # the scheduler's note_canary_decision); None: to the registry
         self.on_canary_decision = None
+        self.canary = CanaryController(CanaryConfig(
+            fraction=config.canary_fraction,
+            window_s=config.canary_window_s,
+            min_requests=config.canary_min_requests,
+            max_error_ratio=config.canary_max_error_ratio,
+            max_latency_ratio=config.canary_max_latency_ratio,
+            nan_tolerance=config.canary_nan_tolerance))
+        self.result_cache: Optional[RC.ResultCache] = None
+        if config.result_cache and RC.cache_enabled():
+            self.result_cache = RC.ResultCache(
+                max_entries=config.result_cache_max_entries,
+                max_bytes=config.result_cache_max_bytes)
         self._lock = threading.Lock()
         self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -209,8 +269,16 @@ class EngineServer:
             self.serving = serving
             self.last_warm = dict(warm, version=instance.id)
             self.model_version = instance.id
+            # an operator's (re)load is a trusted deploy: the rollback
+            # anchor; it supersedes an undecided canary staged on the
+            # models it replaces
+            self.last_good_version = instance.id
+            self.canary.abandon("full (re)load of instance " + instance.id)
             self._last_swap_wall = time.time()
             self.publish_degraded = False
+        # a load rebuilds the models wholesale: no touched-row lineage
+        if self.result_cache is not None:
+            self.result_cache.invalidate_all("reload")
         logger.info("Engine instance %s loaded (%d algorithm(s)), warmed "
                     "in %.3f s", instance.id, len(result.algorithms),
                     warm["seconds"])
@@ -247,11 +315,18 @@ class EngineServer:
         self.load()
 
     def swap_models(self, models, version: Optional[str] = None,
-                    fold_in_events: int = 0) -> None:
+                    fold_in_events: int = 0,
+                    touched_entities: Optional[dict] = None) -> None:
         """The in-process hot swap of a fold-in publish: warm the new
         models (`warm`), then replace the whole model list under the
         serving lock, so a window answers from the old set or the new,
-        never a mix (a fold makes new model objects and mutates none)."""
+        never a mix (a fold makes new model objects and mutates none).
+        With a canary on, the warmed models are staged as its candidate
+        instead.
+
+        `touched_entities` ({"user": ids, "item": ids}): the rows the
+        fold re-solved; the result cache drops only their entries. None
+        (a change without lineage) clears the cache."""
         models = list(models)
         with self._lock:
             algorithms = self.algorithms
@@ -259,6 +334,10 @@ class EngineServer:
             raise ValueError(f"swap_models got {len(models)} models for "
                              f"{len(algorithms)} algorithms")
         warm = self.warm(algorithms, models)
+        if self.canary.stage(models, version, int(fold_in_events)):
+            with self._lock:
+                self.last_warm = dict(warm, version=version)
+            return
         with self._lock:
             self.models = models
             self.swap_count += 1
@@ -269,6 +348,12 @@ class EngineServer:
             self.last_warm = dict(warm, version=version)
             self._last_swap_wall = time.time()
             self.publish_degraded = False
+        if self.result_cache is not None:
+            if touched_entities is not None:
+                self.result_cache.invalidate_entities(
+                    RC.entity_tags(touched_entities), reason="fold_swap")
+            else:
+                self.result_cache.invalidate_all("swap")
         logger.info("Hot-swapped models (swap #%d, version %s)",
                     self.swap_count, version or "<in-process>")
 
@@ -281,6 +366,81 @@ class EngineServer:
 
     def model_staleness_s(self) -> float:
         return max(time.time() - self._last_swap_wall, 0.0)
+
+    # -- the canary --------------------------------------------------------
+    def _canary_route(self):
+        """(candidate models, version, arm) of this window or query:
+        (None, None, INCUMBENT) when no canary runs."""
+        if not self.canary.enabled:
+            return None, None, INCUMBENT
+        routed = self.canary.route()
+        if routed is None:
+            return None, None, INCUMBENT
+        models, version = routed
+        return models, version, CANDIDATE
+
+    def _canary_observe(self, arm: str, pred_dicts=None, error: bool = False,
+                        latency_s: Optional[float] = None,
+                        n: int = 1) -> None:
+        """Record an arm's outcome and run the watchdog."""
+        if not self.canary.enabled:
+            return
+        nonfinite = (sum(count_nonfinite(d) for d in pred_dicts)
+                     if pred_dicts else 0)
+        self.canary.record(arm, error=error, nonfinite=nonfinite,
+                           latency_s=latency_s, n=n)
+        self._apply_canary_decision()
+
+    def _apply_canary_decision(self) -> None:
+        """Apply the watchdog's verdict, if it has one: a promote swaps
+        the candidate in and clears the cache (a rollback keeps the
+        incumbent, whose entries stay valid); then the verdict goes to
+        `on_canary_decision`, or is made durable in the registry."""
+        decision = self.canary.take_decision()
+        if decision is None:
+            return
+        version = decision["candidateVersion"]
+        if decision["decision"] == "promote":
+            with self._lock:
+                self.models = decision["models"]
+                self.swap_count += 1
+                self.fold_in_count += 1
+                self.fold_in_events += decision["foldInEvents"]
+                if version:
+                    self.model_version = version
+                self.last_good_version = self.model_version
+                self._last_swap_wall = time.time()
+                self.publish_degraded = False
+            if self.result_cache is not None:
+                # the staged candidate's lineage is gone by now
+                self.result_cache.invalidate_all("canary_promote")
+            logger.info("Hot-swapped models after a clean canary (swap "
+                        "#%d, version %s)", self.swap_count,
+                        version or "<in-process>")
+        verdict = {k: v for k, v in decision.items() if k != "models"}
+        hook = self.on_canary_decision
+        if hook is not None:
+            try:
+                hook(verdict)
+            except Exception:
+                logger.exception("on_canary_decision hook failed")
+            return
+        inst = self.engine_instance
+        if not version or not getattr(inst, "engine_id", None):
+            return
+        # no scheduler to hand the verdict to: pin a promote last-good,
+        # demote a rollback so no /reload or restart deploys it
+        from predictionio_tpu_torch.online.registry import \
+            ModelVersionRegistry
+        try:
+            reg = ModelVersionRegistry()
+            if decision["decision"] == "promote":
+                reg.pin_last_good(inst.engine_id, inst.engine_version,
+                                  inst.engine_variant, version)
+            else:
+                reg.demote_version(version)
+        except Exception:
+            logger.exception("durable canary verdict failed")
 
     # -- queries -----------------------------------------------------------
     def _snapshot(self):
@@ -309,17 +469,30 @@ class EngineServer:
         return out if isinstance(out, dict) else {"result": out}
 
     def handle_query(self, query_dict: dict) -> dict:
-        """One query on the calling thread (`micro_batch` <= 1)."""
+        """One query on the calling thread (`micro_batch` <= 1); a
+        candidate's answer carries `CANARY_TAG`."""
         t0 = time.perf_counter()
         algorithms, models, serving = self._snapshot()
+        canary_models, canary_version, arm = self._canary_route()
+        if canary_models is not None:
+            models = canary_models
         query = self.decode(query_dict, algorithms)
-        supplemented = serving.supplement(query)
-        predictions = [algo.predict(model, supplemented)
-                       for algo, model in zip(algorithms, models)]
-        out = self._to_dict(serving.serve(query, predictions))
+        try:
+            supplemented = serving.supplement(query)
+            predictions = [algo.predict(model, supplemented)
+                           for algo, model in zip(algorithms, models)]
+            out = self._to_dict(serving.serve(query, predictions))
+        except Exception:
+            self._canary_observe(arm, error=True,
+                                 latency_s=time.perf_counter() - t0)
+            raise
+        dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
-            self.serving_seconds += time.perf_counter() - t0
+            self.serving_seconds += dt
+        self._canary_observe(arm, pred_dicts=(out,), latency_s=dt)
+        if canary_models is not None:
+            out = dict(out, **{CANARY_TAG: canary_version or CANDIDATE})
         return out
 
     def handle_query_batch(self, queries: list) -> List[dict]:
@@ -328,30 +501,53 @@ class EngineServer:
     def handle_query_batch_begin(self, queries: list):
         """A window's first stage, over queries `answer` has decoded:
         snapshot the model set (once, under the lock: the window answers
-        from one version whatever swaps in meanwhile), supplement the
-        queries and start every algorithm's batch predict. Returns
-        `finish() -> List[dict]`, the second stage: wait for the results,
-        serve, serialize."""
+        from one version whatever swaps in meanwhile) and, with a canary
+        running, the window's arm (the whole window answers from it),
+        supplement the queries and start every algorithm's batch predict.
+        Returns `finish() -> List[dict]`, the second stage: wait for the
+        results, serve, serialize; a candidate window's answers carry
+        `CANARY_TAG`."""
         t0 = time.perf_counter()
         algorithms, models, serving = self._snapshot()
-        indexed = [(i, serving.supplement(q)) for i, q in enumerate(queries)]
-        fetchers = []
-        for algo, model in zip(algorithms, models):
-            begin = getattr(algo, "batch_predict_begin", None)
-            if begin is not None:
-                fetchers.append(begin(model, indexed))
-            else:
-                res = algo.batch_predict(model, indexed)
-                fetchers.append(lambda res=res: res)
+        canary_models, canary_version, arm = self._canary_route()
+        if canary_models is not None:
+            models = canary_models
+        n = len(queries)
+        try:
+            indexed = [(i, serving.supplement(q))
+                       for i, q in enumerate(queries)]
+            fetchers = []
+            for algo, model in zip(algorithms, models):
+                begin = getattr(algo, "batch_predict_begin", None)
+                if begin is not None:
+                    fetchers.append(begin(model, indexed))
+                else:
+                    res = algo.batch_predict(model, indexed)
+                    fetchers.append(lambda res=res: res)
+        except Exception:
+            self._canary_observe(arm, error=True,
+                                 latency_s=time.perf_counter() - t0, n=n)
+            raise
 
         def finish() -> List[dict]:
-            per_algo = [dict(f()) for f in fetchers]
-            out = [self._to_dict(serving.serve(q, [pa[i] for pa in per_algo]))
-                   for i, q in enumerate(queries)]
+            try:
+                per_algo = [dict(f()) for f in fetchers]
+                out = [self._to_dict(serving.serve(
+                    q, [pa[i] for pa in per_algo]))
+                    for i, q in enumerate(queries)]
+            except Exception:
+                self._canary_observe(arm, error=True,
+                                     latency_s=time.perf_counter() - t0,
+                                     n=n)
+                raise
+            dt = time.perf_counter() - t0
             with self._lock:
-                self.request_count += len(queries)
-                self.serving_seconds += (time.perf_counter() - t0) * len(
-                    queries)
+                self.request_count += n
+                self.serving_seconds += dt * n
+            self._canary_observe(arm, pred_dicts=out, latency_s=dt, n=n)
+            if canary_models is not None:
+                tag = {CANARY_TAG: canary_version or CANDIDATE}
+                return [dict(d, **tag) for d in out]
             return out
         return finish
 
@@ -370,7 +566,12 @@ class EngineServer:
     def stats(self) -> dict:
         """`/stats.json`: the status, the micro-batcher's counters (at the
         top level, as the reference's), the last warm-up, the swap and
-        fold-in counters and the readback plane's counters."""
+        fold-in counters, the canary (`canary`, `lastGoodVersion`), the
+        result cache (`resultCache`, when on) and the readback plane's
+        counters. A poll also runs the canary's watchdog, so an idle
+        server still lands its verdict."""
+        if self.canary.enabled:
+            self._apply_canary_decision()
         out = self.status()
         out["microBatch"] = self.config.micro_batch
         with self._lock:
@@ -380,8 +581,12 @@ class EngineServer:
                        foldInEvents=self.fold_in_events,
                        modelVersion=self.model_version,
                        publishDegraded=self.publish_degraded,
-                       publishFailures=self.publish_failures)
+                       publishFailures=self.publish_failures,
+                       lastGoodVersion=self.last_good_version)
         out["modelStalenessSec"] = self.model_staleness_s()
+        out["canary"] = self.canary.stats()
+        if self.result_cache is not None:
+            out["resultCache"] = self.result_cache.stats()
         if self.batcher is not None:
             out.update(self.batcher.stats())
         out["readback"] = readback.stats_snapshot()
@@ -397,6 +602,68 @@ class EngineServer:
         return self.batcher.submit(self.decode(query_dict),
                                    deadline_s=deadline_s)
 
+    def _cache_usable(self) -> bool:
+        """The cache answers and stores only while a response is a
+        function of the query and the deployed models: not while a
+        canary splits the traffic between two model sets."""
+        return self.result_cache is not None and not self.canary.active
+
+    @staticmethod
+    def _result_item_ids(out: dict) -> tuple:
+        """Every item id a response ranks (the strict mode's join)."""
+        try:
+            return tuple(str(s["item"]) for s in out.get("itemScores", ()))
+        except (TypeError, KeyError, AttributeError):
+            return ()
+
+    def _cache_hit(self, body: bytes, t0: float) -> bytes:
+        """Count a hit as a served request, with its latency."""
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.request_count += 1
+            self.serving_seconds += dt
+        return body
+
+    def queries(self, raw: bytes, headers=None
+                ) -> Tuple[bytes, Optional[dict]]:
+        """A `POST /queries.json`: (the response bytes, extra headers).
+        The cache is asked by the request's bytes before the parse and by
+        the canonical query after it; a miss reads the cache's generation,
+        is answered by `answer`, serialized once, and those bytes are
+        stored (refused if an invalidation landed meanwhile) and sent.
+        A candidate's answer goes out with `X-PIO-Canary` and is not
+        stored. Raises what `answer` raises, and ValueError for a
+        malformed body or deadline header."""
+        t0 = time.perf_counter()
+        cache = self.result_cache
+        key = generation = None
+        cacheable = self._cache_usable()
+        if cacheable:
+            body = cache.get_raw(raw)
+            if body is not None:
+                return self._cache_hit(body, t0), None
+        query_dict = json.loads(raw or b"null")
+        if not isinstance(query_dict, dict):
+            raise ValueError("query must be a JSON object")
+        if cacheable:
+            key = RC.query_key(query_dict)
+            body = cache.get(key)
+            if body is not None:
+                return self._cache_hit(body, t0), None
+            generation = cache.generation
+        out = self.answer(query_dict, _request_deadline_s(headers or {}))
+        extra = None
+        if isinstance(out, dict) and CANARY_TAG in out:
+            out = dict(out)
+            extra = {"X-PIO-Canary": str(out.pop(CANARY_TAG))}
+            cacheable = False
+        body = json.dumps(out).encode("utf-8")
+        if cacheable and key is not None and isinstance(out, dict):
+            cache.put(key, body, RC.query_entities(query_dict),
+                      result_items=self._result_item_ids(out),
+                      generation=generation, raw=raw)
+        return body, extra
+
     def _handler(self):
         server = self
 
@@ -407,8 +674,11 @@ class EngineServer:
             wbufsize = 1 << 16
             disable_nagle_algorithm = True
 
-            def _send(self, status: int, body: dict, headers=None):
-                data = json.dumps(body).encode("utf-8")
+            def _send(self, status: int, body, headers=None):
+                """`body`: a JSON-able object, or bytes sent as they
+                are (a cached or once-serialized answer)."""
+                data = (body if isinstance(body, bytes)
+                        else json.dumps(body).encode("utf-8"))
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
@@ -454,8 +724,7 @@ class EngineServer:
                     self._send(404, {"message": f"no route {self.path}"})
                     return
                 try:
-                    out = server.answer(json.loads(raw or b"null"),
-                                        _request_deadline_s(self.headers))
+                    out, extra = server.queries(raw, self.headers)
                 except KeyError as e:
                     self._send(400, {"message": f"missing field {e}"})
                 except (ValueError, TypeError) as e:
@@ -472,7 +741,7 @@ class EngineServer:
                                None if retry is None else
                                {"Retry-After": str(max(1, int(retry + 0.5)))})
                 else:
-                    self._send(200, out)
+                    self._send(200, out, extra)
 
             def log_message(self, fmt, *args):
                 logger.debug("%s " + fmt, self.address_string(), *args)

@@ -1,18 +1,23 @@
 """The port's command line: `python -m predictionio_tpu_torch`.
 
-The port's counterpart of `version`, `train`, `deploy`, `undeploy` and
-`update` of `predictionio_tpu/tools/cli.py` (the reference's Console,
-Console.scala:186-651), with the same flags and messages. `train` runs
+The port's counterpart of `version`, `train`, `deploy`, `undeploy`,
+`update` and `rollback` of `predictionio_tpu/tools/cli.py` (the
+reference's Console, Console.scala:186-651), with the same flags and
+messages. `train` runs
 `create_workflow_main` in this process; `deploy` undeploys a stale server
 on the target port, restores and warms the latest trained instance
 (`EngineServer.load`), binds, prints the address it serves on (`--port
 0` binds any free port, and no stale server is looked for) and serves in
-the foreground until `undeploy`, SIGTERM or SIGINT. `update` restores the
+the foreground until `undeploy`, SIGTERM or SIGINT; `--canary-fraction`
+stages each version swapped in as a canary for the watchdog to promote or
+roll back (`--canary-window` seconds). `update` restores the
 latest instance as deploy does (without serving it), folds the events
 that arrived since into it (`online/scheduler.py`: one forced tick, or a
 loop under `--follow`), publishes each folded model as a new version and
 `POST`s `/reload` to the deployed server (`--engine-port 0`: publish
-only); it prints each fold's report as one JSON line. The device comes
+only); it prints each fold's report as one JSON line. `rollback` demotes
+every version newer than the last-good pin (or `--to`) to ROLLEDBACK and
+`POST`s `/reload` (`--engine-port 0`: the registry only). The device comes
 from the engine.json's algorithm params (`device`; absent = the card,
 which raises RuntimeError without CUDA; `"cpu"` only when named).
 
@@ -36,9 +41,9 @@ from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
-    "here: version, train, deploy, undeploy, update. Still only in the JAX "
-    "package's bin/pio: app, accesskey, import, export, eventserver, "
-    "status, build, eval and the other commands.")
+    "here: version, train, deploy, undeploy, update, rollback. Still only "
+    "in the JAX package's bin/pio: app, accesskey, import, export, "
+    "eventserver, status, build, eval and the other commands.")
 
 
 def cmd_version(args) -> int:
@@ -125,7 +130,9 @@ def cmd_deploy(args) -> int:
         engine_instance_id=args.engine_instance_id,
         engine_id=args.engine_id or "default",
         engine_version=args.engine_version or "0",
-        engine_variant=args.engine_json)
+        engine_variant=args.engine_json,
+        canary_fraction=args.canary_fraction,
+        canary_window_s=args.canary_window)
     server = EngineServer(config).load().bind()
     print(f"Engine is deployed and running. Engine API is live at "
           f"http://{config.ip}:{config.port}.", flush=True)
@@ -209,6 +216,37 @@ def cmd_update(args) -> int:
         return 0
 
 
+def cmd_rollback(args) -> int:
+    """Demote every COMPLETED version newer than the last-good pin (or
+    `--to`) to ROLLEDBACK, so deploy and `/reload` resolve the good
+    version again, then `POST /reload` to the deployed server: the
+    durable counterpart of the canary's in-memory rollback."""
+    from predictionio_tpu_torch.online import ModelVersionRegistry
+    try:
+        result = ModelVersionRegistry().rollback_to(
+            args.engine_id or "default", args.engine_version or "0",
+            args.engine_json, target_id=args.to)
+    except ValueError as e:
+        print(f"Rollback failed: {e}")
+        return 1
+    print(f"Rolled back to instance {result['target']}.")
+    for iid in result["demoted"]:
+        print(f"  demoted {iid} -> ROLLEDBACK")
+    if not args.engine_port:
+        print("No engine server to reload (--engine-port 0).")
+        return 0
+    url = f"http://{args.engine_ip}:{args.engine_port}/reload"
+    try:
+        req = urllib.request.Request(url, method="POST", data=b"")
+        urllib.request.urlopen(req, timeout=120).read()
+    except OSError as e:
+        print(f"Reload failed ({e}); the server keeps its current "
+              "model until it restarts or /reload succeeds.")
+        return 1
+    print(f"Reloaded engine server at {url}.")
+    return 0
+
+
 def _add_variant_arg(sp) -> None:
     """The engine-variant file flag; --variant/-v are the reference's
     spellings (Console.scala:161)."""
@@ -248,6 +286,12 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--engine-id")
     d.add_argument("--engine-version")
     d.add_argument("--engine-instance-id")
+    d.add_argument("--canary-fraction", type=float, default=0.0,
+                   help="guarded deploys: serve each hot-swapped version "
+                        "to this traffic share first and roll it back "
+                        "on a watchdog breach (0 = swap at once)")
+    d.add_argument("--canary-window", type=float, default=30.0,
+                   help="the watchdog's decision window, seconds")
     d.set_defaults(func=cmd_deploy)
 
     u = sub.add_parser("undeploy", help="stop a deployed engine server")
@@ -282,6 +326,21 @@ def build_parser() -> argparse.ArgumentParser:
                      help="fold loss / anchor loss bound that escalates "
                           "to a full retrain")
     upd.set_defaults(func=cmd_update)
+
+    rb = sub.add_parser(
+        "rollback", help="guarded deploys: demote the versions newer than "
+        "the last-known-good pin and /reload the deployed server")
+    _add_variant_arg(rb)
+    rb.add_argument("--engine-id")
+    rb.add_argument("--engine-version")
+    rb.add_argument("--to", metavar="INSTANCE_ID",
+                    help="the rollback target (default: the last-good "
+                         "pin, else the previous COMPLETED version)")
+    rb.add_argument("--engine-ip", default="127.0.0.1")
+    rb.add_argument("--engine-port", type=int, default=8000,
+                    help="deployed engine server to POST /reload to "
+                         "(0 = the registry only, no reload)")
+    rb.set_defaults(func=cmd_rollback)
     return p
 
 

@@ -11,7 +11,8 @@ port it bound is read from the line it prints); `undeploy` stops it and
 the process exits 0; a deploy onto a port a stale server holds stops
 that server first. `--stop-after-read/-prepare` stop the train
 there and leave the instance ABORTED. `version` prints the port's
-version, and `--help` names the commands that are still JAX-only.
+version, and `--help` names the commands that are still JAX-only; a
+deployed server answers a repeated query from its result cache.
 """
 
 import json
@@ -178,6 +179,13 @@ def test_deploy_serves_like_in_process_and_undeploy_stops_it(store,
         try:
             assert status["engineInstanceId"] == local.engine_instance.id
             assert query(port, QUERY) == local.answer(QUERY)
+            # a stock deploy answers the repeat from its result cache
+            assert query(port, QUERY) == local.answer(QUERY)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/stats.json", timeout=30) as r:
+                cache = json.loads(r.read())["resultCache"]
+            assert (cache["hits"], cache["misses"], cache["entries"]) == \
+                (1, 1, 1)
         finally:
             local.stop()
         out = run("undeploy", "--ip", "127.0.0.1", "--port", str(port))
@@ -254,3 +262,5 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
                  "import", "eventserver"):
         assert word in text
     assert "Still only in the JAX package's bin/pio" in text
+    assert "version, train, deploy, undeploy, update, rollback. Still" \
+        in text

@@ -576,3 +576,48 @@ def test_serve_top_k_and_readback_on_the_card(cuda, mode, monkeypatch):
                                       s_c.view(np.uint32)[same])
         rtol = 2.0 ** -10 if mode == "on" else 4 * 2.0 ** -24 * 64
         np.testing.assert_allclose(s_g, s_c, rtol=rtol, atol=1e-6)
+
+
+def test_a_cache_hit_on_the_card_returns_the_miss_bytes(cuda, monkeypatch):
+    """A server at its defaults (the result cache on, f16 packed scores)
+    on tables on the card: the repeated query is answered with the bytes
+    its miss serialized, without a window; those bytes carry the f16
+    rounding of the card's f32 scores."""
+    from predictionio_tpu_torch.core import TrainResult
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.weights import from_jax_model
+    for k in ("PIO_SERVE_PACK", "PIO_SERVE_CACHE"):
+        monkeypatch.delenv(k, raising=False)
+    rng = np.random.default_rng(5)
+    U = rng.standard_normal((50, 32)).astype(np.float32)
+    V = rng.standard_normal((400, 32)).astype(np.float32)
+    model = from_jax_model(U, V, [f"u{k}" for k in range(50)],
+                           [f"i{k}" for k in range(400)], 32, device="cuda")
+    assert model.als.tables()[0].device.type == "cuda"
+    srv = EngineServer(
+        ServerConfig(port=0, micro_batch=4),
+        TR.RecommendationEngineFactory.apply(),
+        TR.RecommendationEngineFactory.engine_params(
+            TR.RatingsData([], [], [])),
+        TrainResult(models=[model], algorithms=[
+            TR.ALSAlgorithm(TR.ALSAlgorithmParams(rank=32))]))
+    try:
+        raw = json.dumps({"user": "u3", "num": 10}).encode()
+        miss, _ = srv.queries(raw)
+        windows = srv.batcher.n_batches
+        hit, _ = srv.queries(raw)
+        assert hit == miss
+        assert srv.batcher.n_batches == windows
+        assert srv.result_cache.hits == 1 and srv.result_cache.misses == 1
+        body = json.loads(miss)
+        ix = [int(s["item"][1:]) for s in body["itemScores"]]
+        scores = np.array([s["score"] for s in body["itemScores"]])
+        assert (scores.astype(np.float16).astype(np.float64) == scores).all()
+        s64 = V.astype(np.float64) @ U[3].astype(np.float64)
+        np.testing.assert_allclose(scores, s64[ix], rtol=2.0 ** -10,
+                                   atol=1e-5)
+        assert sorted(ix) == sorted(np.argsort(-s64)[:10].tolist())
+    finally:
+        srv.batcher.stop()
