@@ -62,7 +62,21 @@ PyTorch version at the shapes its path gives it. Then:
   instance in an in-process server with `attach_scheduler`: two ticks of
   view events (2 new items), each hot-swapped and held, the second
   against the first's resident tables (its upload under 1% of the
-  first's), the carried Gram against a recomputed one.
+  first's), the carried Gram against a recomputed one;
+- the other ALS templates on the same store, through `pio train` ->
+  `pio deploy` subprocesses: the similar-product template's DIMSUM
+  algorithm (the [26,744+, 26,744+] item Gram on the card, 2.9 GB,
+  persisted by the model itself; 64 rows held to float64 rows made with
+  scipy.sparse from the store's pairs, 64 queries to the float64 top-k);
+  the e-commerce template after 600,000 `view`/`buy` events, 64 new
+  users and two `unavailableItems` lists land (rank-200 implicit ALS,
+  every solve through the CG kernel, its last half-sweep held to the
+  kernel's plain version and read against float64; 240 queries held to
+  the float64 top-k under the mask made from the seeds, with zero
+  point-read timeouts; the result cache keeping a bought item, as the
+  reference's does, and `PIO_SERVE_CACHE=off` dropping it; 32 clients x
+  20 queries); the recommended-user template on 1,000,000 `follow`
+  events (every solve through the CG kernel, 64 queries held).
 
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
@@ -89,6 +103,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -202,6 +217,22 @@ CANARY_FRACTION = 0.25
 CANARY_WINDOW_S = 5.0
 CANARY_MIN_REQUESTS = 20
 CANARY_PER_CLIENT = 8
+# the other ALS templates on the store: DIMSUM,
+# e-commerce with its live business rules, recommended-user
+DIMSUM_ROWS = 64                 # seeded rows of the [I, I] table held
+DIMSUM_QUERIES = 64
+DIMSUM_TABLE_ATOL = 1e-6         # float32 counts are exact; the cosine's
+#                                  normalization rounds at 2^-24 relative
+ECOM_VIEWS = (500_000, 7)        # (events, synthetic_ml20m seed)
+ECOM_BUYS = (100_000, 8)
+ECOM_NEW_USERS = 64              # users with 1-10 views and no rating
+ECOM_UNAVAILABLE = 500           # items in each unavailableItems $set
+ECOM_HELD = (160, 48, 32)        # ecom_deploy: known, new, unknown users
+ECOM_PLANE_MIX = (14, 4, 2)      # ecom_plane, per client: the same kinds
+ECOM_POOL = 2000                 # known users drawn from: with seeded
+#                                  views or buys, and any
+RECUSER_FOLLOWS = (1_000_000, 9)
+RECUSER_QUERIES = 64
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -316,8 +347,11 @@ def checkpoints(iters: int):
     return sorted({1, 2, 4, iters // 2, iters})
 
 
+CG_FAULTS = ("half_iterations", "no_preconditioner")
+
+
 def hold_kernel(A: torch.Tensor, b: torch.Tensor, iters: int,
-                where: str) -> dict:
+                where: str, faults=CG_FAULTS) -> dict:
     """The kernel against the plain CG at every checkpoint k. Its
     tolerance there is KERNEL_REL_TOL, or ROUNDING_FACTOR times what
     float32 rounding itself moves the plain CG (its float32 run against
@@ -325,8 +359,11 @@ def hold_kernel(A: torch.Tensor, b: torch.Tensor, iters: int,
     real systems. The same readings of two planted faults, the kernel run
     with half the iterations it was asked for and a CG without the
     preconditioner, must each exceed the tolerance FAULT_MARGIN-fold at
-    some checkpoint, or the check could not tell them from the kernel.
-    Fails the run otherwise; returns the readings."""
+    some checkpoint, or the check could not tell them from the kernel
+    (each fault in `faults`; the others are read only: an implicit dual
+    system is I + E with a small E, where CG converges in a step or two
+    and the diagonal is ~1). Fails the run otherwise; returns the
+    readings."""
     from predictionio_tpu_torch.ops.solve import cg_solve, cg_solve_cuda
     A64, b64 = A.double(), b.double()
     per_k = []
@@ -349,7 +386,7 @@ def hold_kernel(A: torch.Tensor, b: torch.Tensor, iters: int,
            "max_abs_err": max(c["abs_err"] for c in per_k),
            "max_rounding": max(c["rounding"] for c in per_k),
            "max_tolerance": max(c["tolerance"] for c in per_k)}
-    for fault in ("half_iterations", "no_preconditioner"):
+    for fault in CG_FAULTS:
         out[f"fault_{fault}_margin"] = max(c[fault] / c["tolerance"]
                                            for c in per_k)
     emit("checkpoints", where=where, per_checkpoint=per_k)
@@ -357,7 +394,7 @@ def hold_kernel(A: torch.Tensor, b: torch.Tensor, iters: int,
         check(c["rel_err"] <= c["tolerance"],
               f"{where}: kernel vs plain CG rel err {c['rel_err']:.3g} > "
               f"{c['tolerance']:.3g} after {c['k']} iterations")
-    for fault in ("half_iterations", "no_preconditioner"):
+    for fault in faults:
         margin = out[f"fault_{fault}_margin"]
         check(margin >= FAULT_MARGIN,
               f"{where}: the check cannot see the planted fault {fault} "
@@ -1442,13 +1479,12 @@ def similar_variant(path: str) -> None:
                 "alpha": ALPHA, "seed": 0, "solver": "chol_cuda"}}]}, f)
 
 
-def workflow_train(path: str, phase: str, kernel: str = "cg_solve"
-                   ) -> tuple:
+def workflow_train(path: str, phase: str, kernel="cg_solve") -> tuple:
     """`cli.main(["train", "-v", path])` in this process (what `python -m
     predictionio_tpu_torch train` runs), with every kernel count set to
-    0 just before and read just after; every solve must be `kernel`.
-    Returns (instance id, the TrainResult it persisted, launches of
-    `kernel`)."""
+    0 just before and read just after; every solve must be `kernel` (None:
+    a train that solves nothing, whose counts must all stay 0). Returns
+    (instance id, the TrainResult it persisted, launches of `kernel`)."""
     from predictionio_tpu_torch.core.engine import Engine
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.ops.solve import COUNTS
@@ -1485,12 +1521,16 @@ def workflow_train(path: str, phase: str, kernel: str = "cg_solve"
     tel = dict(tels[0])
     (algo_tel,) = tel.pop("algorithms")
     inst = Storage.get_meta_data_engine_instances().get(iid)
-    launches = counts[kernel]
+    launches = counts.get(kernel, 0)
     emit(phase, template=inst.engine_factory, instance=iid,
          status=inst.status, workflow_s=workflow_s, **tel, **algo_tel,
          launch_counts=counts)
     check(inst.status == "COMPLETED", f"engine instance {iid} is "
           f"{inst.status}")
+    if kernel is None:
+        check(not any(counts.values()), f"the {phase} train launched "
+              f"solves: {counts}")
+        return iid, trained[0], 0
     check(launches > 0, f"the {kernel} kernel was never launched")
     check(launches == algo_tel["solver_calls"],
           f"{launches} {kernel} kernel launches for "
@@ -1501,41 +1541,67 @@ def workflow_train(path: str, phase: str, kernel: str = "cg_solve"
     return iid, trained[0], launches
 
 
-def blob_check(iid: str, trained) -> dict:
+#: per template: (the engine factory's module, its name, an expression
+#: over the restored model `m` read in a process without a card, its
+#: device state and tables, and the model's tables)
+BLOB_PROBES = {
+    "recommendation": (
+        "predictionio_tpu_torch.models.recommendation",
+        "RecommendationEngineFactory",
+        "m.als.device, m.als._tables, m.als.user_factors.shape, "
+        "m.als.item_factors.shape",
+        lambda m: (m.als.user_factors, m.als.item_factors)),
+    "ecommercerecommendation": (
+        "predictionio_tpu_torch.models.ecommerce", "ECommerceEngineFactory",
+        "m.device, m._als, m._normalized, m.user_factors.shape, "
+        "m.item_factors.shape",
+        lambda m: (m.user_factors, m.item_factors,
+                   m.item_factors_normalized)),
+    "recommendeduser": (
+        "predictionio_tpu_torch.models.recommendeduser",
+        "RecommendedUserEngineFactory",
+        "m.device, m._table, m.followed_factors_normalized.shape",
+        lambda m: (m.followed_factors_normalized,)),
+}
+
+
+def blob_check(iid: str, trained, template: str = "recommendation"
+               ) -> dict:
     """The persisted blob unpickles in a process that sees no card (it
-    holds host numpy only), and its tables are the trained ones, bit for
-    bit."""
+    holds host numpy only, the device state dropped), and its tables are
+    the trained ones, bit for bit."""
+    import importlib
     from predictionio_tpu_torch.data.storage.registry import Storage
-    from predictionio_tpu_torch.models.recommendation import \
-        RecommendationEngineFactory
+    module, factory, probe, tables = BLOB_PROBES[template]
     code = (
         "import sys, torch\n"
-        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        f"sys.path.insert(0, {HERE!r})\n"
         "from predictionio_tpu_torch.data.storage.registry import Storage\n"
-        "from predictionio_tpu_torch.models.recommendation import \\\n"
-        "    RecommendationEngineFactory\n"
+        f"from {module} import {factory}\n"
         f"blob = Storage.get_model_data_models().get({iid!r}).models\n"
-        "(m,) = RecommendationEngineFactory.apply().deserialize_models(\n"
-        f"    blob, {iid!r})\n"
-        "print(torch.cuda.is_available(), m.als.device, m.als._tables,\n"
-        "      m.als.user_factors.shape, m.als.item_factors.shape)\n")
+        f"(m,) = {factory}.apply().deserialize_models(blob, {iid!r})\n"
+        f"print(torch.cuda.is_available(), {probe})\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
                          capture_output=True, text=True, timeout=600)
     check(out.returncode == 0, f"the blob did not unpickle without a card: "
           f"{out.stderr[-2000:]}")
     model = trained.models[0]
-    U, V = model.als.user_factors, model.als.item_factors
-    want = f"False None None {U.shape} {V.shape}"
+    shapes = " ".join(str(t.shape) for t in tables(model)[:2])
+    nones = len(probe.split(",")) - min(2, len(tables(model)))
+    want = " ".join(["False"] + ["None"] * nones) + " " + shapes
     check(out.stdout.strip() == want,
           f"blob read without a card: {out.stdout.strip()!r} != {want!r}")
     blob = Storage.get_model_data_models().get(iid).models
-    (restored,) = RecommendationEngineFactory.apply().deserialize_models(
-        blob, iid)
-    equal = (np.array_equal(restored.als.user_factors, U)
-             and np.array_equal(restored.als.item_factors, V)
-             and restored.item_properties == model.item_properties
-             and list(restored.item_ix.ids) == list(model.item_ix.ids))
+    (restored,) = getattr(importlib.import_module(module),
+                          factory).apply().deserialize_models(blob, iid)
+    equal = (all(np.array_equal(a, b) for a, b in
+                 zip(tables(restored), tables(model)))
+             and getattr(restored, "item_properties", None)
+             == getattr(model, "item_properties", None))
+    ix = "followed_ix" if template == "recommendeduser" else "item_ix"
+    equal &= list(getattr(restored, ix).ids) == list(getattr(model,
+                                                             ix).ids)
     check(equal, "the restored model differs from the trained one")
     return {"blob_bytes": len(blob), "unpickles_without_card": True,
             "restored_bit_equal": True}
@@ -1727,13 +1793,18 @@ def log_tail(path: str, n: int = 3000) -> str:
         return f.read()[-n:]
 
 
-def phase_cli_deploy(variants: dict, workdir: str, deps: dict) -> None:
+def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
+                     first_queries=None, warmed: bool = True) -> None:
     """Start `python -m predictionio_tpu_torch deploy --port 0` for each
     template (all at once, `PIO_SERVE_PACK` unset: the default f16
     readback), read the port each bound from the line it prints, wait
     until each answers GET /, then read its warm-up from /stats.json and
-    time its first query. The deployments go into `deps` by template as
-    they start; the caller stops them."""
+    time its first query (`first_queries` by name, a non-empty answer
+    expected; by default a recommendation or similar-product query). An
+    algorithm without `batch_predict_begin` is not warmed (the deploy's
+    warm-up skips it, as the reference's): `warmed` False expects no warm
+    window. The deployments go into `deps` by template as they start; the
+    caller stops them."""
     env = {k: v for k, v in os.environ.items() if k != "PIO_SERVE_PACK"}
     for name, path in variants.items():
         log = os.path.join(workdir, f"deploy_{name}.log")
@@ -1767,16 +1838,17 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict) -> None:
             time.sleep(0.25)
         alive_s = time.perf_counter() - dep["t0"]
         warm = get_json(dep["url"] + "/stats.json")["warm"]
-        check(warm is not None and warm["windows"] > 0,
-              f"deploy of {name} served before a warm-up: {warm}")
-        query = ({"user": "u1", "num": SERVE_NUM}
-                 if name == "recommendation"
-                 else {"items": ["i1"], "num": SERVE_NUM})
+        check(warm is not None and (warm["windows"] > 0) == warmed,
+              f"deploy of {name}: warm-up {warm}, warmed={warmed} "
+              "expected")
+        query = (first_queries or {}).get(name) or (
+            {"user": "u1", "num": SERVE_NUM} if name == "recommendation"
+            else {"items": ["i1"], "num": SERVE_NUM})
         t0 = time.perf_counter()
         code, body = post(dep["url"] + "/queries.json",
                           json.dumps(query).encode())
         first_ms = (time.perf_counter() - t0) * 1e3
-        check(code == 200 and body["itemScores"],
+        check(code == 200 and next(iter(body.values())),
               f"{name}'s first query answered {code} {body}")
         emit("cli_deploy", template=name, instance=status[
             "engineInstanceId"], pid=dep["proc"].pid, alive_s=alive_s,
@@ -2230,6 +2302,8 @@ def phase_fold_kernel() -> list:
         row["inert_exact_zero"] = bool((xk[FOLD_B - n_inert:] == 0).all())
         row["kernel_ms"] = cuda_ms(lambda: cg_solve_cuda(A, b, iters), 20)
         row["plain_ms"] = cuda_ms(lambda: cg_solve(A, b, iters), 5)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.linalg.solve(A, b.unsqueeze(-1)), 5)
         row["bound_ms"], row["bound_by"] = bound(*cg_cost(FOLD_B, R, iters))
         emit("fold_kernel", **row)
         check(row["bitwise_repeat"], f"{where}: two launches differ")
@@ -3091,6 +3165,765 @@ def phase_canary(path: str, iid: str, model) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The other ALS templates on the same store: DIMSUM, e-commerce (with its
+# live business-rule reads) and recommended-user
+# ---------------------------------------------------------------------------
+
+def store_sql(sql: str, params=()) -> list:
+    """Rows of `sql` ({t} = the events table) over the event store's
+    SQLite file, read with the standard library's sqlite3 and not through
+    the port: what the holds below take as the store's own content."""
+    import sqlite3
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    ev = Storage.get_events()
+    con = sqlite3.connect(ev.c.config.get("URL"), timeout=60)
+    try:
+        return con.execute(sql.format(t=ev.t), params).fetchall()
+    finally:
+        con.close()
+
+
+def appended_events(app_id: int) -> list:
+    """The events earlier phases appended after the seeded import (the
+    fold, cache and canary phases: all made by this script from seeds),
+    by event time: (event, entity type, entity id, target type, target
+    id, properties JSON)."""
+    return store_sql(
+        "SELECT event, entitytype, entityid, targetentitytype, "
+        "targetentityid, properties FROM {t} WHERE appid=? AND "
+        "eventtime>? ORDER BY eventtime, rowid",
+        (app_id, 1000 + STORE_DATA[2]))
+
+
+def item_meta(appended: list) -> dict:
+    """{item id: (category set or None, creationYear or None)}: the
+    seeded catalog, then the earlier phases' item `$set`s in time order
+    (property by property, as a `$set` merges)."""
+    cats, years = store_items()
+    props = {f"i{k}": {"categories": list(cats[k]),
+                       "creationYear": int(years[k])}
+             for k in range(STORE_DATA[1])}
+    for ev, etype, eid, _, _, p in appended:
+        if ev == "$set" and etype == "item":
+            props.setdefault(eid, {}).update(json.loads(p or "{}"))
+    return {i: (set(p["categories"]) if p.get("categories") else None,
+                p.get("creationYear")) for i, p in props.items()}
+
+
+def category_mask(ids, meta: dict, categories) -> np.ndarray:
+    """Items (by the given id order) sharing one of `categories`."""
+    want = set(categories)
+    return np.array([bool(meta.get(i, (None,))[0]
+                          and meta[i][0] & want) for i in ids])
+
+
+def event_time(ms: int) -> str:
+    """The new phases' explicit event times: after every earlier event."""
+    import datetime as _dt
+    t = (_dt.datetime(2030, 1, 1, tzinfo=_dt.timezone.utc)
+         + _dt.timedelta(milliseconds=int(ms)))
+    return t.isoformat(timespec="milliseconds").replace("+00:00", "Z")
+
+
+def insert_events(app_id: int, name: str, etype: str, eids, ttype, tids,
+                  t0: int, props=None) -> int:
+    """Bulk-import one event per row at times t0, t0 + 1 ms, ... (ids in
+    insertion order, after the seeded ones). Returns the next time."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    ev = Storage.get_events()
+    for lo in range(0, len(eids), STORE_CHUNK):
+        hi = min(lo + STORE_CHUNK, len(eids))
+        ev.insert_columnar(ColumnarBatch(
+            hi - lo, name, etype, list(eids[lo:hi]), ttype,
+            None if tids is None else list(tids[lo:hi]),
+            None if props is None else props[lo:hi],
+            [event_time(t0 + j) for j in range(lo, hi)],
+            [f"f{t0 + j:031x}" for j in range(lo, hi)]), app_id)
+    return t0 + len(eids)
+
+
+def held_ranked(got_ids, served, s64, allowed, num, ix, tol, what: str,
+                atol: float) -> bool:
+    """Hold one ranked answer (ids `got_ids`, scores `served`) against the
+    float64 scores `s64` under `allowed` (score > 0 kept): the ids as
+    `held_to_f64` (a swap only between scores tied within `atol`), each
+    score within `tol(got index)`. `ix` maps ids both ways. Returns
+    whether the ids were exact."""
+    s = np.where(allowed & (s64 > 0), s64, -np.inf)
+    top = np.argsort(-s, kind="stable")[:num]
+    top = top[np.isfinite(s[top])]
+    exact = held_to_f64(got_ids, s, top, ix, what, atol=atol)
+    got_ix = np.array([ix.item_ix[g] for g in got_ids], dtype=np.int64)
+    check(bool((np.abs(np.asarray(served) - s64[got_ix])
+                <= tol(got_ix)).all()),
+          f"{what}: scores off the float64 scores by more than their "
+          "rounding bound")
+    return exact
+
+
+def latencies(lat: list, kinds: list) -> dict:
+    """p50/p99 of all but the first query, and p50 by kind."""
+    ms = np.array(lat[1:])
+    return {"queries": len(lat), "first_query_ms": lat[0],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "p50_ms_by_kind": {k: float(np.percentile(
+                [t for t, kk in zip(lat[1:], kinds[1:]) if kk == k], 50))
+                for k in dict.fromkeys(kinds[1:])}}
+
+
+def dimsum_variant(path: str) -> None:
+    """The similar-product template's dimsum algorithm on the store: its
+    `rate` events read as views, creationYear returned on each item."""
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "similarproduct",
+            "datasource": {"params": {"app_name": STORE_APP,
+                                      "rate_as_view": True}},
+            "algorithms": [{"name": "dimsum", "params": {
+                "threshold": 0.0,
+                "return_properties": ["creationYear"]}}]}, f)
+
+
+def phase_dimsum(workdir: str, appended: list) -> None:
+    """DIMSUM from the store: `pio train` (the [I, I] Gram on the card,
+    the table saved under `<PIO_FS_BASEDIR>/dimsum/<id>`, the engine
+    instance a manifest), the table's seeded rows against float64 rows
+    made with scipy.sparse from the pairs the store holds (the seeded
+    rates and the views and rates earlier phases appended), its diagonal
+    0; `DIMSUMModel.load` timed and bit-equal; then a `deploy` subprocess
+    and DIMSUM_QUERIES queries held to the float64 top-k of the summed
+    rows under the mask from the items' metadata."""
+    import scipy.sparse as sp
+    from predictionio_tpu_torch.core.persistence import \
+        PersistentModelManifest
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
+    from predictionio_tpu_torch.models import similarproduct as TS
+    path = os.path.join(workdir, "dimsum.json")
+    dimsum_variant(path)
+    iid, trained, _ = workflow_train(path, "dimsum_train", kernel=None)
+    model = trained.models[0]
+    del trained
+    (manifest,) = TS.SimilarProductEngineFactory.apply().deserialize_models(
+        Storage.get_model_data_models().get(iid).models, iid)
+    check(manifest == PersistentModelManifest(TS.DIMSUMModel.loader_name()),
+          f"the dimsum instance stored {manifest!r}, not its manifest")
+    t0 = time.perf_counter()
+    loaded = TS.DIMSUMModel.load(iid, None)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(loaded.similarities, model.similarities)
+          and list(loaded.item_ix.ids) == list(model.item_ix.ids),
+          "the loaded dimsum table differs from the trained one")
+    del loaded
+    # the float64 truth from the pairs the store holds: the seeded rates
+    # by their numbers, the appended views and rates by their ids
+    n_users, n_seeded, _ = STORE_DATA
+    ui, ii, _ = synthetic_ml20m(*STORE_DATA, seed=0)
+    seeded = model.item_ix.to_indices([f"i{k}" for k in range(n_seeded)])
+    extra_u, extra_i = [], []
+    for ev, etype, eid, ttype, tid, _ in appended:
+        if ev in ("view", "rate") and etype == "user" and ttype == "item":
+            extra_u.append(eid)
+            extra_i.append(tid)
+    meta = item_meta(appended)
+    check(set(model.item_ix.ids) == set(meta) | set(extra_i),
+          "the dimsum vocabulary is not the store's $set and viewed items")
+    user_no = {f"u{k}": k for k in range(n_users)}
+    for u in extra_u:
+        user_no.setdefault(u, len(user_no))
+    u_ix = np.concatenate([ui, [user_no[u] for u in extra_u]])
+    i_ix = np.concatenate([seeded[ii], model.item_ix.to_indices(extra_i)])
+    M = sp.csr_matrix((np.ones(len(u_ix)), (u_ix, i_ix)),
+                      shape=(len(user_no), len(model.item_ix)))
+    M.data[:] = 1.0                       # binary: a repeated pair once
+    del ui, ii, u_ix, i_ix, user_no
+    d = np.sqrt(np.maximum(np.asarray(M.sum(axis=0)).ravel(), 1e-12))
+    Mc = M.tocsc()
+
+    def rows64(q):
+        S = (Mc[:, q].T @ M).toarray() / (d[q, None] * d[None, :])
+        S[np.arange(len(q)), q] = 0.0
+        return S
+    rng = np.random.default_rng(21)
+    held = model.item_ix.to_indices(
+        [f"i{k}" for k in rng.choice(n_seeded, DIMSUM_ROWS, replace=False)])
+    row_err = float(np.abs(model.similarities[held] - rows64(held)).max())
+    diag_zero = bool((np.diagonal(model.similarities) == 0).all())
+    emit("dimsum_table", items=len(model.item_ix), pairs=int(M.nnz),
+         rows_held=DIMSUM_ROWS, max_abs_err_vs_f64=row_err,
+         tolerance=DIMSUM_TABLE_ATOL, diagonal_zero=diag_zero,
+         table_gb=model.similarities.nbytes / 1e9, load_s=load_s)
+    check(row_err <= DIMSUM_TABLE_ATOL, f"dimsum rows {row_err:.3g} off "
+          "the float64 rows")
+    check(diag_zero, "the dimsum table's diagonal is not 0")
+    cat_names = sorted({c for cs in store_items()[0] for c in cs})
+    queries = []
+    for n in range(DIMSUM_QUERIES):
+        q = {"items": [f"i{k}" for k in rng.choice(
+            n_seeded, 1 + n % 3, replace=False)], "num": SERVE_NUM}
+        if n % 2:
+            q["categories"] = [str(c) for c in rng.choice(
+                cat_names, 1 + n % 4 // 2, replace=False)]
+        queries.append(q)
+    ids = list(model.item_ix.ids)
+    years = [meta.get(i, (None, None))[1] for i in ids]
+    deps = {}
+    try:
+        phase_cli_deploy({"dimsum": path}, workdir, deps,
+                         first_queries={"dimsum": queries[0]}, warmed=False)
+        url = deps["dimsum"]["url"]
+        lat, exact = [], 0
+        for q in queries:
+            t0 = time.perf_counter()
+            code, body = post(url + "/queries.json", json.dumps(q).encode())
+            lat.append((time.perf_counter() - t0) * 1e3)
+            what = f"dimsum_deploy query {q}"
+            check(code == 200, f"{what} answered {code}")
+            q_ix = model.item_ix.to_indices(q["items"])
+            s64 = rows64(q_ix).sum(axis=0)
+            allowed = np.ones(len(ids), dtype=bool)
+            allowed[q_ix] = False
+            if "categories" in q:
+                allowed &= category_mask(ids, meta, q["categories"])
+            got = [s["item"] for s in body["itemScores"]]
+            exact += held_ranked(
+                got, [s["score"] for s in body["itemScores"]], s64, allowed,
+                q["num"], model, lambda g: 4 * len(q_ix) * DIMSUM_TABLE_ATOL,
+                what, TIE_ATOL)
+            check([s["creationYear"] for s in body["itemScores"]]
+                  == [years[model.item_ix[g]] for g in got],
+                  f"{what}: creationYear does not ride on each item")
+        emit("dimsum_deploy", instance=iid, ids_equal_f64=exact,
+             tie_swaps=len(queries) - exact,
+             **latencies(lat, ["categories" if "categories" in q else "base"
+                               for q in queries]))
+        phase_undeploy(deps)
+    finally:
+        stop_all(deps)
+
+
+def ecom_populate(app_id: int) -> dict:
+    """The e-commerce traffic, appended to the store (set-up): ECOM_VIEWS
+    `view` and ECOM_BUYS `buy` events (synthetic_ml20m pairs of known
+    users and items), ECOM_NEW_USERS new users with 1-10 views each, and
+    two `constraint/unavailableItems` `$set`s of ECOM_UNAVAILABLE items
+    (the later one wins). Returns what the holds need, from the seeds."""
+    from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
+    n_users, n_items, _ = STORE_DATA
+    t0 = time.perf_counter()
+    seeds = {}
+    t = 0
+    for name, (n, seed) in (("view", ECOM_VIEWS), ("buy", ECOM_BUYS)):
+        u, i, _ = synthetic_ml20m(n_users, n_items, n, seed=seed)
+        seeds[name] = (np.array([f"u{x}" for x in u]),
+                       np.array([f"i{x}" for x in i]))
+        t = insert_events(app_id, name, "user", seeds[name][0], "item",
+                          seeds[name][1], t)
+    rng = np.random.default_rng(14)
+    new_users, new_views = [], []
+    for k in range(ECOM_NEW_USERS):
+        for x in rng.integers(0, n_items, int(rng.integers(1, 11))):
+            new_users.append(f"eu{k}")
+            new_views.append(f"i{x}")
+    t = insert_events(app_id, "view", "user", new_users, "item", new_views,
+                      t)
+    lists = [[f"i{x}" for x in np.random.default_rng(s).choice(
+        n_items, ECOM_UNAVAILABLE, replace=False)] for s in (15, 16)]
+    for lst in lists:
+        t = insert_events(app_id, "$set", "constraint", ["unavailableItems"],
+                          None, None, t, [{"items": lst}])
+    seeds.update(new=(np.array(new_users), np.array(new_views)),
+                 unavailable=set(lists[1]))
+    emit("ecom_populate", views=ECOM_VIEWS[0] + len(new_views),
+         buys=ECOM_BUYS[0], new_users=ECOM_NEW_USERS,
+         unavailable_sets=len(lists), populate_s=time.perf_counter() - t0,
+         note="set-up: the bulk import, not a measurement of train")
+    return seeds
+
+
+def ecom_variant(path: str) -> None:
+    """The e-commerce template's engine.json on the store: rank-200
+    implicit ALS, the solver left at 'auto' (the CG kernel), the live
+    rules on (unseen_only, seen_events buy and view)."""
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "ecommercerecommendation",
+            "datasource": {"params": {"app_name": STORE_APP}},
+            "algorithms": [{"name": "ecomm", "params": {
+                "app_name": STORE_APP, "unseen_only": True,
+                "seen_events": ["buy", "view"], "rank": RANK,
+                "num_iterations": ITERATIONS, "lam": LAM, "alpha": ALPHA,
+                "seed": 0}}]}, f)
+
+
+def ecom_resolve_check(model, coo) -> dict:
+    """Re-solve the largest primal and dual item-side buckets of the
+    e-commerce train from its final user table (the item half-sweep ran
+    last, on the Gram of that table) through the CG kernel: the trained
+    rows must equal the re-solve; the kernel is held against the plain CG
+    at every checkpoint (`hold_kernel`, its planted faults on the primal);
+    and how far the kernel's answer and the trained rows land from a
+    float64 solve of the same systems is read. The kernel, the plain CG
+    and `torch.linalg.solve` are timed at these shapes."""
+    from predictionio_tpu_torch.ops.als import gram_eig, implicit_equations
+    from predictionio_tpu_torch.ops.ratings import plan_for_items
+    from predictionio_tpu_torch.ops.solve import (CG_PRIMAL_ITERS, cg_solve,
+                                                  cg_solve_cuda)
+    U = torch.tensor(model.user_factors, device="cuda")
+    V = torch.tensor(model.item_factors, device="cuda")
+    gram = gram_eig(U)
+    plan = plan_for_items(coo, work_budget=WORK_BUDGET)
+    primal = max((b for b in plan.batches if b.shape[1] >= RANK),
+                 key=lambda b: b.shape[0])
+    dual = max((b for b in plan.batches if b.shape[1] < RANK),
+               key=lambda b: b.shape[0])
+    out = {}
+    for batch in (primal, dual):
+        rows = torch.from_numpy(batch.rows).cuda().long()
+        kind, A, rhs, to_rows = implicit_equations(
+            U, gram, torch.from_numpy(batch.idx).cuda().long(),
+            torch.from_numpy(batch.val).cuda(),
+            torch.from_numpy(batch.mask).cuda(), LAM, ALPHA, RANK)
+        K, B = A.shape[1], A.shape[0]
+        iters = CG_PRIMAL_ITERS if kind == "primal" else K + 8
+        held = hold_kernel(A, rhs, iters, f"e-commerce implicit {kind} "
+                           f"bucket K={K}",
+                           CG_FAULTS if kind == "primal" else ())
+        xk = cg_solve_cuda(A, rhs, iters)
+        x64 = torch.linalg.solve(A.double(), rhs.double().unsqueeze(-1)
+                                 ).squeeze(-1)
+        real = rows >= 0
+        trained = V[rows[real]]
+        row = {"kind": kind, "K": K, "B": B, "iters": iters, **held,
+               "trained_vs_resolve_rel": rel_err(trained,
+                                                 to_rows(xk)[real]),
+               "solve_vs_f64_rel": rel_err(xk.double(), x64),
+               "trained_vs_f64_rows_rel": rel_err(
+                   trained.double(), to_rows(x64.float())[real].double()),
+               "kernel_ms": cuda_ms(lambda: cg_solve_cuda(A, rhs, iters),
+                                    5),
+               "plain_ms": cuda_ms(lambda: cg_solve(A, rhs, iters), 3),
+               "library_ms": cuda_ms(lambda: torch.linalg.solve(
+                   A, rhs.unsqueeze(-1)), 3)}
+        row["bound_ms"], row["bound_by"] = bound(*cg_cost(B, K, iters))
+        emit("ecom_resolve", **row)
+        check(row["trained_vs_resolve_rel"] <= KERNEL_REL_TOL,
+              f"trained e-commerce {kind} rows differ from a kernel "
+              f"re-solve by {row['trained_vs_resolve_rel']:.3g}")
+        out[kind] = row
+        del A, rhs, xk, x64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ecom_train(workdir: str) -> tuple:
+    """The e-commerce template from the store through `pio train`: every
+    solve a CG kernel launch; the last half-sweep against the kernel and
+    float64 (`ecom_resolve_check`); the blob host-only and bit-equal.
+    Returns (engine.json path, instance id, the trained model, launches)."""
+    from predictionio_tpu_torch.models import ecommerce as TE
+    path = os.path.join(workdir, "ecommerce.json")
+    ecom_variant(path)
+    tds = []
+    read = TE.ECommerceDataSource.read_training
+
+    def keep(self):
+        tds.append(read(self))
+        return tds[-1]
+    TE.ECommerceDataSource.read_training = keep
+    try:
+        iid, trained, launches = workflow_train(path, "ecom_train")
+    finally:
+        TE.ECommerceDataSource.read_training = read
+    model = trained.models[0]
+    user_ix, item_ix, coo = TE.ECommAlgorithm._build_ratings(tds[0])
+    del tds
+    check(list(user_ix.ids) == list(model.user_ix.ids)
+          and list(item_ix.ids) == list(model.item_ix.ids),
+          "the e-commerce vocabularies differ from the data's")
+    ecom_resolve_check(model, coo)
+    emit("ecom_blob", instance=iid,
+         **blob_check(iid, trained, "ecommercerecommendation"))
+    return path, iid, model, launches
+
+
+def by_user(users: np.ndarray, items: np.ndarray) -> dict:
+    """{user: its items in event order}."""
+    order = np.argsort(users, kind="stable")
+    keys, starts = np.unique(users[order], return_index=True)
+    ends = np.append(starts[1:], len(order))
+    return {str(k): items[order[a:b]] for k, a, b in zip(keys, starts, ends)}
+
+
+class EcomTruth:
+    """What an e-commerce answer is held to, from the seeds and the
+    persisted tables: each user's seen items (the seeded buys and views),
+    the second unavailableItems list, the new users' 10 latest views, the
+    items' categories."""
+
+    def __init__(self, model, seeds: dict, meta: dict):
+        self.model = model
+        self.U64 = model.user_factors.astype(np.float64)
+        self.V64 = model.item_factors.astype(np.float64)
+        self.T64 = model.item_factors_normalized.astype(np.float64)
+        self.ids = list(model.item_ix.ids)
+        self.meta = meta
+        self.seeds = seeds
+        self.seen_by = [by_user(*seeds[n]) for n in ("view", "buy", "new")]
+        self.views_by = self.seen_by[2]
+        self.unavailable = model.item_ix.to_indices(
+            sorted(seeds["unavailable"]))
+
+    def seen(self, user: str) -> np.ndarray:
+        out = []
+        for group in self.seen_by:
+            out.extend(group.get(user, ()))
+        return self.model.item_ix.to_indices(out)
+
+    def recent(self, user: str) -> np.ndarray:
+        return self.model.item_ix.to_indices(
+            sorted(set(self.views_by.get(user, ())[-10:])))
+
+    def allowed(self, q: dict) -> np.ndarray:
+        if q.get("whiteList") is not None:
+            mask = np.zeros(len(self.ids), dtype=bool)
+            mask[self.model.item_ix.to_indices(q["whiteList"])] = True
+        else:
+            mask = np.ones(len(self.ids), dtype=bool)
+        mask[self.seen(q["user"])] = False
+        mask[self.unavailable] = False
+        mask[self.model.item_ix.to_indices(q.get("blackList") or [])] = False
+        if q.get("categories"):
+            mask &= category_mask(self.ids, self.meta, q["categories"])
+        return mask
+
+    def hold(self, body: dict, q: dict, what: str) -> bool:
+        """Known user: the raw dot top-k; new user: the summed cosines of
+        the 10 latest views; unknown user: an empty answer. Scores within
+        f16 rounding plus the f32 products' bound."""
+        got = [s["item"] for s in body["itemScores"]]
+        served = [s["score"] for s in body["itemScores"]]
+        uix = self.model.user_ix.get(q["user"], -1)
+        if uix >= 0:
+            u64 = self.U64[uix]
+            s64 = self.V64 @ u64
+            scale = float(np.abs(s64).max())
+            return held_ranked(
+                got, served, s64, self.allowed(q), q["num"], self.model,
+                lambda g: dot_tolerance(u64, self.V64[g])
+                + F16_REL * np.abs(s64[g]), what, 1e-6 * scale)
+        r = self.recent(q["user"])
+        if len(r) == 0:
+            check(body == {"itemScores": []}, f"{what}: {body}")
+            return True
+        qsum = self.T64[r].sum(axis=0)
+        s64 = self.T64 @ qsum
+        return held_ranked(
+            got, served, s64, self.allowed(q), q["num"], self.model,
+            lambda g: (RANK + 3) * 2.0 ** -24 * (np.abs(self.T64[g])
+                                                  @ np.abs(qsum))
+            + F16_REL * np.abs(s64[g]), what, TIE_ATOL)
+
+
+def ecom_queries(truth: EcomTruth, rng, n_known: int, n_new: int,
+                 n_unknown: int, pool: np.ndarray) -> list:
+    """Known users from `pool` (base, categories, whiteList, blackList in
+    turn; the lists draw on the user's seen items, unavailable ones and
+    others), new users, unknown users, shuffled."""
+    cats = sorted({c for cs in store_items()[0] for c in cs})
+    n_items = STORE_DATA[1]
+    out = []
+    for n in range(n_known):
+        user = str(pool[rng.integers(len(pool))])
+        q = {"user": user, "num": SERVE_NUM}
+        kind = n % 4
+        if kind == 1:
+            q["categories"] = [str(c) for c in rng.choice(cats, 1 + n % 2,
+                                                           replace=False)]
+        elif kind in (2, 3):
+            some = [f"i{k}" for k in rng.integers(0, n_items, 40)]
+            some += truth.model.item_ix.ids_of(truth.seen(user)[:3])
+            some += sorted(truth.seeds["unavailable"])[:2]
+            q["whiteList" if kind == 2 else "blackList"] = some
+        out.append(q)
+    for n in range(n_new):
+        q = {"user": f"eu{n % ECOM_NEW_USERS}", "num": SERVE_NUM}
+        if n % 2:
+            q["categories"] = [str(c) for c in rng.choice(cats, 2,
+                                                           replace=False)]
+        out.append(q)
+    out += [{"user": f"nouser{n}", "num": SERVE_NUM}
+            for n in range(n_unknown)]
+    rng.shuffle(out)
+    return out
+
+
+def ecom_kind(q: dict) -> str:
+    if q["user"].startswith("eu"):
+        return "new"
+    if q["user"].startswith("nouser"):
+        return "unknown"
+    return next((k for k in ("categories", "whiteList", "blackList")
+                 if k in q), "base")
+
+
+def phase_ecom_deploy(path: str, iid: str, truth: EcomTruth, pool,
+                      app_id: int, workdir: str, deps: dict) -> tuple:
+    """The e-commerce instance as a `deploy` subprocess at its defaults:
+    ECOM_HELD queries one at a time, each held (`EcomTruth.hold`), zero
+    point-read timeouts; then the result cache over the live reads (a
+    fault shared with the reference): a known user's cached answer, a
+    `buy` of its top item, the same bytes again; an in-process server
+    with `PIO_SERVE_CACHE=off` excludes the item. Returns the deployed
+    URL and the user who bought."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    rng = np.random.default_rng(22)
+    queries = ecom_queries(truth, rng, *ECOM_HELD, pool)
+    first = next(q for q in queries if ecom_kind(q) == "base")
+    phase_cli_deploy({"ecommercerecommendation": path}, workdir, deps,
+                     first_queries={"ecommercerecommendation": first},
+                     warmed=False)
+    url = deps["ecommercerecommendation"]["url"]
+    lat, exact = [], 0
+    for q in queries:
+        t0 = time.perf_counter()
+        code, body = post(url + "/queries.json", json.dumps(q).encode())
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(code == 200, f"ecom_deploy query {q} answered {code}")
+        exact += truth.hold(body, q, f"ecom_deploy query {q}")
+    stats = get_json(url + "/stats.json")
+    timeouts = stats["pio_event_point_read_timeout_total"]
+    emit("ecom_deploy", instance=iid, ids_equal_f64=exact,
+         tie_swaps=len(queries) - exact, point_read_timeouts=timeouts,
+         by_kind={k: sum(ecom_kind(q) == k for q in queries)
+                  for k in ("base", "categories", "whiteList", "blackList",
+                            "new", "unknown")},
+         **latencies(lat, [ecom_kind(q) for q in queries]))
+    check(timeouts == 0, f"{timeouts} point reads timed out while held")
+    # the cache over live reads
+    user = str(pool[rng.integers(len(pool))])
+    q = {"user": user, "num": SERVE_NUM}
+    raw = json.dumps(q).encode()
+    code, before, _ = post_raw(url + "/queries.json", raw)
+    check(code == 200, f"ecom cache query answered {code}")
+    bought = json.loads(before)["itemScores"][0]["item"]
+    Storage.get_events().insert_columnar(ColumnarBatch(
+        1, "buy", "user", [user], "item", [bought]), app_id)
+    code, after, _ = post_raw(url + "/queries.json", raw)
+    stale = code == 200 and after == before
+    check(stale, "the cached e-commerce answer changed after a buy: the "
+          "reference's cache answers the stored bytes")
+    old = os.environ.get("PIO_SERVE_CACHE")
+    os.environ["PIO_SERVE_CACHE"] = "off"
+    try:
+        srv = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                        engine_variant=path,
+                                        engine_instance_id=iid)).load()
+    finally:
+        if old is None:
+            del os.environ["PIO_SERVE_CACHE"]
+        else:
+            os.environ["PIO_SERVE_CACHE"] = old
+    try:
+        check(srv.result_cache is None, "PIO_SERVE_CACHE=off left the "
+              "cache on")
+        body = json.loads(srv.queries(raw)[0])
+    finally:
+        srv.batcher.stop()
+    excluded = bought not in [s["item"] for s in body["itemScores"]]
+    emit("ecom_cache", user=user, bought=bought, cache_on_stale=stale,
+         cache_off_excludes=excluded)
+    check(excluded, f"with the cache off {bought} is still served to "
+          f"{user} after its buy")
+    return url, user
+
+
+def phase_ecom_plane(url: str, truth: EcomTruth, pool) -> None:
+    """SERVE_CLIENTS closed-loop clients x SERVE_PER_CLIENT queries
+    against the deployed e-commerce process (70 % known users, half of
+    them with categories; 20 % new users; 10 % unknown), every answer
+    held; qps, p50/p99, the realized batch and the point-read timeouts
+    (read, not checked: the load phase)."""
+    rng = np.random.default_rng(23)
+    cats = sorted({c for cs in store_items()[0] for c in cs})
+    known, new, unknown = ECOM_PLANE_MIX
+    per_client = []
+    for c in range(SERVE_CLIENTS):
+        qs = []
+        for n in range(known):
+            q = {"user": str(pool[rng.integers(len(pool))]),
+                 "num": SERVE_NUM}
+            if n % 2:
+                q["categories"] = [str(x) for x in rng.choice(
+                    cats, 1 + n % 4 // 2, replace=False)]
+            qs.append(q)
+        qs += [{"user": f"eu{rng.integers(ECOM_NEW_USERS)}",
+                "num": SERVE_NUM} for _ in range(new)]
+        qs += [{"user": f"nouser{c}-{n}", "num": SERVE_NUM}
+               for n in range(unknown)]
+        rng.shuffle(qs)
+        per_client.append(qs)
+    before = get_json(url + "/stats.json")
+    results, wall = closed_loop(url, per_client)
+    after = get_json(url + "/stats.json")
+    exact = 0
+    for q, code, body, _ in results:
+        check(code == 200, f"ecom_plane query {q} answered {code}")
+        exact += truth.hold(body, q, f"ecom_plane query {q}")
+    ms = np.array([r[3] for r in results])
+    d = stats_delta(before, after)
+    hits = after["resultCache"]["hits"] - before["resultCache"]["hits"]
+    emit("ecom_plane", clients=SERVE_CLIENTS, queries=len(results),
+         ids_equal_f64=exact, tie_swaps=len(results) - exact,
+         cache_hits=hits, wall_s=wall, qps=len(results) / wall,
+         p50_ms=float(np.percentile(ms, 50)),
+         p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms.max()),
+         point_read_timeouts=after["pio_event_point_read_timeout_total"]
+         - before["pio_event_point_read_timeout_total"], **d)
+    check(d["batchedQueries"] + hits == len(results),
+          f"{d['batchedQueries']} batched and {hits} cache hits of "
+          f"{len(results)} queries")
+
+
+def recuser_variant(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "recommendeduser",
+            "datasource": {"params": {"app_name": STORE_APP}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "num_iterations": ITERATIONS, "lam": LAM,
+                "seed": 0}}]}, f)
+
+
+def phase_recuser(app_id: int, workdir: str) -> int:
+    """The recommended-user template: RECUSER_FOLLOWS `follow` events
+    appended (follower u{a} -> followed u{k}, synthetic_ml20m pairs: the
+    26,744 most-followed accounts), `pio train` (every solve a CG kernel
+    launch, the blob host-only and bit-equal), a `deploy` subprocess and
+    RECUSER_QUERIES queries held to the float64 cosine-sum top-k with the
+    query users excluded. Returns the CG launches."""
+    from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
+    n_users, n_items, _ = STORE_DATA
+    t0 = time.perf_counter()
+    a, k, _ = synthetic_ml20m(n_users, n_items, RECUSER_FOLLOWS[0],
+                              seed=RECUSER_FOLLOWS[1])
+    insert_events(app_id, "follow", "user", [f"u{x}" for x in a], "user",
+                  [f"u{x}" for x in k], 10 ** 9)
+    emit("recuser_populate", follows=len(a),
+         populate_s=time.perf_counter() - t0,
+         note="set-up: the bulk import, not a measurement of train")
+    del a, k
+    path = os.path.join(workdir, "recuser.json")
+    recuser_variant(path)
+    iid, trained, launches = workflow_train(path, "recuser_train")
+    emit("recuser_blob", instance=iid,
+         **blob_check(iid, trained, "recommendeduser"))
+    model = trained.models[0]
+    del trained
+    T64 = model.followed_factors_normalized.astype(np.float64)
+    ix = types.SimpleNamespace(item_ix=model.followed_ix)
+    rng = np.random.default_rng(24)
+    F = len(model.followed_ix)
+    queries = []
+    for n in range(RECUSER_QUERIES):
+        q = {"users": model.followed_ix.ids_of(rng.choice(
+            F, 1 + n % 3, replace=False)), "num": SERVE_NUM}
+        if n % 4 == 1:
+            q["whiteList"] = model.followed_ix.ids_of(rng.integers(0, F, 60))
+        elif n % 4 == 3:
+            q["blackList"] = model.followed_ix.ids_of(rng.integers(0, 200,
+                                                                   20))
+        queries.append(q)
+    deps = {}
+    try:
+        phase_cli_deploy({"recommendeduser": path}, workdir, deps,
+                         first_queries={"recommendeduser": queries[0]},
+                         warmed=False)
+        url = deps["recommendeduser"]["url"]
+        lat, exact = [], 0
+        for q in queries:
+            t1 = time.perf_counter()
+            code, body = post(url + "/queries.json", json.dumps(q).encode())
+            lat.append((time.perf_counter() - t1) * 1e3)
+            what = f"recuser_deploy query {q}"
+            check(code == 200, f"{what} answered {code}")
+            q_ix = model.followed_ix.to_indices(q["users"])
+            qsum = T64[q_ix].sum(axis=0)
+            s64 = T64 @ qsum
+            if "whiteList" in q:
+                allowed = np.zeros(F, dtype=bool)
+                allowed[model.followed_ix.to_indices(q["whiteList"])] = True
+            else:
+                allowed = np.ones(F, dtype=bool)
+            allowed[q_ix] = False
+            allowed[model.followed_ix.to_indices(q.get("blackList", []))] = \
+                False
+            scores = body["similarUserScores"]
+            exact += held_ranked(
+                [s["user"] for s in scores], [s["score"] for s in scores],
+                s64, allowed, q["num"], ix,
+                lambda g: (RANK + 3) * 2.0 ** -24 * (np.abs(T64[g])
+                                                      @ np.abs(qsum))
+                + F16_REL * np.abs(s64[g]), what, TIE_ATOL)
+        code, body = post(url + "/queries.json",
+                          b'{"users": ["nobody"], "num": 10}')
+        check(code == 200 and body == {"similarUserScores": []},
+              f"an unknown user answered {code} {body}")
+        emit("recuser_deploy", instance=iid, followed=F,
+             ids_equal_f64=exact, tie_swaps=len(queries) - exact,
+             **latencies(lat, ["whiteList" if "whiteList" in q else
+                               "blackList" if "blackList" in q else "base"
+                               for q in queries]))
+        phase_undeploy(deps)
+    finally:
+        stop_all(deps)
+    return launches
+
+
+def template_phases(workdir: str) -> int:
+    """The other ALS templates on the store, after every earlier phase:
+    DIMSUM (`dimsum_train`, `dimsum_table`, `dimsum_deploy`) before the
+    e-commerce events land; the e-commerce template (`ecom_populate`,
+    `ecom_train`, `ecom_resolve`, `ecom_blob`, `ecom_deploy`,
+    `ecom_cache`, `ecom_plane`); the recommended-user template
+    (`recuser_*`). Held queries name only users no earlier phase
+    appended events for. Returns the CG kernel launches of the trains."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    app_id = Storage.get_meta_data_apps().get_by_name(STORE_APP).id
+    appended = appended_events(app_id)
+    phase_dimsum(workdir, appended)
+    touched = {eid for _, etype, eid, _, _, _ in appended
+               if etype == "user"}
+    seeds = ecom_populate(app_id)
+    path, iid, model, launches = phase_ecom_train(workdir)
+    truth = EcomTruth(model, seeds, item_meta(appended))
+    buyers = np.unique(np.concatenate([seeds["view"][0], seeds["buy"][0]]))
+    rng = np.random.default_rng(25)
+    pool = np.array([u for u in np.concatenate([
+        buyers[rng.choice(len(buyers), min(ECOM_POOL, len(buyers)),
+                          replace=False)],
+        [f"u{x}" for x in rng.choice(STORE_DATA[0], ECOM_POOL,
+                                     replace=False)]])
+        if u not in touched])
+    deps = {}
+    try:
+        url, cache_user = phase_ecom_deploy(path, iid, truth, pool, app_id,
+                                            workdir, deps)
+        phase_ecom_plane(url, truth, pool[pool != cache_user])
+        phase_undeploy(deps)
+    finally:
+        stop_all(deps)
+    del truth, model
+    launches += phase_recuser(app_id, workdir)
+    return launches
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  max_abs_err: float, max_rel_err: float, timed: dict,
                  timed_shape: dict) -> dict:
@@ -3147,6 +3980,8 @@ def main() -> int:
                 path, rec_model, workdir)
             chol_launches += sim_launches
             cg_launches += fold_launches
+            del rec_model
+            cg_launches += template_phases(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

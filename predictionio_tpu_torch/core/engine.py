@@ -127,6 +127,12 @@ class _ModelUnpickler(pickle.Unpickler):
                          "which a model blob may not hold")
 
 
+def restricted_loads(blob: bytes, instance_id: str = "") -> Any:
+    """Unpickle model bytes this package wrote, through `_ModelUnpickler`
+    (a manually persisted model's own files go through it too)."""
+    return _ModelUnpickler(blob, instance_id).load()
+
+
 class Engine:
     """Class maps for each DASE slot."""
 
@@ -228,7 +234,7 @@ class Engine:
                            instance_id: str = "") -> List[Any]:
         """Unpickle a blob `serialize_models` wrote; `instance_id` names
         the instance in the error when the blob is refused."""
-        return _ModelUnpickler(blob, instance_id).load()
+        return restricted_loads(blob, instance_id)
 
     def prepare_deploy(self, engine_params: EngineParams,
                        persisted_models: List[Any], instance_id: str,

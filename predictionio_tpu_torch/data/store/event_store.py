@@ -7,13 +7,19 @@ engines name apps (and channels) by name; the store resolves the ids
 through the metadata DAOs and forwards to the configured Events backend.
 `find` is what the fold-in scheduler tails, `find_columnar_by_entities`
 what its entity-filtered read goes through. `LEventStore` is another
-name for the same store, as in the reference; its deadline-guarded point
-reads are a later slice.
+name for the same store, as in the reference, and `find_by_entity` is its
+deadline-guarded point read (LEventStore.findByEntity), which the
+e-commerce template's live business rules call at serve time. The
+reference counts timed-out reads in its metrics registry, which is not
+ported: `point_read_stats()` carries the count under the reference's
+name, and the server's `/stats.json` shows it.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import threading
+import time
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -113,6 +119,97 @@ class EventStore:
         return self.events.aggregate_properties(
             app_id=app_id, channel_id=channel_id, entity_type=entity_type,
             start_time=start_time, until_time=until_time, required=required)
+
+
+    # -- serve-time point reads (LEventStore.findByEntity) -----------------
+
+    #: cap on concurrently outstanding deadline-guarded point reads. A
+    #: timed-out read's worker thread keeps running against the slow
+    #: backend (a Python thread cannot be killed); the permit it holds is
+    #: released only when the backend answers, so at most this many
+    #: wedged readers pile up, and past that new deadline reads fail at
+    #: their own deadline instead of minting another stuck thread each.
+    POINT_READ_MAX_INFLIGHT = 8
+
+    _point_read_sem = threading.BoundedSemaphore(POINT_READ_MAX_INFLIGHT)
+    _timeouts_lock = threading.Lock()
+    _timeouts = 0
+
+    @staticmethod
+    def _count_timeout() -> None:
+        with EventStore._timeouts_lock:
+            EventStore._timeouts += 1
+
+    @staticmethod
+    def point_read_stats() -> dict:
+        """The timed-out point reads of this process, under the
+        reference's metric name."""
+        with EventStore._timeouts_lock:
+            return {"pio_event_point_read_timeout_total":
+                    EventStore._timeouts}
+
+    def find_by_entity(self, app_name: str, entity_type: str,
+                       entity_id: str, channel_name: Optional[str] = None,
+                       event_names: Optional[Sequence[str]] = None,
+                       target_entity_type=None, target_entity_id=None,
+                       start_time=None, until_time=None,
+                       limit: Optional[int] = None, latest: bool = True,
+                       timeout_ms: Optional[int] = None) -> list:
+        """An entity's events, latest first unless `latest` is False, with
+        an optional deadline (LEventStore.scala:30; the e-commerce
+        template passes 200 ms). With a timeout the read runs on a worker
+        thread under one of POINT_READ_MAX_INFLIGHT permits, and the wait
+        for a permit shares the deadline; a read that misses it raises
+        TimeoutError and is counted (`point_read_stats`)."""
+        def _query():
+            return list(self.find(
+                app_name=app_name, channel_name=channel_name,
+                entity_type=entity_type, entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id, start_time=start_time,
+                until_time=until_time, limit=limit, reversed_order=latest))
+
+        if timeout_ms is None:
+            return _query()
+        # a healthy burst past the permit count queues briefly and still
+        # answers in time; permits stranded by a wedged backend make new
+        # reads fail at their own deadline
+        t_start = time.monotonic()
+        # the worker returns the permit to the semaphore it came from,
+        # even if the class's has been replaced meanwhile
+        sem = EventStore._point_read_sem
+        if not sem.acquire(timeout=timeout_ms / 1000.0):
+            self._count_timeout()
+            raise TimeoutError(
+                f"event lookup exceeded {timeout_ms} ms deadline: all "
+                f"{self.POINT_READ_MAX_INFLIGHT} deadline-read workers "
+                "are busy (backend wedged?)")
+        done = threading.Event()
+        result: list = []
+        error: list = []
+
+        def _run():
+            try:
+                result.append(_query())
+            except Exception as e:  # raised below if still awaited
+                error.append(e)
+            finally:
+                sem.release()
+                done.set()
+
+        threading.Thread(target=_run, daemon=True,
+                         name="pio-point-read").start()
+        remaining = timeout_ms / 1000.0 - (time.monotonic() - t_start)
+        if not done.wait(max(0.0, remaining)):
+            # the worker keeps its permit until the backend answers; its
+            # late result is dropped
+            self._count_timeout()
+            raise TimeoutError(
+                f"event lookup exceeded {timeout_ms} ms deadline")
+        if error:
+            raise error[0]
+        return result[0]
 
 
 # Module-level default instance, as the reference's singleton.

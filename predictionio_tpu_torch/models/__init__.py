@@ -12,10 +12,14 @@ from predictionio_tpu_torch.core.persistence import REFERENCE_PACKAGE
 
 
 def _registry() -> Dict[str, type]:
-    from predictionio_tpu_torch.models import recommendation, similarproduct
+    from predictionio_tpu_torch.models import (ecommerce, recommendation,
+                                               recommendeduser,
+                                               similarproduct)
     return {
         "recommendation": recommendation.RecommendationEngineFactory,
         "similarproduct": similarproduct.SimilarProductEngineFactory,
+        "ecommercerecommendation": ecommerce.ECommerceEngineFactory,
+        "recommendeduser": recommendeduser.RecommendedUserEngineFactory,
     }
 
 

@@ -5,7 +5,8 @@ The port's counterpart of `predictionio_tpu/models/similarproduct.py`
 `SimilarProductPreparator`, `ALSAlgorithmParams`, `ItemMetadataModel`,
 `SimilarProductModel`, `ALSAlgorithm` with `_build_ratings`, `train`,
 `_build_mask`, `predict`, `batch_predict` and `batch_predict_begin`,
-`LikeAlgorithm`, `SimilarProductDataSource` and the engine factory). View
+`LikeAlgorithm`, `DIMSUMAlgorithmParams`, `DIMSUMModel`,
+`DIMSUMAlgorithm`, `SimilarProductDataSource` and the engine factory). View
 events are summed into counts per (user, item), trained with implicit ALS,
 and a query scores every item by its summed cosine similarity to the query
 items' factors, under category, white-list, black-list and year filters.
@@ -23,12 +24,20 @@ touched entities' events and properties through the store's entity
 pushdown, and `ALSAlgorithm.fold_in` (and `LikeAlgorithm`'s) re-solves
 only the touched rows of the implicit factorization and refreshes the
 normalized serve table; a newly `$set` and viewed item becomes
-recommendable without a retrain. DIMSUM is a later slice (ROADMAP.md).
+recommendable without a retrain.
+
+The dimsum variant (`DIMSUMAlgorithm`, `DIMSUMModel`): the exact item-item
+cosine similarity of binary view co-occurrence, its Gram accumulated on
+the card (`ops/similarity.item_cosine_similarities`), kept as a host
+[I, I] table that a query row-gathers and sums. The model persists itself
+under `<PIO_FS_BASEDIR>/dimsum/<instance_id>` and the engine instance
+stores only its manifest.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -39,9 +48,12 @@ from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          EngineParams, FirstServing,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
+from predictionio_tpu_torch.core.engine import restricted_loads
+from predictionio_tpu_torch.core.persistence import PersistentModel
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
 from predictionio_tpu_torch.data.storage.base import aggregate_event_names
+from predictionio_tpu_torch.data.storage.registry import base_dir
 from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
@@ -54,6 +66,7 @@ from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
 from predictionio_tpu_torch.ops.solve import COUNTS
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    cosine_top_k,
+                                                   item_cosine_similarities,
                                                    masked_top_k_batch_begin,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
@@ -307,18 +320,25 @@ class ItemMetadataModel:
                 years[ix] = float(y)
         return years
 
+    @staticmethod
+    def derive_categories(items: Dict[str, Item], item_ix: EntityIdIxMap
+                          ) -> List[Optional[set]]:
+        """Each item's categories as a set, by dense index (None
+        without)."""
+        out = []
+        for ix in range(len(item_ix)):
+            item = items.get(item_ix.id_of(ix))
+            out.append(set(item.categories) if item and item.categories
+                       else None)
+        return out
+
     @classmethod
     def metadata_kwargs(cls, items: Dict[str, Item],
                         item_ix: EntityIdIxMap) -> dict:
         """Constructor kwargs for the shared fields, derived once from the
         training data's items."""
-        item_categories = []
-        for ix in range(len(item_ix)):
-            item = items.get(item_ix.id_of(ix))
-            item_categories.append(
-                set(item.categories) if item and item.categories else None)
         return dict(item_ix=item_ix, items=dict(items),
-                    item_categories=item_categories,
+                    item_categories=cls.derive_categories(items, item_ix),
                     item_years=cls.derive_years(items, item_ix))
 
     def properties_of(self, keys: Tuple[str, ...]):
@@ -620,12 +640,106 @@ class LikeAlgorithm(ALSAlgorithm):
         return RatingsCOO(ui, ii, vals, len(user_ix), len(item_ix))
 
 
+@dataclass(frozen=True)
+class DIMSUMAlgorithmParams(Params):
+    """dimsum variant (DIMSUMAlgorithm.scala:23): `threshold` drops
+    similarities below it. The similarity is exact, not DIMSUM's sampling
+    approximation."""
+    threshold: float = 0.0
+    return_properties: Tuple[str, ...] = ()
+    device: Optional[str] = None   # None = the card; "cpu" only if asked
+
+
+@dataclass(kw_only=True)
+class DIMSUMModel(ItemMetadataModel, PersistentModel):
+    """Item-item similarity rows (host numpy) + id maps + item metadata.
+    It persists itself (the reference's IPersistentModel save to
+    /tmp/<id>; here `<PIO_FS_BASEDIR>/dimsum/<instance_id>`): the table
+    as `similarities.npy`, the maps and metadata as `maps.pkl`, read back
+    through the engine's restricted unpickler."""
+    similarities: np.ndarray              # [I, I] f32, zero diagonal
+
+    @classmethod
+    def _dir(cls, instance_id: str) -> str:
+        return os.path.join(base_dir(), "dimsum", instance_id)
+
+    def save(self, instance_id: str, params) -> bool:
+        import pickle
+        d = self._dir(instance_id)
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, "similarities.npy"), self.similarities)
+        with open(os.path.join(d, "maps.pkl"), "wb") as f:
+            pickle.dump({"item_ix": self.item_ix, "items": self.items,
+                         "item_categories": self.item_categories,
+                         "item_years": self.item_years}, f)
+        return True
+
+    @classmethod
+    def load(cls, instance_id: str, params) -> "DIMSUMModel":
+        d = cls._dir(instance_id)
+        sims = np.load(os.path.join(d, "similarities.npy"))
+        with open(os.path.join(d, "maps.pkl"), "rb") as f:
+            maps = restricted_loads(f.read(), instance_id)
+        return cls(similarities=sims, **maps)
+
+
+class DIMSUMAlgorithm(P2LAlgorithm):
+    """dimsum variant (DIMSUMAlgorithm.scala:67-220): all-pairs item
+    cosine similarity from binary view co-occurrence, computed at train
+    time on `params.device`; a query sums its items' similarity rows on
+    the host (the model is the score table) under the similar-product
+    filters, score > 0 kept."""
+    PARAMS_CLASS = DIMSUMAlgorithmParams
+    QUERY_CLASS = Query
+
+    def __init__(self, params: Optional[DIMSUMAlgorithmParams] = None):
+        super().__init__(params or DIMSUMAlgorithmParams())
+        self.last_train_telemetry: dict = {}
+
+    def train(self, pd: PreparedData) -> DIMSUMModel:
+        td = pd.td
+        if not len(td.view_events):
+            raise ValueError("No view events to train on")
+        views = td.view_events
+        user_ix, ui = EntityIdIxMap.build_with_indices(views.users)
+        item_ix = EntityIdIxMap.build(np.concatenate(
+            [np.array(list(td.items), dtype=str), views.items.astype(str)]))
+        ii = item_ix.to_indices_array(views.items)
+        self.last_train_telemetry = {"views": len(views),
+                                     "users": len(user_ix),
+                                     "items": len(item_ix)}
+        sims = item_cosine_similarities(
+            ui, ii, len(user_ix), len(item_ix),
+            threshold=self.params.threshold, device=self.params.device,
+            telemetry=self.last_train_telemetry)
+        return DIMSUMModel(
+            similarities=sims,
+            **ItemMetadataModel.metadata_kwargs(td.items, item_ix))
+
+    def predict(self, model: DIMSUMModel, query: Query) -> ItemScoreResult:
+        q_ix = resolve_ids(model.item_ix, query.items)
+        if len(q_ix) == 0:
+            logger.info("No similarity row for query items %s.", query.items)
+            return ItemScoreResult(())
+        scores = model.similarities[q_ix].sum(axis=0)
+        mask = ALSAlgorithm._build_mask(model, query, q_ix)
+        scores = np.where(mask & (scores > 0), scores, -np.inf)
+        k = min(query.num, len(scores))
+        idx = np.argpartition(-scores, k - 1)[:k]
+        idx = idx[np.argsort(-scores[idx], kind="stable")]
+        keep = np.isfinite(scores[idx])
+        return top_scores_to_result(
+            model.item_ix, scores[idx][keep], idx[keep],
+            properties_of=model.properties_of(self.params.return_properties))
+
+
 class SimilarProductEngineFactory(EngineFactory):
     @classmethod
     def apply(cls) -> Engine:
         return Engine({"": SimilarProductDataSource},
                       {"": SimilarProductPreparator},
-                      {"als": ALSAlgorithm, "likealgo": LikeAlgorithm},
+                      {"als": ALSAlgorithm, "likealgo": LikeAlgorithm,
+                       "dimsum": DIMSUMAlgorithm},
                       {"": FirstServing})
 
     @classmethod

@@ -4,7 +4,8 @@ model's device.
 The port's counterpart of `predictionio_tpu/ops/similarity.py`
 (`normalize_rows`, `cosine_top_k` computing `_cosine_topk`,
 `build_filter_mask`, `masked_topk_dims`, `masked_top_k_batch[_begin]`
-computing `_masked_topk_impl`, `unpack_top_k_rows`). Score = sum over the
+computing `_masked_topk_impl`, `unpack_top_k_rows`, and the DIMSUM
+template's `item_cosine_similarities`). Score = sum over the
 query items of cos(q, item); items not allowed by the host-built filter
 mask, or with score <= 0, are excluded (`masked_top_k_batch` keeps scores
 <= 0 when asked, for explicit-ALS dot scores). Plain PyTorch: one matmul
@@ -17,11 +18,13 @@ item table stays exact-size. The sharded route is a later slice
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.device import resolve_device, synchronize
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.utils import buckets as B
 
@@ -150,3 +153,62 @@ def unpack_top_k_rows(scores_row: np.ndarray, idx_row: np.ndarray,
     idx_row = idx_row[:num]
     keep = np.isfinite(scores_row)
     return scores_row[keep], idx_row[keep]
+
+
+def item_cosine_similarities(user_ix: np.ndarray, item_ix: np.ndarray,
+                             n_users: int, n_items: int,
+                             threshold: float = 0.0,
+                             chunk_users: int = 4096, device=None,
+                             telemetry: Optional[dict] = None
+                             ) -> np.ndarray:
+    """Exact all-pairs item cosine similarity from binary (user, item)
+    interactions: the dimsum variant's RowMatrix.columnSimilarities, as
+    the reference computes it (exactly, not DIMSUM's sampling
+    approximation).
+
+    The co-occurrence Gram G = M^T M accumulates on `device` (default:
+    the card) in user-row chunks of `chunk_users`, so the dense [users,
+    items] matrix never exists; a duplicate (user, item) pair sets its
+    entry once ("set, not add"). Then S = G / (d d^T) with d =
+    sqrt(max(diag G, 1e-12)), a zero diagonal, and entries below
+    `threshold` zeroed when it is > 0. The entries of G are counts, exact
+    in float32 (TF32 is off, see device.py); the normalization is the
+    reference's float32 arithmetic. Returns S [I, I] float32 on the host.
+    `telemetry`, when a dict, receives `gram_s` (the accumulation's wall
+    time, closed by a synchronize), `gram_device_ms` on a card (CUDA
+    events) and `chunks`."""
+    dev = resolve_device(device)
+    tel = telemetry if telemetry is not None else {}
+    order = np.argsort(user_ix, kind="stable")
+    u = np.asarray(user_ix, dtype=np.int64)[order]
+    i = np.asarray(item_ix, dtype=np.int64)[order]
+    u_d, i_d = torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev)
+    G = torch.zeros((n_items, n_items), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    events = None
+    if dev.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    chunks = 0
+    for start in range(0, n_users, chunk_users):
+        lo, hi = np.searchsorted(u, [start, start + chunk_users])
+        chunk = torch.zeros((min(chunk_users, n_users - start), n_items),
+                            dtype=torch.float32, device=dev)
+        chunk[u_d[lo:hi] - start, i_d[lo:hi]] = 1.0
+        G.addmm_(chunk.T, chunk)
+        chunks += 1
+    if events is not None:
+        events[1].record()
+    synchronize(dev)
+    tel["gram_s"] = time.perf_counter() - t0
+    if events is not None:
+        tel["gram_device_ms"] = events[0].elapsed_time(events[1])
+    tel["chunks"] = chunks
+    del u_d, i_d
+    d = G.diagonal().clamp(min=1e-12).sqrt()
+    S = G.div_(d[:, None] * d[None, :])
+    S.fill_diagonal_(0.0)
+    if threshold > 0:
+        S.masked_fill_(S < threshold, 0.0)
+    return S.cpu().numpy()

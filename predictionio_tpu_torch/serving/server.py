@@ -78,6 +78,7 @@ from typing import List, Optional, Tuple
 from predictionio_tpu_torch.core.engine import (Engine, EngineParams,
                                                 TrainResult)
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.store.event_store import EventStore
 from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
                                                  CanaryConfig,
                                                  CanaryController,
@@ -567,8 +568,10 @@ class EngineServer:
         """`/stats.json`: the status, the micro-batcher's counters (at the
         top level, as the reference's), the last warm-up, the swap and
         fold-in counters, the canary (`canary`, `lastGoodVersion`), the
-        result cache (`resultCache`, when on) and the readback plane's
-        counters. A poll also runs the canary's watchdog, so an idle
+        result cache (`resultCache`, when on), the readback plane's
+        counters and the process's timed-out event point reads
+        (`pio_event_point_read_timeout_total`, the live business rules'
+        reads). A poll also runs the canary's watchdog, so an idle
         server still lands its verdict."""
         if self.canary.enabled:
             self._apply_canary_decision()
@@ -590,6 +593,7 @@ class EngineServer:
         if self.batcher is not None:
             out.update(self.batcher.stats())
         out["readback"] = readback.stats_snapshot()
+        out.update(EventStore.point_read_stats())
         return out
 
     def answer(self, query_dict, deadline_s: Optional[float] = None) -> dict:

@@ -5,7 +5,11 @@ numpy tables, the id lists of its vocabularies (`EntityIdIxMap._ids`,
 in dense-index order) and its item properties, and builds the port's
 `RecommendationModel` on `device`. `from_jax_similarproduct_model` does
 the same for the similar-product `SimilarProductModel` (its tables, id
-lists and item metadata). Both take plain arrays and dicts, so this
+lists and item metadata). `from_jax_ecommerce_model`,
+`from_jax_recommendeduser_model` and `from_jax_dimsum_model` do the same
+for the e-commerce `ECommerceModel`, the recommended-user
+`RecommendedUserModel` and the dimsum `DIMSUMModel` (whose table stays on
+the host, as it serves there). All take plain arrays and dicts, so this
 module imports nothing of the reference package.
 """
 
@@ -17,9 +21,11 @@ import numpy as np
 
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.models.ecommerce import ECommerceModel
 from predictionio_tpu_torch.models.recommendation import RecommendationModel
+from predictionio_tpu_torch.models.recommendeduser import RecommendedUserModel
 from predictionio_tpu_torch.models.similarproduct import (
-    Item, ItemMetadataModel, SimilarProductModel)
+    DIMSUMModel, Item, ItemMetadataModel, SimilarProductModel)
 from predictionio_tpu_torch.ops.als import ALSModel
 
 
@@ -85,3 +91,67 @@ def from_jax_similarproduct_model(
         **ItemMetadataModel.metadata_kwargs(items, item_ix))
     model.table()
     return model
+
+
+def _table(name: str, table, n_rows: int, rank: Optional[int] = None
+           ) -> np.ndarray:
+    """A float32 table of `n_rows` rows (and `rank` columns), or
+    ValueError."""
+    T = np.ascontiguousarray(table, dtype=np.float32)
+    if T.ndim != 2 or T.shape[0] != n_rows or (
+            rank is not None and T.shape[1] != rank):
+        raise ValueError(f"{name} {T.shape} does not match {n_rows} ids"
+                         + (f" at rank {rank}" if rank is not None else ""))
+    return T
+
+
+def from_jax_ecommerce_model(user_factors, item_factors,
+                             item_factors_normalized,
+                             user_ids: Sequence[str],
+                             item_ids: Sequence[str], items: Dict[str, Item],
+                             rank: int, device=None) -> ECommerceModel:
+    """Row i of the user table belongs to `user_ids[i]`, of the item
+    tables to `item_ids[i]`; `items` is the item metadata by id (the
+    port's `Item`), from which the category sets are derived as train
+    derives them. The tables are uploaded to `device` (default: the
+    card)."""
+    item_ix = EntityIdIxMap.from_ids(item_ids)
+    model = ECommerceModel(
+        rank=rank,
+        user_factors=_table("user_factors", user_factors, len(user_ids),
+                            rank),
+        item_factors=_table("item_factors", item_factors, len(item_ids),
+                            rank),
+        item_factors_normalized=_table("item_factors_normalized",
+                                       item_factors_normalized,
+                                       len(item_ids), rank),
+        user_ix=EntityIdIxMap.from_ids(user_ids), item_ix=item_ix,
+        items=dict(items),
+        item_categories=ItemMetadataModel.derive_categories(items, item_ix),
+        device=resolve_device(device))
+    model.place()
+    return model
+
+
+def from_jax_recommendeduser_model(followed_factors_normalized,
+                                   followed_ids: Sequence[str],
+                                   device=None) -> RecommendedUserModel:
+    """Row i of the normalized table belongs to `followed_ids[i]`; it is
+    uploaded to `device` (default: the card)."""
+    model = RecommendedUserModel(
+        followed_factors_normalized=_table(
+            "followed_factors_normalized", followed_factors_normalized,
+            len(followed_ids)),
+        followed_ix=EntityIdIxMap.from_ids(followed_ids),
+        device=resolve_device(device))
+    model.table()
+    return model
+
+
+def from_jax_dimsum_model(similarities, item_ids: Sequence[str],
+                          items: Dict[str, Item]) -> DIMSUMModel:
+    """Row and column i of `similarities` belong to `item_ids[i]`;
+    `items` is the item metadata by id. The table serves on the host."""
+    S = _table("similarities", similarities, len(item_ids), len(item_ids))
+    return DIMSUMModel(similarities=S, **ItemMetadataModel.metadata_kwargs(
+        items, EntityIdIxMap.from_ids(item_ids)))

@@ -3,8 +3,10 @@ version, and the ALS trains (explicit through the CG kernel, implicit
 through the Cholesky kernel, explicit and implicit at bf16 compute through
 the Schulz kernel) on the card against the same trains on the CPU, the
 fold-in (every solve through the CG kernel) against the same fold on the
-CPU, and the recommendation template's store -> `create_workflow_main` ->
-`EngineServer.load` round trip on the card.
+CPU, the recommendation and e-commerce templates' store ->
+`create_workflow_main` -> `EngineServer.load` round trips on the card, the
+recommended-user train through the CG kernel, and the DIMSUM Gram on the
+card against the CPU's.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -621,3 +623,159 @@ def test_a_cache_hit_on_the_card_returns_the_miss_bytes(cuda, monkeypatch):
         assert sorted(ix) == sorted(np.argsort(-s64)[:10].tolist())
     finally:
         srv.batcher.stop()
+
+
+def _ecommerce_store(tmp_path, monkeypatch):
+    """small_ratings() as `rate` events, item `$set` categories, views of
+    a user the train never sees, and an unavailableItems list."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage.base import App
+    for k in list(os.environ):
+        if k.startswith("PIO_STORAGE_"):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "pio"))
+    registry.clear_cache()
+    ui, ii, vv, _, n_items = small_ratings()
+    app_id = registry.Storage.get_meta_data_apps().insert(App(0, "a"))
+    ev = registry.Storage.get_events()
+    ev.insert_columnar(ColumnarBatch(
+        len(vv), "rate", "user", [f"u{u}" for u in ui], "item",
+        [f"i{i}" for i in ii], [{"rating": float(v)} for v in vv]), app_id)
+    ev.insert_columnar(ColumnarBatch(
+        n_items, "$set", "item", [f"i{i}" for i in range(n_items)],
+        properties=[{"categories": [f"c{i % 3}"]} for i in range(n_items)]),
+        app_id)
+    ev.insert_columnar(ColumnarBatch(
+        3, "view", "user", ["fresh"] * 3, "item", ["i1", "i2", "i3"]),
+        app_id)
+    ev.insert_columnar(ColumnarBatch(
+        1, "$set", "constraint", ["unavailableItems"],
+        properties=[{"items": ["i4", "i5"]}]), app_id)
+    return registry
+
+
+def test_ecommerce_store_train_and_deploy_on_the_card(cuda, tmp_path,
+                                                      monkeypatch):
+    """The e-commerce template from the store on the card: every implicit
+    solve, primal and dual, a launch of the CG kernel ('auto'); the
+    factors match the same train on the CPU through the plain CG; a
+    loaded server's answers equal the CPU copy's `predict` (ids; scores
+    within f16 rounding)."""
+    from predictionio_tpu_torch.models import ecommerce as TE
+    from predictionio_tpu_torch.ops.ratings import dedup_ratings
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.weights import from_jax_ecommerce_model
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    registry = _ecommerce_store(tmp_path, monkeypatch)
+    try:
+        algo = dict(app_name="a", rank=16, num_iterations=3, lam=0.1,
+                    alpha=1.0, seed=2)
+        path = tmp_path / "engine.json"
+        path.write_text(json.dumps({
+            "engineFactory": "ecommercerecommendation",
+            "datasource": {"params": {"app_name": "a"}},
+            "algorithms": [{"name": "ecomm", "params": algo}]}))
+        T.COUNTS.reset()
+        tel = {}
+        create_workflow_main(WorkflowConfig(engine_variant=str(path)),
+                             telemetry=tel)
+        assert T.COUNTS.cg_solve == tel["algorithms"][0]["solver_calls"] > 0
+        assert T.COUNTS.cg_solve_plain == T.COUNTS.chol_solve == 0
+        srv = EngineServer(ServerConfig(engine_variant=str(path))).load()
+        (model,) = srv.models
+        assert model.als().tables()[0].device.type == "cuda"
+        td = TE.ECommerceDataSource(TE.DataSourceParams(
+            app_name="a")).read_training()
+        rd = td.rate_events
+        u, i, v = dedup_ratings(model.user_ix.to_indices_array(rd.users),
+                                model.item_ix.to_indices_array(rd.items),
+                                rd.vals, rd.ts, "latest")
+        on_cpu = TA.als_train(
+            RatingsCOO(u, i, v, len(model.user_ix), len(model.item_ix)),
+            TA.ALSConfig(rank=16, iterations=3, lam=0.1, seed=2,
+                         implicit_prefs=True, alpha=1.0,
+                         solver="cg_cuda"), device="cpu")
+        for a, b in ((on_cpu.user_factors, model.user_factors),
+                     (on_cpu.item_factors, model.item_factors)):
+            assert np.abs(a - b).max() <= FACTOR_TOL[0.1] * np.abs(a).max()
+        host = from_jax_ecommerce_model(
+            model.user_factors, model.item_factors,
+            model.item_factors_normalized, list(model.user_ix._ids),
+            list(model.item_ix._ids), model.items, 16, device="cpu")
+        cpu_algo = TE.ECommAlgorithm(TE.ECommAlgorithmParams(
+            **algo, device="cpu"))
+        for body in ({"user": "u3", "num": 5},
+                     {"user": "u3", "num": 5, "categories": ["c1"]},
+                     {"user": "fresh", "num": 5}, {"user": "ghost",
+                                                   "num": 5}):
+            got = srv.handle_query(body)["itemScores"]
+            want = cpu_algo.predict(host, TE.Query.from_dict(body))
+            assert [s["item"] for s in got] == [
+                s.item for s in want.item_scores], body
+            assert not {"i4", "i5"} & {s["item"] for s in got}
+            ws = np.array([s.score for s in want.item_scores])
+            gs = np.array([s["score"] for s in got])
+            assert (np.abs(gs - ws) <= 2.0 ** -11 * np.abs(ws) + 1e-6).all()
+    finally:
+        registry.clear_cache()
+
+
+def test_recommendeduser_train_on_the_card_goes_through_the_kernel(cuda):
+    """The recommended-user train on the card: every solve a CG kernel
+    launch; the normalized followed table matches the CPU's plain-CG
+    train; `batch_predict` equals `predict` (ids)."""
+    from predictionio_tpu_torch.models import recommendeduser as TU
+    from predictionio_tpu_torch.models.common import RatingsData
+    from predictionio_tpu_torch.ops.similarity import normalize_rows
+    ui, ii, _, _, _ = small_ratings()
+    td = TU.TrainingData(users={}, follow_events=RatingsData(
+        np.array([f"u{u}" for u in ui]), np.array([f"u{i}" for i in ii]),
+        np.ones(len(ui), dtype=np.float32)))
+    algo = TU.RecommendedUserALSAlgorithm(TU.ALSAlgorithmParams(
+        rank=16, num_iterations=3, lam=0.1, seed=2))
+    T.COUNTS.reset()
+    model = algo.train(TU.PreparedData(td))
+    tel = algo.last_train_telemetry
+    assert T.COUNTS.cg_solve == tel["solver_calls"] > 0
+    assert T.COUNTS.cg_solve_plain == T.COUNTS.chol_solve == 0
+    followers, fi = np.unique(td.follow_events.users, return_inverse=True)
+    followed, fo = np.unique(td.follow_events.items, return_inverse=True)
+    ref = TA.als_train(
+        RatingsCOO(fi.astype(np.int32), fo.astype(np.int32),
+                   np.ones(len(fi), dtype=np.float32), len(followers),
+                   len(followed)),
+        TA.ALSConfig(rank=16, iterations=3, lam=0.1, seed=2,
+                     implicit_prefs=True, alpha=1.0, solver="cg_cuda"),
+        device="cpu")
+    a = normalize_rows(ref.item_factors)
+    b = model.followed_factors_normalized
+    assert np.abs(a - b).max() <= FACTOR_TOL[0.1] * np.abs(a).max()
+    queries = [TU.Query(("u1",), 5), TU.Query(("u2", "u7"), 8),
+               TU.Query(("nobody",), 3)]
+    batched = dict(algo.batch_predict(model, list(enumerate(queries))))
+    for ix, q in enumerate(queries):
+        assert [s.user for s in batched[ix].similar_user_scores] == [
+            s.user for s in algo.predict(model, q).similar_user_scores]
+
+
+def test_dimsum_gram_on_the_card_matches_the_cpu(cuda):
+    """item_cosine_similarities with its Gram on the card equals the CPU's
+    (float32 counts are exact with TF32 off; the normalization is the
+    same float32 arithmetic)."""
+    from predictionio_tpu_torch.ops.similarity import \
+        item_cosine_similarities
+    rng = np.random.default_rng(3)
+    ui = rng.integers(0, 5000, 60_000)
+    ii = rng.integers(0, 700, 60_000)
+    for threshold in (0.0, 0.05):
+        tel = {}
+        on_card = item_cosine_similarities(ui, ii, 5000, 700, threshold,
+                                           chunk_users=1024, device=cuda,
+                                           telemetry=tel)
+        on_cpu = item_cosine_similarities(ui, ii, 5000, 700, threshold,
+                                          chunk_users=1024, device="cpu")
+        assert np.abs(on_card - on_cpu).max() <= 1e-6
+        assert tel["gram_device_ms"] > 0 and tel["chunks"] == 5
