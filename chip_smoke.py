@@ -14,13 +14,20 @@ PyTorch version at the shapes its path gives it. Then:
   distinct pairs; 2 iterations) through the preparator and
   `ALSAlgorithm.train` (every solve through the CG kernel), served over
   `POST /queries.json`;
+- the ALS config fields on that path's prepared data (`als_fields`): the
+  reference's ablation rows with solver 'cg_cuda' and sweep_chunk 4 (the
+  baseline, bf16 factor tables held to its RMSE, and `fuse_iteration`,
+  each iteration replayed from CUDA graphs, its tables bit for bit the
+  baseline's, every replayed solve counted as a CG launch), then
+  dual_solve='never' against 'auto' on the first 20,000 users;
 - the similar-product path: the same 20M (user, item) pairs as view
   events summed into counts, all 26,744 items $set with synthetic
   categories, rank-200 implicit ALS (alpha 1, lam 0.01, 2 iterations)
   through the data source, preparator and `ALSAlgorithm.train` with
   solver 'chol_cuda' (every solve through the Cholesky kernel), served
   over `POST /queries.json` with category, black-list and white-list
-  filters;
+  filters; then the same train fused (two graphs an iteration,
+  the Grams' eigh eager between them), bit for bit the unfused tables;
 - the Schulz path: the recommendation template on the first path's
   prepared data with the reference's full-scale Schulz configuration
   (solver 'schulz_cuda', compute dtype bfloat16, sweep chunk 4; 2
@@ -37,7 +44,11 @@ PyTorch version at the shapes its path gives it. Then:
   float64 top-k under the reference's mask, built from the items' seeded
   metadata; a retrain through the command line (`cli.main(["train",
   ...])`, what `python -m predictionio_tpu_torch train` runs) then swaps
-  in on `POST /reload`;
+  in on `POST /reload`; then `pio eval` on the same store (`rec_eval`):
+  `create_workflow_main` on this script's `RecEval`/`RecSweep`, a
+  FastEvalEngine of the recommendation template (2 folds, one read, two
+  lam settings, every solve a CG launch), each PrecisionAtK@10 held to
+  the float64 top-10 of the same tables computed on the card;
 - the serve plane: the similar-product template trained from the same
   store (`rate` events read as views, rank 200, solver 'chol_cuda', every
   solve through the Cholesky kernel) through the command line; both
@@ -76,7 +87,16 @@ PyTorch version at the shapes its path gives it. Then:
   point-read timeouts; the result cache keeping a bought item, as the
   reference's does, and `PIO_SERVE_CACHE=off` dropping it; 32 clients x
   20 queries); the recommended-user template on 1,000,000 `follow`
-  events (every solve through the CG kernel, 64 queries held).
+  events (every solve through the CG kernel, 64 queries held);
+- the classification template in an app of its own on the same store
+  (`cls_*`): 100,000 users $set with a plan of 4 classes and Poisson
+  attributes; `python -m predictionio_tpu_torch eval chip_smoke.ClsEval
+  chip_smoke.ClsSweep` as a subprocess, each naive Bayes accuracy equal
+  to a float64 numpy naive Bayes on the same folds; `train` with naive
+  Bayes and the random forest (grown on the card, its arrays equal to
+  the plain version's on the CPU given the same draws); a `deploy`
+  subprocess, 64 answers each the float64 argmax of the persisted
+  model.
 
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
@@ -233,6 +253,29 @@ ECOM_POOL = 2000                 # known users drawn from: with seeded
 #                                  views or buys, and any
 RECUSER_FOLLOWS = (1_000_000, 9)
 RECUSER_QUERIES = 64
+FIELDS_CHUNK = 4                 # als_fields: the ablation rows' sweep_chunk
+BF16_RMSE_TOL = 0.02             # bf16 tables vs f32 (tests/test_solve.py)
+DUAL_USERS = 20_000              # dual_solve='never': the first users only
+DUAL_LAM = 0.1
+DUAL_TOL = 1e-4                  # of the factor scale at lam 0.1 (ROADMAP)
+EVAL_K = 2                       # rec_eval: folds, query num, the sweep
+EVAL_QUERY_NUM = 10
+EVAL_LAMS = (0.05, 0.1)
+EVAL_CHUNK = 4096                # users a float64 top-k chunk on the card
+CLS_APP = "clsapp"
+CLS_USERS = 100_000              # cls_*: one $set a user, 4 classes
+CLS_MEANS = ((8.0, 2.0, 1.0), (2.0, 8.0, 1.0), (1.0, 2.0, 8.0),
+             (4.0, 4.0, 4.0))    # class-dependent Poisson means of attr0-2
+CLS_LAMS = (0.1, 1.0, 10.0)
+CLS_EVAL_K = 3
+CLS_KEEP_ENV = "SMOKE_CLS_KEEP_DIR"   # where cls_eval's sweep keeps models
+CLS_NB_TOL = 1e-9                # naive Bayes pi/theta vs float64 numpy:
+# the card's class counts and feature sums are sums of small integers,
+# exact in float32 below 2**24, and pi and theta are the same float64
+# formulas, so only the last bits of the logs may differ
+CLS_QUERIES = 64
+CLS_TIE_REL = 1e-12              # a label may differ only where the top
+                                 # two float64 scores tie this closely
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -892,7 +935,7 @@ def phase_implicit_train(explicit_pairs: int):
           f"{tel['ratings']} distinct view pairs, but the explicit path's "
           f"dedup kept {explicit_pairs} of the same pairs")
     implicit_resolve_check(algo, model, td)
-    return algo, model, counts["chol_solve"]
+    return algo, model, counts["chol_solve"], pd
 
 
 def implicit_resolve_check(algo, model, td) -> None:
@@ -1519,11 +1562,13 @@ def workflow_train(path: str, phase: str, kernel="cg_solve") -> tuple:
         f"train of {path} exited {rc} saying {said}")
     iid = said[-1].rsplit(" ", 1)[1]
     tel = dict(tels[0])
-    (algo_tel,) = tel.pop("algorithms")
+    algo_tels = tel.pop("algorithms")
+    algo_tel = algo_tels[0]
     inst = Storage.get_meta_data_engine_instances().get(iid)
     launches = counts.get(kernel, 0)
     emit(phase, template=inst.engine_factory, instance=iid,
-         status=inst.status, workflow_s=workflow_s, **tel, **algo_tel,
+         status=inst.status, workflow_s=workflow_s, **tel,
+         **(algo_tel if len(algo_tels) == 1 else {"algorithms": algo_tels}),
          launch_counts=counts)
     check(inst.status == "COMPLETED", f"engine instance {iid} is "
           f"{inst.status}")
@@ -3886,6 +3931,623 @@ def phase_recuser(app_id: int, workdir: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The ALS config fields (als_fields)
+# ---------------------------------------------------------------------------
+
+def fields_train(coo, what: str, kernel: str = "cg_solve", **cfg_kw):
+    """`als_train` on the card with every count set to 0 just before and
+    read just after: every solve, the fused warm-up's and every replay's
+    included, must be a `kernel` launch. Returns (model, telemetry,
+    launches, wall seconds)."""
+    from predictionio_tpu_torch.ops.als import ALSConfig, als_train
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    tel = {}
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    model = als_train(coo, ALSConfig(**cfg_kw), telemetry=tel)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(vars(COUNTS))
+    launches = counts[kernel]
+    calls = tel["solver_calls"] + tel.get("warmup_calls", 0)
+    check(launches == calls, f"{what}: {launches} {kernel} launches for "
+          f"{calls} solver calls")
+    for name, n in counts.items():
+        check(name == kernel or n == 0, f"{what}: {name} ran {n} times")
+    return model, tel, launches, wall_s
+
+
+def fields_row(tel: dict, launches: int, wall_s: float) -> dict:
+    keep = ("plan_s", "upload_s", "iters_s", "s_per_iter", "iter_s",
+            "solver_calls", "warmup_calls", "capture_s", "replays",
+            "captured_launches")
+    return {"train_s": wall_s, "kernel_launches": launches,
+            **{k: tel[k] for k in keep if k in tel}}
+
+
+def sample_rmse(als, coo, sample) -> float:
+    from predictionio_tpu_torch.ops.als import predict_ratings
+    pred = predict_ratings(als, coo.user_idx[sample], coo.item_idx[sample])
+    return float(np.sqrt(np.mean((pred - coo.rating[sample]) ** 2)))
+
+
+def phase_als_fields(pd, cg_rmse) -> int:
+    """The reference's ablation rows (bench.py:2497-2503) on the train
+    phase's prepared data, rank 200, lam 0.01, 2 iterations, solver
+    'cg_cuda', sweep_chunk 4: the baseline, bf16 factor tables (RMSE on
+    the train phase's 100k sample within BF16_RMSE_TOL of the baseline's,
+    host tables float32) and the fused iteration (CUDA graphs; tables bit
+    for bit the baseline's: the same kernels in the same order). Then
+    dual_solve='never' against 'auto' on the first DUAL_USERS users at
+    lam 0.1, held to DUAL_TOL of the factor scale. Returns the CG
+    launches."""
+    from predictionio_tpu_torch.ops.ratings import RatingsCOO
+    coo = pd.ratings_coo
+    sample = cg_rmse[0]
+    kw = dict(rank=RANK, iterations=ITERATIONS, lam=LAM, seed=0,
+              solver="cg_cuda", sweep_chunk=FIELDS_CHUNK)
+    rows, launches = {}, 0
+    base, tel, n, wall = fields_train(coo, "als_fields baseline", **kw)
+    rows["baseline"] = fields_row(tel, n, wall)
+    rows["baseline"]["rmse_100k"] = sample_rmse(base, coo, sample)
+    launches += n
+    bf16, tel, n, wall = fields_train(coo, "als_fields bf16",
+                                      factor_dtype="bfloat16", **kw)
+    launches += n
+    rows["bfloat16"] = fields_row(tel, n, wall)
+    rows["bfloat16"]["rmse_100k"] = sample_rmse(bf16, coo, sample)
+    check(bf16.user_factors.dtype == np.float32
+          and bf16.item_factors.dtype == np.float32,
+          "the bf16 train's host tables are not float32")
+    d_rmse = abs(rows["bfloat16"]["rmse_100k"] - rows["baseline"]["rmse_100k"])
+    check(d_rmse < BF16_RMSE_TOL, f"bf16 tables moved the RMSE by {d_rmse}")
+    del bf16
+    fused, tel, n, wall = fields_train(coo, "als_fields fused",
+                                       fuse_iteration=True, **kw)
+    launches += n
+    rows["fused"] = fields_row(tel, n, wall)
+    check(tel["replays"] == ITERATIONS, f"{tel['replays']} graph replays "
+          f"for {ITERATIONS} iterations")
+    equal = (np.array_equal(fused.user_factors, base.user_factors)
+             and np.array_equal(fused.item_factors, base.item_factors))
+    rows["fused"]["tables_bit_equal_baseline"] = equal
+    check(equal, "the fused train's tables differ from the baseline's")
+    del fused, base
+    emit("als_fields", rank=RANK, iterations=ITERATIONS, lam=LAM,
+         solver="cg_cuda", sweep_chunk=FIELDS_CHUNK, rows=rows,
+         bf16_rmse_delta=d_rmse, bf16_rmse_tol=BF16_RMSE_TOL)
+
+    sel = coo.user_idx < DUAL_USERS
+    sub = RatingsCOO(coo.user_idx[sel], coo.item_idx[sel], coo.rating[sel],
+                     DUAL_USERS, coo.n_items)
+    kw = dict(rank=RANK, iterations=ITERATIONS, lam=DUAL_LAM, seed=0,
+              solver="cg_cuda")
+    auto, tel_a, n_a, wall_a = fields_train(sub, "dual_solve auto", **kw)
+    never, tel_n, n_n, wall_n = fields_train(sub, "dual_solve never",
+                                             dual_solve="never", **kw)
+    launches += n_a + n_n
+    errs = {}
+    for name in ("user_factors", "item_factors"):
+        a, b = getattr(auto, name), getattr(never, name)
+        errs[name] = float(np.abs(a - b).max() / np.abs(a).max())
+    emit("als_fields_dual", users=DUAL_USERS, items=coo.n_items,
+         ratings=sub.nnz, rank=RANK, lam=DUAL_LAM, iterations=ITERATIONS,
+         auto=fields_row(tel_a, n_a, wall_a),
+         never=fields_row(tel_n, n_n, wall_n), rel_diff=errs,
+         tolerance=DUAL_TOL)
+    check(max(errs.values()) <= DUAL_TOL, f"dual_solve='never' is "
+          f"{errs} of the factor scale from 'auto'")
+    return launches
+
+
+def phase_fused_implicit(algo, model, pd) -> int:
+    """The similar-product train's ALS again with fuse_iteration (solver
+    'chol_cuda': the user and item sides each a CUDA graph, their Grams'
+    eigh eager between them), every solve a Cholesky launch, its tables
+    bit for bit the unfused train's (`implicit_train`). Returns the
+    Cholesky launches."""
+    _, _, coo = algo._build_ratings(pd.td)
+    p = algo.params
+    got, tel, n, wall = fields_train(
+        coo, "fused implicit", kernel="chol_solve", rank=p.rank,
+        iterations=p.num_iterations, lam=p.lam, implicit_prefs=True,
+        alpha=p.alpha, seed=p.seed, solver=p.solver, fuse_iteration=True)
+    check(tel["replays"] == ITERATIONS, "the fused implicit train replayed "
+          f"{tel['replays']} times")
+    rel = {}
+    for name, ref in (("user_factors", model.user_factors),
+                      ("item_factors", model.item_factors_raw)):
+        rel[name] = float(np.abs(getattr(got, name) - ref).max()
+                          / np.abs(ref).max())
+    equal = max(rel.values()) == 0.0
+    emit("als_fields_implicit", solver=p.solver, **fields_row(tel, n, wall),
+         rel_diff_unfused=rel, tables_bit_equal_unfused=equal)
+    check(equal, f"the fused implicit tables are {rel} of the scale from "
+          "the unfused ones")
+    return n
+
+
+# ---------------------------------------------------------------------------
+# pio eval on the card (rec_eval, cls_*)
+# ---------------------------------------------------------------------------
+
+class RecEval:
+    """`rec_eval`'s Evaluation: a FastEvalEngine of the recommendation
+    template whose data source, algorithm and metric keep what the phase
+    holds (the folds, each trained model with the answers it gave, the
+    stage seconds) on the class, which `create_workflow_main` resolves by
+    dotted path."""
+    folds: list = []
+    trained: list = []     # (lam, model, [(user, served ids)], seconds)
+    seconds = {"read_s": 0.0, "train_s": 0.0, "predict_s": 0.0,
+               "metric_s": 0.0}
+
+    def __init__(self):
+        from predictionio_tpu_torch.core import FastEvalEngine
+        from predictionio_tpu_torch.models import recommendation as R
+        cls = type(self)
+
+        class KeptDataSource(R.RecommendationDataSource):
+            def read_eval(self):
+                t0 = time.perf_counter()
+                cls.folds = super().read_eval()
+                cls.seconds["read_s"] += time.perf_counter() - t0
+                return cls.folds
+
+        class KeptALS(R.ALSAlgorithm):
+            def train(self, pd):
+                t0 = time.perf_counter()
+                model = super().train(pd)
+                torch.cuda.synchronize()
+                cls.seconds["train_s"] += time.perf_counter() - t0
+                cls.trained.append([self.params.lam, model, None,
+                                    dict(self.last_train_telemetry)])
+                return model
+
+            def batch_predict(self, model, queries):
+                t0 = time.perf_counter()
+                out = super().batch_predict(model, queries)
+                cls.seconds["predict_s"] += time.perf_counter() - t0
+                answers = dict(out)
+                (entry,) = [e for e in cls.trained if e[1] is model]
+                entry[2] = [(q.user, [s.item for s in
+                                      answers[ix].item_scores])
+                            for ix, q in queries]
+                return out
+
+        class TimedPrecision(R.PrecisionAtK):
+            def calculate(self, eval_data):
+                t0 = time.perf_counter()
+                out = super().calculate(eval_data)
+                cls.seconds["metric_s"] += time.perf_counter() - t0
+                return out
+
+        self.engine = FastEvalEngine(
+            {"": KeptDataSource}, {"": R.RecommendationPreparator},
+            {"als": KeptALS}, {"": R.FirstServing})
+        self.metric = TimedPrecision(k=EVAL_QUERY_NUM, rating_threshold=2.0)
+        self.metrics = ()
+
+
+class RecSweep:
+    """`rec_eval`'s params generator: the store's recommendation
+    template, k-fold, rank 200, 2 iterations, seed 1, at EVAL_LAMS."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.core import EngineParams
+        from predictionio_tpu_torch.models import recommendation as R
+        self.engine_params_list = [EngineParams(
+            data_source_params=("", R.DataSourceParams(
+                app_name=STORE_APP, eval_k=EVAL_K,
+                eval_query_num=EVAL_QUERY_NUM)),
+            preparator_params=("", R.PreparatorParams()),
+            algorithm_params_list=[("als", R.ALSAlgorithmParams(
+                rank=RANK, num_iterations=ITERATIONS, lam=lam, seed=1))],
+            serving_params=("", None)) for lam in EVAL_LAMS]
+
+
+def f64_top(model, user_ix: np.ndarray, k: int) -> tuple:
+    """Float64 top-k of the model's tables for the users at `user_ix`, on
+    the card in chunks of EVAL_CHUNK users: (ids [n, k], scores [n, k])."""
+    U = torch.as_tensor(model.als.user_factors, device="cuda",
+                        dtype=torch.float64)
+    V = torch.as_tensor(model.als.item_factors, device="cuda",
+                        dtype=torch.float64)
+    ix = torch.as_tensor(user_ix, device="cuda")
+    ids, scores = [], []
+    for lo in range(0, len(user_ix), EVAL_CHUNK):
+        s, i = torch.topk(U[ix[lo:lo + EVAL_CHUNK]] @ V.T, k, dim=1)
+        ids.append(i.cpu().numpy())
+        scores.append(s.cpu().numpy())
+    return np.concatenate(ids), np.concatenate(scores)
+
+
+def precision_at_k(tops, qa, k: int) -> tuple:
+    """PrecisionAtK's rule over (served or float64) top ids: (the mean,
+    the queries counted)."""
+    vals = []
+    for top, (_, actual) in zip(tops, qa):
+        positives = {r.item for r in actual.ratings if r.rating >= 2.0}
+        if not positives:
+            continue
+        top = top[:k]
+        vals.append(sum(i in positives for i in top) / min(k, len(top))
+                    if top else 0.0)
+    return (float(np.mean(vals)) if vals else float("nan")), len(vals)
+
+
+def phase_rec_eval(workdir: str) -> int:
+    """`pio eval` on the 5M-event store: `create_workflow_main` on
+    `chip_smoke.RecEval` / `chip_smoke.RecSweep` (one read, EVAL_K folds,
+    two lam settings, every solve a CG launch). Each setting's score is
+    held to the PrecisionAtK of a float64 top-10 of the same tables,
+    computed on the card: a served list may differ from the float64 one
+    only by a swap of near-tied items (`held_to_f64`'s rule), and the
+    score by at most the swapped queries' share. Returns the CG
+    launches."""
+    import chip_smoke as mod
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    best_dir = os.path.join(workdir, "rec_eval")
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    with exact_pack():
+        iid = create_workflow_main(WorkflowConfig(
+            evaluation_class="chip_smoke.RecEval",
+            engine_params_generator_class="chip_smoke.RecSweep",
+            output_path=best_dir))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = dict(vars(COUNTS))
+    inst = Storage.get_meta_data_evaluation_instances().get(iid)
+    check(inst.status == "EVALCOMPLETED", f"evaluation {iid} is "
+          f"{inst.status}")
+    result = json.loads(inst.evaluator_results_json)
+    scores = [s["score"] for s in result["scores"]]
+    check(len(scores) == len(EVAL_LAMS), f"{len(scores)} scores recorded")
+    with open(os.path.join(best_dir, "best.json")) as f:
+        best = json.load(f)
+    check(best["algorithms"][0]["params"]["lam"]
+          == EVAL_LAMS[result["bestIndex"]], f"best.json {best} is not "
+          f"setting {result['bestIndex']}")
+    trained = mod.RecEval.trained
+    calls = sum(e[3]["solver_calls"] for e in trained)
+    check(len(trained) == EVAL_K * len(EVAL_LAMS),
+          f"{len(trained)} trains for {EVAL_K} folds x {len(EVAL_LAMS)}")
+    check(counts["cg_solve"] == calls > 0, f"{counts['cg_solve']} CG "
+          f"launches for {calls} solver calls")
+    for name, n in counts.items():
+        check(name == "cg_solve" or n == 0, f"rec_eval: {name} ran {n} "
+              "times")
+    folds = mod.RecEval.folds
+    held = []
+    for s_ix, lam in enumerate(EVAL_LAMS):
+        entries = [e for e in trained if e[0] == lam]
+        served_all, f64_all, qa_all, swaps, unknown = [], [], [], 0, 0
+        for (lam_, model, answers, _), (_, _, qa) in zip(entries, folds):
+            users = [u for u, _ in answers]
+            check(users == [q.user for q, _ in qa], "the served queries are "
+                  "not the fold's")
+            uix = np.array([model.user_ix.get(u, -1) for u in users])
+            known = uix >= 0
+            unknown += int((~known).sum())
+            ids, s64 = f64_top(model, uix[known], EVAL_QUERY_NUM)
+            # a user the fold's train never saw is answered nothing
+            check(all(not got for (_, got), k in zip(answers, known)
+                      if not k), "an unknown user was answered")
+            tops = iter(zip(ids, s64))
+            f64_lists = []
+            for (user, got), k in zip(answers, known):
+                if not k:
+                    f64_lists.append([])
+                    continue
+                top, srow = next(tops)
+                want = model.item_ix.ids_of(top)
+                f64_lists.append(want)
+                if got == want:
+                    continue
+                swaps += 1
+                scale = float(np.abs(srow).max())
+                got_ix = model.item_ix.to_indices(got)
+                g64 = (model.als.item_factors[got_ix].astype(np.float64)
+                       @ model.als.user_factors[model.user_ix[user]].astype(
+                           np.float64))
+                check(len(got) == len(want) and np.allclose(
+                    np.sort(g64)[::-1], srow, rtol=0, atol=1e-6 * scale),
+                    f"rec_eval lam {lam}: served {got} != float64 {want}")
+            served_all += [got for _, got in answers]
+            f64_all += f64_lists
+            qa_all += qa
+        p64, counted = precision_at_k(f64_all, qa_all, EVAL_QUERY_NUM)
+        p_served, _ = precision_at_k(served_all, qa_all, EVAL_QUERY_NUM)
+        check(p_served == scores[s_ix], f"the evaluator's score "
+              f"{scores[s_ix]} is not the metric of the served answers "
+              f"{p_served}")
+        check(abs(scores[s_ix] - p64) <= swaps / max(counted, 1),
+              f"lam {lam}: PrecisionAtK {scores[s_ix]} vs float64 {p64} "
+              f"with {swaps} tie swaps in {counted} queries")
+        held.append({"lam": lam, "precision_at_10": scores[s_ix],
+                     "precision_at_10_f64": p64, "queries_counted": counted,
+                     "tie_swaps": swaps, "unknown_users": unknown})
+    emit("rec_eval", instance=iid, status=inst.status, eval_s=eval_s,
+         **mod.RecEval.seconds, folds=len(folds),
+         queries_per_fold=[len(qa) for _, _, qa in folds],
+         ratings=sum(len(td.ratings) for td, _, _ in folds) // (EVAL_K - 1),
+         held=held, best_index=result["bestIndex"],
+         cg_kernel_launches=counts["cg_solve"], solver_calls=calls,
+         one_liner=inst.evaluator_results)
+    mod.RecEval.folds, mod.RecEval.trained = [], []
+    return counts["cg_solve"]
+
+
+class ClsEval:
+    """`cls_eval`'s Evaluation: the classification template's
+    FastEvalEngine (one read of the points) and its Accuracy. Its naive
+    Bayes writes each model it trains, in the order trained, to the
+    directory CLS_KEEP_ENV names, so the phase holds every setting's
+    model, not only its score."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.core import FastEvalEngine
+        from predictionio_tpu_torch.models import classification as C
+
+        class KeptNB(C.NaiveBayesAlgorithm):
+            def train(self, td):
+                model = super().train(td)
+                keep = os.environ[CLS_KEEP_ENV]
+                np.savez(os.path.join(keep, f"nb{len(os.listdir(keep)):03d}"
+                                      ".npz"),
+                         lam=self.params.lam, points=len(td.labeled_points),
+                         pi=model.pi, theta=model.theta, labels=model.labels)
+                return model
+
+        self.engine = FastEvalEngine(
+            {"": C.ClassificationDataSource},
+            {"": C.ClassificationPreparator},
+            {"naive": KeptNB}, {"": C.FirstServing})
+        self.metric = C.Accuracy()
+        self.metrics = ()
+
+
+class ClsSweep:
+    """`cls_eval`'s params generator: naive Bayes at CLS_LAMS,
+    CLS_EVAL_K folds."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.core import EngineParams
+        from predictionio_tpu_torch.models import classification as C
+        self.engine_params_list = [EngineParams(
+            data_source_params=("", C.DataSourceParams(
+                app_name=CLS_APP, eval_k=CLS_EVAL_K)),
+            preparator_params=("", None),
+            algorithm_params_list=[("naive", C.NaiveBayesAlgorithmParams(
+                lam=lam))],
+            serving_params=("", None)) for lam in CLS_LAMS]
+
+
+def nb64(X: np.ndarray, y: np.ndarray, lam: float) -> tuple:
+    """Float64 numpy multinomial naive Bayes (MLlib's formulas): (pi,
+    theta, labels)."""
+    labels = np.unique(y)
+    onehot = (y[:, None] == labels[None, :]).astype(np.float64)
+    counts, sums = onehot.sum(axis=0), onehot.T @ X.astype(np.float64)
+    pi = np.log(counts + lam) - np.log(counts.sum() + len(labels) * lam)
+    theta = np.log(sums + lam) - np.log(
+        sums.sum(axis=1, keepdims=True) + X.shape[1] * lam)
+    return pi, theta, labels
+
+
+def hold_nb(model, X: np.ndarray, y: np.ndarray, lam: float) -> float:
+    """The largest difference of a naive Bayes model's pi, theta and
+    labels from `nb64` on the same points; fails past CLS_NB_TOL."""
+    pi, theta, labels = nb64(X, y, lam)
+    check(np.array_equal(np.asarray(model.labels), labels),
+          f"naive Bayes labels {model.labels} vs {labels}")
+    err = float(max(np.abs(np.asarray(model.pi) - pi).max(),
+                    np.abs(np.asarray(model.theta) - theta).max()))
+    check(err <= CLS_NB_TOL, f"naive Bayes at lam {lam}: pi/theta differ "
+          f"from float64 numpy by {err} (> {CLS_NB_TOL})")
+    return err
+
+
+def nb64_scores(model: tuple, X: np.ndarray) -> np.ndarray:
+    pi, theta, _ = model
+    return pi[None, :] + X.astype(np.float64) @ theta.T
+
+
+def near_tie(scores: np.ndarray) -> np.ndarray:
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0] <= CLS_TIE_REL * np.abs(top2[:, 1])
+
+
+def cls_variant(path: str) -> None:
+    """The classification engine.json: naive Bayes and the add-algorithm
+    variant's forest (10 trees, depth 5, 32 bins, 4 classes) on the card;
+    naive Bayes serves (FirstServing)."""
+    with open(path, "w") as f:
+        json.dump({
+            "id": "default", "engineFactory": "classification",
+            "datasource": {"params": {"app_name": CLS_APP}},
+            "algorithms": [
+                {"name": "naive", "params": {"lam": 1.0}},
+                {"name": "randomforest", "params": {
+                    "num_classes": 4, "num_trees": 10, "max_depth": 5,
+                    "max_bins": 32}}]}, f)
+
+
+def phase_classification(workdir: str) -> None:
+    """The classification template from the same SQLite store, in an app
+    of its own: CLS_USERS users $set with a plan of 4 classes and
+    attr0-2 drawn from the class's Poisson means (`cls_populate`); `python
+    -m predictionio_tpu_torch eval chip_smoke.ClsEval chip_smoke.ClsSweep`
+    as a subprocess, each score the accuracy of a float64 numpy naive
+    Bayes on the same folds (`cls_eval`); `train` with naive Bayes and the
+    forest, the forest grown on the card equal to the plain version's on
+    the CPU given the same draws (`cls_train`, `cls_forest`); a `deploy`
+    subprocess answering CLS_QUERIES queries, each label the float64
+    naive Bayes argmax of the persisted model (`cls_deploy`)."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import classification as C
+    from predictionio_tpu_torch.ops.forest import forest_train
+    t0 = time.perf_counter()
+    app_id = Storage.get_meta_data_apps().insert(App(0, CLS_APP))
+    rng = np.random.default_rng(31)
+    labels = rng.integers(0, len(CLS_MEANS), CLS_USERS)
+    attrs = rng.poisson(np.array(CLS_MEANS)[labels]).astype(np.float64)
+    Storage.get_events().insert_columnar(ColumnarBatch(
+        CLS_USERS, "$set", "user", [f"c{j}" for j in range(CLS_USERS)],
+        properties=[{"plan": float(lab), "attr0": float(a[0]),
+                     "attr1": float(a[1]), "attr2": float(a[2])}
+                    for lab, a in zip(labels, attrs)],
+        event_time=[event_time(2 * 10 ** 9 + j) for j in range(CLS_USERS)]),
+        app_id)
+    emit("cls_populate", users=CLS_USERS, classes=len(CLS_MEANS),
+         populate_s=time.perf_counter() - t0,
+         note="set-up: the bulk import, not a measurement of eval")
+
+    out_dir = os.path.join(workdir, "cls_eval")
+    keep_dir = os.path.join(workdir, "cls_eval_models")
+    os.makedirs(keep_dir)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch", "eval",
+         "chip_smoke.ClsEval", "chip_smoke.ClsSweep", "--output-path",
+         out_dir], cwd=HERE, capture_output=True, text=True, timeout=600,
+        env={**os.environ, CLS_KEEP_ENV: keep_dir})
+    eval_s = time.perf_counter() - t0
+    said = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and said and said[-1].startswith(
+        "Evaluation completed. Evaluation instance ID: "),
+        f"eval exited {out.returncode}: {out.stdout[-2000:]}"
+        f"{out.stderr[-3000:]}")
+    iid = said[-1].rsplit(" ", 1)[1]
+    inst = Storage.get_meta_data_evaluation_instances().get(iid)
+    check(inst.status == "EVALCOMPLETED", f"evaluation {iid} is "
+          f"{inst.status}")
+    result = json.loads(inst.evaluator_results_json)
+    t0 = time.perf_counter()
+    folds = C.ClassificationDataSource(C.DataSourceParams(
+        app_name=CLS_APP, eval_k=CLS_EVAL_K)).read_eval()
+    read_s = time.perf_counter() - t0
+    # FastEvalEngine trains each setting on each fold in turn: one kept
+    # model for each, every one held to float64 numpy on its own fold
+    kept = [np.load(os.path.join(keep_dir, name))
+            for name in sorted(os.listdir(keep_dir))]
+    check(len(kept) == len(CLS_LAMS) * len(folds),
+          f"the sweep trained {len(kept)} naive Bayes models, not "
+          f"{len(CLS_LAMS)} settings x {len(folds)} folds")
+    held, ties, nb_err = [], 0, 0.0
+    for i, (lam, got) in enumerate(zip(CLS_LAMS, result["scores"])):
+        hits, n, lam_ties = 0, 0, 0
+        for j, (td, _, qa) in enumerate(folds):
+            X, y = C._points_xy(td)
+            k = kept[i * len(folds) + j]
+            check(float(k["lam"]) == lam and int(k["points"]) == len(y),
+                  f"kept model {i * len(folds) + j} has lam {k['lam']} and "
+                  f"{k['points']} points, not lam {lam} and {len(y)}")
+            nb_err = max(nb_err, hold_nb(types.SimpleNamespace(
+                pi=k["pi"], theta=k["theta"], labels=k["labels"]), X, y,
+                lam))
+            model = nb64(X, y, lam)
+            Xq = np.stack([q.features for q, _ in qa])
+            sc = nb64_scores(model, Xq)
+            pred = model[2][np.argmax(sc, axis=1)]
+            actual = np.array([a.label for _, a in qa])
+            hits += int((pred == actual).sum())
+            n += len(qa)
+            lam_ties += int(near_tie(sc).sum())
+        acc64 = hits / n
+        ties += lam_ties
+        check(abs(got["score"] - acc64) <= lam_ties / n,
+              f"lam {lam}: accuracy {got['score']} vs float64 {acc64} with "
+              f"{lam_ties} near-ties in {n}")
+        held.append({"lam": lam, "accuracy": got["score"],
+                     "accuracy_f64": acc64, "near_ties": lam_ties})
+    with open(os.path.join(out_dir, "best.json")) as f:
+        best = json.load(f)
+    check(best["algorithms"][0]["params"]["lam"]
+          == CLS_LAMS[result["bestIndex"]], f"best.json {best}")
+    emit("cls_eval", instance=iid, status=inst.status, eval_s=eval_s,
+         read_s=read_s, points=sum(len(qa) for _, _, qa in folds),
+         folds=CLS_EVAL_K, held=held, best_index=result["bestIndex"],
+         models_held=len(kept), nb_max_abs_err=nb_err,
+         nb_tol=CLS_NB_TOL, one_liner=inst.evaluator_results)
+
+    path = os.path.join(workdir, "classification.json")
+    cls_variant(path)
+    iid, trained, _ = workflow_train(path, "cls_train", kernel=None)
+    nb_model, forest = trained.models
+    X, y = C._points_xy(C.ClassificationDataSource(
+        C.DataSourceParams(app_name=CLS_APP)).read_training())
+    nb_train_err = hold_nb(nb_model, X, y, trained.algorithms[0].params.lam)
+    p = trained.algorithms[1].params
+    t0 = time.perf_counter()
+    plain = forest_train(X, y, num_classes=p.num_classes,
+                         num_trees=p.num_trees, max_depth=p.max_depth,
+                         max_bins=p.max_bins, seed=p.seed, device="cpu")
+    plain_s = time.perf_counter() - t0
+    equal = {a: bool(np.array_equal(getattr(forest, a), getattr(plain, a)))
+             for a in ("feature", "threshold", "is_leaf", "leaf_class")}
+    acc = float((forest.predict_batch(X) == y).mean())
+    emit("cls_forest", trees=p.num_trees, depth=p.max_depth,
+         bins=p.max_bins, points=len(y),
+         card_train_s=trained.algorithms[1].last_train_telemetry["train_s"],
+         nb_train_s=trained.algorithms[0].last_train_telemetry["train_s"],
+         cpu_plain_train_s=plain_s, arrays_equal=equal,
+         nb_max_abs_err=nb_train_err, nb_tol=CLS_NB_TOL,
+         train_accuracy=acc)
+    check(all(equal.values()), f"the forest grown on the card differs from "
+          f"the plain version's: {equal}")
+
+    blob = Storage.get_model_data_models().get(iid).models
+    nb_model, _ = C.ClassificationEngineFactory.apply().deserialize_models(
+        blob, iid)
+    rng = np.random.default_rng(32)
+    queries = [{"attr0": int(a[0]), "attr1": int(a[1]), "attr2": int(a[2])}
+               for a in rng.poisson(np.array(CLS_MEANS)[rng.integers(
+                   0, len(CLS_MEANS), CLS_QUERIES)])]
+
+    def want(q):
+        x = np.array([q["attr0"], q["attr1"], q["attr2"]], dtype=np.float64)
+        s = nb_model.pi + nb_model.theta @ x
+        return float(nb_model.labels[int(np.argmax(s))]), s
+
+    first = next(q for q in queries if want(q)[0] != 0.0)
+    deps = {}
+    try:
+        phase_cli_deploy({"classification": path}, workdir, deps,
+                         first_queries={"classification": first},
+                         warmed=False)
+        url = deps["classification"]["url"]
+        lat, exact, tied = [], 0, 0
+        for q in queries:
+            t0 = time.perf_counter()
+            code, body = post(url + "/queries.json", json.dumps(q).encode())
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200, f"cls_deploy query {q} answered {code}")
+            label, s = want(q)
+            if body == {"label": label}:
+                exact += 1
+                continue
+            tied += 1
+            check(bool(near_tie(s[None, :])[0]),
+                  f"cls_deploy query {q}: {body}, float64 argmax {label}")
+        code, _ = post(url + "/queries.json", b'{"attr0": 1}')
+        check(code == 400, f"a query without attr1/attr2 answered {code}")
+        emit("cls_deploy", instance=iid, queries=len(queries),
+             labels_equal_f64=exact, near_tie_differences=tied,
+             p50_ms=float(np.percentile(lat, 50)),
+             p99_ms=float(np.percentile(lat, 99)))
+        phase_undeploy(deps)
+    finally:
+        stop_all(deps)
+
+
 def template_phases(workdir: str) -> int:
     """The other ALS templates on the store, after every earlier phase:
     DIMSUM (`dimsum_train`, `dimsum_table`, `dimsum_deploy`) before the
@@ -3957,11 +4619,13 @@ def main() -> int:
             with exact_pack():
                 phase_serve(algo, model)
             del algo, model
-            sp_algo, sp_model, chol_launches = phase_implicit_train(
+            cg_launches += phase_als_fields(pd, cg_rmse)
+            sp_algo, sp_model, chol_launches, sp_pd = phase_implicit_train(
                 pd.ratings_coo.nnz)
             with exact_pack():
                 phase_similar_serve(sp_algo, sp_model)
-            del sp_algo, sp_model
+            chol_launches += phase_fused_implicit(sp_algo, sp_model, sp_pd)
+            del sp_algo, sp_model, sp_pd
             s_algo, s_model, schulz_launches = phase_schulz_train(pd,
                                                                   cg_rmse)
             phase_schulz_resolve(s_model.als, pd.ratings_coo)
@@ -3976,12 +4640,14 @@ def main() -> int:
                     path, iid, trained)
             cg_launches += retrain_launches
             del trained
+            cg_launches += phase_rec_eval(workdir)
             sim_launches, fold_launches = serve_plane_phases(
                 path, rec_model, workdir)
             chol_launches += sim_launches
             cg_launches += fold_launches
             del rec_model
             cg_launches += template_phases(workdir)
+            phase_classification(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

@@ -1,16 +1,19 @@
 """DASE base components: DataSource, Preparator, Algorithm, Serving.
 
 The port's counterpart of `predictionio_tpu/core/base.py`, cut to what
-the templates need to train, persist and serve. An algorithm decides how
-its model persists (`make_persistent_model`) and puts a restored model on
-its device (`place_model`); the L/P placement taxonomy is a later slice.
+the templates need to train, evaluate, persist and serve. An algorithm
+decides how its model persists (`make_persistent_model`) and puts a
+restored model on its device (`place_model`). `LAlgorithm` (model and
+predict on the host) and `P2LAlgorithm` (trained on the device) name
+where a model lives, as in the reference; the sharded `PAlgorithm` is a
+later slice.
 """
 
 from __future__ import annotations
 
 import abc
 import inspect
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 # EmptyParams is re-exported for the templates
 from predictionio_tpu_torch.core.params import (EmptyParams,  # noqa: F401
@@ -49,6 +52,10 @@ class DataSource(abc.ABC):
     @abc.abstractmethod
     def read_training(self) -> Any: ...
 
+    def read_eval(self) -> List[Tuple[Any, Any, Iterable[Tuple[Any, Any]]]]:
+        """Eval sets: (trainingData, evalInfo, [(query, actual)])."""
+        return []
+
 
 class Preparator(abc.ABC):
     def __init__(self, params: Optional[Params] = None):
@@ -56,6 +63,13 @@ class Preparator(abc.ABC):
 
     @abc.abstractmethod
     def prepare(self, training_data) -> Any: ...
+
+
+class IdentityPreparator(Preparator):
+    """Hands the training data on as it is."""
+
+    def prepare(self, training_data):
+        return training_data
 
 
 class Algorithm(abc.ABC):
@@ -90,6 +104,10 @@ class Algorithm(abc.ABC):
     def query_class(self):
         """Query type for JSON decode at serve time; None = raw dict."""
         return getattr(self, "QUERY_CLASS", None)
+
+
+class LAlgorithm(Algorithm):
+    """Model in host memory; predict runs on the host."""
 
 
 class P2LAlgorithm(Algorithm):

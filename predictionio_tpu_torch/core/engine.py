@@ -6,8 +6,11 @@ The port's counterpart of `predictionio_tpu/core/engine.py`:
 prepare -> train every algorithm), the persistence steps
 (`make_serializable_models`, `serialize_models`, `deserialize_models`,
 `prepare_deploy`; Engine.scala:196-282) and the engine.json params
-(`json_to_engine_params`, `engine_params_to_json`; Engine.scala:353).
-Evaluation is a later slice.
+(`json_to_engine_params`, `engine_params_to_json`; Engine.scala:353),
+and evaluation (`eval`, `batch_eval`; Engine.scala:726-816): each eval
+set trains on its training split, batch-predicts every algorithm over
+its queries (each passed through `Serving.supplement`), serves, and
+joins the answers with the actuals.
 
 A model blob holds host numpy only (`utils/arrays.to_host`), and it is
 read back through a restricted unpickler that accepts only the classes
@@ -56,6 +59,8 @@ _SAFE_NUMPY = frozenset(
 #: package (a server, a storage client, a build step) may not be named
 _MODEL_MODULES = ("predictionio_tpu_torch.models.",
                   "predictionio_tpu_torch.ops.als.",
+                  "predictionio_tpu_torch.ops.forest.",
+                  "predictionio_tpu_torch.ops.naive_bayes.",
                   "predictionio_tpu_torch.ops.ratings.",
                   "predictionio_tpu_torch.data.bimap.",
                   "predictionio_tpu_torch.data.datamap.",
@@ -208,6 +213,35 @@ class Engine:
             models.append(model)
         tel["train_s"] = time.perf_counter() - t0
         return TrainResult(models=models, algorithms=algorithms)
+
+    # -- eval (Engine.scala:726-816) ---------------------------------------
+    def eval(self, engine_params: EngineParams
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per eval set: train on its training split, batch-predict every
+        algorithm over the queries, serve, and join with the actuals.
+        Returns [(evalInfo, [(query, prediction, actual)])]."""
+        data_source = self.make_data_source(engine_params)
+        eval_sets = data_source.read_eval()
+        serving = self.make_serving(engine_params)
+        out = []
+        for td, eval_info, qa in eval_sets:
+            pd = self.make_preparator(engine_params).prepare(td)
+            algorithms = self.make_algorithms(engine_params)
+            models = [a.train(pd) for a in algorithms]
+            qa_list = list(qa)
+            indexed = [(ix, serving.supplement(q))
+                       for ix, (q, _) in enumerate(qa_list)]
+            per_algo = [dict(algo.batch_predict(model, indexed))
+                        for algo, model in zip(algorithms, models)]
+            qpa = [(q, serving.serve(q, [pa[ix] for pa in per_algo]), a)
+                   for ix, (q, a) in enumerate(qa_list)]
+            out.append((eval_info, qpa))
+        return out
+
+    def batch_eval(self, engine_params_list: Sequence[EngineParams]):
+        """Evaluate each params setting (core/BaseEngine.scala:79)."""
+        return [(ep, self.eval(ep))
+                for ep in engine_params_list]
 
     # -- persistence (Engine.scala:282, :196-265) --------------------------
     def make_serializable_models(self, train_result: TrainResult,

@@ -1,9 +1,10 @@
 """Metadata records and the abstract DAO / event-store interfaces.
 
 The port's copy of the part of `predictionio_tpu/data/storage/base.py`
-that training and deployment use: the records `App`, `Channel`,
-`EngineInstance` and `Model` (the reference's Apps, Channels,
-EngineInstances and Models DAOs), their abstract DAOs, and `Events`, one
+that training, evaluation and deployment use: the records `App`,
+`Channel`, `EngineInstance`, `EvaluationInstance` and `Model` (the
+reference's Apps, Channels, EngineInstances, EvaluationInstances and
+Models DAOs), their abstract DAOs, and `Events`, one
 synchronous interface for the reference's LEvents (LEvents.scala:37) and
 the bulk-read role of PEvents (PEvents.scala:35), with the default
 `find_columnar` and `aggregate_properties` that a backend without a query
@@ -89,6 +90,28 @@ class EngineInstance:
 
 
 @dataclass(frozen=True)
+class EvaluationInstance:
+    """One evaluation run record (EvaluationInstances.scala)."""
+    id: str = ""
+    status: str = ""
+    start_time: _dt.datetime = field(
+        default_factory=lambda: _dt.datetime.now(_dt.timezone.utc))
+    end_time: _dt.datetime = field(
+        default_factory=lambda: _dt.datetime.now(_dt.timezone.utc))
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    spark_conf: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+    def with_(self, **kw) -> "EvaluationInstance":
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class Model:
     """Serialized trained model blob (Models.scala:30)."""
     id: str
@@ -155,6 +178,26 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -112,7 +112,8 @@ def _client_for(cfg: StorageClientConfig):
 
 
 def get_data_object(repo: str, kind: str):
-    """kind in {apps, channels, engine_instances, models, events}."""
+    """kind in {apps, channels, engine_instances, evaluation_instances,
+    models, events}."""
     key = f"{repo}/{kind}"
     with _lock:
         if key not in _dataobjects:
@@ -146,6 +147,10 @@ class Storage:
     @staticmethod
     def get_meta_data_engine_instances():
         return get_data_object("METADATA", "engine_instances")
+
+    @staticmethod
+    def get_meta_data_evaluation_instances():
+        return get_data_object("METADATA", "evaluation_instances")
 
     @staticmethod
     def get_model_data_models():

@@ -1,8 +1,9 @@
 """Embedded SQL storage backend (SQLite): the operator default store.
 
 The port's copy of `predictionio_tpu/data/storage/sqlite.py` for the
-tables training and deployment use: apps, channels, engine instances,
-model blobs and events, in one embedded database. The schema is the
+tables training, evaluation and deployment use: apps, channels, engine
+instances, evaluation instances, model blobs and events, in one embedded
+database. The schema is the
 reference's, table for table, so a store written by either package reads
 back through the other. Tables are created on first access.
 
@@ -32,7 +33,9 @@ from predictionio_tpu_torch.data.event import (Event, from_millis,
                                                utcnow)
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (ABSENT, App, Channel,
-                                                      EngineInstance, Model)
+                                                      EngineInstance,
+                                                      EvaluationInstance,
+                                                      Model)
 
 
 class StorageClient:
@@ -66,6 +69,7 @@ class StorageClient:
                     "apps": SQLApps,
                     "channels": SQLChannels,
                     "engine_instances": SQLEngineInstances,
+                    "evaluation_instances": SQLEvaluationInstances,
                     "models": SQLModels,
                     "events": SQLEvents,
                 }.get(kind)
@@ -241,6 +245,74 @@ class SQLEngineInstances(base.EngineInstances):
         return cur.rowcount > 0
 
     def delete(self, instance_id: str) -> bool:
+        return self.c.execute(f"DELETE FROM {self.t} WHERE id=?",
+                              (instance_id,)).rowcount > 0
+
+
+class SQLEvaluationInstances(base.EvaluationInstances):
+    COLS = ("id,status,starttime,endtime,evaluationclass,"
+            "engineparamsgeneratorclass,batch,env,sparkconf,"
+            "evaluatorresults,evaluatorresultshtml,evaluatorresultsjson")
+
+    def __init__(self, client, ns):
+        self.c = client
+        self.t = f"{ns}_evaluationinstances"
+        client.execute(f"""CREATE TABLE IF NOT EXISTS {self.t} (
+            id TEXT PRIMARY KEY, status TEXT, starttime INTEGER,
+            endtime INTEGER, evaluationclass TEXT,
+            engineparamsgeneratorclass TEXT, batch TEXT, env TEXT,
+            sparkconf TEXT, evaluatorresults TEXT,
+            evaluatorresultshtml TEXT, evaluatorresultsjson TEXT)""")
+
+    def insert(self, i: EvaluationInstance) -> str:
+        iid = i.id or new_event_id()
+        i = i.with_(id=iid)
+        self.c.execute(
+            f"INSERT INTO {self.t} ({self.COLS}) VALUES "
+            f"({','.join('?' * 12)})",
+            (i.id, i.status, to_millis(i.start_time), to_millis(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.spark_conf), i.evaluator_results,
+             i.evaluator_results_html, i.evaluator_results_json))
+        return iid
+
+    def _row(self, r) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1], start_time=from_millis(r[2]),
+            end_time=from_millis(r[3]), evaluation_class=r[4],
+            engine_params_generator_class=r[5], batch=r[6],
+            env=json.loads(r[7]), spark_conf=json.loads(r[8]),
+            evaluator_results=r[9], evaluator_results_html=r[10],
+            evaluator_results_json=r[11])
+
+    def get(self, instance_id):
+        rows = self.c.query(
+            f"SELECT {self.COLS} FROM {self.t} WHERE id=?", (instance_id,))
+        return self._row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._row(r)
+                for r in self.c.query(f"SELECT {self.COLS} FROM {self.t}")]
+
+    def get_completed(self):
+        rows = self.c.query(
+            f"SELECT {self.COLS} FROM {self.t} WHERE status='EVALCOMPLETED' "
+            "ORDER BY starttime DESC")
+        return [self._row(r) for r in rows]
+
+    def update(self, i: EvaluationInstance) -> bool:
+        cur = self.c.execute(
+            f"UPDATE {self.t} SET status=?, starttime=?, endtime=?, "
+            "evaluationclass=?, engineparamsgeneratorclass=?, batch=?, env=?, "
+            "sparkconf=?, evaluatorresults=?, evaluatorresultshtml=?, "
+            "evaluatorresultsjson=? WHERE id=?",
+            (i.status, to_millis(i.start_time), to_millis(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.spark_conf), i.evaluator_results,
+             i.evaluator_results_html, i.evaluator_results_json, i.id))
+        return cur.rowcount > 0
+
+    def delete(self, instance_id) -> bool:
         return self.c.execute(f"DELETE FROM {self.t} WHERE id=?",
                               (instance_id,)).rowcount > 0
 

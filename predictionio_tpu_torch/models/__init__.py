@@ -12,11 +12,13 @@ from predictionio_tpu_torch.core.persistence import REFERENCE_PACKAGE
 
 
 def _registry() -> Dict[str, type]:
-    from predictionio_tpu_torch.models import (ecommerce, recommendation,
+    from predictionio_tpu_torch.models import (classification, ecommerce,
+                                               recommendation,
                                                recommendeduser,
                                                similarproduct)
     return {
         "recommendation": recommendation.RecommendationEngineFactory,
+        "classification": classification.ClassificationEngineFactory,
         "similarproduct": similarproduct.SimilarProductEngineFactory,
         "ecommercerecommendation": ecommerce.ECommerceEngineFactory,
         "recommendeduser": recommendeduser.RecommendedUserEngineFactory,

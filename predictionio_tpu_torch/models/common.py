@@ -7,6 +7,7 @@ columnar `RatingsData` training payload.
 
 from __future__ import annotations
 
+from collections import namedtuple
 from dataclasses import dataclass, field
 from typing import Mapping, Optional, Sequence
 
@@ -39,6 +40,10 @@ class ItemScoreResult:
 
     def to_dict(self):
         return {"itemScores": [s.to_dict() for s in self.item_scores]}
+
+
+#: one rating row, as iterating the reference's RatingsData yields it
+RatingRow = namedtuple("Rating", ("user", "item", "rating", "t"))
 
 
 class RatingsData:

@@ -178,6 +178,7 @@ class ECommAlgorithmParams(Params):
     # the card and on the CPU, the reference's answer off the TPU
     compute_dtype: Optional[str] = None
     sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
+    fuse_iteration: bool = False   # ALSConfig.fuse_iteration
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
 
@@ -257,7 +258,9 @@ class ECommAlgorithm(P2LAlgorithm):
         p = self.params
         user_ix, item_ix, coo = self._build_ratings(td)
         cfg = ALSConfig(rank=p.rank, iterations=p.num_iterations, lam=p.lam,
-                        sweep_chunk=p.sweep_chunk, implicit_prefs=True,
+                        sweep_chunk=p.sweep_chunk,
+                        fuse_iteration=p.fuse_iteration,
+                        implicit_prefs=True,
                         alpha=p.alpha,
                         seed=p.seed if p.seed is not None else 0,
                         compute_dtype=p.compute_dtype or "float32")

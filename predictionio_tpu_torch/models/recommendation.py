@@ -20,9 +20,14 @@ touched users' and items' complete histories (and the touched items'
 properties) through the store's entity pushdown, and
 `ALSAlgorithm.fold_in` re-solves only those rows of a deployed model
 (`online/fold_in.fold_in_coo`), replaying the preparator's dedup and
-exclusion list on grown vocabularies. The streamed bulk read, the
-evaluation read and the sharded factor tables are later slices
-(ROADMAP.md).
+exclusion list on grown vocabularies.
+
+Evaluation: with `eval_k` set, `read_eval` splits the rating rows into
+k folds by row index modulo k; each fold trains on the others and asks
+one query a test-fold user (`eval_query_num` items), whose held-out
+ratings are the `ActualResult`. `PrecisionAtK` is the template's tuning
+metric. The streamed bulk read and the sharded factor tables are later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
-                                         EngineParams, FirstServing,
+                                         EngineParams, FirstServing, Metric,
                                          P2LAlgorithm, Params, Preparator,
                                          SanityCheck)
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
@@ -43,7 +48,7 @@ from predictionio_tpu_torch.data.storage.base import aggregate_event_names
 from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import (ItemScoreResult,
-                                                  RatingsData,
+                                                  RatingRow, RatingsData,
                                                   top_scores_to_result)
 from predictionio_tpu_torch.online.fold_in import FoldInConfig, fold_in_coo
 from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_rmse,
@@ -58,6 +63,9 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
 from predictionio_tpu_torch.utils import buckets as B
 
 logger = logging.getLogger(__name__)
+
+#: queries a batched top-k of `ALSAlgorithm.batch_predict` (evaluation)
+EVAL_CHUNK = 8192
 
 
 @dataclass(frozen=True)
@@ -125,8 +133,17 @@ class DataSourceParams(Params):
     # custom-query / filter-by-category variants: read the items' $set
     # properties (categories, creationYear, ...) for the query filters
     read_items: bool = False
+    eval_k: Optional[int] = None    # k-fold read_eval when set
+    eval_query_num: int = 10        # each eval query's num
     # the training ratings themselves, instead of the event store
     ratings: Optional[RatingsData] = None
+
+
+@dataclass(frozen=True)
+class ActualResult:
+    """The ratings the test fold holds for the queried user (the
+    evaluation's ground truth), in row order."""
+    ratings: Tuple[RatingRow, ...]
 
 
 class RecommendationDataSource(DataSource):
@@ -172,6 +189,37 @@ class RecommendationDataSource(DataSource):
         if self.params.ratings is not None:
             return TrainingData(self.params.ratings)
         return TrainingData(self._read_ratings(), items=self._read_items())
+
+    def read_eval(self):
+        """k folds of the rating rows by row index modulo k; one query a
+        test-fold user, sorted by user id, with that user's held-out
+        ratings as the actual."""
+        p = self.params
+        if not p.eval_k:
+            return []
+        ratings = (p.ratings if p.ratings is not None
+                   else self._read_ratings())
+        row_ix = np.arange(len(ratings))
+        folds = []
+        for fold in range(p.eval_k):
+            test_mask = (row_ix % p.eval_k) == fold
+            test = ratings.select(test_mask)
+            # a stable sort by user keeps each user's rows in row order
+            order = np.argsort(test.users, kind="stable")
+            users = test.users[order]
+            starts = np.flatnonzero(np.r_[True, users[1:] != users[:-1]]
+                                    )[:len(users)]
+            rows = list(map(RatingRow, users.tolist(),
+                            test.items[order].tolist(),
+                            test.vals[order].tolist(),
+                            test.ts[order].tolist()))
+            ends = np.r_[starts[1:], len(rows)].tolist()
+            qa = [(Query(user=rows[lo].user, num=p.eval_query_num),
+                   ActualResult(tuple(rows[lo:hi])))
+                  for lo, hi in zip(starts.tolist(), ends)]
+            folds.append((TrainingData(ratings.select(~test_mask)), None,
+                          qa))
+        return folds
 
     def read_training_touched(self, touched_users,
                               touched_items) -> TrainingData:
@@ -257,6 +305,7 @@ class ALSAlgorithmParams(Params):
     # the result JSON (e.g. ("creationYear",)); needs read_items
     return_properties: Tuple[str, ...] = ()
     sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
+    fuse_iteration: bool = False   # ALSConfig.fuse_iteration
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
@@ -331,7 +380,8 @@ class ALSAlgorithm(P2LAlgorithm):
                         seed=p.seed if p.seed is not None else 0,
                         solver=p.solver,
                         compute_dtype=p.compute_dtype or "float32",
-                        sweep_chunk=p.sweep_chunk)
+                        sweep_chunk=p.sweep_chunk,
+                        fuse_iteration=p.fuse_iteration)
         self.last_train_telemetry = {"ratings": pd.ratings_coo.nnz}
         model = als_train(pd.ratings_coo, cfg, device=p.device,
                           telemetry=self.last_train_telemetry)
@@ -372,8 +422,15 @@ class ALSAlgorithm(P2LAlgorithm):
                                     properties_of=props_of)
 
     def batch_predict(self, model: RecommendationModel, queries):
-        """`batch_predict_begin(...)()`."""
-        return self.batch_predict_begin(model, queries)()
+        """`batch_predict_begin(...)()` over chunks of `EVAL_CHUNK`
+        queries: an evaluation asks one query a user, and one top-k over
+        all of them would hold a [users, items] score table."""
+        queries = list(queries)
+        out = []
+        for lo in range(0, len(queries), EVAL_CHUNK):
+            out.extend(self.batch_predict_begin(
+                model, queries[lo:lo + EVAL_CHUNK])())
+        return out
 
     def batch_predict_begin(self, model: RecommendationModel, queries):
         """The serve window's predict, in two stages: partition the
@@ -511,6 +568,35 @@ class ALSAlgorithm(P2LAlgorithm):
         user = model.user_ix.id_of(0)
         return [Query(user, B.K_FLOOR),
                 Query(user, B.K_FLOOR, creation_year=0)]
+
+
+class PrecisionAtK(Metric):
+    """Precision@K with a positive-rating threshold (the template's
+    tuning metric): a query whose actuals hold no positive is skipped,
+    an empty answer scores 0."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    def header(self) -> str:
+        return f"PrecisionAtK(k={self.k}, threshold={self.rating_threshold})"
+
+    def calculate(self, eval_data) -> float:
+        vals = []
+        for _, qpa in eval_data:
+            for q, p, a in qpa:
+                positives = {r.item for r in a.ratings
+                             if r.rating >= self.rating_threshold}
+                if not positives:
+                    continue
+                top = [s.item for s in p.item_scores[:self.k]]
+                if not top:
+                    vals.append(0.0)
+                    continue
+                hits = sum(1 for item in top if item in positives)
+                vals.append(hits / min(self.k, len(top)))
+        return float("nan") if not vals else float(np.mean(vals))
 
 
 class RecommendationEngineFactory(EngineFactory):

@@ -153,6 +153,7 @@ class ALSAlgorithmParams(Params):
     # the card and on the CPU, the reference's answer off the TPU
     compute_dtype: Optional[str] = None
     sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
+    fuse_iteration: bool = False   # ALSConfig.fuse_iteration
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
 
@@ -198,7 +199,9 @@ class RecommendedUserALSAlgorithm(P2LAlgorithm):
         ui, ii, counts = dedup_ratings(ui, ii, fd.vals, policy="sum")
         coo = RatingsCOO(ui, ii, counts, len(follower_ix), len(followed_ix))
         cfg = ALSConfig(rank=p.rank, iterations=p.num_iterations, lam=p.lam,
-                        sweep_chunk=p.sweep_chunk, implicit_prefs=True,
+                        sweep_chunk=p.sweep_chunk,
+                        fuse_iteration=p.fuse_iteration,
+                        implicit_prefs=True,
                         alpha=1.0, seed=p.seed if p.seed is not None else 0,
                         compute_dtype=p.compute_dtype or "float32")
         self.last_train_telemetry = {"ratings": coo.nnz}

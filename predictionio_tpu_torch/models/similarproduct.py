@@ -297,6 +297,7 @@ class ALSAlgorithmParams(Params):
     # property keys copied onto each ItemScore (missing -> null)
     return_properties: Tuple[str, ...] = ()
     sweep_chunk: int = 0           # ALSConfig.sweep_chunk; 0 = auto (1)
+    fuse_iteration: bool = False   # ALSConfig.fuse_iteration
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
 
@@ -413,7 +414,8 @@ class ALSAlgorithm(P2LAlgorithm):
                         seed=p.seed if p.seed is not None else 0,
                         solver=p.solver,
                         compute_dtype=p.compute_dtype or "float32",
-                        sweep_chunk=p.sweep_chunk)
+                        sweep_chunk=p.sweep_chunk,
+                        fuse_iteration=p.fuse_iteration)
         self.last_train_telemetry = {"ratings": coo.nnz}
         model = als_train(coo, cfg, device=p.device,
                           telemetry=self.last_train_telemetry)

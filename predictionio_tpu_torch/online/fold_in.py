@@ -3,7 +3,8 @@
 The port's counterpart of `predictionio_tpu/online/fold_in.py`
 (`FoldInConfig`, `FoldInStats`, `_als_config`, `solve_rows`,
 `_pad_batch_rows`, `_pad_plan_batches`, `_prep_side`, `_solve_side`, the
-scatter with its rank-k Gram correction, `_solver_gram`, `fold_in_coo`)
+scatter with its rank-k Gram correction, `_solver_gram` (here
+`ops/als.solver_gram`), `fold_in_coo`)
 on the replicated layout. The per-entity least-squares step of ALS with
 the counterpart table held fixed is the batched solve the training sweep
 already runs, so absorbing fresh events costs one mini-sweep over the
@@ -67,7 +68,8 @@ from predictionio_tpu_torch.guard.sentinels import (SweepSentinel,
 from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel,
                                             DeviceBatch, _run_side,
                                             _upload_plan, merge_batches,
-                                            resolve_sweep_chunk)
+                                            resolve_sweep_chunk,
+                                            solver_gram)
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolveBatch,
                                                 SolvePlan, build_solve_plan)
 from predictionio_tpu_torch.ops.solve import resolve_solver
@@ -79,9 +81,9 @@ from predictionio_tpu_torch.utils.buckets import bucket_batch, bucket_rows
 class FoldInConfig:
     """Hyperparameters of the touched-row solves; the defaults are
     `ops/als.ALSConfig`'s, so a fold against a model trained with
-    default params runs the train's math. The reference's `dual_solve`
-    and `factor_sharding` are not here: the port runs the 'auto' dual
-    route and the replicated layout only."""
+    default params runs the train's math. The reference's
+    `factor_sharding` is not here: the port runs the replicated layout
+    only."""
     lam: float = 0.01
     implicit_prefs: bool = False
     alpha: float = 1.0
@@ -95,6 +97,7 @@ class FoldInConfig:
     bucket_ratio: float = 2.0
     solver_iters: Optional[int] = None
     dual_iters_cap: Optional[int] = None
+    dual_solve: str = "auto"           # ALSConfig.dual_solve
     # one sweep = user side, then item side; two let a new (user, item)
     # pair bootstrap (the first user-side solve sees a new item's zero row)
     sweeps: int = 1
@@ -160,7 +163,8 @@ def _als_config(cfg: FoldInConfig, rank: int, solver: str,
         compute_dtype=cfg.compute_dtype or "float32",
         work_budget=cfg.work_budget, sweep_chunk=cfg.sweep_chunk,
         bucket_ratio=cfg.bucket_ratio, solver_iters=cfg.solver_iters,
-        dual_iters_cap=cfg.dual_iters_cap, dtype=dtype)
+        dual_iters_cap=cfg.dual_iters_cap, dual_solve=cfg.dual_solve,
+        dtype=dtype)
 
 
 def _table_dtype(*tables: np.ndarray) -> str:
@@ -170,16 +174,6 @@ def _table_dtype(*tables: np.ndarray) -> str:
 
 def _gram(table: torch.Tensor) -> torch.Tensor:
     return table.T @ table
-
-
-def _solver_gram(G: Optional[torch.Tensor]):
-    """(G, w, Q) for the implicit solves (`ops/als.implicit_equations`):
-    the eigendecomposition of the carried Gram, once a side (rank x
-    rank, nothing next to re-deriving G from the table)."""
-    if G is None:
-        return None
-    w, Q = torch.linalg.eigh(G)
-    return G, w, Q
 
 
 def solve_rows(counter_factors: np.ndarray, owner_compact: np.ndarray,
@@ -213,9 +207,10 @@ def solve_rows(counter_factors: np.ndarray, owner_compact: np.ndarray,
     # +1 dummy tail row: where padding rows (-1) land
     out = torch.zeros((n_rows + 1, rank), dtype=dtype, device=dev)
     counter_dev = _put(counter, dev)
-    gram = _solver_gram(_gram(counter_dev)) if cfg.implicit_prefs else None
-    _run_side(groups, out, counter_dev,
-              _als_config(cfg, rank, solver, dtype_name), solver, gram)
+    als_cfg = _als_config(cfg, rank, solver, dtype_name)
+    gram = (solver_gram(_gram(counter_dev), als_cfg)
+            if cfg.implicit_prefs else None)
+    _run_side(groups, out, counter_dev, als_cfg, solver, gram)
     return out[:n_rows].to("cpu", copy=True).numpy()
 
 
@@ -374,7 +369,8 @@ def _solve_side(prep: _SidePrep, counter_dev: torch.Tensor,
     table, correct its Gram. Returns (out_dev, out_gram)."""
     solved = counter_dev.new_zeros((prep.n_rows + 1, counter_dev.shape[1]))
     _run_side(prep.groups, solved, counter_dev, als_cfg, solver,
-              _solver_gram(counter_gram))
+              None if counter_gram is None
+              else solver_gram(counter_gram, als_cfg))
     return _scatter(out_dev, out_gram, solved, prep)
 
 

@@ -40,12 +40,23 @@ Differences from the reference, by design:
   saves the table copy a functional update would make.
 - Sums are float32 on both devices (TF32 is off, see device.py); the
   bf16 compute dtype rounds operands, it never multiplies in bf16.
-- `dual_solve` (always 'auto' here), `factor_dtype`, `fuse_iteration`
-  and the sharded layouts are later slices (ROADMAP.md).
+- `fuse_iteration` captures one iteration's launches as CUDA graphs,
+  the counterpart of the reference's one XLA program per iteration
+  (`_FusedIteration`); the CPU has no graphs and runs the same loop
+  eagerly.
+- The sharded layouts are a later slice (ROADMAP.md).
+
+`ALSConfig.factor_dtype='bfloat16'` keeps the factor tables in bf16 on
+the device: gathered rows are widened to the train's dtype before the
+products, solved rows are rounded to bf16 as they are scattered, and the
+model's host and serving tables are float32, as in the reference.
+`ALSConfig.dual_solve='never'` solves every bucket's rank-dimension
+primal system; implicit trains then form G without its `eigh`.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -65,6 +76,9 @@ from predictionio_tpu_torch.ops.solve import (COMPUTE_DTYPES,
 from predictionio_tpu_torch.utils import buckets as B
 
 logger = logging.getLogger(__name__)
+
+FACTOR_DTYPES = ("float32", "bfloat16")
+DUAL_SOLVES = ("auto", "never")
 
 
 @dataclass(frozen=True)
@@ -103,6 +117,19 @@ class ALSConfig:
     # Merge this many same-shape batches of a half-sweep into one solver
     # call over chunk*B systems (the batches are independent). 0 = auto:
     # 1 (the reference's answer off a single TPU).
+    factor_dtype: str = "float32"
+    # Device storage dtype of the factor tables: 'float32' keeps them in
+    # `dtype`; 'bfloat16' halves the gather bytes (module docstring). It
+    # takes dtype='float32' only: bf16 tables under a float64 train would
+    # round the float64 reading it exists to give.
+    dual_solve: str = "auto"
+    # 'auto': buckets with K < rank solve the K-dim dual; 'never': every
+    # bucket solves the rank-dim primal (one [R, R] system an entity).
+    fuse_iteration: bool = False
+    # On the card, capture one iteration's launches (both half-sweeps and
+    # the implicit Grams) as CUDA graphs and replay them each iteration
+    # (`_FusedIteration`); a capture that fails raises. On the CPU the
+    # same loop runs eagerly.
 
     def __post_init__(self):
         if self.dual_iters_cap is not None and self.dual_iters_cap < 1:
@@ -123,6 +150,21 @@ class ALSConfig:
         if self.sweep_chunk < 0:
             raise ValueError("sweep_chunk must be >= 0, got "
                              f"{self.sweep_chunk}")
+        if self.factor_dtype not in FACTOR_DTYPES:
+            raise ValueError(f"factor_dtype must be one of {FACTOR_DTYPES}, "
+                             f"got {self.factor_dtype!r}")
+        if self.factor_dtype == "bfloat16" and self.dtype != "float32":
+            raise ValueError("factor_dtype='bfloat16' takes dtype='float32', "
+                             f"got {self.dtype!r}")
+        if self.dual_solve not in DUAL_SOLVES:
+            raise ValueError(f"dual_solve must be one of {DUAL_SOLVES}, got "
+                             f"{self.dual_solve!r}")
+
+    @property
+    def dual(self) -> bool:
+        """Whether buckets with K < rank take the dual (`dual_solve`):
+        what both equation builders and the implicit Grams read."""
+        return self.dual_solve == "auto"
 
 
 @dataclass
@@ -195,23 +237,30 @@ def _primal(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _gather(counter_factors: torch.Tensor, idx: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The counterpart rows of a batch, widened to the train's dtype (a
+    no-op unless the table is bf16, `ALSConfig.factor_dtype`)."""
+    return counter_factors[idx].to(dtype)
+
+
 def normal_equations(counter_factors: torch.Tensor, idx: torch.Tensor,
                      val: torch.Tensor, mask: torch.Tensor, lam: float,
                      rank: int, nratings_reg: bool = True,
-                     compute_dtype: str = "float32"):
+                     compute_dtype: str = "float32", dual: bool = True):
     """The explicit system one [B, K] batch solves, its products on
     `compute_dtype` operands (the gathered rows, the masked ratings, the
-    dual answer z) with sums in the factors' dtype.
+    dual answer z) with sums in the ratings' dtype.
 
-    Returns (kind, A, rhs, to_rows): ('primal', A [B,R,R], b [B,R]) when
-    K >= rank, else ('dual', A [B,K,K], y [B,K]) with rows x = M^T z;
-    `to_rows` maps the solve's answer to the factor rows."""
+    Returns (kind, A, rhs, to_rows): ('dual', A [B,K,K], y [B,K]) with
+    rows x = M^T z when `dual` and K < rank, else ('primal', A [B,R,R],
+    b [B,R]); `to_rows` maps the solve's answer to the factor rows."""
     cd = compute_dtype
-    Vc = round_operand(counter_factors[idx], cd)    # [B, K, R] gather
+    Vc = round_operand(_gather(counter_factors, idx, val.dtype), cd)
     K = idx.shape[1]
     reg = _regularizer(mask, lam, nratings_reg)
     Vm = Vc * mask[..., None]                       # exact: mask is 0/1
-    if K < rank:
+    if dual and K < rank:
         A = torch.bmm(Vm, Vm.transpose(1, 2))       # [B, K, K]
         A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
         return ("dual", A, val * mask,
@@ -227,9 +276,11 @@ def normal_equations(counter_factors: torch.Tensor, idx: torch.Tensor,
 def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
                        mask, lam: float, alpha: float, rank: int,
                        nratings_reg: bool = True,
-                       compute_dtype: str = "float32"):
+                       compute_dtype: str = "float32", dual: bool = True):
     """The implicit (Hu-Koren) system one [B, K] batch solves, with
-    `gram` = (G, w, Q) of the counterpart table (`gram_eig`).
+    `gram` = (G, w, Q) of the counterpart table (`gram_eig`); w and Q
+    are read only when `dual` and K < rank, and may be None otherwise
+    (`solver_gram`).
 
     Primal (K >= rank): A = G + sum_k (alpha |r_k|) v_k v_k^T + reg I,
     b = sum_k (1 + alpha |r_k|) 1(r_k > 0) v_k, over the real entries.
@@ -244,7 +295,7 @@ def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
     Returns (kind, A, rhs, to_rows) as `normal_equations`."""
     G, w, Q = gram
     cd = compute_dtype
-    Vc = round_operand(counter_factors[idx], cd)    # [B, K, R] gather
+    Vc = round_operand(_gather(counter_factors, idx, val.dtype), cd)
     K = idx.shape[1]
     reg = _regularizer(mask, lam, nratings_reg)
     absval = val.abs()
@@ -253,7 +304,7 @@ def implicit_equations(counter_factors: torch.Tensor, gram, idx, val,
     pos = (val > 0).to(val.dtype) * mask
     b = torch.bmm(round_operand((1.0 + alpha * absval) * pos,
                                 cd).unsqueeze(1), Vc).squeeze(1)  # [B, R]
-    if K >= rank:
+    if K >= rank or not dual:
         Vw = Vc * round_operand(conf_minus_1, cd)[..., None]
         A = G + torch.bmm(Vw.transpose(1, 2), Vc)
         A.diagonal(dim1=1, dim2=2).add_(reg[:, None])
@@ -292,6 +343,28 @@ def gram_eig(factors: torch.Tensor):
     return G, w, Q
 
 
+def solver_gram(G: torch.Tensor, cfg: "ALSConfig"):
+    """(G, w, Q) of a Gram for `implicit_equations`: G's
+    eigendecomposition when buckets take the dual (`ALSConfig.dual`),
+    else (G, None, None), as the reference's `_gram` forms G without its
+    eigh. The fold passes the Gram it carries."""
+    if not cfg.dual:
+        return G, None, None
+    w, Q = torch.linalg.eigh(G)
+    return G, w, Q
+
+
+def gram_of(table: torch.Tensor, n: int, cfg: "ALSConfig",
+            dtype: torch.dtype):
+    """The implicit half-sweep's `solver_gram` of the table's first `n`
+    rows, widened to `dtype` (through `gram_eig` when it takes the
+    eigh)."""
+    factors = table[:n].to(dtype)
+    if cfg.dual:
+        return gram_eig(factors)
+    return solver_gram(factors.T @ factors, cfg)
+
+
 def _solve_batch(factors_out, counter_factors, rows, idx, val, mask,
                  cfg: "ALSConfig", solver: str, gram=None) -> None:
     """Solve one [B, K] batch of normal equations (implicit when `gram`
@@ -300,11 +373,11 @@ def _solve_batch(factors_out, counter_factors, rows, idx, val, mask,
     if gram is not None:
         kind, A, rhs, to_rows = implicit_equations(
             counter_factors, gram, idx, val, mask, cfg.lam, cfg.alpha,
-            cfg.rank, nratings_reg, cfg.compute_dtype)
+            cfg.rank, nratings_reg, cfg.compute_dtype, cfg.dual)
     else:
         kind, A, rhs, to_rows = normal_equations(
             counter_factors, idx, val, mask, cfg.lam, cfg.rank,
-            nratings_reg, cfg.compute_dtype)
+            nratings_reg, cfg.compute_dtype, cfg.dual)
     if kind == "dual":
         z = _dual_system_solve(A, rhs, idx.shape[1], solver,
                                iters_cap=cfg.dual_iters_cap,
@@ -377,6 +450,101 @@ def _run_side(batches: Sequence[DeviceBatch], factors: torch.Tensor,
                      solver, gram)
 
 
+def _iteration(U: torch.Tensor, V: torch.Tensor,
+               user_batches: Sequence[DeviceBatch],
+               item_batches: Sequence[DeviceBatch], cfg: ALSConfig,
+               solver: str, n_users: int, n_items: int,
+               dtype: torch.dtype) -> None:
+    """One iteration in place: the user side against V, then the item
+    side against the updated U (implicit: each after its counterpart's
+    Gram)."""
+    gram_v = gram_of(V, n_items, cfg, dtype) if cfg.implicit_prefs else None
+    _run_side(user_batches, U, V, cfg, solver, gram_v)
+    gram_u = gram_of(U, n_users, cfg, dtype) if cfg.implicit_prefs else None
+    _run_side(item_batches, V, U, cfg, solver, gram_u)
+
+
+def _gram_into(bufs: Tuple[torch.Tensor, ...], table: torch.Tensor,
+               n: int, cfg: ALSConfig, dtype: torch.dtype) -> None:
+    for dst, src in zip(bufs, gram_of(table, n, cfg, dtype)):
+        dst.copy_(src)
+
+
+class _FusedIteration:
+    """One ALS iteration as CUDA graphs (`ALSConfig.fuse_iteration`).
+
+    `parts` is the iteration in order, each (captured, fn): a captured
+    part is recorded once into a graph and replayed, an eager one runs
+    as it is each time. Only the implicit Grams under dual_solve='auto'
+    are eager: their `torch.linalg.eigh` (cuSOLVER syevj) fails under
+    stream capture, so that iteration is two graphs, the user side and
+    the item side, each after its Gram's eager eigh into tensors the
+    graph reads. Every other iteration is one graph.
+
+    Before capture, `warmup` runs one iteration on copies of the tables
+    on a side stream, so the lazy set-up of libraries and handles happens
+    outside the capture. Capture records without running; the kernel
+    wrappers count their launches in Python as they are recorded, so the
+    counts of the capture are taken back and `replay` adds them once a
+    replay (`launches`, the wrappers' counts of one iteration). The
+    tables and the plan's batches keep their addresses for the graphs'
+    life: everything updates them in place."""
+
+    def __init__(self, parts, warmup, device: torch.device):
+        from predictionio_tpu_torch.ops.solve import COUNTS
+        self.parts = parts
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warmup()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        before = COUNTS.snapshot()
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        for captured, fn in parts:
+            graph = None
+            if captured:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    fn()
+            self.graphs.append(graph)
+        self.launches = COUNTS.since(before)
+        COUNTS.add(self.launches, -1)
+
+    def replay(self) -> None:
+        from predictionio_tpu_torch.ops.solve import COUNTS
+        for (_, fn), graph in zip(self.parts, self.graphs):
+            if graph is None:
+                fn()
+            else:
+                graph.replay()
+        COUNTS.add(self.launches)
+
+
+def _fused_parts(U, V, user_batches, item_batches, cfg: ALSConfig,
+                 solver: str, n_users: int, n_items: int,
+                 dtype: torch.dtype) -> list:
+    """`_FusedIteration`'s parts for this train."""
+    if not cfg.implicit_prefs or not cfg.dual:
+        return [(True, functools.partial(
+            _iteration, U, V, user_batches, item_batches, cfg, solver,
+            n_users, n_items, dtype))]
+    parts = []
+    for batches, out, counter, n in ((user_batches, U, V, n_items),
+                                     (item_batches, V, U, n_users)):
+        # buffers with the strides of the Gram's own outputs (eigh's Q is
+        # column-major): each product then sees the layout, and so runs
+        # the cuBLAS kernel, of the unfused train
+        bufs = tuple(t.clone() for t in gram_of(counter, n, cfg, dtype))
+        parts.append((False, functools.partial(_gram_into, bufs, counter,
+                                               n, cfg, dtype)))
+        parts.append((True, functools.partial(_run_side, batches, out,
+                                              counter, cfg, solver, bufs)))
+    return parts
+
+
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
@@ -397,7 +565,11 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
     `telemetry`, when a dict, receives per-phase wall times (plan_s,
     upload_s, iters_s, s_per_iter, fetch_s, and iter_s, one per
     iteration), each closed by a device synchronize, and `solver_calls`,
-    the number of batched solves run (after `sweep_chunk` merging)."""
+    the number of batched solves the iterations ran (after `sweep_chunk`
+    merging). A fused train on the card adds `capture_s` (the warm-up
+    and the capture), `replays`, `warmup_calls` (the warm-up iteration's
+    solves, launched on copies of the tables) and `captured_launches`
+    (the kernel launches of one replay)."""
     dev = resolve_device(device)
     solver = resolve_solver(cfg.solver, dev)
     t0 = time.perf_counter()
@@ -417,17 +589,39 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
 
     # _init_factors divides by a numpy float64 scalar, so (as in the
     # reference, which casts to its factor dtype) cast to float32, then to
-    # the train's dtype
+    # the table's dtype
     dtype = getattr(torch, cfg.dtype)
+    table_dtype = (torch.bfloat16 if cfg.factor_dtype == "bfloat16"
+                   else dtype)
     U = torch.from_numpy(_init_factors(ratings.n_users, cfg.rank, cfg.seed,
-                                       1).astype(np.float32)).to(dev, dtype)
+                                       1).astype(np.float32)).to(
+                                           dev, table_dtype)
     V = torch.from_numpy(_init_factors(ratings.n_items, cfg.rank, cfg.seed,
-                                       2).astype(np.float32)).to(dev, dtype)
+                                       2).astype(np.float32)).to(
+                                           dev, table_dtype)
     chunk = resolve_sweep_chunk(cfg.sweep_chunk)
     user_batches = _upload_plan(user_plan, dev, dtype, chunk)
     item_batches = _upload_plan(item_plan, dev, dtype, chunk)
     synchronize(dev)
     tel["upload_s"] = time.perf_counter() - t0
+    calls_per_iter = len(user_batches) + len(item_batches)
+    step = functools.partial(_iteration, U, V, user_batches, item_batches,
+                             cfg, solver, ratings.n_users, ratings.n_items,
+                             dtype)
+    if cfg.fuse_iteration and dev.type == "cuda":
+        t0 = time.perf_counter()
+        fused = _FusedIteration(
+            _fused_parts(U, V, user_batches, item_batches, cfg, solver,
+                         ratings.n_users, ratings.n_items, dtype),
+            functools.partial(_iteration, U.clone(), V.clone(),
+                              user_batches, item_batches, cfg, solver,
+                              ratings.n_users, ratings.n_items, dtype),
+            dev)
+        step = fused.replay
+        tel["capture_s"] = time.perf_counter() - t0
+        tel["warmup_calls"] = calls_per_iter
+        tel["captured_launches"] = dict(fused.launches)
+        tel["replays"] = 0
     t0 = time.perf_counter()
 
     sentinel = None
@@ -447,15 +641,12 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
         # (scripts/profile_torch_als.py); it ends after the synchronize
         # (the implicit Grams and their eigh run inside it)
         with torch.profiler.record_function("als_iteration"):
-            gram_v = (gram_eig(V[:ratings.n_items]) if cfg.implicit_prefs
-                      else None)
-            _run_side(user_batches, U, V, cfg, solver, gram_v)
-            gram_u = (gram_eig(U[:ratings.n_users]) if cfg.implicit_prefs
-                      else None)
-            _run_side(item_batches, V, U, cfg, solver, gram_u)
-            calls += len(user_batches) + len(item_batches)
+            step()
+            calls += calls_per_iter
             synchronize(dev)
         tel["iter_s"].append(time.perf_counter() - t_it)
+        if "replays" in tel:
+            tel["replays"] += 1
         if sentinel is None:
             continue
         fault = (sentinel.check_table(U, f"iteration {it} user table")
@@ -468,15 +659,19 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
             raise fault
         logger.error("ALS %s — rolling back to iteration %d and stopping "
                      "early", fault, it - 1)
-        U, V = last_good
+        # into the tables themselves: a fused train's graphs hold them
+        U.copy_(last_good[0])
+        V.copy_(last_good[1])
         break
     synchronize(dev)
     tel["iters_s"] = time.perf_counter() - t0
     tel["s_per_iter"] = tel["iters_s"] / max(cfg.iterations, 1)
     tel["solver_calls"] = calls
     t0 = time.perf_counter()
-    U_dev = U[:ratings.n_users]
-    V_dev = V[:ratings.n_items]
+    # the model's tables are float32 whatever the train stored: the host
+    # copy (as the reference's) and the serving copy
+    U_dev = U[:ratings.n_users].to(dtype)
+    V_dev = V[:ratings.n_items].to(dtype)
     model = ALSModel(U_dev.cpu().numpy(), V_dev.cpu().numpy(), cfg.rank,
                      dev, _tables=(U_dev, V_dev))
     tel["fetch_s"] = time.perf_counter() - t0

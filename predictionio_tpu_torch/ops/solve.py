@@ -66,6 +66,21 @@ class LaunchCounts:
         for name in self.__dataclass_fields__:
             setattr(self, name, 0)
 
+    def snapshot(self) -> dict:
+        return dict(vars(self))
+
+    def since(self, snapshot: dict) -> dict:
+        """The counts added after `snapshot` (nonzero ones only)."""
+        return {k: v - snapshot[k] for k, v in vars(self).items()
+                if v != snapshot[k]}
+
+    def add(self, counts: dict, times: int = 1) -> None:
+        """Add `times` x `counts`: a replayed CUDA graph launches the
+        kernels its capture recorded without calling their wrappers
+        (`ops/als._FusedIteration`)."""
+        for k, v in counts.items():
+            setattr(self, k, getattr(self, k) + times * v)
+
 
 COUNTS = LaunchCounts()
 

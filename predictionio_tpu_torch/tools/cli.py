@@ -1,10 +1,14 @@
 """The port's command line: `python -m predictionio_tpu_torch`.
 
-The port's counterpart of `version`, `train`, `deploy`, `undeploy`,
-`update` and `rollback` of `predictionio_tpu/tools/cli.py` (the
-reference's Console, Console.scala:186-651), with the same flags and
+The port's counterpart of `version`, `train`, `eval`, `deploy`,
+`undeploy`, `update` and `rollback` of `predictionio_tpu/tools/cli.py`
+(the reference's Console, Console.scala:186-651), with the same flags and
 messages. `train` runs
-`create_workflow_main` in this process; `deploy` undeploys a stale server
+`create_workflow_main` in this process; `eval` runs the Evaluation class
+and the params generator it is given by dotted path (`create_workflow`'s
+evaluation run), records an evaluation instance and writes the best
+params to `best.json` in `--output-path` (default: the working
+directory, where the reference's Scala engine writes it); `deploy` undeploys a stale server
 on the target port, restores and warms the latest trained instance
 (`EngineServer.load`), binds, prints the address it serves on (`--port
 0` binds any free port, and no stale server is looked for) and serves in
@@ -22,7 +26,7 @@ from the engine.json's algorithm params (`device`; absent = the card,
 which raises RuntimeError without CUDA; `"cpu"` only when named).
 
 The other commands of `bin/pio` (app, accesskey, import, export,
-eventserver, status, build, eval and the rest) are not ported: run them
+eventserver, status, build and the rest) are not ported: run them
 through the JAX package's `bin/pio` on a machine that has JAX, against
 the same store, or through the storage API.
 """
@@ -41,9 +45,9 @@ from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
-    "here: version, train, deploy, undeploy, update, rollback. Still only "
-    "in the JAX package's bin/pio: app, accesskey, import, export, "
-    "eventserver, status, build, eval and the other commands.")
+    "here: version, train, eval, deploy, undeploy, update, rollback. Still "
+    "only in the JAX package's bin/pio: app, accesskey, import, export, "
+    "eventserver, status, build and the other commands.")
 
 
 def cmd_version(args) -> int:
@@ -73,6 +77,20 @@ def cmd_train(args) -> int:
         print(f"Training interrupted by {type(e).__name__}.")
         return 0
     print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    config = WorkflowConfig(
+        batch=args.batch or "",
+        engine_variant=args.engine_json,
+        evaluation_class=args.evaluation_class,
+        engine_params_generator_class=args.engine_params_generator_class,
+        output_path=args.output_path)
+    instance_id = create_workflow_main(config)
+    print(f"Evaluation completed. Evaluation instance ID: {instance_id}")
     return 0
 
 
@@ -276,6 +294,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--stop-after-read", action="store_true")
     t.add_argument("--stop-after-prepare", action="store_true")
     t.set_defaults(func=cmd_train)
+
+    e = sub.add_parser("eval", help="evaluate a params sweep and record "
+                       "an evaluation instance")
+    e.add_argument("evaluation_class")
+    e.add_argument("engine_params_generator_class", nargs="?")
+    _add_variant_arg(e)
+    e.add_argument("--batch")
+    e.add_argument("--output-path", default=".",
+                   help="directory best.json is written to")
+    e.set_defaults(func=cmd_eval)
 
     d = sub.add_parser("deploy", help="serve the latest trained instance "
                        "in the foreground")

@@ -9,8 +9,11 @@ lists and item metadata). `from_jax_ecommerce_model`,
 `from_jax_recommendeduser_model` and `from_jax_dimsum_model` do the same
 for the e-commerce `ECommerceModel`, the recommended-user
 `RecommendedUserModel` and the dimsum `DIMSUMModel` (whose table stays on
-the host, as it serves there). All take plain arrays and dicts, so this
-module imports nothing of the reference package.
+the host, as it serves there). `from_jax_nb_model` and
+`from_jax_forest_model` carry the classification template's
+`MultinomialNBModel` and `ForestModel`, which serve on the host. All take
+plain arrays and dicts, so this module imports nothing of the reference
+package.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from predictionio_tpu_torch.models.recommendeduser import RecommendedUserModel
 from predictionio_tpu_torch.models.similarproduct import (
     DIMSUMModel, Item, ItemMetadataModel, SimilarProductModel)
 from predictionio_tpu_torch.ops.als import ALSModel
+from predictionio_tpu_torch.ops.forest import ForestModel
+from predictionio_tpu_torch.ops.naive_bayes import MultinomialNBModel
 
 
 def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
@@ -155,3 +160,33 @@ def from_jax_dimsum_model(similarities, item_ids: Sequence[str],
     S = _table("similarities", similarities, len(item_ids), len(item_ids))
     return DIMSUMModel(similarities=S, **ItemMetadataModel.metadata_kwargs(
         items, EntityIdIxMap.from_ids(item_ids)))
+
+
+def from_jax_nb_model(pi, theta, labels) -> MultinomialNBModel:
+    """The reference `MultinomialNBModel`'s arrays: log priors [C], log
+    likelihoods [C, D], label values [C]."""
+    pi = np.array(pi, dtype=np.float64)
+    theta = np.array(theta, dtype=np.float64)
+    labels = np.array(labels, dtype=np.float64)
+    if pi.ndim != 1 or theta.ndim != 2 or theta.shape[0] != pi.shape[0] \
+            or labels.shape != pi.shape:
+        raise ValueError(f"pi {pi.shape}, theta {theta.shape} and labels "
+                         f"{labels.shape} do not describe one model")
+    return MultinomialNBModel(pi=pi, theta=theta, labels=labels)
+
+
+def from_jax_forest_model(feature, threshold, is_leaf, leaf_class,
+                          num_classes: int, max_depth: int) -> ForestModel:
+    """The reference `ForestModel`'s four [T, 2^(max_depth+1) - 1] heap
+    arrays and its knobs."""
+    arrays = (np.array(feature, dtype=np.int32),
+              np.array(threshold, dtype=np.float32),
+              np.array(is_leaf, dtype=bool),
+              np.array(leaf_class, dtype=np.int32))
+    shape = (arrays[0].shape[0], 2 ** (max_depth + 1) - 1)
+    if any(a.shape != shape for a in arrays):
+        raise ValueError(f"forest arrays {[a.shape for a in arrays]} are "
+                         f"not [trees, {shape[1]}] heaps of depth "
+                         f"{max_depth}")
+    return ForestModel(*arrays, num_classes=int(num_classes),
+                       max_depth=int(max_depth))

@@ -1,11 +1,13 @@
-"""The train run with its engine-instance lifecycle record.
+"""The train and evaluation runs with their lifecycle records.
 
-The port's counterpart of `run_train` in
-`predictionio_tpu/workflow/core_workflow.py` (the reference's
-CoreWorkflow.runTrain, CoreWorkflow.scala:42-99): EngineInstance INIT ->
-train -> serialize the models -> Models.insert -> COMPLETED, or ABORTED
-when any step raises. The engine params are recorded as JSON on the
-instance, which is how a server that did not train restores them.
+The port's counterpart of `predictionio_tpu/workflow/core_workflow.py`:
+`run_train` (CoreWorkflow.runTrain, CoreWorkflow.scala:42-99):
+EngineInstance INIT -> train -> serialize the models -> Models.insert ->
+COMPLETED, or ABORTED when any step raises. The engine params are
+recorded as JSON on the instance, which is how a server that did not
+train restores them. `run_evaluation` (CoreWorkflow.runEvaluation):
+EvaluationInstance INIT -> `MetricEvaluator.evaluate_base` ->
+EVALCOMPLETED with the one-line, HTML and JSON results, or ABORTED.
 """
 
 from __future__ import annotations
@@ -14,10 +16,14 @@ import datetime as _dt
 import json
 import logging
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 from predictionio_tpu_torch.core.engine import Engine, EngineParams
-from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
+from predictionio_tpu_torch.core.evaluation import (Evaluation,
+                                                    MetricEvaluator)
+from predictionio_tpu_torch.data.storage.base import (EngineInstance,
+                                                      EvaluationInstance,
+                                                      Model)
 from predictionio_tpu_torch.data.storage.registry import Storage
 
 logger = logging.getLogger(__name__)
@@ -80,4 +86,42 @@ def run_train(engine: Engine, engine_params: EngineParams,
         logger.exception("Training failed: engine instance %s",
                          instance_id)
         instances.update(instance.with_(status="ABORTED", end_time=_now()))
+        raise
+
+
+def run_evaluation(engine: Engine, evaluation: Evaluation,
+                   engine_params_list: Sequence[EngineParams],
+                   evaluation_class: str = "",
+                   engine_params_generator_class: str = "",
+                   env: Optional[dict] = None,
+                   output_path: Optional[str] = None,
+                   batch: str = "") -> str:
+    """Evaluate a params sweep and record the results; returns the
+    EvaluationInstance id. `output_path`: where `best.json` is written."""
+    dao = Storage.get_meta_data_evaluation_instances()
+    instance = EvaluationInstance(
+        status="INIT", start_time=_now(), end_time=_now(),
+        evaluation_class=evaluation_class,
+        engine_params_generator_class=engine_params_generator_class,
+        batch=batch, env=env or {})
+    instance_id = dao.insert(instance)
+    instance = dao.get(instance_id)
+    try:
+        if evaluation.metric is None:
+            raise ValueError("Evaluation.metric must be set")
+        evaluator = MetricEvaluator(evaluation.metric,
+                                    list(evaluation.metrics),
+                                    output_path=output_path)
+        result = evaluator.evaluate_base(engine, engine_params_list)
+        dao.update(instance.with_(
+            status="EVALCOMPLETED", end_time=_now(),
+            evaluator_results=result.one_liner(),
+            evaluator_results_html=result.to_html(),
+            evaluator_results_json=result.to_json(engine)))
+        logger.info("Evaluation completed: %s", result.one_liner())
+        return instance_id
+    except Exception:
+        logger.exception("Evaluation failed: evaluation instance %s",
+                         instance_id)
+        dao.update(instance.with_(status="ABORTED", end_time=_now()))
         raise

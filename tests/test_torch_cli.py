@@ -262,5 +262,5 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
                  "import", "eventserver"):
         assert word in text
     assert "Still only in the JAX package's bin/pio" in text
-    assert "version, train, deploy, undeploy, update, rollback. Still" \
-        in text
+    assert "version, train, eval, deploy, undeploy, update, rollback. " \
+        "Still" in text

@@ -5,8 +5,10 @@ the Schulz kernel) on the card against the same trains on the CPU, the
 fold-in (every solve through the CG kernel) against the same fold on the
 CPU, the recommendation and e-commerce templates' store ->
 `create_workflow_main` -> `EngineServer.load` round trips on the card, the
-recommended-user train through the CG kernel, and the DIMSUM Gram on the
-card against the CPU's.
+recommended-user train through the CG kernel, the DIMSUM Gram on the
+card against the CPU's, the fused (CUDA graph) trains and the bf16
+tables, and the naive Bayes counts and forest growth on the card against
+the CPU's.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -779,3 +781,80 @@ def test_dimsum_gram_on_the_card_matches_the_cpu(cuda):
                                           chunk_users=1024, device="cpu")
         assert np.abs(on_card - on_cpu).max() <= 1e-6
         assert tel["gram_device_ms"] > 0 and tel["chunks"] == 5
+
+
+@pytest.mark.parametrize("implicit,solver,dual_solve", [
+    (False, "cg_cuda", "auto"), (True, "chol_cuda", "auto"),
+    (True, "cg_cuda", "never")])
+def test_fused_train_on_the_card_captures_and_counts(cuda, implicit, solver,
+                                                     dual_solve):
+    """fuse_iteration on the card: the iteration is captured as CUDA
+    graphs and replayed; the tables equal the unfused train's bit for bit
+    (the same kernels in the same order); every replayed solve is counted
+    as a launch of the solver's kernel, as is the warm-up's."""
+    ui, ii, vv, n_u, n_i = small_ratings()
+    coo = RatingsCOO(ui, ii, vv, n_u, n_i)
+    kw = dict(rank=16, iterations=3, lam=0.1, seed=2, work_budget=512,
+              implicit_prefs=implicit, solver=solver, sweep_chunk=2,
+              dual_solve=dual_solve)
+    kernel = solver.replace("_cuda", "_solve")
+    base = TA.als_train(coo, TA.ALSConfig(**kw), device=cuda)
+    T.COUNTS.reset()
+    tel = {}
+    fused = TA.als_train(coo, TA.ALSConfig(fuse_iteration=True, **kw),
+                         device=cuda, telemetry=tel)
+    assert tel["replays"] == 3 and tel["capture_s"] > 0
+    assert tel["captured_launches"] == {kernel: tel["solver_calls"] // 3}
+    assert getattr(T.COUNTS, kernel) == \
+        tel["solver_calls"] + tel["warmup_calls"]
+    assert T.COUNTS.cg_solve_plain == T.COUNTS.chol_solve_plain == 0
+    assert np.array_equal(fused.user_factors, base.user_factors)
+    assert np.array_equal(fused.item_factors, base.item_factors)
+
+
+def test_bf16_tables_stay_bf16_on_the_card(cuda, monkeypatch):
+    """factor_dtype='bfloat16': the tables the iterations update are bf16
+    on the card, the model's tables are float32, and the train lands
+    within 4 bf16 ulps of the same train on the CPU."""
+    seen = []
+    real = TA._iteration
+
+    def spy(U, V, *args):
+        seen.append((U.dtype, V.dtype, U.device.type))
+        return real(U, V, *args)
+    monkeypatch.setattr(TA, "_iteration", spy)
+    ui, ii, vv, n_u, n_i = small_ratings()
+    coo = RatingsCOO(ui, ii, vv, n_u, n_i)
+    cfg = TA.ALSConfig(rank=16, iterations=3, lam=0.1, seed=2,
+                       work_budget=512, factor_dtype="bfloat16")
+    m = TA.als_train(coo, cfg, device=cuda)
+    assert seen == [(torch.bfloat16, torch.bfloat16, "cuda")] * 3
+    assert m.user_factors.dtype == np.float32
+    assert all(t.dtype == torch.float32 for t in m.tables())
+    ref = TA.als_train(coo, cfg, device="cpu")
+    for a, b in ((m.user_factors, ref.user_factors),
+                 (m.item_factors, ref.item_factors)):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(b).max())) - 7)
+        assert np.abs(a - b).max() <= 4 * ulp
+
+
+def test_nb_counts_and_forest_on_the_card_equal_the_cpu(cuda):
+    """The naive Bayes counts and the forest's level histograms on the
+    card: integer sums, exact in float32 with TF32 off, so the models
+    equal the CPU's (the forest's default draws come from a CPU
+    generator, the same on both)."""
+    from predictionio_tpu_torch.ops.forest import forest_train
+    from predictionio_tpu_torch.ops.naive_bayes import multinomial_nb_train
+    rng = np.random.default_rng(4)
+    y = rng.integers(0, 4, 20_000)
+    X = rng.poisson(2.0 + 3.0 * y[:, None] * np.array([1.0, 0.5, 0.2])
+                    ).astype(np.float32)
+    a = multinomial_nb_train(X, y, lam=1.0, device=cuda)
+    b = multinomial_nb_train(X, y, lam=1.0, device="cpu")
+    assert np.array_equal(a.pi, b.pi) and np.array_equal(a.theta, b.theta)
+    kw = dict(num_classes=4, num_trees=10, max_depth=5, max_bins=32,
+              seed=3)
+    fa = forest_train(X, y, device=cuda, **kw)
+    fb = forest_train(X, y, device="cpu", **kw)
+    for name in ("feature", "threshold", "is_leaf", "leaf_class"):
+        assert np.array_equal(getattr(fa, name), getattr(fb, name)), name

@@ -313,7 +313,8 @@ def test_params_to_dict_names_a_field_with_no_json_form():
     assert TP.params_to_dict(TR.DataSourceParams(app_name="a")) == {
         "app_name": "a", "channel_name": None,
         "event_names": ("rate", "buy"), "buy_rating": 4.0,
-        "read_items": False, "ratings": None}
+        "read_items": False, "eval_k": None, "eval_query_num": 10,
+        "ratings": None}
 
 
 # -- the data source and preparator -----------------------------------------
