@@ -44,7 +44,22 @@ PyTorch version at the shapes its path gives it. Then:
   float64 top-k under the reference's mask, built from the items' seeded
   metadata; a retrain through the command line (`cli.main(["train",
   ...])`, what `python -m predictionio_tpu_torch train` runs) then swaps
-  in on `POST /reload`; then `pio eval` on the same store (`rec_eval`):
+  in on `POST /reload`;
+- the bulk data plane and the e2 library on that store, right after its
+  first train: the same train with `"stream": true` (`stream_train`:
+  chunked store cursors, a reader thread and pinned double-buffered
+  copies to the card; every solve a CG launch, the factor tables and id
+  maps bit-equal to the batch train's, 5,000,000 rows streamed, no kernel
+  build mid-stream); `BulkLoadExecutor` on the card over the first
+  1,000,000 rate events (`dataplane`: every segment a CUDA tensor on the
+  bucket ladder copied from a pinned buffer, the rows copied back
+  byte-equal to the host columns, a 64 MB copy still in flight when its
+  staging call returns); the Markov chain (26,744 states, 5M seeded
+  transition counts, top 20; 16 predictions on the card held to float64
+  within 1e-6) and categorical naive Bayes (1,000,000 points, 8
+  positions, 64 values, 5 labels; the counts on the card equal to numpy's
+  bincount, the model to a float64 reckoning) (`e2`);
+- then `pio eval` on the same store (`rec_eval`):
   `create_workflow_main` on this script's `RecEval`/`RecSweep`, a
   FastEvalEngine of the recommendation template (2 folds, one read, two
   lam settings, every solve a CG launch), each PrecisionAtK@10 held to
@@ -79,14 +94,14 @@ PyTorch version at the shapes its path gives it. Then:
   algorithm (the [26,744+, 26,744+] item Gram on the card, 2.9 GB,
   persisted by the model itself; 64 rows held to float64 rows made with
   scipy.sparse from the store's pairs, 64 queries to the float64 top-k);
-  the e-commerce template after 600,000 `view`/`buy` events, 64 new
+  the e-commerce template after 300,000 `view`/`buy` events, 64 new
   users and two `unavailableItems` lists land (rank-200 implicit ALS,
   every solve through the CG kernel, its last half-sweep held to the
   kernel's plain version and read against float64; 240 queries held to
   the float64 top-k under the mask made from the seeds, with zero
   point-read timeouts; the result cache keeping a bought item, as the
   reference's does, and `PIO_SERVE_CACHE=off` dropping it; 32 clients x
-  20 queries); the recommended-user template on 1,000,000 `follow`
+  20 queries); the recommended-user template on 250,000 `follow`
   events (every solve through the CG kernel, 64 queries held);
 - the classification template in an app of its own on the same store
   (`cls_*`): 100,000 users $set with a plan of 4 classes and Poisson
@@ -243,15 +258,15 @@ DIMSUM_ROWS = 64                 # seeded rows of the [I, I] table held
 DIMSUM_QUERIES = 64
 DIMSUM_TABLE_ATOL = 1e-6         # float32 counts are exact; the cosine's
 #                                  normalization rounds at 2^-24 relative
-ECOM_VIEWS = (500_000, 7)        # (events, synthetic_ml20m seed)
-ECOM_BUYS = (100_000, 8)
+ECOM_VIEWS = (250_000, 7)        # (events, synthetic_ml20m seed)
+ECOM_BUYS = (50_000, 8)
 ECOM_NEW_USERS = 64              # users with 1-10 views and no rating
 ECOM_UNAVAILABLE = 500           # items in each unavailableItems $set
 ECOM_HELD = (160, 48, 32)        # ecom_deploy: known, new, unknown users
 ECOM_PLANE_MIX = (14, 4, 2)      # ecom_plane, per client: the same kinds
 ECOM_POOL = 2000                 # known users drawn from: with seeded
 #                                  views or buys, and any
-RECUSER_FOLLOWS = (1_000_000, 9)
+RECUSER_FOLLOWS = (250_000, 9)
 RECUSER_QUERIES = 64
 FIELDS_CHUNK = 4                 # als_fields: the ablation rows' sweep_chunk
 BF16_RMSE_TOL = 0.02             # bf16 tables vs f32 (tests/test_solve.py)
@@ -274,6 +289,16 @@ CLS_NB_TOL = 1e-9                # naive Bayes pi/theta vs float64 numpy:
 # exact in float32 below 2**24, and pi and theta are the same float64
 # formulas, so only the last bits of the logs may differ
 CLS_QUERIES = 64
+DATAPLANE_ROWS = 1_000_000       # dataplane: the first rate events streamed
+ASYNC_PROBE_ROWS = 8 << 20       # int64 rows of the asynchrony probe: 64 MB
+MARKOV_NNZ = 5_000_000           # e2: seeded transition counts
+MARKOV_TOP_N = 20
+MARKOV_STATES_HELD = 16          # state vectors predicted and held
+MARKOV_REL_TOL = 1e-6            # float32 atomic sums of ~20 terms a bin
+NB_POINTS = 1_000_000            # e2 categorical NB: N, P, values, labels
+NB_POSITIONS = 8
+NB_VALUES = 64
+NB_LABELS = 5
 CLS_TIE_REL = 1e-12              # a label may differ only where the top
                                  # two float64 scores tie this closely
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1493,15 +1518,18 @@ def populate_store(app_id: int) -> int:
     return len(vv) + n_items
 
 
-def store_variant(path: str, seed: int) -> None:
+def store_variant(path: str, seed: int, stream: bool = False) -> None:
     """The engine.json of the product path: the recommendation template
-    reading the store with item properties, rank-200 ALS on the card
-    (solver 'auto'), creationYear returned on each item."""
+    reading the store with item properties (streamed through the bulk
+    data plane with `stream`), rank-200 ALS on the card (solver 'auto'),
+    creationYear returned on each item."""
+    ds = {"app_name": STORE_APP, "read_items": True}
+    if stream:
+        ds["stream"] = True
     with open(path, "w") as f:
         json.dump({
             "id": "default", "engineFactory": "recommendation",
-            "datasource": {"params": {"app_name": STORE_APP,
-                                      "read_items": True}},
+            "datasource": {"params": ds},
             "algorithms": [{"name": "als", "params": {
                 "rank": RANK, "num_iterations": ITERATIONS,
                 "lam": STORE_LAM, "seed": seed, "solver": "auto",
@@ -1522,12 +1550,14 @@ def similar_variant(path: str) -> None:
                 "alpha": ALPHA, "seed": 0, "solver": "chol_cuda"}}]}, f)
 
 
-def workflow_train(path: str, phase: str, kernel="cg_solve") -> tuple:
+def workflow_train(path: str, phase: str, kernel="cg_solve",
+                   tel_out: dict = None) -> tuple:
     """`cli.main(["train", "-v", path])` in this process (what `python -m
     predictionio_tpu_torch train` runs), with every kernel count set to
     0 just before and read just after; every solve must be `kernel` (None:
     a train that solves nothing, whose counts must all stay 0). Returns
-    (instance id, the TrainResult it persisted, launches of `kernel`)."""
+    (instance id, the TrainResult it persisted, launches of `kernel`);
+    `tel_out` receives the train's telemetry (read_s, train_s, ...)."""
     from predictionio_tpu_torch.core.engine import Engine
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.ops.solve import COUNTS
@@ -1562,6 +1592,8 @@ def workflow_train(path: str, phase: str, kernel="cg_solve") -> tuple:
         f"train of {path} exited {rc} saying {said}")
     iid = said[-1].rsplit(" ", 1)[1]
     tel = dict(tels[0])
+    if tel_out is not None:
+        tel_out.update(tel)
     algo_tels = tel.pop("algorithms")
     algo_tel = algo_tels[0]
     inst = Storage.get_meta_data_engine_instances().get(iid)
@@ -1666,9 +1698,267 @@ def phase_store_train(workdir: str) -> tuple:
          note="set-up: the bulk import, not a measurement of train")
     path = os.path.join(workdir, "engine.json")
     store_variant(path, STORE_SEEDS[0])
-    iid, trained, launches = workflow_train(path, "store_train")
+    tel = {}
+    iid, trained, launches = workflow_train(path, "store_train",
+                                            tel_out=tel)
     emit("store_blob", instance=iid, **blob_check(iid, trained))
-    return path, iid, trained, launches
+    return path, iid, trained, launches, tel["read_s"]
+
+
+def persisted_model(iid: str):
+    """The recommendation model of instance `iid`, as deploy restores it
+    (host tables)."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendation import \
+        RecommendationEngineFactory
+    blob = Storage.get_model_data_models().get(iid).models
+    (model,) = RecommendationEngineFactory.apply().deserialize_models(
+        blob, iid)
+    return model
+
+
+def phase_stream_train(workdir: str, batch_iid: str,
+                       batch_read_s: float) -> tuple:
+    """`store_train` again with `"stream": true` and the same seed: the
+    training read streams through the bulk data plane (chunked cursors,
+    a reader thread, pinned double-buffered copies to the card), and the
+    persisted factor tables and id maps must be bit-equal to the batch
+    train's. Returns the CG launches (every solve one) and the stream's
+    `BulkLoadStats`."""
+    from predictionio_tpu_torch.dataplane import pipeline
+    batch = persisted_model(batch_iid)
+    path = os.path.join(workdir, "engine_stream.json")
+    store_variant(path, STORE_SEEDS[0], stream=True)
+    pipeline.last_stats = None
+    tel = {}
+    iid, _, launches = workflow_train(path, "stream_train", tel_out=tel)
+    st = pipeline.last_stats
+    check(st is not None, "the stream_train read did not go through the "
+          "bulk data plane")
+    streamed = persisted_model(iid)
+    equal = {
+        "user_ids": list(streamed.user_ix.ids) == list(batch.user_ix.ids),
+        "item_ids": list(streamed.item_ix.ids) == list(batch.item_ix.ids),
+        "user_factors": np.array_equal(streamed.als.user_factors,
+                                       batch.als.user_factors),
+        "item_factors": np.array_equal(streamed.als.item_factors,
+                                       batch.als.item_factors)}
+    stage_s = st.decode_s + st.upload_submit_s + st.upload_wait_s
+    emit("stream_read", rows=st.rows, chunks=st.chunks, read_s=st.read_s,
+         decode_s=st.decode_s, upload_submit_s=st.upload_submit_s,
+         upload_wait_s=st.upload_wait_s, h2d_bytes=st.h2d_bytes,
+         h2d_overlap_frac=st.h2d_overlap_frac, read_mb_s=st.read_mb_s,
+         read_bytes=st.read_bytes, wall_s=st.wall_s,
+         unattributed_s=st.wall_s - stage_s,
+         steady_compiles=st.steady_compiles,
+         steady_compile_s=st.steady_compile_s,
+         stream_train_read_s=tel["read_s"],
+         batch_train_read_s=batch_read_s, bit_equal=equal,
+         note="read_s etc. are the data plane's stages; *_train_read_s "
+              "the train's whole read (ratings and item properties); "
+              "unattributed_s = wall - (decode + submit + wait): the "
+              "interning encode and the queue waits")
+    check(st.rows == STORE_DATA[2], f"the stream read {st.rows} rows, not "
+          f"{STORE_DATA[2]}")
+    check(st.steady_compiles == 0, f"{st.steady_compiles} kernel builds "
+          "ran during the stream's steady phase")
+    check(all(equal.values()), f"the streamed train differs from the batch "
+          f"train: {equal}")
+    return launches, st
+
+
+def async_copy_probe(device: torch.device) -> dict:
+    """`ops.staging.device_stage` of one 64 MB column: its copy must still
+    be in flight when the call returns (a copy from pageable memory, or
+    on the caller's stream behind other work, would have landed or
+    blocked), from a pinned buffer, on the copy stream. Times the same
+    bytes' host-to-device copy with CUDA events for the card's rate, and
+    the host time of enqueueing it (`submit_s` also pads the column into
+    the pinned buffer): the enqueue must take under a quarter of the
+    copy."""
+    from predictionio_tpu_torch.ops import staging
+    col = {"t": np.arange(ASYNC_PROBE_ROWS, dtype=np.int64)}
+    stream = staging.copy_stream(device)
+    staging.device_stage({"t": col["t"][:1024]}, device, stream)
+    torch.cuda.synchronize()
+    out, rows, padded, submit_s, event, hosts = staging.device_stage(
+        col, device, stream)
+    in_flight = not event.query()
+    wait_s = staging.wait_ready(event)
+    landed = bool(torch.equal(out["t"][:rows].cpu(),
+                              torch.from_numpy(col["t"])))
+    nbytes = int(out["t"].nbytes)
+    copy_ms = cuda_ms(lambda: out["t"].copy_(hosts[0], non_blocking=True),
+                      5)
+    with torch.cuda.stream(stream):
+        t0 = time.perf_counter()
+        out["t"].copy_(hosts[0], non_blocking=True)
+        enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    info = {"bytes": nbytes, "submit_s": submit_s, "wait_s": wait_s,
+            "enqueue_s": enqueue_s, "in_flight_at_return": in_flight,
+            "pinned": all(h.is_pinned() for h in hosts),
+            "h2d_copy_ms": copy_ms,
+            "h2d_gb_s": nbytes / (copy_ms * 1e-3) / 1e9}
+    check(info["pinned"], "the probe's staging buffer is not pinned")
+    check(in_flight, "the 64 MB staged copy had landed when device_stage "
+          "returned: the copy did not run asynchronously")
+    check(landed, "the probe's staged column differs from its source")
+    check(enqueue_s < copy_ms * 1e-3 / 4, f"enqueueing the 64 MB copy took "
+          f"{enqueue_s * 1e3:.3f} ms against its {copy_ms:.3f} ms transfer")
+    return info
+
+
+def phase_dataplane(stream_stats) -> None:
+    """`BulkLoadExecutor(device="cuda")` over the first 1,000,000 rate
+    events of the store (bounded by `until_time`) with the default encode
+    (the `t` and `prop` wire columns): every segment a CUDA tensor padded
+    to `bucket_rows`, every copy from a pinned buffer, and the valid rows,
+    copied back after `finish()`, byte-equal to the host columns. Beside
+    it, `stream_train`'s staged bytes at the probe's host-to-device rate
+    against that stream's `upload_submit_s`."""
+    from predictionio_tpu_torch.data.event import from_millis
+    from predictionio_tpu_torch.dataplane import BulkLoadExecutor
+    from predictionio_tpu_torch.ops import staging
+    from predictionio_tpu_torch.utils.buckets import bucket_rows
+    device = torch.device("cuda")
+    t_phase = time.perf_counter()
+    probe = async_copy_probe(device)
+    staging.COUNTS.reset()
+    # the store's rate events are one millisecond apart from 1000 ms
+    result = BulkLoadExecutor(device=device).run(
+        STORE_APP, property_field="rating", event_names=["rate"],
+        entity_type="user", target_entity_type="item",
+        until_time=from_millis(1000 + DATAPLANE_ROWS))
+    st = result.stats
+    copies = dict(vars(staging.COUNTS))
+    check(st.rows == DATAPLANE_ROWS, f"the bounded stream read {st.rows} "
+          f"rows, not {DATAPLANE_ROWS}")
+    for seg in result.segments:
+        check(set(seg.arrays) == {"t", "prop"}, f"staged columns "
+              f"{sorted(seg.arrays)}")
+        check(seg.padded_rows == bucket_rows(seg.rows), f"a segment of "
+              f"{seg.rows} rows padded to {seg.padded_rows}")
+        for name, t in seg.arrays.items():
+            check(t.device.type == "cuda" and t.shape == (seg.padded_rows,),
+                  f"staged {name} is {t.device} {tuple(t.shape)}")
+    check(copies == {"pinned": 2 * len(result.segments), "plain": 0},
+          f"copies by path {copies} for {len(result.segments)} segments")
+    byte_equal = {}
+    for name in ("t", "prop"):
+        host = np.concatenate([c[name] for c in result.decoded])
+        dev = np.concatenate([s.arrays[name][:s.rows].cpu().numpy()
+                              for s in result.segments])
+        byte_equal[name] = host.tobytes() == dev.tobytes()
+    emit("dataplane", rows=st.rows, chunks=st.chunks, read_s=st.read_s,
+         decode_s=st.decode_s, upload_submit_s=st.upload_submit_s,
+         upload_wait_s=st.upload_wait_s, h2d_bytes=st.h2d_bytes,
+         h2d_overlap_frac=st.h2d_overlap_frac, read_mb_s=st.read_mb_s,
+         wall_s=st.wall_s, steady_compiles=st.steady_compiles,
+         buckets=sorted({s.padded_rows for s in result.segments}),
+         copies=copies, byte_equal=byte_equal, async_probe=probe,
+         stream_h2d_bytes=stream_stats.h2d_bytes,
+         stream_upload_submit_s=stream_stats.upload_submit_s,
+         stream_transfer_s_at_probe_rate=stream_stats.h2d_bytes
+         / (probe["h2d_gb_s"] * 1e9),
+         phase_s=time.perf_counter() - t_phase)
+    check(all(byte_equal.values()), f"staged rows differ from the host "
+          f"columns: {byte_equal}")
+    check(st.steady_compiles == 0, "kernel builds ran mid-stream")
+
+
+def phase_e2() -> None:
+    """The e2 library on the card. Markov: a seeded COO of 5M transition
+    counts over the store's 26,744 items as states, top-20 pruned on the
+    host, `predict` on the card for 16 state distributions held to a
+    float64 numpy reckoning of the same tables within 1e-6 of each
+    answer's largest entry (float32 atomic sums). Categorical naive
+    Bayes: 1,000,000 points, 8 positions, <= 64 values, 5 labels; the
+    counts on the card equal numpy's `bincount` exactly, and the priors
+    and likelihoods equal a float64 host reckoning from those counts."""
+    import math
+    from predictionio_tpu_torch.ops.markov import (markov_chain_train,
+                                                   mc_predict)
+    from predictionio_tpu_torch.ops.naive_bayes import (
+        LabeledPoint, categorical_counts, categorical_nb_train)
+    device = torch.device("cuda")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    S = STORE_DATA[1]
+    r = rng.integers(0, S, MARKOV_NNZ)
+    c = rng.integers(0, S, MARKOV_NNZ)
+    v = rng.integers(1, 9, MARKOV_NNZ)
+    t0 = time.perf_counter()
+    model = markov_chain_train(r, c, v, S, MARKOV_TOP_N, device=device)
+    train_s = time.perf_counter() - t0
+    flat = np.where(model.indices >= 0, model.indices, S).ravel()
+    probs64 = model.probs.astype(np.float64)
+    worst, t_pred = 0.0, 0.0
+    for _ in range(MARKOV_STATES_HELD):
+        cur = rng.random(S)
+        cur /= cur.sum()
+        t1 = time.perf_counter()
+        got = model.predict(cur)
+        t_pred += time.perf_counter() - t1
+        cur32 = cur.astype(np.float32).astype(np.float64)
+        ref = np.bincount(flat, weights=(probs64 * cur32[:, None]).ravel(),
+                          minlength=S + 1)[:S]
+        worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+    idx_t, probs_t = model.tables()
+    cur_t = torch.from_numpy(cur.astype(np.float32)).to(device)
+    predict_ms = cuda_ms(lambda: mc_predict(idx_t, probs_t, cur_t, S), 20)
+    emit("e2_markov", states=S, nnz=MARKOV_NNZ, top_n=MARKOV_TOP_N,
+         train_s=train_s, held=MARKOV_STATES_HELD, max_rel_err=worst,
+         tol=MARKOV_REL_TOL, predict_call_s=t_pred / MARKOV_STATES_HELD,
+         predict_device_ms=predict_ms)
+    check(worst <= MARKOV_REL_TOL, f"Markov predict is {worst:.3g} from "
+          f"float64, above {MARKOV_REL_TOL}")
+
+    labels = rng.integers(0, NB_LABELS, NB_POINTS)
+    vals = (rng.integers(0, 48, (NB_POINTS, NB_POSITIONS))
+            + 4 * labels[:, None]) % NB_VALUES
+    names = np.array([f"v{k:02d}" for k in range(NB_VALUES)])
+    feats = names[vals].tolist()
+    t0 = time.perf_counter()
+    points = [LabeledPoint(f"l{lab}", tuple(f))
+              for lab, f in zip(labels.tolist(), feats)]
+    points_s = time.perf_counter() - t0
+    del feats
+    t0 = time.perf_counter()
+    nb = categorical_nb_train(points, device=device)
+    nb_train_s = time.perf_counter() - t0
+    # the same triples counted on the card directly, and by numpy
+    lab_t = torch.from_numpy(labels).to(device)
+    feat_t = torch.from_numpy(vals).to(device)
+    counts, label_counts = categorical_counts(lab_t, feat_t, NB_LABELS,
+                                              NB_VALUES)
+    counts_ms = cuda_ms(lambda: categorical_counts(
+        lab_t, feat_t, NB_LABELS, NB_VALUES), 10)
+    flat = ((labels[:, None] * NB_POSITIONS + np.arange(NB_POSITIONS))
+            * NB_VALUES + vals).ravel()
+    ref_counts = np.bincount(flat, minlength=NB_LABELS * NB_POSITIONS
+                             * NB_VALUES).reshape(NB_LABELS, NB_POSITIONS,
+                                                  NB_VALUES)
+    ref_labels = np.bincount(labels, minlength=NB_LABELS)
+    counts_exact = (np.array_equal(counts.cpu().numpy(), ref_counts)
+                    and np.array_equal(label_counts.cpu().numpy(),
+                                       ref_labels))
+    priors = {f"l{i}": math.log(ref_labels[i] / NB_POINTS)
+              for i in range(NB_LABELS)}
+    likelihoods = {f"l{i}": [
+        {names[k]: math.log(ref_counts[i, p, k] / ref_labels[i])
+         for k in range(NB_VALUES) if ref_counts[i, p, k] > 0}
+        for p in range(NB_POSITIONS)] for i in range(NB_LABELS)}
+    model_equal = (nb.priors == priors and nb.likelihoods == likelihoods)
+    emit("e2_categorical_nb", points=NB_POINTS, positions=NB_POSITIONS,
+         values=NB_VALUES, labels=NB_LABELS, points_build_s=points_s,
+         train_s=nb_train_s, counts_device_ms=counts_ms,
+         counts_exact=counts_exact, model_equal_f64=model_equal,
+         e2_phase_s=time.perf_counter() - t_phase)
+    check(counts_exact, "the categorical counts on the card differ from "
+          "numpy's bincount")
+    check(model_equal, "the categorical priors/likelihoods differ from the "
+          "float64 host reckoning")
 
 
 def dot_tolerance(u64: np.ndarray, V64: np.ndarray) -> np.ndarray:
@@ -4633,8 +4923,14 @@ def main() -> int:
                 phase_serve(s_algo, s_model, "schulz_serve",
                             SCHULZ_QUERIES)
             del s_algo, s_model, pd
-            path, iid, trained, store_launches = phase_store_train(workdir)
+            path, iid, trained, store_launches, batch_read_s = \
+                phase_store_train(workdir)
             cg_launches += store_launches
+            stream_launches, stream_stats = phase_stream_train(
+                workdir, iid, batch_read_s)
+            cg_launches += stream_launches
+            phase_dataplane(stream_stats)
+            phase_e2()
             with exact_pack():
                 retrain_launches, rec_model = phase_store_deploy(
                     path, iid, trained)

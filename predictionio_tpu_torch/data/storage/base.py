@@ -26,11 +26,16 @@ import numpy as np
 from predictionio_tpu_torch.data.aggregator import \
     aggregate_properties as fold_properties
 from predictionio_tpu_torch.data.datamap import PropertyMap
-from predictionio_tpu_torch.data.event import Event, to_millis
+from predictionio_tpu_torch.data.event import Event, from_millis, to_millis
 
 # Sentinel for "filter requires this field to be absent" (the reference's
 # Option[Option[String]] = Some(None) case in LEvents.futureFind).
 ABSENT = object()
+
+#: default rows per chunk of `Events.find_columnar_chunked`: ~256k rows
+#: keep a chunk's wire columns at 10-25 MB while amortizing each window's
+#: index seek
+DEFAULT_CHUNK_ROWS = 262_144
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +292,70 @@ class Events(abc.ABC):
         return events_to_columnar(
             self.find(app_id, channel_id=channel_id, **filters),
             property_field)
+
+    def find_columnar_chunked(self, app_id: int,
+                              channel_id: Optional[int] = None,
+                              property_field: Optional[str] = None,
+                              chunk_rows: Optional[int] = None,
+                              start_time: Optional[_dt.datetime] = None,
+                              until_time: Optional[_dt.datetime] = None,
+                              **filters) -> Iterator[Dict[str, np.ndarray]]:
+        """Streaming columnar read: a generator of `find_columnar`-shaped
+        column dicts of about `chunk_rows` rows each (default
+        `DEFAULT_CHUNK_ROWS`), in ascending event time; the bulk data
+        plane's cursor (`dataplane.reader.ChunkReader` drains it).
+
+        A chunk ends only at a complete millisecond: a millisecond's rows
+        are never split across chunks, and a single-millisecond burst
+        larger than `chunk_rows` comes back whole as one oversized chunk.
+        So the chunks concatenate to exactly one `find_columnar` call over
+        the same range, each backend's order within a millisecond kept.
+        It is a forward cursor, not a snapshot: rows inserted mid-stream
+        at or after the cursor are seen, rows behind it are not.
+
+        This default is keyset pagination through `find_columnar` (the
+        `start_time` cursor and `limit`), which SQLite answers from its
+        time index. `reversed_order` and `limit` are refused: bound the
+        stream by `until_time`."""
+        if filters.pop("reversed_order", False):
+            raise ValueError(
+                "find_columnar_chunked streams ascending event time only")
+        if filters.pop("limit", None) not in (None, -1):
+            raise ValueError(
+                "find_columnar_chunked is unbounded; bound by until_time")
+        chunk_rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
+        if chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
+        cursor = start_time
+        while True:
+            cols = self.find_columnar(
+                app_id, channel_id=channel_id,
+                property_field=property_field, start_time=cursor,
+                until_time=until_time, limit=chunk_rows + 1, **filters)
+            t = cols["t"]
+            if len(t) <= chunk_rows:
+                # no more than a chunk is left past the cursor: the last
+                if len(t):
+                    yield cols
+                return
+            last = int(t[-1])
+            cut = int(np.searchsorted(t, last, side="left"))
+            if cut == 0:
+                # the whole window is one millisecond, larger than a
+                # chunk: read that millisecond whole, never split it
+                cols = self.find_columnar(
+                    app_id, channel_id=channel_id,
+                    property_field=property_field,
+                    start_time=from_millis(last),
+                    until_time=from_millis(last + 1), limit=-1, **filters)
+                if len(cols["t"]):
+                    yield cols
+                cursor = from_millis(last + 1)
+            else:
+                # drop the trailing, possibly incomplete millisecond: the
+                # next window reads it whole
+                yield {k: v[:cut] for k, v in cols.items()}
+                cursor = from_millis(last)
 
     def aggregate_properties(self, app_id: int,
                              channel_id: Optional[int] = None,

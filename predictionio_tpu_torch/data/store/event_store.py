@@ -6,7 +6,8 @@ The port's copy of the bulk-read half of
 engines name apps (and channels) by name; the store resolves the ids
 through the metadata DAOs and forwards to the configured Events backend.
 `find` is what the fold-in scheduler tails, `find_columnar_by_entities`
-what its entity-filtered read goes through. `LEventStore` is another
+what its entity-filtered read goes through, `find_columnar_chunked` the
+bulk data plane's cursor. `LEventStore` is another
 name for the same store, as in the reference, and `find_by_entity` is its
 deadline-guarded point read (LEventStore.findByEntity), which the
 e-commerce template's live business rules call at serve time. The
@@ -94,6 +95,19 @@ class EventStore:
         return self.events.find_columnar(
             app_id=app_id, channel_id=channel_id,
             property_field=property_field, **filters)
+
+    def find_columnar_chunked(self, app_name: str,
+                              channel_name: Optional[str] = None,
+                              property_field: Optional[str] = None,
+                              chunk_rows: Optional[int] = None,
+                              **filters) -> Iterator[Dict[str, np.ndarray]]:
+        """Streaming columnar read (see `Events.find_columnar_chunked`):
+        chunk column dicts that concatenate to exactly `find_columnar`."""
+        app_id, channel_id = self.resolve(app_name, channel_name)
+        return self.events.find_columnar_chunked(
+            app_id=app_id, channel_id=channel_id,
+            property_field=property_field, chunk_rows=chunk_rows,
+            **filters)
 
     def find_columnar_by_entities(self, app_name: str,
                                   channel_name: Optional[str] = None,

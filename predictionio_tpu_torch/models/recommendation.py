@@ -26,13 +26,23 @@ Evaluation: with `eval_k` set, `read_eval` splits the rating rows into
 k folds by row index modulo k; each fold trains on the others and asks
 one query a test-fold user (`eval_query_num` items), whose held-out
 ratings are the `ActualResult`. `PrecisionAtK` is the template's tuning
-metric. The streamed bulk read and the sharded factor tables are later
-slices (ROADMAP.md).
+metric.
+
+The streamed read: with `DataSourceParams.stream` (or, when it is None,
+`PIO_DATAPLANE_STREAM` set to 1/true/yes/on) the training and evaluation
+reads go through the bulk data plane (`dataplane/`): chunked store
+cursors decoded chunk by chunk while the interned ids, values and times
+double-buffer onto `DataSourceParams.device` (the card unless the caller
+names the CPU). The `RatingsData` is built from the decoded host chunks,
+row for row the batch read, as in the reference; the staged segments are
+not used by the train. The sharded factor tables are a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -137,6 +147,13 @@ class DataSourceParams(Params):
     eval_query_num: int = 10        # each eval query's num
     # the training ratings themselves, instead of the event store
     ratings: Optional[RatingsData] = None
+    # the bulk data plane: stream the store read through chunked cursors
+    # and double-buffered device staging. None defers to
+    # PIO_DATAPLANE_STREAM. The streamed read equals the batch read row
+    # for row, so this moves time, never results.
+    stream: Optional[bool] = None
+    # where a streamed read stages (None: the card)
+    device: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -154,13 +171,67 @@ class RecommendationDataSource(DataSource):
 
     def _read_ratings(self) -> RatingsData:
         """One projected scan into flat numpy arrays (DataSource.scala
-        :20-46 eventsRDD -> ratingsRDD, without per-event objects)."""
+        :20-46 eventsRDD -> ratingsRDD, without per-event objects), or
+        the same rows streamed through the bulk data plane."""
         p = self.params
+        if self._stream_active():
+            return self._read_ratings_streamed()
         cols = PEventStore.find_columnar(
             app_name=p.app_name, channel_name=p.channel_name,
             property_field="rating", entity_type="user",
             target_entity_type="item", event_names=list(p.event_names))
         return self._ratings_from_cols(cols, p)
+
+    def _stream_active(self) -> bool:
+        if self.params.stream is not None:
+            return bool(self.params.stream)
+        return os.environ.get("PIO_DATAPLANE_STREAM", "").lower() in (
+            "1", "true", "yes", "on")
+
+    def _read_ratings_streamed(self) -> RatingsData:
+        """The same read through the bulk data plane: chunks decoded one
+        by one (overlapped with the reader thread) while the numeric
+        training columns double-buffer onto the device. The chunks never
+        split a millisecond and every conversion is row-wise, so the
+        concatenation is row for row the one-shot scan."""
+        from predictionio_tpu_torch.dataplane import (BulkLoadExecutor,
+                                                      StreamInterner)
+        p = self.params
+        users_in, items_in = StreamInterner(), StreamInterner()
+
+        def decode(chunk):
+            return self._ratings_from_cols(chunk, p)
+
+        def encode(rd):
+            # interned dense ids now; remap_to_sorted reconciles them
+            # with the preparator's sorted vocabulary at the end
+            return {"user_ix": users_in.encode(rd.users),
+                    "item_ix": items_in.encode(rd.items),
+                    "vals": rd.vals, "t": rd.ts}
+
+        result = BulkLoadExecutor(device=p.device).run(
+            p.app_name, channel_name=p.channel_name,
+            property_field="rating", decode=decode, encode=encode,
+            entity_type="user", target_entity_type="item",
+            event_names=list(p.event_names))
+        st = result.stats
+        logger.info(
+            "streamed ratings read: %d rows / %d chunks, read %.2fs "
+            "decode %.2fs h2d %.1f MB overlap %.0f%% builds(steady) %d",
+            st.rows, st.chunks, st.read_s, st.decode_s,
+            st.h2d_bytes / 1e6, 100.0 * st.h2d_overlap_frac,
+            st.steady_compiles)
+        parts = result.decoded
+        if not parts:
+            return RatingsData(
+                np.array([], dtype=str), np.array([], dtype=str),
+                np.array([], dtype=np.float32),
+                np.array([], dtype=np.int64))
+        return RatingsData(
+            np.concatenate([r.users for r in parts]),
+            np.concatenate([r.items for r in parts]),
+            np.concatenate([r.vals for r in parts]),
+            np.concatenate([r.ts for r in parts]))
 
     @staticmethod
     def _ratings_from_cols(cols, p) -> RatingsData:

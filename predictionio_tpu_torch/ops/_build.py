@@ -9,7 +9,9 @@ module is imported: the CPU tests import every module on a machine with
 no `nvcc`.
 
 `nvcc` is found through `$CUDA_HOME/bin`, then `PATH`, then the
-toolkit's standard install location.
+toolkit's standard install location. `BUILDS` counts the `nvcc` builds
+this process has run and their seconds (the bulk data plane reports the
+builds that ran during its steady phase).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -33,6 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclass
+class BuildCounts:
+    """`nvcc` builds run by this process, and their wall seconds."""
+    builds: int = 0
+    seconds: float = 0.0
+
+
+BUILDS = BuildCounts()
 
 
 def nvcc_path() -> str:
@@ -95,6 +108,9 @@ def build_all(names: Iterable[str] = None) -> dict:
             if job is not None:
                 _finish(n, job)
             secs[n] = time.perf_counter() - t0 if job is not None else 0.0
+        started = [n for n, job in jobs.items() if job is not None]
+        BUILDS.builds += len(started)
+        BUILDS.seconds += max((secs[n] for n in started), default=0.0)
     return secs
 
 

@@ -11,9 +11,12 @@ for the e-commerce `ECommerceModel`, the recommended-user
 `RecommendedUserModel` and the dimsum `DIMSUMModel` (whose table stays on
 the host, as it serves there). `from_jax_nb_model` and
 `from_jax_forest_model` carry the classification template's
-`MultinomialNBModel` and `ForestModel`, which serve on the host. All take
-plain arrays and dicts, so this module imports nothing of the reference
-package.
+`MultinomialNBModel` and `ForestModel`, which serve on the host.
+`from_jax_markov_model`, `from_jax_categorical_nb_model` and
+`from_jax_binary_vectorizer` carry the e2 library's `MarkovChainModel`
+(predicting on `device`), `CategoricalNBModel` and `BinaryVectorizer`.
+All take plain arrays and dicts, so this module imports nothing of the
+reference package.
 """
 
 from __future__ import annotations
@@ -31,7 +34,10 @@ from predictionio_tpu_torch.models.similarproduct import (
     DIMSUMModel, Item, ItemMetadataModel, SimilarProductModel)
 from predictionio_tpu_torch.ops.als import ALSModel
 from predictionio_tpu_torch.ops.forest import ForestModel
-from predictionio_tpu_torch.ops.naive_bayes import MultinomialNBModel
+from predictionio_tpu_torch.ops.markov import MarkovChainModel
+from predictionio_tpu_torch.ops.naive_bayes import (CategoricalNBModel,
+                                                    MultinomialNBModel)
+from predictionio_tpu_torch.ops.vectorizer import BinaryVectorizer
 
 
 def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
@@ -190,3 +196,44 @@ def from_jax_forest_model(feature, threshold, is_leaf, leaf_class,
                          f"{max_depth}")
     return ForestModel(*arrays, num_classes=int(num_classes),
                        max_depth=int(max_depth))
+
+
+def from_jax_markov_model(indices, probs, n_states: int, top_n: int,
+                          device=None) -> MarkovChainModel:
+    """The reference `MarkovChainModel`'s [S, N] target indices (-1
+    padding) and probabilities; it predicts on `device` (default: the
+    card)."""
+    indices = np.array(indices, dtype=np.int32)
+    probs = np.array(probs, dtype=np.float32)
+    shape = (int(n_states), int(top_n))
+    if indices.shape != shape or probs.shape != shape:
+        raise ValueError(f"indices {indices.shape} and probs {probs.shape} "
+                         f"are not [{n_states}, {top_n}]")
+    if indices.size and (indices.min() < -1 or indices.max() >= n_states):
+        raise ValueError(f"a target index lies outside -1..{n_states - 1}")
+    return MarkovChainModel(indices=indices, probs=probs,
+                            n_states=shape[0], top_n=shape[1],
+                            device=resolve_device(device))
+
+
+def from_jax_categorical_nb_model(priors: Dict[str, float],
+                                  likelihoods) -> CategoricalNBModel:
+    """The reference `CategoricalNBModel`'s log priors by label and log
+    likelihoods by label, position and value."""
+    if set(priors) != set(likelihoods):
+        raise ValueError(f"priors name labels {sorted(priors)}, "
+                         f"likelihoods {sorted(likelihoods)}")
+    return CategoricalNBModel(
+        priors={str(k): float(v) for k, v in priors.items()},
+        likelihoods={str(k): [{str(v): float(x) for v, x in m.items()}
+                              for m in per_pos]
+                     for k, per_pos in likelihoods.items()})
+
+
+def from_jax_binary_vectorizer(property_map) -> BinaryVectorizer:
+    """The reference `BinaryVectorizer`'s (property, value) -> column
+    map; the columns must be 0..n-1."""
+    pm = {(str(p), str(v)): int(i) for (p, v), i in property_map.items()}
+    if sorted(pm.values()) != list(range(len(pm))):
+        raise ValueError("the vectorizer's columns are not 0..n-1")
+    return BinaryVectorizer(pm)

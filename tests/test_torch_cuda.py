@@ -7,8 +7,10 @@ CPU, the recommendation and e-commerce templates' store ->
 `create_workflow_main` -> `EngineServer.load` round trips on the card, the
 recommended-user train through the CG kernel, the DIMSUM Gram on the
 card against the CPU's, the fused (CUDA graph) trains and the bf16
-tables, and the naive Bayes counts and forest growth on the card against
-the CPU's.
+tables, the naive Bayes counts and forest growth on the card against
+the CPU's, the data plane's pinned staging (a copy stream, an event a
+segment) and its executor on the card, and the e2 library on the card
+against the CPU.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -858,3 +860,78 @@ def test_nb_counts_and_forest_on_the_card_equal_the_cpu(cuda):
     fb = forest_train(X, y, device="cpu", **kw)
     for name in ("feature", "threshold", "is_leaf", "leaf_class"):
         assert np.array_equal(getattr(fa, name), getattr(fb, name)), name
+
+
+def test_staging_copies_from_pinned_buffers_on_a_side_stream(cuda):
+    """`device_stage` on the card: pinned sources, tensors on the card
+    padded to the bucket, an event behind the copies, and the copy runs
+    on the stager's stream, not the caller's; `wait_ready` times the
+    event's wait and the values land whole."""
+    from predictionio_tpu_torch.ops import staging
+    from predictionio_tpu_torch.utils.buckets import bucket_rows
+    n = 300_000
+    cols = {"t": np.arange(n, dtype=np.int64),
+            "v": np.random.default_rng(1).random(n).astype(np.float32)}
+    stream = staging.copy_stream(cuda)
+    assert stream != torch.cuda.current_stream(cuda)
+    out, rows, padded, submit_s, event, hosts = staging.device_stage(
+        cols, cuda, stream)
+    assert (rows, padded) == (n, bucket_rows(n))
+    assert all(h.is_pinned() for h in hosts)
+    assert isinstance(event, torch.cuda.Event)
+    waited = staging.wait_ready(event)
+    assert waited >= 0.0 and event.query()
+    for k, a in cols.items():
+        t = out[k]
+        assert t.device.type == "cuda" and t.shape == (padded,)
+        assert np.array_equal(t[:n].cpu().numpy(), a)
+        assert not t[n:].any()
+    assert submit_s >= 0.0
+
+
+def test_bulk_load_on_the_card_round_trips(cuda):
+    """The executor's stager on the card: every segment a CUDA tensor on
+    the bucket ladder, the window drained by `finish`, the staged rows
+    byte-equal to the decoded host columns."""
+    from predictionio_tpu_torch.dataplane import BulkLoadExecutor
+    from predictionio_tpu_torch.utils.buckets import bucket_rows
+
+    class Store:
+        def find_columnar_chunked(self, app_name, **kw):
+            for lo in range(0, 50_000, 7_000):
+                t = np.arange(lo, min(lo + 7_000, 50_000), dtype=np.int64)
+                yield {"t": t, "prop": (t % 5).astype(np.float32)}
+    result = BulkLoadExecutor(store=Store(), device=cuda).run("app")
+    st = result.stats
+    assert st.rows == 50_000 and st.chunks == 8
+    assert st.steady_compiles == 0 and 0.0 <= st.h2d_overlap_frac <= 1.0
+    for seg in result.segments:
+        assert seg.padded_rows == bucket_rows(seg.rows)
+        assert all(a.device.type == "cuda" for a in seg.arrays.values())
+    for k in ("t", "prop"):
+        got = np.concatenate([s.arrays[k][:s.rows].cpu().numpy()
+                              for s in result.segments])
+        want = np.concatenate([c[k] for c in result.decoded])
+        assert got.tobytes() == want.tobytes()
+
+
+def test_e2_on_the_card_matches_the_cpu(cuda):
+    """Markov predict (atomic scatter-adds: float32 sums in another
+    order) within 1e-6 of the CPU's; the categorical counts exact."""
+    from predictionio_tpu_torch.ops.markov import markov_chain_train
+    from predictionio_tpu_torch.ops.naive_bayes import (LabeledPoint,
+                                                        categorical_nb_train)
+    rng = np.random.default_rng(2)
+    S = 2_000
+    r, c = rng.integers(0, S, 60_000), rng.integers(0, S, 60_000)
+    v = rng.integers(1, 9, 60_000)
+    a = markov_chain_train(r, c, v, S, 20, device=cuda)
+    b = markov_chain_train(r, c, v, S, 20, device="cpu")
+    cur = rng.random(S)
+    cur /= cur.sum()
+    assert np.abs(a.predict(cur) - b.predict(cur)).max() <= 1e-6
+    pts = [LabeledPoint(f"l{x % 3}", (f"a{x % 7}", f"b{x % 11}"))
+           for x in rng.integers(0, 1000, 5_000)]
+    ma = categorical_nb_train(pts, device=cuda)
+    mb = categorical_nb_train(pts, device="cpu")
+    assert ma.priors == mb.priors and ma.likelihoods == mb.likelihoods

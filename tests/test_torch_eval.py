@@ -587,14 +587,14 @@ def test_precision_at_k_and_best_json_equal_the_reference(rec_store,
         [s.score for _, s in jres.engine_params_scores]
     port_best = json.loads((tmp_path / "p" / "best.json").read_text())
     ref_best = json.loads((tmp_path / "r" / "best.json").read_text())
-    # the port's params add `device`, `solver` and the store-free
-    # `ratings`; the reference's `factor_sharding` and `stream` belong to
-    # planes the port has not taken yet (ROADMAP.md A5, A8)
+    # the port's params add `device`, `solver`, the store-free `ratings`
+    # and the stager's `device`; the reference's `factor_sharding` belongs
+    # to a plane the port has not taken yet (ROADMAP.md A8)
     for block, port_only, ref_only in (
             (lambda b: b["algorithms"][0]["params"], ("device", "solver"),
              ("factor_sharding",)),
-            (lambda b: b["datasource"]["params"], ("ratings",),
-             ("stream",))):
+            (lambda b: b["datasource"]["params"], ("ratings", "device"),
+             ())):
         for k in port_only:
             block(port_best).pop(k)
         for k in ref_only:

@@ -314,7 +314,7 @@ def test_params_to_dict_names_a_field_with_no_json_form():
         "app_name": "a", "channel_name": None,
         "event_names": ("rate", "buy"), "buy_rating": 4.0,
         "read_items": False, "eval_k": None, "eval_query_num": 10,
-        "ratings": None}
+        "ratings": None, "stream": None, "device": None}
 
 
 # -- the data source and preparator -----------------------------------------
