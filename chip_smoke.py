@@ -89,20 +89,43 @@ PyTorch version at the shapes its path gives it. Then:
   view events (2 new items), each hot-swapped and held, the second
   against the first's resident tables (its upload under 1% of the
   first's), the carried Gram against a recomputed one;
+- event collection and the feedback loop on the same store, after the
+  serve plane (`collection_phases`): `python -m predictionio_tpu_torch
+  eventserver --port 0 --stats` as a subprocess and an app of its own
+  made by `app new`/`accesskey new`; 16 closed-loop clients x 250 single
+  `POST /events.json`, 200 `POST /batch/events.json` of 50 and one
+  `POST /events/columnar.json` of 100,000 rows, the store's count and
+  `/stats.json` exact, 64 ids read back equal, the reference's answers to
+  a wrong key, a non-whitelisted event, a reserved name and a batch of
+  51, one Segment.io webhook (`eventserver`); a `deploy --feedback` of
+  the recommendation instance with an output blocker and a sniffer
+  (`PIO_ENGINE_SERVER_PLUGINS`), the fold_update traffic (reseeded, fresh
+  ids) posted through `/batch/events.json`, `update` (every solve a CG
+  launch, touched rows held to a float64 replay, the new users answered
+  with the float64 top-k of the published tables; `rest_fold`); 64
+  queries whose 64 `predict` events must land in the store equal to the
+  answers without the blocker's field, with the cache empty, then 16
+  clients under feedback (`feedback`). The e-commerce phases append
+  `buy` events (read by the recommendation template) dated 2030, which a
+  later fold of the recommendation instance would take in too, so these
+  phases run before the other templates;
 - the other ALS templates on the same store, through `pio train` ->
   `pio deploy` subprocesses: the similar-product template's DIMSUM
   algorithm (the [26,744+, 26,744+] item Gram on the card, 2.9 GB,
   persisted by the model itself; 64 rows held to float64 rows made with
   scipy.sparse from the store's pairs, 64 queries to the float64 top-k);
-  the e-commerce template after 300,000 `view`/`buy` events, 64 new
-  users and two `unavailableItems` lists land (rank-200 implicit ALS,
+  the e-commerce template after 326,148 `view`/`buy` events
+  (`synthetic_ml20m` asked for 150,000 and 30,000 gives every user at
+  least one: 186,240 and 139,567, and 341 views of 64 new users) and two
+  `unavailableItems` lists land (rank-200 implicit ALS,
   every solve through the CG kernel, its last half-sweep held to the
   kernel's plain version and read against float64; 240 queries held to
   the float64 top-k under the mask made from the seeds, with zero
   point-read timeouts; the result cache keeping a bought item, as the
   reference's does, and `PIO_SERVE_CACHE=off` dropping it; 32 clients x
   20 queries); the recommended-user template on 250,000 `follow`
-  events (every solve through the CG kernel, 64 queries held);
+  events in an app of their own (every solve through the CG kernel, 64
+  queries held);
 - the classification template in an app of its own on the same store
   (`cls_*`): 100,000 users $set with a plan of 4 classes and Poisson
   attributes; `python -m predictionio_tpu_torch eval chip_smoke.ClsEval
@@ -111,7 +134,11 @@ PyTorch version at the shapes its path gives it. Then:
   Bayes and the random forest (grown on the card, its arrays equal to
   the plain version's on the CPU given the same draws); a `deploy`
   subprocess, 64 answers each the float64 argmax of the persisted
-  model.
+  model;
+- export and import, last (`import_export`): `export` writes the
+  recommended-user template's app (its follow events) as JSON lines and
+  `import` loads them into a new app, whose `find_columnar` must equal
+  the first's column for column.
 
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
@@ -258,8 +285,8 @@ DIMSUM_ROWS = 64                 # seeded rows of the [I, I] table held
 DIMSUM_QUERIES = 64
 DIMSUM_TABLE_ATOL = 1e-6         # float32 counts are exact; the cosine's
 #                                  normalization rounds at 2^-24 relative
-ECOM_VIEWS = (250_000, 7)        # (events, synthetic_ml20m seed)
-ECOM_BUYS = (50_000, 8)
+ECOM_VIEWS = (150_000, 7)        # (events, synthetic_ml20m seed)
+ECOM_BUYS = (30_000, 8)
 ECOM_NEW_USERS = 64              # users with 1-10 views and no rating
 ECOM_UNAVAILABLE = 500           # items in each unavailableItems $set
 ECOM_HELD = (160, 48, 32)        # ecom_deploy: known, new, unknown users
@@ -267,6 +294,7 @@ ECOM_PLANE_MIX = (14, 4, 2)      # ecom_plane, per client: the same kinds
 ECOM_POOL = 2000                 # known users drawn from: with seeded
 #                                  views or buys, and any
 RECUSER_FOLLOWS = (250_000, 9)
+RECUSER_APP = "recuserapp"       # the follows' own app
 RECUSER_QUERIES = 64
 FIELDS_CHUNK = 4                 # als_fields: the ablation rows' sweep_chunk
 BF16_RMSE_TOL = 0.02             # bf16 tables vs f32 (tests/test_solve.py)
@@ -278,7 +306,7 @@ EVAL_QUERY_NUM = 10
 EVAL_LAMS = (0.05, 0.1)
 EVAL_CHUNK = 4096                # users a float64 top-k chunk on the card
 CLS_APP = "clsapp"
-CLS_USERS = 100_000              # cls_*: one $set a user, 4 classes
+CLS_USERS = 50_000               # cls_*: one $set a user, 4 classes
 CLS_MEANS = ((8.0, 2.0, 1.0), (2.0, 8.0, 1.0), (1.0, 2.0, 8.0),
              (4.0, 4.0, 4.0))    # class-dependent Poisson means of attr0-2
 CLS_LAMS = (0.1, 1.0, 10.0)
@@ -308,8 +336,13 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's line; `t_s`: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2129,7 +2162,8 @@ def log_tail(path: str, n: int = 3000) -> str:
 
 
 def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
-                     first_queries=None, warmed: bool = True) -> None:
+                     first_queries=None, warmed: bool = True,
+                     extra_args=(), extra_env=None) -> None:
     """Start `python -m predictionio_tpu_torch deploy --port 0` for each
     template (all at once, `PIO_SERVE_PACK` unset: the default f16
     readback), read the port each bound from the line it prints, wait
@@ -2138,15 +2172,18 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
     expected; by default a recommendation or similar-product query). An
     algorithm without `batch_predict_begin` is not warmed (the deploy's
     warm-up skips it, as the reference's): `warmed` False expects no warm
-    window. The deployments go into `deps` by template as they start; the
-    caller stops them."""
+    window. `extra_args` and `extra_env` go to every deploy command. The
+    deployments go into `deps` by template as they start; the caller
+    stops them."""
     env = {k: v for k, v in os.environ.items() if k != "PIO_SERVE_PACK"}
+    env.update(extra_env or {})
     for name, path in variants.items():
         log = os.path.join(workdir, f"deploy_{name}.log")
         with open(log, "w") as f:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "predictionio_tpu_torch", "deploy",
-                 "-v", path, "--ip", "127.0.0.1", "--port", "0"],
+                 "-v", path, "--ip", "127.0.0.1", "--port", "0",
+                 *extra_args],
                 cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
         deps[name] = {"proc": proc, "log": log, "t0": time.perf_counter()}
     live = re.compile(r"Engine API is live at http://127\.0\.0\.1:(\d+)\.")
@@ -2198,10 +2235,11 @@ def closed_loop(url: str, per_client: list) -> tuple:
             for q, code, data, _, t0, t1 in results], wall
 
 
-def closed_loop_raw(url: str, per_client: list) -> tuple:
+def closed_loop_raw(url: str, per_client: list,
+                    path: str = "/queries.json") -> tuple:
     """`closed_loop` keeping each response's bytes and headers and its
     send and receive times: ([(query, status, bytes, headers, t_sent,
-    t_received)], wall seconds)."""
+    t_received)], wall seconds). The bodies go to `url` + `path`."""
     results = [None] * len(per_client)
     start = threading.Barrier(len(per_client) + 1)
 
@@ -2210,7 +2248,7 @@ def closed_loop_raw(url: str, per_client: list) -> tuple:
         start.wait()
         for q in per_client[c]:
             t0 = time.perf_counter()
-            code, data, headers = post_raw(url + "/queries.json",
+            code, data, headers = post_raw(url + path,
                                            json.dumps(q).encode())
             out.append((q, code, data, headers, t0, time.perf_counter()))
         results[c] = out
@@ -2419,23 +2457,20 @@ def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
 
 
 def phase_undeploy(deps: dict) -> None:
-    """`python -m predictionio_tpu_torch undeploy` for each deployment;
+    """`undeploy` for each deployment, through the CLI's `cli.main` in
+    this process (`cli_out`: no interpreter and torch import a call);
     each deploy process must then exit 0."""
     for name, dep in deps.items():
-        out = subprocess.run(
-            [sys.executable, "-m", "predictionio_tpu_torch", "undeploy",
-             "--ip", "127.0.0.1", "--port", str(dep["port"])], cwd=HERE,
-            capture_output=True, text=True, timeout=120)
-        check(out.returncode == 0, f"undeploy of {name} exited "
-              f"{out.returncode}: {out.stdout}{out.stderr}")
+        rc, said = cli_out("undeploy", "--ip", "127.0.0.1", "--port",
+                           str(dep["port"]))
+        check(rc == 0, f"undeploy of {name} exited {rc}: {said}")
         try:
             rc = dep["proc"].wait(timeout=60)
         except subprocess.TimeoutExpired:
             rc = None
         check(rc == 0, f"the {name} deploy process exited {rc} after "
               f"undeploy: {log_tail(dep['log'])}")
-        emit("undeploy", template=name, said=out.stdout.strip(),
-             deploy_exit=rc)
+        emit("undeploy", template=name, said=said.strip(), deploy_exit=rc)
 
 
 def phase_inflight_bench(path: str, iid: str, model, truth) -> dict:
@@ -3523,11 +3558,13 @@ def appended_events(app_id: int) -> list:
     """The events earlier phases appended after the seeded import (the
     fold, cache and canary phases: all made by this script from seeds),
     by event time: (event, entity type, entity id, target type, target
-    id, properties JSON)."""
+    id, properties JSON). `channelid=0` (every event here is on the
+    default channel) lets SQLite range-scan the (appid, channelid,
+    eventtime) index instead of visiting every row of the app."""
     return store_sql(
         "SELECT event, entitytype, entityid, targetentitytype, "
         "targetentityid, properties FROM {t} WHERE appid=? AND "
-        "eventtime>? ORDER BY eventtime, rowid",
+        "channelid=0 AND eventtime>? ORDER BY eventtime, rowid",
         (app_id, 1000 + STORE_DATA[2]))
 
 
@@ -4130,22 +4167,26 @@ def recuser_variant(path: str) -> None:
     with open(path, "w") as f:
         json.dump({
             "id": "default", "engineFactory": "recommendeduser",
-            "datasource": {"params": {"app_name": STORE_APP}},
+            "datasource": {"params": {"app_name": RECUSER_APP}},
             "algorithms": [{"name": "als", "params": {
                 "rank": RANK, "num_iterations": ITERATIONS, "lam": LAM,
                 "seed": 0}}]}, f)
 
 
-def phase_recuser(app_id: int, workdir: str) -> int:
-    """The recommended-user template: RECUSER_FOLLOWS `follow` events
-    appended (follower u{a} -> followed u{k}, synthetic_ml20m pairs: the
-    26,744 most-followed accounts), `pio train` (every solve a CG kernel
-    launch, the blob host-only and bit-equal), a `deploy` subprocess and
+def phase_recuser(workdir: str) -> int:
+    """The recommended-user template: RECUSER_FOLLOWS `follow` events in
+    an app of their own (follower u{a} -> followed u{k}, synthetic_ml20m
+    pairs: the 26,744 most-followed accounts), `pio train` (every solve a
+    CG kernel launch, the blob host-only and bit-equal), a `deploy`
+    subprocess and
     RECUSER_QUERIES queries held to the float64 cosine-sum top-k with the
     query users excluded. Returns the CG launches."""
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.data.synthetic import synthetic_ml20m
     n_users, n_items, _ = STORE_DATA
     t0 = time.perf_counter()
+    app_id = Storage.get_meta_data_apps().insert(App(0, RECUSER_APP))
     a, k, _ = synthetic_ml20m(n_users, n_items, RECUSER_FOLLOWS[0],
                               seed=RECUSER_FOLLOWS[1])
     insert_events(app_id, "follow", "user", [f"u{x}" for x in a], "user",
@@ -4872,8 +4913,677 @@ def template_phases(workdir: str) -> int:
     finally:
         stop_all(deps)
     del truth, model
-    launches += phase_recuser(app_id, workdir)
+    launches += phase_recuser(workdir)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Event collection and the feedback loop (eventserver, rest_fold, feedback,
+# import_export)
+# ---------------------------------------------------------------------------
+
+INGEST_APP = "pio_ingest"
+INGEST_SINGLE = (16, 250)        # eventserver: clients x single POSTs
+INGEST_BATCH = (8, 25, 50)       # ... clients x batches x events a batch
+INGEST_COLUMNAR = 100_000        # ... rows of the one columnar POST
+INGEST_SAMPLED = 64              # ids read back by GET /events/<id>.json
+REST_FOLD_SEED = 13              # rest_fold: the fold_update shape, reseeded
+FEEDBACK_OTHERS = 8              # feedback: untouched users asked too
+FEEDBACK_WAIT_S = 10.0           # ... every predict event lands by then
+FEEDBACK_BENCH = (16, 20)        # ... clients x queries with feedback on
+FOLLOWS_COPY = "pio_follows_copy"  # import_export: the import's app
+PLUGINS_MODULE = "smoke_plugins"
+PLUGINS_SOURCE = '''"""The feedback phase's engine-server plugins."""
+import json
+import os
+import threading
+
+from predictionio_tpu_torch.serving.plugins import (
+    OUTPUT_BLOCKER, OUTPUT_SNIFFER, EngineServerPlugin)
+
+
+class SmokeTag(EngineServerPlugin):
+    plugin_name = "smoke_tag"
+    plugin_description = "adds smokeTag (the instance id) to each answer"
+    output_type = OUTPUT_BLOCKER
+
+    def process(self, engine_instance, query, prediction, context):
+        return dict(prediction, smokeTag=engine_instance.id)
+
+
+class SmokeCount(EngineServerPlugin):
+    plugin_name = "smoke_count"
+    plugin_description = "appends each query to $SMOKE_SNIFF_LOG"
+    output_type = OUTPUT_SNIFFER
+    _lock = threading.Lock()
+
+    def process(self, engine_instance, query, prediction, context):
+        with self._lock, open(os.environ["SMOKE_SNIFF_LOG"], "a") as f:
+            f.write(json.dumps(query) + "\\n")
+'''
+
+
+def cli_out(*args) -> tuple:
+    """`python -m predictionio_tpu_torch *args`, run in this process
+    through its `cli.main`: (exit code, what it printed)."""
+    from predictionio_tpu_torch.tools import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    return rc, buf.getvalue()
+
+
+def cli_value(pattern: str, *args) -> str:
+    """Run `cli_out(*args)`, which must exit 0, and return the first group
+    of `pattern` in what it printed."""
+    rc, out = cli_out(*args)
+    m = re.search(pattern, out)
+    check(rc == 0 and m is not None, f"{' '.join(args)} exited {rc}: {out}")
+    return m.group(1)
+
+
+def post_json(url: str, body) -> tuple:
+    """(status, parsed answer) of a POST of `body` as JSON."""
+    return post(url, json.dumps(body).encode())
+
+
+def fan_out(url: str, path: str, per_client: list) -> tuple:
+    """`closed_loop_raw` of JSON answers: ([(body, status, answer, ms)],
+    wall seconds)."""
+    results, wall = closed_loop_raw(url, per_client, path)
+    return [(b, code, json.loads(data), (t1 - t0) * 1e3)
+            for b, code, data, _, t0, t1 in results], wall
+
+
+def route_row(n_events: int, wall: float, ms: list) -> dict:
+    return {"events": n_events, "requests": len(ms), "wall_s": wall,
+            "events_per_s": n_events / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def start_eventserver(workdir: str) -> dict:
+    """`python -m predictionio_tpu_torch eventserver --port 0 --stats` over
+    the smoke's store; the port it printed; alive on GET /."""
+    log = os.path.join(workdir, "eventserver.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch", "eventserver",
+             "--ip", "127.0.0.1", "--port", "0", "--stats"], cwd=HERE,
+            stdout=f, stderr=subprocess.STDOUT)
+    es = {"proc": proc, "log": log, "t0": time.perf_counter()}
+    live = re.compile(r"Event Server is listening on "
+                      r"http://127\.0\.0\.1:(\d+)")
+    while True:
+        check(proc.poll() is None, f"the event server exited "
+              f"{proc.returncode}: {log_tail(log)}")
+        with open(log, errors="replace") as f:
+            m = live.search(f.read())
+        if m:
+            es["port"] = int(m.group(1))
+            es["url"] = f"http://127.0.0.1:{es['port']}"
+            try:
+                if get_json(es["url"] + "/") == {"status": "alive"}:
+                    break
+            except OSError:
+                pass
+        check(time.perf_counter() - es["t0"] < DEPLOY_TIMEOUT_S,
+              f"the event server is not alive: {log_tail(log)}")
+        time.sleep(0.1)
+    es["alive_s"] = time.perf_counter() - es["t0"]
+    return es
+
+
+def ingest_event(k: int) -> dict:
+    """The k-th ingest event: a rate at 2030-01-01 + k ms."""
+    return {"event": "rate", "entityType": "user", "entityId": f"iu{k % 5003}",
+            "targetEntityType": "item", "targetEntityId": f"ii{k % 977}",
+            "properties": {"rating": float(1 + k % 5)},
+            "eventTime": event_time(k)}
+
+
+WIRE_FIELDS = ("event", "entityType", "entityId", "targetEntityType",
+               "targetEntityId", "properties", "eventTime")
+
+
+def phase_eventserver(es: dict) -> None:
+    """The REST ingest into an app of its own (`app new`, `accesskey new`
+    through the command line): INGEST_SINGLE closed-loop clients of single
+    `POST /events.json`, INGEST_BATCH `POST /batch/events.json`, one
+    `POST /events/columnar.json` of INGEST_COLUMNAR rows. Holds: every
+    event acknowledged, the store's count exact, `/stats.json`'s counts
+    equal to what was posted, INGEST_SAMPLED ids read back equal to what
+    was posted; a wrong key, a non-whitelisted event, a reserved-prefix
+    event and a batch of 51 answer the reference's codes and bodies; one
+    Segment.io webhook lands."""
+    app_id = int(cli_value(r"App ID: (\d+)", "app", "new", INGEST_APP))
+    key = cli_value(r"Access Key: (\S+) \|", "app", "show", INGEST_APP)
+    rate_key = cli_value(r"Created new access key: (\S+)", "accesskey",
+                         "new", INGEST_APP, "--event", "rate")
+    url = f"{es['url']}/%s?accessKey={key}"
+    posted, rows = {}, {}
+    n_c, n_each = INGEST_SINGLE
+    res, wall = fan_out(es["url"], f"/events.json?accessKey={key}", [
+        [ingest_event(c * n_each + j) for j in range(n_each)]
+        for c in range(n_c)])
+    for body, code, got, _ in res:
+        check(code == 201, f"POST /events.json answered {code} {got}")
+        posted[got["eventId"]] = body
+    rows["single"] = route_row(len(res), wall, [r[3] for r in res])
+    k0 = n_c * n_each
+    n_c, n_batches, n_per = INGEST_BATCH
+    res, wall = fan_out(es["url"], f"/batch/events.json?accessKey={key}", [
+        [[ingest_event(k0 + (c * n_batches + b) * n_per + j)
+          for j in range(n_per)] for b in range(n_batches)]
+        for c in range(n_c)])
+    for body, code, got, _ in res:
+        check(code == 200 and [g["status"] for g in got] == [201] * n_per,
+              f"POST /batch/events.json answered {code} {got}")
+        posted.update((g["eventId"], b) for g, b in zip(got, body))
+    rows["batch"] = route_row(n_c * n_batches * n_per, wall,
+                              [r[3] for r in res])
+    k0 += n_c * n_batches * n_per
+    cols = [ingest_event(k0 + j) for j in range(INGEST_COLUMNAR)]
+    body = {"event": "rate", "entityType": "user",
+            "entityId": [e["entityId"] for e in cols],
+            "targetEntityType": "item",
+            "targetEntityId": [e["targetEntityId"] for e in cols],
+            "properties": [e["properties"] for e in cols],
+            "eventTime": [e["eventTime"] for e in cols], "returnIds": True}
+    t0 = time.perf_counter()
+    code, got = post_json(url % "events/columnar.json", body)
+    wall = time.perf_counter() - t0
+    check(code == 201 and got["eventsCreated"] == INGEST_COLUMNAR,
+          f"POST /events/columnar.json answered {code} "
+          f"{ {k: v for k, v in got.items() if k != 'eventIds'} }")
+    posted.update(zip(got["eventIds"], cols))
+    rows["columnar"] = route_row(INGEST_COLUMNAR, wall, [wall * 1e3])
+    n_posted = len(posted)
+    check(n_posted == k0 + INGEST_COLUMNAR, f"{n_posted} distinct ids for "
+          f"{k0 + INGEST_COLUMNAR} events")
+    counts = dict(store_sql("SELECT event, COUNT(*) FROM {t} WHERE appid=? "
+                            "GROUP BY event", (app_id,)))
+    check(counts == {"rate": n_posted}, f"the store holds {counts}, "
+          f"{n_posted} rate events were posted")
+    stats = get_json(url % "stats.json")
+    window = stats["currentWindow"]
+    check(window == {
+        "count": n_posted, "byEvent": {"rate": n_posted},
+        "byEntityType": {"user": n_posted},
+        "byStatus": {"201": n_posted}}, f"/stats.json: {stats}")
+    rng = np.random.default_rng(32)
+    ids = list(posted)
+    for k in rng.choice(len(ids), INGEST_SAMPLED, replace=False):
+        got = get_json(url % f"events/{ids[k]}.json")
+        want = posted[ids[k]]
+        check({f: got.get(f) for f in WIRE_FIELDS}
+              == {f: want[f] for f in WIRE_FIELDS},
+              f"event {ids[k]} read back {got}, posted {want}")
+    bad = ingest_event(0)
+    for what, (path, body), want in (
+            ("a wrong key", (f"{es['url']}/events.json?accessKey=nope", bad),
+             (401, {"message": "Invalid accessKey."})),
+            ("a non-whitelisted event",
+             (f"{es['url']}/events.json?accessKey={rate_key}",
+              dict(bad, event="buy")),
+             (403, {"message": "buy events are not allowed"})),
+            ("a reserved-prefix event",
+             (url % "events.json", dict(bad, event="$bad")),
+             (400, {"message": "$bad is not a supported reserved event "
+                               "name."})),
+            ("a batch of 51", (url % "batch/events.json", [bad] * 51),
+             (413, {"message": "Batch request must have less than or "
+                               "equal to 50 events", "maxBatch": 50,
+                    "received": 51,
+                    "hint": "POST /events/columnar.json accepts 1000000 "
+                            "rows per request as parallel arrays"}))):
+        got = post_json(path, body)
+        check(got == want, f"{what} answered {got}, the reference {want}")
+    hook = {"type": "track", "userId": "seg1", "event": "Signed Up",
+            "properties": {"plan": "Pro"},
+            "timestamp": "2030-02-01T00:00:00.000Z"}
+    code, got = post_json(url % "webhooks/segmentio.json", hook)
+    check(code == 201, f"the Segment.io webhook answered {code} {got}")
+    got = get_json(url % f"events/{got['eventId']}.json")
+    check({f: got.get(f) for f in WIRE_FIELDS} == {
+        "event": "track", "entityType": "user", "entityId": "seg1",
+        "targetEntityType": None, "targetEntityId": None,
+        "properties": {"properties": {"plan": "Pro"}, "event": "Signed Up"},
+        "eventTime": "2030-02-01T00:00:00.000Z"},
+        f"the webhook's event read back {got}")
+    counts = dict(store_sql("SELECT event, COUNT(*) FROM {t} WHERE appid=? "
+                            "GROUP BY event", (app_id,)))
+    check(counts == {"rate": n_posted, "track": 1},
+          f"after the webhook the store holds {counts}")
+    emit("eventserver", alive_s=es["alive_s"], events=n_posted,
+         sampled=INGEST_SAMPLED, routes=rows)
+
+
+def truth_of(model, new_meta: dict, app_id: int) -> tuple:
+    """`store_truth` for a folded model's items: the seeded catalog, the
+    fold's `new_meta`, and any other item's `$set`s read by its id (an
+    index seek; `item_meta`'s time-ordered scan reads the whole app)."""
+    cats, years = store_items()
+    out_c, out_y = [], []
+    for i in model.item_ix.ids:
+        if i in new_meta:
+            c, y = new_meta[i]
+        elif re.fullmatch(r"i\d+", i):
+            c, y = cats[int(i[1:])], years[int(i[1:])]
+        else:
+            p = {}
+            for (props,) in store_sql(
+                    "SELECT properties FROM {t} WHERE appid=? AND "
+                    "channelid=0 AND entityid=? AND entitytype='item' AND "
+                    "event='$set' ORDER BY eventtime, rowid", (app_id, i)):
+                p.update(json.loads(props or "{}"))
+            c, y = p.get("categories") or (), p.get("creationYear")
+        out_c.append(set(c))
+        out_y.append(y)
+    return out_c, np.array(out_y)
+
+
+def instance_cursor(iid: str):
+    """Where a fold of engine instance `iid` resumes, read straight from
+    the engine-instances table with sqlite3 and not through the port: the
+    `cursor` an online version's batch tag (`online-fold-in:<json>`)
+    records, else the instance's start time."""
+    import datetime as _dt
+    import sqlite3
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    dao = Storage.get_meta_data_engine_instances()
+    con = sqlite3.connect(dao.c.config.get("URL"), timeout=60)
+    try:
+        batch, start_ms = con.execute(
+            f"SELECT batch, starttime FROM {dao.t} WHERE id=?",
+            (iid,)).fetchone()
+    finally:
+        con.close()
+    tag = "online-fold-in:"
+    if (batch or "").startswith(tag):
+        cursor = json.loads(batch[len(tag):]).get("cursor")
+        if cursor:
+            return _dt.datetime.fromisoformat(cursor)
+    return (_dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+            + _dt.timedelta(milliseconds=start_ms))
+
+
+def fresh_touched(app_id: int, iid: str, model) -> dict:
+    """What `update` folds into instance `iid` (serving `model`): the
+    store's rate, buy and $set events after its cursor (`instance_cursor`;
+    the scheduler's own cursor is held against it), read with sqlite3,
+    sided as the scheduler sides them, and the users and items that are
+    new to `model` and rated (only those grow)."""
+    import datetime as _dt
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.online import DeltaTrainingScheduler
+    cursor = instance_cursor(iid)
+    theirs = DeltaTrainingScheduler._instance_cursor(
+        Storage.get_meta_data_engine_instances().get(iid))
+    check(theirs == cursor, f"the scheduler resumes instance {iid} at "
+          f"{theirs}; its engine-instances row says {cursor}")
+    epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+    rows = store_sql(
+        "SELECT event, entitytype, entityid, targetentitytype, "
+        "targetentityid FROM {t} WHERE appid=? AND channelid=0 AND "
+        "eventtime>? AND event IN ('rate', 'buy', '$set')",
+        (app_id, (cursor - epoch) // _dt.timedelta(milliseconds=1)))
+    users, items, new_users, new_items = set(), set(), set(), set()
+    for ev, etype, eid, ttype, tid in rows:
+        if eid:
+            (items if etype == "item" else users).add(eid)
+        if tid and ttype != "user":
+            items.add(tid)
+        if ev != "$set" and eid not in model.user_ix:
+            new_users.add(eid)
+        if ev != "$set" and tid not in model.item_ix:
+            new_items.add(tid)
+    return {"events": len(rows), "users": sorted(users),
+            "items": sorted(items), "new_users": len(new_users),
+            "new_items": len(new_items)}
+
+
+def feedback_deploy(es: dict, key: str, workdir: str) -> tuple:
+    """(extra args, extra environment) of the feedback deploy: feedback
+    to the event server under `key`, and the output plugins of
+    PLUGINS_SOURCE, written into the workdir and put on PYTHONPATH."""
+    with open(os.path.join(workdir, PLUGINS_MODULE + ".py"), "w") as f:
+        f.write(PLUGINS_SOURCE)
+    path = os.pathsep.join(p for p in (workdir, os.environ.get(
+        "PYTHONPATH")) if p)
+    return (("--feedback", "--accesskey", key, "--event-server-ip",
+             "127.0.0.1", "--event-server-port", str(es["port"])),
+            {"PIO_ENGINE_SERVER_PLUGINS":
+             f"{PLUGINS_MODULE}.SmokeTag,{PLUGINS_MODULE}.SmokeCount",
+             "PYTHONPATH": path,
+             "SMOKE_SNIFF_LOG": os.path.join(workdir, "sniffed.jsonl")})
+
+
+def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
+                    deps: dict) -> tuple:
+    """The fold over REST: a `deploy --feedback` of the recommendation
+    instance (`feedback_deploy`), the fold_update traffic (seed
+    REST_FOLD_SEED, fresh ids `ru*`/`ri*`) posted through
+    `/batch/events.json` with the rec app's `key`, then
+    `update --engine-port` (one tick, publish, `/reload`). Holds: the
+    fold saw exactly the store's fresh events, every solve a CG launch,
+    touched rows within tolerance of a float64 replay, the new users
+    answered with the float64 top-k of the published tables. Returns
+    (the CG launches, the published model, its version, the fold's
+    users)."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.online.fold_in import FoldInConfig
+    app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
+    args, env = feedback_deploy(es, key, workdir)
+    phase_cli_deploy({"recommendation": rec_path}, workdir, deps,
+                     extra_args=args, extra_env=env)
+    dep = deps["recommendation"]
+    iid = get_json(dep["url"] + "/")["engineInstanceId"]
+    factory = TR.RecommendationEngineFactory.apply()
+    (model,) = factory.deserialize_models(
+        Storage.get_model_data_models().get(iid).models, iid)
+    rng = np.random.default_rng(REST_FOLD_SEED)
+    n_u, n_i = len(model.user_ix), len(model.item_ix)
+    users = model.user_ix.ids_of(rng.choice(n_u, FOLD_USERS, replace=False))
+    new_users = [f"ru{k}" for k in range(FOLD_NEW_USERS)]
+    new_items = [f"ri{k}" for k in range(FOLD_NEW_ITEMS)]
+    cat_names = sorted({c for cs in store_items()[0] for c in cs})
+    new_meta = {i: (tuple(rng.choice(cat_names, int(rng.integers(1, 4)),
+                                     replace=False)),
+                    int(rng.integers(*STORE_YEARS))) for i in new_items}
+    subj = (np.repeat(users, FOLD_PER_USER).tolist()
+            + np.repeat(new_users, FOLD_NEW_PER_USER).tolist()
+            + [users[k % FOLD_USERS] for k in range(FOLD_NEW_ITEM_RATES)])
+    n_known = FOLD_USERS * FOLD_PER_USER + FOLD_NEW_USERS * FOLD_NEW_PER_USER
+    tgt = (model.item_ix.ids_of(rng.integers(0, n_i, n_known))
+           + [new_items[k % FOLD_NEW_ITEMS]
+              for k in range(FOLD_NEW_ITEM_RATES)])
+    events = [{"event": "$set", "entityType": "item", "entityId": i,
+               "properties": {"categories": list(new_meta[i][0]),
+                              "creationYear": new_meta[i][1]}}
+              for i in new_items]
+    events += [{"event": "rate", "entityType": "user", "entityId": u,
+                "targetEntityType": "item", "targetEntityId": t,
+                "properties": {"rating": float(r)}}
+               for u, t, r in zip(subj, tgt, rng.integers(1, 6, len(subj)))]
+    batch_url = f"{es['url']}/batch/events.json?accessKey={key}"
+    t0 = time.perf_counter()
+    for lo in range(0, len(events), 50):
+        code, got = post_json(batch_url, events[lo:lo + 50])
+        check(code == 200 and {g["status"] for g in got} == {201},
+              f"the fold's batch answered {code} {got}")
+    t_event = time.perf_counter()
+    post_s = t_event - t0
+    fresh = fresh_touched(app.id, iid, model)
+    tu_ids, ti_ids = fresh["users"], fresh["items"]
+    check(set(subj) <= set(tu_ids) and set(tgt) <= set(ti_ids),
+          "the posted events are not all fresh for the deployed instance")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch", "update", "-v",
+         rec_path, "--engine-port", str(dep["port"])], cwd=HERE,
+        capture_output=True, text=True, timeout=900)
+    update_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"update exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    (algo_rep,) = report["algorithms"]
+    emit("rest_fold_report", update_s=update_s, **report)
+    check(report["readPath"] == "entity_filtered"
+          and report.get("reloaded") is True
+          and report.get("publishedVersion")
+          and report["gateReport"]["passed"],
+          "the fold was not read by entity, gated, published and reloaded")
+    check((report["events"], report["touchedUsers"],
+           report["touchedItems"], algo_rep["newUsers"],
+           algo_rep["newItems"]) == (
+               fresh["events"], len(tu_ids), len(ti_ids),
+               fresh["new_users"], fresh["new_items"]),
+          f"the fold saw {report['events']} events, {report['touchedUsers']}"
+          f" users, {report['touchedItems']} items and grew "
+          f"{algo_rep['newUsers']} users, {algo_rep['newItems']} items; the "
+          f"store's fresh events: "
+          f"{dict(fresh, users=len(tu_ids), items=len(ti_ids))}")
+    launches = algo_rep["launches"]
+    check(launches == {"cg_solve": algo_rep["solverCalls"]}
+          and algo_rep["solverCalls"] > 0,
+          f"fold solves {algo_rep['solverCalls']} vs launches {launches}: "
+          "every fold solve must be the CG kernel")
+    version = report["publishedVersion"]
+    # the new users' answers first: the event-to-answer time ends at the
+    # first of them
+    lat, answers, event_to_answer_s = [], [], None
+    for u in new_users:
+        q = {"user": u, "num": SERVE_NUM}
+        t0 = time.perf_counter()
+        code, body = post_json(dep["url"] + "/queries.json", q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if event_to_answer_s is None:
+            event_to_answer_s = time.perf_counter() - t_event
+        check(code == 200 and body["itemScores"]
+              and body["smokeTag"] == version,
+              f"new user {u} answered {code} {body}")
+        answers.append((q, body))
+    t_hold = time.perf_counter()
+    (pub,) = factory.deserialize_models(
+        Storage.get_model_data_models().get(version).models, version)
+    algo = TR.ALSAlgorithm(TR.ALSAlgorithmParams(rank=RANK, lam=STORE_LAM,
+                                                 device="cpu"))
+    touched = (tu_ids, ti_ids)
+    td = TR.RecommendationDataSource(TR.DataSourceParams(
+        app_name=STORE_APP, read_items=True)).read_training_touched(
+            *touched)
+    f64, f32, tu, ti = replay_rows(
+        algo, touched, pub, td, model.als.user_factors,
+        model.als.item_factors,
+        FoldInConfig(lam=STORE_LAM, sweeps=2, solver="cg_cuda"))
+    held = hold_replay((pub.als.user_factors, pub.als.item_factors), f64,
+                       f32, tu, ti, "rest_fold")
+    replay_s = time.perf_counter() - t_hold
+    truth = truth_of(pub, new_meta, app.id)
+    U64 = pub.als.user_factors.astype(np.float64)
+    V64 = pub.als.item_factors.astype(np.float64)
+    exact = sum(hold_served(body, q, pub, U64, V64, truth,
+                            f"rest_fold query {q}", f16=True)
+                for q, body in answers)
+    emit("rest_fold", events_posted=len(events), post_s=post_s,
+         replay_s=replay_s, hold_s=time.perf_counter() - t_hold - replay_s,
+         fresh_events=fresh["events"], grew=(algo_rep["newUsers"],
+                                             algo_rep["newItems"]),
+         update_s=update_s, tick_s=report["tickS"],
+         read_s=report["readS"], publish_s=report["publishS"],
+         reload_s=report["reloadS"], cg_launches=launches.get("cg_solve", 0),
+         replay=held, new_users_answered=len(lat), ids_equal_f64=exact,
+         event_to_answer_s=event_to_answer_s,
+         first_answer_ms=lat[0], p50_ms=float(np.percentile(lat, 50)))
+    return launches.get("cg_solve", 0), pub, version, sorted(set(subj))
+
+
+def phase_feedback(dep: dict, pub, version: str, fold_users: list,
+                   workdir: str) -> None:
+    """The feedback loop on the rest_fold deploy (PIO_ENGINE_SERVER_PLUGINS:
+    an output blocker adding `smokeTag`, a sniffer logging each query):
+    the fold's users and FEEDBACK_OTHERS others asked once each, half with
+    a `prId`. Holds: every answer lands as one `predict` event in the rec
+    app within FEEDBACK_WAIT_S, its query the query sent and its
+    prediction the answer without the blocker's field, its entity id the
+    prId (the query's, else the published version); the sniffer saw every
+    query; the result cache holds nothing and hit nothing;
+    `/plugins.json` names both plugins. The lag from an answer to its
+    event being readable in the store is measured; then FEEDBACK_BENCH
+    closed-loop clients with feedback on, and how many of their events
+    land."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    app_id = Storage.get_meta_data_apps().get_by_name(STORE_APP).id
+    rng = np.random.default_rng(33)
+    others = [u for u in pub.user_ix.ids_of(rng.choice(
+        len(pub.user_ix), 4 * FEEDBACK_OTHERS, replace=False))
+        if u not in set(fold_users)][:FEEDBACK_OTHERS]
+    queries = []
+    for k, u in enumerate(fold_users + others):
+        q = {"user": u, "num": SERVE_NUM}
+        if k % 2:
+            q["prId"] = f"fb{k}"
+        queries.append(q)
+    sniff = os.path.join(workdir, "sniffed.jsonl")
+    sniffed0 = sum(1 for _ in open(sniff))
+    (row0,) = store_sql("SELECT COALESCE(MAX(rowid), 0) FROM {t}")
+    seen, answered, stop = {}, {}, threading.Event()
+
+    def predict_rows(after: int) -> list:
+        # `+appid`: seek by rowid, not by an (appid, ...) index
+        return store_sql("SELECT rowid, entitytype, entityid, properties "
+                         "FROM {t} WHERE rowid>? AND +appid=? AND "
+                         "event='predict' ORDER BY rowid", (after, app_id))
+
+    def poll():
+        last = row0[0]
+        while not stop.is_set():
+            for rowid, _, _, props in predict_rows(last):
+                seen.setdefault(json.loads(props)["query"]["user"],
+                                time.perf_counter())
+                last = rowid
+            time.sleep(0.005)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    bodies = {}
+    try:
+        for q in queries:
+            code, body = post_json(dep["url"] + "/queries.json", q)
+            answered[q["user"]] = time.perf_counter()
+            check(code == 200 and body["smokeTag"] == version,
+                  f"feedback query {q} answered {code} {body}")
+            bodies[q["user"]] = body
+        deadline = time.perf_counter() + FEEDBACK_WAIT_S
+        while len(seen) < len(queries) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        poller.join(timeout=10)
+    rows = predict_rows(row0[0])
+    check(len(rows) == len(queries) and len(seen) == len(queries),
+          f"{len(rows)} predict events landed for {len(queries)} answers")
+    by_user = {q["user"]: q for q in queries}
+    for _, etype, eid, props in rows:
+        p = json.loads(props)
+        q = by_user[p["query"]["user"]]
+        want = {k: v for k, v in bodies[q["user"]].items()
+                if k != "smokeTag"}
+        check(etype == "pio_pr" and p["query"] == q
+              and p["prediction"] == want
+              and eid == want["prId"] == q.get("prId", version),
+              f"the predict event of {q}: {etype} {eid} {p}; answered "
+              f"{bodies[q['user']]}")
+    sniffed = sum(1 for _ in open(sniff)) - sniffed0
+    check(sniffed == len(queries), f"the sniffer saw {sniffed} answers")
+    cache = get_json(dep["url"] + "/stats.json")["resultCache"]
+    check(cache["entries"] == 0 and cache["hits"] == 0,
+          f"the result cache under feedback: {cache}")
+    plugins = get_json(dep["url"] + "/plugins.json")["plugins"]
+    check(list(plugins["outputblocker"]) == ["smoke_tag"]
+          and list(plugins["outputsniffer"]) == ["smoke_count"],
+          f"/plugins.json: {plugins}")
+    lag = [(seen[u] - answered[u]) * 1e3 for u in answered]
+    n_c, n_q = FEEDBACK_BENCH
+    pool = fold_users + others
+    per_client = [[{"user": pool[(c * n_q + j) % len(pool)],
+                    "num": SERVE_NUM} for j in range(n_q)]
+                  for c in range(n_c)]
+    (row1,) = store_sql("SELECT COALESCE(MAX(rowid), 0) FROM {t}")
+    results, wall = closed_loop(dep["url"], per_client)
+    check(all(code == 200 for _, code, _, _ in results),
+          "a query under feedback failed")
+    ms = [r[3] for r in results]
+    deadline = time.perf_counter() + FEEDBACK_WAIT_S
+    while (len(predict_rows(row1[0])) < len(results)
+           and time.perf_counter() < deadline):
+        time.sleep(0.1)
+    emit("feedback", queries=len(queries), events_landed=len(rows),
+         sniffed=sniffed, cache=cache, plugins=sorted(
+             list(plugins["outputblocker"]) + list(plugins["outputsniffer"])),
+         lag_p50_ms=float(np.percentile(lag, 50)),
+         lag_p99_ms=float(np.percentile(lag, 99)), lag_max_ms=max(lag),
+         bench_clients=n_c, bench_queries=len(results),
+         bench_qps=len(results) / wall,
+         bench_p50_ms=float(np.percentile(ms, 50)),
+         bench_p99_ms=float(np.percentile(ms, 99)),
+         bench_events_landed=len(predict_rows(row1[0])))
+
+
+def collection_phases(rec_path: str, workdir: str) -> int:
+    """Event collection and the feedback loop, after the serve plane and
+    before the other templates: the event server (`eventserver`), the
+    fold over REST into a feedback deploy (`rest_fold`), the feedback
+    loop (`feedback`); then the deploy is undeployed and the event server
+    stopped (SIGTERM), each process exiting 0. The deploy posts with a key
+    of the rec app that `accesskey new` makes. Returns the fold's CG
+    launches."""
+    es, deps = None, {}
+    try:
+        es = start_eventserver(workdir)
+        phase_eventserver(es)
+        key = cli_value(r"Created new access key: (\S+)", "accesskey",
+                        "new", STORE_APP)
+        launches, pub, version, fold_users = phase_rest_fold(
+            es, key, rec_path, workdir, deps)
+        phase_feedback(deps["recommendation"], pub, version, fold_users,
+                       workdir)
+        phase_undeploy(deps)
+        es["proc"].terminate()
+        rc = es["proc"].wait(timeout=60)
+        check(rc == 0, f"the event server exited {rc} on SIGTERM: "
+              f"{log_tail(es['log'])}")
+    finally:
+        stop_all(deps)
+        if es is not None:
+            stop_all({"eventserver": es})
+    return launches
+
+
+def phase_import_export(workdir: str) -> None:
+    """Export and import, last: `export` writes the recommended-user
+    template's app (its follow events, dated 2030, clear of the epoch
+    rounding of ROADMAP §C) as JSON lines and `import` loads them into a
+    new app; both apps' `find_columnar` must be equal, column for
+    column. Without pyarrow, `export --format parquet` must raise an
+    ImportError naming it."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    src = Storage.get_meta_data_apps().get_by_name(RECUSER_APP).id
+    dst = int(cli_value(r"App ID: (\d+)", "app", "new", FOLLOWS_COPY))
+    ((n,),) = store_sql("SELECT COUNT(*) FROM {t} WHERE appid=?", (src,))
+    path = os.path.join(workdir, "follows.json")
+    timed = {}
+    for name, args, said in (
+            ("export", ("export", "--appid", str(src), "--output", path),
+             f"Exported {n} events to {path}."),
+            ("import", ("import", "--appid", str(dst), "--input", path),
+             f"Imported {n} events.")):
+        t0 = time.perf_counter()
+        rc, out = cli_out(*args)
+        s = time.perf_counter() - t0
+        check(rc == 0 and out.strip() == said, f"{name} exited {rc}: {out}")
+        timed[name] = {"s": s, "events_per_s": n / s}
+    ev = Storage.get_events()
+    a, b = ev.find_columnar(src), ev.find_columnar(dst)
+    check(sorted(a) == sorted(b) and len(a["event"]) == n
+          and all(np.array_equal(a[k], b[k]) for k in a),
+          "the imported app's columns differ from the exported app's")
+    try:
+        import pyarrow  # noqa: F401
+        parquet = "pyarrow installed: not tried"
+    except ImportError:
+        try:
+            cli_out("export", "--appid", str(src), "--output",
+                    path + ".parquet", "--format", "parquet")
+            check(False, "export --format parquet ran without pyarrow")
+        except ImportError as e:
+            check("pyarrow" in str(e), f"the ImportError names no pyarrow: "
+                  f"{e}")
+            parquet = str(e)
+    emit("import_export", events=n, bytes=os.path.getsize(path),
+         columns=sorted(a), parquet=parquet, **timed)
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -4942,8 +5652,10 @@ def main() -> int:
             chol_launches += sim_launches
             cg_launches += fold_launches
             del rec_model
+            cg_launches += collection_phases(path, workdir)
             cg_launches += template_phases(workdir)
             phase_classification(workdir)
+            phase_import_export(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

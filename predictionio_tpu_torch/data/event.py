@@ -2,15 +2,18 @@
 
 The port's copy of `predictionio_tpu/data/event.py`: the immutable
 `Event` record (entity, optional target entity, JSON properties, event
-time; Event.scala:39-57), millisecond time conversions, event-id minting,
-and `EventValidation`, the reserved-name rules for the special
-`$set`/`$unset`/`$delete` events and the `pio_` prefix
+time; Event.scala:39-57) and its JSON wire format (`to_dict`/`to_json`,
+`from_dict`/`from_json`, `format_event_time`: the reference's
+EventJson4sSupport.APISerializer), millisecond time conversions,
+event-id minting, and `EventValidation`, the reserved-name rules for the
+special `$set`/`$unset`/`$delete` events and the `pio_` prefix
 (Event.scala:65-163).
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import json
 import os
 import threading as _threading
 from dataclasses import dataclass, field, replace
@@ -41,6 +44,23 @@ def parse_event_time(s: str) -> _dt.datetime:
     return t
 
 
+def format_event_time(t: _dt.datetime) -> str:
+    """ISO-8601 with milliseconds, the reference's wire format."""
+    if t.tzinfo is None:
+        t = t.replace(tzinfo=UTC)
+    base = t.strftime("%Y-%m-%dT%H:%M:%S")
+    ms = t.microsecond // 1000
+    off = t.utcoffset() or _dt.timedelta(0)
+    if off == _dt.timedelta(0):
+        tz = "Z"
+    else:
+        total = int(off.total_seconds())
+        sign = "+" if total >= 0 else "-"
+        total = abs(total)
+        tz = f"{sign}{total // 3600:02d}:{(total % 3600) // 60:02d}"
+    return f"{base}.{ms:03d}{tz}"
+
+
 @dataclass(frozen=True)
 class Event:
     """One event in the event store (Event.scala:39-57)."""
@@ -57,8 +77,63 @@ class Event:
     creation_time: _dt.datetime = field(default_factory=utcnow)
     event_id: Optional[str] = None
 
-    def with_id(self, event_id: str) -> "Event":
+    def with_id(self, event_id: str, minted: bool = False) -> "Event":
+        """A copy carrying `event_id`. `minted` (the id is fresh random
+        hex this process made) is taken for the reference's signature and
+        not kept: only the spill WAL reads it there, and the port has no
+        spill until `resilience/` is ported."""
         return replace(self, event_id=event_id)
+
+    # -- the JSON wire format (EventJson4sSupport.APISerializer) -----------
+    def to_dict(self) -> dict:
+        d = {
+            "eventId": self.event_id,
+            "event": self.event,
+            "entityType": self.entity_type,
+            "entityId": self.entity_id,
+            "targetEntityType": self.target_entity_type,
+            "targetEntityId": self.target_entity_id,
+            "properties": self.properties.fields,
+            "eventTime": format_event_time(self.event_time),
+            "tags": list(self.tags),
+            "prId": self.pr_id,
+            "creationTime": format_event_time(self.creation_time),
+        }
+        return {k: v for k, v in d.items() if v is not None}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Event":
+        for name in ("event", "entityType", "entityId"):
+            if name not in d:
+                raise ValueError(f"field {name} is required")
+        props = d.get("properties") or {}
+        if not isinstance(props, dict):
+            raise ValueError("field properties must be a JSON object")
+        now = utcnow()
+        return cls(
+            event=d["event"],
+            entity_type=d["entityType"],
+            entity_id=str(d["entityId"]),
+            target_entity_type=d.get("targetEntityType"),
+            target_entity_id=(str(d["targetEntityId"])
+                              if d.get("targetEntityId") is not None
+                              else None),
+            properties=DataMap(props),
+            event_time=(parse_event_time(d["eventTime"])
+                        if d.get("eventTime") else now),
+            tags=tuple(d.get("tags") or ()),
+            pr_id=d.get("prId"),
+            creation_time=(parse_event_time(d["creationTime"])
+                           if d.get("creationTime") else now),
+            event_id=d.get("eventId"),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "Event":
+        return cls.from_dict(json.loads(s))
 
 
 _id_pool = _threading.local()

@@ -2,10 +2,11 @@
 event store (the port's copy of `predictionio_tpu/data/storage`, cut to
 the sqlite and localfs backends)."""
 
-from predictionio_tpu_torch.data.storage.base import (App, Channel,
+from predictionio_tpu_torch.data.storage.base import (AccessKey, App,
+                                                      Channel,
                                                       EngineInstance, Model)
 from predictionio_tpu_torch.data.storage import registry
 from predictionio_tpu_torch.data.storage.registry import Storage
 
-__all__ = ["App", "Channel", "EngineInstance", "Model", "Storage",
+__all__ = ["AccessKey", "App", "Channel", "EngineInstance", "Model", "Storage",
            "registry"]

@@ -1,10 +1,11 @@
 """Metadata records and the abstract DAO / event-store interfaces.
 
 The port's copy of the part of `predictionio_tpu/data/storage/base.py`
-that training, evaluation and deployment use: the records `App`,
-`Channel`, `EngineInstance`, `EvaluationInstance` and `Model` (the
-reference's Apps, Channels, EngineInstances, EvaluationInstances and
-Models DAOs), their abstract DAOs, and `Events`, one
+that training, evaluation, deployment and event collection use: the
+records `App`, `AccessKey`, `Channel`, `EngineInstance`,
+`EvaluationInstance` and `Model` (the reference's Apps, AccessKeys,
+Channels, EngineInstances, EvaluationInstances and Models DAOs), their
+abstract DAOs, and `Events`, one
 synchronous interface for the reference's LEvents (LEvents.scala:37) and
 the bulk-read role of PEvents (PEvents.scala:35), with the default
 `find_columnar` and `aggregate_properties` that a backend without a query
@@ -47,6 +48,13 @@ class App:
     id: int
     name: str
     description: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    key: str
+    appid: int
+    events: Sequence[str] = ()  # whitelist; empty = all events allowed
 
 
 _CHANNEL_NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
@@ -146,6 +154,27 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, k: AccessKey) -> Optional[str]:
+        """Insert; generates a random key when k.key is empty."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, k: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
 
 
 class Channels(abc.ABC):

@@ -112,8 +112,8 @@ def _client_for(cfg: StorageClientConfig):
 
 
 def get_data_object(repo: str, kind: str):
-    """kind in {apps, channels, engine_instances, evaluation_instances,
-    models, events}."""
+    """kind in {apps, access_keys, channels, engine_instances,
+    evaluation_instances, models, events}."""
     key = f"{repo}/{kind}"
     with _lock:
         if key not in _dataobjects:
@@ -141,6 +141,10 @@ class Storage:
         return get_data_object("METADATA", "apps")
 
     @staticmethod
+    def get_meta_data_access_keys():
+        return get_data_object("METADATA", "access_keys")
+
+    @staticmethod
     def get_meta_data_channels():
         return get_data_object("METADATA", "channels")
 
@@ -160,3 +164,20 @@ class Storage:
     def get_events():
         """The LEvents/PEvents analog."""
         return get_data_object("EVENTDATA", "events")
+
+    @staticmethod
+    def verify_all_data_objects() -> Dict[str, bool]:
+        """Health check of `status` (Storage.scala:325-348)."""
+        out = {}
+        for repo, kind in (("METADATA", "apps"), ("EVENTDATA", "events"),
+                           ("MODELDATA", "models")):
+            try:
+                get_data_object(repo, kind)
+                out[repo] = True
+            except Exception:
+                out[repo] = False
+        return out
+
+    @staticmethod
+    def config_summary() -> Dict[str, str]:
+        return {repo: repository_config(repo).type for repo in REPOSITORIES}

@@ -1,9 +1,9 @@
 """Embedded SQL storage backend (SQLite): the operator default store.
 
 The port's copy of `predictionio_tpu/data/storage/sqlite.py` for the
-tables training, evaluation and deployment use: apps, channels, engine
-instances, evaluation instances, model blobs and events, in one embedded
-database. The schema is the
+tables training, evaluation, deployment and event collection use: apps,
+access keys, channels, engine instances, evaluation instances, model
+blobs and events, in one embedded database. The schema is the
 reference's, table for table, so a store written by either package reads
 back through the other. Tables are created on first access.
 
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import secrets
 import sqlite3
 import threading
 from itertools import repeat
@@ -32,7 +33,8 @@ from predictionio_tpu_torch.data.event import (Event, from_millis,
                                                parse_event_time, to_millis,
                                                utcnow)
 from predictionio_tpu_torch.data.storage import base
-from predictionio_tpu_torch.data.storage.base import (ABSENT, App, Channel,
+from predictionio_tpu_torch.data.storage.base import (ABSENT, AccessKey,
+                                                      App, Channel,
                                                       EngineInstance,
                                                       EvaluationInstance,
                                                       Model)
@@ -67,6 +69,7 @@ class StorageClient:
             if key not in self._objects:
                 ctor = {
                     "apps": SQLApps,
+                    "access_keys": SQLAccessKeys,
                     "channels": SQLChannels,
                     "engine_instances": SQLEngineInstances,
                     "evaluation_instances": SQLEvaluationInstances,
@@ -135,6 +138,54 @@ class SQLApps(base.Apps):
     def delete(self, app_id: int) -> bool:
         return self.c.execute(f"DELETE FROM {self.t} WHERE id=?",
                               (app_id,)).rowcount > 0
+
+
+class SQLAccessKeys(base.AccessKeys):
+    def __init__(self, client, ns):
+        self.c = client
+        self.t = f"{ns}_accesskeys"
+        client.execute(f"""CREATE TABLE IF NOT EXISTS {self.t} (
+            accesskey TEXT PRIMARY KEY,
+            appid INTEGER NOT NULL,
+            events TEXT NOT NULL)""")
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        key = k.key or secrets.token_urlsafe(48)
+        try:
+            self.c.execute(
+                f"INSERT INTO {self.t} (accesskey, appid, events) "
+                "VALUES (?,?,?)", (key, k.appid, json.dumps(list(k.events))))
+            return key
+        except sqlite3.IntegrityError:
+            return None
+
+    def _row(self, r):
+        return AccessKey(r[0], r[1], tuple(json.loads(r[2])))
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        rows = self.c.query(
+            f"SELECT accesskey,appid,events FROM {self.t} WHERE accesskey=?",
+            (key,))
+        return self._row(rows[0]) if rows else None
+
+    def get_all(self) -> List[AccessKey]:
+        return [self._row(r) for r in
+                self.c.query(f"SELECT accesskey,appid,events FROM {self.t}")]
+
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]:
+        return [self._row(r) for r in self.c.query(
+            f"SELECT accesskey,appid,events FROM {self.t} WHERE appid=?",
+            (app_id,))]
+
+    def update(self, k: AccessKey) -> bool:
+        cur = self.c.execute(
+            f"UPDATE {self.t} SET appid=?, events=? WHERE accesskey=?",
+            (k.appid, json.dumps(list(k.events)), k.key))
+        return cur.rowcount > 0
+
+    def delete(self, key: str) -> bool:
+        return self.c.execute(f"DELETE FROM {self.t} WHERE accesskey=?",
+                              (key,)).rowcount > 0
 
 
 class SQLChannels(base.Channels):

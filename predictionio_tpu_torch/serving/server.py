@@ -1,5 +1,5 @@
 """The engine server: `POST /queries.json`, `GET /`, `GET /stats.json`,
-`/reload` and `/stop`.
+`GET /plugins.json`, `/reload` and `/stop`.
 
 The port's counterpart of the query and deploy paths of
 `predictionio_tpu/serving/server.py`. Deploy (`EngineServer.load`, what
@@ -61,8 +61,24 @@ canary runs. The watchdog promotes the candidate (a swap that clears the
 cache) or rolls back to the incumbent, and hands its verdict to
 `on_canary_decision` (the attached scheduler's `note_canary_decision`),
 or, with no scheduler attached, pins or demotes the version in the
-registry. `load()` and `/reload` abandon an undecided canary. The
-metrics and tracing routes, and feedback, are later slices.
+registry. `load()` and `/reload` abandon an undecided canary.
+
+The feedback loop (`ServerConfig.feedback`, the reference's
+CreateServer.scala:526-596): each answer gets a `prId` (the query's, else
+the engine instance id) and is posted to the event server at
+`event_server_ip:event_server_port` with `accesskey` as a `predict`
+event of entity type `pio_pr` (entity id the prId, properties the query
+and the prediction), on a daemon thread of its own; a failed post is
+logged. Output plugins (`PIO_ENGINE_SERVER_PLUGINS`,
+`serving/plugins.py`) then see the prediction: sniffers observe it and
+blockers transform the response. Both run on both query paths, and
+either one turns the result cache off, since every answer must post its
+event and pass the plugins. The metrics and tracing routes are a later
+slice.
+
+The routes are served by `utils/http` (`Router`, `HttpServer`), as the
+event server's are: an unknown path answers 404 and a known path asked
+with another method 405.
 """
 
 from __future__ import annotations
@@ -71,12 +87,13 @@ import json
 import logging
 import threading
 import time
+import urllib.request
 from dataclasses import dataclass
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
 from predictionio_tpu_torch.core.engine import (Engine, EngineParams,
                                                 TrainResult)
+from predictionio_tpu_torch.data.event import format_event_time, utcnow
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.data.store.event_store import EventStore
 from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
@@ -87,7 +104,10 @@ from predictionio_tpu_torch.models import get_engine_factory
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.serving import result_cache as RC
 from predictionio_tpu_torch.serving.batcher import MicroBatcher
+from predictionio_tpu_torch.serving.plugins import EngineServerPluginContext
 from predictionio_tpu_torch.utils.buckets import batch_ladder
+from predictionio_tpu_torch.utils.http import (HttpServer, Request, Response,
+                                               Router)
 
 logger = logging.getLogger(__name__)
 
@@ -105,6 +125,12 @@ class ServerConfig:
     engine_id: Optional[str] = None
     engine_version: Optional[str] = None
     engine_variant: str = "engine.json"
+    # the feedback loop: post each answer as a `predict` event to the
+    # event server at event_server_ip:event_server_port with accesskey
+    accesskey: str = ""
+    event_server_ip: str = "0.0.0.0"
+    event_server_port: int = 7070
+    feedback: bool = False
     # > 1 coalesces concurrent queries into one batched device call, on
     # by default as in the reference; <= 1 answers each on its own
     micro_batch: int = 16
@@ -131,13 +157,6 @@ class ServerConfig:
     canary_nan_tolerance: int = 0
 
 
-class _HTTPServer(ThreadingHTTPServer):
-    """A thread a connection; a listen backlog for many concurrent
-    clients (the standard library's default is 5)."""
-    daemon_threads = True
-    request_queue_size = 128
-
-
 def _request_deadline_s(headers) -> Optional[float]:
     """`X-PIO-Deadline-Ms`: how long the client still cares about the
     answer, in seconds; None when absent."""
@@ -159,8 +178,12 @@ class EngineServer:
 
     def __init__(self, config: ServerConfig, engine: Optional[Engine] = None,
                  engine_params: Optional[EngineParams] = None,
-                 trained: Optional[TrainResult] = None):
+                 trained: Optional[TrainResult] = None,
+                 plugin_context: Optional[EngineServerPluginContext] = None):
         self.config = config
+        self.plugin_context = (
+            plugin_context if plugin_context is not None
+            else EngineServerPluginContext.load_from_env())
         self.engine = engine
         self.engine_params = engine_params
         self.engine_instance = None
@@ -201,8 +224,7 @@ class EngineServer:
                 max_entries=config.result_cache_max_entries,
                 max_bytes=config.result_cache_max_bytes)
         self._lock = threading.Lock()
-        self._httpd: Optional[_HTTPServer] = None
-        self._thread: Optional[threading.Thread] = None
+        self._httpd: Optional[HttpServer] = None
         self.batcher: Optional[MicroBatcher] = None
         if config.micro_batch > 1:
             self.batcher = MicroBatcher(
@@ -487,6 +509,7 @@ class EngineServer:
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0)
             raise
+        out = self._post_process(query_dict, out)
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
@@ -496,19 +519,21 @@ class EngineServer:
             out = dict(out, **{CANARY_TAG: canary_version or CANDIDATE})
         return out
 
-    def handle_query_batch(self, queries: list) -> List[dict]:
-        return self.handle_query_batch_begin(queries)()
+    def handle_query_batch(self, items: list) -> List[dict]:
+        return self.handle_query_batch_begin(items)()
 
-    def handle_query_batch_begin(self, queries: list):
-        """A window's first stage, over queries `answer` has decoded:
-        snapshot the model set (once, under the lock: the window answers
-        from one version whatever swaps in meanwhile) and, with a canary
-        running, the window's arm (the whole window answers from it),
-        supplement the queries and start every algorithm's batch predict.
-        Returns `finish() -> List[dict]`, the second stage: wait for the
-        results, serve, serialize; a candidate window's answers carry
-        `CANARY_TAG`."""
+    def handle_query_batch_begin(self, items: list):
+        """A window's first stage, over the (query, JSON body) pairs
+        `answer` has decoded: snapshot the model set (once, under the
+        lock: the window answers from one version whatever swaps in
+        meanwhile) and, with a canary running, the window's arm (the
+        whole window answers from it), supplement the queries and start
+        every algorithm's batch predict. Returns `finish() -> List[dict]`,
+        the second stage: wait for the results, serve, post the feedback
+        events and run the output plugins (`_post_process`); a candidate
+        window's answers carry `CANARY_TAG`."""
         t0 = time.perf_counter()
+        queries = [q for q, _ in items]
         algorithms, models, serving = self._snapshot()
         canary_models, canary_version, arm = self._canary_route()
         if canary_models is not None:
@@ -533,9 +558,9 @@ class EngineServer:
         def finish() -> List[dict]:
             try:
                 per_algo = [dict(f()) for f in fetchers]
-                out = [self._to_dict(serving.serve(
-                    q, [pa[i] for pa in per_algo]))
-                    for i, q in enumerate(queries)]
+                out = [self._post_process(d, self._to_dict(serving.serve(
+                    q, [pa[i] for pa in per_algo])))
+                    for i, (q, d) in enumerate(items)]
             except Exception:
                 self._canary_observe(arm, error=True,
                                      latency_s=time.perf_counter() - t0,
@@ -603,14 +628,59 @@ class EngineServer:
         micro-batcher."""
         if self.batcher is None:
             return self.handle_query(query_dict)
-        return self.batcher.submit(self.decode(query_dict),
+        return self.batcher.submit((self.decode(query_dict), query_dict),
                                    deadline_s=deadline_s)
+
+    # -- the feedback loop and the output plugins (:526-596) ---------------
+    def _post_process(self, query_dict: dict, pred_dict: dict) -> dict:
+        """An answer's last steps on either query path: with feedback on,
+        the prId goes into the prediction and the `predict` event is
+        posted; then the output plugins run and their result is the
+        response."""
+        if self.config.feedback:
+            pr_id = query_dict.get("prId") or self.engine_instance.id
+            pred_dict = dict(pred_dict, prId=pr_id)
+            self._send_feedback(query_dict, pred_dict, pr_id)
+        return self.plugin_context.apply_output(self.engine_instance,
+                                                query_dict, pred_dict)
+
+    def _send_feedback(self, query: dict, prediction: dict,
+                       pr_id: str) -> None:
+        """POST the answer as a `predict` event on a daemon thread of its
+        own; a failure is logged."""
+        event = {
+            "event": "predict", "entityType": "pio_pr", "entityId": pr_id,
+            "properties": {"query": query, "prediction": prediction},
+            "eventTime": format_event_time(utcnow()),
+        }
+        url = (f"http://{self.config.event_server_ip}:"
+               f"{self.config.event_server_port}/events.json"
+               f"?accessKey={self.config.accesskey}")
+
+        def _post():
+            try:
+                req = urllib.request.Request(
+                    url, data=json.dumps(event).encode(),
+                    headers={"Content-Type": "application/json"},
+                    method="POST")
+                urllib.request.urlopen(req, timeout=5).read()
+            except Exception as e:
+                logger.error("feedback event POST failed: %s", e)
+
+        threading.Thread(target=_post, daemon=True).start()
 
     def _cache_usable(self) -> bool:
         """The cache answers and stores only while a response is a
         function of the query and the deployed models: not while a
-        canary splits the traffic between two model sets."""
-        return self.result_cache is not None and not self.canary.active
+        canary splits the traffic between two model sets, nor under the
+        feedback loop (each answer must post its event) or an output
+        plugin (each answer must pass it)."""
+        if self.result_cache is None or self.canary.active:
+            return False
+        if self.config.feedback:
+            return False
+        p = self.plugin_context.plugins
+        return not any(p.get(k) for k in p)
 
     @staticmethod
     def _result_item_ids(out: dict) -> tuple:
@@ -668,109 +738,47 @@ class EngineServer:
                       generation=generation, raw=raw)
         return body, extra
 
-    def _handler(self):
-        server = self
+    # -- the HTTP routes (:1433-1441), served by `utils/http` ---------------
+    def _queries_route(self, req: Request) -> Response:
+        try:
+            out, extra = self.queries(req.body, req.headers)
+        except TypeError as e:   # a query field of the wrong type
+            return Response(400, {"message": str(e)})
+        return Response(200, out, extra)
 
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-            # one buffered write, no Nagle: a header/body write split
-            # would otherwise wait on delayed ACKs
-            wbufsize = 1 << 16
-            disable_nagle_algorithm = True
+    def _reload_route(self, req: Request) -> Response:
+        try:
+            self.reload()
+        except Exception as e:   # keep serving the old models
+            logger.exception("reload failed")
+            return Response(500, {"message": str(e)})
+        return Response(200, {"message": "Reloaded"})
 
-            def _send(self, status: int, body, headers=None):
-                """`body`: a JSON-able object, or bytes sent as they
-                are (a cached or once-serialized answer)."""
-                data = (body if isinstance(body, bytes)
-                        else json.dumps(body).encode("utf-8"))
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
-                self.end_headers()
-                self.wfile.write(data)
+    def _stop_route(self, req: Request) -> Response:
+        threading.Thread(target=self.stop, daemon=True).start()
+        return Response(200, {"message": "Shutting down."})
 
-            def _control(self, path: str) -> bool:
-                """/reload and /stop, on GET or POST (:1433-1441)."""
-                if path == "/reload":
-                    try:
-                        server.reload()
-                    except Exception as e:   # keep serving the old models
-                        logger.exception("reload failed")
-                        self._send(500, {"message": str(e)})
-                    else:
-                        self._send(200, {"message": "Reloaded"})
-                    return True
-                if path == "/stop":
-                    self._send(200, {"message": "Shutting down."})
-                    threading.Thread(target=server.stop,
-                                     daemon=True).start()
-                    return True
-                return False
-
-            def do_GET(self):
-                path = self.path.split("?")[0]
-                if path == "/":
-                    self._send(200, server.status())
-                elif path == "/stats.json":
-                    self._send(200, server.stats())
-                elif not self._control(path):
-                    self._send(404, {"message": f"no route {self.path}"})
-
-            def do_POST(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                raw = self.rfile.read(length) if length else b""
-                path = self.path.split("?")[0]
-                if self._control(path):
-                    return
-                if path != "/queries.json":
-                    self._send(404, {"message": f"no route {self.path}"})
-                    return
-                try:
-                    out, extra = server.queries(raw, self.headers)
-                except KeyError as e:
-                    self._send(400, {"message": f"missing field {e}"})
-                except (ValueError, TypeError) as e:
-                    # json.JSONDecodeError is a ValueError
-                    self._send(400, {"message": str(e)})
-                except Exception as e:   # keep serving; report the fault
-                    status = getattr(e, "http_status", None)
-                    if status is None:
-                        logger.exception("query failed")
-                        self._send(500, {"message": str(e)})
-                        return
-                    retry = getattr(e, "retry_after_s", None)
-                    self._send(int(status), {"message": str(e)},
-                               None if retry is None else
-                               {"Retry-After": str(max(1, int(retry + 0.5)))})
-                else:
-                    self._send(200, out, extra)
-
-            def log_message(self, fmt, *args):
-                logger.debug("%s " + fmt, self.address_string(), *args)
-
-        return Handler
+    def _router(self) -> Router:
+        r = Router()
+        r.add("GET", "/", lambda req: Response(200, self.status()))
+        r.add("POST", "/queries.json", self._queries_route)
+        r.add("GET", "/stats.json", lambda req: Response(200, self.stats()))
+        r.add("GET", "/plugins.json",
+              lambda req: Response(200, self.plugin_context.to_dict()))
+        for method in ("GET", "POST"):
+            r.add(method, "/reload", self._reload_route)
+            r.add(method, "/stop", self._stop_route)
+        return r
 
     def bind(self, bind_retries: int = 3,
              retry_delay_s: float = 1.0) -> "EngineServer":
         """Bind the listening socket (retrying, as the reference's
         MasterActor, :363-373) and record the bound port in the config
         (port 0 = any free port)."""
-        for attempt in range(bind_retries):
-            try:
-                httpd = _HTTPServer((self.config.ip, self.config.port),
-                                    self._handler())
-                break
-            except OSError as e:
-                if attempt + 1 == bind_retries:
-                    raise
-                logger.warning("bind %s:%d failed (%s), retry %d/%d",
-                               self.config.ip, self.config.port, e,
-                               attempt + 1, bind_retries)
-                time.sleep(retry_delay_s)
-        self._httpd = httpd
-        self.config.port = httpd.server_address[1]
+        self._httpd = HttpServer(self._router(), self.config.ip,
+                                 self.config.port, name="engine-server"
+                                 ).bind(bind_retries, retry_delay_s)
+        self.config.port = self._httpd.port
         logger.info("Engine server started on %s:%d", self.config.ip,
                     self.config.port)
         return self
@@ -780,14 +788,7 @@ class EngineServer:
         serves on the calling thread until `stop()`."""
         if self._httpd is None:
             self.bind()
-        httpd = self._httpd
-        if background:
-            self._thread = threading.Thread(target=httpd.serve_forever,
-                                            name="engine-server",
-                                            daemon=True)
-            self._thread.start()
-        else:
-            httpd.serve_forever()
+        self._httpd.start(background)
         return self
 
     def stop(self) -> None:
@@ -795,10 +796,6 @@ class EngineServer:
         dispatched complete; queued queries fail with 503)."""
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
-        thread, self._thread = self._thread, None
-        if thread is not None and thread is not threading.current_thread():
-            thread.join(timeout=10)
+            httpd.stop()
         if self.batcher is not None:
             self.batcher.stop()

@@ -1,8 +1,9 @@
 """The port's command line: `python -m predictionio_tpu_torch`.
 
-The port's counterpart of `version`, `train`, `eval`, `deploy`,
-`undeploy`, `update` and `rollback` of `predictionio_tpu/tools/cli.py`
-(the reference's Console, Console.scala:186-651), with the same flags and
+The port's counterpart of `version`, `status`, `train`, `eval`, `deploy`,
+`undeploy`, `update`, `rollback`, `eventserver`, `app`, `accesskey`,
+`export`, `import` and `trim` of `predictionio_tpu/tools/cli.py` (the
+reference's Console, Console.scala:186-651), with the same flags and
 messages. `train` runs
 `create_workflow_main` in this process; `eval` runs the Evaluation class
 and the params generator it is given by dotted path (`create_workflow`'s
@@ -14,7 +15,9 @@ on the target port, restores and warms the latest trained instance
 0` binds any free port, and no stale server is looked for) and serves in
 the foreground until `undeploy`, SIGTERM or SIGINT; `--canary-fraction`
 stages each version swapped in as a canary for the watchdog to promote or
-roll back (`--canary-window` seconds). `update` restores the
+roll back (`--canary-window` seconds); `--feedback` posts every answer
+to the event server at `--event-server-ip:--event-server-port` as a
+`predict` event under `--accesskey`. `update` restores the
 latest instance as deploy does (without serving it), folds the events
 that arrived since into it (`online/scheduler.py`: one forced tick, or a
 loop under `--follow`), publishes each folded model as a new version and
@@ -25,10 +28,18 @@ every version newer than the last-good pin (or `--to`) to ROLLEDBACK and
 from the engine.json's algorithm params (`device`; absent = the card,
 which raises RuntimeError without CUDA; `"cpu"` only when named).
 
-The other commands of `bin/pio` (app, accesskey, import, export,
-eventserver, status, build and the rest) are not ported: run them
-through the JAX package's `bin/pio` on a machine that has JAX, against
-the same store, or through the storage API.
+`eventserver` binds (`--port 0`: any free port), prints the address it
+serves on and serves the REST event API (`data/api/event_server.py`) in
+the foreground; `app` and `accesskey` manage apps, channels and access
+keys (`tools/app_commands.py`); `export`, `import` and `trim` move events
+between the store and JSON-lines or parquet files, or between apps
+(`tools/export_import.py`); `status` checks the storage and lists the
+CUDA devices, and exits 1 without one.
+
+The other commands of `bin/pio` (build, unregister, template, dashboard,
+adminserver, servers, snapshot, bootstrap and the rest) are not ported:
+run them through the JAX package's `bin/pio` on a machine that has JAX,
+against the same store.
 """
 
 from __future__ import annotations
@@ -45,15 +56,42 @@ from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
-    "here: version, train, eval, deploy, undeploy, update, rollback. Still "
-    "only in the JAX package's bin/pio: app, accesskey, import, export, "
-    "eventserver, status, build and the other commands.")
+    "here: version, status, train, eval, deploy, undeploy, update, "
+    "rollback, eventserver, app, accesskey, export, import, trim. Still "
+    "only in the JAX package's bin/pio: build, template, dashboard and "
+    "the other commands.")
 
 
 def cmd_version(args) -> int:
     import predictionio_tpu_torch
     print(predictionio_tpu_torch.__version__)
     return 0
+
+
+def cmd_status(args) -> int:
+    """Check the storage backends and list the CUDA devices
+    (Console.scala:1033); exits 1 without a card or with a failed
+    backend."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    print("Inspecting storage backend connections...")
+    results = Storage.verify_all_data_objects()
+    summary = Storage.config_summary()
+    for repo, ok in results.items():
+        print(f"  {repo}: {'OK' if ok else 'FAILED'} "
+              f"({summary.get(repo, '?')})")
+    print("Inspecting CUDA devices...")
+    import torch
+    if not torch.cuda.is_available():
+        print("  no CUDA device: the port's entry points need a card "
+              "(or device=\"cpu\" by name).")
+        return 1
+    names = [f"cuda:{k} {torch.cuda.get_device_name(k)}"
+             for k in range(torch.cuda.device_count())]
+    print(f"  {len(names)} device(s): {names}")
+    if all(results.values()):
+        print("Your system is all ready to go.")
+        return 0
+    return 1
 
 
 def cmd_train(args) -> int:
@@ -149,6 +187,10 @@ def cmd_deploy(args) -> int:
         engine_id=args.engine_id or "default",
         engine_version=args.engine_version or "0",
         engine_variant=args.engine_json,
+        feedback=args.feedback,
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        accesskey=args.accesskey or "",
         canary_fraction=args.canary_fraction,
         canary_window_s=args.canary_window)
     server = EngineServer(config).load().bind()
@@ -265,6 +307,139 @@ def cmd_rollback(args) -> int:
     return 0
 
 
+def cmd_eventserver(args) -> int:
+    from predictionio_tpu_torch.data.api.event_server import (
+        EventServer, EventServerConfig)
+    server = EventServer(EventServerConfig(
+        ip=args.ip, port=args.port, stats=args.stats,
+        max_batch=args.max_batch)).bind()
+    print(f"Event Server is listening on http://{args.ip}:"
+          f"{server.config.port}", flush=True)
+    return _serve_foreground(server, "event server")
+
+
+def _confirm(question: str) -> bool:
+    answer = input(f"{question} (Y/n) ")
+    return answer in ("", "y", "Y")
+
+
+def cmd_app(args) -> int:
+    from predictionio_tpu_torch.tools import app_commands as ac
+
+    def show(desc):
+        print(f"    App Name: {desc.app.name}")
+        print(f"      App ID: {desc.app.id}")
+        print(f" Description: {desc.app.description or ''}")
+        for k in desc.access_keys:
+            events = ",".join(k.events) if k.events else "(all)"
+            print(f"  Access Key: {k.key} | {events}")
+        for c in desc.channels:
+            print(f"     Channel: {c.name} (id {c.id})")
+
+    try:
+        if args.app_command == "new":
+            desc = ac.app_new(args.name, app_id=args.id or 0,
+                              description=args.description,
+                              access_key=args.access_key or "")
+            print("Created a new app:")
+            show(desc)
+        elif args.app_command == "list":
+            for desc in ac.app_list():
+                keys = ", ".join(k.key for k in desc.access_keys)
+                print(f"{desc.app.id:4d} | {desc.app.name} | {keys}")
+        elif args.app_command == "show":
+            show(ac.app_show(args.name))
+        elif args.app_command == "delete":
+            if not args.force and not _confirm(
+                    f"Delete app {args.name} and all its data?"):
+                return 1
+            ac.app_delete(args.name)
+            print(f"Deleted app {args.name}.")
+        elif args.app_command == "data-delete":
+            if not args.force and not _confirm(
+                    f"Delete data of app {args.name}?"):
+                return 1
+            ac.app_data_delete(args.name, channel=args.channel,
+                               delete_all=args.all)
+            print(f"Deleted data of app {args.name}.")
+        elif args.app_command == "channel-new":
+            c = ac.channel_new(args.name, args.channel)
+            print(f"Created channel {c.name} (id {c.id}) for app "
+                  f"{args.name}.")
+        elif args.app_command == "channel-delete":
+            if not args.force and not _confirm(
+                    f"Delete channel {args.channel} of app {args.name}?"):
+                return 1
+            ac.channel_delete(args.name, args.channel)
+            print(f"Deleted channel {args.channel}.")
+        return 0
+    except ac.AppCommandError as e:
+        print(str(e))
+        return 1
+
+
+def cmd_accesskey(args) -> int:
+    from predictionio_tpu_torch.tools import app_commands as ac
+    try:
+        if args.accesskey_command == "new":
+            k = ac.accesskey_new(args.app_name, key=args.key or "",
+                                 events=args.event or [])
+            print(f"Created new access key: {k.key}")
+        elif args.accesskey_command == "list":
+            for k in ac.accesskey_list(args.app_name):
+                events = ",".join(k.events) if k.events else "(all)"
+                print(f"{k.key} | app {k.appid} | {events}")
+        elif args.accesskey_command == "delete":
+            ac.accesskey_delete(args.key)
+            print(f"Deleted access key {args.key}.")
+        return 0
+    except ac.AppCommandError as e:
+        print(str(e))
+        return 1
+
+
+def cmd_export(args) -> int:
+    from predictionio_tpu_torch.tools.export_import import (
+        export_events, export_events_parquet)
+    export = (export_events_parquet if args.format == "parquet"
+              else export_events)
+    n = export(args.appid, args.output, channel_id=args.channelid)
+    print(f"Exported {n} events to {args.output}.")
+    return 0
+
+
+def cmd_import(args) -> int:
+    from predictionio_tpu_torch.tools.export_import import (
+        import_events, import_events_parquet, import_movielens)
+    load = {"movielens": import_movielens,
+            "parquet": import_events_parquet}.get(args.format,
+                                                  import_events)
+    n = load(args.appid, args.input, channel_id=args.channelid)
+    print(f"Imported {n} events.")
+    return 0
+
+
+def cmd_trim(args) -> int:
+    """Copy a time window of events into a fresh app."""
+    from predictionio_tpu_torch.data.event import parse_event_time
+    from predictionio_tpu_torch.tools.export_import import trim_events
+    try:
+        n = trim_events(
+            args.src_appid, args.dst_appid,
+            start_time=(parse_event_time(args.start)
+                        if args.start else None),
+            until_time=(parse_event_time(args.until)
+                        if args.until else None),
+            src_channel_id=args.src_channelid,
+            dst_channel_id=args.dst_channelid)
+    except ValueError as e:
+        print(f"Error: {e}")
+        return 1
+    print(f"Trimmed {n} events from app {args.src_appid} into app "
+          f"{args.dst_appid}.")
+    return 0
+
+
 def _add_variant_arg(sp) -> None:
     """The engine-variant file flag; --variant/-v are the reference's
     spellings (Console.scala:161)."""
@@ -282,6 +457,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("version", help="print the port's version"
                    ).set_defaults(func=cmd_version)
+    sub.add_parser("status", help="check the storage and the CUDA devices"
+                   ).set_defaults(func=cmd_status)
 
     t = sub.add_parser("train", help="train the engine variant and "
                        "persist an engine instance")
@@ -314,6 +491,14 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--engine-id")
     d.add_argument("--engine-version")
     d.add_argument("--engine-instance-id")
+    d.add_argument("--feedback", action="store_true",
+                   help="post every answer as a predict event to the "
+                        "event server")
+    d.add_argument("--event-server-ip", default="0.0.0.0")
+    d.add_argument("--event-server-port", type=int, default=7070)
+    d.add_argument("--accesskey",
+                   help="the access key the feedback events are posted "
+                        "with")
     d.add_argument("--canary-fraction", type=float, default=0.0,
                    help="guarded deploys: serve each hot-swapped version "
                         "to this traffic share first and roll it back "
@@ -369,6 +554,91 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deployed engine server to POST /reload to "
                          "(0 = the registry only, no reload)")
     rb.set_defaults(func=cmd_rollback)
+
+    ev = sub.add_parser("eventserver", help="serve the REST event API in "
+                        "the foreground")
+    ev.add_argument("--ip", default="0.0.0.0")
+    ev.add_argument("--port", type=int, default=7070,
+                    help="0 binds any free port (printed once bound)")
+    ev.add_argument("--stats", action="store_true")
+    ev.add_argument("--max-batch", type=int, default=50,
+                    help="/batch/events.json size cap (default 50, the "
+                         "reference's limit); the columnar write route "
+                         "has its own, much larger bound")
+    ev.set_defaults(func=cmd_eventserver)
+
+    a = sub.add_parser("app", help="manage apps and their channels")
+    asub = a.add_subparsers(dest="app_command", required=True)
+    an = asub.add_parser("new")
+    an.add_argument("name")
+    an.add_argument("--id", type=int)
+    an.add_argument("--description")
+    an.add_argument("--access-key")
+    asub.add_parser("list")
+    ash = asub.add_parser("show")
+    ash.add_argument("name")
+    ad = asub.add_parser("delete")
+    ad.add_argument("name")
+    ad.add_argument("-f", "--force", action="store_true")
+    add_ = asub.add_parser("data-delete")
+    add_.add_argument("name")
+    add_.add_argument("--channel")
+    add_.add_argument("--all", action="store_true")
+    add_.add_argument("-f", "--force", action="store_true")
+    acn = asub.add_parser("channel-new")
+    acn.add_argument("name")
+    acn.add_argument("channel")
+    acd = asub.add_parser("channel-delete")
+    acd.add_argument("name")
+    acd.add_argument("channel")
+    acd.add_argument("-f", "--force", action="store_true")
+    a.set_defaults(func=cmd_app)
+
+    k = sub.add_parser("accesskey", help="manage access keys")
+    ksub = k.add_subparsers(dest="accesskey_command", required=True)
+    kn = ksub.add_parser("new")
+    kn.add_argument("app_name")
+    kn.add_argument("--key")
+    kn.add_argument("--event", action="append")
+    kl = ksub.add_parser("list")
+    kl.add_argument("app_name", nargs="?")
+    kd = ksub.add_parser("delete")
+    kd.add_argument("key")
+    k.set_defaults(func=cmd_accesskey)
+
+    ex = sub.add_parser("export", help="write an app's events to a file")
+    ex.add_argument("--appid", type=int, required=True)
+    ex.add_argument("--output", required=True)
+    ex.add_argument("--channelid", type=int)
+    ex.add_argument("--format", choices=["json", "parquet"],
+                    default="json",
+                    help="json = one wire-format event per line; "
+                         "parquet = columnar (needs pyarrow)")
+    ex.set_defaults(func=cmd_export)
+
+    im = sub.add_parser("import", help="load events from a file into an "
+                        "app")
+    im.add_argument("--appid", type=int, required=True)
+    im.add_argument("--input", required=True)
+    im.add_argument("--channelid", type=int)
+    im.add_argument("--format",
+                    choices=["events", "parquet", "movielens"],
+                    default="events",
+                    help="events = JSON lines (export's output); parquet "
+                         "= export --format parquet's output (needs "
+                         "pyarrow); movielens = an ML-100K u.data or "
+                         "ML-20M ratings.csv file, directory or .zip")
+    im.set_defaults(func=cmd_import)
+
+    tr = sub.add_parser("trim", help="copy a time window of an app's "
+                        "events into an empty app")
+    tr.add_argument("--src-appid", type=int, required=True)
+    tr.add_argument("--dst-appid", type=int, required=True)
+    tr.add_argument("--start", help="ISO8601; keep events at/after this")
+    tr.add_argument("--until", help="ISO8601; keep events before this")
+    tr.add_argument("--src-channelid", type=int)
+    tr.add_argument("--dst-channelid", type=int)
+    tr.set_defaults(func=cmd_trim)
     return p
 
 

@@ -11,8 +11,9 @@ port it bound is read from the line it prints); `undeploy` stops it and
 the process exits 0; a deploy onto a port a stale server holds stops
 that server first. `--stop-after-read/-prepare` stop the train
 there and leave the instance ABORTED. `version` prints the port's
-version, and `--help` names the commands that are still JAX-only; a
-deployed server answers a repeated query from its result cache.
+version, and `--help` names the port's commands and those still only in
+the JAX package; a deployed server answers a repeated query from its
+result cache.
 """
 
 import json
@@ -259,8 +260,9 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
         cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     for word in ("train", "deploy", "undeploy", "app", "accesskey",
-                 "import", "eventserver"):
+                 "import", "eventserver", "build", "template"):
         assert word in text
     assert "Still only in the JAX package's bin/pio" in text
-    assert "version, train, eval, deploy, undeploy, update, rollback. " \
-        "Still" in text
+    assert "version, status, train, eval, deploy, undeploy, update, " \
+        "rollback, eventserver, app, accesskey, export, import, trim. " \
+        "Still only in the JAX package's bin/pio: build, template" in text

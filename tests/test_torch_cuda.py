@@ -9,8 +9,9 @@ recommended-user train through the CG kernel, the DIMSUM Gram on the
 card against the CPU's, the fused (CUDA graph) trains and the bf16
 tables, the naive Bayes counts and forest growth on the card against
 the CPU's, the data plane's pinned staging (a copy stream, an event a
-segment) and its executor on the card, and the e2 library on the card
-against the CPU.
+segment) and its executor on the card, the e2 library on the card
+against the CPU, and a feedback deploy on the card whose every answer
+lands through the event server as a `predict` event.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -935,3 +936,84 @@ def test_e2_on_the_card_matches_the_cpu(cuda):
     ma = categorical_nb_train(pts, device=cuda)
     mb = categorical_nb_train(pts, device="cpu")
     assert ma.priors == mb.priors and ma.likelihoods == mb.likelihoods
+
+
+def test_feedback_deploy_on_the_card_posts_every_answer(cuda, tmp_path,
+                                                        monkeypatch):
+    """Events in through the port's event server, a train on the card,
+    a feedback deploy restored onto the card: every answer lands as a
+    `predict` event equal to the answer (its prId the query's or the
+    instance id), and the result cache takes nothing."""
+    import time
+    import urllib.request
+    from predictionio_tpu_torch.data.api.event_server import (
+        EventServer, EventServerConfig)
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.tools import app_commands as ac
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+
+    for k in list(os.environ):
+        if k.startswith("PIO_STORAGE_"):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "pio"))
+    monkeypatch.delenv("PIO_ENGINE_SERVER_PLUGINS", raising=False)
+    registry.clear_cache()
+    es = srv = None
+    try:
+        desc = ac.app_new("a")
+        key = desc.access_keys[0].key
+        es = EventServer(EventServerConfig(ip="127.0.0.1", port=0)).start()
+        base = f"http://127.0.0.1:{es.config.port}"
+        ui, ii, vv, _, _ = small_ratings()
+        rows = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+                 "targetEntityType": "item", "targetEntityId": f"i{i}",
+                 "properties": {"rating": float(v)}}
+                for u, i, v in zip(ui, ii, vv)]
+        for lo in range(0, len(rows), 50):
+            code, body = post(f"{base}/batch/events.json?accessKey={key}",
+                              rows[lo:lo + 50])
+            assert code == 200 and {r["status"] for r in body} == {201}
+        path = tmp_path / "engine.json"
+        path.write_text(json.dumps({
+            "engineFactory": "recommendation",
+            "datasource": {"params": {"app_name": "a"}},
+            "algorithms": [{"name": "als", "params": dict(
+                rank=16, num_iterations=3, lam=0.1, seed=2)}]}))
+        T.COUNTS.reset()
+        iid = create_workflow_main(WorkflowConfig(engine_variant=str(path)))
+        assert T.COUNTS.cg_solve > 0 and T.COUNTS.cg_solve_plain == 0
+        srv = EngineServer(ServerConfig(
+            ip="127.0.0.1", port=0, engine_variant=str(path), feedback=True,
+            accesskey=key, event_server_ip="127.0.0.1",
+            event_server_port=es.config.port)).load().start()
+        qs = [{"user": f"u{k}", "num": 4} for k in range(6)]
+        qs[1]["prId"] = "mine"
+        answers = [post(f"http://127.0.0.1:{srv.config.port}/queries.json",
+                        q)[1] for q in qs + qs]
+        assert srv.stats()["resultCache"]["entries"] == 0
+        ev = registry.Storage.get_events()
+        deadline = time.time() + 10
+        while True:
+            got = list(ev.find(desc.app.id, event_names=["predict"]))
+            if len(got) == 2 * len(qs) or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        assert len(got) == 2 * len(qs)
+        for q, a in zip(qs, answers):
+            assert a["prId"] == q.get("prId", iid)
+            assert any(e.properties.fields == {"query": q, "prediction": a}
+                       and e.entity_id == a["prId"] for e in got)
+    finally:
+        for s in (srv, es):
+            if s is not None:
+                s.stop()
+        registry.clear_cache()
