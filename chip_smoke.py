@@ -61,8 +61,8 @@ PyTorch version at the shapes its path gives it. Then:
   bincount, the model to a float64 reckoning) (`e2`);
 - then `pio eval` on the same store (`rec_eval`):
   `create_workflow_main` on this script's `RecEval`/`RecSweep`, a
-  FastEvalEngine of the recommendation template (2 folds, one read, two
-  lam settings, every solve a CG launch), each PrecisionAtK@10 held to
+  FastEvalEngine of the recommendation template (2 folds, one read, one
+  lam setting, every solve a CG launch), each PrecisionAtK@10 held to
   the float64 top-10 of the same tables computed on the card;
 - the serve plane: the similar-product template trained from the same
   store (`rate` events read as views, rank 200, solver 'chol_cuda', every
@@ -139,6 +139,23 @@ PyTorch version at the shapes its path gives it. Then:
   recommended-user template's app (its follow events) as JSON lines and
   `import` loads them into a new app, whose `find_columnar` must equal
   the first's column for column.
+
+The compile and cost plane rides those phases (no deploy of its own):
+`serve` first captures the `batch_predict` ladder (b = 1..32) as CUDA
+graphs through the executable registry, each replay bit-equal to the
+eager program, and prints each bucket's capture seconds; its queries
+must all replay. Each deploy's warm-up (`aotWarm`) captured its
+template's ladder, or nothing for a template without `aot_warm_specs`.
+After `serve_plane`'s bursts each deployed process must show hit rate
+1.0, no miss and no failed bucket, the p50 of its sampled CUDA-event
+device ms a window within 5x of this script's own readings of the same
+program at 1 and 16 queries, an occupancy above 0, and a strictly parsed
+`/metrics` carrying every engine family; `fold_update` and `rest_fold` hold that the `/reload`
+captured the new version's buckets, that its answers replayed them and
+that the update process booked `fold_side` device time; `fold_inprocess`
+scrapes the fold's families; `eventserver` holds its `/metrics` window
+counts to the events posted, route by route; `import_export` reads
+`cache status`, which must list the three kernel libraries.
 
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
@@ -303,7 +320,7 @@ DUAL_LAM = 0.1
 DUAL_TOL = 1e-4                  # of the factor scale at lam 0.1 (ROADMAP)
 EVAL_K = 2                       # rec_eval: folds, query num, the sweep
 EVAL_QUERY_NUM = 10
-EVAL_LAMS = (0.05, 0.1)
+EVAL_LAMS = (0.05,)               # one setting: the smoke's time budget
 EVAL_CHUNK = 4096                # users a float64 top-k chunk on the card
 CLS_APP = "clsapp"
 CLS_USERS = 50_000               # cls_*: one $set a user, 4 classes
@@ -329,6 +346,57 @@ NB_VALUES = 64
 NB_LABELS = 5
 CLS_TIE_REL = 1e-12              # a label may differ only where the top
                                  # two float64 scores tie this closely
+CAPTURE_LADDER = 32              # serve: batch buckets 1..32 captured
+DEVICE_TIME_FACTOR = 5.0         # a deploy's sampled device ms a window
+#                                  within this factor of the script's
+#                                  own readings (b 1 to b 16)
+# the families the port's engine server registers in a deploy process
+# (its own registry and the process-wide one through the parent chain);
+# `serve_plane` scrapes /metrics and holds each present
+ENGINE_FAMILIES = (
+    "pio_aot_compile_seconds_total", "pio_aot_dispatch_fallbacks_total",
+    "pio_aot_dispatch_hits_total", "pio_aot_dispatch_misses_total",
+    "pio_aot_executables_resident", "pio_compile_cache_hits_total",
+    "pio_compile_cache_misses_total",
+    "pio_compile_executable_seconds_total",
+    "pio_compile_pcache_hits_total", "pio_compile_pcache_misses_total",
+    "pio_device_occupancy", "pio_device_syncs_total",
+    "pio_device_time_seconds_total", "pio_dispatch_seconds_total",
+    "pio_engine_avg_inflight_at_dispatch", "pio_engine_batch_exits_total",
+    "pio_engine_batch_wait_seconds", "pio_engine_batched_queries_total",
+    "pio_engine_batches_total", "pio_engine_fold_in_events_total",
+    "pio_engine_fold_ins_total", "pio_engine_immediate_batches_total",
+    "pio_engine_max_batch_size", "pio_engine_model_stale",
+    "pio_engine_model_staleness_seconds", "pio_engine_model_swaps_total",
+    "pio_engine_predict_seconds_total", "pio_engine_publish_failures_total",
+    "pio_engine_query_seconds", "pio_engine_queue_wait_bound_seconds",
+    "pio_engine_requests_total", "pio_engine_serving_seconds",
+    "pio_engine_serving_seconds_total", "pio_engine_shed_total",
+    "pio_engine_swap_to_first_query_ms", "pio_guard_canary_requests_total",
+    "pio_guard_canary_state", "pio_guard_promotions_total",
+    "pio_guard_rollbacks_total", "pio_hbm_table_bytes",
+    "pio_jax_compile_seconds_total", "pio_jax_compiles_total",
+    "pio_jax_device_memory_bytes", "pio_jax_device_to_host_bytes_total",
+    "pio_jax_host_to_device_bytes_total", "pio_serve_cache_bytes",
+    "pio_serve_cache_entries", "pio_serve_cache_evictions_total",
+    "pio_serve_cache_hits_total", "pio_serve_cache_invalidations_total",
+    "pio_serve_cache_misses_total", "pio_serve_d2h_bytes_total",
+    "pio_serve_d2h_seconds_total", "pio_serve_inflight_batches",
+    "pio_serve_pipeline_stalls_total", "pio_serve_readback_windows_total",
+    "pio_serve_stage_seconds", "pio_tenant_occupancy_share",
+    "pio_tenant_serve_d2h_bytes_total")
+# and, in a process whose scheduler folded (fold_inprocess)
+FOLD_FAMILIES = (
+    "pio_fold_tick_seconds", "pio_fold_events_total",
+    "pio_fold_upload_bytes_total", "pio_fold_tick_failures_total",
+    "pio_fold_read_rows_total", "pio_guard_gate_rejects_total",
+    "pio_guard_gate_verdicts_total")
+# the event server's own (eventserver)
+EVENT_FAMILIES = (
+    "pio_event_write_seconds", "pio_ingest_admission_group_size",
+    "pio_event_window_start_seconds", "pio_event_window_events",
+    "pio_event_window_statuses", "pio_jax_host_to_device_bytes_total")
+KERNEL_LIBRARIES = ["cg_solve.so", "chol_solve.so", "schulz_solve.so"]
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -373,11 +441,18 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sync() -> None:
+    """Wait for the current stream's work. Never a device-wide
+    synchronize: a serve graph may be capturing in another thread, and
+    a device-wide synchronize would invalidate the capture."""
+    torch.cuda.current_stream().synchronize()
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of `fn` over `reps` back-to-back calls (CUDA
     events), after one warm-up call."""
     fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -625,7 +700,7 @@ def phase_train():
     COUNTS.reset()
     t0 = time.perf_counter()
     model = algo.train(pd)
-    torch.cuda.synchronize()
+    sync()
     train_s = time.perf_counter() - t0
     launches, plain = COUNTS.cg_solve, COUNTS.cg_solve_plain
     tel = algo.last_train_telemetry
@@ -713,10 +788,57 @@ def post(url: str, body: bytes):
     return status, json.loads(data)
 
 
+def capture_ladder(model) -> dict:
+    """Capture the `batch_predict` executable of `model` for every batch
+    bucket 1..CAPTURE_LADDER through the registry (`compile/aot.py`):
+    each must be a CUDA graph whose replay is bit-equal to the eager
+    program on the same padded batch. Returns the capture seconds by
+    bucket (the first pays the tables' upload at their row buckets), a
+    replay's device ms from the graph's own stamps and the eager
+    program's (`cuda_ms`)."""
+    from predictionio_tpu_torch.compile import buckets as B
+    from predictionio_tpu_torch.compile.aot import GraphExecutable, get_aot
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.ops import als as ALS
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    ALS.register_aot_specs()
+    aot, als = get_aot(), model.als
+    rng = np.random.default_rng(14)
+    capture_s, replay_ms, eager_ms = {}, {}, {}
+    for b in B.batch_ladder(CAPTURE_LADDER):
+        dims = ALS.batch_predict_dims(als, b, SERVE_NUM)
+        t0 = time.perf_counter()
+        exe = aot.ensure(costmon.BATCH_PREDICT, dims, (als,))
+        capture_s[b] = time.perf_counter() - t0
+        check(isinstance(exe, GraphExecutable),
+              f"bucket b{b} was not captured as a CUDA graph: {exe!r}")
+        ixs = torch.tensor(rng.integers(0, als.n_users, dims["b"]),
+                           device=als.device)
+        U = cached_put_rows(als.user_factors, dims["u"], als.device)
+        V = cached_put_rows(als.item_factors, dims["i"], als.device)
+        eager = ALS._users_topk_b(U, V, ixs, als.n_items, dims["k"],
+                                  dims["p"])
+        replay = exe(ixs)
+        check(torch.equal(replay, eager),
+              f"bucket b{b}: the replay differs from the eager dispatch")
+        stamps = []
+        exe(ixs, sample=stamps.append)
+        exe.poll(wait=True)
+        replay_ms[b] = stamps[0] * 1e3
+        eager_ms[b] = cuda_ms(lambda: ALS._users_topk_b(
+            U, V, ixs, als.n_items, dims["k"], dims["p"]), 10)
+    return {"capture_s": capture_s, "replay_device_ms": replay_ms,
+            "eager_device_ms": eager_ms}
+
+
 def phase_serve(algo, model, phase: str = "serve",
                 n_users: int = 31) -> None:
     """Serve the trained model over HTTP; hold the answers for `n_users`
-    known users against a float64 numpy top-k on the served tables."""
+    known users against a float64 numpy top-k on the served tables. The
+    `serve` phase first captures the `batch_predict` ladder (b = 1..32,
+    `capture_ladder`) and then holds that every query replayed a graph:
+    the registry's hits grow by the queries asked, its misses not."""
+    from predictionio_tpu_torch.compile.aot import get_aot
     from predictionio_tpu_torch.core import Engine, EngineParams, \
         TrainResult
     from predictionio_tpu_torch.core.base import FirstServing
@@ -727,6 +849,8 @@ def phase_serve(algo, model, phase: str = "serve",
                           EngineParams(serving_params=("", None)),
                           TrainResult(models=[model], algorithms=[algo]))
     server.start(background=True)
+    ladder = capture_ladder(model) if phase == "serve" else {}
+    aot0 = get_aot().snapshot()
     try:
         url = f"http://127.0.0.1:{server.config.port}/queries.json"
         U64 = model.als.user_factors.astype(np.float64)
@@ -768,10 +892,21 @@ def phase_serve(algo, model, phase: str = "serve",
                 f"http://127.0.0.1:{server.config.port}/", timeout=60) as r:
             check(r.status == 200, "GET / failed")
         ms = np.array(lat) * 1e3
+        aot1 = get_aot().snapshot()
+        replays = (aot1["dispatchHits"].get("batch_predict", 0)
+                   - aot0["dispatchHits"].get("batch_predict", 0))
+        misses = (aot1["dispatchMisses"].get("batch_predict", 0)
+                  - aot0["dispatchMisses"].get("batch_predict", 0))
+        if ladder:
+            check(replays == n_users and misses == 0,
+                  f"{n_users} queries made {replays} replays and {misses} "
+                  "misses of the captured ladder")
         emit(phase, queries=len(lat), ids_equal_f64=exact,
              f32_tie_swaps=ties, unknown_user_empty=True,
              malformed_400=True, p50_ms=float(np.percentile(ms, 50)),
-             p99_ms=float(np.percentile(ms, 99)))
+             p99_ms=float(np.percentile(ms, 99)), **ladder,
+             executables_resident=aot1["executablesResident"],
+             graph_replays=replays, dispatch_misses=misses)
     finally:
         server.stop()
 
@@ -968,7 +1103,7 @@ def phase_implicit_train(explicit_pairs: int):
     COUNTS.reset()
     t0 = time.perf_counter()
     model = algo.train(pd)
-    torch.cuda.synchronize()
+    sync()
     train_s = time.perf_counter() - t0
     counts = dict(vars(COUNTS))
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
@@ -1409,7 +1544,7 @@ def phase_schulz_train(pd, cg_rmse):
     COUNTS.reset()
     t0 = time.perf_counter()
     model = algo.train(pd)
-    torch.cuda.synchronize()
+    sync()
     train_s = time.perf_counter() - t0
     counts = dict(vars(COUNTS))
     tel = algo.last_train_telemetry
@@ -1614,7 +1749,7 @@ def workflow_train(path: str, phase: str, kernel="cg_solve",
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["train", "-v", path])
-        torch.cuda.synchronize()
+        sync()
         workflow_s = time.perf_counter() - t0
         counts = dict(vars(COUNTS))
     finally:
@@ -1813,7 +1948,7 @@ def async_copy_probe(device: torch.device) -> dict:
     col = {"t": np.arange(ASYNC_PROBE_ROWS, dtype=np.int64)}
     stream = staging.copy_stream(device)
     staging.device_stage({"t": col["t"][:1024]}, device, stream)
-    torch.cuda.synchronize()
+    stream.synchronize()
     out, rows, padded, submit_s, event, hosts = staging.device_stage(
         col, device, stream)
     in_flight = not event.query()
@@ -1827,7 +1962,7 @@ def async_copy_probe(device: torch.device) -> dict:
         t0 = time.perf_counter()
         out["t"].copy_(hosts[0], non_blocking=True)
         enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
+    stream.synchronize()
     info = {"bytes": nbytes, "submit_s": submit_s, "wait_s": wait_s,
             "enqueue_s": enqueue_s, "in_flight_at_return": in_flight,
             "pinned": all(h.is_pinned() for h in hosts),
@@ -1853,7 +1988,7 @@ def phase_dataplane(stream_stats) -> None:
     from predictionio_tpu_torch.data.event import from_millis
     from predictionio_tpu_torch.dataplane import BulkLoadExecutor
     from predictionio_tpu_torch.ops import staging
-    from predictionio_tpu_torch.utils.buckets import bucket_rows
+    from predictionio_tpu_torch.compile.buckets import bucket_rows
     device = torch.device("cuda")
     t_phase = time.perf_counter()
     probe = async_copy_probe(device)
@@ -2096,7 +2231,7 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
     t0 = time.perf_counter()
     server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
                                        engine_variant=path)).load()
-    torch.cuda.synchronize()
+    sync()
     load_s = time.perf_counter() - t0
     server.start(background=True)
     url = f"http://127.0.0.1:{server.config.port}"
@@ -2125,7 +2260,7 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
             status, _ = post(url + "/queries.json", bad)
             check(status == 400, f"malformed body {bad} answered {status}")
         emit("store_deploy", instance=iid, load_s=load_s,
-             warm=server.last_warm, tables_bit_equal=True,
+             warm=server.last_aot_warm, tables_bit_equal=True,
              unknown_user_empty=True,
              unknown_category_empty=True, malformed_400=True, **out)
 
@@ -2145,7 +2280,7 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
         out = serve_and_hold(url, model, np.random.default_rng(6),
                              "store_reload")
         emit("store_reload", instance=new_iid, reload_s=reload_s,
-             warm=server.last_warm, **out)
+             warm=server.last_aot_warm, **out)
         return launches, model
     finally:
         server.stop()
@@ -2154,6 +2289,49 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
 def get_json(url: str) -> dict:
     with urllib.request.urlopen(url, timeout=60) as r:
         return json.loads(r.read())
+
+
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_metrics(text: str) -> tuple:
+    """A Prometheus text exposition parsed strictly: ({family: type},
+    {(sample name, ((label, value), ...)): value}). Fails the run on a
+    line that is not a HELP, TYPE or sample line, a sample of no declared
+    family, or a value that is not a number."""
+    families, samples = {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            families[name] = kind
+            continue
+        m = _SAMPLE.match(line)
+        check(m is not None, f"/metrics line does not parse: {line!r}")
+        name, labels, value = m.groups()
+        base = next((f for f in (name, name.rsplit("_", 1)[0])
+                     if f in families), None)
+        check(base is not None, f"/metrics sample {name} has no family")
+        key = (name, tuple(_LABEL.findall(labels or "")))
+        samples[key] = float(value)
+    return families, samples
+
+
+def scrape(url: str) -> tuple:
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        check(r.headers["Content-Type"].startswith("text/plain; "
+                                                   "version=0.0.4"),
+              f"/metrics content type {r.headers['Content-Type']}")
+        return parse_metrics(r.read().decode())
+
+
+def check_families(families: dict, want, what: str) -> None:
+    missing = sorted(set(want) - set(families))
+    check(not missing, f"{what} /metrics lacks {missing}")
 
 
 def log_tail(path: str, n: int = 3000) -> str:
@@ -2167,12 +2345,12 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
     """Start `python -m predictionio_tpu_torch deploy --port 0` for each
     template (all at once, `PIO_SERVE_PACK` unset: the default f16
     readback), read the port each bound from the line it prints, wait
-    until each answers GET /, then read its warm-up from /stats.json and
-    time its first query (`first_queries` by name, a non-empty answer
-    expected; by default a recommendation or similar-product query). An
-    algorithm without `batch_predict_begin` is not warmed (the deploy's
-    warm-up skips it, as the reference's): `warmed` False expects no warm
-    window. `extra_args` and `extra_env` go to every deploy command. The
+    until each answers GET /, then read its warm-up (`aotWarm`: the
+    graphs its `aot_warm_specs` captured) from /stats.json and time its
+    first query (`first_queries` by name, a non-empty answer expected; by
+    default a recommendation or similar-product query). An algorithm
+    without `aot_warm_specs` is not warmed (as the reference's):
+    `warmed` False expects no capture. `extra_args` and `extra_env` go to every deploy command. The
     deployments go into `deps` by template as they start; the caller
     stops them."""
     env = {k: v for k, v in os.environ.items() if k != "PIO_SERVE_PACK"}
@@ -2209,8 +2387,9 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
                   f"alive in {DEPLOY_TIMEOUT_S} s: {log_tail(dep['log'])}")
             time.sleep(0.25)
         alive_s = time.perf_counter() - dep["t0"]
-        warm = get_json(dep["url"] + "/stats.json")["warm"]
-        check(warm is not None and (warm["windows"] > 0) == warmed,
+        warm = get_json(dep["url"] + "/stats.json")["aotWarm"]
+        check(warm is not None and (warm["compiled"] > 0) == warmed
+              and warm["compiled"] == warm["specs"],
               f"deploy of {name}: warm-up {warm}, warmed={warmed} "
               "expected")
         query = (first_queries or {}).get(name) or (
@@ -2366,9 +2545,10 @@ def window_breakdown(name: str, algo, model, queries: list) -> dict:
     plane's shapes (16 queries, top-k bucket 16): the host's mask
     building, the device's matmul + top-k + pack (CUDA events), and the
     answers' JSON serialization."""
+    from predictionio_tpu_torch.ops import als as ALS
     from predictionio_tpu_torch.ops import readback
-    from predictionio_tpu_torch.ops.als import _users_topk_impl
     from predictionio_tpu_torch.ops.similarity import _masked_topk_impl
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
     qs = [q for q in queries if "categories" in q][:16]
     t0 = time.perf_counter()
     if name == "recommendation":
@@ -2397,12 +2577,14 @@ def window_breakdown(name: str, algo, model, queries: list) -> dict:
            "mask_host_ms": mask_ms,
            "masked_matmul_topk_pack_ms": cuda_ms(masked, 20)}
     if name == "recommendation":
-        U, V = model.als.tables()
+        als = model.als
+        dims = ALS.batch_predict_dims(als, 16, SERVE_NUM)
+        U = cached_put_rows(als.user_factors, dims["u"], als.device)
+        V = cached_put_rows(als.item_factors, dims["i"], als.device)
         ixs = torch.arange(16, device=U.device)
         out["plain_matmul_topk_pack_ms"] = cuda_ms(
-            lambda: readback.pack_device(
-                *_users_topk_impl(U, V, ixs, SERVE_K_BUCKET),
-                readback.PACK_F16), 20)
+            lambda: ALS._users_topk_b(U, V, ixs, als.n_items,
+                                      SERVE_K_BUCKET, readback.PACK_F16), 20)
     answers = dict(algo.batch_predict(model, [
         (k, algo.query_class.from_dict(q)) for k, q in enumerate(qs)]))
     t0 = time.perf_counter()
@@ -2410,6 +2592,82 @@ def window_breakdown(name: str, algo, model, queries: list) -> dict:
         json.dumps(r.to_dict())
     out["serialize_ms"] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+def serve_program_ms(name: str, model, b: int) -> float:
+    """This process's CUDA-event time of the program a deployed window of
+    `b` queries replays: the plain top-k (recommendation) or the masked
+    one (similar-product), on the same tables padded to their buckets,
+    with the f16 pack."""
+    from predictionio_tpu_torch.ops import als as ALS
+    from predictionio_tpu_torch.ops import readback
+    from predictionio_tpu_torch.ops import similarity as SIM
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    if name == "recommendation":
+        als = model.als
+        dims = ALS.batch_predict_dims(als, b, SERVE_NUM)
+        U = cached_put_rows(als.user_factors, dims["u"], als.device)
+        V = cached_put_rows(als.item_factors, dims["i"], als.device)
+        ixs = torch.arange(b, device=U.device)
+        return cuda_ms(lambda: ALS._users_topk_b(
+            U, V, ixs, als.n_items, dims["k"], readback.PACK_F16), 20)
+    table = model.table()
+    n, r = table.shape
+    dims = SIM.masked_topk_dims(n, r, b, SERVE_NUM, True)
+    T = cached_put_rows(table, dims["i"])
+    q = table[:b].clone()
+    allowed = torch.zeros((b, dims["i"]), dtype=torch.bool,
+                          device=table.device)
+    allowed[:, :n] = True
+    return cuda_ms(lambda: SIM._masked_topk_b(
+        T, q, allowed, dims["k"], True, readback.PACK_F16), 20)
+
+
+def compile_plane_check(name: str, dep: dict, stats: dict,
+                        model) -> dict:
+    """The deployed process's compile plane after its bursts: every
+    dispatch replayed a warmed graph (`aot.hitRate` 1.0, no miss, no
+    failed bucket); the p50 of its sampled device ms a window (each a
+    replay's own CUDA-event stamps) within DEVICE_TIME_FACTOR of the
+    range of this process's readings of the same program at the window's
+    smallest and largest batch bucket (1 and 16; the eager b 1 reading
+    is the larger: a one-row top-k); the occupancy above 0; and its
+    /metrics, parsed strictly, carrying every ENGINE_FAMILIES family."""
+    aot, dt = stats["aot"], stats["deviceTime"]
+    check(aot["hitRate"] == 1.0 and aot["failedBuckets"] == 0
+          and not any(aot["dispatchMisses"].values()),
+          f"{name}: hit rate {aot['hitRate']}, misses "
+          f"{aot['dispatchMisses']}, {aot['failedBuckets']} failed buckets")
+    label = ("batch_predict" if name == "recommendation"
+             else "batch_predict_masked")
+    own = {b: serve_program_ms(name, model, b) for b in (1, 16)}
+    sampled = dt["sampledWallMs"][label]
+    check(min(own.values()) / DEVICE_TIME_FACTOR <= sampled["p50_ms"]
+          <= max(own.values()) * DEVICE_TIME_FACTOR,
+          f"{name}: sampled device p50 {sampled['p50_ms']} ms a window vs "
+          f"{own[1]:.4f} (b 1) and {own[16]:.4f} ms (b 16) measured here")
+    check(dt["secondsByExecutable"][label] > 0 and dt["occupancy"] > 0,
+          f"{name}: device time {dt}")
+    t0 = time.perf_counter()
+    families, samples = scrape(dep["url"])
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    check_families(families, ENGINE_FAMILIES, name)
+    hits = samples[("pio_aot_dispatch_hits_total",
+                    (("executable", label),))]
+    check(hits == aot["dispatchHits"][label],
+          f"{name}: /metrics counts {hits} hits, /stats.json "
+          f"{aot['dispatchHits'][label]}")
+    return {"hit_rate": aot["hitRate"], "dispatch_hits": aot["dispatchHits"],
+            "own_program_ms": own,
+            "executables_resident": aot["executablesResident"],
+            "buckets": aot["bucketsCompiled"],
+            "compile_s": aot["compileSeconds"],
+            "device_s": dt["secondsByExecutable"],
+            "dispatch_s": dt["dispatchSecondsByExecutable"],
+            "sampled_ms": dt["sampledWallMs"], "occupancy": dt["occupancy"],
+            "swap_to_first_query_ms": stats["swapToFirstQueryMs"],
+            "aot_warm": stats["aotWarm"], "metrics_families": len(families),
+            "metrics_samples": len(samples), "scrape_ms": scrape_ms}
 
 
 def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
@@ -2434,14 +2692,16 @@ def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
     # the default deploy's result cache answers a repeated query
     # before the micro-batcher
     hits = after["resultCache"]["hits"] - before["resultCache"]["hits"]
+    window = window_breakdown(name, algo, model,
+                              [q for qs in per_client for q in qs])
+    plane = compile_plane_check(name, dep, after, model)
     emit("serve_plane", template=name, clients=SERVE_CLIENTS,
          queries=len(results), cache_hits=hits, ids_equal_f64=exact,
          f32_tie_swaps=len(results) - empty - exact, unknown_empty=empty,
          wall_s=wall, qps=len(results) / wall,
          p50_ms=float(np.percentile(ms, 50)),
          p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms.max()),
-         **d, window=window_breakdown(name, algo, model,
-                                      [q for qs in per_client for q in qs]))
+         **d, window=window, compile_plane=plane)
     check(d["batchedQueries"] + hits == len(results),
           f"{d['batchedQueries']} queries went through the micro-batcher "
           f"and {hits} were cache hits, of {len(results)}")
@@ -2579,8 +2839,11 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
         rank=RANK, return_properties=("creationYear",)))
     deps = {}
     try:
+        # a sampled device time every 4th window (the default is 16):
+        # enough samples in one burst for `compile_plane_check`'s p50
         phase_cli_deploy({"recommendation": rec_path,
-                          "similarproduct": sim_path}, workdir, deps)
+                          "similarproduct": sim_path}, workdir, deps,
+                         extra_env={"PIO_DEVICE_SYNC_EVERY": "4"})
         truth = store_truth(rec_model)
         U64 = rec_model.als.user_factors.astype(np.float64)
         V64 = rec_model.als.item_factors.astype(np.float64)
@@ -2732,6 +2995,41 @@ def hold_replay(got: tuple, f64: tuple, f32: tuple, tu, ti,
     return out
 
 
+def fold_device_time(report: dict, what: str) -> dict:
+    """The update process's device time (the fold report's `deviceTime`):
+    the fold's sides booked from CUDA events, above 0, sampled."""
+    seconds = report["deviceTime"]["seconds"].get("fold_side", 0.0)
+    samples = report["deviceTime"]["samples"].get("fold_side", 0)
+    check(seconds > 0 and samples >= 1,
+          f"{what}: fold_side device time {seconds} s over {samples} "
+          "samples")
+    return {"fold_side_s": seconds, "fold_side_samples": samples}
+
+
+def swapped_graphs(dep: dict, version: str, what: str) -> dict:
+    """After a `/reload` onto `version`: the deployed process captured
+    the new version's serve ladder (`aot.versions`), nothing failed."""
+    aot = get_json(dep["url"] + "/stats.json")["aot"]
+    buckets = aot["versions"].get(version, {})
+    check(buckets.get("batch_predict") and aot["failedBuckets"] == 0,
+          f"{what}: no graphs captured for {version}: {aot['versions']}, "
+          f"{aot['failedBuckets']} failed")
+    return aot
+
+
+def replays_since(dep: dict, aot0: dict, what: str) -> dict:
+    """The deployed process's replays and misses since `aot0`: the
+    queries asked since came through graphs (hits grew), none missed."""
+    aot = get_json(dep["url"] + "/stats.json")["aot"]
+    grew = {k: v - aot0["dispatchHits"].get(k, 0)
+            for k, v in aot["dispatchHits"].items()}
+    missed = {k: v - aot0["dispatchMisses"].get(k, 0)
+              for k, v in aot["dispatchMisses"].items()}
+    check(grew.get("batch_predict", 0) > 0 and not any(missed.values()),
+          f"{what}: replays {grew}, misses {missed} after the swap")
+    return {"graph_replays": grew, "dispatch_misses": missed}
+
+
 def phase_fold_update(rec_path: str, dep: dict, rec_model) -> tuple:
     """`pio update` against the deployed recommendation process: fresh
     events after its instance's start (FOLD_USERS known users x
@@ -2840,6 +3138,8 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> tuple:
     check(status["engineInstanceId"] == version,
           f"the deployed process serves {status['engineInstanceId']}, not "
           f"the published {version}")
+    fold_dt = fold_device_time(report, "fold_update")
+    aot0 = swapped_graphs(dep, version, "fold_update")
     cache1 = get_json(dep["url"] + "/stats.json")["resultCache"]
     cleared = (cache1["invalidations"].get("reload", 0)
                - cache0["invalidations"].get("reload", 0))
@@ -2894,6 +3194,7 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> tuple:
     check(cache2["hits"] == cache1["hits"],
           f"{cache2['hits'] - cache1['hits']} answers after the /reload came "
           "from the cache")
+    graphs = replays_since(dep, aot0, "fold_update")
     emit("fold_update", tick_s=report["tickS"], read_s=report["readS"],
          read_rows=report["readRows"], wall_s=algo_rep["wallS"],
          user_rows=algo_rep["userRows"], item_rows=algo_rep["itemRows"],
@@ -2906,7 +3207,10 @@ def phase_fold_update(rec_path: str, dep: dict, rec_model) -> tuple:
          first_query_after_swap_ms=lat[0],
          p50_ms=float(np.percentile(lat, 50)),
          model_swaps=get_json(dep["url"] + "/stats.json")["modelSwaps"],
-         cache_entries_cleared=cleared)
+         cache_entries_cleared=cleared, buckets_of_version=aot0[
+             "versions"][version],
+         swap_to_first_query_ms=get_json(dep["url"] + "/stats.json")[
+             "swapToFirstQueryMs"], **graphs, **fold_dt)
     check(algo_rep["newUsers"] == FOLD_NEW_USERS
           and algo_rep["newItems"] == FOLD_NEW_ITEMS,
           f"grew {algo_rep['newUsers']} users, {algo_rep['newItems']} items")
@@ -3042,6 +3346,19 @@ def phase_fold_inprocess(sim_path: str) -> int:
               < FOLD_H2D_SHARE * ticks[0]["h2d_bytes"],
               f"tick 2 uploaded {ticks[1]['h2d_bytes']} bytes, tick 1 "
               f"{ticks[0]['h2d_bytes']}")
+        # this process folded: its /metrics carries the fold's families
+        families, samples = scrape(url)
+        check_families(families, ENGINE_FAMILIES + FOLD_FAMILIES,
+                       "fold_inprocess")
+        folded = samples[("pio_fold_events_total", (("tenant", ""),))]
+        check(folded >= sum(t["events"] for t in ticks),
+              f"pio_fold_events_total {folded} after "
+              f"{sum(t['events'] for t in ticks)} folded events")
+        emit("fold_inprocess_metrics", families=len(families),
+             fold_events_total=folded,
+             fold_side_device_s=samples.get(
+                 ("pio_device_time_seconds_total",
+                  (("executable", "fold_side"), ("tenant", "")))))
     finally:
         server.stop()
     return launches
@@ -4277,7 +4594,7 @@ def fields_train(coo, what: str, kernel: str = "cg_solve", **cfg_kw):
     COUNTS.reset()
     t0 = time.perf_counter()
     model = als_train(coo, ALSConfig(**cfg_kw), telemetry=tel)
-    torch.cuda.synchronize()
+    sync()
     wall_s = time.perf_counter() - t0
     counts = dict(vars(COUNTS))
     launches = counts[kernel]
@@ -4430,7 +4747,7 @@ class RecEval:
             def train(self, pd):
                 t0 = time.perf_counter()
                 model = super().train(pd)
-                torch.cuda.synchronize()
+                sync()
                 cls.seconds["train_s"] += time.perf_counter() - t0
                 cls.trained.append([self.params.lam, model, None,
                                     dict(self.last_train_telemetry)])
@@ -4530,7 +4847,7 @@ def phase_rec_eval(workdir: str) -> int:
             evaluation_class="chip_smoke.RecEval",
             engine_params_generator_class="chip_smoke.RecSweep",
             output_path=best_dir))
-    torch.cuda.synchronize()
+    sync()
     eval_s = time.perf_counter() - t0
     counts = dict(vars(COUNTS))
     inst = Storage.get_meta_data_evaluation_instances().get(iid)
@@ -5046,6 +5363,23 @@ WIRE_FIELDS = ("event", "entityType", "entityId", "targetEntityType",
                "targetEntityId", "properties", "eventTime")
 
 
+def ingest_metrics(es: dict, n_events: int, n_writes: int) -> dict:
+    """The event server's /metrics after a route's posts: the window
+    counts exactly the `n_events` rate events accepted so far (each a 201)
+    and the write histogram `n_writes` writes (an event each on the
+    single and batch routes, one a columnar request); the families all
+    there."""
+    families, samples = scrape(es["url"])
+    check_families(families, EVENT_FAMILIES, "the event server")
+    got = (samples.get(("pio_event_window_events", (("event", "rate"),))),
+           samples.get(("pio_event_window_statuses", (("status", "201"),))),
+           samples.get(("pio_event_write_seconds_count", ())))
+    check(got == (n_events, n_events, n_writes),
+          f"/metrics counts (events, 201s, writes) {got}, posted "
+          f"{(n_events, n_events, n_writes)}")
+    return {"events": got[0], "writes": got[2]}
+
+
 def phase_eventserver(es: dict) -> None:
     """The REST ingest into an app of its own (`app new`, `accesskey new`
     through the command line): INGEST_SINGLE closed-loop clients of single
@@ -5070,6 +5404,7 @@ def phase_eventserver(es: dict) -> None:
         check(code == 201, f"POST /events.json answered {code} {got}")
         posted[got["eventId"]] = body
     rows["single"] = route_row(len(res), wall, [r[3] for r in res])
+    rows["single"]["metrics"] = ingest_metrics(es, len(posted), len(posted))
     k0 = n_c * n_each
     n_c, n_batches, n_per = INGEST_BATCH
     res, wall = fan_out(es["url"], f"/batch/events.json?accessKey={key}", [
@@ -5082,6 +5417,7 @@ def phase_eventserver(es: dict) -> None:
         posted.update((g["eventId"], b) for g, b in zip(got, body))
     rows["batch"] = route_row(n_c * n_batches * n_per, wall,
                               [r[3] for r in res])
+    rows["batch"]["metrics"] = ingest_metrics(es, len(posted), len(posted))
     k0 += n_c * n_batches * n_per
     cols = [ingest_event(k0 + j) for j in range(INGEST_COLUMNAR)]
     body = {"event": "rate", "entityType": "user",
@@ -5098,6 +5434,9 @@ def phase_eventserver(es: dict) -> None:
           f"{ {k: v for k, v in got.items() if k != 'eventIds'} }")
     posted.update(zip(got["eventIds"], cols))
     rows["columnar"] = route_row(INGEST_COLUMNAR, wall, [wall * 1e3])
+    rows["columnar"]["metrics"] = ingest_metrics(es, len(posted),
+                                                 len(posted) - INGEST_COLUMNAR
+                                                 + 1)
     n_posted = len(posted)
     check(n_posted == k0 + INGEST_COLUMNAR, f"{n_posted} distinct ids for "
           f"{k0 + INGEST_COLUMNAR} events")
@@ -5353,6 +5692,9 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
     version = report["publishedVersion"]
     # the new users' answers first: the event-to-answer time ends at the
     # first of them
+    t_swap = time.perf_counter()
+    aot0 = swapped_graphs(dep, version, "rest_fold")
+    t_event += time.perf_counter() - t_swap   # not the event's time
     lat, answers, event_to_answer_s = [], [], None
     for u in new_users:
         q = {"user": u, "num": SERVE_NUM}
@@ -5365,6 +5707,8 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
               and body["smokeTag"] == version,
               f"new user {u} answered {code} {body}")
         answers.append((q, body))
+    graphs = replays_since(dep, aot0, "rest_fold")
+    fold_dt = fold_device_time(report, "rest_fold")
     t_hold = time.perf_counter()
     (pub,) = factory.deserialize_models(
         Storage.get_model_data_models().get(version).models, version)
@@ -5396,7 +5740,9 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
          reload_s=report["reloadS"], cg_launches=launches.get("cg_solve", 0),
          replay=held, new_users_answered=len(lat), ids_equal_f64=exact,
          event_to_answer_s=event_to_answer_s,
-         first_answer_ms=lat[0], p50_ms=float(np.percentile(lat, 50)))
+         first_answer_ms=lat[0], p50_ms=float(np.percentile(lat, 50)),
+         swap_to_first_query_ms=get_json(dep["url"] + "/stats.json")[
+             "swapToFirstQueryMs"], **graphs, **fold_dt)
     return launches.get("cg_solve", 0), pub, version, sorted(set(subj))
 
 
@@ -5582,8 +5928,13 @@ def phase_import_export(workdir: str) -> None:
             check("pyarrow" in str(e), f"the ImportError names no pyarrow: "
                   f"{e}")
             parquet = str(e)
+    rc, out = cli_out("cache", "status")
+    status = json.loads(out)
+    check(rc == 0 and status["libraries"] == KERNEL_LIBRARIES
+          and status["dir"].endswith(status["salt"]),
+          f"cache status exited {rc}: {out}")
     emit("import_export", events=n, bytes=os.path.getsize(path),
-         columns=sorted(a), parquet=parquet, **timed)
+         columns=sorted(a), parquet=parquet, build_cache=status, **timed)
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,

@@ -15,6 +15,9 @@ reference's Spray event server, EventServer.scala:112-460):
                                      column), else the entity-filtered
                                      columnar read
   GET  /stats.json                -> the window counters (`--stats`)
+  GET  /metrics                   -> the Prometheus text exposition
+                                     (`--stats`; unauthenticated, so the
+                                     window counters across all apps)
   POST /webhooks/<name>.json      -> a JSON webhook connector
   GET  /webhooks/<name>.json      -> whether the connector exists
   POST /webhooks/<name>           -> a form webhook connector
@@ -33,15 +36,24 @@ request alone in the server inserts inline, concurrent requests land as
 one `insert_batch` a group, and each is answered after its group's
 commit.
 
+The server's `MetricsRegistry` (chained to the process-wide one) carries
+the reference's ingest families: `pio_event_write_seconds` (a write's
+latency, per accepted event, columnar write per request),
+`pio_ingest_admission_group_size` (events per batcher dispatch, 1 =
+inline) and the window counters `pio_event_window_start_seconds`,
+`pio_event_window_events{event}` and `pio_event_window_statuses{status}`
+(read from `Stats`, one snapshot a scrape).
+
 Left out until the planes they belong to are ported, and so different
 from the reference:
-- the observability routes (`/metrics`, `/traces.json`, `/flight.json`,
+- the other observability routes (`/traces.json`, `/flight.json`,
   `/health.json`, `/fleet/*`, `/incidents*`, `/profile.json`) answer
   404, and no body carries a `traceId` (with `obs/`);
 - the spill WAL and the store's circuit breaker (with `resilience/`):
   `EventServerConfig` has no `spill`, `spill_dir` or `breaker_*` fields,
-  and a failed store write answers its error, as the reference does with
-  `spill=False`.
+  a failed store write answers its error, as the reference does with
+  `spill=False`, and the spill families (`pio_ingest_spilled_total`,
+  `pio_ingest_spill_pending_bytes`) are not registered.
 The columnar write cap is the constant `MAX_COLUMNAR_ROWS`, not a
 config field: nothing in either package sets another value.
 """
@@ -114,6 +126,10 @@ class _IngestBatcher:
         # ingest requests being handled (enter() at route entry, exit()
         # at the response): the solo-or-batched decision keys on this
         self._ingress = 0
+        self._h_group = server.metrics.histogram(
+            "pio_ingest_admission_group_size",
+            "Events per admission-batcher dispatch (1 = inline path)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128))
         # how long a follower waits for a leader before leading itself
         try:
             ms = float(os.environ.get("PIO_INGEST_ADMISSION_WAIT_MS", "1"))
@@ -141,6 +157,7 @@ class _IngestBatcher:
                     # this arrival completes the group: lead it
                     batch, self._queue = self._queue, []
         if solo:
+            self._h_group.observe(1)
             return self.server.events.insert(event, app_id, channel_id)
         if batch is None and not slot.done.wait(self._wait_s):
             # no leader landed us in time: claim whatever is queued (our
@@ -161,6 +178,7 @@ class _IngestBatcher:
         for ev, app, chan, slot in batch:
             groups.setdefault((app, chan), []).append((ev, slot))
         for (app, chan), items in groups.items():
+            self._h_group.observe(len(items))
             try:
                 ids = self.server.events.insert_batch(
                     [ev for ev, _ in items], app, chan)
@@ -207,9 +225,53 @@ class EventServer:
                            os.environ.get("PIO_ACCESSKEY_CACHE_S"))
             self.auth_cache_ttl_s = 3.0
         self._auth_cache: dict = {}
+        from predictionio_tpu_torch.obs import (MetricsRegistry,
+                                                get_registry, torchmon)
+        torchmon.install()
+        self.metrics = MetricsRegistry(parent=get_registry())
+        self._h_write = self.metrics.histogram(
+            "pio_event_write_seconds",
+            "Event-store write latency per accepted event")
+        # the Stats snapshot one /metrics render reads (so the three
+        # window collectors never straddle an hourly rotation)
+        self._window_pin = None
+        self._register_metrics()
         self._batcher = _IngestBatcher(self)
         self.router = self._build_router()
         self.server: Optional[HttpServer] = None
+
+    def _register_metrics(self) -> None:
+        m = self.metrics
+
+        def window(field):
+            return self._window_snapshot()["currentWindow"][field]
+
+        m.gauge_func(
+            "pio_event_window_start_seconds",
+            "Start of the current counter window (unix time)",
+            lambda: self._window_snapshot()["startTime"])
+        m.gauge_func(
+            "pio_event_window_events",
+            "Events accepted in the current window, by event name",
+            lambda: [({"event": k}, v) for k, v in
+                     sorted(window("byEvent").items())] or [(None, 0)])
+        m.gauge_func(
+            "pio_event_window_statuses",
+            "Responses in the current window, by HTTP status",
+            lambda: [({"status": k}, v) for k, v in
+                     sorted(window("byStatus").items())] or [(None, 0)])
+
+    def _window_snapshot(self) -> dict:
+        pinned = self._window_pin
+        return pinned if pinned is not None else self.stats.to_dict(None)
+
+    def _write(self, event, app_id, channel_id) -> str:
+        """One event through the admission batcher, its latency in
+        `pio_event_write_seconds`."""
+        t0 = time.perf_counter()
+        event_id = self._batcher.submit(event, app_id, channel_id)
+        self._h_write.observe(time.perf_counter() - t0)
+        return event_id
 
     # DAOs resolved lazily, so environment and registry changes hold
     @property
@@ -294,8 +356,7 @@ class EventServer:
             self.plugin_context.check_input(
                 {"appId": access_key.appid, "channelId": channel_id,
                  "event": d})
-            event_id = self._batcher.submit(event, access_key.appid,
-                                            channel_id)
+            event_id = self._write(event, access_key.appid, channel_id)
             if self.config.stats:
                 self.stats.update(access_key.appid, event.event,
                                   event.entity_type, 201)
@@ -323,8 +384,7 @@ class EventServer:
                 event = Event.from_dict(d)
                 self._check_event_allowed(access_key, event.event)
                 EventValidation.validate(event)
-                event_id = self._batcher.submit(event, access_key.appid,
-                                                channel_id)
+                event_id = self._write(event, access_key.appid, channel_id)
                 results.append({"status": 201, "eventId": event_id})
                 if self.config.stats:
                     self.stats.update(access_key.appid, event.event,
@@ -461,8 +521,12 @@ class EventServer:
             if vetoed:
                 keep = [i for i in kept if i not in vetoed]
         ins = batch if keep is None else batch.select(keep)
-        ids = (self.events.insert_columnar(ins, access_key.appid,
-                                           channel_id) if ins.n else [])
+        ids: list = []
+        if ins.n:
+            t0 = time.perf_counter()
+            ids = self.events.insert_columnar(ins, access_key.appid,
+                                              channel_id)
+            self._h_write.observe(time.perf_counter() - t0)
         if self.config.stats:
             self._stats_columnar(access_key.appid, ins, len(failures))
         body: dict = {"eventsCreated": len(ids)}
@@ -527,6 +591,27 @@ class EventServer:
                            "--stats argument."})
         return Response(200, self.stats.to_dict(access_key.appid))
 
+    def _metrics(self, req: Request) -> Response:
+        """Prometheus text exposition of this server's registry (and the
+        process-wide one through its parent). Unauthenticated, as
+        scrapers carry no access key, and so aggregate over every app;
+        404 unless `--stats`, as `/stats.json`."""
+        if not self.config.stats:
+            return Response(404, {
+                "message": "To expose metrics, launch Event Server with "
+                           "--stats argument."})
+        from predictionio_tpu_torch.utils.prometheus import (
+            CONTENT_TYPE, OPENMETRICS_CONTENT_TYPE, wants_exemplars)
+        om = wants_exemplars(req)
+        self._window_pin = self.stats.to_dict(None)
+        try:
+            body = self.metrics.render(exemplars=om)
+        finally:
+            self._window_pin = None
+        return Response(200, body,
+                        content_type=(OPENMETRICS_CONTENT_TYPE if om
+                                      else CONTENT_TYPE))
+
     def _webhook_insert(self, event: Event, access_key,
                         channel_id) -> Response:
         EventValidation.validate(event)
@@ -582,6 +667,7 @@ class EventServer:
         r.add("GET", "/events/<id>.json", guarded(self._get_event))
         r.add("DELETE", "/events/<id>.json", guarded(self._delete_event))
         r.add("GET", "/stats.json", guarded(self._get_stats))
+        r.add("GET", "/metrics", self._metrics)
         r.add("POST", "/webhooks/<name>.json", guarded(self._webhook_json))
         r.add("GET", "/webhooks/<name>.json", guarded(self._webhook_get))
         r.add("POST", "/webhooks/<name>", guarded(self._webhook_form))

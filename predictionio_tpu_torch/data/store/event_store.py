@@ -10,10 +10,11 @@ what its entity-filtered read goes through, `find_columnar_chunked` the
 bulk data plane's cursor. `LEventStore` is another
 name for the same store, as in the reference, and `find_by_entity` is its
 deadline-guarded point read (LEventStore.findByEntity), which the
-e-commerce template's live business rules call at serve time. The
-reference counts timed-out reads in its metrics registry, which is not
-ported: `point_read_stats()` carries the count under the reference's
-name, and the server's `/stats.json` shows it.
+e-commerce template's live business rules call at serve time. A
+timed-out read is counted in the reference's
+`pio_event_point_read_timeout_total` on the process-wide registry;
+`point_read_stats()` reads it under that name for the server's
+`/stats.json`.
 """
 
 from __future__ import annotations
@@ -146,21 +147,28 @@ class EventStore:
     POINT_READ_MAX_INFLIGHT = 8
 
     _point_read_sem = threading.BoundedSemaphore(POINT_READ_MAX_INFLIGHT)
-    _timeouts_lock = threading.Lock()
-    _timeouts = 0
+
+    @staticmethod
+    def _timeout_counter():
+        from predictionio_tpu_torch.obs import get_registry
+        return get_registry().counter(
+            "pio_event_point_read_timeout_total",
+            "Deadline-guarded event point reads that timed out (their late "
+            "results are discarded; the worker permit is bounded)")
 
     @staticmethod
     def _count_timeout() -> None:
-        with EventStore._timeouts_lock:
-            EventStore._timeouts += 1
+        EventStore._timeout_counter().inc()
 
     @staticmethod
     def point_read_stats() -> dict:
         """The timed-out point reads of this process, under the
-        reference's metric name."""
-        with EventStore._timeouts_lock:
-            return {"pio_event_point_read_timeout_total":
-                    EventStore._timeouts}
+        reference's metric name (0 before the first timeout registers
+        the family)."""
+        from predictionio_tpu_torch.obs import get_registry
+        c = get_registry().get("pio_event_point_read_timeout_total")
+        return {"pio_event_point_read_timeout_total":
+                int(c.value) if c is not None else 0}
 
     def find_by_entity(self, app_name: str, entity_type: str,
                        entity_id: str, channel_name: Optional[str] = None,

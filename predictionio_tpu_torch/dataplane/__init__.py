@@ -12,6 +12,9 @@ overlapped stages:
   times each stage.
 
 The plane's device touches (the copy, the wait) live in `ops/staging.py`.
+Each stage counts into the reference's `pio_dataplane_*` families on the
+process-wide registry; `BulkLoadStats` and `pipeline.last_stats` keep the
+same numbers for one run.
 """
 
 from predictionio_tpu_torch.dataplane.pipeline import (BulkLoadExecutor,

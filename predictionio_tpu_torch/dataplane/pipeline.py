@@ -82,6 +82,14 @@ class BulkLoadExecutor:
         self.queue_depth = queue_depth
         self.slots = slots
         self.device = device
+        from predictionio_tpu_torch.obs import get_registry
+        reg = get_registry()
+        self._m_decode_s = reg.counter(
+            "pio_dataplane_decode_seconds_total",
+            "Seconds the dataplane decode stage spent converting wire "
+            "chunks to model-ready columns")
+        self._m_loads = reg.counter(
+            "pio_dataplane_loads_total", "Completed dataplane bulk-load runs")
 
     def run(self, app_name: str, channel_name: Optional[str] = None,
             property_field: Optional[str] = None,
@@ -113,7 +121,9 @@ class BulkLoadExecutor:
             for chunk in reader:
                 t0 = time.perf_counter()
                 decoded = decode(chunk) if decode is not None else chunk
-                result.stats.decode_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                result.stats.decode_s += dt
+                self._m_decode_s.inc(dt)
                 if decoded is None:
                     continue
                 result.decoded.append(decoded)
@@ -143,5 +153,6 @@ class BulkLoadExecutor:
             st.h2d_overlap_frac = stager.stats.overlap_frac
         st.read_mb_s = ((st.read_bytes / 1e6) / st.read_s
                         if st.read_s > 0 else 0.0)
+        self._m_loads.inc(1)
         last_stats = st
         return result

@@ -46,6 +46,22 @@ class ChunkReader:
         self.rows = 0
         self.chunks = 0
         self.bytes = 0
+        from predictionio_tpu_torch.obs import get_registry
+        reg = get_registry()
+        self._m_read_s = reg.counter(
+            "pio_dataplane_read_seconds_total",
+            "Seconds the dataplane read stage spent producing chunks "
+            "(store scan + column assembly, excludes queue waits)")
+        self._m_rows = reg.counter(
+            "pio_dataplane_read_rows_total",
+            "Event rows streamed through the dataplane read stage")
+        self._m_chunks = reg.counter(
+            "pio_dataplane_read_chunks_total",
+            "Chunks streamed through the dataplane read stage")
+        self._m_bytes = reg.counter(
+            "pio_dataplane_read_bytes_total",
+            "Host bytes of columnar chunk data produced by the dataplane "
+            "read stage")
 
     # -- producer ----------------------------------------------------------
     def _run(self):
@@ -53,10 +69,17 @@ class ChunkReader:
             gen = self._store.find_columnar_chunked(**self._kw)
             t0 = time.perf_counter()
             for chunk in gen:
-                self.read_s += time.perf_counter() - t0
-                self.rows += len(chunk["t"])
+                dt = time.perf_counter() - t0
+                n = len(chunk["t"])
+                nb = sum(int(v.nbytes) for v in chunk.values())
+                self.read_s += dt
+                self.rows += n
                 self.chunks += 1
-                self.bytes += sum(int(v.nbytes) for v in chunk.values())
+                self.bytes += nb
+                self._m_read_s.inc(dt)
+                self._m_rows.inc(n)
+                self._m_chunks.inc(1)
+                self._m_bytes.inc(nb)
                 while not self._stop.is_set():
                     try:
                         self._q.put(chunk, timeout=0.1)

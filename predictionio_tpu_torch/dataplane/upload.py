@@ -7,7 +7,7 @@ default): staging chunk N returns once its copies are enqueued on the
 stager's copy stream, so the caller decodes chunk N+1 while N's bytes
 cross; only a full window makes it wait, and then for the oldest segment
 only. That wait is the double buffer's back-pressure. Shapes come from
-the power-of-two row buckets (`utils.buckets.bucket_rows`, through
+the power-of-two row buckets (`compile.buckets.bucket_rows`, through
 `ops.staging`), so ragged chunks land as a short ladder of shapes. The
 device touches themselves (the copy, the wait) live in `ops/staging.py`.
 
@@ -73,6 +73,23 @@ class DeviceStager:
         self._inflight: deque = deque()
         self._segments: List[StagedSegment] = []
         self.stats = StageStats()
+        from predictionio_tpu_torch.obs import get_registry
+        reg = get_registry()
+        self._m_upload_s = reg.counter(
+            "pio_dataplane_upload_seconds_total",
+            "Seconds the dataplane upload stage spent submitting async "
+            "H2D transfers")
+        self._m_wait_s = reg.counter(
+            "pio_dataplane_upload_wait_seconds_total",
+            "Seconds the dataplane upload stage blocked on a full "
+            "in-flight window (un-hidden transfer time)")
+        self._m_bytes = reg.counter(
+            "pio_dataplane_upload_bytes_total",
+            "Host-to-device bytes staged by the dataplane (also counted "
+            "in pio_jax_host_to_device_bytes_total)")
+        self._m_segments = reg.counter(
+            "pio_dataplane_upload_segments_total",
+            "Chunk segments staged to device by the dataplane")
 
     def stage(self, arrays: Mapping[str, np.ndarray]) -> None:
         """Submit one chunk's numeric columns; waits only when the window
@@ -83,21 +100,30 @@ class DeviceStager:
             ops_staging.device_stage(arrays, self.device, self._stream)
         self._inflight.append((event, hosts))
         self._segments.append(StagedSegment(dev, rows, padded))
+        from predictionio_tpu_torch.obs import torchmon
         st = self.stats
+        nbytes = sum(int(t.nbytes) for t in dev.values())
         st.segments += 1
         st.rows += rows
-        st.h2d_bytes += sum(int(t.nbytes) for t in dev.values())
+        st.h2d_bytes += nbytes
         st.submit_s += submit_s
         st.buckets.append(padded)
+        torchmon.record_h2d(nbytes)
+        self._m_upload_s.inc(submit_s)
+        self._m_bytes.inc(nbytes)
+        self._m_segments.inc(1)
         while len(self._inflight) > self.slots:
-            st.wait_s += ops_staging.wait_ready(self._inflight.popleft()[0])
+            waited = ops_staging.wait_ready(self._inflight.popleft()[0])
+            st.wait_s += waited
+            self._m_wait_s.inc(waited)
 
     def finish(self) -> List[StagedSegment]:
         """Wait for every copy in the window and return every staged
         segment, its copies complete."""
         while self._inflight:
-            self.stats.wait_s += ops_staging.wait_ready(
-                self._inflight.popleft()[0])
+            waited = ops_staging.wait_ready(self._inflight.popleft()[0])
+            self.stats.wait_s += waited
+            self._m_wait_s.inc(waited)
         return list(self._segments)
 
 

@@ -44,6 +44,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
+    """Wait for the work queued on the device's current stream (a no-op
+    on the CPU). Never a device-wide synchronize: one while another
+    thread captures a CUDA graph (`compile/aot.py`) would invalidate the
+    capture and fail."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()

@@ -23,8 +23,10 @@ The watchdog decides on the query path:
 
 A rollback is in memory and instant: the incumbent never left the
 server. The registry's last-good pin and `pio rollback` make it durable
-across a restart. The reference's `pio_guard_*` metrics and its flight
-and incident records belong to the observability plane.
+across a restart. The arms' requests, the promotions and the rollbacks
+are counted in the reference's `pio_guard_*` families on the registry
+the server hands in. The reference's flight and incident records belong
+to a later slice.
 """
 
 from __future__ import annotations
@@ -85,9 +87,23 @@ class CanaryController:
     never the reverse. `clock` is injectable (a test's fake clock)."""
 
     def __init__(self, config: CanaryConfig,
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time, registry=None):
         self.config = config
         self.clock = clock
+        if registry is None:
+            from predictionio_tpu_torch.obs import get_registry
+            registry = get_registry()
+        self._c_requests = registry.counter(
+            "pio_guard_canary_requests_total",
+            "Queries served during canary windows, by arm",
+            labelnames=("arm",))
+        self._c_rollbacks = registry.counter(
+            "pio_guard_rollbacks_total",
+            "Automatic canary rollbacks by breach reason",
+            labelnames=("reason",))
+        self._c_promotions = registry.counter(
+            "pio_guard_promotions_total",
+            "Canary candidates promoted to full traffic")
         self._lock = threading.Lock()
         self._active = False
         self._candidate_models: Optional[List[Any]] = None
@@ -175,6 +191,7 @@ class CanaryController:
                 st.nonfinite += nonfinite
             if latency_s is not None:
                 st.latencies.extend([latency_s] * n)
+        self._c_requests.labels(arm=arm).inc(n)
 
     # -- the watchdog ------------------------------------------------------
     def _breach(self) -> Optional[str]:
@@ -230,9 +247,11 @@ class CanaryController:
             self.last_decision = {k: v for k, v in decision.items()
                                   if k != "models"}
         if kind == "promote":
+            self._c_promotions.inc()
             logger.info("canary PROMOTED: %s (%s)",
                         decision["candidateVersion"], why)
         else:
+            self._c_rollbacks.labels(reason=why).inc()
             logger.error(
                 "canary ROLLBACK of %s: %s — incumbent keeps serving",
                 decision["candidateVersion"], why)

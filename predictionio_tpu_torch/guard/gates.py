@@ -25,8 +25,10 @@ The samples come from `np.random.default_rng(cfg.seed)` drawn as the
 reference draws them, so both packages' reports agree number for number
 on the same tables. Models are duck-typed: an `ALSModel`, a model with an
 `.als`, or a dataclass holding 2-D float numpy tables (similar-product);
-a model with none skips the factor gates. The reference's verdict metric
-belongs to its observability plane; here `verdict_counts` counts them.
+a model with none skips the factor gates. Each verdict is counted in
+`pio_guard_gate_verdicts_total{gate,verdict}`, and the golden queries'
+replays run under the `gates_probe` executable label (`obs/costmon`), so
+what a probe costs is not booked to serving.
 """
 
 from __future__ import annotations
@@ -151,9 +153,15 @@ class QualityGatekeeper:
     """Runs every configured gate for each (candidate, live) model pair
     and returns `{"passed": bool, "gates": [...]}`."""
 
-    def __init__(self, config: Optional[GateConfig] = None):
+    def __init__(self, config: Optional[GateConfig] = None, registry=None):
         self.config = config or GateConfig()
-        self.verdict_counts: Dict[Tuple[str, str], int] = {}
+        if registry is None:
+            from predictionio_tpu_torch.obs import get_registry
+            registry = get_registry()
+        self._c_verdicts = registry.counter(
+            "pio_guard_gate_verdicts_total",
+            "Pre-swap quality-gate verdicts by gate and verdict",
+            labelnames=("gate", "verdict"))
 
     # -- the gates ---------------------------------------------------------
     @staticmethod
@@ -297,17 +305,19 @@ class QualityGatekeeper:
     def _replay(algo, model, qs) -> List[Any]:
         """Every golden query against one model: one `batch_predict` when
         the algorithm has it, else a predict loop."""
-        bp = getattr(algo, "batch_predict", None)
-        if bp is not None:
-            by_ix = dict(bp(model, list(enumerate(qs))))
-            return [by_ix.get(i) for i in range(len(qs))]
-        return [algo.predict(model, q) for q in qs]
+        from predictionio_tpu_torch.obs import costmon
+        with costmon.executable(costmon.GATES_PROBE):
+            bp = getattr(algo, "batch_predict", None)
+            if bp is not None:
+                by_ix = dict(bp(model, list(enumerate(qs))))
+                return [by_ix.get(i) for i in range(len(qs))]
+            return [algo.predict(model, q) for q in qs]
 
     # -- aggregation -------------------------------------------------------
     def _count(self, gates: Sequence[dict]) -> None:
         for g in gates:
-            key = (g["gate"], g["verdict"])
-            self.verdict_counts[key] = self.verdict_counts.get(key, 0) + 1
+            self._c_verdicts.labels(gate=g["gate"],
+                                    verdict=g["verdict"]).inc()
 
     def evaluate(self, candidates: Sequence[Any], live: Sequence[Any],
                  algorithms: Optional[Sequence[Any]] = None) -> dict:

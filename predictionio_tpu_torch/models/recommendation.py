@@ -70,7 +70,7 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_top_k_batch,
                                                    masked_top_k_batch_begin,
                                                    unpack_top_k_rows)
-from predictionio_tpu_torch.utils import buckets as B
+from predictionio_tpu_torch.compile import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -632,13 +632,30 @@ class ALSAlgorithm(P2LAlgorithm):
             "launches": {k: v - before[k] for k, v in vars(COUNTS).items()
                          if v != before[k]}}
 
-    def warm_queries(self, model: RecommendationModel) -> List[Query]:
-        """One query for each serve path a window can take (plain, and
-        masked by a filter), at the smallest top-k bucket: what the
-        deploy warm-up sends through `batch_predict_begin`."""
-        user = model.user_ix.id_of(0)
-        return [Query(user, B.K_FLOOR),
-                Query(user, B.K_FLOOR, creation_year=0)]
+    def aot_warm_specs(self, model: RecommendationModel,
+                       batch_hint: int = 16) -> list:
+        """(label, dims, owners) rows of the serve executables over the
+        micro-batcher's pow2 ladder (1 up to the window) at the smallest
+        top-k bucket: what `compile.aot.warm_models` captures at deploy
+        and swap time, before the model takes a query. The reference
+        warms the plain top-k only; the port also warms the masked one a
+        filtered query takes, as its deploy warm-up always has."""
+        from predictionio_tpu_torch.obs import costmon
+        from predictionio_tpu_torch.ops import als as ALS
+        from predictionio_tpu_torch.ops import similarity as SIM
+        ALS.register_aot_specs()
+        SIM.register_aot_specs()
+        als = model.als
+        ladder = B.batch_ladder(batch_hint)
+        table = als.tables()[1]
+        return ([(costmon.BATCH_PREDICT,
+                  ALS.batch_predict_dims(als, b, B.K_FLOOR), (als,))
+                 for b in ladder]
+                + [(costmon.BATCH_PREDICT_MASKED,
+                    SIM.masked_topk_dims(als.n_items, als.rank, b,
+                                         B.K_FLOOR, filter_positive=False),
+                    (table,))
+                   for b in ladder])
 
 
 class PrecisionAtK(Metric):

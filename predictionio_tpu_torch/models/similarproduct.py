@@ -68,9 +68,10 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    cosine_top_k,
                                                    item_cosine_similarities,
                                                    masked_top_k_batch_begin,
+                                                   masked_topk_dims,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
-from predictionio_tpu_torch.utils import buckets as B
+from predictionio_tpu_torch.compile import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -597,11 +598,21 @@ class ALSAlgorithm(P2LAlgorithm):
             return list(out.items())
         return finish
 
-    def warm_queries(self, model: SimilarProductModel) -> List[Query]:
-        """The one serve path a window takes (masked by the query's
-        filters) at the smallest top-k bucket: what the deploy warm-up
-        sends through `batch_predict_begin`."""
-        return [Query((model.item_ix.id_of(0),), B.K_FLOOR)]
+    def aot_warm_specs(self, model: SimilarProductModel,
+                       batch_hint: int = 16) -> list:
+        """(label, dims, owners) rows of the cosine serve executable over
+        the micro-batcher's pow2 ladder (1 up to the window) at the
+        smallest top-k bucket: what `compile.aot.warm_models` captures at
+        deploy and swap time, before the model takes a query."""
+        from predictionio_tpu_torch.obs import costmon
+        from predictionio_tpu_torch.ops.similarity import register_aot_specs
+        register_aot_specs()
+        table = model.table()
+        return [(costmon.BATCH_PREDICT_MASKED,
+                 masked_topk_dims(table.shape[0], table.shape[1], b,
+                                  B.K_FLOOR, filter_positive=True),
+                 (table,))
+                for b in B.batch_ladder(batch_hint)]
 
 
 class LikeAlgorithm(ALSAlgorithm):

@@ -25,8 +25,12 @@ v_old v_old^T) over the scattered rows, and is recomputed from the table
 on upload and every `_GRAM_REFRESH_EVERY` ticks. With a `resident_key`
 the final tables stay in a residency slot (`utils/device_cache.py`)
 keyed by the published host arrays, so the next tick against that model
-uploads only its solve plans. `h2d_bytes()` counts, per thread, the
-bytes the fold hands to its device; the scheduler's report reads it.
+uploads only its solve plans. Every byte the fold hands to its device is
+counted in `obs/torchmon.record_h2d`, whose per-thread total the
+scheduler's report reads (`h2dBytes`). Each side's solves run under the
+`fold_side` executable label and `obs/costmon.device_timed`, so the
+card's fold time is booked from CUDA events beside the serve path's; a
+no-op tick counts in `pio_guard_fold_degenerate_total`.
 
 A folded row is the exact least-squares answer given the current
 counterpart rows; rows outside the touched set keep their deployed
@@ -53,7 +57,6 @@ Differences from the reference, by design:
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -62,6 +65,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import costmon, get_registry, torchmon
 from predictionio_tpu_torch.guard.sentinels import (SweepSentinel,
                                                     guard_enabled,
                                                     host_max_norm)
@@ -74,7 +78,7 @@ from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolveBatch,
                                                 SolvePlan, build_solve_plan)
 from predictionio_tpu_torch.ops.solve import resolve_solver
 from predictionio_tpu_torch.utils import device_cache
-from predictionio_tpu_torch.utils.buckets import bucket_batch, bucket_rows
+from predictionio_tpu_torch.compile.buckets import bucket_batch, bucket_rows
 
 
 @dataclass(frozen=True)
@@ -137,19 +141,19 @@ _TOUCHED_FLOOR = 16
 #: scatter target of a padded entry (the reference's drop sentinel)
 _DROP = np.int32(2 ** 31 - 1)
 
-_h2d = threading.local()
-
-
-def h2d_bytes() -> int:
-    """Bytes this thread's folds have handed to their device so far."""
-    return getattr(_h2d, "n", 0)
+def _degenerate_counter():
+    return get_registry().counter(
+        "pio_guard_fold_degenerate_total",
+        "Fold ticks that no-opped cleanly (empty touched set after "
+        "filtering, or all-zero ratings) instead of building an empty "
+        "solve plan")
 
 
 def _put(arr: np.ndarray, device: torch.device,
          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Host -> device, counted in `h2d_bytes`."""
+    """Host -> device, counted in `obs/torchmon`."""
     arr = np.ascontiguousarray(arr)
-    _h2d.n = h2d_bytes() + arr.nbytes
+    torchmon.record_h2d(arr.nbytes)
     t = torch.from_numpy(arr).to(device)
     return t if dtype is None else t.to(dtype)
 
@@ -202,8 +206,8 @@ def solve_rows(counter_factors: np.ndarray, owner_compact: np.ndarray,
     dtype = getattr(torch, dtype_name)
     groups = _upload_plan(plan, dev, dtype,
                           resolve_sweep_chunk(cfg.sweep_chunk))
-    _h2d.n = h2d_bytes() + sum(b.rows.nbytes + b.idx.nbytes + b.val.nbytes
-                               + b.mask.nbytes for b in plan.batches)
+    torchmon.record_h2d(sum(b.rows.nbytes + b.idx.nbytes + b.val.nbytes
+                            + b.mask.nbytes for b in plan.batches))
     # +1 dummy tail row: where padding rows (-1) land
     out = torch.zeros((n_rows + 1, rank), dtype=dtype, device=dev)
     counter_dev = _put(counter, dev)
@@ -368,9 +372,12 @@ def _solve_side(prep: _SidePrep, counter_dev: torch.Tensor,
     (padding rows land on its last row), scatter them into the owned
     table, correct its Gram. Returns (out_dev, out_gram)."""
     solved = counter_dev.new_zeros((prep.n_rows + 1, counter_dev.shape[1]))
-    _run_side(prep.groups, solved, counter_dev, als_cfg, solver,
-              None if counter_gram is None
-              else solver_gram(counter_gram, als_cfg))
+    with costmon.executable(costmon.FOLD_SIDE):
+        costmon.device_timed(
+            costmon.FOLD_SIDE, _run_side, prep.groups, solved, counter_dev,
+            als_cfg, solver,
+            None if counter_gram is None
+            else solver_gram(counter_gram, als_cfg))
     return _scatter(out_dev, out_gram, solved, prep)
 
 
@@ -423,6 +430,7 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
                             cfg, dev, dtype)
         degenerate = prep_u is None and prep_i is None
     if degenerate:
+        _degenerate_counter().inc()
         stats.degenerate = True
         stats.wall_s = time.perf_counter() - t0
         return als, stats

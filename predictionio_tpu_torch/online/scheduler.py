@@ -34,10 +34,17 @@ An attached server's canary verdicts come back through
 re-anchors the scheduler on the models the server serves, demotes the
 version and asks for a retrain.
 
-The reference's tracing spans, flight records, incidents, fleet
-membership, tenant scopes, fold-tick gate and `pio_fold_*` metrics belong
-to planes not ported yet; the report carries the span times instead
-(`readS`, `publishS`, `reloadS`, `tickS`).
+A tick's wall, its events, its upload bytes (`obs/torchmon`'s per-thread
+total, the report's `h2dBytes`), the rows it read by read path, its
+failures and the gate rejects are counted in the reference's
+`pio_fold_*` and `pio_guard_gate_rejects_total` families on the
+process-wide registry, under the untenanted `tenant=""` series. The
+reference's tracing spans, flight records, incidents, fleet membership,
+tenant scopes and fold-tick gate belong to planes not ported yet; the
+report carries the span times instead (`readS`, `publishS`, `reloadS`,
+`tickS`), and the process's device time by executable label
+(`deviceTime`: the sampled CUDA-event seconds and sample counts,
+`fold_side` among them).
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from predictionio_tpu_torch.data.event import (Event, parse_event_time,
 from predictionio_tpu_torch.data.store import LEventStore
 from predictionio_tpu_torch.guard.gates import (GateConfig, GateRejected,
                                                 QualityGatekeeper)
-from predictionio_tpu_torch.online import fold_in as _fold
+from predictionio_tpu_torch.obs import costmon, get_registry, torchmon
 from predictionio_tpu_torch.online.registry import ONLINE_BATCH_TAG
 
 logger = logging.getLogger(__name__)
@@ -258,6 +265,38 @@ class DeltaTrainingScheduler:
             reset_timeout_s=config.tail_breaker_reset_s)
         self.consecutive_failures = 0
         self.last_error: Optional[str] = None
+        # process-wide fold instruments (schedulers in one process share
+        # the families); the untenanted series until tenancy is ported
+        self._metric_tenant = ""
+        reg = get_registry()
+        self._h_tick = reg.histogram(
+            "pio_fold_tick_seconds",
+            "Wall time of a scheduler tick that ran a fold-in (tail read "
+            "+ touched-row solves + publish + swap)",
+            labelnames=("tenant",)).labels(tenant=self._metric_tenant)
+        self._c_fold_events = reg.counter(
+            "pio_fold_events_total",
+            "Fresh events absorbed by completed fold-ins",
+            labelnames=("tenant",)).labels(tenant=self._metric_tenant)
+        self._c_fold_h2d = reg.counter(
+            "pio_fold_upload_bytes_total",
+            "Host->device bytes uploaded by fold-in solves",
+            labelnames=("tenant",)).labels(tenant=self._metric_tenant)
+        self._c_tick_failures = reg.counter(
+            "pio_fold_tick_failures_total",
+            "Scheduler ticks that raised (tail read, solve, or publish "
+            "failure); consecutive failures back off exponentially",
+            labelnames=("tenant",)).labels(tenant=self._metric_tenant)
+        self._c_fold_read_rows = reg.counter(
+            "pio_fold_read_rows_total",
+            "Training-data rows read by fold ticks, by read path "
+            "(entity_filtered = the touched entities' pushdown, full_scan "
+            "= the whole corpus)", labelnames=("path", "tenant"))
+        self._c_gate_rejects = reg.counter(
+            "pio_guard_gate_rejects_total",
+            "Fold publishes refused by the pre-swap quality gates (the "
+            "live model kept serving)",
+            labelnames=("tenant",)).labels(tenant=self._metric_tenant)
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -433,7 +472,7 @@ class DeltaTrainingScheduler:
         touched_users = list(user_deltas)
         touched_items = list(item_deltas)
         # this thread's uploads only
-        h2d_before = _fold.h2d_bytes()
+        h2d_before = torchmon.thread_h2d_total()
         try:
             t0 = time.perf_counter()
             td, read_info = self._read_training(touched_users,
@@ -464,9 +503,13 @@ class DeltaTrainingScheduler:
             "touchedItems": len(touched_items),
             "events": n_events,
             "algorithms": reports,
-            "h2dBytes": _fold.h2d_bytes() - h2d_before,
+            "h2dBytes": torchmon.h2d_delta(h2d_before),
             **read_info,
         }
+        if read_info.get("readRows") is not None:
+            self._c_fold_read_rows.labels(
+                path=read_info["readPath"],
+                tenant=self._metric_tenant).inc(read_info["readRows"])
         if not folded_any:
             logger.warning("no algorithm supports fold_in; deltas dropped")
             self.last_report = report
@@ -492,6 +535,7 @@ class DeltaTrainingScheduler:
             # so the loop's escalation to a retrain is the real exit
             self._restore_deltas(user_deltas, item_deltas, n_events)
             self.gate_rejects += 1
+            self._c_gate_rejects.inc()
             if self.server is not None:
                 self.server.note_publish_failure()
             self.last_report = report
@@ -525,6 +569,8 @@ class DeltaTrainingScheduler:
         self.models = new_models
         self.fold_in_count += 1
         self.events_folded += n_events
+        self._c_fold_events.inc(n_events)
+        self._c_fold_h2d.inc(report["h2dBytes"])
         self.last_report = report
         return report
 
@@ -583,6 +629,13 @@ class DeltaTrainingScheduler:
             return None
         report = self.fold_in()
         report["tickS"] = time.perf_counter() - t0
+        self._h_tick.observe(report["tickS"])
+        # the process's device time by executable label so far, the
+        # fold's sampled CUDA-event time (`fold_side`) among it
+        costmon.flush()
+        report["deviceTime"] = {
+            "seconds": costmon.device_time_by_executable(),
+            "samples": costmon.device_samples_by_executable()}
         return report
 
     def start(self) -> "DeltaTrainingScheduler":
@@ -612,6 +665,7 @@ class DeltaTrainingScheduler:
                                    "probe in %.1fs", delay)
                 except Exception as e:
                     self.last_error = str(e)
+                    self._c_tick_failures.inc()
                     if self._tail_breaker.state != CLOSED:
                         # a store outage: the breaker's cadence owns it
                         delay = max(cfg.poll_interval_s,

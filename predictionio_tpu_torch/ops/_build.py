@@ -2,22 +2,23 @@
 
 Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface, at first use, and loaded with `ctypes`.
-The library lands in `predictionio_tpu_torch/_build/` (git-ignored) under
-a name carrying the hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built when a
-module is imported: the CPU tests import every module on a machine with
-no `nvcc`.
+The library lands in the salted build directory of `compile/cache.py`
+(`predictionio_tpu_torch/_build/<salt>/`, git-ignored), whose salt
+hashes every source and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is built when a module is
+imported: the CPU tests import every module on a machine with no `nvcc`.
 
 `nvcc` is found through `$CUDA_HOME/bin`, then `PATH`, then the
 toolkit's standard install location. `BUILDS` counts the `nvcc` builds
 this process has run and their seconds (the bulk data plane reports the
-builds that ran during its steady phase).
+builds that ran during its steady phase); each build is also reported
+to `obs/torchmon` as a compile, and the first use of each library in a
+process as a build-directory hit (found built) or miss (built now).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -25,17 +26,20 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Set
 
-PKG_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+from predictionio_tpu_torch.compile import cache
+from predictionio_tpu_torch.obs import torchmon
+
+PKG_DIR = cache.PKG_DIR
+CSRC_DIR = cache.CSRC_DIR
+BUILD_DIR = cache.DEFAULT_ROOT
+NVCC_FLAGS = cache.NVCC_FLAGS
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# libraries whose build-directory hit or miss this process has counted
+_counted: Set[str] = set()
 
 
 @dataclass
@@ -63,9 +67,7 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    return cache.cache_dir() / f"{name}.so"
 
 
 def _start(name: str):
@@ -74,7 +76,7 @@ def _start(name: str):
     out = _target(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
@@ -111,6 +113,12 @@ def build_all(names: Iterable[str] = None) -> dict:
         started = [n for n, job in jobs.items() if job is not None]
         BUILDS.builds += len(started)
         BUILDS.seconds += max((secs[n] for n in started), default=0.0)
+        fresh = [n for n in jobs if n not in _counted]
+        _counted.update(fresh)
+    for n in started:
+        torchmon.record_compile(secs[n])
+    for n in fresh:
+        torchmon.record_pcache(hit=jobs[n] is None)
     return secs
 
 

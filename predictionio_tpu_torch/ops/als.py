@@ -4,8 +4,10 @@ The port's counterpart of `predictionio_tpu/ops/als.py` (train:
 `ALSConfig`, `ALSModel`, `_init_factors`, `_dual_system_solve`,
 `_scatter_rows`, `_solve_batch`, `_gram_eig_impl`, `_run_side`,
 `als_train`; serve: `recommend_products`, `batch_predict_dims`,
-`users_topk_serve[_begin]` computing `_users_topk_impl` (the batched
-serve path), `predict_ratings`, `als_rmse`).
+`register_aot_specs`, `users_topk_serve[_begin]` computing
+`_users_topk_b` (the batched serve path, dispatched through the
+executable registry of `compile/aot.py`), `predict_ratings`,
+`als_rmse`).
 
 Math parity with the reference (MLlib 1.3):
   explicit  ALS-WR: minimize sum (r - x.v)^2 + lam * (n_u |x|^2 + ...).
@@ -66,6 +68,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
+from predictionio_tpu_torch.obs import costmon
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
                                                 plan_for_items,
@@ -73,7 +76,7 @@ from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
 from predictionio_tpu_torch.ops.solve import (COMPUTE_DTYPES,
                                               resolve_solver, round_operand,
                                               spd_solve)
-from predictionio_tpu_torch.utils import buckets as B
+from predictionio_tpu_torch.compile import buckets as B
 
 logger = logging.getLogger(__name__)
 
@@ -488,17 +491,22 @@ class _FusedIteration:
     counts of the capture are taken back and `replay` adds them once a
     replay (`launches`, the wrappers' counts of one iteration). The
     tables and the plan's batches keep their addresses for the graphs'
-    life: everything updates them in place."""
+    life: everything updates them in place. The warm-up and the capture
+    count as one compile in `obs/torchmon`, booked to the enclosing
+    executable label (`als_sweep` in `als_train`)."""
 
     def __init__(self, parts, warmup, device: torch.device):
+        from predictionio_tpu_torch.compile.aot import capture
+        from predictionio_tpu_torch.obs import torchmon
         from predictionio_tpu_torch.ops.solve import COUNTS
+        t0 = time.perf_counter()
         self.parts = parts
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             warmup()
         torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
+        synchronize(device)
         before = COUNTS.snapshot()
         pool = torch.cuda.graph_pool_handle()
         self.graphs = []
@@ -506,12 +514,11 @@ class _FusedIteration:
             graph = None
             if captured:
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool,
-                                      capture_error_mode="thread_local"):
-                    fn()
+                capture(graph, fn, device, pool=pool, stream=side)
             self.graphs.append(graph)
         self.launches = COUNTS.since(before)
         COUNTS.add(self.launches, -1)
+        torchmon.record_compile(time.perf_counter() - t0)
 
     def replay(self) -> None:
         from predictionio_tpu_torch.ops.solve import COUNTS
@@ -610,13 +617,14 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
                              dtype)
     if cfg.fuse_iteration and dev.type == "cuda":
         t0 = time.perf_counter()
-        fused = _FusedIteration(
-            _fused_parts(U, V, user_batches, item_batches, cfg, solver,
-                         ratings.n_users, ratings.n_items, dtype),
-            functools.partial(_iteration, U.clone(), V.clone(),
-                              user_batches, item_batches, cfg, solver,
-                              ratings.n_users, ratings.n_items, dtype),
-            dev)
+        with costmon.executable(costmon.ALS_SWEEP, defer_to_outer=True):
+            fused = _FusedIteration(
+                _fused_parts(U, V, user_batches, item_batches, cfg, solver,
+                             ratings.n_users, ratings.n_items, dtype),
+                functools.partial(_iteration, U.clone(), V.clone(),
+                                  user_batches, item_batches, cfg, solver,
+                                  ratings.n_users, ratings.n_items, dtype),
+                dev)
         step = fused.replay
         tel["capture_s"] = time.perf_counter() - t0
         tel["warmup_calls"] = calls_per_iter
@@ -640,7 +648,8 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
         # the span a profiler reads one iteration's device time from
         # (scripts/profile_torch_als.py); it ends after the synchronize
         # (the implicit Grams and their eigh run inside it)
-        with torch.profiler.record_function("als_iteration"):
+        with torch.profiler.record_function("als_iteration"), \
+                costmon.executable(costmon.ALS_SWEEP, defer_to_outer=True):
             step()
             calls += calls_per_iter
             synchronize(dev)
@@ -682,20 +691,57 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
 # Scoring / prediction
 # ---------------------------------------------------------------------------
 
+def _users_topk_b(U: torch.Tensor, V: torch.Tensor, ixs: torch.Tensor,
+                  n_items: int, k: int, p: int):
+    """The serve program on bucket-padded tables: gather the users' rows,
+    score every item, mask the padding rows past `n_items` (-inf, sorted
+    last, dropped by the callers), top-k; with a pack mode `p` the one
+    output is the readback payload (`ops/readback.pack_device`)."""
+    scores = torch.matmul(U[ixs], V.T)
+    if V.shape[0] > n_items:
+        scores[:, n_items:] = float("-inf")
+    s, i = torch.topk(scores, k, dim=1)
+    return readback.pack_device(s, i, p) if p else (s, i)
+
+
+def _aot_batch_predict_builder(bound, u: int = 0, i: int = 0, b: int = 0,
+                               k: int = 0, r: int = 0, p: int = 0):
+    """(program, example arguments) of one `batch_predict` bucket for the
+    model `bound` names: its tables uploaded at the (u, i) row buckets,
+    the batch of user indices the static input."""
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    (model,) = bound
+    U = cached_put_rows(model.user_factors, u, model.device)
+    V = cached_put_rows(model.item_factors, i, model.device)
+    fn = functools.partial(_users_topk_b, U, V, n_items=model.n_items, k=k,
+                           p=p)
+    return fn, (torch.zeros(b, dtype=torch.int64, device=U.device),)
+
+
+_aot_specs_registered = False
+
+
+def register_aot_specs() -> None:
+    """Register this module's executable spec with the compile plane
+    (once; off import, so importing the module registers nothing)."""
+    global _aot_specs_registered
+    if _aot_specs_registered:
+        return
+    from predictionio_tpu_torch.compile.aot import get_aot
+    get_aot().register(costmon.BATCH_PREDICT, _aot_batch_predict_builder)
+    _aot_specs_registered = True
+
+
 def batch_predict_dims(model: ALSModel, batch: int, k: int) -> dict:
-    """The padded shape of one batched serve top-k over `model`: the
-    batch bucket `b`, the top-k bucket `k` (a pow2 from 16, at most the
-    item count) and the pack mode `p`; what the serve dispatch pads to
-    and the deploy warm-up covers."""
-    return {"b": B.bucket_batch(batch),
-            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), model.n_items),
-            "p": readback.pack_flag()}
-
-
-def _users_topk_impl(U: torch.Tensor, V: torch.Tensor, ixs: torch.Tensor,
-                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather the users' rows, score every item, top-k."""
-    return torch.topk(torch.matmul(U[ixs], V.T), k, dim=1)
+    """The shape-bucket dims of one batched serve top-k over `model`,
+    shared by the serve dispatch and the deploy warm-up: the tables' row
+    buckets `u` and `i`, the batch bucket `b`, the top-k bucket `k` (a
+    pow2 from 16, at most `i`), the rank `r` and the pack mode `p`."""
+    i_b = B.bucket_rows(model.n_items)
+    return {"u": B.bucket_rows(model.n_users), "i": i_b,
+            "b": B.bucket_batch(batch),
+            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), i_b),
+            "r": model.rank, "p": readback.pack_flag()}
 
 
 def users_topk_serve(model: ALSModel, user_ixs, k: int
@@ -707,25 +753,47 @@ def users_topk_serve(model: ALSModel, user_ixs, k: int
 def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
     """The serve path's batched top-k, in two stages: enqueue the work
     and the copy of its result to the host now, return `finish() ->
-    (scores [n, k_b], idx [n, k_b])` that waits for that copy. The batch
-    pads to its bucket (with user 0) and k to its bucket
-    (`batch_predict_dims`); the result rides `PIO_SERVE_PACK`'s payload
-    (`ops/readback.py`). The tables are exact-size, so the reference's
-    `n_items` mask over padded rows has nothing to mask. `finish` may run
-    on another thread; it is the only wait."""
+    (scores [n, k_b], idx [n, k_b])` that waits for that copy. The
+    tables are uploaded at their row buckets (`cached_put_rows`, once per
+    model), the batch pads to its bucket (with user 0) and k to its
+    bucket (`batch_predict_dims`); slots past the model's items come back
+    -inf, which the callers drop. The work dispatches through the
+    executable registry (`compile/aot.py`): a bucket captured for this
+    model replays its graph, another runs eagerly and is captured in the
+    background. A model whose items or users near their bucket has the
+    next bucket captured in the background too. The result rides
+    `PIO_SERVE_PACK`'s payload (`ops/readback.py`). `finish` may run on
+    another thread; it is the only wait."""
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    register_aot_specs()
     user_ixs = np.asarray(user_ixs, dtype=np.int64)
     n = user_ixs.shape[0]
     dims = batch_predict_dims(model, n, k)
     ixs = np.zeros(dims["b"], dtype=np.int64)
     ixs[:n] = user_ixs
-    U, V = model.tables()
-    scores, idx = _users_topk_impl(U, V, readback.to_device(ixs, U.device),
-                                   dims["k"])
-    if dims["p"]:
-        fetch = readback.begin_fetch_packed(
-            readback.pack_device(scores, idx, dims["p"]), dims["p"])
-    else:
-        fetch = readback.begin_fetch(scores, idx)
+    U = cached_put_rows(model.user_factors, dims["u"], model.device)
+    V = cached_put_rows(model.item_factors, dims["i"], model.device)
+    k_b, p = dims["k"], dims["p"]
+    aot = get_aot()
+    # a gates probe's dispatch keeps its gates_probe attribution
+    with costmon.executable(costmon.BATCH_PREDICT, defer_to_outer=True):
+        out = aot.dispatch(
+            costmon.BATCH_PREDICT, dims,
+            functools.partial(_users_topk_b, U, V, n_items=model.n_items,
+                              k=k_b, p=p),
+            readback.to_device(ixs, U.device), bound=(model,))
+    fetch = (readback.begin_fetch_packed(out, p) if p
+             else readback.begin_fetch(*out))
+    if B.should_promote(model.n_items, dims["i"]):
+        nxt = B.next_bucket(dims["i"])
+        aot.ensure(costmon.BATCH_PREDICT,
+                   dict(dims, i=nxt, k=min(k_b, nxt)), (model,),
+                   background=True)
+    if B.should_promote(model.n_users, dims["u"]):
+        aot.ensure(costmon.BATCH_PREDICT,
+                   dict(dims, u=B.next_bucket(dims["u"])), (model,),
+                   background=True)
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()

@@ -3,8 +3,8 @@ behind the device's work.
 
 The port's counterpart of `predictionio_tpu/ops/readback.py`
 (`pack_flag`, `pack_device`, `unpack_host`, `begin_fetch`,
-`begin_fetch_packed`, `thread_wait_s`, `stats_snapshot`,
-`overlap_frac`).
+`begin_fetch_packed`, `thread_wait_s`, `thread_d2h_bytes`,
+`stats_snapshot`, `overlap_frac`).
 
 * **One payload.** A serve window's top-k leaves the device as one
   contiguous `[B, K, slot]` uint8 tensor: the int32 ids, then the scores,
@@ -22,11 +22,13 @@ The port's counterpart of `predictionio_tpu/ops/readback.py`
   already on the host; its `wait()` hands it over as numpy.
 
 Every wait is counted: process-wide windows, bytes and submit/wait/span
-seconds (`stats_snapshot`, `overlap_frac`), and per thread the seconds
-spent waiting (`thread_wait_s`), which the micro-batcher samples around a
-window's `finish()`. The reference's Prometheus counters and its
-per-thread byte count (read only by its tenant attribution) belong to the
-observability plane, a later slice.
+seconds (`stats_snapshot`, `overlap_frac`, and the reference's
+`pio_serve_d2h_*` / `pio_serve_readback_windows_total` families on the
+process registry), the bytes in `obs/torchmon.record_d2h`, and per
+thread the seconds spent waiting and the bytes fetched (`thread_wait_s`,
+`thread_d2h_bytes`); the micro-batcher samples the first around a
+window's `finish()`. `pio_tenant_serve_d2h_bytes_total` books a window
+fetched under a registered tenant's scope (`obs/tenantctx`).
 """
 
 from __future__ import annotations
@@ -113,11 +115,40 @@ class _Stats:
 
 _STATS = _Stats()
 _TLS = threading.local()
+_metrics_lock = threading.Lock()
+_metrics: dict = {}
+
+
+def _get_metrics() -> dict:
+    with _metrics_lock:
+        if not _metrics:
+            from predictionio_tpu_torch.obs import get_registry
+            reg = get_registry()
+            _metrics["seconds"] = reg.counter(
+                "pio_serve_d2h_seconds_total",
+                "Serve readback device->host seconds by phase (submit = "
+                "copy initiation, wait = blocked completion wait)",
+                labelnames=("phase",))
+            _metrics["bytes"] = reg.counter(
+                "pio_serve_d2h_bytes_total",
+                "Serve readback bytes fetched device->host")
+            _metrics["windows"] = reg.counter(
+                "pio_serve_readback_windows_total",
+                "Serve windows fetched through the readback plane")
+            _metrics["tenant_bytes"] = reg.counter(
+                "pio_tenant_serve_d2h_bytes_total",
+                "Serve readback bytes by tenant", labelnames=("tenant",))
+        return _metrics
 
 
 def thread_wait_s() -> float:
     """Seconds this thread has spent blocked in `begin_fetch` waits."""
     return getattr(_TLS, "wait_s", 0.0)
+
+
+def thread_d2h_bytes() -> int:
+    """Bytes this thread has fetched through the readback plane."""
+    return getattr(_TLS, "bytes", 0)
 
 
 def begin_fetch(*tensors: torch.Tensor
@@ -128,6 +159,8 @@ def begin_fetch(*tensors: torch.Tensor
     thread's current stream behind the work). Each pinned buffer belongs
     to this window until its `wait()`; `wait()` may run on another
     thread."""
+    from predictionio_tpu_torch.obs import tenantctx, torchmon
+    tenant = tenantctx.metric_tenant_label()
     t0 = time.perf_counter()
     hosts, event = [], None
     for t in tensors:
@@ -150,6 +183,15 @@ def begin_fetch(*tensors: torch.Tensor
         t2 = time.perf_counter()
         nbytes = sum(int(a.nbytes) for a in out)
         _TLS.wait_s = thread_wait_s() + (t2 - t1)
+        _TLS.bytes = thread_d2h_bytes() + nbytes
+        torchmon.record_d2h(nbytes)
+        m = _get_metrics()
+        m["seconds"].labels(phase="submit").inc(submit_s)
+        m["seconds"].labels(phase="wait").inc(t2 - t1)
+        m["bytes"].inc(nbytes)
+        m["windows"].inc()
+        if tenant:
+            m["tenant_bytes"].labels(tenant=tenant).inc(nbytes)
         with _STATS.lock:
             _STATS.windows += 1
             _STATS.bytes += nbytes

@@ -3,21 +3,24 @@ model's device.
 
 The port's counterpart of `predictionio_tpu/ops/similarity.py`
 (`normalize_rows`, `cosine_top_k` computing `_cosine_topk`,
-`build_filter_mask`, `masked_topk_dims`, `masked_top_k_batch[_begin]`
-computing `_masked_topk_impl`, `unpack_top_k_rows`, and the DIMSUM
-template's `item_cosine_similarities`). Score = sum over the
+`build_filter_mask`, `masked_topk_dims`, `register_aot_specs`,
+`masked_top_k_batch[_begin]` computing `_masked_topk_b`,
+`unpack_top_k_rows`, and the DIMSUM template's
+`item_cosine_similarities`). Score = sum over the
 query items of cos(q, item); items not allowed by the host-built filter
 mask, or with score <= 0, are excluded (`masked_top_k_batch` keeps scores
 <= 0 when asked, for explicit-ALS dot scores). Plain PyTorch: one matmul
 and `torch.topk` over the item table resident on the device. The batched
-path pads its batch and top-k to pow2 buckets (`utils/buckets.py`) and
-returns its result through the packed readback (`ops/readback.py`); the
-item table stays exact-size. The sharded route is a later slice
-(ROADMAP.md, queue A).
+path pads the table's rows, its batch and its top-k to pow2 buckets
+(`compile/buckets.py`), dispatches through the executable registry
+(`compile/aot.py`: a captured CUDA graph, replayed) and returns its
+result through the packed readback (`ops/readback.py`). The sharded
+route is a later slice (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -26,7 +29,7 @@ import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
 from predictionio_tpu_torch.ops import readback
-from predictionio_tpu_torch.utils import buckets as B
+from predictionio_tpu_torch.compile import buckets as B
 
 
 def normalize_rows(factors: np.ndarray) -> np.ndarray:
@@ -77,13 +80,16 @@ def build_filter_mask(n_items: int, exclude: Sequence[int] = (),
     return mask
 
 
-def masked_topk_dims(n_items: int, batch: int, k: int) -> dict:
-    """The padded shape of one masked top-k: batch bucket `b`, top-k
-    bucket `k` (a pow2 from 16, at most the item count) and the pack
-    mode `p`."""
-    return {"b": B.bucket_batch(batch),
-            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), int(n_items)),
-            "p": readback.pack_flag()}
+def masked_topk_dims(n_items: int, rank: int, batch: int, k: int,
+                     filter_positive: bool = True) -> dict:
+    """The shape-bucket dims of one masked top-k, shared by the serve
+    dispatch and the deploy warm-up: batch bucket `b`, the table's row
+    bucket `i`, the rank `r`, top-k bucket `k` (a pow2 from 16, at most
+    `i`), the positive-score filter `fp` and the pack mode `p`."""
+    i_b = B.bucket_rows(n_items)
+    return {"b": B.bucket_batch(batch), "i": i_b, "r": int(rank),
+            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), i_b),
+            "fp": int(bool(filter_positive)), "p": readback.pack_flag()}
 
 
 def _masked_topk_impl(q: torch.Tensor, item_table: torch.Tensor,
@@ -97,6 +103,46 @@ def _masked_topk_impl(q: torch.Tensor, item_table: torch.Tensor,
     return torch.topk(scores, k, dim=1)
 
 
+def _masked_topk_b(table: torch.Tensor, q: torch.Tensor,
+                   allowed: torch.Tensor, k: int, filter_positive: bool,
+                   p: int):
+    """The masked serve program on a bucket-padded table (its padding
+    rows are masked out); with a pack mode `p` the one output is the
+    readback payload."""
+    s, i = _masked_topk_impl(q, table, allowed, k, filter_positive)
+    return readback.pack_device(s, i, p) if p else (s, i)
+
+
+def _aot_masked_topk_builder(bound, b: int = 0, i: int = 0, r: int = 0,
+                             k: int = 0, fp: int = 0, p: int = 0):
+    """(program, example arguments) of one `batch_predict_masked` bucket
+    over the item table `bound` names, padded to the row bucket `i` on
+    its device; the query vectors and masks are the static inputs."""
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    (item_table,) = bound
+    table = cached_put_rows(item_table, i)
+    fn = functools.partial(_masked_topk_b, table, k=k,
+                           filter_positive=bool(fp), p=p)
+    return fn, (torch.zeros((b, r), dtype=table.dtype, device=table.device),
+                torch.zeros((b, i), dtype=torch.bool, device=table.device))
+
+
+_aot_specs_registered = False
+
+
+def register_aot_specs() -> None:
+    """Register the masked top-k's executable spec with the compile
+    plane (once)."""
+    global _aot_specs_registered
+    if _aot_specs_registered:
+        return
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.obs import costmon
+    get_aot().register(costmon.BATCH_PREDICT_MASKED,
+                       _aot_masked_topk_builder)
+    _aot_specs_registered = True
+
+
 def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
                        masks: np.ndarray, k: int,
                        filter_positive: bool = True
@@ -108,9 +154,10 @@ def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
     bool. Items not allowed score -inf; `filter_positive` also drops
     scores <= 0 (the cosine templates' rule; explicit-ALS callers pass
     False, since their scores can be negative). Returns host ([B, k'],
-    [B, k']) with k' = min(bucketed k, I); callers drop the -inf slots
-    and cut to their own num (`unpack_top_k_rows`). The scores are those
-    `PIO_SERVE_PACK` sends (f16 by default)."""
+    [B, k']) with k' the bucketed k (at most the table's row bucket);
+    callers drop the -inf slots and cut to their own num
+    (`unpack_top_k_rows`). The scores are those `PIO_SERVE_PACK` sends
+    (f16 by default)."""
     return masked_top_k_batch_begin(item_table, query_vecs, masks, k,
                                     filter_positive=filter_positive)()
 
@@ -121,23 +168,42 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
     """`masked_top_k_batch` in two stages: upload the padded queries and
     masks, enqueue the ranking and the copy of its result now, and
     return `finish() -> (scores [B, k'], idx [B, k'])`, which waits for
-    the copy (it may run on another thread). Padding rows are masked
-    out entirely."""
+    the copy (it may run on another thread). The item table (on its
+    device) is padded to its row bucket once (`cached_put_rows`); the
+    batch pads to its bucket, and padding rows and columns are masked
+    out. The work dispatches through the executable registry
+    (`compile/aot.py`), keyed on the item table, and a table near its
+    bucket has the next bucket captured in the background."""
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    register_aot_specs()
     dev = item_table.device
+    n_items, rank = item_table.shape
     n = query_vecs.shape[0]
-    dims = masked_topk_dims(item_table.shape[0], n, k)
-    qp = np.zeros((dims["b"], query_vecs.shape[1]), dtype=np.float32)
+    dims = masked_topk_dims(n_items, rank, n, k, filter_positive)
+    qp = np.zeros((dims["b"], rank), dtype=np.float32)
     qp[:n] = query_vecs
-    mp = np.zeros((dims["b"], item_table.shape[0]), dtype=bool)
-    mp[:n] = masks
-    scores, idx = _masked_topk_impl(
-        readback.to_device(qp, dev), item_table, readback.to_device(mp, dev),
-        dims["k"], filter_positive)
-    if dims["p"]:
-        fetch = readback.begin_fetch_packed(
-            readback.pack_device(scores, idx, dims["p"]), dims["p"])
-    else:
-        fetch = readback.begin_fetch(scores, idx)
+    mp = np.zeros((dims["b"], dims["i"]), dtype=bool)
+    mp[:n, :n_items] = masks
+    table = cached_put_rows(item_table, dims["i"])
+    k_b, p = dims["k"], dims["p"]
+    aot = get_aot()
+    with costmon.executable(costmon.BATCH_PREDICT_MASKED,
+                            defer_to_outer=True):
+        out = aot.dispatch(
+            costmon.BATCH_PREDICT_MASKED, dims,
+            functools.partial(_masked_topk_b, table, k=k_b,
+                              filter_positive=filter_positive, p=p),
+            readback.to_device(qp, dev).to(table.dtype),
+            readback.to_device(mp, dev), bound=(item_table,))
+    fetch = (readback.begin_fetch_packed(out, p) if p
+             else readback.begin_fetch(*out))
+    if B.should_promote(n_items, dims["i"]):
+        nxt = B.next_bucket(dims["i"])
+        aot.ensure(costmon.BATCH_PREDICT_MASKED,
+                   dict(dims, i=nxt, k=min(k_b, nxt)), (item_table,),
+                   background=True)
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()

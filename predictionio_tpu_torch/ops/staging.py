@@ -7,7 +7,7 @@ chunk's copy and waiting for it, live here so that no stray wait in the
 plane can serialize the stream again:
 
 * `device_stage` pads each of a chunk's numeric columns to one
-  power-of-two row bucket (`utils.buckets.bucket_rows` of the longest
+  power-of-two row bucket (`compile.buckets.bucket_rows` of the longest
   column), so ragged chunk sizes land as a short ladder of shapes. On the
   card each column is padded into a pinned host buffer and copied with
   `non_blocking=True` on the stager's copy stream, and one CUDA event is
@@ -31,7 +31,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.utils.buckets import bucket_rows
+from predictionio_tpu_torch.compile.buckets import bucket_rows
 
 
 @dataclass

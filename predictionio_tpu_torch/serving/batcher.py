@@ -27,16 +27,19 @@ completion at `inflight`; formation blocks on it (counted as a stall).
 Adaptive sizing: each window derives a pow2 target from the known demand
 (undispatched and queued queries) and aims one bucket higher when the
 device is busy; the straggler hold scales with device occupancy and queue
-depth. The port has no cost monitor yet (ROADMAP.md, A8), so
-`_occupancy()` reads 0.0: what the reference reads with no dispatches
-booked. The signal is handed in when that monitor lands.
+depth. `_occupancy()` reads `obs/costmon.occupancy()`, the EWMA of the
+device time the serve dispatches book from CUDA events, as the
+reference's reads its cost monitor.
 
 Deadline shedding: `submit(deadline_s=)` refuses a query whose deadline
 the queue's wait bound already exceeds (`ShedError`, 503 + Retry-After).
 `stop()` completes the windows already dispatched and fails every queued
-query loudly (`ShutdownError`). The reference's tracing, tenants, metrics
-registry and flight recorder belong to the observability plane, a later
-slice; the counters live here and `stats()` reads them.
+query loudly (`ShutdownError`). With a `metrics` registry (the engine
+server's) the counters are also mounted as the reference's families
+(`pio_engine_batch*`, `pio_engine_shed_total`, `pio_serve_*`) and the
+per-query coalescing wait and per-window stage seconds are histograms.
+The reference's tracing, tenants and flight recorder belong to a later
+slice.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import time
 from typing import Any, Callable, Optional
 
 from predictionio_tpu_torch.ops import readback
-from predictionio_tpu_torch.utils.buckets import bucket_batch
+from predictionio_tpu_torch.compile.buckets import bucket_batch
 
 logger = logging.getLogger(__name__)
 
@@ -129,11 +132,11 @@ class MicroBatcher:
                  latency_budget_ms: Optional[float] = None,
                  process_batch_begin: Optional[Callable] = None,
                  inflight: Optional[int] = None,
-                 adaptive: bool = True):
+                 adaptive: bool = True, metrics=None):
         """process_batch: fn(List[query]) -> List[result].
         `process_batch_begin`: fn(List[query]) -> finish() -> results,
         the two-stage split the pipelined executor runs (with `inflight`
-        > 1)."""
+        > 1). `metrics`: a registry to mount the counters on."""
         self.process_batch = process_batch
         self.process_batch_begin = process_batch_begin
         self.max_batch = max_batch
@@ -175,6 +178,10 @@ class MicroBatcher:
         # formation blocked on the in-flight cap (backpressure)
         self.n_pipeline_stalls = 0
         self._q: "queue.Queue[_Pending]" = queue.Queue()
+        self.wait_hist = None
+        self.stage_hist = None
+        if metrics is not None:
+            self._register_metrics(metrics)
         self._stop = threading.Event()
         self._inflight_sem = threading.Semaphore(self.inflight)
         self._completions: "queue.Queue[Optional[_InFlight]]" = \
@@ -188,6 +195,72 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="pio-serve-formation")
         self._thread.start()
+
+    def _register_metrics(self, metrics) -> None:
+        self.wait_hist = metrics.histogram(
+            "pio_engine_batch_wait_seconds",
+            "Per-query time in the coalescing stage (enqueue -> dispatch)")
+        self.stage_hist = metrics.histogram(
+            "pio_serve_stage_seconds",
+            "Per-window wall time by pipeline stage (formation = first "
+            "dequeue -> dispatch, dispatch = the begin call, "
+            "completion_wait = dispatched -> completion thread pickup, "
+            "readback = blocked on the window's copy, completion = "
+            "answers + wakeup less the readback)",
+            labelnames=("stage",))
+        for st in STAGES:
+            self.stage_hist.labels(stage=st)
+        metrics.counter_func("pio_engine_batches_total",
+                             "Micro-batch dispatches",
+                             lambda: self.n_batches)
+        metrics.counter_func("pio_engine_batched_queries_total",
+                             "Queries through the micro-batcher",
+                             lambda: self.n_queries)
+        metrics.counter_func("pio_engine_immediate_batches_total",
+                             "Dispatches that never blocked on the window",
+                             lambda: self.n_immediate)
+        metrics.gauge_func("pio_engine_max_batch_size",
+                           "Largest coalesced batch",
+                           lambda: self.max_batch_seen)
+        metrics.counter_func(
+            "pio_engine_batch_exits_total",
+            "Why each dispatch closed its batch (drain_gate = the client "
+            "pool was the limit, window = straggler hold expired, full = "
+            "max_batch hit, adaptive = pow2 demand target reached)",
+            lambda: [({"reason": "full"}, self.n_exit_full),
+                     ({"reason": "drain_gate"}, self.n_exit_drain_gate),
+                     ({"reason": "window"}, self.n_exit_window),
+                     ({"reason": "adaptive"}, self.n_exit_adaptive)])
+        metrics.gauge_func(
+            "pio_engine_avg_inflight_at_dispatch",
+            "Mean submitted-unanswered queries at dispatch (the effective "
+            "concurrent-client count)",
+            lambda: round(self.inflight_at_dispatch_sum / self.n_batches, 3)
+            if self.n_batches else 0.0)
+        metrics.counter_func(
+            "pio_engine_shed_total",
+            "Queries refused at admission because the queue wait bound "
+            "exceeded their deadline (503 + Retry-After)",
+            lambda: self.n_shed)
+        metrics.gauge_func(
+            "pio_engine_queue_wait_bound_seconds",
+            "Current admission-time wait bound (queue depth x EWMA batch "
+            "service time + window)", lambda: self.queue_wait_bound_s())
+        metrics.gauge_func(
+            "pio_serve_inflight_batches",
+            "Windows dispatched to the device and not yet completed "
+            "(bounded by PIO_SERVE_INFLIGHT)",
+            lambda: self._inflight_batches)
+        metrics.counter_func(
+            "pio_serve_pipeline_stalls_total",
+            "Formation blocked on the in-flight window cap (backpressure: "
+            "device or completion is the bottleneck)",
+            lambda: self.n_pipeline_stalls)
+
+    def _stage(self, name: str, seconds: float) -> None:
+        self.stage_s[name] += seconds
+        if self.stage_hist is not None:
+            self.stage_hist.labels(stage=name).observe(seconds)
 
     def stats(self) -> dict:
         # queries read before batches: the derived average stays <=
@@ -257,9 +330,9 @@ class MicroBatcher:
 
     # -- adaptive sizing -----------------------------------------------------
     def _occupancy(self) -> float:
-        """The device's busy share in [0, 1]: 0.0 until the port has a
-        cost monitor."""
-        return 0.0
+        """The device's busy share in [0, 1], from the cost monitor."""
+        from predictionio_tpu_torch.obs import costmon
+        return costmon.occupancy()
 
     def _target_batch(self) -> int:
         """The pow2 target for this window: cover the known demand, one
@@ -345,7 +418,10 @@ class MicroBatcher:
                 self._fail_batch(batch, ShutdownError())
                 continue
             t_dispatch = time.perf_counter()
-            self.stage_s["formation"] += t_dispatch - t_first
+            if self.wait_hist is not None:
+                for p in batch:
+                    self.wait_hist.observe(t_dispatch - p.t_enqueue)
+            self._stage("formation", t_dispatch - t_first)
             if self.pipelined:
                 self._dispatch_pipelined(batch, t_dispatch)
                 continue
@@ -394,7 +470,7 @@ class MicroBatcher:
             self._fail_batch(batch, e)
             self._note_service_time(time.perf_counter() - t_dispatch)
             return
-        self.stage_s["dispatch"] += time.perf_counter() - t_dispatch
+        self._stage("dispatch", time.perf_counter() - t_dispatch)
         with self._flight_lock:
             self._inflight_batches += 1
         self._completions.put(_InFlight(batch, finish, t_dispatch))
@@ -434,10 +510,10 @@ class MicroBatcher:
             p.result = r
             p.event.set()
         rb_s = readback.thread_wait_s() - rb0
-        self.stage_s["completion_wait"] += t_c0 - item.t_ready
-        self.stage_s["readback"] += rb_s
-        self.stage_s["completion"] += max(
-            0.0, time.perf_counter() - t_c0 - rb_s)
+        self._stage("completion_wait", t_c0 - item.t_ready)
+        self._stage("readback", rb_s)
+        self._stage("completion", max(0.0, time.perf_counter() - t_c0
+                                      - rb_s))
         self._note_service_time(time.perf_counter() - item.t_dispatch)
 
     def _run_batch(self, batch):

@@ -24,10 +24,11 @@ on by default and bounded by the fold cadence. `PIO_SERVE_CACHE=off` (or
 `PIO_SERVE_CACHE_STRICT=1` also drops every entry whose cached result
 ranks a touched item.
 
-Budget: entry and byte caps, LRU eviction, O(1) a lookup. The reference
-exports its counters through a metrics registry; here `stats()` carries
-them. The tenant-namespaced view (`TenantResultCache`) rides with the
-tenancy plane.
+Budget: entry and byte caps, LRU eviction, O(1) a lookup. `stats()`
+carries the counters, and with a `metrics` registry (the engine
+server's) they are also the reference's `pio_serve_cache_*` families.
+The tenant-namespaced view (`TenantResultCache`) rides with the tenancy
+plane.
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ class ResultCache:
     """A thread-safe LRU of serialized responses, indexed by entity tag
     so a fold's swap drops its touched entries in O(touched)."""
 
-    def __init__(self, max_entries: int = 8192, max_bytes: int = 64 << 20):
+    def __init__(self, max_entries: int = 8192, max_bytes: int = 64 << 20,
+                 metrics=None):
         self.max_entries = int(max_entries)
         self.max_bytes = int(max_bytes)
         self._lock = threading.Lock()
@@ -130,6 +132,39 @@ class ResultCache:
         self.evictions = 0
         # dropped entries by reason (fold_swap, swap, reload, ...)
         self.invalidations: Dict[str, int] = {}
+        if metrics is not None:
+            self._register_metrics(metrics)
+
+    def _register_metrics(self, metrics) -> None:
+        """The reference's `pio_serve_cache_*` families, read from these
+        counters at scrape time."""
+        metrics.counter_func(
+            "pio_serve_cache_hits_total",
+            "Queries answered from the serving result cache (skipping "
+            "batch formation, dispatch and serialization)",
+            lambda: self.hits)
+        metrics.counter_func(
+            "pio_serve_cache_misses_total",
+            "Cacheable queries that missed the result cache",
+            lambda: self.misses)
+        metrics.counter_func(
+            "pio_serve_cache_invalidations_total",
+            "Cache entries dropped by invalidation, by reason (fold_swap = "
+            "touched-entity drop, others = whole-cache clears)",
+            lambda: [({"reason": r}, n) for r, n in
+                     sorted(self.invalidations.items())] or [(None, 0)])
+        metrics.counter_func(
+            "pio_serve_cache_evictions_total",
+            "Entries evicted by the entry/byte budget (LRU)",
+            lambda: self.evictions)
+        metrics.gauge_func(
+            "pio_serve_cache_entries",
+            "Entries resident in the serving result cache",
+            lambda: len(self._entries))
+        metrics.gauge_func(
+            "pio_serve_cache_bytes",
+            "Serialized bytes resident in the serving result cache",
+            lambda: self._bytes)
 
     # -- lookup and store --------------------------------------------------
     def get(self, key: Optional[str]) -> Optional[bytes]:

@@ -7,12 +7,14 @@ The port's counterpart of the query and deploy paths of
 COMPLETED one of its engine id/version/variant -> its engine factory ->
 the model blob -> the engine params from the instance's JSON -> the
 engine's `prepare_deploy`, which puts each model on its algorithm's
-device -> the warm-up -> the swap. The warm-up runs each algorithm's
-`batch_predict_begin(...)()` once for every pow2 batch bucket a window can
-pad to (up to `micro_batch`), on each path its `warm_queries` names, so
-the first query finds every shape cuBLAS and `torch.topk` will see
-already run; it is timed (`/stats.json` `warm`) and a failure fails
-`load()`. `/reload` restores the latest instance again and swaps it in
+device -> the warm-up -> the swap. The warm-up (`_warm_aot`,
+`compile/aot.warm_models`) captures, as CUDA graphs, the serve
+executables each algorithm's `aot_warm_specs` names for the new models:
+every pow2 batch bucket a window can pad to (up to `micro_batch`), so a
+window replays a graph from its first query. It is timed (`/stats.json`
+`aotWarm`), and a failed capture fails `load()` (the reference's warm is
+fail-soft); an algorithm without specs is not warmed, as in the
+reference. `/reload` restores the latest instance again and swaps it in
 (a hot swap: a query answers from the old or the new models, never a
 mix); `/stop` shuts the server down. A server may also be handed a
 trained engine (`TrainResult`) directly.
@@ -73,8 +75,17 @@ logged. Output plugins (`PIO_ENGINE_SERVER_PLUGINS`,
 `serving/plugins.py`) then see the prediction: sniffers observe it and
 blockers transform the response. Both run on both query paths, and
 either one turns the result cache off, since every answer must post its
-event and pass the plugins. The metrics and tracing routes are a later
-slice.
+event and pass the plugins.
+
+`GET /metrics` renders the server's `MetricsRegistry` (chained to the
+process-wide one) in the Prometheus text format: the reference's serve,
+batcher, readback, result-cache, canary and guard families, and the
+process's compile plane, device time, transfer bytes and fold families.
+`/stats.json` carries the registry's `aot` snapshot, the device time by
+executable and the occupancy (`deviceTime`), the build directory's
+status (`buildCache`; the reference's `xlaCache`) and
+`swapToFirstQueryMs`, the wall from the latest model change to its first
+served query. Tracing is a later slice.
 
 The routes are served by `utils/http` (`Router`, `HttpServer`), as the
 event server's are: an unknown path answers 404 and a known path asked
@@ -83,6 +94,7 @@ with another method 405.
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import threading
@@ -90,6 +102,8 @@ import time
 import urllib.request
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 from predictionio_tpu_torch.core.engine import (Engine, EngineParams,
                                                 TrainResult)
@@ -101,11 +115,12 @@ from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
                                                  CanaryController,
                                                  count_nonfinite)
 from predictionio_tpu_torch.models import get_engine_factory
+from predictionio_tpu_torch.obs import (MetricsRegistry, costmon,
+                                        get_registry, torchmon)
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.serving import result_cache as RC
 from predictionio_tpu_torch.serving.batcher import MicroBatcher
 from predictionio_tpu_torch.serving.plugins import EngineServerPluginContext
-from predictionio_tpu_torch.utils.buckets import batch_ladder
 from predictionio_tpu_torch.utils.http import (HttpServer, Request, Response,
                                                Router)
 
@@ -196,7 +211,17 @@ class EngineServer:
             self.serving = engine.make_serving(engine_params)
         self.request_count = 0
         self.serving_seconds = 0.0
-        self.last_warm: Optional[dict] = None
+        self.last_serving_sec = 0.0
+        # the dispatch and readback share of the serving time
+        self.predict_seconds = 0.0
+        # recent serving times, for the p50/p95/p99 of /stats.json
+        self._lat_ring = collections.deque(maxlen=4096)
+        self.last_aot_warm: Optional[dict] = None
+        # armed by every model change: (version, t0, candidate only, the
+        # model list it installed); the first query that served it
+        # closes it into last_swap_to_first_query_ms
+        self._swap_marker = None
+        self.last_swap_to_first_query_ms: Optional[float] = None
         # online updates: swaps after the first load, fold-ins that
         # landed, the version that answers, and a failed publish's mark
         self.swap_count = 0
@@ -211,18 +236,29 @@ class EngineServer:
         # the canary watchdog's verdict goes here (attach_scheduler sets
         # the scheduler's note_canary_decision); None: to the registry
         self.on_canary_decision = None
+        # this server's metrics registry, chained to the process-wide one
+        # (the compile plane, device time, transfers, the fold)
+        torchmon.install()
+        costmon.install()
+        self.metrics = MetricsRegistry(parent=get_registry())
+        self._h_query = self.metrics.histogram(
+            "pio_engine_query_seconds",
+            "Per-query serving latency (batched queries observe the "
+            "window's wall time each)")
         self.canary = CanaryController(CanaryConfig(
             fraction=config.canary_fraction,
             window_s=config.canary_window_s,
             min_requests=config.canary_min_requests,
             max_error_ratio=config.canary_max_error_ratio,
             max_latency_ratio=config.canary_max_latency_ratio,
-            nan_tolerance=config.canary_nan_tolerance))
+            nan_tolerance=config.canary_nan_tolerance),
+            registry=self.metrics)
         self.result_cache: Optional[RC.ResultCache] = None
         if config.result_cache and RC.cache_enabled():
             self.result_cache = RC.ResultCache(
                 max_entries=config.result_cache_max_entries,
-                max_bytes=config.result_cache_max_bytes)
+                max_bytes=config.result_cache_max_bytes,
+                metrics=self.metrics)
         self._lock = threading.Lock()
         self._httpd: Optional[HttpServer] = None
         self.batcher: Optional[MicroBatcher] = None
@@ -233,7 +269,66 @@ class EngineServer:
                 latency_budget_ms=config.micro_batch_latency_budget_ms,
                 process_batch_begin=self.handle_query_batch_begin,
                 inflight=config.serve_inflight,
-                adaptive=config.adaptive_batching)
+                adaptive=config.adaptive_batching, metrics=self.metrics)
+        self._register_metrics()
+
+    def _register_metrics(self) -> None:
+        """Mount the serving counters on the registry: func collectors
+        read the live attributes at scrape time."""
+        m = self.metrics
+        m.counter_func("pio_engine_requests_total", "Queries served",
+                       lambda: self.request_count)
+        m.counter_func("pio_engine_serving_seconds_total",
+                       "Cumulative serve wall time",
+                       lambda: self.serving_seconds)
+        m.counter_func("pio_engine_predict_seconds_total",
+                       "Cumulative device/predict time",
+                       lambda: self.predict_seconds)
+        m.counter_func("pio_engine_model_swaps_total",
+                       "Hot model swaps since start (reloads + fold-ins)",
+                       lambda: self.swap_count)
+        m.counter_func("pio_engine_fold_ins_total",
+                       "Online fold-in swaps since start",
+                       lambda: self.fold_in_count)
+        m.counter_func("pio_engine_fold_in_events_total",
+                       "Events absorbed by online fold-ins",
+                       lambda: self.fold_in_events)
+        m.summary_func("pio_engine_serving_seconds",
+                       "Recent serving-time quantiles (rolling ring)",
+                       self._quantile_samples)
+        m.gauge_func("pio_engine_model_stale",
+                     "1 while serving a stale model because a fold-in "
+                     "publish/hot-swap failed",
+                     lambda: int(self.publish_degraded))
+        m.gauge_func("pio_engine_model_staleness_seconds",
+                     "Age of the serving model (since last load/swap)",
+                     lambda: self.model_staleness_s())
+        m.counter_func("pio_engine_publish_failures_total",
+                       "Fold-in publish/hot-swap failures reported by the "
+                       "scheduler", lambda: self.publish_failures)
+        m.gauge_func("pio_guard_canary_state",
+                     "1 while a canary candidate version serves a fraction "
+                     "of this server's traffic",
+                     lambda: int(self.canary.active))
+        m.gauge_func("pio_engine_swap_to_first_query_ms",
+                     "Wall ms from the latest model change (load, hot-swap, "
+                     "canary stage/promote) to its first served query",
+                     lambda: self.last_swap_to_first_query_ms or 0.0)
+
+    def _ring_percentiles(self):
+        """(p50, p95, p99) of recent serving seconds, or None before any
+        traffic. The caller holds the lock."""
+        if not self._lat_ring:
+            return None
+        return np.percentile(list(self._lat_ring), (50, 95, 99))
+
+    def _quantile_samples(self):
+        with self._lock:
+            pct = self._ring_percentiles()
+        if pct is None:
+            return None
+        return [({"quantile": q}, float(v))
+                for q, v in zip(("0.5", "0.95", "0.99"), pct)]
 
     # -- model loading (createServerActorWithEngine, :206-265) -------------
     def load_engine_instance(self):
@@ -280,7 +375,7 @@ class EngineServer:
             })
         result = engine.prepare_deploy(engine_params, persisted, instance.id)
         serving = engine.make_serving(engine_params)
-        warm = self.warm(result.algorithms, result.models)
+        warm = self._warm_aot(result.algorithms, result.models, instance.id)
         with self._lock:
             if self.algorithms:
                 self.swap_count += 1   # a /reload, not the first load
@@ -290,7 +385,7 @@ class EngineServer:
             self.algorithms = result.algorithms
             self.models = result.models
             self.serving = serving
-            self.last_warm = dict(warm, version=instance.id)
+            self.last_aot_warm = warm
             self.model_version = instance.id
             # an operator's (re)load is a trusted deploy: the rollback
             # anchor; it supersedes an undecided canary staged on the
@@ -302,29 +397,51 @@ class EngineServer:
         # a load rebuilds the models wholesale: no touched-row lineage
         if self.result_cache is not None:
             self.result_cache.invalidate_all("reload")
+        self._arm_swap_marker(instance.id, models_token=result.models)
         logger.info("Engine instance %s loaded (%d algorithm(s)), warmed "
                     "in %.3f s", instance.id, len(result.algorithms),
-                    warm["seconds"])
+                    warm["wallS"])
         return self
 
-    def warm(self, algorithms, models) -> dict:
-        """Run every algorithm's `batch_predict_begin(...)()` once for
-        each batch bucket a window can pad to, on each of its
-        `warm_queries`. Raises what a warm window raises."""
-        t0 = time.perf_counter()
-        ladder = batch_ladder(self.config.micro_batch)
-        windows = 0
-        for algo, model in zip(algorithms, models):
-            make = getattr(algo, "warm_queries", None)
-            if make is None or not hasattr(algo, "batch_predict_begin"):
-                continue
-            for query in make(model):
-                for b in ladder:
-                    algo.batch_predict_begin(
-                        model, [(i, query) for i in range(b)])()
-                    windows += 1
-        return {"seconds": time.perf_counter() - t0, "windows": windows,
-                "batches": ladder}
+    # -- the compile plane --------------------------------------------------
+    def _warm_aot(self, algorithms, models, version: Optional[str]) -> dict:
+        """Capture the serving executables of `models` before they take a
+        request (`compile/aot.warm_models` over the micro-batcher's
+        ladder): the caller (a load, a swap, a canary stage) pays the
+        captures, never a query. Raises what a capture raises."""
+        from predictionio_tpu_torch.compile.aot import warm_models
+        summary = warm_models(algorithms, models,
+                              batch_hint=max(self.config.micro_batch, 1),
+                              version=version)
+        return dict(summary, version=version)
+
+    def _arm_swap_marker(self, version: Optional[str],
+                         candidate_only: bool = False,
+                         models_token=None) -> None:
+        """Start the swap-to-first-query clock. `models_token` is the
+        model list the change installed: only a query that served it
+        closes the marker (one in flight on the old models would bank a
+        false ~0 ms); a canary stage passes none and waits for the first
+        candidate-served query."""
+        with self._lock:
+            self._swap_marker = (version, time.perf_counter(),
+                                 candidate_only, models_token)
+
+    def _close_swap_marker(self, arm: str, models_used=None) -> None:
+        marker = self._swap_marker
+        if marker is None:
+            return
+        _version, t0, candidate_only, token = marker
+        if candidate_only and arm != CANDIDATE:
+            return
+        if token is not None and models_used is not token:
+            return
+        with self._lock:
+            if self._swap_marker is not marker:
+                return
+            self._swap_marker = None
+            self.last_swap_to_first_query_ms = \
+                (time.perf_counter() - t0) * 1000.0
 
     def reload(self) -> None:
         """Hot-swap to the latest COMPLETED instance of the loaded one's
@@ -340,12 +457,12 @@ class EngineServer:
     def swap_models(self, models, version: Optional[str] = None,
                     fold_in_events: int = 0,
                     touched_entities: Optional[dict] = None) -> None:
-        """The in-process hot swap of a fold-in publish: warm the new
-        models (`warm`), then replace the whole model list under the
-        serving lock, so a window answers from the old set or the new,
-        never a mix (a fold makes new model objects and mutates none).
-        With a canary on, the warmed models are staged as its candidate
-        instead.
+        """The in-process hot swap of a fold-in publish: capture the new
+        models' serve executables (`_warm_aot`), then replace the whole
+        model list under the serving lock, so a window answers from the
+        old set or the new, never a mix (a fold makes new model objects
+        and mutates none). With a canary on, the warmed models are staged
+        as its candidate instead.
 
         `touched_entities` ({"user": ids, "item": ids}): the rows the
         fold re-solved; the result cache drops only their entries. None
@@ -356,10 +473,11 @@ class EngineServer:
         if len(models) != len(algorithms):
             raise ValueError(f"swap_models got {len(models)} models for "
                              f"{len(algorithms)} algorithms")
-        warm = self.warm(algorithms, models)
+        warm = self._warm_aot(algorithms, models, version)
         if self.canary.stage(models, version, int(fold_in_events)):
             with self._lock:
-                self.last_warm = dict(warm, version=version)
+                self.last_aot_warm = warm
+            self._arm_swap_marker(version, candidate_only=True)
             return
         with self._lock:
             self.models = models
@@ -368,9 +486,10 @@ class EngineServer:
             self.fold_in_events += int(fold_in_events)
             if version is not None:
                 self.model_version = version
-            self.last_warm = dict(warm, version=version)
+            self.last_aot_warm = warm
             self._last_swap_wall = time.time()
             self.publish_degraded = False
+        self._arm_swap_marker(version, models_token=models)
         if self.result_cache is not None:
             if touched_entities is not None:
                 self.result_cache.invalidate_entities(
@@ -434,6 +553,7 @@ class EngineServer:
                 self.last_good_version = self.model_version
                 self._last_swap_wall = time.time()
                 self.publish_degraded = False
+            self._arm_swap_marker(version, models_token=decision["models"])
             if self.result_cache is not None:
                 # the staged candidate's lineage is gone by now
                 self.result_cache.invalidate_all("canary_promote")
@@ -502,8 +622,10 @@ class EngineServer:
         query = self.decode(query_dict, algorithms)
         try:
             supplemented = serving.supplement(query)
+            tp = time.perf_counter()
             predictions = [algo.predict(model, supplemented)
                            for algo, model in zip(algorithms, models)]
+            predict_dt = time.perf_counter() - tp
             out = self._to_dict(serving.serve(query, predictions))
         except Exception:
             self._canary_observe(arm, error=True,
@@ -514,6 +636,11 @@ class EngineServer:
         with self._lock:
             self.request_count += 1
             self.serving_seconds += dt
+            self.last_serving_sec = dt
+            self.predict_seconds += predict_dt
+            self._lat_ring.append(dt)
+        self._h_query.observe(dt)
+        self._close_swap_marker(arm, models_used=models)
         self._canary_observe(arm, pred_dicts=(out,), latency_s=dt)
         if canary_models is not None:
             out = dict(out, **{CANARY_TAG: canary_version or CANDIDATE})
@@ -542,6 +669,7 @@ class EngineServer:
         try:
             indexed = [(i, serving.supplement(q))
                        for i, q in enumerate(queries)]
+            tp = time.perf_counter()
             fetchers = []
             for algo, model in zip(algorithms, models):
                 begin = getattr(algo, "batch_predict_begin", None)
@@ -550,6 +678,7 @@ class EngineServer:
                 else:
                     res = algo.batch_predict(model, indexed)
                     fetchers.append(lambda res=res: res)
+            dispatch_dt = time.perf_counter() - tp
         except Exception:
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0, n=n)
@@ -557,7 +686,9 @@ class EngineServer:
 
         def finish() -> List[dict]:
             try:
+                tr = time.perf_counter()
                 per_algo = [dict(f()) for f in fetchers]
+                readback_dt = time.perf_counter() - tr
                 out = [self._post_process(d, self._to_dict(serving.serve(
                     q, [pa[i] for pa in per_algo])))
                     for i, (q, d) in enumerate(items)]
@@ -570,6 +701,12 @@ class EngineServer:
             with self._lock:
                 self.request_count += n
                 self.serving_seconds += dt * n
+                self.last_serving_sec = dt
+                self.predict_seconds += dispatch_dt + readback_dt
+                self._lat_ring.extend([dt] * n)
+            for _ in range(n):
+                self._h_query.observe(dt)
+            self._close_swap_marker(arm, models_used=models)
             self._canary_observe(arm, pred_dicts=out, latency_s=dt, n=n)
             if canary_models is not None:
                 tag = {CANARY_TAG: canary_version or CANDIDATE}
@@ -591,19 +728,33 @@ class EngineServer:
 
     def stats(self) -> dict:
         """`/stats.json`: the status, the micro-batcher's counters (at the
-        top level, as the reference's), the last warm-up, the swap and
-        fold-in counters, the canary (`canary`, `lastGoodVersion`), the
-        result cache (`resultCache`, when on), the readback plane's
-        counters and the process's timed-out event point reads
-        (`pio_event_point_read_timeout_total`, the live business rules'
-        reads). A poll also runs the canary's watchdog, so an idle
-        server still lands its verdict."""
+        top level, as the reference's), the serving-time percentiles and
+        histograms, the last warm-up (`aotWarm`) and
+        `swapToFirstQueryMs`, the swap and fold-in counters, the canary
+        (`canary`, `lastGoodVersion`), the result cache (`resultCache`,
+        when on), the readback plane's counters, the process's timed-out
+        event point reads (`pio_event_point_read_timeout_total`, the live
+        business rules' reads), the executable registry (`aot`), the
+        device time (`deviceTime`) and the build directory
+        (`buildCache`). A poll also runs the canary's watchdog, so an
+        idle server still lands its verdict."""
+        from predictionio_tpu_torch.compile.aot import get_aot
+        from predictionio_tpu_torch.compile.cache import cache_status
         if self.canary.enabled:
             self._apply_canary_decision()
         out = self.status()
         out["microBatch"] = self.config.micro_batch
         with self._lock:
-            out["warm"] = self.last_warm
+            n = self.request_count
+            out["lastServingSec"] = self.last_serving_sec
+            out["avgPredictSec"] = self.predict_seconds / n if n else 0.0
+            pct = self._ring_percentiles()
+            if pct is not None:
+                out.update(p50ServingSec=float(pct[0]),
+                           p95ServingSec=float(pct[1]),
+                           p99ServingSec=float(pct[2]))
+            out["aotWarm"] = self.last_aot_warm
+            out["swapToFirstQueryMs"] = self.last_swap_to_first_query_ms
             out.update(modelSwaps=self.swap_count,
                        foldIns=self.fold_in_count,
                        foldInEvents=self.fold_in_events,
@@ -615,10 +766,15 @@ class EngineServer:
         out["canary"] = self.canary.stats()
         if self.result_cache is not None:
             out["resultCache"] = self.result_cache.stats()
+        out["queryLatency"] = self._h_query.snapshot()
         if self.batcher is not None:
+            out["batchWait"] = self.batcher.wait_hist.snapshot()
             out.update(self.batcher.stats())
         out["readback"] = readback.stats_snapshot()
         out.update(EventStore.point_read_stats())
+        out["aot"] = get_aot().snapshot()
+        out["buildCache"] = cache_status()
+        out["deviceTime"] = costmon.device_snapshot()
         return out
 
     def answer(self, query_dict, deadline_s: Optional[float] = None) -> dict:
@@ -758,11 +914,23 @@ class EngineServer:
         threading.Thread(target=self.stop, daemon=True).start()
         return Response(200, {"message": "Shutting down."})
 
+    def _metrics_route(self, req: Request) -> Response:
+        """Prometheus text exposition of this server's registry and the
+        process-wide one through its parent; `?exemplars=1` asks for the
+        OpenMetrics form."""
+        from predictionio_tpu_torch.utils.prometheus import (
+            CONTENT_TYPE, OPENMETRICS_CONTENT_TYPE, wants_exemplars)
+        om = wants_exemplars(req)
+        return Response(200, self.metrics.render(exemplars=om),
+                        content_type=(OPENMETRICS_CONTENT_TYPE if om
+                                      else CONTENT_TYPE))
+
     def _router(self) -> Router:
         r = Router()
         r.add("GET", "/", lambda req: Response(200, self.status()))
         r.add("POST", "/queries.json", self._queries_route)
         r.add("GET", "/stats.json", lambda req: Response(200, self.stats()))
+        r.add("GET", "/metrics", self._metrics_route)
         r.add("GET", "/plugins.json",
               lambda req: Response(200, self.plugin_context.to_dict()))
         for method in ("GET", "POST"):

@@ -2,7 +2,7 @@
 
 The port's counterpart of `version`, `status`, `train`, `eval`, `deploy`,
 `undeploy`, `update`, `rollback`, `eventserver`, `app`, `accesskey`,
-`export`, `import` and `trim` of `predictionio_tpu/tools/cli.py` (the
+`export`, `import`, `trim` and `cache` of `predictionio_tpu/tools/cli.py` (the
 reference's Console, Console.scala:186-651), with the same flags and
 messages. `train` runs
 `create_workflow_main` in this process; `eval` runs the Evaluation class
@@ -34,7 +34,11 @@ the foreground; `app` and `accesskey` manage apps, channels and access
 keys (`tools/app_commands.py`); `export`, `import` and `trim` move events
 between the store and JSON-lines or parquet files, or between apps
 (`tools/export_import.py`); `status` checks the storage and lists the
-CUDA devices, and exits 1 without one.
+CUDA devices, and exits 1 without one. `cache status` prints the salted
+build directory of the kernels (`compile/cache.py`: its salt, the
+libraries built there, stale salts) as JSON; `cache clear` removes the
+active salt's libraries (the next first use rebuilds them) and `--all`
+every salt's.
 
 The other commands of `bin/pio` (build, unregister, template, dashboard,
 adminserver, servers, snapshot, bootstrap and the rest) are not ported:
@@ -57,9 +61,9 @@ from typing import List, Optional
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
     "here: version, status, train, eval, deploy, undeploy, update, "
-    "rollback, eventserver, app, accesskey, export, import, trim. Still "
-    "only in the JAX package's bin/pio: build, template, dashboard and "
-    "the other commands.")
+    "rollback, eventserver, app, accesskey, export, import, trim, cache. "
+    "Still only in the JAX package's bin/pio: build, template, dashboard "
+    "and the other commands.")
 
 
 def cmd_version(args) -> int:
@@ -440,6 +444,17 @@ def cmd_trim(args) -> int:
     return 0
 
 
+def cmd_cache(args) -> int:
+    """`cache {status,clear [--all]}`: the salted build directory."""
+    from predictionio_tpu_torch.compile.cache import (cache_status,
+                                                      clear_cache)
+    if args.cache_cmd == "status":
+        print(json.dumps(cache_status(), indent=2, default=str))
+        return 0
+    print(json.dumps(clear_cache(all_salts=args.all)))
+    return 0
+
+
 def _add_variant_arg(sp) -> None:
     """The engine-variant file flag; --variant/-v are the reference's
     spellings (Console.scala:161)."""
@@ -639,6 +654,15 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--src-channelid", type=int)
     tr.add_argument("--dst-channelid", type=int)
     tr.set_defaults(func=cmd_trim)
+
+    ca = sub.add_parser("cache", help="the salted build directory of the "
+                        "kernels (the nvcc builds a later process loads)")
+    casub = ca.add_subparsers(dest="cache_cmd", required=True)
+    casub.add_parser("status")
+    cacl = casub.add_parser("clear")
+    cacl.add_argument("--all", action="store_true",
+                      help="also remove the other salts' directories")
+    ca.set_defaults(func=cmd_cache)
     return p
 
 

@@ -67,14 +67,17 @@ class Request:
 @dataclass
 class Response:
     status: int = 200
-    body: Any = None           # JSON-able, or bytes sent as they are
+    body: Any = None           # JSON-able; bytes and str sent as they are
     headers: Optional[Dict[str, str]] = None   # extra response headers
+    content_type: str = "application/json; charset=UTF-8"
 
     def payload(self) -> bytes:
         if self.body is None:
             return b""
         if isinstance(self.body, (bytes, bytearray)):
             return bytes(self.body)
+        if isinstance(self.body, str):
+            return self.body.encode("utf-8")
         return json.dumps(self.body).encode("utf-8")
 
 
@@ -183,8 +186,7 @@ class HttpServer:
                     headers=Headers(self.headers.items()), body=body))
                 payload = resp.payload()
                 self.send_response(resp.status)
-                self.send_header("Content-Type",
-                                 "application/json; charset=UTF-8")
+                self.send_header("Content-Type", resp.content_type)
                 for k, v in (resp.headers or {}).items():
                     self.send_header(k, v)
                 accept = self.headers.get("Accept-Encoding") or ""

@@ -10,8 +10,12 @@ card against the CPU's, the fused (CUDA graph) trains and the bf16
 tables, the naive Bayes counts and forest growth on the card against
 the CPU's, the data plane's pinned staging (a copy stream, an event a
 segment) and its executor on the card, the e2 library on the card
-against the CPU, and a feedback deploy on the card whose every answer
-lands through the event server as a `predict` event.
+against the CPU, a feedback deploy on the card whose every answer
+lands through the event server as a `predict` event, and the compile
+plane: a captured serve graph's replay bit-equal to the eager program,
+a new model's tables never served by the old model's graphs, two windows
+in flight each reading their own outputs, and a sampled CUDA-event
+device time inside its dispatch's wall.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -869,7 +873,7 @@ def test_staging_copies_from_pinned_buffers_on_a_side_stream(cuda):
     on the stager's stream, not the caller's; `wait_ready` times the
     event's wait and the values land whole."""
     from predictionio_tpu_torch.ops import staging
-    from predictionio_tpu_torch.utils.buckets import bucket_rows
+    from predictionio_tpu_torch.compile.buckets import bucket_rows
     n = 300_000
     cols = {"t": np.arange(n, dtype=np.int64),
             "v": np.random.default_rng(1).random(n).astype(np.float32)}
@@ -895,7 +899,7 @@ def test_bulk_load_on_the_card_round_trips(cuda):
     the bucket ladder, the window drained by `finish`, the staged rows
     byte-equal to the decoded host columns."""
     from predictionio_tpu_torch.dataplane import BulkLoadExecutor
-    from predictionio_tpu_torch.utils.buckets import bucket_rows
+    from predictionio_tpu_torch.compile.buckets import bucket_rows
 
     class Store:
         def find_columnar_chunked(self, app_name, **kw):
@@ -1017,3 +1021,115 @@ def test_feedback_deploy_on_the_card_posts_every_answer(cuda, tmp_path,
             if s is not None:
                 s.stop()
         registry.clear_cache()
+
+
+def _topk_model(seed, n_users=300, n_items=2000, rank=64, device="cuda"):
+    rng = np.random.default_rng(seed)
+    return TA.ALSModel(rng.standard_normal((n_users, rank)).astype(np.float32),
+                       rng.standard_normal((n_items, rank)).astype(np.float32),
+                       rank, torch.device(device))
+
+
+def test_a_replay_equals_the_eager_dispatch(cuda, monkeypatch):
+    """Every bucket of the batch ladder captured as a graph for one model:
+    its replay is bit-equal to the eager program on the same batch, and a
+    dispatch after the capture is a hit."""
+    from predictionio_tpu_torch.compile import buckets as B
+    from predictionio_tpu_torch.compile.aot import GraphExecutable, get_aot
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.ops import readback
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    monkeypatch.setenv("PIO_SERVE_PACK", "exact")
+    TA.register_aot_specs()
+    aot = get_aot()
+    m = _topk_model(1)
+    rng = np.random.default_rng(2)
+    for b in B.batch_ladder(32):
+        dims = TA.batch_predict_dims(m, b, 10)
+        exe = aot.ensure(costmon.BATCH_PREDICT, dims, (m,))
+        assert isinstance(exe, GraphExecutable)
+        ixs = torch.tensor(rng.integers(0, m.n_users, dims["b"]),
+                           device=cuda)
+        U = cached_put_rows(m.user_factors, dims["u"], cuda)
+        V = cached_put_rows(m.item_factors, dims["i"], cuda)
+        eager = TA._users_topk_b(U, V, ixs, m.n_items, dims["k"], dims["p"])
+        torch.testing.assert_close(exe(ixs), eager, rtol=0, atol=0)
+    hits = aot.snapshot()["dispatchHits"].get(costmon.BATCH_PREDICT, 0)
+    users = rng.integers(0, m.n_users, 5)
+    s, i = TA.users_topk_serve(m, users, 10)
+    assert aot.snapshot()["dispatchHits"][costmon.BATCH_PREDICT] == hits + 1
+    S = m.user_factors[users] @ m.item_factors.T
+    np.testing.assert_array_equal(i[:, :10], np.argsort(-S, axis=1)[:, :10])
+    assert readback.pack_flag() == readback.PACK_EXACT
+
+
+def test_a_swap_recaptures_and_never_replays_the_old_tables(cuda):
+    """A new model of the same shapes is a new key: its first dispatch
+    misses (no replay of the old model's graph), and once captured its
+    answers are its own; the old model's graphs go with it."""
+    import gc
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.obs import costmon
+    TA.register_aot_specs()
+    aot = get_aot()
+    old, new = _topk_model(3), _topk_model(4)
+    users = np.arange(8)
+    dims = TA.batch_predict_dims(old, len(users), 10)
+    aot.ensure(costmon.BATCH_PREDICT, dims, (old,))
+    before = aot.snapshot()
+    TA.users_topk_serve(new, users, 10)
+    for t in list(aot._threads):       # the miss's background capture
+        t.join(60)
+    after = aot.snapshot()
+    assert after["dispatchMisses"][costmon.BATCH_PREDICT] == \
+        before["dispatchMisses"].get(costmon.BATCH_PREDICT, 0) + 1
+    aot.ensure(costmon.BATCH_PREDICT, dims, (new,))
+    _, i = TA.users_topk_serve(new, users, 10)
+    S = new.user_factors[users] @ new.item_factors.T
+    np.testing.assert_array_equal(i[:, :10], np.argsort(-S, axis=1)[:, :10])
+    key = aot._key(costmon.BATCH_PREDICT, dims, (old,))
+    assert key in aot._compiled
+    del old
+    gc.collect()
+    assert key not in aot._compiled
+
+
+def test_two_windows_in_flight_read_their_own_outputs(cuda):
+    """Two dispatches of one captured bucket enqueued before either is
+    read: each window's readback holds its own users' answers."""
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.obs import costmon
+    TA.register_aot_specs()
+    m = _topk_model(5)
+    a, b = np.arange(0, 16), np.arange(100, 116)
+    get_aot().ensure(costmon.BATCH_PREDICT,
+                     TA.batch_predict_dims(m, 16, 10), (m,))
+    fa = TA.users_topk_serve_begin(m, a, 10)
+    fb = TA.users_topk_serve_begin(m, b, 10)
+    for users, finish in ((b, fb), (a, fa)):
+        _, i = finish()
+        S = m.user_factors[users] @ m.item_factors.T
+        np.testing.assert_array_equal(i[:, :10],
+                                      np.argsort(-S, axis=1)[:, :10])
+
+
+def test_the_cuda_event_device_time_is_inside_the_sampled_wall(cuda):
+    """A sampled dispatch books its CUDA-event time: above 0 and below
+    the wall from the call to the end of its work."""
+    import time
+    from predictionio_tpu_torch.obs import costmon
+    # no random draw: a capture in flight in another thread puts the
+    # default generator in capture mode
+    a = torch.full((4096, 4096), 0.5, device=cuda)
+    st = costmon._device_state("cuda_event_probe")
+    st.every = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    costmon.device_timed("cuda_event_probe", torch.matmul, a, a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    costmon.flush()
+    booked = costmon.device_time_by_executable()["cuda_event_probe"]
+    assert 0 < booked < wall, (booked, wall)
+    samples = costmon.device_samples_by_executable()["cuda_event_probe"]
+    assert samples == 1, samples

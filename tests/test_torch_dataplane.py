@@ -37,7 +37,7 @@ from predictionio_tpu_torch.dataplane import pipeline
 from predictionio_tpu_torch.models import recommendation as TR
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import staging
-from predictionio_tpu_torch.utils.buckets import bucket_rows
+from predictionio_tpu_torch.compile.buckets import bucket_rows
 from predictionio_tpu_torch.workflow import (WorkflowConfig,
                                              create_workflow_main)
 

@@ -366,7 +366,8 @@ def test_the_model_survives_serialization(store):
             tr.algorithms[0].predict(tr.models[0], q))
 
 
-def test_engine_json_trains_and_deploys(store, tmp_path):
+def test_engine_json_trains_and_deploys(store, tmp_path, monkeypatch):
+    monkeypatch.setenv("PIO_AOT_WARM", "on")
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
     from predictionio_tpu_torch.workflow import (WorkflowConfig,
@@ -390,7 +391,9 @@ def test_engine_json_trains_and_deploys(store, tmp_path):
         assert json.loads(body) == {"itemScores": []}
         stats = server.stats()
         assert stats["pio_event_point_read_timeout_total"] >= 0
-        assert stats["warm"]["windows"] == 0   # no batch_predict_begin
+        # no aot_warm_specs: unwarmed, as in the reference
+        assert stats["aotWarm"]["specs"] == 0
+        assert stats["aotWarm"]["compiled"] == 0
     finally:
         server.batcher.stop()
 

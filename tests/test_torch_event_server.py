@@ -17,7 +17,8 @@ authenticates on the other's server; the access-key cache's TTL
 semantics (as `tests/test_event_server.py::TestAuthCache`); 8 concurrent
 clients through the admission batcher write the same rows as serial
 posts; a leader whose insert raises hands the error to every follower;
-the observability routes answer 404 and the config has no spill fields.
+the observability routes other than `/metrics` answer 404 and the config
+has no spill fields.
 Every HTTP call carries a timeout and every server binds port 0.
 """
 
@@ -557,7 +558,7 @@ def test_observability_routes_and_spill_fields_are_not_ported(tmp_env):
                                               stats=True))
     s.start()
     try:
-        for path in ("/metrics", "/traces.json", "/flight.json",
+        for path in ("/traces.json", "/flight.json",
                      "/health.json", "/fleet/status.json",
                      "/incidents.json", "/profile.json"):
             assert call(s.config.port, "GET", path) == (

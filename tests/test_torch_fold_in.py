@@ -27,11 +27,12 @@ from predictionio_tpu.parallel.mesh import make_mesh
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap as TMap
 from predictionio_tpu_torch.data.synthetic import small_ratings
 from predictionio_tpu_torch.guard import sentinels as TS
+from predictionio_tpu_torch.obs import torchmon
 from predictionio_tpu_torch.online import fold_in as TF
 from predictionio_tpu_torch.ops import als as TA
 from predictionio_tpu_torch.ops.ratings import RatingsCOO as TCOO
 from predictionio_tpu_torch.ops.ratings import build_solve_plan as t_plan
-from predictionio_tpu_torch.utils import buckets as TBuckets
+from predictionio_tpu_torch.compile import buckets as TBuckets
 from predictionio_tpu_torch.utils import device_cache
 
 RANK = 16
@@ -148,13 +149,13 @@ def test_degenerate_tick_returns_the_model_itself(mesh1, case):
     tm = TA.ALSModel(U, V, RANK, None)
     out_j, sj = JF.fold_in_coo(jm, JCOO(ui, ii, vv, n_u, n_i), *args,
                                JF.FoldInConfig(**cfg), mesh=mesh1)
-    before = TF.h2d_bytes()
+    before = torchmon.thread_h2d_total()
     out_t, st = TF.fold_in_coo(tm, TCOO(ui, ii, vv, n_u, n_i), *args,
                                TF.FoldInConfig(**cfg), device="cpu",
                                resident_key="degenerate")
     assert out_j is jm and sj.degenerate
     assert out_t is tm and st.degenerate and st.solver_calls == 0
-    assert TF.h2d_bytes() == before     # no table went to the device
+    assert torchmon.h2d_delta(before) == 0   # no table went to the device
 
 
 @pytest.mark.parametrize("implicit", [False, True])
@@ -166,16 +167,16 @@ def test_second_tick_hits_the_residency_slot(implicit):
     cfg = TF.FoldInConfig(lam=0.1, implicit_prefs=implicit, sweeps=2,
                           work_budget=512)
     key = f"test-slot-{implicit}"
-    h0 = TF.h2d_bytes()
+    h0 = torchmon.thread_h2d_total()
     m1, s1 = TF.fold_in_coo(TA.ALSModel(U, V, RANK, None), TCOO(*coo), tu,
                             ti, cfg, device="cpu", resident_key=key)
-    h1 = TF.h2d_bytes() - h0
+    h1 = torchmon.thread_h2d_total() - h0
     assert not s1.resident_hit
     # the next tick: other touched rows of the same data
     tu2, ti2 = tu[:4], ti[-3:]
     m2, s2 = TF.fold_in_coo(m1, TCOO(*coo), tu2, ti2, cfg, device="cpu",
                             resident_key=key)
-    h2 = TF.h2d_bytes() - h0 - h1
+    h2 = torchmon.thread_h2d_total() - h0 - h1
     assert s2.resident_hit
     tables = (m1.user_factors.size + m1.item_factors.size) * 4
     assert h1 > tables and h2 < tables / 10, (h1, h2, tables)

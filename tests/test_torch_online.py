@@ -74,8 +74,9 @@ ALGOS = {
 DATASOURCE = {"recommendation": {"app_name": APP, "read_items": True},
               "similarproduct": {"app_name": APP, "rate_as_view": True}}
 # what the port's fold report adds to the reference's: the times of the
-# reference's tracing spans, and what the fold ran on its device
-PORT_REPORT_KEYS = {"readS", "publishS", "reloadS", "tickS"}
+# reference's tracing spans, what the fold ran on its device and the
+# process's device time by executable label
+PORT_REPORT_KEYS = {"readS", "publishS", "reloadS", "tickS", "deviceTime"}
 PORT_ALGO_KEYS = {"solverCalls", "launches"}
 
 

@@ -11,8 +11,10 @@ f16 step apart (2^-10 |s|); the port's through HTTP, the reference's
 through its micro-batcher (its listener's backlog of 5 resets some of 24
 simultaneous connects). A deployed port server hot-swaps on
 `/reload` with windows in flight and every answer equals one version's
-answer (ids exactly, scores to one f16 step); its warm-up is recorded in
-`/stats.json` and a failed warm-up fails `load()`.
+answer (ids exactly, scores to one f16 step); its warm-up (the executable
+registry's captures over the batch ladder, eager callables on the CPU)
+is recorded in `/stats.json` `aotWarm` and `aot`, and a failed capture
+fails `load()`.
 `X-PIO-Deadline-Ms` sheds with 503 and `Retry-After`, and a malformed
 value answers 400, in both servers; `micro_batch=1` answers through
 `predict` on the request thread.
@@ -40,7 +42,8 @@ from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.data.synthetic import synthetic_item_categories
 from predictionio_tpu_torch.models import recommendation as TR
 from predictionio_tpu_torch.serving.server import EngineServer, ServerConfig
-from predictionio_tpu_torch.utils.buckets import batch_ladder
+from predictionio_tpu_torch.compile import aot
+from predictionio_tpu_torch.compile.buckets import batch_ladder
 from predictionio_tpu_torch.weights import from_jax_model
 from predictionio_tpu_torch.workflow import (WorkflowConfig,
                                              create_workflow_main)
@@ -221,8 +224,10 @@ def write_variant(path, seed: int) -> str:
 @pytest.fixture()
 def deployed(tmp_env, tmp_path, monkeypatch):
     """Two instances trained from one store; a server deployed on the
-    first, pinned by id."""
+    first, pinned by id, warming its executables at every load as a
+    deploy does (the suite turns the warm off by default)."""
     monkeypatch.delenv("PIO_SERVE_PACK", raising=False)
+    monkeypatch.setenv("PIO_AOT_WARM", "on")
     TReg.clear_cache()
     populate()
     path = write_variant(tmp_path / "engine.json", 1)
@@ -251,10 +256,17 @@ def test_stats_carry_the_batching_block_and_the_warm_up(deployed):
                 "pipelineStalls", "stageSeconds", "readback"):
         assert key in st, key
     assert st["pipelined"] is True and st["inflightWindows"] == 2
-    warm = st["warm"]
-    assert warm["version"] == first and warm["seconds"] > 0
-    assert warm["batches"] == batch_ladder(16) == [1, 2, 4, 8, 16]
-    assert warm["windows"] == 2 * len(warm["batches"])   # plain + masked
+    warm = st["aotWarm"]
+    assert warm["version"] == first and warm["wallS"] > 0
+    ladder = batch_ladder(16)
+    assert ladder == [1, 2, 4, 8, 16]
+    # the plain and the masked top-k, each over the ladder
+    assert warm["specs"] == warm["compiled"] == 2 * len(ladder)
+    captured = st["aot"]["versions"][first]
+    assert sorted(captured) == ["batch_predict", "batch_predict_masked"]
+    assert sorted(int(b.split("-")[0][1:])
+                  for b in captured["batch_predict"]) == ladder
+    assert st["aot"]["failedBuckets"] == 0
     assert st["microBatch"] == 16
 
 
@@ -313,12 +325,12 @@ def test_a_failed_warm_up_fails_load_and_keeps_the_old_models(
     srv, first, second = deployed
     old = srv.models
 
-    def broken(self, model, queries):
-        raise RuntimeError("warm-up window failed")
+    def broken(fn, example_args):
+        raise RuntimeError("warm-up capture failed")
 
-    monkeypatch.setattr(TR.ALSAlgorithm, "batch_predict_begin", broken)
+    monkeypatch.setattr(aot, "_make_executable", broken)
     srv.config.engine_instance_id = second
-    with pytest.raises(RuntimeError, match="warm-up window failed"):
+    with pytest.raises(RuntimeError, match="warm-up capture failed"):
         srv.reload()
     assert srv.models is old and srv.engine_instance.id == first
 

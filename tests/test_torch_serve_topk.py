@@ -260,13 +260,18 @@ def test_batch_predict_is_begin_then_finish(rec, sim):
 
 
 def test_serve_shapes_pad_to_their_buckets(rec, monkeypatch):
+    """The bucket dims of both serve executables are the reference's:
+    the tables at their row buckets (64 here), batch and k at theirs."""
     monkeypatch.setenv("PIO_SERVE_PACK", "exact")
-    _, mt = rec
+    mj, mt = rec
     assert TALS.batch_predict_dims(mt.als, 5, 3) == \
-        {"b": 8, "k": 16, "p": 2}
-    assert TALS.batch_predict_dims(mt.als, 16, 20)["k"] == 32
-    assert TALS.batch_predict_dims(mt.als, 1, 40)["k"] == N_ITEMS
-    assert TSim.masked_topk_dims(N_ITEMS, 3, 2) == \
-        {"b": 4, "k": 16, "p": 2}
+        {"u": 64, "i": 64, "b": 8, "k": 16, "r": RANK, "p": 2}
+    for batch, k in ((5, 3), (16, 20), (1, 40), (3, 100)):
+        assert TALS.batch_predict_dims(mt.als, batch, k) == \
+            JALS.batch_predict_dims(mj.als, batch, k)
+        for fp in (False, True):
+            assert TSim.masked_topk_dims(N_ITEMS, RANK, batch, k, fp) == \
+                JSim.masked_topk_dims(N_ITEMS, RANK, batch, k, fp)
+    assert TALS.batch_predict_dims(mt.als, 1, 40)["k"] == 64
     s, i = TALS.users_topk_serve(mt.als, [1, 2, 3], 5)
     assert s.shape == i.shape == (3, 16)

@@ -141,7 +141,9 @@ def variant(path, **algo) -> str:
     return str(path)
 
 
-def test_run_train_trains_the_template_from_the_store(store, tmp_path):
+def test_run_train_trains_the_template_from_the_store(store, tmp_path,
+                                                      monkeypatch):
+    monkeypatch.setenv("PIO_AOT_WARM", "on")
     id_j = JW.create_workflow_main(JW.WorkflowConfig(
         engine_variant=variant(tmp_path / "jax.json")))
     path = variant(tmp_path / "port.json", solver="chol_cuda", device="cpu")
@@ -167,6 +169,7 @@ def test_run_train_trains_the_template_from_the_store(store, tmp_path):
                           "categories": ["c1"]})
         assert 0 < len(got["itemScores"]) <= 4
         assert all("title" in s for s in got["itemScores"])
-        assert srv.last_warm["windows"] == 5     # one path, 5 buckets
+        # the masked top-k's ladder, 1..16: 5 buckets
+        assert srv.last_aot_warm["compiled"] == 5
     finally:
         srv.stop()
