@@ -34,7 +34,7 @@ PyTorch version at the shapes its path gives it. Then:
   iterations), every solve through the Newton-Schulz kernel, served over
   `POST /queries.json`;
 - the product path (`pio train` -> `pio deploy`): a SQLite event store
-  populated through the bulk import with 5M synthetic `rate` events
+  populated through the bulk import with 4M synthetic `rate` events
   (138,493 users x 26,744 items, seed 0) and one `$set` per item
   (categories, creationYear); `create_workflow_main` on an engine.json
   variant trains rank-200 ALS (lam 0.05, 2 iterations, every solve
@@ -49,7 +49,7 @@ PyTorch version at the shapes its path gives it. Then:
   first train: the same train with `"stream": true` (`stream_train`:
   chunked store cursors, a reader thread and pinned double-buffered
   copies to the card; every solve a CG launch, the factor tables and id
-  maps bit-equal to the batch train's, 5,000,000 rows streamed, no kernel
+  maps bit-equal to the batch train's, 4,000,000 rows streamed, no kernel
   build mid-stream); `BulkLoadExecutor` on the card over the first
   1,000,000 rate events (`dataplane`: every segment a CUDA tensor on the
   bucket ladder copied from a pinned buffer, the rows copied back
@@ -157,6 +157,24 @@ scrapes the fold's families; `eventserver` holds its `/metrics` window
 counts to the events posted, route by route; `import_export` reads
 `cache status`, which must list the three kernel libraries.
 
+The diagnostics plane rides them too: after `serve_plane`'s bursts
+(the deploys' slow-query bound at SLOW_QUERY_MS), `diagnostics` reads
+each deploy's `/traces.json` (the query and `batch_predict` span trees,
+linked both ways; an inbound `X-PIO-Trace-Id` adopted), an exemplar of
+`/metrics?exemplars=1` that resolves, the `/slow.json` waterfalls (count
+and median ms of each stage), `/health.json`, `/flight.json`
+(`model_load`, `aot_warm`), a torch.profiler device trace over
+`/profile.json` around a 32-query burst (CUDA kernels and graph launches
+in its Chrome trace) and `status --telemetry --slo`; `eventserver`
+holds a distinct `traceId` in every single 201 and resolves the columnar
+write's; `rest_fold` resolves each batch's events to its ingest trace;
+`feedback` holds each `predict` event's ingest trace to the window that
+answered its traced query; `fold_inprocess` posts tick 2's views through
+an in-process event server and holds the `fold_tick` trace's links to
+their ingest traces, both ways, and the tick's CG launches against the
+CG kernels of its device trace; `canary` reads the rollback's incident
+bundle through `incidents list` and `incidents show`.
+
 The phases before the serve plane hold served scores to f32 and run with
 `PIO_SERVE_PACK=exact`.
 
@@ -251,7 +269,9 @@ KAPPA_HARD = 1e3          # the half-steps fault is held where kappa' =
 SCHULZ_QUERIES = 8        # Schulz-trained model's queries served
 # the product path: events in the store -> `pio train` -> persisted
 # instance -> `pio deploy` (bench.py's bench_product_path at full scale)
-STORE_DATA = (138_493, 26_744, 5_000_000)   # users, items, rate events
+# users, items, rate events: 4M since the diagnostics phases came in (5M
+# before; the smoke's time budget, PERF.md §4)
+STORE_DATA = (138_493, 26_744, 4_000_000)
 STORE_LAM = 0.05
 STORE_SEEDS = (1, 2)      # the first train's, and the retrain's /reload
 STORE_APP = "smokeapp"
@@ -326,7 +346,7 @@ CLS_APP = "clsapp"
 CLS_USERS = 50_000               # cls_*: one $set a user, 4 classes
 CLS_MEANS = ((8.0, 2.0, 1.0), (2.0, 8.0, 1.0), (1.0, 2.0, 8.0),
              (4.0, 4.0, 4.0))    # class-dependent Poisson means of attr0-2
-CLS_LAMS = (0.1, 1.0, 10.0)
+CLS_LAMS = (1.0,)                # one setting: the smoke's time budget
 CLS_EVAL_K = 3
 CLS_KEEP_ENV = "SMOKE_CLS_KEEP_DIR"   # where cls_eval's sweep keeps models
 CLS_NB_TOL = 1e-9                # naive Bayes pi/theta vs float64 numpy:
@@ -397,6 +417,19 @@ EVENT_FAMILIES = (
     "pio_event_window_start_seconds", "pio_event_window_events",
     "pio_event_window_statuses", "pio_jax_host_to_device_bytes_total")
 KERNEL_LIBRARIES = ["cg_solve.so", "chol_solve.so", "schulz_solve.so"]
+# the diagnostics plane (obs/): the serve-plane deploys' slow-query bound
+# (the reference's default is the serve-p99 SLO's 250 ms; 100 ms makes
+# the 32-client bursts yield a sample of waterfalls), the spans of a
+# window's batch_predict trace, the stages a waterfall may hold, and the
+# CG kernels' names in a device trace
+SLOW_QUERY_MS = 100
+WINDOW_SPANS = ["supplement", "predict", "readback", "post_process"]
+SLOW_STAGES = ("queue_wait", "batch_formation", "supplement", "dispatch",
+               "device_sync", "completion_wait", "d2h_wait", "unpack",
+               "post_process", "serialize")
+CG_KERNEL_NAME = r"cg_(warp|reg|stream)_kernel"
+ENGINE_SLOS = ["serve_p99", "fold_tick_duration", "model_staleness",
+               "guarded_deploys"]
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1648,7 +1681,7 @@ def store_truth(model) -> tuple:
 
 def populate_store(app_id: int) -> int:
     """The product path's events, through the bulk import
-    (`insert_columnar`): synthetic_ml20m's 5M ratings as `rate` events
+    (`insert_columnar`): synthetic_ml20m's 4M ratings as `rate` events
     (one millisecond apart), then one `$set` per item with 1-3 of 20
     categories and a creationYear. The rate events carry ids in
     insertion order, so the primary-key index grows by appends (the
@@ -2339,6 +2372,35 @@ def log_tail(path: str, n: int = 3000) -> str:
         return f.read()[-n:]
 
 
+def span_names(node: dict) -> list:
+    return [c["name"] for c in node.get("children", ())]
+
+
+def post_traced(url: str, body, trace_id: str) -> tuple:
+    """(status, parsed answer) of a POST of `body` as JSON carrying
+    `X-PIO-Trace-Id: trace_id`."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json",
+                 "X-PIO-Trace-Id": trace_id})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def device_trace_events(path: str) -> tuple:
+    """A Chrome trace's (kernel events, graph launches, CG kernels)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    graphs = [e for e in events
+              if str(e.get("name")).startswith("cudaGraphLaunch")]
+    cg = [e for e in kernels if re.search(CG_KERNEL_NAME, str(e["name"]))]
+    return kernels, graphs, cg
+
+
 def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
                      first_queries=None, warmed: bool = True,
                      extra_args=(), extra_env=None) -> None:
@@ -2670,6 +2732,138 @@ def compile_plane_check(name: str, dep: dict, stats: dict,
             "metrics_samples": len(samples), "scrape_ms": scrape_ms}
 
 
+def diag_queries(name: str, model, rng) -> list:
+    """Fresh queries (result-cache misses) for the device-trace burst."""
+    if name == "recommendation":
+        return [{"user": model.user_ix.id_of(int(k)), "num": SERVE_NUM}
+                for k in rng.choice(len(model.user_ix), SERVE_CLIENTS,
+                                    replace=False)]
+    return [{"items": [model.item_ix.id_of(int(k))], "num": SERVE_NUM}
+            for k in rng.choice(len(model.item_ix), SERVE_CLIENTS,
+                                replace=False)]
+
+
+def phase_diagnostics(name: str, dep: dict, model, workdir: str) -> dict:
+    """The diagnostics plane of a deployed process after its serve-plane
+    bursts: the `query` traces (a `batch_wait` span, one link) and the
+    `batch_predict` windows (the reference's four spans, linked both ways
+    to their queries); an inbound `X-PIO-Trace-Id` adopted; an exemplar on
+    `pio_engine_query_seconds` that resolves in `/traces.json`; the
+    `/slow.json` waterfalls (count and median ms of each stage);
+    `/health.json` with the engine SLOs; `/flight.json` holding
+    `model_load` and `aot_warm`; a torch.profiler device trace started
+    and stopped over `/profile.json` around a 32-query burst of fresh
+    queries, whose Chrome trace must hold CUDA kernels and graph
+    launches; the sampler's report; `status --telemetry --slo` against
+    the deploy."""
+    url = dep["url"]
+    t0 = time.perf_counter()
+    queries = get_json(url + "/traces.json?kind=query&n=128")["traces"]
+    windows = get_json(url + "/traces.json?kind=batch_predict&n=128"
+                       )["traces"]
+    traces_ms = (time.perf_counter() - t0) * 1e3 / 2
+    check(queries and windows, f"{name}: no query or window traces")
+    for t in queries:
+        check(span_names(t["root"]) == ["batch_wait"]
+              and len(t["links"]) == 1,
+              f"{name}: query trace {span_names(t['root'])} links "
+              f"{t['links']}")
+    by_id = {t["traceId"]: t for t in queries}
+    linked = 0
+    for w in windows:
+        check(span_names(w["root"]) == WINDOW_SPANS and w["links"]
+              and {"formationMs", "completionWaitMs", "batch"}
+              <= set(w["root"]["attrs"]),
+              f"{name}: window trace {span_names(w['root'])} "
+              f"{w['root'].get('attrs')}")
+        for tid in w["links"]:
+            if tid in by_id:
+                check(by_id[tid]["links"] == [w["traceId"]],
+                      f"{name}: query {tid} does not link its window")
+                linked += 1
+    check(linked > 0, f"{name}: no window linked a query in the rings")
+    inbound = f"{0x5e0000 + len(name):016x}"
+    q = diag_queries(name, model, np.random.default_rng(40))[0]
+    code, _ = post_traced(url + "/queries.json", dict(q, num=SERVE_NUM - 1),
+                          inbound)
+    got = get_json(url + f"/traces.json?trace_id={inbound}")["traces"]
+    check(code == 200 and any(t["traceId"] == inbound
+                              and t["kind"] == "query" for t in got),
+          f"{name}: the inbound trace id was not adopted: {got}")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url + "/metrics?exemplars=1",
+                                timeout=60) as r:
+        text = r.read().decode()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    ex = re.findall(r'^pio_engine_query_seconds_bucket\{[^}]*\} \S+ '
+                    r'# \{trace_id="([0-9a-f]+)"\}', text, re.M)
+    check(ex, f"{name}: no exemplar on pio_engine_query_seconds")
+    got = get_json(url + f"/traces.json?trace_id={ex[-1]}")["traces"]
+    check(any(t["traceId"] == ex[-1] for t in got),
+          f"{name}: exemplar {ex[-1]} does not resolve")
+    slow = get_json(url + "/slow.json?n=64")
+    stages = {}
+    for row in slow["slow"]:
+        for st in row["stages"]:
+            stages.setdefault(st["stage"], []).append(st["ms"])
+    check(slow["recorded"] > 0 and set(stages) <= set(SLOW_STAGES)
+          and {"queue_wait", "dispatch", "d2h_wait"} <= set(stages),
+          f"{name}: /slow.json recorded {slow['recorded']}, stages "
+          f"{sorted(stages)}")
+    waterfall = {st: {"n": len(stages[st]),
+                      "median_ms": float(np.median(stages[st]))}
+                 for st in SLOW_STAGES if st in stages}
+    health = get_json(url + "/health.json")
+    check(health["status"] in ("ok", "burning", "breached")
+          and [s["name"] for s in health["slo"]] == ENGINE_SLOS,
+          f"{name}: /health.json {health}")
+    kinds = {r["kind"] for r in get_json(url + "/flight.json?n=2048"
+                                         )["records"]}
+    check({"model_load", "aot_warm"} <= kinds,
+          f"{name}: /flight.json kinds {sorted(kinds)}")
+    trace_dir = os.path.join(workdir, f"trace_{name}")
+    t0 = time.perf_counter()
+    code, started = post_json(url + "/profile.json",
+                              {"action": "start", "dir": trace_dir})
+    start_s = time.perf_counter() - t0
+    check(code == 200 and started["tracing"]
+          and started["activities"] == ["CPU", "CUDA"],
+          f"{name}: profile start answered {code} {started}")
+    burst = diag_queries(name, model, np.random.default_rng(41))
+    results, wall = closed_loop(url, [[q] for q in burst])
+    check(all(r[1] == 200 for r in results), f"{name}: a traced query "
+          "failed")
+    t0 = time.perf_counter()
+    code, stopped = post_json(url + "/profile.json", {"action": "stop"})
+    stop_s = time.perf_counter() - t0
+    check(code == 200 and not stopped["tracing"]
+          and os.path.isfile(stopped.get("traceFile", "")),
+          f"{name}: profile stop answered {code} {stopped}")
+    kernels, graphs, _ = device_trace_events(stopped["traceFile"])
+    check(kernels and graphs, f"{name}: the device trace holds "
+          f"{len(kernels)} kernels and {len(graphs)} graph launches")
+    report = get_json(url + "/profile.json?action=report&top=5")
+    check(report["running"] and report["samples"] > 0
+          and report["topStacks"], f"{name}: profiler report {report}")
+    rc, said = cli_out("status", "--telemetry", "--slo", "--url", url)
+    check(rc == 0 and "overall:" in said and "serve_p99" in said
+          and "Slowest recent traces" in said,
+          f"{name}: status --telemetry --slo exited {rc}: {said}")
+    out = {"query_traces": len(queries), "window_traces": len(windows),
+           "windows_linked": linked, "traces_json_ms": traces_ms,
+           "exemplars": len(ex), "metrics_exemplar_scrape_ms": scrape_ms,
+           "slow_recorded": slow["recorded"],
+           "slow_threshold_ms": slow["thresholdMs"],
+           "waterfall": waterfall, "health": health["status"],
+           "flight_kinds": sorted(kinds), "profile_start_s": start_s,
+           "profile_stop_s": stop_s, "traced_burst_qps":
+           len(results) / wall, "trace_kernels": len(kernels),
+           "trace_graph_launches": len(graphs),
+           "profiler_samples": report["samples"]}
+    emit("diagnostics", template=name, **out)
+    return out
+
+
 def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
                       hold) -> dict:
     """32 closed-loop clients x 20 queries against a deployed process;
@@ -2843,7 +3037,8 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
         # enough samples in one burst for `compile_plane_check`'s p50
         phase_cli_deploy({"recommendation": rec_path,
                           "similarproduct": sim_path}, workdir, deps,
-                         extra_env={"PIO_DEVICE_SYNC_EVERY": "4"})
+                         extra_env={"PIO_DEVICE_SYNC_EVERY": "4",
+                                    "PIO_SLOW_QUERY_MS": str(SLOW_QUERY_MS)})
         truth = store_truth(rec_model)
         U64 = rec_model.als.user_factors.astype(np.float64)
         V64 = rec_model.als.item_factors.astype(np.float64)
@@ -2861,6 +3056,10 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
             lambda body, q, what: hold_similar(body, q, sim_model, T64,
                                                cats, what))
         del T64
+        phase_diagnostics("recommendation", deps["recommendation"],
+                          rec_model, workdir)
+        phase_diagnostics("similarproduct", deps["similarproduct"],
+                          sim_model, workdir)
         rec_iid = get_json(deps["recommendation"]["url"] + "/")[
             "engineInstanceId"]
         fold_launches, version, queries = phase_fold_update(
@@ -3226,12 +3425,21 @@ def phase_fold_inprocess(sim_path: str) -> int:
     float64 cosine top-k; touched rows against a float64 replay; the
     carried Gram against a recomputed one); tick 2 folds FOLD_VIEWS[1]
     more against the resident tables and must upload under
-    FOLD_H2D_SHARE of tick 1's bytes. The scheduler's cursor is this
-    phase's start, so the ticks fold this phase's events. Returns the CG
-    launches."""
+    FOLD_H2D_SHARE of tick 1's bytes. Tick 2's views go in through an
+    in-process event server (one `POST /events.json` each, so this
+    process's tracer holds their ingest traces): the `fold_tick` trace
+    must link every one of them and each must link the tick back; the
+    tick runs under a torch.profiler device trace whose CG kernel events
+    must be the tick's CG launches, one for one. The scheduler's cursor
+    is this phase's start, so the ticks fold this phase's events. Returns
+    the CG launches."""
+    from predictionio_tpu_torch.data.api.event_server import (
+        EventServer, EventServerConfig)
     from predictionio_tpu_torch.data.columnar import ColumnarBatch
     from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.data.storage.base import AccessKey
     from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.obs import TRACER, profiler
     from predictionio_tpu_torch.online import (SchedulerConfig,
                                                attach_scheduler)
     from predictionio_tpu_torch.online.fold_in import FoldInConfig
@@ -3240,11 +3448,16 @@ def phase_fold_inprocess(sim_path: str) -> int:
     from predictionio_tpu_torch.utils import device_cache
     app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
     ev = Storage.get_events()
+    key = "smoke-fold-inprocess"
+    Storage.get_meta_data_access_keys().insert(AccessKey(key, app.id, ()))
     rng = np.random.default_rng(12)
     server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
                                        engine_variant=sim_path)).load()
     server.start()
+    es = EventServer(EventServerConfig(ip="127.0.0.1", port=0,
+                                       stats=True)).start()
     url = f"http://127.0.0.1:{server.config.port}"
+    es_url = f"http://127.0.0.1:{es.config.port}"
     launches = 0
     try:
         (algo,) = server.algorithms
@@ -3275,9 +3488,57 @@ def phase_fold_inprocess(sim_path: str) -> int:
                     properties=[{"categories": list(new_meta[i][0])}
                                 for i in new_items]), app.id)
                 items[-16:] = [new_items[k % 2] for k in range(16)]
-            ev.insert_columnar(ColumnarBatch(n_views, "view", "user", users,
-                                             "item", items), app.id)
-            report, n = cg_tick(sched, f"fold_inprocess tick {t + 1}")
+                ev.insert_columnar(ColumnarBatch(n_views, "view", "user",
+                                                 users, "item", items),
+                                   app.id)
+                report, n = cg_tick(sched, f"fold_inprocess tick {t + 1}")
+            else:
+                ingest = []
+                t_post = time.perf_counter()
+                for u, i in zip(users, items):
+                    code, body = post_json(
+                        f"{es_url}/events.json?accessKey={key}",
+                        {"event": "view", "entityType": "user",
+                         "entityId": u, "targetEntityType": "item",
+                         "targetEntityId": i})
+                    check(code == 201 and body.get("traceId"),
+                          f"tick 2's view answered {code} {body}")
+                    ingest.append(body["traceId"])
+                post_s = time.perf_counter() - t_post
+                trace_dir = os.path.join(os.environ["PIO_FS_BASEDIR"],
+                                         "trace_fold")
+                code, started = profiler.profile_response(
+                    "start", {"dir": trace_dir})
+                check(code == 200 and started["activities"]
+                      == ["CPU", "CUDA"], f"device trace: {started}")
+                report, n = cg_tick(sched, f"fold_inprocess tick {t + 1}")
+                code, stopped = profiler.profile_response("stop")
+                check(code == 200, f"device trace stop: {stopped}")
+                _, _, cg = device_trace_events(stopped["traceFile"])
+                check(len(cg) == n, f"the device trace of tick 2 holds "
+                      f"{len(cg)} CG kernels, the tick launched {n}")
+                tick = next(
+                    (tr for tr in TRACER.snapshot(limit=8, kind="fold_tick")
+                     if set(ingest) <= set(tr["links"])), None)
+                check(tick is not None, "no fold_tick trace links tick 2's "
+                      "ingest traces")
+                back = [tid for tid in ingest
+                        if tick["traceId"] in (TRACER.get(tid).links
+                                               if TRACER.get(tid) else ())]
+                check(len(back) == len(ingest), f"{len(back)} of "
+                      f"{len(ingest)} ingest traces link the fold tick")
+                got = get_json(f"{es_url}/traces.json?trace_id={ingest[0]}"
+                               )["traces"]
+                check(any(tr["traceId"] == tick["traceId"] for tr in got),
+                      "the event server's /traces.json does not walk from "
+                      "an ingest trace to the fold tick")
+                emit("fold_inprocess_trace", events_posted=len(ingest),
+                     post_s=post_s, tick_links=len(tick["links"]),
+                     back_links=len(back),
+                     tick_spans=span_names(tick["root"]),
+                     trace_cg_kernels=len(cg), tick_cg_launches=n,
+                     profile_start_s=profiler.TORCH_TRACE.last_start_s,
+                     profile_stop_s=profiler.TORCH_TRACE.last_stop_s)
             (rep,) = report["algorithms"]
             launches += n
             after = server.models[0]
@@ -3360,6 +3621,7 @@ def phase_fold_inprocess(sim_path: str) -> int:
                  ("pio_device_time_seconds_total",
                   (("executable", "fold_side"), ("tenant", "")))))
     finally:
+        es.stop()
         server.stop()
     return launches
 
@@ -3696,6 +3958,28 @@ def phase_cache_fold(path: str, iid: str, model) -> int:
     return launches
 
 
+def canary_incident(version: str) -> dict:
+    """The planted candidate's rollback captured an incident bundle:
+    `incidents list` and `incidents show` (through `cli.main`) read it,
+    and it holds the canary's flight records and the server's state."""
+    from predictionio_tpu_torch.obs import get_incidents
+    check(get_incidents().drain(30.0), "the incident capture did not end")
+    rc, listed = cli_out("incidents", "list")
+    ids = [line.split()[0] for line in listed.splitlines()
+           if " canary_rollback " in line and version in line]
+    check(rc == 0 and len(ids) == 1,
+          f"incidents list exited {rc}: {listed}")
+    rc, shown = cli_out("incidents", "show", ids[0])
+    check(rc == 0 and f"canary rollback of {version}" in shown
+          and "canary_rollback" in shown.split("flight records", 1)[1]
+          and "canary_promote" in shown and "[engine_server]" in shown,
+          f"incidents show {ids[0]} exited {rc}: {shown[-3000:]}")
+    kinds = re.findall(r"#\s*\d+ (\S+)", shown)
+    return {"id": ids[0], "flight_records": len(kinds),
+            "canary_records": sorted({k for k in kinds
+                                      if k.startswith("canary_")})}
+
+
 def phase_canary(path: str, iid: str, model) -> int:
     """A guarded deploy in process: a server on instance `iid` with
     canary_fraction CANARY_FRACTION, a CANARY_WINDOW_S window and
@@ -3708,8 +3992,9 @@ def phase_canary(path: str, iid: str, model) -> int:
     candidate (non-finite creationYear on every item, published past the
     gates) must roll back on `nan_scores`; the incumbent's answers stay
     equal to their float64 top-k, the version is ROLLEDBACK, the latest
-    COMPLETED version is not it and the scheduler asks for a retrain.
-    Returns the CG launches."""
+    COMPLETED version is not it, the scheduler asks for a retrain and the
+    rollback left an incident bundle (`canary_incident`). Returns the CG
+    launches."""
     from predictionio_tpu_torch.data.event import utcnow
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.online import (ROLLEDBACK_STATUS,
@@ -3838,6 +4123,7 @@ def phase_canary(path: str, iid: str, model) -> int:
         tables64 = {id(candidate): tables64[id(candidate)]}
         after, _ = closed_loop_raw(url, [qs[4:] for qs in per_client])
         held(after, {None: candidate}, "canary after the rollback")
+        incident = canary_incident(bad_version)
         emit("canary", fraction=CANARY_FRACTION, window_s=CANARY_WINDOW_S,
              version=version, tick_s=report["tickS"], cg_launches=launches,
              staged=staged, promoted=promoted,
@@ -3845,7 +4131,7 @@ def phase_canary(path: str, iid: str, model) -> int:
                        "tagged_answers": tagged,
                        "status": instances.get(bad_version).status,
                        "latest_completed": latest.id,
-                       "retrain_requested": True},
+                       "retrain_requested": True, "incident": incident},
              incumbent_answers_held=len(after))
     finally:
         srv.stop()
@@ -4826,7 +5112,7 @@ def precision_at_k(tops, qa, k: int) -> tuple:
 
 
 def phase_rec_eval(workdir: str) -> int:
-    """`pio eval` on the 5M-event store: `create_workflow_main` on
+    """`pio eval` on the 4M-event store: `create_workflow_main` on
     `chip_smoke.RecEval` / `chip_smoke.RecSweep` (one read, EVAL_K folds,
     two lam settings, every solve a CG launch). Each setting's score is
     held to the PrecisionAtK of a float64 top-10 of the same tables,
@@ -5400,9 +5686,15 @@ def phase_eventserver(es: dict) -> None:
     res, wall = fan_out(es["url"], f"/events.json?accessKey={key}", [
         [ingest_event(c * n_each + j) for j in range(n_each)]
         for c in range(n_c)])
+    single_traces = set()
     for body, code, got, _ in res:
-        check(code == 201, f"POST /events.json answered {code} {got}")
+        check(code == 201 and re.fullmatch(r"[0-9a-f]{16}",
+                                           got.get("traceId", "")),
+              f"POST /events.json answered {code} {got}")
         posted[got["eventId"]] = body
+        single_traces.add(got["traceId"])
+    check(len(single_traces) == len(res),
+          f"{len(single_traces)} trace ids for {len(res)} single posts")
     rows["single"] = route_row(len(res), wall, [r[3] for r in res])
     rows["single"]["metrics"] = ingest_metrics(es, len(posted), len(posted))
     k0 = n_c * n_each
@@ -5433,6 +5725,12 @@ def phase_eventserver(es: dict) -> None:
           f"POST /events/columnar.json answered {code} "
           f"{ {k: v for k, v in got.items() if k != 'eventIds'} }")
     posted.update(zip(got["eventIds"], cols))
+    traced = get_json(f"{es['url']}/traces.json?trace_id={got['traceId']}"
+                      )["traces"]
+    check([t["kind"] for t in traced if t["traceId"] == got["traceId"]]
+          == ["event_ingest_columnar"]
+          and span_names(traced[0]["root"]) == ["storage_write"],
+          f"the columnar write's trace {got['traceId']}: {traced}")
     rows["columnar"] = route_row(INGEST_COLUMNAR, wall, [wall * 1e3])
     rows["columnar"]["metrics"] = ingest_metrics(es, len(posted),
                                                  len(posted) - INGEST_COLUMNAR
@@ -5648,12 +5946,26 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
                for u, t, r in zip(subj, tgt, rng.integers(1, 6, len(subj)))]
     batch_url = f"{es['url']}/batch/events.json?accessKey={key}"
     t0 = time.perf_counter()
+    batch_ids = []
     for lo in range(0, len(events), 50):
         code, got = post_json(batch_url, events[lo:lo + 50])
         check(code == 200 and {g["status"] for g in got} == {201},
               f"the fold's batch answered {code} {got}")
+        batch_ids.append([g["eventId"] for g in got])
     t_event = time.perf_counter()
     post_s = t_event - t0
+    # each batch's events resolve to the batch's one ingest trace
+    batch_traces = set()
+    for ids in batch_ids:
+        m = get_json(f"{es['url']}/traces.json?event_ids="
+                     + ",".join(ids))["eventTraces"]
+        check(set(m) == set(ids) and len(set(m.values())) == 1,
+              f"the batch's {len(ids)} events map to traces {m}")
+        (tid,) = set(m.values())
+        got = get_json(f"{es['url']}/traces.json?trace_id={tid}")["traces"]
+        check(any(t["traceId"] == tid and t["kind"] == "event_batch"
+                  for t in got), f"the batch trace {tid} does not resolve")
+        batch_traces.add(tid)
     fresh = fresh_touched(app.id, iid, model)
     tu_ids, ti_ids = fresh["users"], fresh["items"]
     check(set(subj) <= set(tu_ids) and set(tgt) <= set(ti_ids),
@@ -5732,6 +6044,7 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
                             f"rest_fold query {q}", f16=True)
                 for q, body in answers)
     emit("rest_fold", events_posted=len(events), post_s=post_s,
+         ingest_batch_traces=len(batch_traces),
          replay_s=replay_s, hold_s=time.perf_counter() - t_hold - replay_s,
          fresh_events=fresh["events"], grew=(algo_rep["newUsers"],
                                              algo_rep["newItems"]),
@@ -5756,10 +6069,12 @@ def phase_feedback(dep: dict, pub, version: str, fold_users: list,
     prediction the answer without the blocker's field, its entity id the
     prId (the query's, else the published version); the sniffer saw every
     query; the result cache holds nothing and hit nothing;
-    `/plugins.json` names both plugins. The lag from an answer to its
-    event being readable in the store is measured; then FEEDBACK_BENCH
-    closed-loop clients with feedback on, and how many of their events
-    land."""
+    `/plugins.json` names both plugins; each query carries an
+    `X-PIO-Trace-Id`, and its `predict` event's ingest trace (the event
+    server's `/traces.json?event_ids=`, at `dep["es_url"]`) is the window
+    the query's trace links. The lag from an answer to its event being
+    readable in the store is measured; then FEEDBACK_BENCH closed-loop
+    clients with feedback on, and how many of their events land."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     app_id = Storage.get_meta_data_apps().get_by_name(STORE_APP).id
     rng = np.random.default_rng(33)
@@ -5794,10 +6109,12 @@ def phase_feedback(dep: dict, pub, version: str, fold_users: list,
 
     poller = threading.Thread(target=poll, daemon=True)
     poller.start()
-    bodies = {}
+    bodies, qtrace = {}, {}
     try:
-        for q in queries:
-            code, body = post_json(dep["url"] + "/queries.json", q)
+        for k, q in enumerate(queries):
+            qtrace[q["user"]] = f"{0xfeed0000 + k:016x}"
+            code, body = post_traced(dep["url"] + "/queries.json", q,
+                                     qtrace[q["user"]])
             answered[q["user"]] = time.perf_counter()
             check(code == 200 and body["smokeTag"] == version,
                   f"feedback query {q} answered {code} {body}")
@@ -5811,6 +6128,23 @@ def phase_feedback(dep: dict, pub, version: str, fold_users: list,
     rows = predict_rows(row0[0])
     check(len(rows) == len(queries) and len(seen) == len(queries),
           f"{len(rows)} predict events landed for {len(queries)} answers")
+    # each predict event landed under the trace that answered its query:
+    # the query's window (the feedback POST sends the context it runs
+    # in, as the reference's does), which the query's trace links
+    ev_ids = {json.loads(props)["query"]["user"]: eid for eid, props in
+              store_sql("SELECT id, properties FROM {t} WHERE rowid>? AND "
+                        "+appid=? AND event='predict'", (row0[0], app_id))}
+    ingest = get_json(f"{dep['es_url']}/traces.json?event_ids="
+                      + ",".join(ev_ids.values()))["eventTraces"]
+    for user, eid in ev_ids.items():
+        got = get_json(dep["url"] + "/traces.json?trace_id="
+                       + qtrace[user])["traces"]
+        (qt,) = [t for t in got if t["traceId"] == qtrace[user]
+                 and t["kind"] == "query"]
+        check(ingest.get(eid) in qt["links"],
+              f"the predict event of {user} landed under "
+              f"{ingest.get(eid)}; its query {qt['traceId']} links "
+              f"{qt['links']}")
     by_user = {q["user"]: q for q in queries}
     for _, etype, eid, props in rows:
         p = json.loads(props)
@@ -5847,6 +6181,7 @@ def phase_feedback(dep: dict, pub, version: str, fold_users: list,
            and time.perf_counter() < deadline):
         time.sleep(0.1)
     emit("feedback", queries=len(queries), events_landed=len(rows),
+         traced_events=len(ev_ids),
          sniffed=sniffed, cache=cache, plugins=sorted(
              list(plugins["outputblocker"]) + list(plugins["outputsniffer"])),
          lag_p50_ms=float(np.percentile(lag, 50)),
@@ -5874,6 +6209,7 @@ def collection_phases(rec_path: str, workdir: str) -> int:
                         "new", STORE_APP)
         launches, pub, version, fold_users = phase_rest_fold(
             es, key, rec_path, workdir, deps)
+        deps["recommendation"]["es_url"] = es["url"]
         phase_feedback(deps["recommendation"], pub, version, fold_users,
                        workdir)
         phase_undeploy(deps)

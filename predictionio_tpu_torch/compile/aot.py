@@ -23,6 +23,9 @@ static input and output buffers:
   `capture_error_mode="thread_local"`, so a capture in a background
   thread (`ensure(background=True)`) does not stop the serving threads'
   work. A capture counts as a compile (`obs/torchmon`) under its label.
+  `capture_quiesced()` waits for the captures in flight and holds new
+  ones off (a device trace's start and stop, `obs/profiler.py`: a
+  device-wide synchronize would invalidate a capture in flight).
 - **Dispatch.** `dispatch(label, dims, fallback, *args, bound=)` copies
   the arguments (device tensors: a host copy cannot be captured, so the
   caller stages them) into the static inputs, replays the graph and
@@ -51,6 +54,7 @@ warm-up always has.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -81,6 +85,29 @@ def warm_enabled() -> bool:
         "off", "0", "false", "no")
 
 
+# captures in flight, and callers holding new ones off
+_capture_cv = threading.Condition()
+_captures_inflight = 0
+_capture_holds = 0
+
+
+@contextlib.contextmanager
+def capture_quiesced():
+    """Wait until no CUDA-graph capture is in flight and start none
+    while the block runs."""
+    global _capture_holds
+    with _capture_cv:
+        _capture_holds += 1
+        while _captures_inflight:
+            _capture_cv.wait()
+    try:
+        yield
+    finally:
+        with _capture_cv:
+            _capture_holds -= 1
+            _capture_cv.notify_all()
+
+
 def capture(graph, fn: Callable, device, pool=None, stream=None):
     """Capture `fn()` into `graph` on a side stream (`stream`, else a new
     one) with `capture_error_mode="thread_local"`, and return what `fn`
@@ -91,15 +118,26 @@ def capture(graph, fn: Callable, device, pool=None, stream=None):
     port synchronizes streams, `device.synchronize`, never the device).
     `pool` shares a memory pool between graphs."""
     import torch
-    side = stream if stream is not None else torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(device).wait_stream(side)
+    global _captures_inflight
+    with _capture_cv:
+        while _capture_holds:
+            _capture_cv.wait()
+        _captures_inflight += 1
+    try:
+        side = stream if stream is not None else torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+    finally:
+        with _capture_cv:
+            _captures_inflight -= 1
+            _capture_cv.notify_all()
     return out
 
 

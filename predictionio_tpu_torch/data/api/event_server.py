@@ -4,7 +4,7 @@ The port's copy of `predictionio_tpu/data/api/event_server.py` (the
 reference's Spray event server, EventServer.scala:112-460):
 
   GET  /                          -> {"status": "alive"}
-  POST /events.json               -> 201 {"eventId": id}
+  POST /events.json               -> 201 {"eventId": id, "traceId": t}
   GET  /events.json               -> the events the query params select
   GET  /events/<id>.json          -> the event | 404
   DELETE /events/<id>.json        -> {"message": "Found"} | 404
@@ -18,6 +18,13 @@ reference's Spray event server, EventServer.scala:112-460):
   GET  /metrics                   -> the Prometheus text exposition
                                      (`--stats`; unauthenticated, so the
                                      window counters across all apps)
+  GET  /traces.json               -> recent span trees (`--stats`)
+  GET  /flight.json               -> lifecycle records (`--stats`)
+  GET  /health.json               -> the ingest SLOs' verdicts
+  GET|POST /profile.json          -> profiler report, device trace
+                                     (`--stats`)
+  GET  /incidents.json            -> incident bundles (`--stats`)
+  GET  /incidents/<id>.json       -> one bundle (`--stats`)
   POST /webhooks/<name>.json      -> a JSON webhook connector
   GET  /webhooks/<name>.json      -> whether the connector exists
   POST /webhooks/<name>           -> a form webhook connector
@@ -44,11 +51,18 @@ inline) and the window counters `pio_event_window_start_seconds`,
 `pio_event_window_events{event}` and `pio_event_window_statuses{status}`
 (read from `Stats`, one snapshot a scrape).
 
+Tracing: a single POST runs under an `event_ingest` trace, a batch under
+`event_batch` and a columnar write under `event_ingest_columnar` (each
+adopts a valid inbound `X-PIO-Trace-Id`, as the engine server's feedback
+POST sends), with a `storage_write` span; each written event id is
+registered with its trace id (`TRACER.register_event`), so a fold tick
+that folds the event links its ingest trace, and the 201 bodies carry
+`traceId`.
+
 Left out until the planes they belong to are ported, and so different
 from the reference:
-- the other observability routes (`/traces.json`, `/flight.json`,
-  `/health.json`, `/fleet/*`, `/incidents*`, `/profile.json`) answer
-  404, and no body carries a `traceId` (with `obs/`);
+- `/fleet/*` answers 404 (with `obs/fleet.py`), and `/health.json` has
+  no `breaker` key (with `resilience/`);
 - the spill WAL and the store's circuit breaker (with `resilience/`):
   `EventServerConfig` has no `spill`, `spill_dir` or `breaker_*` fields,
   a failed store write answers its error, as the reference does with
@@ -78,6 +92,11 @@ from predictionio_tpu_torch.data.event import (Event, EventValidation,
                                                parse_event_time)
 from predictionio_tpu_torch.data.storage.base import ABSENT
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs import (FLIGHT, SLOEngine, TRACER,
+                                        default_event_specs,
+                                        flight_response, health_response,
+                                        ingress_trace_kwargs,
+                                        traces_response)
 from predictionio_tpu_torch.utils.http import (HttpServer, Request, Response,
                                                Router)
 
@@ -236,6 +255,11 @@ class EventServer:
         # window collectors never straddle an hourly rotation)
         self._window_pin = None
         self._register_metrics()
+        # the flight recorder's metric context reads this server's
+        # families; the ingest SLOs answer /health.json
+        FLIGHT.add_source(self.metrics)
+        self.slo = SLOEngine(default_event_specs(),
+                             registries=[self.metrics])
         self._batcher = _IngestBatcher(self)
         self.router = self._build_router()
         self.server: Optional[HttpServer] = None
@@ -266,11 +290,17 @@ class EventServer:
         return pinned if pinned is not None else self.stats.to_dict(None)
 
     def _write(self, event, app_id, channel_id) -> str:
-        """One event through the admission batcher, its latency in
-        `pio_event_write_seconds`."""
-        t0 = time.perf_counter()
-        event_id = self._batcher.submit(event, app_id, channel_id)
-        self._h_write.observe(time.perf_counter() - t0)
+        """One event through the admission batcher under a
+        `storage_write` span, its latency in `pio_event_write_seconds`;
+        the id is registered with the active trace for the fold's
+        links."""
+        with TRACER.span("storage_write") as sp:
+            t0 = time.perf_counter()
+            event_id = self._batcher.submit(event, app_id, channel_id)
+            self._h_write.observe(time.perf_counter() - t0)
+            if sp is not None:
+                sp.attrs["eventId"] = event_id
+        TRACER.register_event(event_id, TRACER.current_trace_id())
         return event_id
 
     # DAOs resolved lazily, so environment and registry changes hold
@@ -345,22 +375,26 @@ class EventServer:
         # the in-flight count drives the batcher's solo-or-batched choice
         self._batcher.enter()
         try:
-            access_key, channel_id = self._authenticate(req)
-            d = req.json()
-            if not isinstance(d, dict):
-                raise ValueError("request body must be a JSON object")
-            event = Event.from_dict(d)
-            self._check_event_allowed(access_key, event.event)
-            EventValidation.validate(event)
-            # input blockers may veto (EventServer.scala:239)
-            self.plugin_context.check_input(
-                {"appId": access_key.appid, "channelId": channel_id,
-                 "event": d})
-            event_id = self._write(event, access_key.appid, channel_id)
-            if self.config.stats:
-                self.stats.update(access_key.appid, event.event,
-                                  event.entity_type, 201)
-            return Response(201, {"eventId": event_id})
+            with TRACER.trace("event_ingest",
+                              **ingress_trace_kwargs(req.headers)) as tr:
+                access_key, channel_id = self._authenticate(req)
+                d = req.json()
+                if not isinstance(d, dict):
+                    raise ValueError("request body must be a JSON object")
+                event = Event.from_dict(d)
+                tr.root.attrs["event"] = event.event
+                self._check_event_allowed(access_key, event.event)
+                EventValidation.validate(event)
+                # input blockers may veto (EventServer.scala:239)
+                self.plugin_context.check_input(
+                    {"appId": access_key.appid, "channelId": channel_id,
+                     "event": d})
+                event_id = self._write(event, access_key.appid, channel_id)
+                if self.config.stats:
+                    self.stats.update(access_key.appid, event.event,
+                                      event.entity_type, 201)
+                return Response(201, {"eventId": event_id,
+                                      "traceId": tr.trace_id})
         finally:
             self._batcher.exit()
 
@@ -379,20 +413,24 @@ class EventServer:
                         f"{MAX_COLUMNAR_ROWS} rows per "
                         "request as parallel arrays"})
         results = []
-        for d in items:
-            try:
-                event = Event.from_dict(d)
-                self._check_event_allowed(access_key, event.event)
-                EventValidation.validate(event)
-                event_id = self._write(event, access_key.appid, channel_id)
-                results.append({"status": 201, "eventId": event_id})
-                if self.config.stats:
-                    self.stats.update(access_key.appid, event.event,
-                                      event.entity_type, 201)
-            except AuthError as e:
-                results.append({"status": e.status, "message": e.message})
-            except Exception as e:
-                results.append({"status": 400, "message": str(e)})
+        with TRACER.trace("event_batch", events=len(items),
+                          **ingress_trace_kwargs(req.headers)):
+            for d in items:
+                try:
+                    event = Event.from_dict(d)
+                    self._check_event_allowed(access_key, event.event)
+                    EventValidation.validate(event)
+                    event_id = self._write(event, access_key.appid,
+                                           channel_id)
+                    results.append({"status": 201, "eventId": event_id})
+                    if self.config.stats:
+                        self.stats.update(access_key.appid, event.event,
+                                          event.entity_type, 201)
+                except AuthError as e:
+                    results.append({"status": e.status,
+                                    "message": e.message})
+                except Exception as e:
+                    results.append({"status": 400, "message": str(e)})
         return Response(200, results)
 
     def _get_event(self, req: Request) -> Response:
@@ -480,18 +518,22 @@ class EventServer:
         if not isinstance(d, dict):
             raise ValueError("request body must be a JSON object")
         if "entityId" in d:
-            return self._columnar_create(access_key, channel_id, d)
+            with TRACER.trace("event_ingest_columnar",
+                              **ingress_trace_kwargs(req.headers)) as tr:
+                return self._columnar_create(access_key, channel_id, d, tr)
         return self._columnar_by_entities(access_key, channel_id, d)
 
-    def _columnar_create(self, access_key, channel_id, d) -> Response:
-        """The columnar bulk write: one normalize pass, one validation
-        pass, one `insert_columnar`. A bad row is a per-record 4xx in
-        `failures` while the good rows land; a malformed table rejects
-        the request. `returnIds: true` echoes the ids."""
+    def _columnar_create(self, access_key, channel_id, d, tr) -> Response:
+        """The columnar bulk write, under the trace `tr`: one normalize
+        pass, one validation pass, one `insert_columnar`. A bad row is a
+        per-record 4xx in `failures` while the good rows land; a
+        malformed table rejects the request. `returnIds: true` echoes
+        the ids."""
         try:
             batch = normalize_columnar(d)
         except ValueError as e:
             return Response(400, {"message": str(e)})
+        tr.root.attrs["rows"] = batch.n
         if batch.n > MAX_COLUMNAR_ROWS:
             return Response(413, {
                 "message": "columnar request must have less than or "
@@ -523,13 +565,16 @@ class EventServer:
         ins = batch if keep is None else batch.select(keep)
         ids: list = []
         if ins.n:
-            t0 = time.perf_counter()
-            ids = self.events.insert_columnar(ins, access_key.appid,
-                                              channel_id)
-            self._h_write.observe(time.perf_counter() - t0)
+            with TRACER.span("storage_write") as sp:
+                t0 = time.perf_counter()
+                ids = self.events.insert_columnar(ins, access_key.appid,
+                                                  channel_id)
+                self._h_write.observe(time.perf_counter() - t0)
+                if sp is not None:
+                    sp.attrs["rows"] = ins.n
         if self.config.stats:
             self._stats_columnar(access_key.appid, ins, len(failures))
-        body: dict = {"eventsCreated": len(ids)}
+        body: dict = {"eventsCreated": len(ids), "traceId": tr.trace_id}
         if d.get("returnIds"):
             body["eventIds"] = ids
         if failures:
@@ -612,6 +657,28 @@ class EventServer:
                         content_type=(OPENMETRICS_CONTENT_TYPE if om
                                       else CONTENT_TYPE))
 
+    def _gated(self, what: str, handler):
+        """A diagnostics route that answers only under `--stats`, as
+        `/metrics` does (its records carry event ids and internals)."""
+        def route(req: Request) -> Response:
+            if not self.config.stats:
+                return Response(404, {
+                    "message": f"To expose {what}, launch Event Server "
+                               "with --stats argument."})
+            return handler(req)
+        return route
+
+    def _profile(self, req: Request) -> Response:
+        from predictionio_tpu_torch.obs import profiler
+        status, body = profiler.profile_response_from_request(req)
+        return Response(status, body)
+
+    @staticmethod
+    def _incident_show(req: Request) -> Response:
+        from predictionio_tpu_torch.obs.incidents import incident_response
+        status, body = incident_response(req.path_args[0])
+        return Response(status, body)
+
     def _webhook_insert(self, event: Event, access_key,
                         channel_id) -> Response:
         EventValidation.validate(event)
@@ -668,6 +735,23 @@ class EventServer:
         r.add("DELETE", "/events/<id>.json", guarded(self._delete_event))
         r.add("GET", "/stats.json", guarded(self._get_stats))
         r.add("GET", "/metrics", self._metrics)
+        r.add("GET", "/traces.json", self._gated(
+            "traces", lambda req: Response(200,
+                                           traces_response(req.params))))
+        r.add("GET", "/flight.json", self._gated(
+            "flight records", lambda req: Response(
+                200, flight_response(req.params))))
+        r.add("GET", "/health.json", lambda req: Response(
+            200, health_response(self.slo)))
+        from predictionio_tpu_torch.obs.incidents import incidents_response
+        r.add("GET", "/incidents.json", self._gated(
+            "incidents", lambda req: Response(
+                200, incidents_response(req.params))))
+        r.add("GET", "/incidents/<id>.json",
+              self._gated("incidents", self._incident_show))
+        for method in ("GET", "POST"):
+            r.add(method, "/profile.json",
+                  self._gated("profiling", self._profile))
         r.add("POST", "/webhooks/<name>.json", guarded(self._webhook_json))
         r.add("GET", "/webhooks/<name>.json", guarded(self._webhook_get))
         r.add("POST", "/webhooks/<name>", guarded(self._webhook_form))
@@ -686,7 +770,10 @@ class EventServer:
 
     def start(self, background: bool = True) -> "EventServer":
         """Serve, binding first unless `bind` has; `background=False`
-        serves on the calling thread until `stop()`."""
+        serves on the calling thread until `stop()`. Starts the sampling
+        profiler (`PIO_PROFILER=off` keeps it off)."""
+        from predictionio_tpu_torch.obs import profiler
+        profiler.ensure_started()
         if self.server is None:
             self.bind()
         self.server.start(background=background)

@@ -10,7 +10,8 @@ models, under `PIO_FS_BASEDIR` (default `~/.pio_store`): the same
 variables and defaults as the JAX package, so both read one store.
 
 Only the `sqlite` and `localfs` types are registered here; any other type
-raises `StorageError`.
+raises `StorageError`. Every DAO access crosses the module lock, whose
+waits go into `pio_lock_wait_seconds{lock="registry_publish"}`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import importlib
 import os
 import threading
 from typing import Any, Dict, Optional
+
+from predictionio_tpu_torch.obs.slo import lock_probe, timed_acquire
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -31,6 +34,8 @@ BACKENDS = {
 _lock = threading.RLock()
 _clients: Dict[str, Any] = {}       # source name -> backend client
 _dataobjects: Dict[str, Any] = {}   # "repo/kind" -> DAO
+#: the lock-wait probe (each fold publish resolves its DAOs here)
+_dao_lock_wait = lock_probe("registry_publish")
 
 
 class StorageError(Exception):
@@ -115,7 +120,7 @@ def get_data_object(repo: str, kind: str):
     """kind in {apps, access_keys, channels, engine_instances,
     evaluation_instances, models, events}."""
     key = f"{repo}/{kind}"
-    with _lock:
+    with timed_acquire(_lock, _dao_lock_wait):
         if key not in _dataobjects:
             client = _client_for(repository_config(repo))
             _dataobjects[key] = client.get_data_object(

@@ -25,8 +25,10 @@ A rollback is in memory and instant: the incumbent never left the
 server. The registry's last-good pin and `pio rollback` make it durable
 across a restart. The arms' requests, the promotions and the rollbacks
 are counted in the reference's `pio_guard_*` families on the registry
-the server hands in. The reference's flight and incident records belong
-to a later slice.
+the server hands in. Each verdict is a `canary_promote` or
+`canary_rollback` flight record, and a rollback captures an incident
+bundle (the flight tail, the traces, the registry scrape, the providers'
+states) that `incidents show` replays.
 """
 
 from __future__ import annotations
@@ -255,6 +257,21 @@ class CanaryController:
             logger.error(
                 "canary ROLLBACK of %s: %s — incumbent keeps serving",
                 decision["candidateVersion"], why)
+        try:
+            from predictionio_tpu_torch.obs import FLIGHT, get_incidents
+            FLIGHT.record("canary_" + kind,
+                          model_version=decision["candidateVersion"],
+                          reason=why, windowSec=decision["windowSec"],
+                          arms=decision["arms"])
+            if kind == "rollback":
+                get_incidents().capture(
+                    "canary_rollback",
+                    f"canary rollback of {decision['candidateVersion']} "
+                    f"({why})",
+                    context={k: v for k, v in decision.items()
+                             if k != "models"})
+        except Exception:
+            logger.debug("canary forensics failed", exc_info=True)
         return decision
 
     # -- introspection -----------------------------------------------------

@@ -11,9 +11,9 @@ iteration. A breach returns the last clean model, or raises
 deployed model's max row norm (`host_max_norm`), and carries the largest
 norm a passing check saw into the next tick (`observed_max`).
 
-`PIO_GUARD=off` (or `0`/`false`) disables the sentinel. The reference's
-breach counter, flight record and incident bundle belong to its
-observability plane, which is not ported yet; a breach here is logged.
+`PIO_GUARD=off` (or `0`/`false`) disables the sentinel. A breach is
+logged, counted in `pio_guard_sentinel_breaches_total{site}`, recorded
+as a `sentinel_breach` flight record and captured as an incident bundle.
 """
 
 from __future__ import annotations
@@ -26,6 +26,28 @@ import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
+
+
+def _breach_counter():
+    from predictionio_tpu_torch.obs import get_registry
+    return get_registry().counter(
+        "pio_guard_sentinel_breaches_total",
+        "Numerical sentinel breaches (non-finite or norm-exploded "
+        "factor rows) by site",
+        labelnames=("site",))
+
+
+def _breach_forensics(site: str, detail: str) -> None:
+    """A breach is a flight record and an incident bundle, the evidence
+    the poisoned tick is reconstructed from. Never raises."""
+    try:
+        from predictionio_tpu_torch.obs import FLIGHT, get_incidents
+        FLIGHT.record("sentinel_breach", site=site, detail=detail)
+        get_incidents().capture("sentinel_breach",
+                                f"numerical fault in {site}",
+                                context={"site": site, "detail": detail})
+    except Exception:
+        logger.debug("breach forensics failed", exc_info=True)
 
 
 class NumericalFault(ArithmeticError):
@@ -100,9 +122,11 @@ class SweepSentinel:
         if finite and max_norm <= self.bound:
             return None
         self.breaches += 1
+        _breach_counter().labels(site=self.site).inc()
         detail = (f"{what}: finite={finite} max_row_norm={max_norm:.4g} "
                   f"bound={self.bound:.4g}")
         logger.error("sentinel breach in %s — %s", self.site, detail)
+        _breach_forensics(self.site, detail)
         return NumericalFault(self.site, detail)
 
     def check_rows(self, table: torch.Tensor, idx: np.ndarray, what: str

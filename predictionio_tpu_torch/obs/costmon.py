@@ -35,8 +35,11 @@ port reads the card's own time without the host's enqueue in it, and
 blocks no dispatch for it but one: a graph's next replay first waits for
 a sampled previous replay (whose stamps it would overwrite). A sample is
 read when a later dispatch or a read of these views finds its work
-complete (`flush()` waits for all). Work on CPU tensors is synchronous, so its sampled wall is
-booked at once, as the reference's is.
+complete (`harvest()` reads what has passed, `flush()` waits for all).
+Work on CPU tensors is synchronous, so its sampled wall is booked at
+once, as the reference's is. A sampled dispatch inside a trace sets
+`deviceMs` on the span open at the dispatch when its sample is booked,
+as the reference's annotates the span after its sync.
 
 `install()` also mounts `pio_hbm_table_bytes{table}`, the device bytes
 of each residency slot of `utils/device_cache`.
@@ -59,6 +62,7 @@ from typing import Dict, Optional
 from predictionio_tpu_torch.obs import torchmon
 from predictionio_tpu_torch.obs.metrics import get_registry
 from predictionio_tpu_torch.obs.tenantctx import metric_tenant_label
+from predictionio_tpu_torch.obs.trace import TRACER
 
 #: the canonical labels
 ALS_SWEEP = "als_sweep"
@@ -297,14 +301,19 @@ def _note_device_time(est_s: float, tenant: str = ""):
             _occ_acc_tenant.clear()
 
 
-def _book(st: _DeviceState, wall: float, every: int) -> None:
-    """Book one sampled dispatch's measured device time `wall`."""
+def _book(st: _DeviceState, wall: float, every: int, span=None) -> None:
+    """Book one sampled dispatch's measured device time `wall`; `span`,
+    the trace span open at the dispatch, gains `deviceMs` (a slow-query
+    waterfall's `device_sync` stage)."""
     est = wall * every
     st.device_s.inc(est)
     st.syncs.inc()
     with _dev_lock:   # percentile reads copy under it
         st.ring.append(wall)
     _note_device_time(est, st.tenant)
+    if span is not None:
+        span.attrs["deviceMs"] = round(wall * 1000.0, 3)
+        span.attrs["deviceSampled"] = every
 
 
 def _harvest(wait: bool = False) -> None:
@@ -324,14 +333,19 @@ def _harvest(wait: bool = False) -> None:
                 _pending.append(poll)
 
 
-def _event_pair_poll(st: _DeviceState, every: int, start, end):
+def _event_pair_poll(st: _DeviceState, every: int, start, end, span):
     def poll(wait: bool) -> bool:
         if not wait and not end.query():
             return False
         end.synchronize()
-        _book(st, start.elapsed_time(end) / 1e3, every)
+        _book(st, start.elapsed_time(end) / 1e3, every, span)
         return True
     return poll
+
+
+def harvest() -> None:
+    """Book the sampled dispatches whose work has passed (no wait)."""
+    _harvest()
 
 
 def flush() -> None:
@@ -359,15 +373,17 @@ def device_timed(label: str, fn, *args):
     would also time the gap while the launching thread waits for the
     interpreter lock. A sampled dispatch that paid a build or a capture
     on this thread books nothing: its time is compile, not steady
-    state."""
+    state. Inside a trace, the span open at a sampled dispatch gains
+    `deviceMs` when its sample is booked (no wait is added for it)."""
     _harvest()
     st = _device_state(label, metric_tenant_label())
     every = st.every
     sampled = bool(every) and next(st.tick) % every == 0
+    span = TRACER.current_span() if sampled else None
     t0 = time.perf_counter()
     if sampled and getattr(fn, "records_events", False):
         # a captured graph stamps its own work on every replay
-        out = fn(*args, sample=lambda s: _book(st, s, every))
+        out = fn(*args, sample=lambda s: _book(st, s, every, span))
         st.dispatch_s.inc(time.perf_counter() - t0)
         with _dev_lock:
             _pending.append(fn.poll)
@@ -389,9 +405,9 @@ def device_timed(label: str, fn, *args):
         return out
     if events is not None:
         with _dev_lock:
-            _pending.append(_event_pair_poll(st, every, *events))
+            _pending.append(_event_pair_poll(st, every, *events, span))
     else:
-        _book(st, time.perf_counter() - t0, every)
+        _book(st, time.perf_counter() - t0, every, span)
     return out
 
 

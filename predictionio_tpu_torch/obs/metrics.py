@@ -19,9 +19,12 @@ state that lives elsewhere; and the parent registry's families.
 Histograms use cumulative Prometheus buckets and derive p50/p95/p99 by
 linear interpolation inside the owning bucket for the JSON surfaces.
 
-The reference stamps the active trace id on each histogram bucket as an
-exemplar. The port has no tracer yet (`obs/trace.py` is a later slice),
-so no exemplar is stamped and a snapshot carries no `exemplars` block.
+Exemplars: every `observe()` made inside an active trace stamps the
+trace id on the bucket the observation landed in (last writer wins), so
+a tail bucket in a scrape names a request whose span tree
+`GET /traces.json?trace_id=` returns: the `# {trace_id="..."} value ts`
+OpenMetrics suffix on `_bucket` lines (`?exemplars=1`), and the
+`exemplars` block of a snapshot (`/stats.json`'s histograms).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import bisect
 import math
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 # Default latency buckets (seconds): sub-ms serving paths up through
@@ -38,6 +42,20 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
 _INF = float("inf")
+
+_trace_id_fn: Optional[Callable] = None
+
+
+def _current_trace_id() -> Optional[str]:
+    """The active trace id, through `obs.trace` resolved at first use
+    (metrics is the bottom of the obs imports; a module-level import
+    would cycle through `obs/__init__`)."""
+    global _trace_id_fn
+    fn = _trace_id_fn
+    if fn is None:
+        from predictionio_tpu_torch.obs.trace import TRACER
+        fn = _trace_id_fn = TRACER.current_trace_id
+    return fn()
 
 
 def _label_key(labelnames: Sequence[str], labels: Dict[str, str]):
@@ -173,6 +191,10 @@ class Histogram:
         self._counts = [0] * (len(bounds) + 1)  # + the +Inf bucket
         self._sum = 0.0
         self._count = 0
+        # per bucket: (trace_id, value, unix ts) of the latest in-trace
+        # observation that landed in it
+        self._exemplars: List[Optional[Tuple[str, float, float]]] = \
+            [None] * (len(bounds) + 1)
         self._children: Dict[Tuple[str, ...], "Histogram"] = {}
 
     def labels(self, **labels) -> "Histogram":
@@ -188,10 +210,13 @@ class Histogram:
         if self.labelnames:
             raise ValueError(f"{self.name} is labeled; use .labels()")
         i = bisect.bisect_left(self.bounds, value)
+        tid = _current_trace_id()
         with self._lock:
             self._counts[i] += 1
             self._sum += value
             self._count += 1
+            if tid is not None:
+                self._exemplars[i] = (tid, value, time.time())
 
     @property
     def count(self) -> int:
@@ -252,11 +277,30 @@ class Histogram:
             v = self.percentile(q)
             if v is not None:
                 out[k] = v
+        ex = self.exemplars()
+        if ex:
+            # each id resolves through GET /traces.json?trace_id=
+            out["exemplars"] = ex
+        return out
+
+    def exemplars(self) -> Dict[str, dict]:
+        """{le label: {"traceId", "value", "ts"}} for the buckets an
+        in-trace observation landed in."""
+        with self._lock:
+            ex = list(self._exemplars)
+        out = {}
+        for i, bound in enumerate(list(self.bounds) + [_INF]):
+            if ex[i] is None:
+                continue
+            le = "+Inf" if bound == _INF else format(bound, "g")
+            tid, value, ts = ex[i]
+            out[le] = {"traceId": tid, "value": value, "ts": ts}
         return out
 
     def _own_samples(self, label_base: Optional[dict]):
         with self._lock:
             counts = list(self._counts)
+            ex = list(self._exemplars)
             s, total = self._sum, self._count
         out = []
         cum = 0
@@ -265,7 +309,15 @@ class Histogram:
             le = "+Inf" if bound == _INF else format(bound, "g")
             labels = dict(label_base or {})
             labels["le"] = le
-            out.append(("_bucket", labels, cum))
+            if ex[i] is not None:
+                tid, value, ts = ex[i]
+                # a 4-tuple: the renderer appends the OpenMetrics
+                # exemplar suffix to this _bucket line only
+                out.append(("_bucket", labels, cum,
+                            {"labels": {"trace_id": tid},
+                             "value": value, "ts": ts}))
+            else:
+                out.append(("_bucket", labels, cum))
         out.append(("_sum", label_base, s))
         out.append(("_count", label_base, total))
         return out
@@ -410,9 +462,9 @@ class MetricsRegistry:
                exemplars: bool = False) -> str:
         """Prometheus text exposition of everything this registry knows
         — the producer behind every ``GET /metrics`` of the port.
-        ``exemplars=True`` emits the OpenMetrics form (``# EOF``
-        terminated); the default stays parseable by the classic 0.0.4
-        scraper."""
+        ``exemplars=True`` emits the OpenMetrics form (``# {trace_id=...}``
+        bucket suffixes, ``# EOF`` terminated); the default stays
+        parseable by the classic 0.0.4 scraper."""
         from predictionio_tpu_torch.utils.prometheus import \
             render_metrics
         return render_metrics(self.collect(include_parent=include_parent),

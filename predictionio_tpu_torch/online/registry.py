@@ -16,8 +16,8 @@ so a pin either package writes the other reads. The canary watchdog pins
 each promoted version; `demote_version` marks a rolled-back one
 `ROLLEDBACK`, and `rollback_to` (`pio rollback`) demotes every version
 newer than its target, so `get_latest_completed`, and so a deploy or a
-`/reload`, resolves the target again. The reference's flight and incident
-records of a rollback belong to the observability plane.
+`/reload`, resolves the target again; a rollback is a
+`registry_rollback` flight record and captures an incident bundle.
 """
 
 from __future__ import annotations
@@ -193,4 +193,17 @@ class ModelVersionRegistry:
         self.pin_last_good(engine_id, engine_version, engine_variant, target)
         logger.warning("rolled back to %s (demoted: %s)", target,
                        ", ".join(demoted) or "nothing")
+        # an operator's rollback is a lifecycle record and an incident
+        try:
+            from predictionio_tpu_torch.obs import FLIGHT, get_incidents
+            FLIGHT.record("registry_rollback", model_version=target,
+                          demoted=demoted)
+            get_incidents().capture(
+                "registry_rollback",
+                f"rolled back to {target} ({len(demoted)} version(s) "
+                "demoted)",
+                context={"target": target, "demoted": demoted,
+                         "engineId": engine_id})
+        except Exception:
+            logger.debug("rollback forensics failed", exc_info=True)
         return {"target": target, "demoted": demoted}

@@ -39,12 +39,24 @@ total, the report's `h2dBytes`), the rows it read by read path, its
 failures and the gate rejects are counted in the reference's
 `pio_fold_*` and `pio_guard_gate_rejects_total` families on the
 process-wide registry, under the untenanted `tenant=""` series. The
-reference's tracing spans, flight records, incidents, fleet membership,
-tenant scopes and fold-tick gate belong to planes not ported yet; the
-report carries the span times instead (`readS`, `publishS`, `reloadS`,
-`tickS`), and the process's device time by executable label
+report also carries the stage walls (`readS`, `publishS`, `reloadS`,
+`tickS`) and the process's device time by executable label
 (`deviceTime`: the sampled CUDA-event seconds and sample counts,
 `fold_side` among them).
+
+Each tick that sees fresh events or folds records a `fold_tick` trace:
+`tail_read`, `tail_data_read`, `fold_solve` (an algorithm's fold; it
+returns host tables, so the span ends after the copy that waits for the
+fold's CUDA stream), `guard_gates`, `registry_publish`, `hot_swap`,
+`reload` (whose POST carries the tick's trace context). The tail read
+resolves each fresh event to the trace that ingested it in this process
+(`TRACER.trace_id_for_event`); the fold tick links those ingest traces
+and each of them links the tick back. Gate verdicts, publishes and the
+retrain escalation are flight records; a gate rejection captures an
+incident bundle, and the scheduler's `stats()` rides every bundle. The
+reference also resolves events ingested by other processes through its
+fleet registry, which the port does not have yet; its tenant scopes and
+fold-tick gate belong to later slices too.
 """
 
 from __future__ import annotations
@@ -63,7 +75,9 @@ from predictionio_tpu_torch.data.event import (Event, parse_event_time,
 from predictionio_tpu_torch.data.store import LEventStore
 from predictionio_tpu_torch.guard.gates import (GateConfig, GateRejected,
                                                 QualityGatekeeper)
-from predictionio_tpu_torch.obs import costmon, get_registry, torchmon
+from predictionio_tpu_torch.obs import (FLIGHT, TRACER, costmon,
+                                        get_incidents, get_registry,
+                                        torchmon, trace_context_headers)
 from predictionio_tpu_torch.online.registry import ONLINE_BATCH_TAG
 
 logger = logging.getLogger(__name__)
@@ -257,6 +271,9 @@ class DeltaTrainingScheduler:
         self._user_deltas: Dict[str, EntityDelta] = {}
         self._item_deltas: Dict[str, EntityDelta] = {}
         self._pending_events = 0
+        # the ingest traces of the pending events (bounded), which the
+        # fold tick links
+        self._pending_trace_ids: Set[str] = set()
         self.gatekeeper = (QualityGatekeeper(config.gate_config)
                            if config.gates else None)
         self.gate_rejects = 0
@@ -306,6 +323,8 @@ class DeltaTrainingScheduler:
         self.anchor_loss: Optional[float] = None
         self.last_loss: Optional[float] = None
         self.last_report: Optional[dict] = None
+        # incident bundles freeze the fold lineage
+        get_incidents().register_provider("scheduler", self.stats)
 
     @staticmethod
     def _instance_cursor(instance) -> Optional[_dt.datetime]:
@@ -345,6 +364,7 @@ class DeltaTrainingScheduler:
         self._tail_breaker.allow()
         new_users: Dict[str, EntityDelta] = {}
         new_items: Dict[str, EntityDelta] = {}
+        new_trace_ids: Set[str] = set()
         max_t = self._cursor
         boundary: Set[str] = set()
         try:
@@ -368,6 +388,10 @@ class DeltaTrainingScheduler:
                         and e.event_id in self._seen_at_cursor:
                     continue    # the boundary instant, read again
                 fresh += 1
+                if e.event_id is not None:
+                    tid = TRACER.trace_id_for_event(e.event_id)
+                    if tid:
+                        new_trace_ids.add(tid)
                 d = EntityDelta.from_event(e)
                 # by entity type: a rating's subject is a user, its
                 # target an item; an item's $set is an item delta
@@ -394,6 +418,10 @@ class DeltaTrainingScheduler:
             self._user_deltas = _merge([self._user_deltas, new_users])
             self._item_deltas = _merge([self._item_deltas, new_items])
             self._pending_events += fresh
+            # bounded (Trace.MAX_LINKS caps the fold trace's side too)
+            room = 256 - len(self._pending_trace_ids)
+            for tid in list(new_trace_ids)[:max(room, 0)]:
+                self._pending_trace_ids.add(tid)
             if max_t is not None and (self._cursor is None
                                       or max_t > self._cursor):
                 self._cursor = max_t
@@ -467,16 +495,28 @@ class DeltaTrainingScheduler:
         with self._lock:
             user_deltas, item_deltas = self._user_deltas, self._item_deltas
             n_events = self._pending_events
+            trace_ids = self._pending_trace_ids
             self._user_deltas, self._item_deltas = {}, {}
             self._pending_events = 0
+            self._pending_trace_ids = set()
         touched_users = list(user_deltas)
         touched_items = list(item_deltas)
+        # two-way links: the tick's trace names the ingest traces it
+        # absorbs, and each of them gains a link to the tick
+        tick_trace = TRACER.current_trace()
+        if tick_trace is not None:
+            for tid in trace_ids:
+                tick_trace.link(tid)
+                TRACER.link_completed(tid, tick_trace.trace_id)
         # this thread's uploads only
         h2d_before = torchmon.thread_h2d_total()
         try:
             t0 = time.perf_counter()
-            td, read_info = self._read_training(touched_users,
-                                                touched_items)
+            with TRACER.span("tail_data_read") as sp:
+                td, read_info = self._read_training(touched_users,
+                                                    touched_items)
+                if sp is not None:
+                    sp.attrs.update(read_info)
             read_info["readS"] = time.perf_counter() - t0
             new_models: List[Any] = []
             reports: List[dict] = []
@@ -488,14 +528,21 @@ class DeltaTrainingScheduler:
                 if fold is None:
                     new_models.append(model)   # not online-capable
                     continue
-                new_model, report = fold(model, td, touched_users,
-                                         touched_items,
-                                         preparator_params=prep_params)
+                # the fold returns host tables: the span ends after the
+                # copy that waits for the fold's stream, so it times the
+                # solves and not only their launch
+                with TRACER.span("fold_solve",
+                                 touchedUsers=len(touched_users),
+                                 touchedItems=len(touched_items)):
+                    new_model, report = fold(model, td, touched_users,
+                                             touched_items,
+                                             preparator_params=prep_params)
                 new_models.append(new_model)
                 reports.append(report)
                 folded_any = True
         except Exception:
-            self._restore_deltas(user_deltas, item_deltas, n_events)
+            self._restore_deltas(user_deltas, item_deltas, n_events,
+                                 trace_ids)
             raise
         report = {
             "foldIn": self.fold_in_count + 1,
@@ -506,6 +553,7 @@ class DeltaTrainingScheduler:
             "h2dBytes": torchmon.h2d_delta(h2d_before),
             **read_info,
         }
+        TRACER.annotate(h2dBytes=report["h2dBytes"])
         if read_info.get("readRows") is not None:
             self._c_fold_read_rows.labels(
                 path=read_info["readPath"],
@@ -518,6 +566,7 @@ class DeltaTrainingScheduler:
             # every algorithm no-opped: nothing to gate or publish, and
             # folding these events again would no-op the same way
             report["degenerate"] = True
+            TRACER.annotate(degenerate=True)
             logger.info("fold tick was a clean no-op (%d event(s) "
                         "contributed nothing solvable)", n_events)
             self.last_report = report
@@ -525,20 +574,45 @@ class DeltaTrainingScheduler:
         guard_wall_s = sum(r.get("guardWallS") or 0.0 for r in reports)
         if self.gatekeeper is not None:
             g0 = time.perf_counter()
-            gate_report = self.gatekeeper.evaluate(new_models, self.models,
-                                                   self.algorithms)
+            with TRACER.span("guard_gates") as sp:
+                gate_report = self.gatekeeper.evaluate(
+                    new_models, self.models, self.algorithms)
+                if sp is not None:
+                    sp.attrs["passed"] = gate_report["passed"]
+                    sp.attrs["verdicts"] = {
+                        g["gate"]: g["verdict"]
+                        for g in gate_report["gates"]}
             guard_wall_s += time.perf_counter() - g0
             report["gateReport"] = gate_report
         report["guardOverheadMs"] = round(guard_wall_s * 1000, 3)
+        if self.gatekeeper is not None:
+            TRACER.annotate(gatesPassed=gate_report["passed"])
+            FLIGHT.record(
+                "gate_verdict",
+                model_version=getattr(self.instance, "id", None),
+                passed=gate_report["passed"],
+                verdicts={g["gate"]: g["verdict"]
+                          for g in gate_report["gates"]},
+                events=n_events)
         if self.gatekeeper is not None and not gate_report["passed"]:
             # restored for the record; the same data folds the same way,
             # so the loop's escalation to a retrain is the real exit
-            self._restore_deltas(user_deltas, item_deltas, n_events)
+            self._restore_deltas(user_deltas, item_deltas, n_events,
+                                 trace_ids)
             self.gate_rejects += 1
             self._c_gate_rejects.inc()
             if self.server is not None:
                 self.server.note_publish_failure()
             self.last_report = report
+            get_incidents().capture(
+                "gate_rejected",
+                "fold publish refused by quality gate(s): "
+                + ", ".join(g["gate"] for g in gate_report["gates"]
+                            if g["verdict"] == "fail"),
+                context={"gateReport": gate_report, "events": n_events,
+                         "baseInstance": getattr(self.instance, "id",
+                                                 None)},
+                trace_ids=(tick_trace.trace_id,) if tick_trace else ())
             raise GateRejected(gate_report)
         # the drift gate: the anchor is the first fold's loss
         losses = [r["loss"] for r in reports if r.get("loss") is not None]
@@ -562,7 +636,8 @@ class DeltaTrainingScheduler:
                                             "item": touched_items})
         except Exception:
             # the served model never advanced: fold these events again
-            self._restore_deltas(user_deltas, item_deltas, n_events)
+            self._restore_deltas(user_deltas, item_deltas, n_events,
+                                 trace_ids)
             if self.server is not None:
                 self.server.note_publish_failure()
             raise
@@ -574,12 +649,14 @@ class DeltaTrainingScheduler:
         self.last_report = report
         return report
 
-    def _restore_deltas(self, user_deltas, item_deltas,
-                        n_events: int) -> None:
+    def _restore_deltas(self, user_deltas, item_deltas, n_events: int,
+                        trace_ids: Optional[Set[str]] = None) -> None:
         with self._lock:
             self._user_deltas = _merge([user_deltas, self._user_deltas])
             self._item_deltas = _merge([item_deltas, self._item_deltas])
             self._pending_events += n_events
+            if trace_ids:
+                self._pending_trace_ids |= trace_ids
 
     def _publish(self, models: Sequence[Any], report: dict,
                  touched_entities: Optional[dict] = None) -> None:
@@ -596,38 +673,59 @@ class DeltaTrainingScheduler:
                 # horizon, not from the publish instant
                 meta["cursor"] = cursor.isoformat()
             t0 = time.perf_counter()
-            version = self.registry.publish(self.engine, self.engine_params,
-                                            self.instance, models, meta=meta)
+            with TRACER.span("registry_publish"):
+                version = self.registry.publish(
+                    self.engine, self.engine_params, self.instance, models,
+                    meta=meta)
             report["publishS"] = time.perf_counter() - t0
+            TRACER.annotate(version=version)
             report["publishedVersion"] = version
+        FLIGHT.record("fold_publish", model_version=version,
+                      events=report["events"], foldIn=report["foldIn"],
+                      readPath=report.get("readPath"))
         if self.server is not None:
-            self.server.swap_models(models, version=version,
-                                    fold_in_events=report["events"],
-                                    touched_entities=touched_entities)
+            with TRACER.span("hot_swap", version=version or ""):
+                self.server.swap_models(models, version=version,
+                                        fold_in_events=report["events"],
+                                        touched_entities=touched_entities)
         if self.reload_url is not None:
             t0 = time.perf_counter()
-            try:
-                req = urllib.request.Request(self.reload_url, method="POST",
-                                             data=b"")
-                urllib.request.urlopen(req, timeout=120).read()
-                report["reloaded"] = True
-            except Exception as e:
-                report["reloaded"] = False
-                logger.error("POST %s failed: %s", self.reload_url, e)
+            with TRACER.span("reload", url=self.reload_url):
+                try:
+                    # the deployed server adopts the tick's trace id, so
+                    # its hot_swap record joins this trace
+                    req = urllib.request.Request(
+                        self.reload_url, method="POST", data=b"",
+                        headers=trace_context_headers())
+                    urllib.request.urlopen(req, timeout=120).read()
+                    report["reloaded"] = True
+                except Exception as e:
+                    report["reloaded"] = False
+                    logger.error("POST %s failed: %s", self.reload_url, e)
             report["reloadS"] = time.perf_counter() - t0
 
     # -- tick and loop -----------------------------------------------------
     def tick(self, force: bool = False) -> Optional[dict]:
         """One step: tail, then fold if a threshold fired (or `force`).
         Returns the fold report (its `tickS` the step's wall time), or
-        None when no fold ran."""
+        None when no fold ran. A tick that saw fresh events or folded is
+        a `fold_tick` trace; an idle one is discarded, so the poll loop
+        does not flood the ring."""
         t0 = time.perf_counter()
-        self.poll_events()
-        if self.retrain_requested and not force:
-            return None    # drifted: wait for the retrain
-        if not (force or self.should_fold()) or self.pending_deltas() == 0:
-            return None
-        report = self.fold_in()
+        with TRACER.trace("fold_tick") as tr:
+            with TRACER.span("tail_read") as sp:
+                fresh = self.poll_events()
+                if sp is not None:
+                    sp.attrs["freshEvents"] = fresh
+            tr.discard = fresh == 0    # kept only if a fold runs below
+            if self.retrain_requested and not force:
+                return None    # drifted: wait for the retrain
+            if not (force or self.should_fold()) \
+                    or self.pending_deltas() == 0:
+                return None
+            tr.discard = False
+            report = self.fold_in()
+            tr.root.attrs["events"] = report["events"]
         report["tickS"] = time.perf_counter() - t0
         self._h_tick.observe(report["tickS"])
         # the process's device time by executable label so far, the
@@ -689,6 +787,9 @@ class DeltaTrainingScheduler:
                         logger.error("scheduler: %d consecutive tick "
                                      "failures — escalating to full "
                                      "retrain", self.consecutive_failures)
+                        FLIGHT.record("retrain_escalation",
+                                      failures=self.consecutive_failures,
+                                      lastError=self.last_error)
 
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name="pio-delta-scheduler")

@@ -38,8 +38,16 @@ query loudly (`ShutdownError`). With a `metrics` registry (the engine
 server's) the counters are also mounted as the reference's families
 (`pio_engine_batch*`, `pio_engine_shed_total`, `pio_serve_*`) and the
 per-query coalescing wait and per-window stage seconds are histograms.
-The reference's tracing, tenants and flight recorder belong to a later
-slice.
+
+Tracing: `submit` records the calling thread's trace (the query's
+ingress trace) and waits under a `batch_wait` span; a window whose
+members carry traces runs under a `batch_predict` trace of its own
+(`formationMs`, and `completionWaitMs` on the pipelined path), linked
+both ways to its members' traces, begun on the formation thread and
+resumed and committed by the completion thread. A shed query leaves a
+coalesced `shed` flight record, and the admission lock's waits go into
+`pio_lock_wait_seconds{lock="batcher_inflight"}`. The reference's tenant
+scopes belong to a later slice.
 """
 
 from __future__ import annotations
@@ -51,8 +59,11 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
-from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.compile.buckets import bucket_batch
+from predictionio_tpu_torch.obs.flight import FLIGHT
+from predictionio_tpu_torch.obs.slo import lock_probe, timed_acquire
+from predictionio_tpu_torch.obs.trace import TRACER
+from predictionio_tpu_torch.ops import readback
 
 logger = logging.getLogger(__name__)
 
@@ -103,7 +114,8 @@ class ShutdownError(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("query", "event", "result", "error", "t_enqueue")
+    __slots__ = ("query", "event", "result", "error", "t_enqueue",
+                 "trace_id", "batch_trace_id")
 
     def __init__(self, query):
         self.query = query
@@ -111,17 +123,23 @@ class _Pending:
         self.result = None
         self.error: Optional[BaseException] = None
         self.t_enqueue = time.perf_counter()
+        # the submitting thread's trace; the window's batch_predict
+        # trace links it (and back)
+        self.trace_id: Optional[str] = None
+        self.batch_trace_id: Optional[str] = None
 
 
 class _InFlight:
     """One dispatched-not-completed window: its members, its deferred
-    finish() and when it was dispatched and handed over."""
+    finish(), its open batch_predict trace, and when it was dispatched
+    and handed over."""
 
-    __slots__ = ("batch", "finish", "t_dispatch", "t_ready")
+    __slots__ = ("batch", "finish", "trace", "t_dispatch", "t_ready")
 
-    def __init__(self, batch, finish, t_dispatch):
+    def __init__(self, batch, finish, trace, t_dispatch):
         self.batch = batch
         self.finish = finish
+        self.trace = trace
         self.t_dispatch = t_dispatch
         self.t_ready = time.perf_counter()
 
@@ -178,6 +196,7 @@ class MicroBatcher:
         # formation blocked on the in-flight cap (backpressure)
         self.n_pipeline_stalls = 0
         self._q: "queue.Queue[_Pending]" = queue.Queue()
+        self._lock_wait = lock_probe("batcher_inflight")
         self.wait_hist = None
         self.stage_hist = None
         if metrics is not None:
@@ -314,16 +333,27 @@ class MicroBatcher:
             bound = self.queue_wait_bound_s()
             if bound > deadline_s:
                 self.n_shed += 1
+                FLIGHT.record("shed", coalesce_s=1.0,
+                              waitBoundS=round(bound, 4),
+                              deadlineS=round(deadline_s, 4))
                 raise ShedError(bound, deadline_s)
         p = _Pending(query)
-        with self._flight_lock:
+        p.trace_id = TRACER.current_trace_id()
+        with timed_acquire(self._flight_lock, self._lock_wait):
             # check-and-enqueue is atomic with stop()'s set-and-sweep
             if self._stop.is_set():
                 raise ShutdownError("micro-batcher is shut down")
             self._inflight += 1
             self._undispatched += 1
             self._q.put(p)
-        p.event.wait()
+        with TRACER.span("batch_wait"):
+            p.event.wait()
+        if p.batch_trace_id is not None:
+            # the query's trace links the window that answered it (the
+            # window linked the query before waking it)
+            cur = TRACER.current_trace()
+            if cur is not None:
+                cur.link(p.batch_trace_id)
         if p.error is not None:
             raise p.error
         return p.result
@@ -423,10 +453,10 @@ class MicroBatcher:
                     self.wait_hist.observe(t_dispatch - p.t_enqueue)
             self._stage("formation", t_dispatch - t_first)
             if self.pipelined:
-                self._dispatch_pipelined(batch, t_dispatch)
+                self._dispatch_pipelined(batch, t_first, t_dispatch)
                 continue
             try:
-                results = self._run_batch(batch)
+                results = self._run_batch(batch, t_dispatch - t_first)
                 if len(results) != len(batch):
                     raise RuntimeError(
                         f"batch handler returned {len(results)} results "
@@ -452,10 +482,28 @@ class MicroBatcher:
             p.event.set()
 
     # -- pipelined dispatch / completion --------------------------------------
-    def _dispatch_pipelined(self, batch, t_dispatch: float):
+    def _batch_trace(self, batch, formation_s: float, **attrs):
+        """The window's batch_predict trace, begun (not current, not
+        committed) and linked both ways to its members' traces; None
+        when no member carries one."""
+        members = [p.trace_id for p in batch if p.trace_id]
+        if not members:
+            return None
+        bt = TRACER.begin_trace(
+            "batch_predict", batch=len(batch),
+            formationMs=round(formation_s * 1000.0, 3), **attrs)
+        for tid in members:
+            bt.link(tid)
+        for p in batch:
+            p.batch_trace_id = bt.trace_id
+        return bt
+
+    def _dispatch_pipelined(self, batch, t_first: float,
+                            t_dispatch: float):
         """Enqueue the window's device work through `process_batch_begin`
-        and hand its finish() to the completion thread, after taking an
-        in-flight slot (formation blocks here when completion lags)."""
+        (under the window's batch_predict trace) and hand its finish()
+        to the completion thread, after taking an in-flight slot
+        (formation blocks here when completion lags)."""
         if not self._inflight_sem.acquire(blocking=False):
             self.n_pipeline_stalls += 1
             while not self._inflight_sem.acquire(timeout=0.1):
@@ -463,17 +511,27 @@ class MicroBatcher:
                     self.n_shutdown_failed += len(batch)
                     self._fail_batch(batch, ShutdownError())
                     return
+        bt = self._batch_trace(batch, t_dispatch - t_first, pipelined=True)
         try:
-            finish = self.process_batch_begin([p.query for p in batch])
+            queries = [p.query for p in batch]
+            if bt is not None:
+                with TRACER.resume(bt):
+                    finish = self.process_batch_begin(queries)
+            else:
+                finish = self.process_batch_begin(queries)
         except Exception as e:
             self._inflight_sem.release()
+            if bt is not None:
+                # committed, so the members' links resolve
+                with TRACER.resume(bt, commit=True):
+                    pass
             self._fail_batch(batch, e)
             self._note_service_time(time.perf_counter() - t_dispatch)
             return
         self._stage("dispatch", time.perf_counter() - t_dispatch)
         with self._flight_lock:
             self._inflight_batches += 1
-        self._completions.put(_InFlight(batch, finish, t_dispatch))
+        self._completions.put(_InFlight(batch, finish, bt, t_dispatch))
 
     def _completion_loop(self):
         while True:
@@ -486,11 +544,17 @@ class MicroBatcher:
         """Wait for one window's result, build its answers, fan them out;
         the time blocked on the window's copy is read from the readback
         plane's per-thread counter."""
-        batch = item.batch
+        batch, bt = item.batch, item.trace
         t_c0 = time.perf_counter()
         rb0 = readback.thread_wait_s()
         try:
-            results = item.finish()
+            if bt is not None:
+                bt.root.attrs["completionWaitMs"] = round(
+                    (t_c0 - item.t_ready) * 1000.0, 3)
+                with TRACER.resume(bt, commit=True):
+                    results = item.finish()
+            else:
+                results = item.finish()
             if len(results) != len(batch):
                 raise RuntimeError(
                     f"batch handler returned {len(results)} results "
@@ -516,9 +580,14 @@ class MicroBatcher:
                                       - rb_s))
         self._note_service_time(time.perf_counter() - item.t_dispatch)
 
-    def _run_batch(self, batch):
-        """One synchronous dispatch (not pipelined)."""
-        return self.process_batch([p.query for p in batch])
+    def _run_batch(self, batch, formation_s: float = 0.0):
+        """One synchronous dispatch (not pipelined), under the window's
+        batch_predict trace when a member carries a trace."""
+        bt = self._batch_trace(batch, formation_s)
+        if bt is None:
+            return self.process_batch([p.query for p in batch])
+        with TRACER.resume(bt, commit=True):
+            return self.process_batch([p.query for p in batch])
 
     def stop(self, join_timeout_s: float = 10.0):
         """Drain on stop: the formation thread finishes the window it is

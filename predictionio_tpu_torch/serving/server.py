@@ -85,7 +85,23 @@ process's compile plane, device time, transfer bytes and fold families.
 executable and the occupancy (`deviceTime`), the build directory's
 status (`buildCache`; the reference's `xlaCache`) and
 `swapToFirstQueryMs`, the wall from the latest model change to its first
-served query. Tracing is a later slice.
+served query.
+
+The diagnostics plane (`obs/`): each `/queries.json` that misses the
+result cache runs under a `query` trace (minted, or adopted from a valid
+inbound `X-PIO-Trace-Id`) with the `supplement`, `predict`, `readback`
+and `post_process` spans (on the batched path, in the window's
+`batch_predict` trace, which the query's trace links); a `/reload` that
+carries a trace id runs under a `reload` trace; the feedback POST sends
+the answering trace's context (the query's, or its window's). `GET /traces.json`, `/flight.json` (the
+`model_load`, `hot_swap`, `aot_warm`, `first_query_after_swap` and
+`canary_staged` records among others), `/health.json` (the burn-rate
+SLOs; a latency SLO that turns `breached` captures an incident),
+`/slow.json` (the stage waterfall of every query slower than
+`obs/slowlog.slow_threshold_s()`), `/profile.json` (the sampling
+profiler's report and the torch.profiler device trace) and
+`/incidents.json`, `/incidents/<id>.json` serve it. The reference's
+`/fleet/*` routes are not ported yet (404).
 
 The routes are served by `utils/http` (`Router`, `HttpServer`), as the
 event server's are: an unknown path answers 404 and a known path asked
@@ -115,8 +131,16 @@ from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
                                                  CanaryController,
                                                  count_nonfinite)
 from predictionio_tpu_torch.models import get_engine_factory
-from predictionio_tpu_torch.obs import (MetricsRegistry, costmon,
-                                        get_registry, torchmon)
+from predictionio_tpu_torch.obs import (FLIGHT, MetricsRegistry, SLOEngine,
+                                        TRACER, costmon,
+                                        default_engine_specs,
+                                        flight_response, get_incidents,
+                                        get_registry, health_response,
+                                        ingress_trace_kwargs, slow_response,
+                                        torchmon, trace_context_headers,
+                                        traces_response)
+from predictionio_tpu_torch.obs.slowlog import (capture_slow_query,
+                                                slow_threshold_s)
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.serving import result_cache as RC
 from predictionio_tpu_torch.serving.batcher import MicroBatcher
@@ -245,6 +269,17 @@ class EngineServer:
             "pio_engine_query_seconds",
             "Per-query serving latency (batched queries observe the "
             "window's wall time each)")
+        # the diagnostics plane: the flight recorder's metric context
+        # reads this server's families, the burn-rate SLOs answer
+        # /health.json, and incident bundles freeze _incident_state
+        FLIGHT.add_source(self.metrics)
+        self.slo = SLOEngine(default_engine_specs(),
+                             registries=[self.metrics])
+        # the last status of each SLO: an ok -> breached transition of
+        # a latency SLO captures an incident
+        self._slo_status: dict = {}
+        get_incidents().register_provider("engine_server",
+                                          self._incident_state)
         self.canary = CanaryController(CanaryConfig(
             fraction=config.canary_fraction,
             window_s=config.canary_window_s,
@@ -315,6 +350,34 @@ class EngineServer:
                      "canary stage/promote) to its first served query",
                      lambda: self.last_swap_to_first_query_ms or 0.0)
 
+    def _incident_state(self) -> dict:
+        """Serving and model-lineage state frozen into incident bundles;
+        lock-free attribute reads, so a capture never contends with the
+        query path."""
+        inst = self.engine_instance
+        return {
+            "modelVersion": self.model_version,
+            "lastGoodVersion": self.last_good_version,
+            "engineInstance": getattr(inst, "id", None),
+            "lineage": getattr(inst, "batch", None),
+            "requestCount": self.request_count,
+            "modelSwaps": self.swap_count,
+            "foldIns": self.fold_in_count,
+            "publishDegraded": self.publish_degraded,
+            "publishFailures": self.publish_failures,
+            "modelStalenessSec": self.model_staleness_s(),
+            "canary": self.canary.stats(),
+        }
+
+    def _device(self) -> Optional[str]:
+        """The device the first algorithm's params name (None: the
+        card), which a device trace records for."""
+        for algo in self.algorithms:
+            dev = getattr(getattr(algo, "params", None), "device", None)
+            if dev is not None:
+                return str(dev)
+        return None
+
     def _ring_percentiles(self):
         """(p50, p95, p99) of recent serving seconds, or None before any
         traffic. The caller holds the lock."""
@@ -377,7 +440,8 @@ class EngineServer:
         serving = engine.make_serving(engine_params)
         warm = self._warm_aot(result.algorithms, result.models, instance.id)
         with self._lock:
-            if self.algorithms:
+            was_loaded = bool(self.algorithms)
+            if was_loaded:
                 self.swap_count += 1   # a /reload, not the first load
             self.engine = engine
             self.engine_params = engine_params
@@ -398,6 +462,8 @@ class EngineServer:
         if self.result_cache is not None:
             self.result_cache.invalidate_all("reload")
         self._arm_swap_marker(instance.id, models_token=result.models)
+        FLIGHT.record("hot_swap" if was_loaded else "model_load",
+                      model_version=instance.id, source="load")
         logger.info("Engine instance %s loaded (%d algorithm(s)), warmed "
                     "in %.3f s", instance.id, len(result.algorithms),
                     warm["wallS"])
@@ -413,6 +479,11 @@ class EngineServer:
         summary = warm_models(algorithms, models,
                               batch_hint=max(self.config.micro_batch, 1),
                               version=version)
+        if summary.get("compiled"):
+            FLIGHT.record("aot_warm", model_version=version,
+                          **{k: summary[k] for k in
+                             ("compiled", "skipped", "wallS")
+                             if k in summary})
         return dict(summary, version=version)
 
     def _arm_swap_marker(self, version: Optional[str],
@@ -431,7 +502,7 @@ class EngineServer:
         marker = self._swap_marker
         if marker is None:
             return
-        _version, t0, candidate_only, token = marker
+        version, t0, candidate_only, token = marker
         if candidate_only and arm != CANDIDATE:
             return
         if token is not None and models_used is not token:
@@ -440,8 +511,11 @@ class EngineServer:
             if self._swap_marker is not marker:
                 return
             self._swap_marker = None
-            self.last_swap_to_first_query_ms = \
-                (time.perf_counter() - t0) * 1000.0
+            ms = (time.perf_counter() - t0) * 1000.0
+            self.last_swap_to_first_query_ms = ms
+        FLIGHT.record("first_query_after_swap", model_version=version,
+                      swapToFirstQueryMs=round(ms, 3),
+                      canary=candidate_only)
 
     def reload(self) -> None:
         """Hot-swap to the latest COMPLETED instance of the loaded one's
@@ -478,6 +552,9 @@ class EngineServer:
             with self._lock:
                 self.last_aot_warm = warm
             self._arm_swap_marker(version, candidate_only=True)
+            FLIGHT.record("canary_staged", model_version=version,
+                          fraction=self.canary.config.fraction,
+                          foldInEvents=int(fold_in_events))
             return
         with self._lock:
             self.models = models
@@ -490,6 +567,9 @@ class EngineServer:
             self._last_swap_wall = time.time()
             self.publish_degraded = False
         self._arm_swap_marker(version, models_token=models)
+        FLIGHT.record("hot_swap", model_version=version,
+                      source="fold_publish",
+                      foldInEvents=int(fold_in_events))
         if self.result_cache is not None:
             if touched_entities is not None:
                 self.result_cache.invalidate_entities(
@@ -554,6 +634,8 @@ class EngineServer:
                 self._last_swap_wall = time.time()
                 self.publish_degraded = False
             self._arm_swap_marker(version, models_token=decision["models"])
+            FLIGHT.record("hot_swap", model_version=version,
+                          source="canary_promote")
             if self.result_cache is not None:
                 # the staged candidate's lineage is gone by now
                 self.result_cache.invalidate_all("canary_promote")
@@ -621,17 +703,20 @@ class EngineServer:
             models = canary_models
         query = self.decode(query_dict, algorithms)
         try:
-            supplemented = serving.supplement(query)
+            with TRACER.span("supplement"):
+                supplemented = serving.supplement(query)
             tp = time.perf_counter()
-            predictions = [algo.predict(model, supplemented)
-                           for algo, model in zip(algorithms, models)]
+            with TRACER.span("predict", algorithms=len(algorithms)):
+                predictions = [algo.predict(model, supplemented)
+                               for algo, model in zip(algorithms, models)]
             predict_dt = time.perf_counter() - tp
-            out = self._to_dict(serving.serve(query, predictions))
+            with TRACER.span("post_process"):
+                out = self._to_dict(serving.serve(query, predictions))
+                out = self._post_process(query_dict, out)
         except Exception:
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0)
             raise
-        out = self._post_process(query_dict, out)
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
@@ -667,17 +752,22 @@ class EngineServer:
             models = canary_models
         n = len(queries)
         try:
-            indexed = [(i, serving.supplement(q))
-                       for i, q in enumerate(queries)]
+            with TRACER.span("supplement"):
+                indexed = [(i, serving.supplement(q))
+                           for i, q in enumerate(queries)]
             tp = time.perf_counter()
-            fetchers = []
-            for algo, model in zip(algorithms, models):
-                begin = getattr(algo, "batch_predict_begin", None)
-                if begin is not None:
-                    fetchers.append(begin(model, indexed))
-                else:
-                    res = algo.batch_predict(model, indexed)
-                    fetchers.append(lambda res=res: res)
+            # the dispatch: a replayed graph's (or the eager program's)
+            # launch, not its device time
+            with TRACER.span("predict", batch=n,
+                             algorithms=len(algorithms)):
+                fetchers = []
+                for algo, model in zip(algorithms, models):
+                    begin = getattr(algo, "batch_predict_begin", None)
+                    if begin is not None:
+                        fetchers.append(begin(model, indexed))
+                    else:
+                        res = algo.batch_predict(model, indexed)
+                        fetchers.append(lambda res=res: res)
             dispatch_dt = time.perf_counter() - tp
         except Exception:
             self._canary_observe(arm, error=True,
@@ -687,11 +777,25 @@ class EngineServer:
         def finish() -> List[dict]:
             try:
                 tr = time.perf_counter()
-                per_algo = [dict(f()) for f in fetchers]
+                w0 = readback.thread_wait_s()
+                b0 = readback.thread_d2h_bytes()
+                with TRACER.span("readback") as rb_span:
+                    # the wait on the window's copy (in flight since the
+                    # dispatch) and the host unpack
+                    per_algo = [dict(f()) for f in fetchers]
+                    if rb_span is not None:
+                        rb_span.attrs["d2hWaitMs"] = round(
+                            (readback.thread_wait_s() - w0) * 1000.0, 3)
+                        rb_span.attrs["d2hBytes"] = \
+                            readback.thread_d2h_bytes() - b0
                 readback_dt = time.perf_counter() - tr
-                out = [self._post_process(d, self._to_dict(serving.serve(
-                    q, [pa[i] for pa in per_algo])))
-                    for i, (q, d) in enumerate(items)]
+                # the copy has landed, so the window's sampled device
+                # stamps have passed: book them without a wait
+                costmon.harvest()
+                with TRACER.span("post_process"):
+                    out = [self._post_process(d, self._to_dict(
+                        serving.serve(q, [pa[i] for pa in per_algo])))
+                        for i, (q, d) in enumerate(items)]
             except Exception:
                 self._canary_observe(arm, error=True,
                                      latency_s=time.perf_counter() - t0,
@@ -812,13 +916,17 @@ class EngineServer:
         url = (f"http://{self.config.event_server_ip}:"
                f"{self.config.event_server_port}/events.json"
                f"?accessKey={self.config.accesskey}")
+        # the answering trace's context (the query's; on the batched path
+        # its window's, which links the query), read now: the POST runs
+        # on a thread of its own, and the event server adopts the id
+        headers = {"Content-Type": "application/json",
+                   **trace_context_headers()}
 
         def _post():
             try:
                 req = urllib.request.Request(
                     url, data=json.dumps(event).encode(),
-                    headers={"Content-Type": "application/json"},
-                    method="POST")
+                    headers=headers, method="POST")
                 urllib.request.urlopen(req, timeout=5).read()
             except Exception as e:
                 logger.error("feedback event POST failed: %s", e)
@@ -881,18 +989,41 @@ class EngineServer:
             if body is not None:
                 return self._cache_hit(body, t0), None
             generation = cache.generation
-        out = self.answer(query_dict, _request_deadline_s(headers or {}))
-        extra = None
-        if isinstance(out, dict) and CANARY_TAG in out:
-            out = dict(out)
-            extra = {"X-PIO-Canary": str(out.pop(CANARY_TAG))}
-            cacheable = False
-        body = json.dumps(out).encode("utf-8")
-        if cacheable and key is not None and isinstance(out, dict):
-            cache.put(key, body, RC.query_entities(query_dict),
-                      result_items=self._result_item_ids(out),
-                      generation=generation, raw=raw)
+        deadline_s = _request_deadline_s(headers or {})
+        # a miss runs under the query's trace (a hit mints none); with
+        # the micro-batcher the device work runs under the window's
+        # batch_predict trace, which this one links
+        with TRACER.trace("query", **ingress_trace_kwargs(headers or {})
+                          ) as qt:
+            out = self.answer(query_dict, deadline_s)
+            total_s = time.perf_counter() - t0
+            extra = None
+            if isinstance(out, dict) and CANARY_TAG in out:
+                out = dict(out)
+                extra = {"X-PIO-Canary": str(out.pop(CANARY_TAG))}
+                cacheable = False
+            ts = time.perf_counter()
+            body = json.dumps(out).encode("utf-8")
+            serialize_s = time.perf_counter() - ts
+            if cacheable and key is not None and isinstance(out, dict):
+                cache.put(key, body, RC.query_entities(query_dict),
+                          result_items=self._result_item_ids(out),
+                          generation=generation, raw=raw)
+            if total_s >= slow_threshold_s():
+                self._capture_slow(qt, query_dict, total_s, serialize_s)
         return body, extra
+
+    def _capture_slow(self, qt, query_dict: dict, total_s: float,
+                      serialize_s: float) -> None:
+        """Record a slow query's stage waterfall (`obs/slowlog.py`);
+        never raises into the response path."""
+        try:
+            capture_slow_query(qt, total_s, query=query_dict,
+                               model_version=self.model_version,
+                               serialize_s=serialize_s,
+                               batch_trace_id=next(iter(qt.links), None))
+        except Exception:
+            logger.debug("slow-query capture failed", exc_info=True)
 
     # -- the HTTP routes (:1433-1441), served by `utils/http` ---------------
     def _queries_route(self, req: Request) -> Response:
@@ -903,6 +1034,16 @@ class EngineServer:
         return Response(200, out, extra)
 
     def _reload_route(self, req: Request) -> Response:
+        """A `/reload` that carries a trace id (a scheduler's publish
+        hop) runs under it, so the hot_swap record joins the fold
+        tick's trace."""
+        kw = ingress_trace_kwargs(req.headers)
+        if kw:
+            with TRACER.trace("reload", **kw):
+                return self._reload_inner()
+        return self._reload_inner()
+
+    def _reload_inner(self) -> Response:
         try:
             self.reload()
         except Exception as e:   # keep serving the old models
@@ -925,7 +1066,54 @@ class EngineServer:
                         content_type=(OPENMETRICS_CONTENT_TYPE if om
                                       else CONTENT_TYPE))
 
+    def _health_route(self, req: Request) -> Response:
+        """`GET /health.json`: the SLO verdicts with their burn rates. A
+        latency SLO that turns `breached` captures an incident, whose
+        bundle carries the slow-query waterfalls and the profiler's
+        stacks."""
+        out = health_response(self.slo, extra={
+            "modelVersion": self.model_version,
+            "publishDegraded": self.publish_degraded})
+        try:
+            self._note_slo_breaches(out)
+        except Exception:
+            logger.debug("slo breach capture failed", exc_info=True)
+        return Response(200, out)
+
+    def _note_slo_breaches(self, health: dict) -> None:
+        """One incident capture per ok -> breached transition of a
+        latency SLO (the manager's per-kind cooldown bounds a flapping
+        one)."""
+        for s in health.get("slo", ()):
+            name, status = s.get("name"), s.get("status")
+            if name is None:
+                continue
+            prev = self._slo_status.get(name)
+            self._slo_status[name] = status
+            if status == "breached" and prev != "breached" \
+                    and s.get("kind") == "latency":
+                FLIGHT.record("slo_breach", slo=name,
+                              burnFast=s.get("burnFast"),
+                              burnSlow=s.get("burnSlow"))
+                get_incidents().capture(
+                    "slo_breach",
+                    f"latency SLO {name} breached (burn fast/slow = "
+                    f"{s.get('burnFast')}/{s.get('burnSlow')})",
+                    context={"slo": s})
+
+    def _profile_route(self, req: Request) -> Response:
+        from predictionio_tpu_torch.obs import profiler
+        status, body = profiler.profile_response_from_request(
+            req, device=self._device())
+        return Response(status, body)
+
+    def _incident_route(self, req: Request) -> Response:
+        from predictionio_tpu_torch.obs.incidents import incident_response
+        status, body = incident_response(req.path_args[0])
+        return Response(status, body)
+
     def _router(self) -> Router:
+        from predictionio_tpu_torch.obs.incidents import incidents_response
         r = Router()
         r.add("GET", "/", lambda req: Response(200, self.status()))
         r.add("POST", "/queries.json", self._queries_route)
@@ -936,6 +1124,17 @@ class EngineServer:
         for method in ("GET", "POST"):
             r.add(method, "/reload", self._reload_route)
             r.add(method, "/stop", self._stop_route)
+            r.add(method, "/profile.json", self._profile_route)
+        r.add("GET", "/traces.json",
+              lambda req: Response(200, traces_response(req.params)))
+        r.add("GET", "/flight.json",
+              lambda req: Response(200, flight_response(req.params)))
+        r.add("GET", "/health.json", self._health_route)
+        r.add("GET", "/slow.json",
+              lambda req: Response(200, slow_response(req.params)))
+        r.add("GET", "/incidents.json",
+              lambda req: Response(200, incidents_response(req.params)))
+        r.add("GET", "/incidents/<id>.json", self._incident_route)
         return r
 
     def bind(self, bind_retries: int = 3,
@@ -953,7 +1152,10 @@ class EngineServer:
 
     def start(self, background: bool = True) -> "EngineServer":
         """Serve, binding first unless `bind` has; `background=False`
-        serves on the calling thread until `stop()`."""
+        serves on the calling thread until `stop()`. Starts the sampling
+        profiler (`PIO_PROFILER=off` keeps it off)."""
+        from predictionio_tpu_torch.obs import profiler
+        profiler.ensure_started()
         if self._httpd is None:
             self.bind()
         self._httpd.start(background)

@@ -34,7 +34,15 @@ the foreground; `app` and `accesskey` manage apps, channels and access
 keys (`tools/app_commands.py`); `export`, `import` and `trim` move events
 between the store and JSON-lines or parquet files, or between apps
 (`tools/export_import.py`); `status` checks the storage and lists the
-CUDA devices, and exits 1 without one. `cache status` prints the salted
+CUDA devices, and exits 1 without one; `--telemetry` also prints the
+running servers' counters, latency percentiles, compile plane and
+slowest traces (`/stats.json`, `/traces.json`), `--slo` their SLO
+verdicts and burn rates (`/health.json`), both from the local defaults
+(`--engine-port`, `--event-server-port`) or one `--url`. `incidents
+{list,show,export}` reads the incident bundles under
+`<PIO_FS_BASEDIR>/incidents/` (or a server's over `--url`); `profile top`
+prints a server's sampling-profiler stacks, `profile trace
+{start,stop}` toggles its torch.profiler device trace. `cache status` prints the salted
 build directory of the kernels (`compile/cache.py`: its salt, the
 libraries built there, stale salts) as JSON; `cache clear` removes the
 active salt's libraries (the next first use rebuilds them) and `--all`
@@ -55,13 +63,15 @@ import os
 import signal
 import threading
 import time
+import urllib.error
 import urllib.request
 from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
     "here: version, status, train, eval, deploy, undeploy, update, "
-    "rollback, eventserver, app, accesskey, export, import, trim, cache. "
+    "rollback, eventserver, app, accesskey, export, import, trim, cache, "
+    "incidents, profile. "
     "Still only in the JAX package's bin/pio: build, template, dashboard "
     "and the other commands.")
 
@@ -75,7 +85,8 @@ def cmd_version(args) -> int:
 def cmd_status(args) -> int:
     """Check the storage backends and list the CUDA devices
     (Console.scala:1033); exits 1 without a card or with a failed
-    backend."""
+    backend. `--telemetry` and `--slo` poll the running servers, which
+    are printed with or without a card here."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     print("Inspecting storage backend connections...")
     results = Storage.verify_all_data_objects()
@@ -85,17 +96,131 @@ def cmd_status(args) -> int:
               f"({summary.get(repo, '?')})")
     print("Inspecting CUDA devices...")
     import torch
-    if not torch.cuda.is_available():
+    card = torch.cuda.is_available()
+    if card:
+        names = [f"cuda:{k} {torch.cuda.get_device_name(k)}"
+                 for k in range(torch.cuda.device_count())]
+        print(f"  {len(names)} device(s): {names}")
+    else:
         print("  no CUDA device: the port's entry points need a card "
               "(or device=\"cpu\" by name).")
-        return 1
-    names = [f"cuda:{k} {torch.cuda.get_device_name(k)}"
-             for k in range(torch.cuda.device_count())]
-    print(f"  {len(names)} device(s): {names}")
-    if all(results.values()):
+    if args.telemetry:
+        _print_telemetry(args)
+    if args.slo:
+        _print_slo(args)
+    if card and all(results.values()):
         print("Your system is all ready to go.")
         return 0
     return 1
+
+
+def _status_targets(args):
+    """(name, base url) pairs `status --telemetry/--slo` poll: `--url`
+    names one server; the default is the local engine and event server
+    pair."""
+    if args.url:
+        return [("member", args.url.rstrip("/"))]
+    return [("engine", f"http://{args.ip}:{args.engine_port}"),
+            ("events", f"http://{args.ip}:{args.event_server_port}")]
+
+
+def _print_slo(args) -> None:
+    """Each server's /health.json as a burn-rate table."""
+    from predictionio_tpu_torch.utils.http import fetch_json
+    for name, base in _status_targets(args):
+        print(f"{name.capitalize()} server SLOs...")
+        h = fetch_json(f"{base}/health.json")
+        if "error" in h:
+            print(f"  unreachable: {h['error']}")
+            continue
+        print(f"  overall: {h.get('status')}")
+        for s in h.get("slo", ()):
+            bits = [f"  {s.get('name', '?'):20s} {s.get('status'):8s}"]
+            if s.get("burnFast") is not None:
+                bits.append(f"burn fast/slow="
+                            f"{s['burnFast']}/{s.get('burnSlow')}")
+            if s.get("rateFast") is not None:
+                bits.append(f"rate={s['rateFast']}/s "
+                            f"(min {s.get('minRate')})")
+            if s.get("value") is not None:
+                bits.append(f"value={round(s['value'], 3)} "
+                            f"(max {s.get('maxValue')})")
+            if s.get("eventsFast") is not None:
+                bits.append(f"events fast/slow={s['eventsFast']}/"
+                            f"{s.get('eventsSlow')} "
+                            f"(budget {s.get('budget')})")
+            print(" ".join(bits))
+
+
+def _print_hist(name: str, h) -> None:
+    if not isinstance(h, dict) or not h.get("count"):
+        return
+    print(f"    {name}: n={h['count']} "
+          f"p50={h.get('p50', 0) * 1000:.3f}ms "
+          f"p95={h.get('p95', 0) * 1000:.3f}ms "
+          f"p99={h.get('p99', 0) * 1000:.3f}ms")
+
+
+def _print_telemetry(args) -> None:
+    """The servers' counters, latency percentiles, compile plane and
+    slowest recent traces."""
+    from predictionio_tpu_torch.utils.http import fetch_json
+    targets = dict(_status_targets(args))
+    engine = targets.get("engine") or targets.get("member")
+    events = targets.get("events") or targets.get("member")
+    print("Engine server telemetry...")
+    st = fetch_json(f"{engine}/stats.json")
+    if "error" in st:
+        print(f"  unreachable: {st['error']}")
+    else:
+        print(f"  requests={st.get('requests')} "
+              f"avgServing={st.get('avgServingSec', 0):.6f}s "
+              f"avgPredict={st.get('avgPredictSec', 0):.6f}s")
+        print(f"  modelSwaps={st.get('modelSwaps')} "
+              f"foldIns={st.get('foldIns')} "
+              f"foldInEvents={st.get('foldInEvents')} "
+              f"version={st.get('modelVersion')}")
+        _print_hist("queryLatency", st.get("queryLatency"))
+        _print_hist("batchWait", st.get("batchWait"))
+        aot = st.get("aot") or {}
+        if aot:
+            print(f"  aot: resident={aot.get('executablesResident')} "
+                  f"hitRate={aot.get('hitRate')} "
+                  f"compiles={aot.get('compileCount')} "
+                  f"({aot.get('compileSeconds')}s) "
+                  f"sharedJits={len(aot.get('sharedJits', []))}")
+            for label, bks in sorted(
+                    (aot.get("bucketsCompiled") or {}).items()):
+                print(f"    {label}: {len(bks)} bucket(s) "
+                      f"[{', '.join(bks[:4])}"
+                      f"{', ...' if len(bks) > 4 else ''}]")
+        bc = st.get("buildCache") or {}
+        if bc:
+            print(f"  buildCache: entries={bc.get('entries')} "
+                  f"hits={bc.get('hits')} misses={bc.get('misses')} "
+                  f"salt={bc.get('salt')}")
+        if st.get("swapToFirstQueryMs") is not None:
+            print(f"  swapToFirstQuery={st['swapToFirstQueryMs']:.1f}ms")
+    print("Event server telemetry...")
+    ev = fetch_json(f"{events}/stats.json?accessKey={args.accesskey}")
+    if "error" in ev:
+        print(f"  unreachable or no --stats: {ev['error']}")
+    else:
+        cur = ev.get("currentWindow", {})
+        print(f"  window events={cur.get('count')} "
+              f"byEvent={cur.get('byEvent')}")
+    print("Slowest recent traces (engine)...")
+    traces = fetch_json(
+        f"{engine}/traces.json?n=5&sort=slowest").get("traces")
+    if not traces:
+        print("  none")
+        return
+    for t in traces:
+        spans = t.get("root", {}).get("children", [])
+        stages = ",".join(sp.get("name", "?") for sp in spans[:6])
+        print(f"  {t.get('kind'):14s} {t.get('durationMs', 0):>10}ms "
+              f"links={len(t.get('links', []))} [{stages}] "
+              f"{t.get('traceId')}")
 
 
 def cmd_train(args) -> int:
@@ -455,6 +580,131 @@ def cmd_cache(args) -> int:
     return 0
 
 
+def cmd_incidents(args) -> int:
+    """`incidents {list,show,export}`: the incident bundles under
+    `<PIO_FS_BASEDIR>/incidents/` (`--dir`), or a server's over `--url`:
+    list them, replay one (its providers' states, its flight records in
+    order, its traces) or export one as a tar.gz."""
+    from predictionio_tpu_torch.obs.incidents import IncidentManager
+    from predictionio_tpu_torch.utils.http import fetch_json
+    mgr = IncidentManager(incidents_dir=args.dir)
+    url = (getattr(args, "url", None) or "").rstrip("/")
+    sub = args.incidents_command
+    if sub == "list":
+        if url:
+            body = fetch_json(f"{url}/incidents.json")
+            if not isinstance(body, dict) or "incidents" not in body:
+                print(f"Cannot list incidents at {url}: "
+                      f"{body.get('error') or body.get('message')}")
+                return 1
+            rows = body["incidents"]
+            where = f"{url} ({body.get('incidentsDir')})"
+        else:
+            rows = mgr.list_incidents()
+            where = mgr.incidents_dir()
+        if not rows:
+            print(f"No incidents under {where}.")
+            return 0
+        for r in rows:
+            print(f"{r['id']:40s} {r.get('kind', '?'):18s} "
+                  f"{(r.get('tenant') or '-'):12s} "
+                  f"{r.get('capturedAt', '')}  {r.get('reason', '')}")
+        return 0
+    if sub == "show":
+        if url:
+            bundle = fetch_json(f"{url}/incidents/{args.id}.json")
+            if not isinstance(bundle, dict) or "id" not in bundle:
+                print(f"Cannot load incident {args.id} from {url}: "
+                      f"{bundle.get('error') or bundle.get('message')}")
+                return 1
+        else:
+            try:
+                bundle = mgr.load(args.id)
+            except (OSError, ValueError) as e:
+                print(f"Cannot load incident {args.id}: {e}")
+                return 1
+        print(f"Incident {bundle['id']}: {bundle['kind']} — "
+              f"{bundle['reason']}")
+        print(f"  captured: {bundle.get('capturedAt')}")
+        if bundle.get("tenant"):
+            print(f"  tenant: {bundle['tenant']}")
+        for name, state in (bundle.get("providers") or {}).items():
+            print(f"  [{name}] {json.dumps(state, default=str)}")
+        flight = bundle.get("flight") or []
+        print(f"  flight records ({len(flight)}, oldest first):")
+        for rec in flight:
+            extra = {k: v for k, v in rec.items()
+                     if k not in ("seq", "t", "kind", "traceId",
+                                  "modelVersion", "metrics")}
+            print(f"    #{rec.get('seq'):>6} {rec.get('kind', '?'):20s}"
+                  f" trace={rec.get('traceId', '-'):16s}"
+                  f" version={rec.get('modelVersion', '-')} "
+                  f"{json.dumps(extra, default=str) if extra else ''}")
+        traces = bundle.get("traceDetail") or []
+        if traces:
+            print(f"  traces ({len(traces)}):")
+            for t in traces:
+                print(f"    {t.get('kind', '?'):14s} "
+                      f"{t.get('traceId')} links={t.get('links')}")
+        return 0
+    if url:
+        print("export needs the server's filesystem; run it on that "
+              "host (list/show work over --url).")
+        return 1
+    try:
+        out = mgr.export(args.id, args.out)
+    except OSError as e:
+        print(f"Export failed: {e}")
+        return 1
+    print(f"Exported incident {args.id} to {out}.")
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """`profile top`: a running server's sampling profiler as a
+    folded-stack table; `profile trace {start,stop}` toggles its
+    torch.profiler device trace (`--device cpu` for a CPU-only
+    server)."""
+    from predictionio_tpu_torch.utils.http import fetch_json
+    base = f"http://{args.ip}:{args.port}"
+    if args.profile_command == "top":
+        out = fetch_json(f"{base}/profile.json?action=report&top={args.n}")
+        if "error" in out:
+            print(f"unreachable: {out['error']}")
+            return 1
+        print(f"Sampling profiler at {base} "
+              f"(hz={out.get('hz')}, samples={out.get('samples')}, "
+              f"wall={out.get('wallS')}s, "
+              f"overhead={out.get('overheadPct')}%)")
+        stacks = out.get("topStacks") or []
+        if not stacks:
+            print("  no samples yet (PIO_PROFILER=off, or the server "
+                  "just started)")
+            return 0
+        for st in stacks:
+            print(f"  {st['pct']:6.2f}%  {st['count']:6d}  {st['stack']}")
+        return 0
+    body = {"action": args.trace_action}
+    if args.trace_action == "start":
+        if args.dir:
+            body["dir"] = args.dir
+        if args.device:
+            body["device"] = args.device
+    req = urllib.request.Request(
+        f"{base}/profile.json", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            print(json.dumps(json.loads(resp.read()), indent=2))
+        return 0
+    except urllib.error.HTTPError as e:
+        print(json.dumps(json.loads(e.read() or b"{}"), indent=2))
+        return 1
+    except Exception as e:
+        print(f"unreachable: {e}")
+        return 1
+
+
 def _add_variant_arg(sp) -> None:
     """The engine-variant file flag; --variant/-v are the reference's
     spellings (Console.scala:161)."""
@@ -472,8 +722,24 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("version", help="print the port's version"
                    ).set_defaults(func=cmd_version)
-    sub.add_parser("status", help="check the storage and the CUDA devices"
-                   ).set_defaults(func=cmd_status)
+    st = sub.add_parser("status", help="check the storage and the CUDA "
+                        "devices")
+    st.add_argument("--telemetry", action="store_true",
+                    help="also poll the running servers' /stats.json and "
+                         "/traces.json and print the operator view "
+                         "(counters, latency percentiles, fold activity, "
+                         "slowest traces)")
+    st.add_argument("--slo", action="store_true",
+                    help="also poll the running servers' /health.json and "
+                         "print each SLO's status and burn rates")
+    st.add_argument("--ip", default="127.0.0.1")
+    st.add_argument("--engine-port", type=int, default=8000)
+    st.add_argument("--event-server-port", type=int, default=7070)
+    st.add_argument("--accesskey", default="",
+                    help="event-server access key for its /stats.json")
+    st.add_argument("--url", help="point --telemetry/--slo at one server "
+                    "(http://host:port) instead of the local defaults")
+    st.set_defaults(func=cmd_status)
 
     t = sub.add_parser("train", help="train the engine variant and "
                        "persist an engine instance")
@@ -663,6 +929,41 @@ def build_parser() -> argparse.ArgumentParser:
     cacl.add_argument("--all", action="store_true",
                       help="also remove the other salts' directories")
     ca.set_defaults(func=cmd_cache)
+
+    inc = sub.add_parser("incidents", help="browse the incident bundles "
+                         "(canary rollbacks, sentinel breaches, gate "
+                         "rejections, rollbacks, SLO breaches)")
+    incsub = inc.add_subparsers(dest="incidents_command", required=True)
+    for name in ("list", "show", "export"):
+        sp = incsub.add_parser(name)
+        if name != "list":
+            sp.add_argument("id")
+        sp.add_argument("--dir", help="incidents dir (default: "
+                        "<PIO_FS_BASEDIR>/incidents)")
+        sp.add_argument("--url", help="a server's bundles over HTTP "
+                        "(http://host:port); export refuses it")
+        if name == "export":
+            sp.add_argument("--out",
+                            help="output path (default ./<id>.tar.gz)")
+    inc.set_defaults(func=cmd_incidents)
+
+    pf = sub.add_parser("profile", help="read a running server's sampling "
+                        "profiler, or toggle its device trace")
+    pfsub = pf.add_subparsers(dest="profile_command", required=True)
+    pft = pfsub.add_parser("top")
+    pft.add_argument("-n", type=int, default=20,
+                     help="stacks to show (default 20)")
+    pftr = pfsub.add_parser("trace")
+    pftr.add_argument("trace_action", choices=("start", "stop"))
+    pftr.add_argument("--dir", help="trace output dir (start only)")
+    pftr.add_argument("--device", help="\"cpu\" for a CPU-only trace "
+                      "(start only; default: the server's device)")
+    for sp in (pft, pftr):
+        sp.add_argument("--ip", default="127.0.0.1")
+        sp.add_argument("--port", type=int, default=8000,
+                        help="the server (the event server serves the "
+                             "same route under --stats)")
+    pf.set_defaults(func=cmd_profile)
     return p
 
 

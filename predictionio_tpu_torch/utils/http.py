@@ -84,6 +84,18 @@ class Response:
 Handler = Callable[[Request], Response]
 
 
+def fetch_json(url: str, timeout: float = 3.0) -> Any:
+    """GET a JSON endpoint, mapping any failure to {"error": str}: an
+    unreachable server is a row in a status report, not an exception
+    (`status --telemetry`, `incidents list --url`)."""
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return json.loads(resp.read())
+    except Exception as e:
+        return {"error": str(e)}
+
+
 def _accepts_gzip(value: str) -> bool:
     """True when an Accept-Encoding value allows gzip (a token match:
     `gzip;q=0` refuses it)."""

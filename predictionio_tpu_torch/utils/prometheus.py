@@ -5,8 +5,8 @@ The port's copy of `predictionio_tpu/utils/prometheus.py`
 `wants_exemplars`). Both HTTP servers of the port serve `GET /metrics`
 in the v0.0.4 text format rendered here, from
 `obs.metrics.MetricsRegistry.collect()`. The exemplar suffix renders
-only on `?exemplars=1` and only for a sample that carries one; the port
-has no tracer yet, so none does.
+only on `?exemplars=1` and only for a sample that carries one (a
+histogram bucket an in-trace observation landed in).
 """
 
 from __future__ import annotations

@@ -8,10 +8,17 @@ recorded as JSON on the instance, which is how a server that did not
 train restores them. `run_evaluation` (CoreWorkflow.runEvaluation):
 EvaluationInstance INIT -> `MetricEvaluator.evaluate_base` ->
 EVALCOMPLETED with the one-line, HTML and JSON results, or ABORTED.
+
+A train runs under a `train` trace with the stage spans `train`,
+`serialize` and `persist` (each also observed into the process-wide
+`pio_train_stage_seconds{stage}`), between the `train_start` and
+`train_end` flight records; an evaluation runs under an `evaluation`
+trace with the `evaluate` stage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime as _dt
 import json
 import logging
@@ -25,12 +32,32 @@ from predictionio_tpu_torch.data.storage.base import (EngineInstance,
                                                       EvaluationInstance,
                                                       Model)
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs import FLIGHT, TRACER, get_registry
 
 logger = logging.getLogger(__name__)
 
 
 def _now():
     return _dt.datetime.now(_dt.timezone.utc)
+
+
+def _stage_hist():
+    """Process-wide per-stage training timings, on every /metrics
+    through the registry's parent chain."""
+    return get_registry().histogram(
+        "pio_train_stage_seconds",
+        "Wall time of core-workflow stages, labeled by stage",
+        buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+        labelnames=("stage",))
+
+
+@contextlib.contextmanager
+def _timed_stage(hist, stage: str):
+    """One span and one histogram observation."""
+    t0 = time.perf_counter()
+    with TRACER.span(stage):
+        yield
+    hist.labels(stage=stage).observe(time.perf_counter() - t0)
 
 
 def run_train(engine: Engine, engine_params: EngineParams,
@@ -65,26 +92,41 @@ def run_train(engine: Engine, engine_params: EngineParams,
     instance_id = instances.insert(instance)
     instance = instances.get(instance_id)
     tel = telemetry if telemetry is not None else {}
+    hist = _stage_hist()
+    FLIGHT.record("train_start", model_version=instance_id,
+                  engine=engine_id)
     try:
-        result = engine.train(engine_params, sanity_check, tel,
-                              stop_after_read=stop_after_read,
-                              stop_after_prepare=stop_after_prepare)
-        tel["algorithms"] = [getattr(a, "last_train_telemetry", {})
-                             for a in result.algorithms]
-        t0 = time.perf_counter()
-        blob = engine.serialize_models(engine.make_serializable_models(
-            result, instance_id, engine_params))
-        tel["serialize_s"] = time.perf_counter() - t0
-        tel["model_bytes"] = len(blob)
-        t0 = time.perf_counter()
-        Storage.get_model_data_models().insert(Model(instance_id, blob))
-        tel["persist_s"] = time.perf_counter() - t0
-        instances.update(instance.with_(status="COMPLETED", end_time=_now()))
+        with TRACER.trace("train", instance=instance_id, engine=engine_id):
+            with _timed_stage(hist, "train"):
+                result = engine.train(
+                    engine_params, sanity_check, tel,
+                    stop_after_read=stop_after_read,
+                    stop_after_prepare=stop_after_prepare)
+            tel["algorithms"] = [getattr(a, "last_train_telemetry", {})
+                                 for a in result.algorithms]
+            t0 = time.perf_counter()
+            with _timed_stage(hist, "serialize"):
+                blob = engine.serialize_models(
+                    engine.make_serializable_models(result, instance_id,
+                                                    engine_params))
+            tel["serialize_s"] = time.perf_counter() - t0
+            tel["model_bytes"] = len(blob)
+            t0 = time.perf_counter()
+            with _timed_stage(hist, "persist"):
+                Storage.get_model_data_models().insert(
+                    Model(instance_id, blob))
+            tel["persist_s"] = time.perf_counter() - t0
+            instances.update(instance.with_(status="COMPLETED",
+                                            end_time=_now()))
+        FLIGHT.record("train_end", model_version=instance_id,
+                      status="COMPLETED")
         logger.info("Training completed: engine instance %s", instance_id)
         return instance_id
     except Exception:
         logger.exception("Training failed: engine instance %s",
                          instance_id)
+        FLIGHT.record("train_end", model_version=instance_id,
+                      status="ABORTED")
         instances.update(instance.with_(status="ABORTED", end_time=_now()))
         raise
 
@@ -112,7 +154,9 @@ def run_evaluation(engine: Engine, evaluation: Evaluation,
         evaluator = MetricEvaluator(evaluation.metric,
                                     list(evaluation.metrics),
                                     output_path=output_path)
-        result = evaluator.evaluate_base(engine, engine_params_list)
+        with TRACER.trace("evaluation", instance=instance_id), \
+                _timed_stage(_stage_hist(), "evaluate"):
+            result = evaluator.evaluate_base(engine, engine_params_list)
         dao.update(instance.with_(
             status="EVALCOMPLETED", end_time=_now(),
             evaluator_results=result.one_liner(),

@@ -15,7 +15,10 @@ lands through the event server as a `predict` event, and the compile
 plane: a captured serve graph's replay bit-equal to the eager program,
 a new model's tables never served by the old model's graphs, two windows
 in flight each reading their own outputs, and a sampled CUDA-event
-device time inside its dispatch's wall.
+device time inside its dispatch's wall; the diagnostics plane: the
+torch.profiler device trace of a fold naming the CG kernel once a launch,
+and a slow window's waterfall, its `device_sync` stage included, built
+with no synchronize.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -1133,3 +1136,104 @@ def test_the_cuda_event_device_time_is_inside_the_sampled_wall(cuda):
     assert 0 < booked < wall, (booked, wall)
     samples = costmon.device_samples_by_executable()["cuda_event_probe"]
     assert samples == 1, samples
+
+
+def _kernel_events(path, pattern):
+    import re
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"
+            and re.search(pattern, str(e.get("name")))]
+
+
+def test_the_device_trace_of_a_fold_names_the_cg_kernel(cuda, tmp_path):
+    """A fold under the /profile.json device trace: the Chrome trace's
+    CG kernel events are the fold's CG launches, one for one."""
+    from predictionio_tpu_torch.obs import profiler
+    from predictionio_tpu_torch.online import fold_in as TF
+    ui, ii, vv, n_u, n_i = small_ratings()
+    rng = np.random.default_rng(11)
+    U = (np.abs(rng.standard_normal((n_u, 16))) / 4).astype(np.float32)
+    V = (np.abs(rng.standard_normal((n_i, 16))) / 4).astype(np.float32)
+    coo = RatingsCOO(ui.astype(np.int32), ii.astype(np.int32),
+                     vv.astype(np.float32), n_u, n_i)
+    tu, ti = np.arange(0, 12), np.arange(0, 6)
+    cfg = TF.FoldInConfig(lam=0.1, sweeps=2)
+    # built and warm before the trace, so the trace holds the fold alone
+    TF.fold_in_coo(TA.ALSModel(U, V, 16, None), coo, tu, ti, cfg,
+                   device=cuda)
+    torch.cuda.synchronize()
+    status, body = profiler.profile_response("start",
+                                             {"dir": str(tmp_path)})
+    assert status == 200 and body["activities"] == ["CPU", "CUDA"]
+    T.COUNTS.reset()
+    TF.fold_in_coo(TA.ALSModel(U, V, 16, None), coo, tu, ti, cfg,
+                   device=cuda)
+    launches = T.COUNTS.cg_solve
+    status, body = profiler.profile_response("stop")
+    assert status == 200 and not body["tracing"]
+    assert launches > 0
+    got = _kernel_events(body["traceFile"],
+                         r"cg_(warp|reg|stream)_kernel")
+    assert len(got) == launches, (len(got), launches)
+
+
+def test_a_slow_window_waterfall_needs_no_synchronize(cuda, monkeypatch):
+    """Every query slow (threshold 0) and every dispatch sampled: the
+    waterfalls come back with `device_sync` stages read from the
+    windows' CUDA-event stamps, and nothing synchronized the device."""
+    import threading
+    import urllib.request
+    from predictionio_tpu_torch.core import TrainResult
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.weights import from_jax_model
+    monkeypatch.setenv("PIO_SLOW_QUERY_MS", "0")
+    monkeypatch.setenv("PIO_SERVE_CACHE", "off")
+    rng = np.random.default_rng(3)
+    U = rng.standard_normal((64, 16)).astype(np.float32)
+    V = rng.standard_normal((500, 16)).astype(np.float32)
+    model = from_jax_model(U, V, [f"u{k}" for k in range(64)],
+                           [f"i{k}" for k in range(500)], 16)
+    srv = EngineServer(
+        ServerConfig(ip="127.0.0.1", port=0),
+        TR.RecommendationEngineFactory.apply(),
+        TR.RecommendationEngineFactory.engine_params(
+            TR.RatingsData([], [], [])),
+        TrainResult(models=[model], algorithms=[TR.ALSAlgorithm(
+            TR.ALSAlgorithmParams(rank=16))]))
+    srv.start()
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(1) or real(*a, **k))
+    try:
+        costmon._device_state(costmon.BATCH_PREDICT).every = 1
+        costmon._device_state(costmon.BATCH_PREDICT_MASKED).every = 1
+        url = f"http://127.0.0.1:{srv.config.port}"
+
+        def ask(k):
+            req = urllib.request.Request(
+                f"{url}/queries.json", method="POST",
+                data=json.dumps({"user": f"u{k}", "num": 5}).encode())
+            urllib.request.urlopen(req, timeout=60).read()
+
+        for _ in range(3):
+            threads = [threading.Thread(target=ask, args=(k,))
+                       for k in range(16)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        with urllib.request.urlopen(f"{url}/slow.json?n=64",
+                                    timeout=60) as r:
+            slow = json.loads(r.read())["slow"]
+    finally:
+        srv.stop()
+    assert syncs == []
+    assert len(slow) >= 48
+    stages = [[s["stage"] for s in e["stages"]] for e in slow]
+    assert any("device_sync" in st for st in stages)
+    assert all("d2h_wait" in st and "dispatch" in st for st in stages)

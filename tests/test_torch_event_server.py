@@ -7,8 +7,8 @@ alike (an input blocker that vetoes entity `blocked`; for each scenario
 an app of its own with a key, a key for rate events only, and channel
 `chan1`). Status codes and bodies must be equal, exactly, apart from
 what is minted: event ids (a list of ids is compared by its length),
-`traceId` (the port has no tracing yet), and the creation time and
-window start the servers stamp.
+`traceId` (each server mints its own; `test_torch_obs_e2e.py` holds the
+ids), and the creation time and window start the servers stamp.
 A later request may name the id an earlier one was given as `{idN}`.
 
 Beyond the table: rows the port writes read back equal through the JAX
@@ -17,8 +17,9 @@ authenticates on the other's server; the access-key cache's TTL
 semantics (as `tests/test_event_server.py::TestAuthCache`); 8 concurrent
 clients through the admission batcher write the same rows as serial
 posts; a leader whose insert raises hands the error to every follower;
-the observability routes other than `/metrics` answer 404 and the config
-has no spill fields.
+the diagnostics routes answer as the reference's, gated alike by
+`--stats`; only `/fleet/status.json` answers 404, and the config has no
+spill fields.
 Every HTTP call carries a timeout and every server binds port 0.
 """
 
@@ -558,10 +559,59 @@ def test_observability_routes_and_spill_fields_are_not_ported(tmp_env):
                                               stats=True))
     s.start()
     try:
-        for path in ("/traces.json", "/flight.json",
-                     "/health.json", "/fleet/status.json",
-                     "/incidents.json", "/profile.json"):
+        for path in ("/fleet/status.json",):
             assert call(s.config.port, "GET", path) == (
                 404, {"message": "not found"})
     finally:
         s.stop()
+
+
+def shape(body):
+    """A body's keys, nested, with list lengths: what the routes must
+    agree on (their values are process state)."""
+    if isinstance(body, dict):
+        return {k: shape(v) for k, v in body.items()}
+    if isinstance(body, list):
+        return [len(body)]
+    return type(body).__name__
+
+
+# each route the port answered 404 before the diagnostics plane: (path,
+# method, body, keys the reference has and the port not yet)
+DIAG_ROUTES = [
+    ("/traces.json?kind=no_such_kind", "GET", None, ()),
+    ("/flight.json?kind=no_such_kind", "GET", None, ()),
+    ("/health.json", "GET", None, ("breaker",)),    # with resilience/
+    ("/incidents.json", "GET", None, ()),
+    ("/profile.json?action=report", "GET", None, ()),
+]
+
+
+@pytest.mark.parametrize("path,method,body,unported", DIAG_ROUTES,
+                         ids=[r[0].split("?")[0] for r in DIAG_ROUTES])
+@pytest.mark.parametrize("stats", [True, False])
+def test_diagnostics_routes_answer_as_the_reference(tmp_env, monkeypatch,
+                                                    path, method, body,
+                                                    unported, stats):
+    monkeypatch.setenv("PIO_INCIDENTS_DIR", str(tmp_env / "incidents"))
+    got = {}
+    for name, mod in (("jax", JES), ("port", TES)):
+        srv = mod.EventServer(mod.EventServerConfig(ip="127.0.0.1", port=0,
+                                                    stats=stats))
+        srv.start()
+        try:
+            got[name] = call(srv.config.port, method, path, body)
+        finally:
+            srv.stop()
+    (sj, bj), (st, bt) = got["jax"], got["port"]
+    gated = path.split("?")[0] != "/health.json"
+    assert st == sj == (404 if gated and not stats else 200)
+    if st == 404:
+        assert bt == bj
+        return
+    bj = {k: v for k, v in bj.items() if k not in unported}
+    if path.startswith("/profile.json"):
+        # the sampler's own counts differ between the two processes
+        assert sorted(bt) == sorted(bj)
+    else:
+        assert shape(bt) == shape(bj)

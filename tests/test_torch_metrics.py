@@ -44,14 +44,17 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 # each by name)
 UNPORTED_ENGINE = {
     "pio_executable_flops", "pio_executable_bytes_accessed",   # analyze_jit
+}
+# the diagnostics plane's families, registered by both packages' servers
+DIAGNOSTICS = (
     "pio_flight_records_total", "pio_flight_dropped_total",
     "pio_flight_coalesced_total", "pio_flight_write_errors_total",
     "pio_incidents_captured_total", "pio_incidents_suppressed_total",
-    "pio_lock_wait_seconds",                                   # SLO
+    "pio_lock_wait_seconds",
     "pio_profiler_running", "pio_profiler_samples_total",
     "pio_profiler_spent_seconds_total",
     "pio_slow_queries_total",
-}
+)
 UNPORTED_EVENT = UNPORTED_ENGINE | {
     "pio_ingest_spilled_total", "pio_ingest_spill_pending_bytes",
     "pio_breaker_state", "pio_breaker_transitions_total",
@@ -325,6 +328,15 @@ def test_server_families_differ_only_by_the_unported_planes(
         assert t[name] == j[name], (name, t[name], j[name])
     roadmap = (REPO / "ROADMAP.md").read_text()
     assert [n for n in sorted(set(j) - set(t)) if n not in roadmap] == []
+
+
+@pytest.mark.parametrize("family", DIAGNOSTICS)
+@pytest.mark.parametrize("server", ["engine", "event"])
+def test_diagnostics_families_are_registered(server_families, server,
+                                             family):
+    j, t = server_families[server]["jax"], server_families[server]["port"]
+    assert family in j
+    assert t.get(family) == j[family]
 
 
 def test_engine_metrics_answer_the_text_format(server_families):
