@@ -25,6 +25,12 @@ reference's Spray event server, EventServer.scala:112-460):
                                      (`--stats`)
   GET  /incidents.json            -> incident bundles (`--stats`)
   GET  /incidents/<id>.json       -> one bundle (`--stats`)
+  GET  /fleet/status.json         -> the fleet's members with liveness
+  GET  /fleet/health.json         -> the live members' SLOs, worst-of
+  GET  /fleet/metrics             -> every live member's scrape, with
+                                     {role,pid} labels (`--stats`)
+  GET  /fleet/traces.json         -> one trace stitched across the
+                                     members (`--stats`)
   POST /webhooks/<name>.json      -> a JSON webhook connector
   GET  /webhooks/<name>.json      -> whether the connector exists
   POST /webhooks/<name>           -> a form webhook connector
@@ -43,6 +49,20 @@ request alone in the server inserts inline, concurrent requests land as
 one `insert_batch` a group, and each is answered after its group's
 commit.
 
+Writes are resilient (`spill=True`, the default): ids are assigned
+before the first attempt, and every store write runs behind the
+`event_store` circuit breaker. A transient failure (`TRANSIENT_ERRORS`)
+or an open breaker appends the events to the spill WAL
+(`resilience/spill.py`, `<spill_dir>/events.wal`, by default
+`base_dir()/ingest_spill`) and still answers 201 with `"spilled": true`;
+a `SpillReplayer` drains the WAL into the store once it recovers,
+in order and deduplicated by id. A deterministic rejection answers its
+error. `start` adopts a WAL an earlier process left undrained.
+`/health.json` carries the breaker's state, and the families
+`pio_ingest_spilled_total` and `pio_ingest_spill_pending_bytes` count
+the spill. Once bound, the server registers as the fleet member
+`event_server` (`obs/fleet.py`) and deregisters in `stop`.
+
 The server's `MetricsRegistry` (chained to the process-wide one) carries
 the reference's ingest families: `pio_event_write_seconds` (a write's
 latency, per accepted event, columnar write per request),
@@ -59,15 +79,6 @@ registered with its trace id (`TRACER.register_event`), so a fold tick
 that folds the event links its ingest trace, and the 201 bodies carry
 `traceId`.
 
-Left out until the planes they belong to are ported, and so different
-from the reference:
-- `/fleet/*` answers 404 (with `obs/fleet.py`), and `/health.json` has
-  no `breaker` key (with `resilience/`);
-- the spill WAL and the store's circuit breaker (with `resilience/`):
-  `EventServerConfig` has no `spill`, `spill_dir` or `breaker_*` fields,
-  a failed store write answers its error, as the reference does with
-  `spill=False`, and the spill families (`pio_ingest_spilled_total`,
-  `pio_ingest_spill_pending_bytes`) are not registered.
 The columnar write cap is the constant `MAX_COLUMNAR_ROWS`, not a
 config field: nothing in either package sets another value.
 """
@@ -89,14 +100,19 @@ from predictionio_tpu_torch.data.api.stats import Stats
 from predictionio_tpu_torch.data.columnar import (normalize_columnar,
                                                   validate_rows)
 from predictionio_tpu_torch.data.event import (Event, EventValidation,
+                                               new_event_id, new_event_ids,
                                                parse_event_time)
 from predictionio_tpu_torch.data.storage.base import ABSENT
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.obs import (FLIGHT, SLOEngine, TRACER,
-                                        default_event_specs,
-                                        flight_response, health_response,
+                                        default_event_specs, fleet,
+                                        flight_response, get_incidents,
+                                        health_response,
                                         ingress_trace_kwargs,
                                         traces_response)
+from predictionio_tpu_torch.resilience import (TRANSIENT_ERRORS,
+                                               CircuitBreaker,
+                                               CircuitOpenError)
 from predictionio_tpu_torch.utils.http import (HttpServer, Request, Response,
                                                Router)
 
@@ -118,6 +134,15 @@ class EventServerConfig:
     # /batch/events.json cap (`eventserver --max-batch`); the columnar
     # write route has its own, much larger bound, MAX_COLUMNAR_ROWS
     max_batch: int = MAX_BATCH_SIZE
+    # the durable ingest spill: a failed store write (or an open
+    # breaker) appends to a local WAL and answers 201 {"spilled": true};
+    # a replayer drains the WAL into the store when it recovers
+    spill: bool = True
+    spill_dir: Optional[str] = None   # default <base_dir()>/ingest_spill
+    # the event-store breaker: consecutive write failures before writes
+    # go straight to the WAL, and the open -> half-open probe delay
+    breaker_failures: int = 5
+    breaker_reset_s: float = 5.0
 
 
 class _IngestBatcher:
@@ -164,8 +189,9 @@ class _IngestBatcher:
         with self._cv:
             self._ingress -= 1
 
-    def submit(self, event, app_id, channel_id) -> str:
-        """Land one event; returns its id or raises the insert's error."""
+    def submit(self, event, app_id, channel_id):
+        """Land one event; returns `(event_id, spilled)` or raises the
+        insert's error (a deterministic rejection keeps its 4xx)."""
         batch = None
         with self._cv:
             solo = self._ingress <= 1 and not self._queue
@@ -177,7 +203,7 @@ class _IngestBatcher:
                     batch, self._queue = self._queue, []
         if solo:
             self._h_group.observe(1)
-            return self.server.events.insert(event, app_id, channel_id)
+            return self.server._resilient_insert(event, app_id, channel_id)
         if batch is None and not slot.done.wait(self._wait_s):
             # no leader landed us in time: claim whatever is queued (our
             # own slot too, unless a leader took it meanwhile)
@@ -192,17 +218,18 @@ class _IngestBatcher:
         return slot.result
 
     def _dispatch(self, batch):
-        """Leader: one `insert_batch` per (app, channel), then wake."""
+        """Leader: one resilient `insert_batch` per (app, channel), then
+        wake."""
         groups: dict = {}
         for ev, app, chan, slot in batch:
             groups.setdefault((app, chan), []).append((ev, slot))
         for (app, chan), items in groups.items():
             self._h_group.observe(len(items))
             try:
-                ids = self.server.events.insert_batch(
+                res = self.server._resilient_insert_batch(
                     [ev for ev, _ in items], app, chan)
-                for (_, slot), eid in zip(items, ids):
-                    slot.result = eid
+                for (_, slot), r in zip(items, res):
+                    slot.result = r
             except BaseException as e:   # waiters must never hang
                 for _, slot in items:
                     slot.error = e
@@ -254,13 +281,36 @@ class EventServer:
         # the Stats snapshot one /metrics render reads (so the three
         # window collectors never straddle an hourly rotation)
         self._window_pin = None
-        self._register_metrics()
+        # the breaker over the store's write path, and the spill WAL,
+        # made on the first spill or adopted at start()
+        self.breaker = CircuitBreaker(
+            "event_store", failure_threshold=self.config.breaker_failures,
+            reset_timeout_s=self.config.breaker_reset_s)
+        self._wal = None
+        self._replayer = None
+        self._wal_lock = threading.Lock()
+        self._stop_lock = threading.Lock()
+        self.spilled_count = 0
+        self.metrics.counter_func(
+            "pio_ingest_spilled_total",
+            "Accepted events diverted to the spill WAL",
+            lambda: self.spilled_count)
+        self.metrics.gauge_func(
+            "pio_ingest_spill_pending_bytes",
+            "Un-replayed bytes in the spill WAL",
+            lambda: (self._wal.pending_bytes() if self._wal else 0))
         # the flight recorder's metric context reads this server's
-        # families; the ingest SLOs answer /health.json
+        # families; the ingest SLOs answer /health.json; the WAL and
+        # breaker state ride every incident bundle
         FLIGHT.add_source(self.metrics)
         self.slo = SLOEngine(default_event_specs(),
                              registries=[self.metrics])
+        get_incidents().register_provider("ingest_wal",
+                                          self._incident_state)
         self._batcher = _IngestBatcher(self)
+        # the fleet member id, set once the socket is bound
+        self._fleet_id: Optional[str] = None
+        self._register_metrics()
         self.router = self._build_router()
         self.server: Optional[HttpServer] = None
 
@@ -289,19 +339,171 @@ class EventServer:
         pinned = self._window_pin
         return pinned if pinned is not None else self.stats.to_dict(None)
 
-    def _write(self, event, app_id, channel_id) -> str:
+    def _write(self, event, app_id, channel_id):
         """One event through the admission batcher under a
         `storage_write` span, its latency in `pio_event_write_seconds`;
         the id is registered with the active trace for the fold's
-        links."""
+        links. Returns `(event_id, spilled)`."""
         with TRACER.span("storage_write") as sp:
             t0 = time.perf_counter()
-            event_id = self._batcher.submit(event, app_id, channel_id)
+            event_id, spilled = self._batcher.submit(event, app_id,
+                                                     channel_id)
             self._h_write.observe(time.perf_counter() - t0)
             if sp is not None:
                 sp.attrs["eventId"] = event_id
+                if spilled:
+                    sp.attrs["spilled"] = True
         TRACER.register_event(event_id, TRACER.current_trace_id())
-        return event_id
+        return event_id, spilled
+
+    # -- the resilient write path -------------------------------------------
+    def _get_wal(self):
+        """The spill WAL and its replayer, made on first need (an idle
+        server touches no disk)."""
+        with self._wal_lock:
+            if self._wal is None:
+                from predictionio_tpu_torch.resilience import (SpillReplayer,
+                                                               SpillWAL)
+                path = self._spill_path()
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                self._wal = SpillWAL(path)
+                self._replayer = SpillReplayer(
+                    self._wal, self.events, app_breaker=self.breaker,
+                    registry=self.metrics)
+                self._replayer.start()
+            return self._wal
+
+    def _spill_path(self) -> str:
+        if self.config.spill_dir:
+            d = self.config.spill_dir
+        else:
+            from predictionio_tpu_torch.data.storage.registry import base_dir
+            d = os.path.join(base_dir(), "ingest_spill")
+        return os.path.join(d, "events.wal")
+
+    def _resilient_insert(self, event, app_id, channel_id):
+        """The store write behind the `event_store` breaker; a transient
+        failure or an open circuit spills the event to the WAL and it is
+        still acknowledged. A deterministic rejection raises (the store
+        answered, so that is a breaker success). Returns
+        `(event_id, spilled)`."""
+        if not self.config.spill:
+            return self.events.insert(event, app_id, channel_id), False
+        # the id is assigned first: a write that committed before its
+        # failure spills under the same id, and the replay dedups it
+        if not event.event_id:
+            event = event.with_id(new_event_id(), minted=True)
+        try:
+            self.breaker.allow()
+        except CircuitOpenError:
+            return self._spill(event, app_id, channel_id), True
+        try:
+            eid = self.events.insert(event, app_id, channel_id)
+        except TRANSIENT_ERRORS as e:
+            self.breaker.record_failure()
+            logger.warning("event-store write failed (%s); spilling", e)
+            return self._spill(event, app_id, channel_id), True
+        except Exception:
+            self.breaker.record_success()
+            raise
+        self.breaker.record_success()
+        return eid, False
+
+    def _resilient_insert_batch(self, events, app_id, channel_id):
+        """`_resilient_insert` for a group: one breaker decision and one
+        `insert_batch`; a transient failure or an open circuit spills
+        the whole group under one fsync. Returns `[(event_id, spilled),
+        ...]` in input order."""
+        if not self.config.spill:
+            ids = self.events.insert_batch(events, app_id, channel_id)
+            return [(eid, False) for eid in ids]
+        events = [e if e.event_id
+                  else e.with_id(new_event_id(), minted=True)
+                  for e in events]
+        try:
+            self.breaker.allow()
+        except CircuitOpenError:
+            return [(eid, True) for eid in
+                    self._spill_many(events, app_id, channel_id)]
+        try:
+            ids = self.events.insert_batch(events, app_id, channel_id)
+        except TRANSIENT_ERRORS as e:
+            self.breaker.record_failure()
+            logger.warning("event-store batch write failed (%s); "
+                           "spilling %d events", e, len(events))
+            return [(eid, True) for eid in
+                    self._spill_many(events, app_id, channel_id)]
+        except Exception:
+            self.breaker.record_success()
+            raise
+        self.breaker.record_success()
+        return [(eid, False) for eid in ids]
+
+    def _resilient_insert_columnar(self, batch, app_id, channel_id):
+        """The columnar write's `_resilient_insert`: ids assigned first,
+        and a transient failure or an open breaker spills the whole
+        batch under one fsync. Returns `(ids, spilled)`."""
+        if not self.config.spill:
+            return self.events.insert_columnar(batch, app_id,
+                                               channel_id), False
+        if batch.event_id is None:
+            batch.event_id = new_event_ids(batch.n)
+        try:
+            self.breaker.allow()
+        except CircuitOpenError:
+            return self._spill_many(batch.to_events(), app_id,
+                                    channel_id), True
+        try:
+            ids = self.events.insert_columnar(batch, app_id, channel_id)
+        except TRANSIENT_ERRORS as e:
+            self.breaker.record_failure()
+            logger.warning("columnar event-store write failed (%s); "
+                           "spilling %d events", e, batch.n)
+            return self._spill_many(batch.to_events(), app_id,
+                                    channel_id), True
+        except Exception:
+            self.breaker.record_success()
+            raise
+        self.breaker.record_success()
+        return ids, False
+
+    def _spill_many(self, events, app_id, channel_id) -> list:
+        with TRACER.span("spill_append"):
+            eids = self._get_wal().append_many(events, app_id, channel_id)
+        self.spilled_count += len(eids)
+        FLIGHT.record("spill", coalesce_s=1.0, rows=len(eids),
+                      pending=self._wal.pending_count()
+                      if self._wal else None)
+        return eids
+
+    def _spill(self, event, app_id, channel_id) -> str:
+        with TRACER.span("spill_append"):
+            eid = self._get_wal().append(event, app_id, channel_id)
+        self.spilled_count += 1
+        # coalesced: an outage at thousands of events a second is one
+        # record a second, not a flood that evicts the breaker's records
+        FLIGHT.record("spill", coalesce_s=1.0, eventId=eid,
+                      pending=self._wal.pending_count()
+                      if self._wal else None)
+        return eid
+
+    def _incident_state(self) -> dict:
+        """The ingest durability state frozen into incident bundles."""
+        out = {"breaker": self.breaker.state,
+               "spilledCount": self.spilled_count}
+        wal = self._wal
+        if wal is not None:
+            try:
+                out["pendingRecords"] = wal.pending_count()
+                out["pendingBytes"] = wal.pending_bytes()
+                # the sidecar's line count: no frame walk of the WAL on
+                # the disk the incident may be about
+                from predictionio_tpu_torch.resilience.spill import \
+                    count_quarantined
+                out["quarantined"] = count_quarantined(wal.path)
+            except Exception as e:
+                out["walError"] = str(e)
+        return out
 
     # DAOs resolved lazily, so environment and registry changes hold
     @property
@@ -389,12 +591,15 @@ class EventServer:
                 self.plugin_context.check_input(
                     {"appId": access_key.appid, "channelId": channel_id,
                      "event": d})
-                event_id = self._write(event, access_key.appid, channel_id)
+                event_id, spilled = self._write(event, access_key.appid,
+                                                channel_id)
                 if self.config.stats:
                     self.stats.update(access_key.appid, event.event,
                                       event.entity_type, 201)
-                return Response(201, {"eventId": event_id,
-                                      "traceId": tr.trace_id})
+                body = {"eventId": event_id, "traceId": tr.trace_id}
+                if spilled:
+                    body["spilled"] = True
+                return Response(201, body)
         finally:
             self._batcher.exit()
 
@@ -420,9 +625,12 @@ class EventServer:
                     event = Event.from_dict(d)
                     self._check_event_allowed(access_key, event.event)
                     EventValidation.validate(event)
-                    event_id = self._write(event, access_key.appid,
-                                           channel_id)
-                    results.append({"status": 201, "eventId": event_id})
+                    event_id, spilled = self._write(event, access_key.appid,
+                                                    channel_id)
+                    item = {"status": 201, "eventId": event_id}
+                    if spilled:
+                        item["spilled"] = True
+                    results.append(item)
                     if self.config.stats:
                         self.stats.update(access_key.appid, event.event,
                                           event.entity_type, 201)
@@ -564,17 +772,20 @@ class EventServer:
                 keep = [i for i in kept if i not in vetoed]
         ins = batch if keep is None else batch.select(keep)
         ids: list = []
+        spilled = False
         if ins.n:
             with TRACER.span("storage_write") as sp:
                 t0 = time.perf_counter()
-                ids = self.events.insert_columnar(ins, access_key.appid,
-                                                  channel_id)
+                ids, spilled = self._resilient_insert_columnar(
+                    ins, access_key.appid, channel_id)
                 self._h_write.observe(time.perf_counter() - t0)
                 if sp is not None:
                     sp.attrs["rows"] = ins.n
         if self.config.stats:
             self._stats_columnar(access_key.appid, ins, len(failures))
         body: dict = {"eventsCreated": len(ids), "traceId": tr.trace_id}
+        if spilled:
+            body["spilled"] = True
         if d.get("returnIds"):
             body["eventIds"] = ids
         if failures:
@@ -668,6 +879,15 @@ class EventServer:
             return handler(req)
         return route
 
+    def _fleet_metrics(self, req: Request) -> Response:
+        if not self.config.stats:
+            return Response(404, {
+                "message": "To federate metrics, launch Event Server "
+                           "with --stats argument."})
+        from predictionio_tpu_torch.utils.prometheus import CONTENT_TYPE
+        return Response(200, fleet.fleet_metrics_response(req.params),
+                        content_type=CONTENT_TYPE)
+
     def _profile(self, req: Request) -> Response:
         from predictionio_tpu_torch.obs import profiler
         status, body = profiler.profile_response_from_request(req)
@@ -682,8 +902,12 @@ class EventServer:
     def _webhook_insert(self, event: Event, access_key,
                         channel_id) -> Response:
         EventValidation.validate(event)
-        return Response(201, {"eventId": self.events.insert(
-            event, access_key.appid, channel_id)})
+        event_id, spilled = self._resilient_insert(event, access_key.appid,
+                                                   channel_id)
+        body = {"eventId": event_id}
+        if spilled:
+            body["spilled"] = True
+        return Response(201, body)
 
     def _webhook_json(self, req: Request) -> Response:
         access_key, channel_id = self._authenticate(req)
@@ -742,7 +966,18 @@ class EventServer:
             "flight records", lambda req: Response(
                 200, flight_response(req.params))))
         r.add("GET", "/health.json", lambda req: Response(
-            200, health_response(self.slo)))
+            200, health_response(self.slo,
+                                 extra={"breaker": self.breaker.state})))
+        # the fleet views: status and health ungated, as /health.json;
+        # the metrics and traces gated, as /metrics and /traces.json
+        r.add("GET", "/fleet/status.json", lambda req: Response(
+            200, fleet.fleet_status_response(req.params)))
+        r.add("GET", "/fleet/health.json", lambda req: Response(
+            200, fleet.fleet_health_response(req.params)))
+        r.add("GET", "/fleet/metrics", self._fleet_metrics)
+        r.add("GET", "/fleet/traces.json", self._gated(
+            "traces", lambda req: Response(
+                200, fleet.fleet_traces_response(req.params))))
         from predictionio_tpu_torch.obs.incidents import incidents_response
         r.add("GET", "/incidents.json", self._gated(
             "incidents", lambda req: Response(
@@ -763,15 +998,27 @@ class EventServer:
         0 = any free port)."""
         self.server = HttpServer(self.router, self.config.ip,
                                  self.config.port).bind()
+        self.server.on_bound = self._bound
         self.config.port = self.server.port
         logger.info("Event Server started on %s:%d", self.config.ip,
                     self.config.port)
         return self
 
+    def _bound(self, server: HttpServer) -> None:
+        """Bound and about to serve: register the fleet member."""
+        self._fleet_id = fleet.register_member(
+            "event_server", port=server.port, host=self.config.ip,
+            stats=self.config.stats)
+
     def start(self, background: bool = True) -> "EventServer":
         """Serve, binding first unless `bind` has; `background=False`
-        serves on the calling thread until `stop()`. Starts the sampling
+        serves on the calling thread until `stop()`. Adopts a spill WAL
+        an earlier process left undrained, and starts the sampling
         profiler (`PIO_PROFILER=off` keeps it off)."""
+        path = self._spill_path()
+        if (self.config.spill and os.path.exists(path)
+                and os.path.getsize(path) > 0):
+            self._get_wal()
         from predictionio_tpu_torch.obs import profiler
         profiler.ensure_started()
         if self.server is None:
@@ -780,6 +1027,25 @@ class EventServer:
         return self
 
     def stop(self) -> None:
-        server, self.server = self.server, None
-        if server is not None:
-            server.stop()
+        """Deregister, stop listening, stop the replayer; the WAL file
+        stays (a final drain runs only with the breaker closed, and a
+        restart replays what is left). Stops run one at a time."""
+        with self._stop_lock:
+            fleet.deregister_member(self._fleet_id)
+            self._fleet_id = None
+            server, self.server = self.server, None
+            if server is not None:
+                server.stop()
+            with self._wal_lock:
+                replayer, self._replayer = self._replayer, None
+                wal, self._wal = self._wal, None
+            if replayer is not None:
+                replayer.stop()
+            if wal is not None:
+                try:
+                    if wal.pending_bytes() \
+                            and self.breaker.state == "closed":
+                        replayer.drain(max_records=1000)
+                except Exception:
+                    logger.debug("final spill drain failed", exc_info=True)
+                wal.close()

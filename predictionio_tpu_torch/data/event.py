@@ -76,13 +76,15 @@ class Event:
     pr_id: Optional[str] = None
     creation_time: _dt.datetime = field(default_factory=utcnow)
     event_id: Optional[str] = None
+    # in-process provenance, never serialized: True when this process
+    # minted `event_id` (the event server's pre-assign, which makes a
+    # spill replay idempotent). A minted id is fresh random hex that
+    # cannot name an existing event; ids that came over the wire or back
+    # from a WAL stay False.
+    id_minted: bool = False
 
     def with_id(self, event_id: str, minted: bool = False) -> "Event":
-        """A copy carrying `event_id`. `minted` (the id is fresh random
-        hex this process made) is taken for the reference's signature and
-        not kept: only the spill WAL reads it there, and the port has no
-        spill until `resilience/` is ported."""
-        return replace(self, event_id=event_id)
+        return replace(self, event_id=event_id, id_minted=minted)
 
     # -- the JSON wire format (EventJson4sSupport.APISerializer) -----------
     def to_dict(self) -> dict:

@@ -10,8 +10,10 @@ models, under `PIO_FS_BASEDIR` (default `~/.pio_store`): the same
 variables and defaults as the JAX package, so both read one store.
 
 Only the `sqlite` and `localfs` types are registered here; any other type
-raises `StorageError`. Every DAO access crosses the module lock, whose
-waits go into `pio_lock_wait_seconds{lock="registry_publish"}`.
+raises `StorageError`. When `PIO_FAULTS` names a storage target, every
+events DAO is handed out wrapped in `resilience.faults.FaultyEvents`.
+Every DAO access crosses the module lock, whose waits go into
+`pio_lock_wait_seconds{lock="registry_publish"}`.
 """
 
 from __future__ import annotations
@@ -123,14 +125,24 @@ def get_data_object(repo: str, kind: str):
     with timed_acquire(_lock, _dao_lock_wait):
         if key not in _dataobjects:
             client = _client_for(repository_config(repo))
-            _dataobjects[key] = client.get_data_object(
-                kind, repository_namespace(repo))
+            obj = client.get_data_object(kind, repository_namespace(repo))
+            if kind == "events":
+                # the chaos harness: when PIO_FAULTS names a storage
+                # target, every events DAO handed out is fault-wrapped
+                from predictionio_tpu_torch.resilience.faults import \
+                    maybe_wrap_events
+                obj = maybe_wrap_events(obj)
+            _dataobjects[key] = obj
         return _dataobjects[key]
 
 
 def clear_cache() -> None:
     """Close and drop the cached clients and DAOs (tests switch the
-    environment between cases)."""
+    environment between cases), and forget the cached `PIO_FAULTS`
+    injector: a DAO is fault-wrapped when it is created, so a new
+    `PIO_FAULTS` takes effect through this reset."""
+    from predictionio_tpu_torch.resilience.faults import reset_env_injector
+    reset_env_injector()
     with _lock:
         for c in _clients.values():
             c.close()

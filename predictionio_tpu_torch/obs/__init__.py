@@ -25,9 +25,9 @@ The port's counterpart of `predictionio_tpu/obs/`:
   device trace (`/profile.json`).
 - `obs.slowlog`: slow-query stage waterfalls (`GET /slow.json`).
 - `obs.tenantctx`: the tenant contextvar and the bounded `tenant` label.
-
-The reference's `obs.fleet` (the member registry, `/fleet/*`, fleet-wide
-incidents) is not ported yet.
+- `obs.fleet`: the cross-process member registry under
+  `base_dir()/fleet/`, `/fleet/*` federation on both servers, trace
+  stitching across pids and the fleet-wide incident capture.
 """
 
 from predictionio_tpu_torch.obs.metrics import (DEFAULT_BUCKETS, Counter,
@@ -38,7 +38,7 @@ from predictionio_tpu_torch.obs.trace import (Span, Trace, Tracer, TRACER,
                                               ingress_trace_kwargs,
                                               trace_context_headers,
                                               traces_response)
-from predictionio_tpu_torch.obs import costmon, torchmon
+from predictionio_tpu_torch.obs import costmon, fleet, torchmon
 from predictionio_tpu_torch.obs.flight import (FLIGHT, FlightRecorder,
                                                flight_response, get_flight)
 from predictionio_tpu_torch.obs.incidents import (INCIDENTS,
@@ -65,7 +65,7 @@ __all__ = [
     "MetricsRegistry", "REGISTRY", "get_registry",
     "Span", "Trace", "Tracer", "TRACER", "traces_response",
     "ingress_trace_kwargs", "trace_context_headers",
-    "costmon", "torchmon",
+    "costmon", "fleet", "torchmon",
     "FLIGHT", "FlightRecorder", "flight_response", "get_flight",
     "INCIDENTS", "IncidentManager", "get_incidents",
     "SLOEngine", "SLOSpec", "default_engine_specs",

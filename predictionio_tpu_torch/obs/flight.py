@@ -28,9 +28,9 @@ coalesce: the first record of a burst is emitted and the next emission
 carries `coalesced=<suppressed count>`.
 
 Each process rotates and retains its own files (`flight-<pid>-N.jsonl`);
-a dead process's files are retired by the `os.kill` liveness probe (the
-reference also asks its fleet registry, which the port does not have
-yet).
+a dead process's files are retired when the fleet registry says its pid
+is dead, or, for a pid the registry never saw, when the `os.kill` probe
+finds no such process.
 """
 
 from __future__ import annotations
@@ -75,7 +75,19 @@ def _pid_alive(pid: Optional[int]) -> bool:
 
 
 def _pid_is_live(pid: Optional[int]) -> bool:
-    """Liveness for the foreign-series GC: the `os.kill` probe."""
+    """Liveness for the foreign-series GC. The fleet registry decides a
+    pid it knows: a live member's files are never retired, a dead
+    member's are, even where an unrelated process reused its pid. Pids
+    the registry never saw fall back to the `os.kill` probe."""
+    try:
+        from predictionio_tpu_torch.obs import fleet
+        status = fleet.get_fleet().pid_status(pid)
+    except Exception:
+        status = "unknown"
+    if status == "live":
+        return True
+    if status == "dead":
+        return False
     return _pid_alive(pid)
 
 

@@ -17,13 +17,13 @@ event fires:
         traces.json     the traces of the incident's trace ids (plus one
                         hop of links), else the most recent traces
         metrics.prom    a registry scrape per source
+        fleet.json      the fleet registry at capture, with liveness
+        fleet/<member>/ every other live member's flight tail, traces
+                        and metrics scrape (`obs/fleet.py`)
 
 Captures run on a short-lived background thread and are rate-limited
 per kind (`cooldown_s`); `max_incidents` bounds the directory, oldest
-first. `incidents {list,show,export}` of the CLI read them. The
-reference also freezes every other live fleet member's view into the
-bundle; the port has no fleet registry yet, so its bundles hold this
-process's view only.
+first. `incidents {list,show,export}` of the CLI read them.
 """
 
 from __future__ import annotations
@@ -327,6 +327,15 @@ class IncidentManager:
             with open(os.path.join(d, "traces.json"), "w") as f:
                 json.dump({"traces": traces}, f, default=str)
             self._write_metrics(d)
+            try:
+                # the flight tail, trace neighborhood and metrics scrape
+                # of every other live member: a gate rejection in the
+                # scheduler's process bundles the event server's
+                # ingress records that fed it
+                self._write_fleet(d, trace_ids)
+            except Exception:
+                logger.debug("fleet incident capture failed",
+                             exc_info=True)
             with self._lock:   # captures run on concurrent threads
                 self.captured += 1
             self._retire_old()
@@ -352,6 +361,69 @@ class IncidentManager:
                 pass
         with open(os.path.join(d, "metrics.prom"), "w") as f:
             f.write("\n".join(chunks))
+
+    def _write_fleet(self, d: str, trace_ids: Sequence[str]):
+        """Freeze every OTHER live member's view into the bundle:
+        ``fleet.json`` (the registry with liveness — which members
+        were alive/dead at capture is itself forensics) plus per-peer
+        ``fleet/<memberId>/{flight.jsonl,traces.json,metrics.prom}``.
+        Same-pid members are skipped (their state IS the local bundle);
+        per-peer failures are recorded, never raised. Runs on the
+        capture thread — the hot path never pays these HTTP fetches."""
+        from predictionio_tpu_torch.obs import fleet
+        from predictionio_tpu_torch.utils.http import fetch_json, fetch_text
+        members = fleet.get_fleet().members()
+        if not members:
+            return
+        summary = []
+        for m in members:
+            entry = {k: m.get(k) for k in
+                     ("memberId", "role", "pid", "host", "port",
+                      "alive", "ageS", "startedAt")}
+            summary.append(entry)
+            if (not m.get("alive") or not m.get("port")
+                    or m.get("pid") == os.getpid()):
+                continue
+            base = fleet.member_url(m)
+            sub = os.path.join(d, "fleet", str(m["memberId"]))
+            try:
+                os.makedirs(sub, exist_ok=True)
+                flight = fetch_json(
+                    f"{base}/flight.json?n={self.flight_tail}",
+                    timeout=3.0)
+                if isinstance(flight, dict) and "records" in flight:
+                    with open(os.path.join(sub, "flight.jsonl"),
+                              "w") as f:
+                        for rec in reversed(flight["records"]):
+                            f.write(json.dumps(
+                                rec, default=str,
+                                separators=(",", ":")) + "\n")
+                else:
+                    entry["flightError"] = (flight or {}).get("error") \
+                        or (flight or {}).get("message")
+                tid = next(iter(trace_ids), None)
+                turl = (f"{base}/traces.json?trace_id={tid}" if tid
+                        else f"{base}/traces.json"
+                             f"?n={self.traces_limit}")
+                traces = fetch_json(turl, timeout=3.0)
+                if isinstance(traces, dict) and "traces" in traces:
+                    with open(os.path.join(sub, "traces.json"),
+                              "w") as f:
+                        json.dump(traces, f, default=str)
+                else:
+                    entry["tracesError"] = (traces or {}).get("error") \
+                        or (traces or {}).get("message")
+                prom = fetch_text(f"{base}/metrics", timeout=3.0)
+                if prom is not None:
+                    with open(os.path.join(sub, "metrics.prom"),
+                              "w") as f:
+                        f.write(prom)
+                else:
+                    entry["metricsError"] = "unreachable or gated"
+            except Exception as e:
+                entry["error"] = str(e)
+        with open(os.path.join(d, "fleet.json"), "w") as f:
+            json.dump({"members": summary}, f, indent=2, default=str)
 
     def _retire_old(self):
         root = self.incidents_dir()
@@ -410,6 +482,13 @@ class IncidentManager:
         if os.path.isfile(tpath):
             with open(tpath) as f:
                 out["traceDetail"] = json.load(f).get("traces", [])
+        fpath = os.path.join(d, "fleet.json")
+        if os.path.isfile(fpath):
+            try:
+                with open(fpath) as f:
+                    out["fleet"] = json.load(f).get("members", [])
+            except (OSError, ValueError):
+                pass
         return out
 
     def export(self, incident_id: str,

@@ -77,6 +77,7 @@ from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel,
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolveBatch,
                                                 SolvePlan, build_solve_plan)
 from predictionio_tpu_torch.ops.solve import resolve_solver
+from predictionio_tpu_torch.resilience.faults import maybe_corrupt_array
 from predictionio_tpu_torch.utils import device_cache
 from predictionio_tpu_torch.compile.buckets import bucket_batch, bucket_rows
 
@@ -414,6 +415,12 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
     stats = FoldInStats(n_new_users=n_users - als.n_users,
                         n_new_items=n_items - als.n_items)
     implicit = cfg.implicit_prefs
+    # chaos opt-in: a `fold.ratings:corrupt=P` PIO_FAULTS clause poisons
+    # this tick's data, which the sweep sentinel must catch
+    vals, vals_corrupted = maybe_corrupt_array("fold.ratings", coo.rating)
+    if vals_corrupted:
+        coo = RatingsCOO(coo.user_idx, coo.item_idx, vals, coo.n_users,
+                         coo.n_items)
     dtype_name = _table_dtype(als.user_factors, als.item_factors)
     dtype = getattr(torch, dtype_name)
     solver = resolve_solver(cfg.solver, dev)
@@ -521,6 +528,15 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
     # published models carry exact-size host tables; the bucket padding
     # is the device's alone
     U_host, V_host = _to_host(U_dev[:n_users]), _to_host(V_dev[:n_items])
+    # chaos opt-in: `fold.factors:corrupt=P` is a blow-up that slipped
+    # past the sentinel, which the pre-swap gates must catch
+    U_host, cu = maybe_corrupt_array("fold.factors", U_host)
+    V_host, cv = maybe_corrupt_array("fold.factors", V_host)
+    if cu or cv:
+        # the clean device tables must serve no poisoned host arrays:
+        # no residency, and the model uploads its host tables again
+        stats.wall_s = time.perf_counter() - t0
+        return ALSModel(U_host, V_host, rank, dev), stats
     if resident_key:
         device_cache.put_resident(
             resident_key, (U_host, V_host),

@@ -2,8 +2,11 @@
 
 The port's counterpart of `predictionio_tpu/online/scheduler.py`
 (`EntityDelta`, `SchedulerConfig`, `DeltaTrainingScheduler`,
-`attach_scheduler`) and of the tail's `resilience.CircuitBreaker`. Each
-tick:
+`attach_scheduler`). The tail read runs behind the `scheduler_tail`
+`resilience.CircuitBreaker`, whose transitions are flight records,
+`pio_breaker_*` samples and, on opening, a `breaker_open` incident; a
+started scheduler is a fleet member (`obs/fleet.py`, role `scheduler`).
+Each tick:
 
 1. TAIL: read the events at or after the cursor through the event store
    (`LEventStore.find`), routed by entity type into per-entity deltas (a
@@ -49,14 +52,14 @@ Each tick that sees fresh events or folds records a `fold_tick` trace:
 returns host tables, so the span ends after the copy that waits for the
 fold's CUDA stream), `guard_gates`, `registry_publish`, `hot_swap`,
 `reload` (whose POST carries the tick's trace context). The tail read
-resolves each fresh event to the trace that ingested it in this process
-(`TRACER.trace_id_for_event`); the fold tick links those ingest traces
-and each of them links the tick back. Gate verdicts, publishes and the
-retrain escalation are flight records; a gate rejection captures an
-incident bundle, and the scheduler's `stats()` rides every bundle. The
-reference also resolves events ingested by other processes through its
-fleet registry, which the port does not have yet; its tenant scopes and
-fold-tick gate belong to later slices too.
+resolves each fresh event to the trace that ingested it: in this process
+through `TRACER.trace_id_for_event`, in another through the fleet peers'
+event maps (`fleet.resolve_event_traces`); the fold tick links those
+ingest traces and each of them links the tick back. Gate verdicts,
+publishes and the retrain escalation are flight records; a gate
+rejection captures an incident bundle, and the scheduler's `stats()`
+rides every bundle. The reference's tenant scopes and fold-tick gate
+belong to a later slice.
 """
 
 from __future__ import annotations
@@ -75,10 +78,13 @@ from predictionio_tpu_torch.data.event import (Event, parse_event_time,
 from predictionio_tpu_torch.data.store import LEventStore
 from predictionio_tpu_torch.guard.gates import (GateConfig, GateRejected,
                                                 QualityGatekeeper)
-from predictionio_tpu_torch.obs import (FLIGHT, TRACER, costmon,
+from predictionio_tpu_torch.obs import (FLIGHT, TRACER, costmon, fleet,
                                         get_incidents, get_registry,
                                         torchmon, trace_context_headers)
 from predictionio_tpu_torch.online.registry import ONLINE_BATCH_TAG
+from predictionio_tpu_torch.resilience import (CircuitBreaker,
+                                               CircuitOpenError)
+from predictionio_tpu_torch.resilience.policy import CLOSED
 
 logger = logging.getLogger(__name__)
 
@@ -143,89 +149,6 @@ class SchedulerConfig:
     gate_config: GateConfig = GateConfig()
 
 
-CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
-
-
-class CircuitOpenError(IOError):
-    """Fail fast: the breaker is open; `retry_after_s` is when its next
-    probe is admitted."""
-
-    def __init__(self, name: str, retry_after_s: float):
-        super().__init__(f"circuit breaker {name!r} is open; retry in "
-                         f"{retry_after_s:.1f}s")
-        self.breaker = name
-        self.retry_after_s = retry_after_s
-
-
-class CircuitBreaker:
-    """Closed -> open after `failure_threshold` consecutive failures ->
-    half-open after the reset timeout (one probe at a time) -> closed on
-    a success, or open again with the timeout doubled (capped)."""
-
-    MAX_RESET_TIMEOUT_S = 120.0
-
-    def __init__(self, name: str, failure_threshold: int = 5,
-                 reset_timeout_s: float = 10.0):
-        if failure_threshold < 1:
-            raise ValueError("failure_threshold must be >= 1")
-        self.name = name
-        self.failure_threshold = failure_threshold
-        self.base_reset_timeout_s = reset_timeout_s
-        self._lock = threading.Lock()
-        self._state = CLOSED
-        self._failures = 0
-        self._opened_at = 0.0
-        self._reset_timeout_s = reset_timeout_s
-        self._probe_inflight = False
-
-    def _maybe_half_open(self) -> None:
-        waited = time.monotonic() - self._opened_at
-        if self._state == OPEN and waited >= self._reset_timeout_s:
-            self._state = HALF_OPEN
-            self._probe_inflight = False
-
-    @property
-    def state(self) -> str:
-        with self._lock:
-            self._maybe_half_open()
-            return self._state
-
-    def allow(self) -> None:
-        """Raises `CircuitOpenError` when the call must fail fast."""
-        with self._lock:
-            self._maybe_half_open()
-            if self._state == CLOSED:
-                return
-            if self._state == HALF_OPEN and not self._probe_inflight:
-                self._probe_inflight = True
-                return
-            waited = time.monotonic() - self._opened_at
-            raise CircuitOpenError(self.name,
-                                   max(self._reset_timeout_s - waited, 0.0))
-
-    def record_success(self) -> None:
-        with self._lock:
-            self._failures = 0
-            self._probe_inflight = False
-            if self._state != CLOSED:
-                self._reset_timeout_s = self.base_reset_timeout_s
-                self._state = CLOSED
-
-    def record_failure(self) -> None:
-        with self._lock:
-            self._failures += 1
-            if self._state == HALF_OPEN:
-                self._probe_inflight = False
-                self._reset_timeout_s = min(self._reset_timeout_s * 2,
-                                            self.MAX_RESET_TIMEOUT_S)
-                self._opened_at = time.monotonic()
-                self._state = OPEN
-            elif (self._state == CLOSED
-                  and self._failures >= self.failure_threshold):
-                self._opened_at = time.monotonic()
-                self._state = OPEN
-
-
 class DeltaTrainingScheduler:
     """Follows one deployed engine. `server`: an in-process
     `EngineServer` to hot-swap. `registry` + `reload_url`: publish each
@@ -277,9 +200,11 @@ class DeltaTrainingScheduler:
         self.gatekeeper = (QualityGatekeeper(config.gate_config)
                            if config.gates else None)
         self.gate_rejects = 0
+        # the breaker over the event-store tail read
         self._tail_breaker = CircuitBreaker(
             "scheduler_tail", failure_threshold=config.tail_breaker_failures,
             reset_timeout_s=config.tail_breaker_reset_s)
+        self._fleet_id: Optional[str] = None
         self.consecutive_failures = 0
         self.last_error: Optional[str] = None
         # process-wide fold instruments (schedulers in one process share
@@ -365,6 +290,7 @@ class DeltaTrainingScheduler:
         new_users: Dict[str, EntityDelta] = {}
         new_items: Dict[str, EntityDelta] = {}
         new_trace_ids: Set[str] = set()
+        miss_ids: List[str] = []
         max_t = self._cursor
         boundary: Set[str] = set()
         try:
@@ -392,6 +318,8 @@ class DeltaTrainingScheduler:
                     tid = TRACER.trace_id_for_event(e.event_id)
                     if tid:
                         new_trace_ids.add(tid)
+                    else:
+                        miss_ids.append(e.event_id)
                 d = EntityDelta.from_event(e)
                 # by entity type: a rating's subject is a user, its
                 # target an item; an item's $set is an item delta
@@ -414,6 +342,16 @@ class DeltaTrainingScheduler:
                 self._tail_breaker.record_success()
                 raise
         self._tail_breaker.record_success()
+        if miss_ids:
+            # ingest traces of other processes: ask the fleet peers'
+            # event maps (fail-soft; co-located servers share this
+            # process's tracer, so a local miss is another pid's or none)
+            try:
+                new_trace_ids.update(
+                    fleet.resolve_event_traces(miss_ids).values())
+            except Exception:
+                logger.debug("fleet event-trace resolution failed",
+                             exc_info=True)
         with self._lock:
             self._user_deltas = _merge([self._user_deltas, new_users])
             self._item_deltas = _merge([self._item_deltas, new_items])
@@ -745,6 +683,9 @@ class DeltaTrainingScheduler:
         if self._thread is not None:
             return self
         self._stop.clear()
+        # a following scheduler is a fleet member (no port): its
+        # liveness shows in `fleet status` and guards its flight files
+        self._fleet_id = fleet.register_member("scheduler")
 
         def loop():
             cfg = self.config
@@ -797,6 +738,8 @@ class DeltaTrainingScheduler:
         return self
 
     def stop(self) -> None:
+        fleet.deregister_member(self._fleet_id)
+        self._fleet_id = None
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=10)

@@ -100,8 +100,10 @@ SLOs; a latency SLO that turns `breached` captures an incident),
 `/slow.json` (the stage waterfall of every query slower than
 `obs/slowlog.slow_threshold_s()`), `/profile.json` (the sampling
 profiler's report and the torch.profiler device trace) and
-`/incidents.json`, `/incidents/<id>.json` serve it. The reference's
-`/fleet/*` routes are not ported yet (404).
+`/incidents.json`, `/incidents/<id>.json` serve it. Once bound, the
+server registers as the fleet member `engine_server` (`obs/fleet.py`)
+and deregisters in `stop`; `/fleet/status.json`, `/fleet/health.json`,
+`/fleet/metrics` and `/fleet/traces.json` serve the fleet's views.
 
 The routes are served by `utils/http` (`Router`, `HttpServer`), as the
 event server's are: an unknown path answers 404 and a known path asked
@@ -133,7 +135,7 @@ from predictionio_tpu_torch.guard.canary import (CANDIDATE, INCUMBENT,
 from predictionio_tpu_torch.models import get_engine_factory
 from predictionio_tpu_torch.obs import (FLIGHT, MetricsRegistry, SLOEngine,
                                         TRACER, costmon,
-                                        default_engine_specs,
+                                        default_engine_specs, fleet,
                                         flight_response, get_incidents,
                                         get_registry, health_response,
                                         ingress_trace_kwargs, slow_response,
@@ -295,7 +297,10 @@ class EngineServer:
                 max_bytes=config.result_cache_max_bytes,
                 metrics=self.metrics)
         self._lock = threading.Lock()
+        self._stop_lock = threading.Lock()
         self._httpd: Optional[HttpServer] = None
+        # the fleet member id, set once the socket is bound
+        self._fleet_id: Optional[str] = None
         self.batcher: Optional[MicroBatcher] = None
         if config.micro_batch > 1:
             self.batcher = MicroBatcher(
@@ -1135,7 +1140,20 @@ class EngineServer:
         r.add("GET", "/incidents.json",
               lambda req: Response(200, incidents_response(req.params)))
         r.add("GET", "/incidents/<id>.json", self._incident_route)
+        r.add("GET", "/fleet/status.json", lambda req: Response(
+            200, fleet.fleet_status_response(req.params)))
+        r.add("GET", "/fleet/health.json", lambda req: Response(
+            200, fleet.fleet_health_response(req.params)))
+        r.add("GET", "/fleet/metrics", self._fleet_metrics_route)
+        r.add("GET", "/fleet/traces.json", lambda req: Response(
+            200, fleet.fleet_traces_response(req.params)))
         return r
+
+    @staticmethod
+    def _fleet_metrics_route(req: Request) -> Response:
+        from predictionio_tpu_torch.utils.prometheus import CONTENT_TYPE
+        return Response(200, fleet.fleet_metrics_response(req.params),
+                        content_type=CONTENT_TYPE)
 
     def bind(self, bind_retries: int = 3,
              retry_delay_s: float = 1.0) -> "EngineServer":
@@ -1145,10 +1163,19 @@ class EngineServer:
         self._httpd = HttpServer(self._router(), self.config.ip,
                                  self.config.port, name="engine-server"
                                  ).bind(bind_retries, retry_delay_s)
+        self._httpd.on_bound = self._bound
         self.config.port = self._httpd.port
         logger.info("Engine server started on %s:%d", self.config.ip,
                     self.config.port)
         return self
+
+    def _bound(self, httpd: HttpServer) -> None:
+        """Bound and about to serve: register the fleet member (the id
+        swapped under the serving lock, the file written outside it)."""
+        fid = fleet.register_member("engine_server", port=httpd.port,
+                                    host=self.config.ip)
+        with self._lock:
+            self._fleet_id = fid
 
     def start(self, background: bool = True) -> "EngineServer":
         """Serve, binding first unless `bind` has; `background=False`
@@ -1162,10 +1189,16 @@ class EngineServer:
         return self
 
     def stop(self) -> None:
-        """Stop listening, then stop the micro-batcher (windows already
-        dispatched complete; queued queries fail with 503)."""
-        httpd, self._httpd = self._httpd, None
-        if httpd is not None:
-            httpd.stop()
-        if self.batcher is not None:
-            self.batcher.stop()
+        """Deregister from the fleet, stop listening, then stop the
+        micro-batcher (windows already dispatched complete; queued
+        queries fail with 503). Stops run one at a time, so a second
+        `stop` returns only once the first has finished."""
+        with self._stop_lock:
+            with self._lock:
+                fleet_id, self._fleet_id = self._fleet_id, None
+            fleet.deregister_member(fleet_id)
+            httpd, self._httpd = self._httpd, None
+            if httpd is not None:
+                httpd.stop()
+            if self.batcher is not None:
+                self.batcher.stop()

@@ -42,8 +42,14 @@ verdicts and burn rates (`/health.json`), both from the local defaults
 {list,show,export}` reads the incident bundles under
 `<PIO_FS_BASEDIR>/incidents/` (or a server's over `--url`); `profile top`
 prints a server's sampling-profiler stacks, `profile trace
-{start,stop}` toggles its torch.profiler device trace. `cache status` prints the salted
-build directory of the kernels (`compile/cache.py`: its salt, the
+{start,stop}` toggles its torch.profiler device trace. `fleet
+{status,metrics,traces}` reads the fleet registry under
+`<PIO_FS_BASEDIR>/fleet/` (liveness, the federated scrape, one trace
+stitched across processes); `faults` validates a `PIO_FAULTS` spec and
+previews its seeded decisions; `spill {status,peek,requeue}` inspects
+the event server's spill WAL and retries its quarantined records.
+`update --follow` registers as the fleet member `scheduler`. `cache
+status` prints the salted build directory of the kernels (`compile/cache.py`: its salt, the
 libraries built there, stale salts) as JSON; `cache clear` removes the
 active salt's libraries (the next first use rebuilds them) and `--all`
 every salt's.
@@ -71,7 +77,7 @@ DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
     "here: version, status, train, eval, deploy, undeploy, update, "
     "rollback, eventserver, app, accesskey, export, import, trim, cache, "
-    "incidents, profile. "
+    "incidents, profile, fleet, faults, spill. "
     "Still only in the JAX package's bin/pio: build, template, dashboard "
     "and the other commands.")
 
@@ -263,10 +269,13 @@ def cmd_eval(args) -> int:
 
 def _serve_foreground(server, label: str) -> int:
     """Serve a bound server on this thread until `/stop`, SIGTERM or
-    SIGINT. A signal
-    stops the server from a helper thread (stopping from inside the
-    serve loop's own thread would deadlock) and hard-exits with status 1
-    if the teardown has not finished within 15 s."""
+    SIGINT. A signal stops the server from a helper thread (stopping
+    from inside the serve loop's own thread would deadlock) and
+    hard-exits with status 1 if the teardown has not finished within
+    15 s. Once the serve loop returns, this thread finishes the teardown
+    (a second `stop` waits for one under way) and stops the process's
+    background writers, so that no daemon thread is mid-call when the
+    interpreter exits."""
     torn_down = threading.Event()
 
     def stopper():
@@ -287,6 +296,11 @@ def _serve_foreground(server, label: str) -> int:
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, on_signal)
     server.start(background=False)
+    server.stop()
+    from predictionio_tpu_torch.obs import FLIGHT, PROFILER
+    PROFILER.stop()
+    FLIGHT.flush()
+    FLIGHT.close()
     torn_down.set()
     return 0
 
@@ -383,6 +397,10 @@ def cmd_update(args) -> int:
     print(f"Following app {app_name!r} (fold at {config.max_deltas} "
           f"deltas or {config.max_staleness_s:g}s staleness; ^C stops).",
           flush=True)
+    # a following scheduler is a fleet member (no port): its liveness
+    # shows in `fleet status` and guards its flight files
+    from predictionio_tpu_torch.obs import fleet
+    fleet_id = fleet.register_member("scheduler")
     try:
         while True:
             try:
@@ -403,6 +421,8 @@ def cmd_update(args) -> int:
         print("Stopped.")
         print(json.dumps(sched.stats()))
         return 0
+    finally:
+        fleet.deregister_member(fleet_id)
 
 
 def cmd_rollback(args) -> int:
@@ -646,6 +666,16 @@ def cmd_incidents(args) -> int:
             for t in traces:
                 print(f"    {t.get('kind', '?'):14s} "
                       f"{t.get('traceId')} links={t.get('links')}")
+        members = bundle.get("fleet") or []
+        if members:
+            print(f"  fleet at capture ({len(members)} member(s)):")
+            for m in members:
+                print(f"    {m.get('memberId', '?'):28s} "
+                      f"{'ALIVE' if m.get('alive') else 'DEAD':6s}"
+                      f" port={m.get('port') or '-'}"
+                      + (f" [{m.get('error') or m.get('metricsError')}]"
+                         if m.get("error") or m.get("metricsError")
+                         else ""))
         return 0
     if url:
         print("export needs the server's filesystem; run it on that "
@@ -711,6 +741,175 @@ def _add_variant_arg(sp) -> None:
     sp.add_argument("--engine-json", "--variant", "-v",
                     dest="engine_json", default="engine.json",
                     help="engine variant JSON (reference: --variant/-v)")
+
+
+def cmd_fleet(args) -> int:
+    """`fleet {status,metrics,traces}`: the member registry under
+    `<PIO_FS_BASEDIR>/fleet/` with liveness, one federated
+    {role,pid}-labelled metrics scrape, and one trace id stitched across
+    every member's process."""
+    from predictionio_tpu_torch.obs import fleet as F
+    reg = F.FleetRegistry(fleet_dir=args.dir) if args.dir else F.get_fleet()
+    sub = args.fleet_command
+    if sub == "status":
+        st = F.fleet_status(reg.members(), registry=reg)
+        print(f"Fleet under {st['fleetDir']} "
+              f"(heartbeat {st['heartbeatS']:g}s, liveness window "
+              f"{st['livenessWindowS']:g}s):")
+        if not st["members"]:
+            print("  no members registered (are the servers running "
+                  "with this PIO_FS_BASEDIR?)")
+            return 1
+        for m in st["members"]:
+            url = m.get("url") or (F.member_url(m) or "-")
+            print(f"  {m.get('memberId', '?'):28s} "
+                  f"{'UP' if m.get('alive') else 'DEAD':5s} "
+                  f"pid={m.get('pid')} "
+                  f"url={url:<28} "
+                  f"beat {m.get('ageS', 0):.1f}s ago"
+                  + (f" tenants={','.join(sorted(m['tenants']))}"
+                     if m.get("tenants") else ""))
+        print(f"  {st['alive']} alive, {st['dead']} dead")
+        return 0 if st["dead"] == 0 else 1
+    if sub == "metrics":
+        print(F.federate_metrics(reg.live_members()).rstrip("\n"))
+        return 0
+    out = F.fleet_traces(args.id, members=reg.live_members(), limit=args.n)
+    for q in out["members"]:
+        if not q.get("ok"):
+            print(f"# {q.get('memberId')}: {q.get('error')}")
+    if not out["traces"]:
+        print(f"No member holds trace {args.id} (rings rotate; capture "
+              "an incident to freeze one).")
+        return 1
+    print(f"Trace {args.id}: {len(out['traces'])} process-local "
+          f"trace(s) across pids {out['pids']}")
+
+    def walk(span, depth):
+        print(f"    {'  ' * depth}{span.get('name', '?'):24s} "
+              f"{span.get('durationMs', '?')}ms"
+              + (f" {span['attrs']}" if span.get("attrs") else ""))
+        for c in span.get("children", ()):
+            walk(c, depth + 1)
+
+    for t in out["traces"]:
+        m = t.get("member") or {}
+        tag = (" <- THE trace" if t.get("traceId") == args.id
+               else f" (links {t.get('links')})")
+        print(f"  [{m.get('role', '?')}:{t.get('pid', '?')}] "
+              f"{t.get('kind'):16s} {t.get('durationMs')}ms "
+              f"{t.get('traceId')}{tag}")
+        walk(t.get("root") or {}, 1)
+    return 0
+
+
+def cmd_faults(args) -> int:
+    """`faults`: parse and validate a `PIO_FAULTS` spec, say whether one
+    is active, and preview its seeded decision stream, the dry run
+    before chaos is pointed at a live stack."""
+    from predictionio_tpu_torch.resilience.faults import (ENV_VAR,
+                                                          FaultInjector,
+                                                          FaultSpec,
+                                                          InjectedFault)
+    spec_s = args.spec or os.environ.get(ENV_VAR, "")
+    if not spec_s.strip():
+        print(f"No fault spec: set {ENV_VAR} or pass --spec.")
+        print("Syntax: target:key=value[,key=value][;target:...]")
+        print("  e.g. 'storage.write:error=0.3,seed=42'")
+        return 0
+    try:
+        spec = FaultSpec.parse(spec_s)
+    except ValueError as e:
+        print(f"Invalid fault spec: {e}")
+        return 1
+    print(f"Fault spec OK (seed={spec.seed if spec.seed is not None else 0}):")
+    for target, rule in sorted(spec.rules.items()):
+        bits = []
+        if rule.error:
+            bits.append(f"error={rule.error:g}")
+        if rule.partition:
+            bits.append(f"partition={rule.partition:g}")
+        if rule.latency_ms:
+            rate = 1.0 if rule.latency_rate is None else rule.latency_rate
+            bits.append(f"latency={rule.latency_ms:g}ms@{rate:g}")
+        if rule.corrupt:
+            bits.append(f"corrupt={rule.corrupt:g}")
+        print(f"  {target:16s} {', '.join(bits) or '(no-op)'}")
+    if args.preview:
+        inj = FaultInjector(spec, sleep=lambda s: None)
+        print(f"First {args.preview} seeded decisions for {args.target!r}:")
+        for i in range(args.preview):
+            try:
+                inj.before(args.target)
+                print(f"  {i:3d}  ok")
+            except InjectedFault:
+                print(f"  {i:3d}  ERROR (injected)")
+            except ConnectionError:
+                print(f"  {i:3d}  PARTITION (injected)")
+    active = os.environ.get(ENV_VAR, "").strip()
+    print(f"{ENV_VAR} is "
+          + (f"ACTIVE in this environment: {active}" if active
+             else "not set (pass it to the server process to arm)"))
+    return 0
+
+
+def cmd_spill(args) -> int:
+    """`spill {status,peek,requeue}`: the ingest spill WAL and its
+    quarantine sidecar: pending counts, the oldest records, and a retry
+    of the quarantined ones once their cause is fixed."""
+    from predictionio_tpu_torch.resilience.spill import (iter_pending,
+                                                         read_quarantine,
+                                                         requeue_quarantined,
+                                                         scan_wal)
+    path = args.wal
+    if not path:
+        from predictionio_tpu_torch.data.storage.registry import base_dir
+        path = os.path.join(base_dir(), "ingest_spill", "events.wal")
+    if args.spill_command == "status":
+        s = scan_wal(path)
+        if not s["exists"]:
+            print(f"No spill WAL at {path} (nothing ever spilled).")
+            return 0
+        print(f"Spill WAL {path}:")
+        print(f"  records total/pending: {s['totalRecords']} / "
+              f"{s['pendingRecords']}")
+        print(f"  bytes valid/pending:   {s['validBytes']} / "
+              f"{s['pendingBytes']}")
+        if s["tornBytes"]:
+            print(f"  torn tail: {s['tornBytes']} byte(s) (repaired on "
+                  "the owning server's next open)")
+        print(f"  drain cursor: {s['cursor']}")
+        print(f"  quarantined:  {s['quarantined']} record(s)"
+              + (f" in {path}.quarantine" if s["quarantined"] else ""))
+        return 0
+    if args.spill_command == "peek":
+        shown = 0
+        if args.quarantine:
+            for rec in read_quarantine(path)[:args.n]:
+                print("QUARANTINED " + json.dumps(rec, sort_keys=True))
+                shown += 1
+        else:
+            for rec in iter_pending(path, limit=args.n):
+                print(json.dumps(rec, sort_keys=True))
+                shown += 1
+        if shown == 0:
+            print("No pending spill records." if not args.quarantine
+                  else "Quarantine is empty.")
+        return 0
+    q = read_quarantine(path)
+    if not q:
+        print("Quarantine is empty; nothing to requeue.")
+        return 0
+    if not args.force and not _confirm(
+            f"Retry {len(q)} quarantined record(s) against the primary "
+            "event store?"):
+        return 1
+    done, kept = requeue_quarantined(path)
+    print(f"Requeued {done} record(s) directly into the event store "
+          "(id-deduped)."
+          + (f" {kept} still-rejected record(s) remain quarantined in "
+             f"{path}.quarantine." if kept else " Quarantine cleared."))
+    return 0 if not kept else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -964,6 +1163,48 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the server (the event server serves the "
                              "same route under --stats)")
     pf.set_defaults(func=cmd_profile)
+
+    fl = sub.add_parser("fleet", help="the fleet: member liveness, the "
+                        "federated {role,pid}-labelled metrics scrape, "
+                        "one trace stitched across processes")
+    flsub = fl.add_subparsers(dest="fleet_command", required=True)
+    flsub.add_parser("status")
+    flsub.add_parser("metrics")
+    flt = flsub.add_parser("traces")
+    flt.add_argument("id", help="the trace id to stitch across the fleet "
+                     "(e.g. the traceId an event POST returned)")
+    flt.add_argument("-n", type=int, default=50,
+                     help="per-member neighborhood cap")
+    for sp in flsub.choices.values():
+        sp.add_argument("--dir", help="fleet registry dir (default: "
+                        "<PIO_FS_BASEDIR>/fleet)")
+    fl.set_defaults(func=cmd_fleet)
+
+    fa = sub.add_parser("faults", help="validate a PIO_FAULTS spec and "
+                        "preview its seeded decisions")
+    fa.add_argument("--spec", help="fault spec (default: $PIO_FAULTS)")
+    fa.add_argument("--preview", type=int, default=0, metavar="N",
+                    help="print the first N seeded decisions")
+    fa.add_argument("--target", default="storage.write",
+                    help="target for --preview (default storage.write)")
+    fa.set_defaults(func=cmd_faults)
+
+    spl = sub.add_parser("spill", help="inspect the ingest spill WAL and "
+                         "its quarantine sidecar")
+    spsub = spl.add_subparsers(dest="spill_command", required=True)
+    spsub.add_parser("status")
+    spp = spsub.add_parser("peek")
+    spp.add_argument("n", type=int, nargs="?", default=10,
+                     help="records to show (default 10)")
+    spp.add_argument("--quarantine", action="store_true",
+                     help="the quarantine sidecar instead of the pending "
+                          "WAL records")
+    spr = spsub.add_parser("requeue")
+    spr.add_argument("-f", "--force", action="store_true")
+    for sp in spsub.choices.values():
+        sp.add_argument("--wal", help="WAL path (default: "
+                        "<PIO_FS_BASEDIR>/ingest_spill/events.wal)")
+    spl.set_defaults(func=cmd_spill)
     return p
 
 

@@ -96,6 +96,20 @@ def fetch_json(url: str, timeout: float = 3.0) -> Any:
         return {"error": str(e)}
 
 
+def fetch_text(url: str, timeout: float = 3.0) -> Optional[str]:
+    """GET a text endpoint (a /metrics scrape); None on any failure or a
+    status other than 200, which the fleet federation reports as a down
+    member (`obs/fleet.py`)."""
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            if resp.status != 200:
+                return None
+            return resp.read().decode("utf-8", "replace")
+    except Exception:
+        return None
+
+
 def _accepts_gzip(value: str) -> bool:
     """True when an Accept-Encoding value allows gzip (a token match:
     `gzip;q=0` refuses it)."""
@@ -174,6 +188,10 @@ class HttpServer:
         self.name = name
         self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # called with this server once the socket is bound and before
+        # it serves: the one window where a foreground server can
+        # publish its port (the fleet member record). Must not raise.
+        self.on_bound: Optional[Callable[["HttpServer"], None]] = None
 
     def _make_handler(self):
         router = self.router
@@ -242,6 +260,11 @@ class HttpServer:
         if self._httpd is None:
             self.bind()
         httpd = self._httpd
+        if self.on_bound is not None:
+            try:
+                self.on_bound(self)
+            except Exception:
+                logger.exception("on_bound hook failed")
         if background:
             self._thread = threading.Thread(target=httpd.serve_forever,
                                             name=self.name, daemon=True)

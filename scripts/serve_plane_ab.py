@@ -26,19 +26,17 @@ card.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import re
 import subprocess
 import sys
-import threading
 import time
 import urllib.request
 
 import numpy as np
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ab_turns import HERE, ab_args, card_line, closed_loop, post_json, trees
 USERS, ITEMS, RANK = 138_493, 26_744, 200
 CLIENTS, PER_CLIENT, NUM = 32, 20, 10
 N_CATEGORIES, YEARS = 20, (1950, 2020)
@@ -95,35 +93,10 @@ def queries(rng) -> list:
     return out
 
 
-def post(url: str, body: dict) -> int:
-    req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 method="POST")
-    with urllib.request.urlopen(req, timeout=120) as r:
-        r.read()
-        return r.status
-
-
 def burst(url: str, per_client: list) -> dict:
-    lat = [[] for _ in per_client]
-    start = threading.Barrier(len(per_client) + 1)
-
-    def client(c):
-        start.wait()
-        for q in per_client[c]:
-            t0 = time.perf_counter()
-            assert post(url + "/queries.json", q) == 200
-            lat[c].append((time.perf_counter() - t0) * 1e3)
-
-    threads = [threading.Thread(target=client, args=(c,))
-               for c in range(len(per_client))]
-    for t in threads:
-        t.start()
-    start.wait()
-    t0 = time.perf_counter()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.perf_counter() - t0
-    ms = np.concatenate([np.asarray(x) for x in lat])
+    results, wall = closed_loop(url + "/queries.json", per_client)
+    assert {status for status, _, _ in results} == {200}
+    ms = np.array([m for _, _, m in results])
     return {"qps": len(ms) / wall, "p50_ms": float(np.percentile(ms, 50)),
             "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max())}
 
@@ -160,7 +133,7 @@ def run(name: str, tree: str, env: dict, bursts: int, seed: int) -> dict:
                "avg_batch": nq / nb if nb else None,
                "dispatch_ms_per_window": disp * 1e3 / nb if nb else None}
         try:
-            post(url + "/stop", {})
+            post_json(url + "/stop", {})
         except OSError:
             pass
         proc.wait(timeout=60)
@@ -172,12 +145,10 @@ def run(name: str, tree: str, env: dict, bursts: int, seed: int) -> dict:
 
 
 def main() -> int:
-    p = argparse.ArgumentParser()
+    p = ab_args(__doc__, base_required=False)
     sub = p.add_subparsers(dest="cmd")
     sv = sub.add_parser("serve")
     sv.add_argument("--tree", required=True)
-    p.add_argument("--base", help="the other checkout (B)")
-    p.add_argument("--order", default="BAAB")
     p.add_argument("--bursts", type=int, default=3)
     p.add_argument("--variant", action="append", default=[],
                    help="NAME:ENV=VALUE,... : this checkout under extra "
@@ -190,8 +161,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("serve_plane_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    trees = {"A": HERE, "B": os.path.abspath(args.base or HERE)}
-    plan = [(k, trees[k], {}) for k in args.order]
+    checkouts = trees(args.base)
+    plan = [(k, checkouts[k], {}) for k in args.order]
     for v in args.variant:
         name, _, kv = v.partition(":")
         plan.append((name, HERE, dict(x.split("=", 1)
@@ -199,10 +170,7 @@ def main() -> int:
     for k, (name, tree, env) in enumerate(plan):
         print(json.dumps(run(name, tree, env, args.bursts, seed=k)),
               flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     return 0
 
 

@@ -193,7 +193,8 @@ def test_deploy_serves_like_in_process_and_undeploy_stops_it(store,
         assert out.returncode == 0
         assert out.stdout.strip() == \
             f"Undeployed engine server at 127.0.0.1:{port}."
-        assert proc.wait(timeout=30) == 0
+        rc = proc.wait(timeout=30)
+        assert rc == 0, f"deploy exited {rc}: {log.read_text()}"
         assert "Engine is deployed and running. Engine API is live at " \
             f"http://127.0.0.1:{port}." in log.read_text()
     finally:
@@ -265,5 +266,6 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
     assert "Still only in the JAX package's bin/pio" in text
     assert "version, status, train, eval, deploy, undeploy, update, " \
         "rollback, eventserver, app, accesskey, export, import, trim, " \
-        "cache, incidents, profile. Still only in the JAX package's " \
+        "cache, incidents, profile, fleet, faults, spill. Still only in " \
+        "the JAX package's " \
         "bin/pio: build, template" in text

@@ -123,6 +123,9 @@ def test_cached_put_and_padded_equal_the_reference():
 
 
 def test_a_copy_goes_with_its_host_array():
+    # collect first: entries whose host arrays an earlier test dropped
+    # would otherwise go with this test's collect and shrink the count
+    gc.collect()
     n0 = TD.cache_size()
     arr = np.ones((7, 2), np.float32)
     TD.cached_put_rows(arr, 64, "cpu")

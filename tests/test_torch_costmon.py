@@ -48,8 +48,9 @@ class Clock:
 
 @pytest.fixture()
 def fresh(monkeypatch):
-    """Both cost monitors installed, with their occupancy windows, EWMAs
-    and per-label states reset, and `time.monotonic` a scripted clock."""
+    """Both cost monitors installed, with their occupancy windows, EWMAs,
+    per-label states and device seconds by tenant reset, and
+    `time.monotonic` a scripted clock."""
     clock = Clock()
     monkeypatch.setattr("time.monotonic", clock)
     for mod in (JC, TC):
@@ -60,6 +61,11 @@ def fresh(monkeypatch):
         monkeypatch.setattr(mod, "_occ_acc_tenant", {})
         monkeypatch.setattr(mod, "_occ_share_ewma", {})
         monkeypatch.setattr(mod, "_dev_state", {})
+        # the device seconds by tenant, which `device_time_by_tenant`
+        # reads: an empty family, so no earlier test's tenant time shows
+        fam = mod._c_device_s
+        monkeypatch.setattr(mod, "_c_device_s",
+                            type(fam)(fam.name, fam.help, fam.labelnames))
     monkeypatch.setattr(TC, "_pending", [])
     return clock
 

@@ -18,8 +18,8 @@ semantics (as `tests/test_event_server.py::TestAuthCache`); 8 concurrent
 clients through the admission batcher write the same rows as serial
 posts; a leader whose insert raises hands the error to every follower;
 the diagnostics routes answer as the reference's, gated alike by
-`--stats`; only `/fleet/status.json` answers 404, and the config has no
-spill fields.
+`--stats`; `spill=False` is accepted and `/fleet/status.json` lists the
+server as a live member.
 Every HTTP call carries a timeout and every server binds port 0.
 """
 
@@ -529,8 +529,10 @@ def test_a_failed_group_insert_reaches_every_follower():
         def insert_batch(self, evs, app_id, channel_id=None):
             raise OSError("database is locked")
 
-    s = TES.EventServer(TES.EventServerConfig(), events=Failing(),
-                        access_keys=object(), channels=object())
+    # without the spill, which would acknowledge the events instead
+    s = TES.EventServer(TES.EventServerConfig(spill=False),
+                        events=Failing(), access_keys=object(),
+                        channels=object())
     batcher = s._batcher
     n = 4
     for _ in range(n):
@@ -552,18 +554,26 @@ def test_a_failed_group_insert_reaches_every_follower():
     assert got == ["database is locked"] * n
 
 
-def test_observability_routes_and_spill_fields_are_not_ported(tmp_env):
-    with pytest.raises(TypeError):
-        TES.EventServerConfig(spill=False)
+def test_spill_off_is_accepted_and_the_fleet_lists_this_server(tmp_env):
+    """`spill=False` is a config field, as in the reference; once bound,
+    the server is a live fleet member that `/fleet/status.json` lists
+    with this process's pid and its port, and `stop` removes it."""
+    import os
     s = TES.EventServer(TES.EventServerConfig(ip="127.0.0.1", port=0,
-                                              stats=True))
+                                              stats=True, spill=False))
     s.start()
     try:
-        for path in ("/fleet/status.json",):
-            assert call(s.config.port, "GET", path) == (
-                404, {"message": "not found"})
+        status, body = call(s.config.port, "GET", "/fleet/status.json")
+        assert status == 200
+        (m,) = body["members"]
+        assert (m["memberId"], m["role"], m["pid"], m["port"],
+                m["alive"]) == (f"event_server-{os.getpid()}",
+                                "event_server", os.getpid(),
+                                s.config.port, True)
+        assert (body["alive"], body["dead"]) == (1, 0)
     finally:
         s.stop()
+    assert TES.fleet.get_fleet().members() == []
 
 
 def shape(body):
@@ -581,7 +591,7 @@ def shape(body):
 DIAG_ROUTES = [
     ("/traces.json?kind=no_such_kind", "GET", None, ()),
     ("/flight.json?kind=no_such_kind", "GET", None, ()),
-    ("/health.json", "GET", None, ("breaker",)),    # with resilience/
+    ("/health.json", "GET", None, ()),
     ("/incidents.json", "GET", None, ()),
     ("/profile.json?action=report", "GET", None, ()),
 ]

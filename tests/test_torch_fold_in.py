@@ -449,3 +449,45 @@ def test_template_fold_in_matches_reference(template, tmp_path):
     for a, b in pairs:
         assert a.shape == b.shape
         assert np.abs(a - b).max() <= FACTOR_TOL[0.1] * np.abs(a).max()
+
+
+@pytest.mark.parametrize("target", ["fold.ratings", "fold.factors"])
+def test_pio_faults_corrupt_the_fold_alike(mesh1, target, monkeypatch):
+    """`PIO_FAULTS` at the fold's two opted-in sites: NaN ratings are
+    caught by the sweep sentinel (no clean sweep, so the fold raises) and
+    NaN factors reach the published tables (the pre-swap gates' job),
+    alike in both packages; a corrupted port fold leaves no resident
+    slot."""
+    from predictionio_tpu import resilience as JR
+    from predictionio_tpu_torch import resilience as TR
+    monkeypatch.setenv("PIO_FAULTS", f"{target}:corrupt=1,seed=1")
+    for R in (JR, TR):
+        R.reset_env_injector()
+    U, V, coo, tu, ti = fold_case(seed=3)
+    cfg = dict(lam=0.1, sweeps=2, work_budget=512)
+    try:
+        if target == "fold.ratings":
+            with pytest.raises(JS.NumericalFault):
+                JF.fold_in_coo(JA.ALSModel(U, V, RANK), JCOO(*coo), tu, ti,
+                               JF.FoldInConfig(**cfg), mesh=mesh1)
+            with pytest.raises(TS.NumericalFault):
+                TF.fold_in_coo(TA.ALSModel(U, V, RANK, None), TCOO(*coo),
+                               tu, ti, TF.FoldInConfig(**cfg), device="cpu")
+            return
+        mj, _ = JF.fold_in_coo(JA.ALSModel(U, V, RANK), JCOO(*coo), tu, ti,
+                               JF.FoldInConfig(**cfg), mesh=mesh1)
+        key = "fold:test-corrupt"
+        mt, _ = TF.fold_in_coo(TA.ALSModel(U, V, RANK, None), TCOO(*coo), tu,
+                               ti, TF.FoldInConfig(**cfg), device="cpu",
+                               resident_key=key)
+        for got in (mt.user_factors, mt.item_factors,
+                    np.asarray(mj.user_factors), np.asarray(mj.item_factors)):
+            assert np.isnan(got).all()
+        assert mt.user_factors.shape == np.asarray(mj.user_factors).shape
+        assert device_cache.get_resident(
+            key, (mt.user_factors, mt.item_factors),
+            sharding="replicated") is None
+    finally:
+        monkeypatch.delenv("PIO_FAULTS")
+        for R in (JR, TR):
+            R.reset_env_injector()

@@ -55,11 +55,14 @@ DIAGNOSTICS = (
     "pio_profiler_spent_seconds_total",
     "pio_slow_queries_total",
 )
-UNPORTED_EVENT = UNPORTED_ENGINE | {
+UNPORTED_EVENT = UNPORTED_ENGINE
+# the resilience plane's families on the event server (the spill WAL and
+# the event-store breaker), registered by both packages
+RESILIENCE_EVENT = (
     "pio_ingest_spilled_total", "pio_ingest_spill_pending_bytes",
     "pio_breaker_state", "pio_breaker_transitions_total",
     "pio_breaker_fast_failures_total",
-}
+)
 
 
 def ops(seed: int):
@@ -326,6 +329,8 @@ def test_server_families_differ_only_by_the_unported_planes(
     assert set(j) - set(t) == unported & set(j), sorted(set(j) - set(t))
     for name in t:
         assert t[name] == j[name], (name, t[name], j[name])
+    if server == "event":
+        assert set(RESILIENCE_EVENT) <= set(t) & set(j)
     roadmap = (REPO / "ROADMAP.md").read_text()
     assert [n for n in sorted(set(j) - set(t)) if n not in roadmap] == []
 

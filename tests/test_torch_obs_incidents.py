@@ -50,6 +50,9 @@ def capture_all(name, root, monkeypatch):
     monkeypatch.setattr(F, "FLIGHT", rec)
     monkeypatch.setattr(T, "TRACER", tracer)
     monkeypatch.setenv("PIO_FLIGHT", "off")
+    # an empty fleet: the bundles hold this process's view only (the
+    # fleet capture is held in tests/test_torch_fleet.py)
+    monkeypatch.setenv("PIO_FLEET_DIR", str(root) + "_fleet")
     ids = {}
     with tracer.trace("event_ingest", event="rate") as ing:
         with tracer.span("storage_write"):
