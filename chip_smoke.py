@@ -34,7 +34,7 @@ PyTorch version at the shapes its path gives it. Then:
   iterations), every solve through the Newton-Schulz kernel, served over
   `POST /queries.json`;
 - the product path (`pio train` -> `pio deploy`): a SQLite event store
-  populated through the bulk import with 4M synthetic `rate` events
+  populated through the bulk import with 3M synthetic `rate` events
   (138,493 users x 26,744 items, seed 0) and one `$set` per item
   (categories, creationYear); `create_workflow_main` on an engine.json
   variant trains rank-200 ALS (lam 0.05, 2 iterations, every solve
@@ -49,7 +49,7 @@ PyTorch version at the shapes its path gives it. Then:
   first train: the same train with `"stream": true` (`stream_train`:
   chunked store cursors, a reader thread and pinned double-buffered
   copies to the card; every solve a CG launch, the factor tables and id
-  maps bit-equal to the batch train's, 4,000,000 rows streamed, no kernel
+  maps bit-equal to the batch train's, 3,000,000 rows streamed, no kernel
   build mid-stream); `BulkLoadExecutor` on the card over the first
   1,000,000 rate events (`dataplane`: every segment a CUDA tensor on the
   bucket ladder copied from a pinned buffer, the rows copied back
@@ -129,11 +129,11 @@ PyTorch version at the shapes its path gives it. Then:
   the float64 top-k under the mask made from the seeds, with zero
   point-read timeouts; the result cache keeping a bought item, as the
   reference's does, and `PIO_SERVE_CACHE=off` dropping it; 32 clients x
-  20 queries); the recommended-user template on 250,000 `follow`
+  20 queries); the recommended-user template on 172,368 `follow`
   events in an app of their own (every solve through the CG kernel, 64
   queries held);
 - the classification template in an app of its own on the same store
-  (`cls_*`): 100,000 users $set with a plan of 4 classes and Poisson
+  (`cls_*`): 25,000 users $set with a plan of 4 classes and Poisson
   attributes; `python -m predictionio_tpu_torch eval chip_smoke.ClsEval
   chip_smoke.ClsSweep` as a subprocess, each naive Bayes accuracy equal
   to a float64 numpy naive Bayes on the same folds; `train` with naive
@@ -141,10 +141,33 @@ PyTorch version at the shapes its path gives it. Then:
   the plain version's on the CPU given the same draws); a `deploy`
   subprocess, 64 answers each the float64 argmax of the persisted
   model;
-- export and import, last (`import_export`): `export` writes the
+- export and import (`import_export`): `export` writes the
   recommended-user template's app (its follow events) as JSON lines and
   `import` loads them into a new app, whose `find_columnar` must equal
-  the first's column for column.
+  the first's column for column;
+- the recommended-user train read from the C++ event log
+  (`nativelog_train`): EVENTDATA on a four-partition `nativelog` source
+  (`csrc/eventlog.cpp`, built by g++ at first use), the exported follows
+  imported into an app there (group commits counted), its columns equal
+  to the SQLite app's, and the template trained from it in this process
+  (every solve a CG kernel launch), its factor tables bit-equal to
+  `recuser_train`'s persisted blob;
+- the example engines, last (`examples`): the quickstart's
+  recommendation family as a subprocess with MODELDATA on a `remotefs`
+  `file://` source (4 items answered, the blob under the URL); SimRank
+  over the follows among the (at most) 16,384 most-followed accounts (5
+  iterations, decay 0.8; the 172,368 follows name 15,594, so S is 0.9 GiB
+  in f32) against the float64 fixed point on the card within 1e-6,
+  which the same fixed point with TF32 products must miss;
+  the keyword engine's scores for 16,384 users x 4,096 items against
+  float64; the walk-forward backtest at 500 tickers over 2,520 days
+  (retrain every 20), one retrain's batched OLS held to float64 `lstsq`.
+
+Inside `rest_fold`, on its running event server, `eventserver_client`
+reads the rec app through the `eventserver` storage type with the app's
+key: its `find_columnar` of the first 262,144 rate events equal to the
+SQLite read, its chunked read equal to its own, and 64 events written
+through it landing in SQLite once each (deleted again after).
 
 The compile and cost plane rides those phases (no deploy of its own):
 `serve` first captures the `batch_predict` ladder (b = 1..32) as CUDA
@@ -161,7 +184,9 @@ captured the new version's buckets, that its answers replayed them and
 that the update process booked `fold_side` device time; `fold_inprocess`
 scrapes the fold's families; `eventserver` holds its `/metrics` window
 counts to the events posted, route by route; `import_export` reads
-`cache status`, which must list the three kernel libraries.
+`cache status`, which must list the three kernel libraries (and the
+nativelog library `eventlog.so` where a test run or an earlier smoke in
+this checkout built it); after `nativelog_train` it must list all four.
 
 The diagnostics plane rides them too: after `serve_plane`'s bursts
 (the deploys' slow-query bound at SLOW_QUERY_MS), `diagnostics` reads
@@ -278,9 +303,11 @@ KAPPA_HARD = 1e3          # the half-steps fault is held where kappa' =
 SCHULZ_QUERIES = 8        # Schulz-trained model's queries served
 # the product path: events in the store -> `pio train` -> persisted
 # instance -> `pio deploy` (bench.py's bench_product_path at full scale)
-# users, items, rate events: 4M since the diagnostics phases came in (5M
-# before; the smoke's time budget, PERF.md §4)
-STORE_DATA = (138_493, 26_744, 4_000_000)
+# users, items, rate events: 3M since the storage-backend and example
+# phases came in (5M, then 4M, before): with only the classification and
+# follows cuts a slow host took the smoke past its 1,200 s limit (PERF.md
+# §6, PR 17)
+STORE_DATA = (138_493, 26_744, 3_000_000)
 STORE_LAM = 0.05
 STORE_SEEDS = (1, 2)      # the first train's, and the retrain's /reload
 STORE_APP = "smokeapp"
@@ -339,7 +366,7 @@ ECOM_HELD = (160, 48, 32)        # ecom_deploy: known, new, unknown users
 ECOM_PLANE_MIX = (14, 4, 2)      # ecom_plane, per client: the same kinds
 ECOM_POOL = 2000                 # known users drawn from: with seeded
 #                                  views or buys, and any
-RECUSER_FOLLOWS = (250_000, 9)
+RECUSER_FOLLOWS = (125_000, 9)   # asked; every user gets one: 172,368
 RECUSER_APP = "recuserapp"       # the follows' own app
 RECUSER_QUERIES = 64
 FIELDS_CHUNK = 4                 # als_fields: the ablation rows' sweep_chunk
@@ -352,7 +379,7 @@ EVAL_QUERY_NUM = 10
 EVAL_LAMS = (0.05,)               # one setting: the smoke's time budget
 EVAL_CHUNK = 4096                # users a float64 top-k chunk on the card
 CLS_APP = "clsapp"
-CLS_USERS = 50_000               # cls_*: one $set a user, 4 classes
+CLS_USERS = 25_000               # cls_*: one $set a user, 4 classes
 CLS_MEANS = ((8.0, 2.0, 1.0), (2.0, 8.0, 1.0), (1.0, 2.0, 8.0),
              (4.0, 4.0, 4.0))    # class-dependent Poisson means of attr0-2
 CLS_LAMS = (1.0,)                # one setting: the smoke's time budget
@@ -429,6 +456,7 @@ EVENT_FAMILIES = (
     "pio_ingest_spilled_total", "pio_ingest_spill_pending_bytes",
     "pio_breaker_state")
 KERNEL_LIBRARIES = ["cg_solve.so", "chol_solve.so", "schulz_solve.so"]
+HOST_LIBRARY = "eventlog.so"     # csrc/eventlog.cpp, built at first use
 # the diagnostics plane (obs/): the serve-plane deploys' slow-query bound
 # (the reference's default is the serve-p99 SLO's 250 ms; 100 ms makes
 # the 32-client bursts yield a sample of waterfalls), the spans of a
@@ -1693,7 +1721,7 @@ def store_truth(model) -> tuple:
 
 def populate_store(app_id: int) -> int:
     """The product path's events, through the bulk import
-    (`insert_columnar`): synthetic_ml20m's 4M ratings as `rate` events
+    (`insert_columnar`): synthetic_ml20m's 3M ratings as `rate` events
     (one millisecond apart), then one `$set` per item with 1-3 of 20
     categories and a creationYear. The rate events carry ids in
     insertion order, so the primary-key index grows by appends (the
@@ -4890,7 +4918,9 @@ def phase_recuser(workdir: str) -> int:
     del a, k
     path = os.path.join(workdir, "recuser.json")
     recuser_variant(path)
-    iid, trained, launches = workflow_train(path, "recuser_train")
+    tel = {}
+    iid, trained, launches = workflow_train(path, "recuser_train",
+                                            tel_out=tel)
     emit("recuser_blob", instance=iid,
          **blob_check(iid, trained, "recommendeduser"))
     model = trained.models[0]
@@ -4952,7 +4982,8 @@ def phase_recuser(workdir: str) -> int:
         phase_undeploy(deps)
     finally:
         stop_all(deps)
-    return launches
+    return launches, {"instance": iid, "read_s": tel["read_s"],
+                      "train_s": tel.get("train_s")}
 
 
 # ---------------------------------------------------------------------------
@@ -5202,7 +5233,7 @@ def precision_at_k(tops, qa, k: int) -> tuple:
 
 
 def phase_rec_eval(workdir: str) -> int:
-    """`pio eval` on the 4M-event store: `create_workflow_main` on
+    """`pio eval` on the 3M-event store: `create_workflow_main` on
     `chip_smoke.RecEval` / `chip_smoke.RecSweep` (one read, EVAL_K folds,
     two lam settings, every solve a CG launch). Each setting's score is
     held to the PrecisionAtK of a float64 top-10 of the same tables,
@@ -5579,7 +5610,8 @@ def template_phases(workdir: str) -> int:
     `ecom_train`, `ecom_resolve`, `ecom_blob`, `ecom_deploy`,
     `ecom_cache`, `ecom_plane`); the recommended-user template
     (`recuser_*`). Held queries name only users no earlier phase
-    appended events for. Returns the CG kernel launches of the trains."""
+    appended events for. Returns (the CG kernel launches of the trains,
+    the recommended-user train's instance id and read seconds)."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     app_id = Storage.get_meta_data_apps().get_by_name(STORE_APP).id
     appended = appended_events(app_id)
@@ -5606,8 +5638,8 @@ def template_phases(workdir: str) -> int:
     finally:
         stop_all(deps)
     del truth, model
-    launches += phase_recuser(workdir)
-    return launches
+    recuser_launches, recuser = phase_recuser(workdir)
+    return launches + recuser_launches, recuser
 
 
 # ---------------------------------------------------------------------------
@@ -5629,6 +5661,22 @@ FEEDBACK_OTHERS = 8              # feedback: untouched users asked too
 FEEDBACK_WAIT_S = 10.0           # ... every predict event lands by then
 FEEDBACK_BENCH = (16, 20)        # ... clients x queries with feedback on
 FOLLOWS_COPY = "pio_follows_copy"  # import_export: the import's app
+NL_APP = "pio_follows_nl"         # nativelog_train: the import's app over
+NL_PARTITIONS = 4                  # ... a nativelog EVENTDATA source
+ESC_WINDOW_ROWS = 262_144          # eventserver_client: the first rate
+ESC_CHUNK_ROWS = 65_536            # ... events, read over REST, chunked
+ESC_WRITES = 64                    # ... and events written through it
+QUICKSTART_FAMILY = "recommendation"   # examples: the quickstart's family
+SIMRANK_NODES = 16_384             # ... SimRank on the most-followed
+SIMRANK_ITERS, SIMRANK_DECAY = 5, 0.8  # ... accounts' follows
+# ... held to float64 within 1e-6: 22 x PR 17's f32 reading of 4.5e-8,
+# below what 10-bit (TF32) products give
+SIMRANK_TOL = 1e-6
+KEYWORD_USERS, KEYWORD_ITEMS = 16_384, 4_096   # ... keyword tables
+KEYWORD_VOCAB = 50_000             # ... keyword ids hashed into 4,096
+STOCK_TICKERS, STOCK_DAYS = 500, 2_520   # ... backtest: ten years of days
+STOCK_START, STOCK_RETRAIN = 250, 20     # ... walk forward, retrain every 20
+STOCK_HELD_T = 1_000               # ... the retrain held to float64 lstsq
 PLUGINS_MODULE = "smoke_plugins"
 PLUGINS_SOURCE = '''"""The feedback phase's engine-server plugins."""
 import json
@@ -6296,6 +6344,7 @@ def phase_rest_fold(es: dict, key: str, rec_path: str, workdir: str,
          first_answer_ms=lat[0], p50_ms=float(np.percentile(lat, 50)),
          swap_to_first_query_ms=get_json(dep["url"] + "/stats.json")[
              "swapToFirstQueryMs"], **graphs, **fold_dt)
+    phase_eventserver_client(es, key, app.id)
     return launches.get("cg_solve", 0), pub, version, sorted(set(subj))
 
 
@@ -6464,13 +6513,13 @@ def collection_phases(rec_path: str, workdir: str) -> int:
     return launches
 
 
-def phase_import_export(workdir: str) -> None:
+def phase_import_export(workdir: str) -> tuple:
     """Export and import, last: `export` writes the recommended-user
     template's app (its follow events, dated 2030, clear of the epoch
     rounding of ROADMAP §C) as JSON lines and `import` loads them into a
     new app; both apps' `find_columnar` must be equal, column for
     column. Without pyarrow, `export --format parquet` must raise an
-    ImportError naming it."""
+    ImportError naming it. Returns (the exported file, its events)."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     src = Storage.get_meta_data_apps().get_by_name(RECUSER_APP).id
     dst = int(cli_value(r"App ID: (\d+)", "app", "new", FOLLOWS_COPY))
@@ -6489,8 +6538,7 @@ def phase_import_export(workdir: str) -> None:
         timed[name] = {"s": s, "events_per_s": n / s}
     ev = Storage.get_events()
     a, b = ev.find_columnar(src), ev.find_columnar(dst)
-    check(sorted(a) == sorted(b) and len(a["event"]) == n
-          and all(np.array_equal(a[k], b[k]) for k in a),
+    check(len(a["event"]) == n and cols_equal(a, b),
           "the imported app's columns differ from the exported app's")
     try:
         import pyarrow  # noqa: F401
@@ -6506,11 +6554,382 @@ def phase_import_export(workdir: str) -> None:
             parquet = str(e)
     rc, out = cli_out("cache", "status")
     status = json.loads(out)
-    check(rc == 0 and status["libraries"] == KERNEL_LIBRARIES
+    check(rc == 0 and status["libraries"] in (
+        KERNEL_LIBRARIES, sorted(KERNEL_LIBRARIES + [HOST_LIBRARY]))
           and status["dir"].endswith(status["salt"]),
           f"cache status exited {rc}: {out}")
     emit("import_export", events=n, bytes=os.path.getsize(path),
          columns=sorted(a), parquet=parquet, build_cache=status, **timed)
+    return path, n
+
+
+def cols_equal(a: dict, b: dict) -> bool:
+    """Two `find_columnar` dicts equal column for column (NaN equal)."""
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype.kind == b[k].dtype.kind and (
+            np.array_equal(a[k], b[k], equal_nan=True)
+            if a[k].dtype.kind == "f" else np.array_equal(a[k], b[k]))
+        for k in a)
+
+
+def phase_eventserver_client(es: dict, key: str, app_id: int) -> None:
+    """The `eventserver` storage type on `rest_fold`'s running event
+    server, with the rec app's `key` (`eventserver_client`): its
+    `find_columnar` of the store's first ESC_WINDOW_ROWS rate events (a
+    time window, with the rating column) equal to this process's SQLite
+    read of the same window, column for column; its `find_columnar_chunked`
+    (ESC_CHUNK_ROWS a chunk) equal to its own `find_columnar`; an
+    `insert_batch` of ESC_WRITES events landing in the SQLite store once
+    each (read with sqlite3), then deleted through it again, so the later
+    phases read the store as before."""
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event, from_millis
+    from predictionio_tpu_torch.data.storage import eventserver_client
+    from predictionio_tpu_torch.data.storage.registry import (
+        Storage, StorageClientConfig)
+    client = eventserver_client.StorageClient(StorageClientConfig(
+        "REMOTE", "eventserver", {"URL": es["url"], "ACCESS_KEY": key}))
+    try:
+        remote = client.get_data_object("events", "pio_event")
+        window = dict(property_field="rating", event_names=["rate"],
+                      start_time=from_millis(1000),
+                      until_time=from_millis(1000 + ESC_WINDOW_ROWS))
+        t0 = time.perf_counter()
+        local = Storage.get_events().find_columnar(app_id, **window)
+        local_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = remote.find_columnar(app_id, **window)
+        read_s = time.perf_counter() - t0
+        n = len(got["t"])
+        check(n == ESC_WINDOW_ROWS and cols_equal(got, local),
+              f"the eventserver read ({n} rows) differs from the SQLite "
+              f"read ({len(local['t'])} rows) of the same window")
+        t0 = time.perf_counter()
+        chunks = list(remote.find_columnar_chunked(
+            app_id, chunk_rows=ESC_CHUNK_ROWS, **window))
+        chunked_s = time.perf_counter() - t0
+        cat = {k: np.concatenate([c[k] for c in chunks]) for k in got}
+        check(cols_equal(cat, got), "the eventserver's chunked read differs "
+              "from its find_columnar")
+        events = [Event(event="esc_probe", entity_type="user",
+                        entity_id=f"escp{k}",
+                        properties=DataMap({"k": k}))
+                  for k in range(ESC_WRITES)]
+        t0 = time.perf_counter()
+        ids = remote.insert_batch(events, app_id)
+        write_s = time.perf_counter() - t0
+        rows = store_sql(
+            "SELECT id, COUNT(*) FROM {t} WHERE appid=? AND channelid=0 "
+            "AND event='esc_probe' GROUP BY id", (app_id,))
+        check(len(ids) == ESC_WRITES and sorted(ids) == sorted(
+            i for i, _ in rows) and all(c == 1 for _, c in rows),
+            f"{len(rows)} of {ESC_WRITES} events written through the "
+            "eventserver type landed once in SQLite")
+        check(all(remote.delete(i, app_id) for i in ids) and not store_sql(
+            "SELECT id FROM {t} WHERE appid=? AND channelid=0 AND "
+            "event='esc_probe'", (app_id,)),
+            "the probe events were not all deleted again")
+    finally:
+        client.close()
+    emit("eventserver_client", rows=n, read_s=read_s, rows_per_s=n / read_s,
+         sqlite_read_s=local_s, chunks=len(chunks), chunked_s=chunked_s,
+         writes=ESC_WRITES, write_s=write_s,
+         note="the window lies at 1-263 s after the epoch (section C of "
+              "ROADMAP.md); the chunk cursors this store takes are not "
+              "among the affected milliseconds")
+
+
+def phase_nativelog_train(workdir: str, follows_path: str, n: int,
+                          recuser: dict) -> int:
+    """The recommended-user train read from the C++ event log
+    (`nativelog_train`): EVENTDATA moves to a nativelog source
+    (NL_PARTITIONS partitions; metadata stays on SQLite, models on
+    localfs), `import` loads `import_export`'s follows into a new app
+    there (group commits counted from `pio_ingest_group_size`; the build
+    directory then lists HOST_LIBRARY beside the kernels), its
+    `find_columnar` must equal the SQLite source app's column for
+    column, and `train` of the recommended-user template from that app
+    in this process (every solve a CG kernel launch) must give factor
+    tables bit-equal to `recuser_train`'s persisted blob. The registry
+    is pointed back at SQLite after. Returns the CG launches."""
+    from predictionio_tpu_torch.compile.cache import cache_status
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendeduser import \
+        RecommendedUserEngineFactory
+    from predictionio_tpu_torch.obs.metrics import get_registry
+    src = Storage.get_meta_data_apps().get_by_name(RECUSER_APP).id
+    t0 = time.perf_counter()
+    ref_cols = Storage.get_events().find_columnar(src)
+    sqlite_read_s = time.perf_counter() - t0
+    env = {"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NATIVELOG",
+           "PIO_STORAGE_SOURCES_NATIVELOG_TYPE": "nativelog",
+           "PIO_STORAGE_SOURCES_NATIVELOG_PATH": os.path.join(workdir,
+                                                              "eventlog"),
+           "PIO_STORAGE_SOURCES_NATIVELOG_PARTITIONS": str(NL_PARTITIONS)}
+
+    def group_commits() -> int:
+        h = get_registry().get("pio_ingest_group_size")
+        return h.count if h is not None else 0
+
+    os.environ.update(env)
+    registry.clear_cache()
+    try:
+        check(Storage.config_summary()["EVENTDATA"] == "nativelog",
+              f"EVENTDATA is {Storage.config_summary()}")
+        dst = int(cli_value(r"App ID: (\d+)", "app", "new", NL_APP))
+        commits0 = group_commits()
+        t0 = time.perf_counter()
+        rc, out = cli_out("import", "--appid", str(dst), "--input",
+                          follows_path)
+        import_s = time.perf_counter() - t0
+        check(rc == 0 and out.strip() == f"Imported {n} events.",
+              f"import into nativelog exited {rc}: {out}")
+        commits = group_commits() - commits0
+        libs = cache_status()["libraries"]
+        check(libs == sorted(KERNEL_LIBRARIES + [HOST_LIBRARY]),
+              f"the build directory after the nativelog import: {libs}")
+        ev = Storage.get_events()
+        t0 = time.perf_counter()
+        nl_cols = ev.find_columnar(dst)
+        read_s = time.perf_counter() - t0
+        check(len(nl_cols["t"]) == n and cols_equal(nl_cols, ref_cols),
+              "the nativelog app's columns differ from the SQLite app's")
+        logs = sorted(f for f in os.listdir(os.path.join(
+            env["PIO_STORAGE_SOURCES_NATIVELOG_PATH"], "pio_event"))
+            if f.startswith(f"events_{dst}_"))
+        path = os.path.join(workdir, "recuser_nl.json")
+        recuser_variant(path)
+        with open(path) as f:
+            variant = json.load(f)
+        variant["datasource"]["params"]["app_name"] = NL_APP
+        with open(path, "w") as f:
+            json.dump(variant, f)
+        tel = {}
+        iid, trained, launches = workflow_train(
+            path, "nativelog_train_workflow", tel_out=tel)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        registry.clear_cache()
+    model = trained.models[0]
+    ref_iid = recuser["instance"]
+    (ref,) = RecommendedUserEngineFactory.apply().deserialize_models(
+        Storage.get_model_data_models().get(ref_iid).models, ref_iid)
+    check(list(model.followed_ix.ids) == list(ref.followed_ix.ids)
+          and np.array_equal(model.followed_factors_normalized,
+                             ref.followed_factors_normalized),
+          f"the tables trained from nativelog differ from {ref_iid}'s")
+    emit("nativelog_train", app=NL_APP, events=n,
+         partitions=NL_PARTITIONS, shard_files=logs, import_s=import_s,
+         import_events_per_s=n / import_s, group_commits=commits,
+         events_per_commit=n / max(commits, 1), read_s=tel["read_s"],
+         columnar_read_s=read_s,
+         sqlite_read_s=recuser["read_s"], sqlite_columnar_read_s=sqlite_read_s,
+         train_s=tel.get("train_s"), cg_launches=launches,
+         bit_equal_to=ref_iid, instance=iid)
+    return launches
+
+
+def simrank_graph() -> tuple:
+    """The recommended-user follows among their SIMRANK_NODES most-followed
+    accounts (ties by id): (edges [E, 3] as (follower, followed, 1),
+    node count, the largest in-degree)."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    app = Storage.get_meta_data_apps().get_by_name(RECUSER_APP).id
+    c = Storage.get_events().find_columnar(app, event_names=["follow"])
+    accounts, counts = np.unique(c["target_entity_id"], return_counts=True)
+    top = accounts[np.argsort(-counts, kind="stable")[:SIMRANK_NODES]]
+    ix = {a: k for k, a in enumerate(sorted(top))}
+    src = np.array([ix.get(u, -1) for u in c["entity_id"]])
+    dst = np.array([ix.get(u, -1) for u in c["target_entity_id"]])
+    keep = (src >= 0) & (dst >= 0)
+    edges = np.stack([src[keep], dst[keep], np.ones(keep.sum())],
+                     axis=1).astype(np.float32)
+    in_deg = np.bincount(dst[keep], minlength=len(ix))
+    return edges, len(ix), int(in_deg.max())
+
+
+def timed_ms(fn) -> tuple:
+    """(fn(), its device ms from CUDA events around the one call)."""
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_examples(workdir: str) -> None:
+    """The example engines on the card (`examples`):
+    - the quickstart's QUICKSTART_FAMILY family as a subprocess (`python
+      -m predictionio_tpu_torch.examples.quickstart`), its MODELDATA on
+      a `remotefs` `file://` source: exit 0, an answer of 4 items, the
+      model blob under that URL (its train's solves are the
+      subprocess's, not counted in the kernels line);
+    - SimRank on the recommended-user follows among their SIMRANK_NODES
+      most-followed accounts, SIMRANK_ITERS iterations at decay
+      SIMRANK_DECAY, against the same fixed point in float64 on the card
+      within SIMRANK_TOL, unit diagonal; the same fixed point with TF32
+      products (10-bit mantissas) must miss SIMRANK_TOL, so the hold
+      shows that the port's products are true f32;
+    - the keyword engine's scores (`_user_items`, the product behind
+      `score_all_items`) for KEYWORD_USERS users against KEYWORD_ITEMS
+      items, exact against float64 (sums of small integer weights), and
+      `score_all_items` of one user equal to its row;
+    - the walk-forward backtest at STOCK_TICKERS tickers over STOCK_DAYS
+      days (retrain every STOCK_RETRAIN days); the retrain at
+      STOCK_HELD_T held to numpy's float64 `lstsq` of the same ridged
+      least squares per ticker, within the componentwise first-order
+      bound of f32 rounding in the Gram, the right-hand side and the
+      solve (the indicator features are nearly collinear: cond(G) reads
+      ~1e6, so a normwise bound would hold nothing)."""
+    from predictionio_tpu_torch.examples import friend_recommendation as TF
+    from predictionio_tpu_torch.examples import stock_backtesting as TS
+    dev = torch.device("cuda")
+    # -- the quickstart, MODELDATA on remotefs ------------------------------
+    root = os.path.join(workdir, "remote_models")
+    env = dict(os.environ, TMPDIR=workdir,
+               PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE="RFS",
+               PIO_STORAGE_SOURCES_RFS_TYPE="remotefs",
+               PIO_STORAGE_SOURCES_RFS_URL=f"file://{root}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.examples.quickstart",
+         QUICKSTART_FAMILY], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=600)
+    quickstart_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"the quickstart exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    iid = re.search(r"Trained engine instance (\S+)", out.stdout).group(1)
+    answer = json.loads(re.search(r"^Result (.*)$", out.stdout,
+                                  re.M).group(1))
+    blob = os.path.join(root, "pio_model", iid)
+    check(len(answer.get("itemScores", [])) == 4
+          and os.path.getsize(blob) > 0,
+          f"the quickstart answered {answer}; blob {blob}")
+    emit("examples_quickstart", family=QUICKSTART_FAMILY, instance=iid,
+         wall_s=quickstart_s, answer=answer,
+         blob=os.path.relpath(blob, workdir),
+         blob_bytes=os.path.getsize(blob))
+    # -- SimRank -------------------------------------------------------------
+    edges, n, d_max = simrank_graph()
+    W = TF.adjacency(edges, n, dev)
+    W64 = TF.adjacency(edges, n, dev, torch.float64)
+    S, ms = timed_ms(lambda: TF._simrank(W, SIMRANK_ITERS, SIMRANK_DECAY))
+    S64, ms64 = timed_ms(lambda: TF._simrank(W64, SIMRANK_ITERS,
+                                             SIMRANK_DECAY))
+    err = (S.double() - S64).abs().max().item()
+    tol = SIMRANK_TOL
+    diag = bool(torch.equal(torch.diagonal(S), torch.ones(n, device=dev)))
+    check(torch.isfinite(S).all().item() and err <= tol and diag,
+          f"SimRank f32 vs float64: {err} (tolerance {tol}), unit diagonal "
+          f"{diag}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        S_tf32 = TF._simrank(W, SIMRANK_ITERS, SIMRANK_DECAY)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = (S_tf32.double() - S64).abs().max().item()
+    check(tf32_err > tol, f"SimRank with TF32 products passes the f32 hold "
+          f"({tf32_err} <= {tol}): the hold cannot tell them apart")
+    del S_tf32
+    flops = SIMRANK_ITERS * 2 * 2 * n ** 3
+    emit("examples_simrank", nodes=n, edges=len(edges), max_in_degree=d_max,
+         iterations=SIMRANK_ITERS, decay=SIMRANK_DECAY, max_abs_err=err,
+         tolerance=tol, tf32_max_abs_err=tf32_err, device_ms=ms, f64_device_ms=ms64,
+         tflops=flops / ms / 1e9, unit_diagonal=diag)
+    del W, W64, S, S64
+    # -- the keyword engine ----------------------------------------------------
+    rng = np.random.default_rng(31)
+    U = np.zeros((KEYWORD_USERS, TF.HASH_DIM), np.float32)
+    np.add.at(U, (np.repeat(np.arange(KEYWORD_USERS), 5),
+                  rng.integers(0, KEYWORD_VOCAB, 5 * KEYWORD_USERS)
+                  % TF.HASH_DIM),
+              rng.integers(1, 4, 5 * KEYWORD_USERS).astype(np.float32))
+    I = np.zeros((KEYWORD_ITEMS, TF.HASH_DIM), np.float32)
+    np.add.at(I, (np.repeat(np.arange(KEYWORD_ITEMS), 4),
+                  rng.integers(0, KEYWORD_VOCAB, 4 * KEYWORD_ITEMS)
+                  % TF.HASH_DIM), 1.0)
+    users = [f"u{k}" for k in range(KEYWORD_USERS)]
+    model = TF.KeywordSimModel({u: k for k, u in enumerate(users)},
+                               {f"i{k}": k for k in range(KEYWORD_ITEMS)},
+                               U, I, 1.0, 1.0)
+    algo = TF.KeywordSimilarityAlgorithm(TF.KeywordSimParams())
+    Ud, Id = algo._tables(model)
+    idx = torch.arange(KEYWORD_USERS, device=dev)
+    scores = TF._user_items(Ud, Id, idx)
+    ref = Ud.double() @ Id.double().T
+    kw_err = (scores.double() - ref).abs().max().item()
+    row = algo.score_all_items(model, users[7])
+    pair = algo.predict(model, TF.FriendQuery(users[7], "i9"))
+    check(kw_err == 0 and np.array_equal(row, scores[7].cpu().numpy())
+          and pair.confidence == float(ref[7, 9]),
+          f"keyword scores vs float64: {kw_err}")
+    kw_ms = cuda_ms(lambda: TF._user_items(Ud, Id, idx), 5)
+    emit("examples_keyword", users=KEYWORD_USERS, items=KEYWORD_ITEMS,
+         hash_dim=TF.HASH_DIM, max_abs_err=kw_err, device_ms=kw_ms,
+         nonzero_scores=int((scores > 0).sum().item()))
+    del scores, ref, Ud, Id, U, I, model
+    # -- the stock engine --------------------------------------------------------
+    frame = TS.synthetic_prices(STOCK_DAYS, STOCK_TICKERS, seed=17)
+    strat = TS.RegressionStrategy(TS.RegressionStrategyParams())
+    t0 = time.perf_counter()
+    result = TS.backtest(frame, strat, TS.BacktestingParams(), STOCK_START,
+                         STOCK_DAYS, retrain_every=STOCK_RETRAIN)
+    backtest_s = time.perf_counter() - t0
+    navs = np.array([d.nav for d in result.daily])
+    check(result.days == STOCK_DAYS - STOCK_START
+          and np.isfinite(navs).all() and (navs > 0).all(),
+          f"the backtest's NAV: {result.to_dict()}")
+    p = strat.params
+    lo = max(strat._warmup(), STOCK_HELD_T - p.training_window)
+    feats = strat._features(frame)
+    lp = frame.log_prices
+    r_fwd = np.zeros_like(lp)
+    r_fwd[:-1] = lp[1:] - lp[:-1]
+    X = feats[lo:STOCK_HELD_T - 1].transpose(1, 0, 2)
+    y = r_fwd[lo:STOCK_HELD_T - 1].transpose(1, 0)
+    coefs = strat.train(frame, STOCK_HELD_T).coefs
+    N, Wn, F = X.shape
+    u = 2.0 ** -24
+    worst = 0.0
+    max_err = 0.0
+    for k in range(N):
+        X64, y64 = X[k].astype(np.float64), y[k].astype(np.float64)
+        aug = np.vstack([X64, np.sqrt(1e-6) * np.eye(F)])
+        c64, *_ = np.linalg.lstsq(aug, np.concatenate([y64, np.zeros(F)]),
+                                  rcond=None)
+        # the componentwise first-order bound: f32 sums of Wn products in
+        # the Gram and the right-hand side (gamma_Wn |X|^T|X|, |X|^T|y|)
+        # and a backward-stable F x F solve (4 F u |G|), through |G^-1|
+        G = X64.T @ X64 + 1e-6 * np.eye(F)
+        gam = Wn * u / (1 - Wn * u)
+        AX = np.abs(X64)
+        bound = np.abs(np.linalg.inv(G)) @ (
+            gam * (AX.T @ AX @ np.abs(c64) + AX.T @ np.abs(y64))
+            + 4 * F * u * np.abs(G) @ np.abs(c64))
+        e = np.abs(coefs[k] - c64)
+        max_err = max(max_err, float(e.max()))
+        worst = max(worst, float((e / bound).max()))
+    check(worst <= 1.0, f"batched OLS vs float64 lstsq: error {max_err}, "
+          f"{worst} of its bound")
+    Xd = torch.as_tensor(X, device=dev)
+    yd = torch.as_tensor(y, device=dev)
+    ols_ms = cuda_ms(lambda: TS.ols_solve(Xd, yd), 20)
+    Gd = torch.einsum("nwf,nwg->nfg", Xd, Xd) + 1e-6 * torch.eye(F,
+                                                                 device=dev)
+    bd = torch.einsum("nwf,nw->nf", Xd, yd)
+    solve_ms = cuda_ms(lambda: torch.linalg.solve(Gd, bd[..., None]), 20)
+    emit("examples_backtest", tickers=STOCK_TICKERS, frame_days=STOCK_DAYS,
+         start=STOCK_START, retrain_every=STOCK_RETRAIN,
+         retrains=-(-(STOCK_DAYS - STOCK_START) // STOCK_RETRAIN),
+         wall_s=backtest_s, **result.to_dict(), final_nav=float(navs[-1]),
+         held_t=STOCK_HELD_T, window=[N, Wn, F], max_abs_err=max_err,
+         err_of_bound=worst, ols_device_ms=ols_ms,
+         solve_device_ms=solve_ms)
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -6580,9 +6999,13 @@ def main() -> int:
             cg_launches += fold_launches
             del rec_model
             cg_launches += collection_phases(path, workdir)
-            cg_launches += template_phases(workdir)
+            template_launches, recuser = template_phases(workdir)
+            cg_launches += template_launches
             phase_classification(workdir)
-            phase_import_export(workdir)
+            follows_path, n_follows = phase_import_export(workdir)
+            cg_launches += phase_nativelog_train(workdir, follows_path,
+                                                 n_follows, recuser)
+            phase_examples(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

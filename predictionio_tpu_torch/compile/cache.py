@@ -7,9 +7,13 @@ that a later process loads instead of building again.
 
 - **Location**: `<root>/<salt>/`, where root is `$PIO_BUILD_CACHE_DIR`
   or `predictionio_tpu_torch/_build/` (git-ignored).
-- **Salt**: a 12-hex fingerprint of `csrc/*.cu` and `NVCC_FLAGS`. An
-  edited kernel or flag rolls the directory, so a stale library is never
-  loaded, and `clear_cache(all_salts=True)` removes the dead ones.
+- **Salt**: a 12-hex fingerprint of `csrc/*.cu`, `csrc/*.cpp` (the host
+  C++ of the nativelog event store), `NVCC_FLAGS`, `GXX_FLAGS` and the
+  host's toolchain (`toolchain_id`: the machine, the C library, and the
+  versions of g++ and nvcc). An edited source or flag, or another
+  machine's compilers, roll the directory, so a stale library or one
+  built elsewhere (a checkout copied between hosts) is never loaded, and
+  `clear_cache(all_salts=True)` removes the dead ones.
 - **Counters**: a library found built is a hit and an `nvcc` run a miss
   (`pio_compile_pcache_{hits,misses}_total{executable}`, through
   `obs/torchmon.record_pcache`).
@@ -23,7 +27,9 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import platform
 import shutil
+import subprocess
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -35,6 +41,9 @@ DEFAULT_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
+#: the host libraries' flags (`csrc/*.cpp`, built by g++): the reference's
+#: `native/Makefile` CXXFLAGS plus `-shared`
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 _salt_memo: Optional[str] = None
 
@@ -44,18 +53,55 @@ def cache_root() -> Path:
     return Path(env) if env else DEFAULT_ROOT
 
 
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.access(default, os.X_OK):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the CUDA kernels")
+
+
+def _version(cmd) -> str:
+    try:
+        return subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.DEVNULL, text=True,
+                              timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def toolchain_id() -> str:
+    """What a built library depends on besides its source and flags: the
+    machine, the C library, and `--version` of g++ and of nvcc ('' for a
+    compiler that is not installed)."""
+    try:
+        nvcc = _version([nvcc_path(), "--version"])
+    except RuntimeError:
+        nvcc = ""
+    return "\n".join([platform.machine(), " ".join(platform.libc_ver()),
+                      _version(["g++", "--version"]), nvcc])
+
+
 def kernel_sources():
-    """The kernel sources the salt covers, sorted."""
-    return sorted(CSRC_DIR.glob("*.cu"))
+    """The sources the salt covers (CUDA kernels and host C++), sorted."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cpp")])
 
 
 def cache_salt() -> str:
-    """12-hex fingerprint of the kernel sources and the nvcc flags.
-    Memoized: the sources cannot change under a running process."""
+    """12-hex fingerprint of the sources, the nvcc and g++ flags and the
+    toolchain. Memoized: none of them changes under a running process."""
     global _salt_memo
     if _salt_memo is not None:
         return _salt_memo
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(b"\0" + " ".join(GXX_FLAGS).encode())
+    h.update(b"\0" + toolchain_id().encode() + b"\0")
     for path in kernel_sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())

@@ -7,7 +7,8 @@ from predictionio_tpu_torch.core.base import (Algorithm, DataSource,
                                               Params, Preparator,
                                               SanityCheck, Serving)
 from predictionio_tpu_torch.core.engine import (Engine, EngineFactory,
-                                                EngineParams, TrainResult)
+                                                EngineParams, SimpleEngine,
+                                                TrainResult)
 from predictionio_tpu_torch.core.evaluation import (EngineParamsGenerator,
                                                     Evaluation,
                                                     MetricEvaluator,
@@ -25,5 +26,6 @@ __all__ = ["Algorithm", "AverageMetric", "DataSource", "EmptyParams",
            "FirstServing", "IdentityPreparator", "LAlgorithm", "Metric",
            "MetricEvaluator", "MetricEvaluatorResult", "OptionAverageMetric",
            "OptionStdevMetric", "P2LAlgorithm", "Params", "Preparator",
-           "QPAMetric", "SanityCheck", "Serving", "StdevMetric", "SumMetric",
+           "QPAMetric", "SanityCheck", "Serving", "SimpleEngine", "StdevMetric",
+           "SumMetric",
            "TrainResult", "ZeroMetric"]

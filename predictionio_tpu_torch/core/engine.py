@@ -325,6 +325,18 @@ class Engine:
         }
 
 
+class SimpleEngine(Engine):
+    """A data source and one algorithm, with the identity preparator and
+    the first-answer serving (EngineParams.scala:127)."""
+
+    def __init__(self, data_source_class, algorithm_class,
+                 serving_class=None):
+        from predictionio_tpu_torch.core.base import (FirstServing,
+                                                      IdentityPreparator)
+        super().__init__(data_source_class, IdentityPreparator,
+                         algorithm_class, serving_class or FirstServing)
+
+
 class EngineFactory:
     """Engine + default params provider (EngineFactory.scala:28-33)."""
 

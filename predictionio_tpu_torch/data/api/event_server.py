@@ -448,6 +448,7 @@ class EventServer:
                                                channel_id), False
         if batch.event_id is None:
             batch.event_id = new_event_ids(batch.n)
+            batch.minted = True     # fresh hex: nativelog's fast path
         try:
             self.breaker.allow()
         except CircuitOpenError:

@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.data.datamap import DataMap
 from predictionio_tpu_torch.data.event import (Event, EventValidation,
+                                               format_event_time,
                                                parse_event_time, utcnow)
 
 #: columns that may be a scalar (broadcast) or a per-row list
@@ -51,11 +52,12 @@ class ColumnarBatch:
 
     __slots__ = ("n", "event", "entity_type", "entity_id",
                  "target_entity_type", "target_entity_id", "properties",
-                 "event_time", "event_id")
+                 "event_time", "event_id", "minted")
 
     def __init__(self, n, event, entity_type, entity_id,
                  target_entity_type=None, target_entity_id=None,
-                 properties=None, event_time=None, event_id=None):
+                 properties=None, event_time=None, event_id=None,
+                 minted=False):
         self.n = n
         self.event = event
         self.entity_type = entity_type
@@ -65,6 +67,11 @@ class ColumnarBatch:
         self.properties = properties
         self.event_time = event_time
         self.event_id = event_id
+        #: True when this process minted `event_id` (the event server's
+        #: pre-assign): fresh distinct lowercase hex, so nativelog keeps
+        #: its minted-id fast path (no escaping, no dedup, no overwrite
+        #: probe). Never set for ids that came over the wire.
+        self.minted = minted
 
     def cell(self, name: str, i: int):
         col = getattr(self, name)
@@ -95,6 +102,28 @@ class ColumnarBatch:
         now = utcnow()
         return [self.row_event(i, default_time=now) for i in range(self.n)]
 
+    def to_wire(self) -> dict:
+        """The JSON wire body of this batch (the remote events DAO sends
+        `insert_columnar` as one POST)."""
+        return {wire: getattr(self, attr)
+                for wire, attr in _WIRE_KEYS.items()
+                if getattr(self, attr) is not None}
+
+    def slice_rows(self, lo: int, hi: int) -> "ColumnarBatch":
+        """Rows [lo, hi) as a new batch (list slices, so nativelog's
+        pipelined bulk write and the remote DAO's pages cut cheaply)."""
+
+        def cut(col):
+            if col is None or isinstance(col, str):
+                return col
+            return col[lo:hi]
+
+        return ColumnarBatch(
+            hi - lo, cut(self.event), cut(self.entity_type),
+            self.entity_id[lo:hi], cut(self.target_entity_type),
+            cut(self.target_entity_id), cut(self.properties),
+            cut(self.event_time), cut(self.event_id), minted=self.minted)
+
     def select(self, keep: Sequence[int]) -> "ColumnarBatch":
         """A new batch holding only the ``keep`` rows (the write route
         compacts away per-record rejections before the bulk insert)."""
@@ -108,7 +137,39 @@ class ColumnarBatch:
             len(keep), pick(self.event), pick(self.entity_type),
             pick(self.entity_id), pick(self.target_entity_type),
             pick(self.target_entity_id), pick(self.properties),
-            pick(self.event_time), pick(self.event_id))
+            pick(self.event_time), pick(self.event_id),
+            minted=self.minted)
+
+
+def events_to_wire(events: Sequence[Event]) -> dict:
+    """The columnar wire body of a list of `Event` objects (the remote
+    DAO's `insert_batch`). Name and type columns that are constant
+    collapse to broadcast scalars, and all-absent target columns drop;
+    ids are sent when every event carries one, else the server mints."""
+
+    def collapse(col, required):
+        if len(set(col)) == 1:
+            v = col[0]
+            return v if (v or required) else None
+        return col
+
+    d = {
+        "event": collapse([e.event for e in events], True),
+        "entityType": collapse([e.entity_type for e in events], True),
+        "entityId": [e.entity_id for e in events],
+        "targetEntityType": collapse(
+            [e.target_entity_type for e in events], False),
+        "targetEntityId": [e.target_entity_id or "" for e in events],
+        "properties": [e.properties.fields if e.properties else {}
+                       for e in events],
+        "eventTime": [format_event_time(e.event_time) for e in events],
+    }
+    if d["targetEntityType"] is None:
+        del d["targetEntityType"], d["targetEntityId"]
+    ids = [e.event_id for e in events]
+    if all(ids):
+        d["eventId"] = ids
+    return d
 
 
 def _as_column(value, n: int, key: str, broadcast: bool):

@@ -1,6 +1,6 @@
 """Storage layer: the env-driven backend registry, metadata DAOs and the
-event store (the port's copy of `predictionio_tpu/data/storage`, cut to
-the sqlite and localfs backends)."""
+event store (the port's copy of `predictionio_tpu/data/storage`, with the
+sqlite, localfs, memory, remotefs, nativelog and eventserver backends)."""
 
 from predictionio_tpu_torch.data.storage.base import (AccessKey, App,
                                                       Channel,

@@ -9,9 +9,14 @@ environment unset, SQLite holds metadata and events and localfs holds
 models, under `PIO_FS_BASEDIR` (default `~/.pio_store`): the same
 variables and defaults as the JAX package, so both read one store.
 
-Only the `sqlite` and `localfs` types are registered here; any other type
-raises `StorageError`. When `PIO_FAULTS` names a storage target, every
-events DAO is handed out wrapped in `resilience.faults.FaultyEvents`.
+The registered types are `sqlite`, `localfs`, `memory`, `remotefs` (alias
+`hdfs`: model blobs at a URI), `nativelog` (the C++ append log, events
+only) and `eventserver` (the events DAO over a remote event server's
+REST API); any other type (`pgsql`, `mysql`, `docindex`) raises
+`StorageError`. `clear_cache` closes every client, which stops
+nativelog's group committers and fsync loop and closes its handles.
+When `PIO_FAULTS` names a storage target, every events DAO is handed
+out wrapped in `resilience.faults.FaultyEvents`.
 Every DAO access crosses the module lock, whose waits go into
 `pio_lock_wait_seconds{lock="registry_publish"}`.
 """
@@ -31,6 +36,11 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 BACKENDS = {
     "sqlite": "predictionio_tpu_torch.data.storage.sqlite",
     "localfs": "predictionio_tpu_torch.data.storage.localfs",
+    "memory": "predictionio_tpu_torch.data.storage.memory",
+    "remotefs": "predictionio_tpu_torch.data.storage.remotefs",
+    "hdfs": "predictionio_tpu_torch.data.storage.remotefs",
+    "nativelog": "predictionio_tpu_torch.data.storage.nativelog",
+    "eventserver": "predictionio_tpu_torch.data.storage.eventserver_client",
 }
 
 _lock = threading.RLock()

@@ -1,16 +1,27 @@
-"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`) and the
+host C++ libraries (`csrc/*.cpp`).
 
-Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
-library with a plain C interface, at first use, and loaded with `ctypes`.
-The library lands in the salted build directory of `compile/cache.py`
+Each kernel source is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, at first use, and loaded with
+`ctypes`; a host source (the nativelog event store's `eventlog.cpp`,
+no CUDA) is compiled by `g++` with `GXX_FLAGS` the same way. The
+library lands in the salted build directory of `compile/cache.py`
 (`predictionio_tpu_torch/_build/<salt>/`, git-ignored), whose salt
-hashes every source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built when a module is
-imported: the CPU tests import every module on a machine with no `nvcc`.
+hashes every source, the flags and the host's toolchain, so an edited
+source is rebuilt and a stale library, or one built on another machine,
+is never loaded. Nothing is built when a module is imported: the CPU
+tests import every module on a machine with no `nvcc`.
+
+Many processes may ask for one library at once (the test workers, an
+event server beside a trainer): a build holds an exclusive lock on
+`<name>.so.lock`, compiles to a private name and renames the library
+into place; the others wait on the lock and then load what it built. A
+half-written library is never loaded. A failed build raises
+`RuntimeError` carrying the compiler's output.
 
 `nvcc` is found through `$CUDA_HOME/bin`, then `PATH`, then the
-toolkit's standard install location. `BUILDS` counts the `nvcc` builds
-this process has run and their seconds (the bulk data plane reports the
+toolkit's standard install location. `BUILDS` counts the builds this
+process has run and their seconds (the bulk data plane reports the
 builds that ran during its steady phase); each build is also reported
 to `obs/torchmon` as a compile, and the first use of each library in a
 process as a build-directory hit (found built) or miss (built now).
@@ -19,8 +30,8 @@ process as a build-directory hit (found built) or miss (built now).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
-import shutil
 import subprocess
 import threading
 import time
@@ -35,6 +46,8 @@ PKG_DIR = cache.PKG_DIR
 CSRC_DIR = cache.CSRC_DIR
 BUILD_DIR = cache.DEFAULT_ROOT
 NVCC_FLAGS = cache.NVCC_FLAGS
+GXX_FLAGS = cache.GXX_FLAGS
+nvcc_path = cache.nvcc_path
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,7 +57,7 @@ _counted: Set[str] = set()
 
 @dataclass
 class BuildCounts:
-    """`nvcc` builds run by this process, and their wall seconds."""
+    """Builds run by this process, and their wall seconds."""
     builds: int = 0
     seconds: float = 0.0
 
@@ -52,64 +65,97 @@ class BuildCounts:
 BUILDS = BuildCounts()
 
 
-def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.access(default, os.X_OK):
-        return default
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the CUDA kernels")
-
-
 def _target(name: str) -> Path:
     return cache.cache_dir() / f"{name}.so"
 
 
+def _source(name: str) -> Path:
+    """`csrc/<name>.cu` (a kernel, built by nvcc), else
+    `csrc/<name>.cpp` (host C++, built by g++)."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
+def _command(src: Path, tmp: Path) -> list:
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    return ["g++", *GXX_FLAGS, "-o", str(tmp), str(src)]
+
+
 def _start(name: str):
-    """Start `nvcc` for one source; returns (popen, tmp path, target) or
-    None when the library is already built."""
+    """Start the compiler for one source under the library's lock file;
+    returns (popen, tmp path, target, lock) or None when the library is
+    already built. The lock is held until `_finish`, so a process that
+    asks meanwhile waits and then finds the library built."""
     out = _target(name)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    lock = open(out.with_suffix(".so.lock"), "w")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():              # another process built it
+            lock.close()
+            return None
+        src = _source(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = _command(src, tmp)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{Path(cmd[0]).name} failed to start for "
+                               f"{src.name}: {e}") from e
+    except BaseException:
+        lock.close()                  # closing the file drops the lock
+        raise
+    return proc, tmp, out, lock
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    proc, tmp, out, lock = job
+    try:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            src = _source(name)
+            tool = "nvcc" if src.suffix == ".cu" else "g++"
+            raise RuntimeError(f"{tool} failed to build {src.name} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    finally:
+        lock.close()
 
 
 def build_all(names: Iterable[str] = None) -> dict:
-    """Build every named source (default: all of `csrc/*.cu`), one `nvcc`
-    per source, all started together. Returns {name: seconds to build}
-    (0.0 for a library that was already built)."""
+    """Build every named source (default: all of `csrc/*.cu`), one
+    compiler per source, all started together. Returns {name: seconds
+    to build} (0.0 for a library that was already built)."""
     if names is None:
-        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+        names = [p.stem for p in CSRC_DIR.glob("*.cu")]
     t0 = time.perf_counter()
     with _lock:
-        jobs = {n: _start(n) for n in names}
+        jobs = {}
         secs = {}
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
-            secs[n] = time.perf_counter() - t0 if job is not None else 0.0
+        try:
+            # sorted: every process takes the lock files in one order
+            for n in sorted(names):
+                jobs[n] = _start(n)
+            for n, job in jobs.items():
+                if job is not None:
+                    jobs[n] = None
+                    _finish(n, job)
+                    jobs[n] = job
+                secs[n] = time.perf_counter() - t0 if job is not None \
+                    else 0.0
+        except BaseException:
+            for n, job in jobs.items():
+                if job is not None and n not in secs:   # still running
+                    job[0].kill()
+                    job[0].wait()
+                    job[3].close()
+            raise
         started = [n for n, job in jobs.items() if job is not None]
         BUILDS.builds += len(started)
         BUILDS.seconds += max((secs[n] for n in started), default=0.0)
@@ -123,26 +169,31 @@ def build_all(names: Iterable[str] = None) -> dict:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from `csrc/<name>.cu` by this tree lives."""
+    """Where the library built from `csrc/<name>` by this tree lives."""
     return _target(name)
 
 
 def build_log(name: str) -> str:
-    """`nvcc`'s output (ptxas register/shared-memory/spill report) for the
-    current build of `name`, or '' when it was not built by this tree."""
+    """The compiler's output (for a kernel, ptxas's register/shared-
+    memory/spill report) for the current build of `name`, or '' when it
+    was not built by this tree."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, py_api: bool = False) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu` or `csrc/<name>.cpp`,
+    built first if needed. `py_api` loads it as a `ctypes.PyDLL` (its
+    calls keep the GIL)."""
+    key = f"{name}:py" if py_api else name
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     build_all([name])
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
+            lib = (ctypes.PyDLL if py_api else ctypes.CDLL)(
+                str(_target(name)))
+            _libs[key] = lib
     return lib

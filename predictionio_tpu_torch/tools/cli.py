@@ -48,13 +48,17 @@ prints a server's sampling-profiler stacks, `profile trace
 stitched across processes); `faults` validates a `PIO_FAULTS` spec and
 previews its seeded decisions; `spill {status,peek,requeue}` inspects
 the event server's spill WAL and retries its quarantined records.
-`update --follow` registers as the fleet member `scheduler`. `cache
+`update --follow` registers as the fleet member `scheduler`. `template
+{list,get}` lists the built-in template families and a gallery's
+(`--gallery` or `PIO_TEMPLATE_GALLERY`, an `index.json` at a URI read
+through `remotefs`) and scaffolds one into a directory
+(`tools/templates.py`). `cache
 status` prints the salted build directory of the kernels (`compile/cache.py`: its salt, the
 libraries built there, stale salts) as JSON; `cache clear` removes the
 active salt's libraries (the next first use rebuilds them) and `--all`
 every salt's.
 
-The other commands of `bin/pio` (build, unregister, template, dashboard,
+The other commands of `bin/pio` (build, unregister, dashboard,
 adminserver, servers, snapshot, bootstrap and the rest) are not ported:
 run them through the JAX package's `bin/pio` on a machine that has JAX,
 against the same store.
@@ -77,8 +81,8 @@ DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
     "here: version, status, train, eval, deploy, undeploy, update, "
     "rollback, eventserver, app, accesskey, export, import, trim, cache, "
-    "incidents, profile, fleet, faults, spill. "
-    "Still only in the JAX package's bin/pio: build, template, dashboard "
+    "incidents, profile, fleet, faults, spill, template. "
+    "Still only in the JAX package's bin/pio: build, dashboard "
     "and the other commands.")
 
 
@@ -544,6 +548,27 @@ def cmd_accesskey(args) -> int:
         return 0
     except ac.AppCommandError as e:
         print(str(e))
+        return 1
+
+
+def cmd_template(args) -> int:
+    """The template gallery: the built-ins and an optional URI-addressed
+    index (Template.scala:130-416; `--gallery` or `PIO_TEMPLATE_GALLERY`
+    names the root of `index.json`)."""
+    from predictionio_tpu_torch.data.storage.registry import StorageError
+    from predictionio_tpu_torch.tools.templates import (GalleryError,
+                                                        get_template,
+                                                        list_templates)
+    try:
+        if args.template_command == "list":
+            for name, desc in list_templates(gallery=args.gallery):
+                print(f"  {name:28s} {desc}")
+            return 0
+        return get_template(args.name, args.directory,
+                            gallery=args.gallery)
+    except (GalleryError, StorageError) as e:
+        # StorageError: a URI scheme with no registered adapter
+        print(f"Template gallery error: {e}")
         return 1
 
 
@@ -1085,6 +1110,19 @@ def build_parser() -> argparse.ArgumentParser:
     kd = ksub.add_parser("delete")
     kd.add_argument("key")
     k.set_defaults(func=cmd_accesskey)
+
+    tp = sub.add_parser("template", help="list the engine templates or "
+                        "scaffold one into a directory")
+    tsub = tp.add_subparsers(dest="template_command", required=True)
+    tl = tsub.add_parser("list")
+    tl.add_argument("--gallery", help="template index URI "
+                    "(default: $PIO_TEMPLATE_GALLERY)")
+    tg = tsub.add_parser("get")
+    tg.add_argument("name")
+    tg.add_argument("directory")
+    tg.add_argument("--gallery", help="template index URI "
+                    "(default: $PIO_TEMPLATE_GALLERY)")
+    tp.set_defaults(func=cmd_template)
 
     ex = sub.add_parser("export", help="write an app's events to a file")
     ex.add_argument("--appid", type=int, required=True)

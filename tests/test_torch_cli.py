@@ -266,6 +266,6 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
     assert "Still only in the JAX package's bin/pio" in text
     assert "version, status, train, eval, deploy, undeploy, update, " \
         "rollback, eventserver, app, accesskey, export, import, trim, " \
-        "cache, incidents, profile, fleet, faults, spill. Still only in " \
-        "the JAX package's " \
-        "bin/pio: build, template" in text
+        "cache, incidents, profile, fleet, faults, spill, template. Still " \
+        "only in the JAX package's " \
+        "bin/pio: build" in text

@@ -361,6 +361,20 @@ def test_the_salt_covers_every_source_and_the_flags(build_root,
     assert TCache.cache_salt() not in (salt, edited)
 
 
+def test_the_salt_covers_the_toolchain(build_root, monkeypatch):
+    """A library built by another machine's compilers (a checkout copied
+    between hosts) lies under another salt and is never loaded."""
+    salt = TCache.cache_salt()
+    here = TCache.toolchain_id
+    monkeypatch.setattr(TCache, "_salt_memo", None)
+    monkeypatch.setattr(TCache, "toolchain_id",
+                        lambda: "x86_64\nglibc 2.99\ng++ (other) 99.1\n")
+    assert TCache.cache_salt() != salt
+    monkeypatch.setattr(TCache, "_salt_memo", None)
+    monkeypatch.setattr(TCache, "toolchain_id", here)
+    assert TCache.cache_salt() == salt
+
+
 def test_status_and_clear_act_on_the_salted_directories(build_root,
                                                          capsys):
     from predictionio_tpu_torch.tools import cli

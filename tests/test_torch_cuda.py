@@ -18,7 +18,9 @@ in flight each reading their own outputs, and a sampled CUDA-event
 device time inside its dispatch's wall; the diagnostics plane: the
 torch.profiler device trace of a fold naming the CG kernel once a launch,
 and a slow window's waterfall, its `device_sync` stage included, built
-with no synchronize.
+with no synchronize; the example engines: SimRank and the stock
+engine's batched OLS on the card against float64; and an ALS train fed
+by a nativelog `find_columnar`, every solve a CG kernel launch.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -1237,3 +1239,81 @@ def test_a_slow_window_waterfall_needs_no_synchronize(cuda, monkeypatch):
     stages = [[s["stage"] for s in e["stages"]] for e in slow]
     assert any("device_sync" in st for st in stages)
     assert all("d2h_wait" in st and "dispatch" in st for st in stages)
+
+
+def test_simrank_on_the_card_matches_float64(cuda):
+    """The friend-recommendation SimRank on the card (TF32 off: true f32
+    products) against the same fixed point in float64 on the card:
+    entries in [0, 1], within 1e-5 over 2,048 nodes and 5 iterations;
+    unit diagonal, symmetric."""
+    from predictionio_tpu_torch.examples import friend_recommendation as TF
+    rng = np.random.default_rng(6)
+    n = 2048
+    edges = np.stack([rng.integers(0, n, 20000), rng.integers(0, n, 20000),
+                      rng.integers(1, 4, 20000)], axis=1).astype(np.float32)
+    S = TF._simrank(TF.adjacency(edges, n, cuda), 5, 0.8)
+    S64 = TF._simrank(TF.adjacency(edges, n, cuda, torch.float64), 5, 0.8)
+    assert S.dtype == torch.float32 and S.device.type == "cuda"
+    assert (S.double() - S64).abs().max().item() <= 1e-5
+    assert torch.equal(torch.diagonal(S), torch.ones(n, device=cuda))
+    assert (S - S.T).abs().max().item() <= 1e-5
+
+
+def test_batched_ols_on_the_card_matches_float64(cuda):
+    """The stock engine's batched normal equations on the card against
+    a float64 solve of the same ridged system, relative to the scale of
+    the coefficients."""
+    from predictionio_tpu_torch.examples import stock_backtesting as TS
+    rng = np.random.default_rng(0)
+    N, W, F = 500, 200, 4
+    X = rng.normal(size=(N, W, F)).astype(np.float32)
+    X[..., -1] = 1.0
+    y = (np.einsum("nwf,nf->nw", X, rng.normal(size=(N, F)))
+         + 0.01 * rng.normal(size=(N, W))).astype(np.float32)
+    got = TS._batched_ols(X, y, device=cuda)
+    X64 = torch.as_tensor(X, dtype=torch.float64, device=cuda)
+    ref = TS.ols_solve(X64, torch.as_tensor(y, dtype=torch.float64,
+                                            device=cuda)).cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_a_nativelog_read_trains_through_the_cg_kernel(cuda, tmp_path):
+    """Events in a four-partition nativelog, read back by
+    `find_columnar`, train ALS on the card: every solve a CG kernel
+    launch, and the tables equal those trained from the same ratings
+    held in memory."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage import nativelog as TNL
+    from predictionio_tpu_torch.data.storage.registry import \
+        StorageClientConfig
+    ui, ii, vv, n_users, n_items = small_ratings()
+    client = TNL.StorageClient(StorageClientConfig(
+        "NL", "nativelog", {"PATH": str(tmp_path / "log"),
+                            "PARTITIONS": "4"}))
+    try:
+        ev = client.get_data_object("events", "pio_event")
+        ev.init(1)
+        ev.insert_columnar(ColumnarBatch(
+            len(ui), "rate", "user", [str(u) for u in ui], "item",
+            [str(i) for i in ii], [{"rating": float(v)} for v in vv],
+            [f"2030-01-01T00:00:{k // 1000:02d}.{k % 1000:03d}Z"
+             for k in range(len(ui))]), 1)
+        cols = ev.find_columnar(1, property_field="rating")
+    finally:
+        client.close()
+    assert cols["entity_id"].tolist() == [str(u) for u in ui]
+    coo = RatingsCOO(cols["entity_id"].astype(np.int32),
+                     cols["target_entity_id"].astype(np.int32),
+                     cols["prop"], n_users, n_items)
+    cfg = TA.ALSConfig(rank=16, iterations=3, lam=0.1, seed=2,
+                       solver="cg_cuda")
+    T.COUNTS.reset()
+    tel = {}
+    model = TA.als_train(coo, cfg, device=cuda, telemetry=tel)
+    assert T.COUNTS.cg_solve == tel["solver_calls"] > 0
+    assert T.COUNTS.cg_solve_plain == 0
+    ref = TA.als_train(RatingsCOO(ui.astype(np.int32), ii.astype(np.int32),
+                                  vv.astype(np.float32), n_users, n_items),
+                       cfg, device=cuda)
+    assert np.array_equal(model.user_factors, ref.user_factors)
+    assert np.array_equal(model.item_factors, ref.item_factors)
