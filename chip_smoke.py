@@ -152,6 +152,19 @@ PyTorch version at the shapes its path gives it. Then:
   to the SQLite app's, and the template trained from it in this process
   (every solve a CG kernel launch), its factor tables bit-equal to
   `recuser_train`'s persisted blob;
+- the app moved to a new host (`snapshot_train`): `snapshot create` ships
+  that nativelog app's shard files to a `file://` URI; on a fresh store
+  (metadata in a `docindex`, events in a new four-partition nativelog,
+  models on localfs) `app new`, `snapshot restore` (refused onto the new
+  app's empty logs, then `--force`) and `snapshot list`, the restored
+  columns equal to the source app's; `build` registers the manifest in
+  the docindex, the template trains from the restored app (every solve a
+  CG kernel launch, the tables bit-equal to `recuser_train`'s blob), a
+  `deploy` subprocess reads the instance from the docindex and answers 64
+  queries held to float64; a `run_fake` evaluation on the dashboard
+  (index, txt/html/json results, `/telemetry` reading the deploy), the
+  admin server's `/cmd/app` through the docindex, `servers` seeing the
+  engine, dashboard and admin server UP, and `unregister` (then exit 1);
 - the example engines, last (`examples`): the quickstart's
   recommendation family as a subprocess with MODELDATA on a `remotefs`
   `file://` source (4 items answered, the blob under the URL); SimRank
@@ -2508,7 +2521,7 @@ def phase_cli_deploy(variants: dict, workdir: str, deps: dict,
         t0 = time.perf_counter()
         code, body = post(dep["url"] + "/queries.json",
                           json.dumps(query).encode())
-        first_ms = (time.perf_counter() - t0) * 1e3
+        first_ms = dep["first_query_ms"] = (time.perf_counter() - t0) * 1e3
         check(code == 200 and next(iter(body.values())),
               f"{name}'s first query answered {code} {body}")
         emit("cli_deploy", template=name, instance=status[
@@ -4884,14 +4897,68 @@ def phase_ecom_plane(url: str, truth: EcomTruth, pool) -> None:
           f"{len(results)} queries")
 
 
-def recuser_variant(path: str) -> None:
+def recuser_variant(path: str, app_name: str = RECUSER_APP) -> None:
     with open(path, "w") as f:
         json.dump({
             "id": "default", "engineFactory": "recommendeduser",
-            "datasource": {"params": {"app_name": RECUSER_APP}},
+            "datasource": {"params": {"app_name": app_name}},
             "algorithms": [{"name": "als", "params": {
                 "rank": RANK, "num_iterations": ITERATIONS, "lam": LAM,
                 "seed": 0}}]}, f)
+
+
+def recuser_queries(model) -> list:
+    """RECUSER_QUERIES seeded queries of 1-3 followed users, every fourth
+    with a white list of 60 and every fourth with a black list of 20."""
+    rng = np.random.default_rng(24)
+    F = len(model.followed_ix)
+    queries = []
+    for n in range(RECUSER_QUERIES):
+        q = {"users": model.followed_ix.ids_of(rng.choice(
+            F, 1 + n % 3, replace=False)), "num": SERVE_NUM}
+        if n % 4 == 1:
+            q["whiteList"] = model.followed_ix.ids_of(rng.integers(0, F, 60))
+        elif n % 4 == 3:
+            q["blackList"] = model.followed_ix.ids_of(rng.integers(0, 200,
+                                                                   20))
+        queries.append(q)
+    return queries
+
+
+def hold_recuser(url: str, model, queries: list, phase: str) -> tuple:
+    """POST each query to the deployed recommended-user engine at `url`
+    and hold its answer to the float64 cosine-sum top-k with the query
+    users excluded (ids, within f16 packing and f32 rounding of the
+    scores; a swap only between near-tied users). Returns (answers whose
+    ids equal the float64 top-k, per-query ms)."""
+    T64 = model.followed_factors_normalized.astype(np.float64)
+    ix = types.SimpleNamespace(item_ix=model.followed_ix)
+    F = len(model.followed_ix)
+    lat, exact = [], 0
+    for q in queries:
+        t1 = time.perf_counter()
+        code, body = post(url + "/queries.json", json.dumps(q).encode())
+        lat.append((time.perf_counter() - t1) * 1e3)
+        what = f"{phase} query {q}"
+        check(code == 200, f"{what} answered {code}")
+        q_ix = model.followed_ix.to_indices(q["users"])
+        qsum = T64[q_ix].sum(axis=0)
+        s64 = T64 @ qsum
+        if "whiteList" in q:
+            allowed = np.zeros(F, dtype=bool)
+            allowed[model.followed_ix.to_indices(q["whiteList"])] = True
+        else:
+            allowed = np.ones(F, dtype=bool)
+        allowed[q_ix] = False
+        allowed[model.followed_ix.to_indices(q.get("blackList", []))] = False
+        scores = body["similarUserScores"]
+        exact += held_ranked(
+            [s["user"] for s in scores], [s["score"] for s in scores],
+            s64, allowed, q["num"], ix,
+            lambda g: (RANK + 3) * 2.0 ** -24 * (np.abs(T64[g])
+                                                  @ np.abs(qsum))
+            + F16_REL * np.abs(s64[g]), what, TIE_ATOL)
+    return exact, lat
 
 
 def phase_recuser(workdir: str) -> int:
@@ -4925,56 +4992,20 @@ def phase_recuser(workdir: str) -> int:
          **blob_check(iid, trained, "recommendeduser"))
     model = trained.models[0]
     del trained
-    T64 = model.followed_factors_normalized.astype(np.float64)
-    ix = types.SimpleNamespace(item_ix=model.followed_ix)
-    rng = np.random.default_rng(24)
-    F = len(model.followed_ix)
-    queries = []
-    for n in range(RECUSER_QUERIES):
-        q = {"users": model.followed_ix.ids_of(rng.choice(
-            F, 1 + n % 3, replace=False)), "num": SERVE_NUM}
-        if n % 4 == 1:
-            q["whiteList"] = model.followed_ix.ids_of(rng.integers(0, F, 60))
-        elif n % 4 == 3:
-            q["blackList"] = model.followed_ix.ids_of(rng.integers(0, 200,
-                                                                   20))
-        queries.append(q)
+    queries = recuser_queries(model)
     deps = {}
     try:
         phase_cli_deploy({"recommendeduser": path}, workdir, deps,
                          first_queries={"recommendeduser": queries[0]},
                          warmed=False)
         url = deps["recommendeduser"]["url"]
-        lat, exact = [], 0
-        for q in queries:
-            t1 = time.perf_counter()
-            code, body = post(url + "/queries.json", json.dumps(q).encode())
-            lat.append((time.perf_counter() - t1) * 1e3)
-            what = f"recuser_deploy query {q}"
-            check(code == 200, f"{what} answered {code}")
-            q_ix = model.followed_ix.to_indices(q["users"])
-            qsum = T64[q_ix].sum(axis=0)
-            s64 = T64 @ qsum
-            if "whiteList" in q:
-                allowed = np.zeros(F, dtype=bool)
-                allowed[model.followed_ix.to_indices(q["whiteList"])] = True
-            else:
-                allowed = np.ones(F, dtype=bool)
-            allowed[q_ix] = False
-            allowed[model.followed_ix.to_indices(q.get("blackList", []))] = \
-                False
-            scores = body["similarUserScores"]
-            exact += held_ranked(
-                [s["user"] for s in scores], [s["score"] for s in scores],
-                s64, allowed, q["num"], ix,
-                lambda g: (RANK + 3) * 2.0 ** -24 * (np.abs(T64[g])
-                                                      @ np.abs(qsum))
-                + F16_REL * np.abs(s64[g]), what, TIE_ATOL)
+        exact, lat = hold_recuser(url, model, queries, "recuser_deploy")
         code, body = post(url + "/queries.json",
                           b'{"users": ["nobody"], "num": 10}')
         check(code == 200 and body == {"similarUserScores": []},
               f"an unknown user answered {code} {body}")
-        emit("recuser_deploy", instance=iid, followed=F,
+        emit("recuser_deploy", instance=iid,
+             followed=len(model.followed_ix),
              ids_equal_f64=exact, tie_swaps=len(queries) - exact,
              **latencies(lat, ["whiteList" if "whiteList" in q else
                                "blackList" if "blackList" in q else "base"
@@ -5663,6 +5694,9 @@ FEEDBACK_BENCH = (16, 20)        # ... clients x queries with feedback on
 FOLLOWS_COPY = "pio_follows_copy"  # import_export: the import's app
 NL_APP = "pio_follows_nl"         # nativelog_train: the import's app over
 NL_PARTITIONS = 4                  # ... a nativelog EVENTDATA source
+SNAPSHOT = "nl_follows"            # snapshot_train: NL_APP's snapshot,
+SNAPSHOT_HOST = "host2"            # ... restored into a fresh store here
+ADMIN_APP = "pio_admin_probe"      # ... and the app the admin server makes
 ESC_WINDOW_ROWS = 262_144          # eventserver_client: the first rate
 ESC_CHUNK_ROWS = 65_536            # ... events, read over REST, chunked
 ESC_WRITES = 64                    # ... and events written through it
@@ -6639,6 +6673,16 @@ def phase_eventserver_client(es: dict, key: str, app_id: int) -> None:
               "among the affected milliseconds")
 
 
+def nativelog_env(workdir: str) -> dict:
+    """`nativelog_train`'s EVENTDATA: NL_PARTITIONS partitions under
+    `workdir`/eventlog (metadata stays on SQLite, models on localfs)."""
+    return {"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NATIVELOG",
+            "PIO_STORAGE_SOURCES_NATIVELOG_TYPE": "nativelog",
+            "PIO_STORAGE_SOURCES_NATIVELOG_PATH": os.path.join(workdir,
+                                                               "eventlog"),
+            "PIO_STORAGE_SOURCES_NATIVELOG_PARTITIONS": str(NL_PARTITIONS)}
+
+
 def phase_nativelog_train(workdir: str, follows_path: str, n: int,
                           recuser: dict) -> int:
     """The recommended-user train read from the C++ event log
@@ -6662,11 +6706,7 @@ def phase_nativelog_train(workdir: str, follows_path: str, n: int,
     t0 = time.perf_counter()
     ref_cols = Storage.get_events().find_columnar(src)
     sqlite_read_s = time.perf_counter() - t0
-    env = {"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NATIVELOG",
-           "PIO_STORAGE_SOURCES_NATIVELOG_TYPE": "nativelog",
-           "PIO_STORAGE_SOURCES_NATIVELOG_PATH": os.path.join(workdir,
-                                                              "eventlog"),
-           "PIO_STORAGE_SOURCES_NATIVELOG_PARTITIONS": str(NL_PARTITIONS)}
+    env = nativelog_env(workdir)
 
     def group_commits() -> int:
         h = get_registry().get("pio_ingest_group_size")
@@ -6699,12 +6739,7 @@ def phase_nativelog_train(workdir: str, follows_path: str, n: int,
             env["PIO_STORAGE_SOURCES_NATIVELOG_PATH"], "pio_event"))
             if f.startswith(f"events_{dst}_"))
         path = os.path.join(workdir, "recuser_nl.json")
-        recuser_variant(path)
-        with open(path) as f:
-            variant = json.load(f)
-        variant["datasource"]["params"]["app_name"] = NL_APP
-        with open(path, "w") as f:
-            json.dump(variant, f)
+        recuser_variant(path, NL_APP)
         tel = {}
         iid, trained, launches = workflow_train(
             path, "nativelog_train_workflow", tel_out=tel)
@@ -6728,6 +6763,235 @@ def phase_nativelog_train(workdir: str, follows_path: str, n: int,
          sqlite_read_s=recuser["read_s"], sqlite_columnar_read_s=sqlite_read_s,
          train_s=tel.get("train_s"), cg_launches=launches,
          bit_equal_to=ref_iid, instance=iid)
+    return launches
+
+
+def get_page(url: str) -> tuple:
+    """GET `url`: (status, body text)."""
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def closed_port() -> int:
+    """A port nothing listens on (bound and released here)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_snapshot_train(workdir: str, recuser: dict) -> int:
+    """An app moved to a new host and retrained there (`snapshot_train`),
+    after `nativelog_train`, on its four-partition app NL_APP: `snapshot
+    create` ships the app's shard files to a `file://` URI; the registry
+    then points at a fresh host under `workdir`/SNAPSHOT_HOST (METADATA
+    on a `docindex` source, EVENTDATA on a new nativelog with
+    NL_PARTITIONS, MODELDATA on localfs), where `app new` makes the app
+    again and `snapshot restore` (refused onto the new app's empty logs,
+    then `--force`) and `snapshot list` run; the restored app's columns
+    must equal the source app's. `build` registers the recommended-user
+    variant's manifest in the docindex, `train` runs in this process
+    (every solve a CG kernel launch; the tables bit-equal to
+    `recuser_train`'s persisted blob), and a `deploy` subprocess reads the
+    instance from the docindex and answers RECUSER_QUERIES queries held to
+    the float64 top-k. One `run_fake` evaluation is recorded; the
+    dashboard (its index, the result in txt, html and json, `/telemetry`
+    reading the deploy's /stats.json) and the admin server (`POST` and
+    `GET /cmd/app` through the docindex, read back from its log) run in
+    this process on port 0; `servers` must see the engine, dashboard and
+    admin server UP; `unregister` removes the manifest and a second one
+    exits 1. Then `undeploy`, and the registry points back at SQLite.
+    Returns the CG launches."""
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage.docindex import DocIndex
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendeduser import \
+        RecommendedUserEngineFactory
+    from predictionio_tpu_torch.tools.admin import (AdminServer,
+                                                    AdminServerConfig)
+    from predictionio_tpu_torch.tools.dashboard import (Dashboard,
+                                                        DashboardConfig)
+    from predictionio_tpu_torch.workflow.fake_workflow import run_fake
+    ref_iid = recuser["instance"]
+    (ref,) = RecommendedUserEngineFactory.apply().deserialize_models(
+        Storage.get_model_data_models().get(ref_iid).models, ref_iid)
+    uri = "file://" + os.path.join(workdir, "snapshots")
+    nl_env = nativelog_env(workdir)
+    os.environ.update(nl_env)
+    registry.clear_cache()
+    try:
+        src = Storage.get_meta_data_apps().get_by_name(NL_APP).id
+        src_cols = Storage.get_events().find_columnar(src)
+        t0 = time.perf_counter()
+        rc, out = cli_out("snapshot", "create", "--appid", str(src), "--uri",
+                          uri, "--name", SNAPSHOT)
+        snapshot_s = time.perf_counter() - t0
+    finally:
+        for k in nl_env:
+            os.environ.pop(k, None)
+        registry.clear_cache()
+    m = re.fullmatch(rf"Snapshot {SNAPSHOT} created: (\d+) file\(s\), "
+                     rf"(\d+) bytes at {re.escape(uri)}\.\n", out)
+    check(rc == 0 and m is not None, f"snapshot create exited {rc}: {out}")
+    files, nbytes = int(m.group(1)), int(m.group(2))
+    check(files == NL_PARTITIONS, f"{files} shard files in the snapshot")
+    host = os.path.join(workdir, SNAPSHOT_HOST)
+    env = {"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DOCINDEX",
+           "PIO_STORAGE_SOURCES_DOCINDEX_TYPE": "docindex",
+           "PIO_STORAGE_SOURCES_DOCINDEX_PATH": os.path.join(host,
+                                                             "docindex"),
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NATIVELOG",
+           "PIO_STORAGE_SOURCES_NATIVELOG_TYPE": "nativelog",
+           "PIO_STORAGE_SOURCES_NATIVELOG_PATH": os.path.join(host,
+                                                              "eventlog"),
+           "PIO_STORAGE_SOURCES_NATIVELOG_PARTITIONS": str(NL_PARTITIONS),
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOCALFS",
+           "PIO_STORAGE_SOURCES_LOCALFS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_LOCALFS_PATH": os.path.join(host, "models")}
+    os.environ.update(env)
+    registry.clear_cache()
+    deps, dash, admin = {}, None, None
+    try:
+        check(Storage.config_summary() == {
+            "METADATA": "docindex", "EVENTDATA": "nativelog",
+            "MODELDATA": "localfs"}, f"the new host's store is "
+              f"{Storage.config_summary()}")
+        dst = int(cli_value(r"App ID: (\d+)", "app", "new", NL_APP))
+        restore = ("snapshot", "restore", "--uri", uri, "--name", SNAPSHOT,
+                   "--appid", str(dst))
+        rc, out = cli_out(*restore)
+        check(rc == 1 and "pass --force" in out, f"a restore onto the new "
+              f"app's logs was not refused: {rc} {out}")
+        t0 = time.perf_counter()
+        rc, out = cli_out(*restore, "--force")
+        restore_s = time.perf_counter() - t0
+        check(rc == 0 and out.strip() == f"Snapshot {SNAPSHOT} restored "
+              f"({files} file(s)).", f"snapshot restore exited {rc}: {out}")
+        rc, listed = cli_out("snapshot", "list", "--uri", uri)
+        check(rc == 0 and listed.startswith(
+            f"  {SNAPSHOT}  app={src} partitions={NL_PARTITIONS} "
+            f"files={files} bytes={nbytes} created="),
+            f"snapshot list exited {rc}: {listed}")
+        t0 = time.perf_counter()
+        cols = Storage.get_events().find_columnar(dst)
+        columnar_read_s = time.perf_counter() - t0
+        check(len(cols["t"]) == len(src_cols["t"]) and cols_equal(
+            cols, src_cols), "the restored app's columns differ from the "
+              "source app's")
+        path = os.path.join(workdir, "recuser_restored.json")
+        recuser_variant(path, NL_APP)
+        rc, out = cli_out("build", "-v", path)
+        check(rc == 0 and out.strip() == "Engine recommendeduser is valid. "
+              "Registered manifest default 0. Build finished successfully.",
+              f"build exited {rc}: {out}")
+        manifest = Storage.get_meta_data_engine_manifests().get("default",
+                                                                 "0")
+        check(manifest is not None and manifest.files == (path,)
+              and manifest.engine_factory == "recommendeduser"
+              and os.path.exists(os.path.join(
+                  host, "docindex", "pio_meta", "engine_manifests.log")),
+              f"the manifest in the docindex: {manifest}")
+        tel = {}
+        iid, trained, launches = workflow_train(
+            path, "snapshot_train_workflow", tel_out=tel)
+        model = trained.models[0]
+        del trained
+        check(list(model.followed_ix.ids) == list(ref.followed_ix.ids)
+              and np.array_equal(model.followed_factors_normalized,
+                                 ref.followed_factors_normalized),
+              f"the tables trained from the restored app differ from "
+              f"{ref_iid}'s")
+        queries = recuser_queries(model)
+        phase_cli_deploy({"recuser_restored": path}, workdir, deps,
+                         first_queries={"recuser_restored": queries[0]},
+                         warmed=False)
+        dep = deps["recuser_restored"]
+        served = get_json(dep["url"] + "/")["engineInstanceId"]
+        check(served == iid, f"the deploy serves {served}, not {iid}")
+        exact, lat = hold_recuser(dep["url"], model, queries,
+                                  "snapshot_train")
+        ms = np.array(lat[1:])     # the first repeats the deploy's first
+        eval_iid = run_fake(lambda device: None)
+        dash = Dashboard(DashboardConfig(
+            ip="127.0.0.1", port=0, engine_url=dep["url"],
+            event_server_url=f"http://127.0.0.1:{closed_port()}")).start()
+        admin = AdminServer(AdminServerConfig(ip="127.0.0.1",
+                                              port=0)).start()
+        dash_url = f"http://127.0.0.1:{dash.config.port}"
+        admin_url = f"http://127.0.0.1:{admin.config.port}"
+        code, index = get_page(dash_url + "/")
+        check(code == 200 and eval_iid in index, f"the dashboard's index "
+              f"({code}) does not list {eval_iid}")
+        inst = Storage.get_meta_data_evaluation_instances().get(eval_iid)
+        for fmt, want in (("txt", inst.evaluator_results),
+                          ("html", inst.evaluator_results_html),
+                          ("json", inst.evaluator_results_json)):
+            code, page = get_page(f"{dash_url}/engine_instances/{eval_iid}/"
+                                  f"evaluator_results.{fmt}")
+            check(code == 200 and page == want, f"the dashboard's {fmt} "
+                  f"result answered {code}: {page[:200]}")
+        code, page = get_page(dash_url + "/telemetry")
+        engine_rows = page.split("<h2>Event server")[0]
+        check(code == 200 and f"<td>modelVersion</td><td>{iid}</td>"
+              in engine_rows and "<td>queryLatency</td>" in engine_rows
+              and "<td>error</td>" not in engine_rows,
+              f"/telemetry did not read the deploy's /stats.json: "
+              f"{engine_rows[:600]}")
+        code, made = post(admin_url + "/cmd/app",
+                          json.dumps({"name": ADMIN_APP}).encode())
+        check(code == 200 and made["name"] == ADMIN_APP,
+              f"POST /cmd/app answered {code} {made}")
+        names = [a["name"] for a in get_json(admin_url + "/cmd/app")["apps"]]
+        log = DocIndex(os.path.join(host, "docindex", "pio_meta",
+                                    "apps.log"), fsync=False)
+        try:
+            logged = [d["id"] for d in log.search(eq={"name": ADMIN_APP})]
+        finally:
+            log.close()
+        check(sorted(names) == sorted([NL_APP, ADMIN_APP])
+              and logged == [made["id"]],
+              f"GET /cmd/app lists {names}; the docindex log holds "
+              f"{logged} for {ADMIN_APP}")
+        free = closed_port()
+        rc, out = cli_out("servers", "--event-server-port", str(free),
+                          "--engine-port", str(dep["port"]),
+                          "--dashboard-port", str(dash.config.port),
+                          "--admin-port", str(admin.config.port))
+        states = dict(re.findall(r"^  (\w+)\s+:\d+\s+(UP|down)", out,
+                                 re.M))
+        check(rc == 0 and states == {"eventserver": "down", "engine": "UP",
+                                     "dashboard": "UP",
+                                     "adminserver": "UP"},
+              f"servers exited {rc}: {out}")
+        unregistered = [cli_out("unregister", "-v", path) for _ in range(2)]
+        check(unregistered == [(0, "Unregistered engine default 0.\n"),
+                               (1, "Engine default 0 is not registered.\n")]
+              and Storage.get_meta_data_engine_manifests().get(
+                  "default", "0") is None,
+              f"unregister answered {unregistered}")
+        phase_undeploy(deps)
+    finally:
+        for server in (dash, admin):
+            if server is not None:
+                server.stop()
+        stop_all(deps)
+        for k in env:
+            os.environ.pop(k, None)
+        registry.clear_cache()
+    emit("snapshot_train", app=NL_APP, source_app=src, restored_app=dst,
+         snapshot=SNAPSHOT, snapshot_s=snapshot_s, snapshot_bytes=nbytes,
+         snapshot_files=files, restore_s=restore_s, events=len(cols["t"]),
+         columnar_read_s=columnar_read_s, read_s=tel["read_s"],
+         train_s=tel.get("train_s"), cg_launches=launches,
+         bit_equal_to=ref_iid, instance=iid, manifest="registered, removed",
+         metadata="docindex", first_query_ms=dep["first_query_ms"],
+         queries=len(lat), p50_ms=float(np.percentile(ms, 50)),
+         p99_ms=float(np.percentile(ms, 99)), ids_equal_f64=exact,
+         tie_swaps=len(queries) - exact, evaluation=eval_iid,
+         admin_app=made["id"], servers=states)
     return launches
 
 
@@ -7005,6 +7269,7 @@ def main() -> int:
             follows_path, n_follows = phase_import_export(workdir)
             cg_launches += phase_nativelog_train(workdir, follows_path,
                                                  n_follows, recuser)
+            cg_launches += phase_snapshot_train(workdir, recuser)
             phase_examples(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry

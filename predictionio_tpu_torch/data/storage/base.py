@@ -1,11 +1,11 @@
 """Metadata records and the abstract DAO / event-store interfaces.
 
-The port's copy of the part of `predictionio_tpu/data/storage/base.py`
-that training, evaluation, deployment and event collection use: the
-records `App`, `AccessKey`, `Channel`, `EngineInstance`,
+The port's copy of `predictionio_tpu/data/storage/base.py`: the records
+`App`, `AccessKey`, `Channel`, `EngineInstance`, `EngineManifest`,
 `EvaluationInstance` and `Model` (the reference's Apps, AccessKeys,
-Channels, EngineInstances, EvaluationInstances and Models DAOs), their
-abstract DAOs, and `Events`, one
+Channels, EngineInstances, EngineManifests, EvaluationInstances and
+Models DAOs), their abstract DAOs, `SQLError` (the dialect-neutral server
+error of the pgsql and mysql backends), and `Events`, one
 synchronous interface for the reference's LEvents (LEvents.scala:37) and
 the bulk-read role of PEvents (PEvents.scala:35), with the default
 `find_columnar` and `aggregate_properties` that a backend without a query
@@ -37,6 +37,18 @@ ABSENT = object()
 #: keep a chunk's wire columns at 10-25 MB while amortizing each window's
 #: index seek
 DEFAULT_CHUNK_ROWS = 262_144
+
+
+class SQLError(Exception):
+    """A server-reported SQL error, dialect-neutral: the wire clients
+    (`pgwire`, `mywire`) subclass it, so the DAOs the two SQL backends
+    share branch on `unique_violation` without knowing the server (the
+    reference's one JDBC DAO set for both, jdbc/StorageClient.scala:33-54).
+    """
+
+    @property
+    def unique_violation(self) -> bool:
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +112,18 @@ class EngineInstance:
 
     def with_(self, **kw) -> "EngineInstance":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class EngineManifest:
+    """One registered engine build (EngineManifests.scala): what `pio
+    build` records and `pio unregister` removes."""
+    id: str
+    version: str
+    name: str
+    description: Optional[str] = None
+    files: Sequence[str] = ()
+    engine_factory: str = ""
 
 
 @dataclass(frozen=True)
@@ -215,6 +239,24 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...
+
+
+class EngineManifests(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, m: EngineManifest) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, manifest_id: str, version: str
+            ) -> Optional[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def update(self, m: EngineManifest, upsert: bool = False) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, manifest_id: str, version: str) -> bool: ...
 
 
 class EvaluationInstances(abc.ABC):

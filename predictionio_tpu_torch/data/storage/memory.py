@@ -5,9 +5,7 @@ role the reference's hand-written fakes play in its test suite, and serves
 ephemeral single-process runs (`PIO_STORAGE_SOURCES_<S>_TYPE=memory`).
 The events DAO keeps per-entity and per-target indexes, so the
 entity-filtered read (`find_columnar_by_entities`) reads only the touched
-histories. Engine manifests are not stored yet: the port's
-`data/storage/base.py` has no `EngineManifests`, so asking for them
-raises `StorageError`.
+histories.
 """
 
 from __future__ import annotations
@@ -22,9 +20,9 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (AccessKey, App,
                                                       Channel,
                                                       EngineInstance,
+                                                      EngineManifest,
                                                       EvaluationInstance,
                                                       Model)
-from predictionio_tpu_torch.data.storage.registry import StorageError
 
 
 class StorageClient:
@@ -37,20 +35,16 @@ class StorageClient:
         key = f"{namespace}/{kind}"
         with self._lock:
             if key not in self._objects:
-                ctor = {
+                self._objects[key] = {
                     "apps": MemApps,
                     "access_keys": MemAccessKeys,
                     "channels": MemChannels,
                     "engine_instances": MemEngineInstances,
+                    "engine_manifests": MemEngineManifests,
                     "evaluation_instances": MemEvaluationInstances,
                     "models": MemModels,
                     "events": MemEvents,
-                }.get(kind)
-                if ctor is None:
-                    raise StorageError(
-                        f"the memory backend does not store {kind!r} in "
-                        "this package yet")
-                self._objects[key] = ctor()
+                }[kind]()
             return self._objects[key]
 
     def close(self):
@@ -193,6 +187,31 @@ class MemEngineInstances(base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         with self._lock:
             return self._d.pop(instance_id, None) is not None
+
+
+class MemEngineManifests(base.EngineManifests):
+    def __init__(self):
+        self._d: Dict[Tuple[str, str], EngineManifest] = {}
+        self._lock = threading.RLock()
+
+    def insert(self, m: EngineManifest) -> None:
+        with self._lock:
+            self._d[(m.id, m.version)] = m
+
+    def get(self, manifest_id: str, version: str) -> Optional[EngineManifest]:
+        return self._d.get((manifest_id, version))
+
+    def get_all(self) -> List[EngineManifest]:
+        return list(self._d.values())
+
+    def update(self, m: EngineManifest, upsert: bool = False) -> None:
+        with self._lock:
+            if (m.id, m.version) in self._d or upsert:
+                self._d[(m.id, m.version)] = m
+
+    def delete(self, manifest_id: str, version: str) -> bool:
+        with self._lock:
+            return self._d.pop((manifest_id, version), None) is not None
 
 
 class MemEvaluationInstances(base.EvaluationInstances):

@@ -9,11 +9,13 @@ environment unset, SQLite holds metadata and events and localfs holds
 models, under `PIO_FS_BASEDIR` (default `~/.pio_store`): the same
 variables and defaults as the JAX package, so both read one store.
 
-The registered types are `sqlite`, `localfs`, `memory`, `remotefs` (alias
-`hdfs`: model blobs at a URI), `nativelog` (the C++ append log, events
-only) and `eventserver` (the events DAO over a remote event server's
-REST API); any other type (`pgsql`, `mysql`, `docindex`) raises
-`StorageError`. `clear_cache` closes every client, which stops
+The registered types are those of the JAX registry: `sqlite`, `localfs`,
+`memory`, `remotefs` (alias `hdfs`: model blobs at a URI), `nativelog`
+(the C++ append log, events only), `eventserver` (the events DAO over a
+remote event server's REST API), `docindex` (the embedded document-index
+metadata store, the Elasticsearch role), and `pgsql` and `mysql` (the
+server-backed SQL stores over the pure-stdlib wire clients `pgwire` and
+`mywire`); any other type raises `StorageError`. `clear_cache` closes every client, which stops
 nativelog's group committers and fsync loop and closes its handles.
 When `PIO_FAULTS` names a storage target, every events DAO is handed
 out wrapped in `resilience.faults.FaultyEvents`.
@@ -41,6 +43,9 @@ BACKENDS = {
     "hdfs": "predictionio_tpu_torch.data.storage.remotefs",
     "nativelog": "predictionio_tpu_torch.data.storage.nativelog",
     "eventserver": "predictionio_tpu_torch.data.storage.eventserver_client",
+    "docindex": "predictionio_tpu_torch.data.storage.docindex",
+    "pgsql": "predictionio_tpu_torch.data.storage.pgsql",
+    "mysql": "predictionio_tpu_torch.data.storage.mysql",
 }
 
 _lock = threading.RLock()
@@ -115,9 +120,8 @@ def repository_namespace(repo: str) -> str:
 
 def _backend_module(type_: str):
     if type_ not in BACKENDS:
-        raise StorageError(
-            f"Storage source type {type_!r} is not ported to "
-            f"predictionio_tpu_torch yet; ported types: {sorted(BACKENDS)}")
+        raise StorageError(f"Unknown storage source type: {type_}. "
+                           f"Known types: {sorted(BACKENDS)}")
     return importlib.import_module(BACKENDS[type_])
 
 
@@ -130,7 +134,7 @@ def _client_for(cfg: StorageClientConfig):
 
 def get_data_object(repo: str, kind: str):
     """kind in {apps, access_keys, channels, engine_instances,
-    evaluation_instances, models, events}."""
+    engine_manifests, evaluation_instances, models, events}."""
     key = f"{repo}/{kind}"
     with timed_acquire(_lock, _dao_lock_wait):
         if key not in _dataobjects:
@@ -178,6 +182,10 @@ class Storage:
     @staticmethod
     def get_meta_data_engine_instances():
         return get_data_object("METADATA", "engine_instances")
+
+    @staticmethod
+    def get_meta_data_engine_manifests():
+        return get_data_object("METADATA", "engine_manifests")
 
     @staticmethod
     def get_meta_data_evaluation_instances():

@@ -1,9 +1,8 @@
 """Embedded SQL storage backend (SQLite): the operator default store.
 
-The port's copy of `predictionio_tpu/data/storage/sqlite.py` for the
-tables training, evaluation, deployment and event collection use: apps,
-access keys, channels, engine instances, evaluation instances, model
-blobs and events, in one embedded database. The schema is the
+The port's copy of `predictionio_tpu/data/storage/sqlite.py`: apps,
+access keys, channels, engine instances, engine manifests, evaluation
+instances, model blobs and events, in one embedded database. The schema is the
 reference's, table for table, so a store written by either package reads
 back through the other. Tables are created on first access.
 
@@ -36,6 +35,7 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (ABSENT, AccessKey,
                                                       App, Channel,
                                                       EngineInstance,
+                                                      EngineManifest,
                                                       EvaluationInstance,
                                                       Model)
 
@@ -72,6 +72,7 @@ class StorageClient:
                     "access_keys": SQLAccessKeys,
                     "channels": SQLChannels,
                     "engine_instances": SQLEngineInstances,
+                    "engine_manifests": SQLEngineManifests,
                     "evaluation_instances": SQLEvaluationInstances,
                     "models": SQLModels,
                     "events": SQLEvents,
@@ -298,6 +299,43 @@ class SQLEngineInstances(base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         return self.c.execute(f"DELETE FROM {self.t} WHERE id=?",
                               (instance_id,)).rowcount > 0
+
+
+class SQLEngineManifests(base.EngineManifests):
+    def __init__(self, client, ns):
+        self.c = client
+        self.t = f"{ns}_enginemanifests"
+        client.execute(f"""CREATE TABLE IF NOT EXISTS {self.t} (
+            id TEXT, version TEXT, name TEXT, description TEXT,
+            files TEXT, enginefactory TEXT, PRIMARY KEY (id, version))""")
+
+    def insert(self, m: EngineManifest) -> None:
+        self.c.execute(
+            f"INSERT OR REPLACE INTO {self.t} VALUES (?,?,?,?,?,?)",
+            (m.id, m.version, m.name, m.description,
+             json.dumps(list(m.files)), m.engine_factory))
+
+    def _row(self, r):
+        return EngineManifest(r[0], r[1], r[2], r[3],
+                              tuple(json.loads(r[4])), r[5])
+
+    def get(self, manifest_id, version):
+        rows = self.c.query(
+            f"SELECT * FROM {self.t} WHERE id=? AND version=?",
+            (manifest_id, version))
+        return self._row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._row(r) for r in self.c.query(f"SELECT * FROM {self.t}")]
+
+    def update(self, m: EngineManifest, upsert: bool = False) -> None:
+        if upsert or self.get(m.id, m.version):
+            self.insert(m)
+
+    def delete(self, manifest_id, version) -> bool:
+        return self.c.execute(
+            f"DELETE FROM {self.t} WHERE id=? AND version=?",
+            (manifest_id, version)).rowcount > 0
 
 
 class SQLEvaluationInstances(base.EvaluationInstances):

@@ -1,10 +1,13 @@
 """The port's command line: `python -m predictionio_tpu_torch`.
 
-The port's counterpart of `version`, `status`, `train`, `eval`, `deploy`,
-`undeploy`, `update`, `rollback`, `eventserver`, `app`, `accesskey`,
-`export`, `import`, `trim` and `cache` of `predictionio_tpu/tools/cli.py` (the
-reference's Console, Console.scala:186-651), with the same flags and
-messages. `train` runs
+The port's counterpart of `version`, `status`, `build`, `unregister`,
+`train`, `eval`, `deploy`, `undeploy`, `update`, `rollback`,
+`eventserver`, `dashboard`, `adminserver`, `app`, `accesskey`, `export`,
+`import`, `trim`, `servers`, `snapshot`, `run`, `upgrade` and `cache` of
+`predictionio_tpu/tools/cli.py` (the reference's Console,
+Console.scala:186-651), with the same flags and messages. `build` checks
+engine.json's factory and params and registers the engine manifest;
+`unregister` removes it (exit 1 when none is registered). `train` runs
 `create_workflow_main` in this process; `eval` runs the Evaluation class
 and the params generator it is given by dotted path (`create_workflow`'s
 evaluation run), records an evaluation instance and writes the best
@@ -58,10 +61,18 @@ libraries built there, stale salts) as JSON; `cache clear` removes the
 active salt's libraries (the next first use rebuilds them) and `--all`
 every salt's.
 
-The other commands of `bin/pio` (build, unregister, dashboard,
-adminserver, servers, snapshot, bootstrap and the rest) are not ported:
-run them through the JAX package's `bin/pio` on a machine that has JAX,
-against the same store.
+`dashboard` serves the completed evaluations' results and the
+`/telemetry` view, `adminserver` the `/cmd/app` REST API, both in the
+foreground; `servers` probes the event server, engine, dashboard and
+admin ports at once (exit 0 when any is up); `snapshot
+{create,restore,list}` ships a nativelog app's shard files to a blob URI
+and back (`data/storage/snapshot.py`); `run` runs a Python file as
+`__main__`; `upgrade` reports the version of this offline build.
+
+The commands still only in the JAX package's `bin/pio` are `bootstrap`,
+`tenants`, `placement`, `lint` and deploy's sharded-serving option
+(`--mesh-broadcast-bytes`): run them through that `bin/pio` on a machine
+that has JAX, against the same store.
 """
 
 from __future__ import annotations
@@ -79,11 +90,12 @@ from typing import List, Optional
 
 DESCRIPTION = (
     "predictionio_tpu_torch: the PyTorch/CUDA port of pio-tpu. Commands "
-    "here: version, status, train, eval, deploy, undeploy, update, "
-    "rollback, eventserver, app, accesskey, export, import, trim, cache, "
-    "incidents, profile, fleet, faults, spill, template. "
-    "Still only in the JAX package's bin/pio: build, dashboard "
-    "and the other commands.")
+    "here: version, status, build, unregister, train, eval, deploy, "
+    "undeploy, update, rollback, eventserver, dashboard, adminserver, app, "
+    "accesskey, export, import, trim, servers, snapshot, run, upgrade, "
+    "cache, incidents, profile, fleet, faults, spill, template. Still only "
+    "in the JAX package's bin/pio: bootstrap, tenants, placement, lint and "
+    "the sharded serving of deploy.")
 
 
 def cmd_version(args) -> int:
@@ -231,6 +243,49 @@ def _print_telemetry(args) -> None:
         print(f"  {t.get('kind'):14s} {t.get('durationMs', 0):>10}ms "
               f"links={len(t.get('links', []))} [{stages}] "
               f"{t.get('traceId')}")
+
+
+def cmd_build(args) -> int:
+    """Check engine.json and its factory and register the engine manifest
+    (the sbt compile and RegisterEngine of the reference, Console.scala:924,
+    RegisterEngine.scala: a Python engine needs no compiling)."""
+    from predictionio_tpu_torch.data.storage.base import EngineManifest
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import get_engine_factory
+    with open(args.engine_json) as f:
+        variant = json.load(f)
+    factory_name = variant.get("engineFactory")
+    if not factory_name:
+        print("engineFactory missing in engine.json")
+        return 1
+    engine = get_engine_factory(factory_name).apply()
+    engine.json_to_engine_params(variant)
+    manifest = EngineManifest(
+        id=variant.get("id", "default"),
+        version=str(variant.get("version", "0")),
+        name=variant.get("id", factory_name),
+        description=variant.get("description"),
+        files=(args.engine_json,),
+        engine_factory=factory_name)
+    Storage.get_meta_data_engine_manifests().insert(manifest)
+    print(f"Engine {factory_name} is valid. Registered manifest "
+          f"{manifest.id} {manifest.version}. Build finished successfully.")
+    return 0
+
+
+def cmd_unregister(args) -> int:
+    """Remove the engine manifest engine.json names (Console unregister);
+    exits 1 when none is registered."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    with open(args.engine_json) as f:
+        variant = json.load(f)
+    mid = variant.get("id", "default")
+    version = str(variant.get("version", "0"))
+    if Storage.get_meta_data_engine_manifests().delete(mid, version):
+        print(f"Unregistered engine {mid} {version}.")
+        return 0
+    print(f"Engine {mid} {version} is not registered.")
+    return 1
 
 
 def cmd_train(args) -> int:
@@ -471,6 +526,26 @@ def cmd_eventserver(args) -> int:
     return _serve_foreground(server, "event server")
 
 
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.tools.dashboard import (Dashboard,
+                                                        DashboardConfig)
+    server = Dashboard(DashboardConfig(
+        ip=args.ip, port=args.port, engine_url=args.engine_url,
+        event_server_url=args.event_server_url))
+    print(f"Dashboard is listening on http://{args.ip}:{args.port}",
+          flush=True)
+    return _serve_foreground(server, "dashboard")
+
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.tools.admin import (AdminServer,
+                                                    AdminServerConfig)
+    server = AdminServer(AdminServerConfig(ip=args.ip, port=args.port))
+    print(f"Admin server is listening on http://{args.ip}:{args.port}",
+          flush=True)
+    return _serve_foreground(server, "admin server")
+
+
 def _confirm(question: str) -> bool:
     answer = input(f"{question} (Y/n) ")
     return answer in ("", "y", "Y")
@@ -612,6 +687,90 @@ def cmd_trim(args) -> int:
     print(f"Trimmed {n} events from app {args.src_appid} into app "
           f"{args.dst_appid}.")
     return 0
+
+
+def _engine_mesh_note(ip: str, port: int) -> str:
+    """The engine row's mesh-coordinator note of `servers`, from the
+    server's /stats.json `meshCoordinator`; empty when the server reports
+    none, as the port's single-card server does."""
+    try:
+        with urllib.request.urlopen(
+                f"http://{ip}:{port}/stats.json", timeout=3) as resp:
+            mesh = json.loads(resp.read()).get("meshCoordinator")
+    except Exception:
+        return ""
+    if not mesh:
+        return ""
+    if mesh.get("poisoned"):
+        return "  MESH POISONED — redeploy"
+    return f"  mesh {mesh.get('processes')}p healthy"
+
+
+def cmd_servers(args) -> int:
+    """Probe the event server, engine, dashboard and admin ports at once
+    and print which answer; exits 0 when any is up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def probe(name, port):
+        url = f"http://{args.ip}:{port}/"
+        try:
+            with urllib.request.urlopen(url, timeout=3) as resp:
+                note = ""
+                if name == "engine":
+                    note = _engine_mesh_note(args.ip, port)
+                return (f"  {name:14s} :{port:<6d} UP ({resp.status})"
+                        f"{note}", True)
+        except urllib.error.HTTPError as e:
+            # an HTTP error still means something is listening
+            return f"  {name:14s} :{port:<6d} UP ({e.code})", True
+        except Exception:
+            return f"  {name:14s} :{port:<6d} down", False
+
+    targets = [("eventserver", args.event_server_port),
+               ("engine", args.engine_port),
+               ("dashboard", args.dashboard_port),
+               ("adminserver", args.admin_port)]
+    with ThreadPoolExecutor(len(targets)) as ex:
+        rows = list(ex.map(lambda t: probe(*t), targets))
+    for row, _ in rows:
+        print(row)
+    return 0 if any(up for _, up in rows) else 1
+
+
+def cmd_snapshot(args) -> int:
+    """`snapshot {create,restore,list}`: a nativelog namespace's shard
+    files shipped to, and restored from, a URI-addressed blob store
+    (`data/storage/snapshot.py`)."""
+    from predictionio_tpu_torch.data.storage import snapshot as S
+    from predictionio_tpu_torch.data.storage.registry import StorageError
+    try:
+        if args.snapshot_command == "create":
+            m = S.create_snapshot(args.appid, args.uri, name=args.name,
+                                  channel_id=args.channelid)
+            total = sum(e["bytes"] for e in m["files"])
+            print(f"Snapshot {m['name']} created: {len(m['files'])} "
+                  f"file(s), {total} bytes at {args.uri}.")
+        elif args.snapshot_command == "restore":
+            m = S.restore_snapshot(args.uri, args.name, app_id=args.appid,
+                                   channel_id=args.channelid,
+                                   force=args.force)
+            print(f"Snapshot {m['name']} restored "
+                  f"({len(m['files'])} file(s)).")
+        else:
+            snaps = S.list_snapshots(args.uri)
+            if not snaps:
+                print("No snapshots found.")
+            for m in snaps:
+                total = sum(e["bytes"] for e in m["files"])
+                print(f"  {m['name']}  app={m['app_id']} "
+                      f"partitions={m['partitions']} files="
+                      f"{len(m['files'])} bytes={total} "
+                      f"created={m['created']}")
+        return 0
+    except (S.SnapshotError, StorageError) as e:
+        # StorageError: e.g. a URI scheme no adapter is registered for
+        print(f"Snapshot failed: {e}")
+        return 1
 
 
 def cmd_cache(args) -> int:
@@ -937,6 +1096,25 @@ def cmd_spill(args) -> int:
     return 0 if not kept else 1
 
 
+def cmd_run(args) -> int:
+    """Run a Python file as `__main__` in this environment (Console run),
+    with `args` as its argv."""
+    import runpy
+    import sys
+    sys.argv = [args.main_py] + (args.args or [])
+    runpy.run_path(args.main_py, run_name="__main__")
+    return 0
+
+
+def cmd_upgrade(args) -> int:
+    """Report the version (Console upgrade): the build is offline, so
+    there is no upgrade channel to ask."""
+    import predictionio_tpu_torch
+    print(f"pio-tpu {predictionio_tpu_torch.__version__}: offline build; "
+          "no upgrade channel configured.")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m predictionio_tpu_torch",
                                 description=DESCRIPTION)
@@ -964,6 +1142,16 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--url", help="point --telemetry/--slo at one server "
                     "(http://host:port) instead of the local defaults")
     st.set_defaults(func=cmd_status)
+
+    b = sub.add_parser("build", help="check engine.json and register its "
+                       "engine manifest")
+    _add_variant_arg(b)
+    b.set_defaults(func=cmd_build)
+
+    un = sub.add_parser("unregister", help="remove the engine manifest "
+                        "engine.json names")
+    _add_variant_arg(un)
+    un.set_defaults(func=cmd_unregister)
 
     t = sub.add_parser("train", help="train the engine variant and "
                        "persist an engine instance")
@@ -1072,6 +1260,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "has its own, much larger bound")
     ev.set_defaults(func=cmd_eventserver)
 
+    db = sub.add_parser("dashboard", help="serve the evaluation results and "
+                        "the telemetry view in the foreground")
+    db.add_argument("--ip", default="127.0.0.1")
+    db.add_argument("--port", type=int, default=9000)
+    db.add_argument("--engine-url", default="http://127.0.0.1:8000",
+                    help="engine server the /telemetry view polls")
+    db.add_argument("--event-server-url", default="http://127.0.0.1:7070",
+                    help="event server the /telemetry view polls")
+    db.set_defaults(func=cmd_dashboard)
+
+    adm = sub.add_parser("adminserver", help="serve the admin REST API "
+                         "(/cmd/app) in the foreground")
+    adm.add_argument("--ip", default="127.0.0.1")
+    adm.add_argument("--port", type=int, default=7071)
+    adm.set_defaults(func=cmd_adminserver)
+
     a = sub.add_parser("app", help="manage apps and their channels")
     asub = a.add_subparsers(dest="app_command", required=True)
     an = asub.add_parser("new")
@@ -1157,6 +1361,43 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--src-channelid", type=int)
     tr.add_argument("--dst-channelid", type=int)
     tr.set_defaults(func=cmd_trim)
+
+    sv = sub.add_parser("servers", help="probe the stack's service ports")
+    sv.add_argument("--ip", default="127.0.0.1")
+    sv.add_argument("--event-server-port", type=int, default=7070)
+    sv.add_argument("--engine-port", type=int, default=8000)
+    sv.add_argument("--dashboard-port", type=int, default=9000)
+    sv.add_argument("--admin-port", type=int, default=7071)
+    sv.set_defaults(func=cmd_servers)
+
+    sn = sub.add_parser("snapshot", help="ship nativelog shard snapshots "
+                        "to a blob URI and restore them")
+    snsub = sn.add_subparsers(dest="snapshot_command", required=True)
+    sc = snsub.add_parser("create")
+    sc.add_argument("--appid", type=int, required=True)
+    sc.add_argument("--uri", required=True,
+                    help="remote blob root, e.g. file:///backups")
+    sc.add_argument("--name", help="snapshot name (default: UTC stamp)")
+    sc.add_argument("--channelid", type=int)
+    sr = snsub.add_parser("restore")
+    sr.add_argument("--uri", required=True)
+    sr.add_argument("--name", required=True)
+    sr.add_argument("--appid", type=int,
+                    help="restore into a different app id")
+    sr.add_argument("--channelid", type=int)
+    sr.add_argument("--force", action="store_true",
+                    help="replace an existing non-empty namespace")
+    sl = snsub.add_parser("list")
+    sl.add_argument("--uri", required=True)
+    sn.set_defaults(func=cmd_snapshot)
+
+    r = sub.add_parser("run", help="run a Python file as __main__")
+    r.add_argument("main_py")
+    r.add_argument("args", nargs="*")
+    r.set_defaults(func=cmd_run)
+
+    sub.add_parser("upgrade", help="report the version (offline build)"
+                   ).set_defaults(func=cmd_upgrade)
 
     ca = sub.add_parser("cache", help="the salted build directory of the "
                         "kernels (the nvcc builds a later process loads)")

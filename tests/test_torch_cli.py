@@ -261,11 +261,14 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
         cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     for word in ("train", "deploy", "undeploy", "app", "accesskey",
-                 "import", "eventserver", "build", "template"):
+                 "import", "eventserver", "build", "unregister", "dashboard",
+                 "adminserver", "servers", "snapshot", "run", "upgrade",
+                 "template"):
         assert word in text
     assert "Still only in the JAX package's bin/pio" in text
-    assert "version, status, train, eval, deploy, undeploy, update, " \
-        "rollback, eventserver, app, accesskey, export, import, trim, " \
-        "cache, incidents, profile, fleet, faults, spill, template. Still " \
-        "only in the JAX package's " \
-        "bin/pio: build" in text
+    assert "version, status, build, unregister, train, eval, deploy, " \
+        "undeploy, update, rollback, eventserver, dashboard, adminserver, " \
+        "app, accesskey, export, import, trim, servers, snapshot, run, " \
+        "upgrade, cache, incidents, profile, fleet, faults, spill, " \
+        "template. Still only in the JAX package's bin/pio: bootstrap, " \
+        "tenants, placement, lint and the sharded serving of deploy." in text

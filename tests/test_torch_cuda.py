@@ -1317,3 +1317,71 @@ def test_a_nativelog_read_trains_through_the_cg_kernel(cuda, tmp_path):
                        cfg, device=cuda)
     assert np.array_equal(model.user_factors, ref.user_factors)
     assert np.array_equal(model.item_factors, ref.item_factors)
+
+
+def test_a_restored_snapshot_trains_through_the_cg_kernel(cuda, tmp_path,
+                                                          monkeypatch):
+    """A recommended-user app on a four-partition nativelog with its
+    metadata in a docindex: trained through the workflow, snapshotted,
+    restored into a new app on the same host and trained again. Every
+    solve of the second train is a CG kernel launch, and its tables are
+    bit-equal to the first's."""
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage import snapshot
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendeduser import \
+        RecommendedUserEngineFactory
+    from predictionio_tpu_torch.tools import app_commands as ac
+    from predictionio_tpu_torch.workflow import (WorkflowConfig,
+                                                 create_workflow_main)
+    for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "pio"))
+    for repo, src in (("METADATA", "DIX"), ("EVENTDATA", "NL")):
+        monkeypatch.setenv(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", src)
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_DIX_TYPE", "docindex")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_NL_TYPE", "nativelog")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_NL_PATH", str(tmp_path / "nl"))
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_NL_PARTITIONS", "4")
+    registry.clear_cache()
+    ui, ii, _, _, _ = small_ratings()
+
+    def train(app_name):
+        path = tmp_path / f"{app_name}.json"
+        path.write_text(json.dumps({
+            "engineFactory": "recommendeduser",
+            "datasource": {"params": {"app_name": app_name}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 16, "num_iterations": 3, "lam": 0.1, "seed": 2}}]}))
+        T.COUNTS.reset()
+        iid = create_workflow_main(WorkflowConfig(engine_variant=str(path)))
+        counts = dict(vars(T.COUNTS))
+        (model,) = RecommendedUserEngineFactory.apply().deserialize_models(
+            Storage.get_model_data_models().get(iid).models, iid)
+        return model, counts
+
+    try:
+        src = ac.app_new("src").app.id
+        Storage.get_events().insert_columnar(ColumnarBatch(
+            len(ui), "follow", "user", [f"u{u}" for u in ui], "user",
+            [f"u{i}" for i in ii], [{}] * len(ui),
+            [f"2030-01-01T00:00:{k // 1000:02d}.{k % 1000:03d}Z"
+             for k in range(len(ui))]), src)
+        ref, _ = train("src")
+        uri = f"file://{tmp_path}/snapshots"
+        snapshot.create_snapshot(src, uri, name="s")
+        dst = ac.app_new("dst").app.id
+        with pytest.raises(snapshot.SnapshotError, match="--force"):
+            snapshot.restore_snapshot(uri, "s", app_id=dst)
+        snapshot.restore_snapshot(uri, "s", app_id=dst, force=True)
+        model, counts = train("dst")
+        assert (tmp_path / "pio" / "docindex" / "pio_meta" /
+                "engine_instances.log").exists()
+    finally:
+        registry.clear_cache()
+    assert counts["cg_solve"] > 0
+    assert all(n == 0 for k, n in counts.items() if k != "cg_solve")
+    assert list(model.followed_ix.ids) == list(ref.followed_ix.ids)
+    assert np.array_equal(model.followed_factors_normalized,
+                          ref.followed_factors_normalized)

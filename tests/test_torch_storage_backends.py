@@ -427,10 +427,22 @@ def test_metadata_daos(mem_pair):
 
 
 def test_memory_engine_manifests_wait_for_their_plane(mem_pair):
-    assert mem_pair["jax"].get_data_object("engine_manifests", "m") \
-        is not None
-    with pytest.raises(TReg.StorageError, match="engine_manifests"):
-        mem_pair["port"].get_data_object("engine_manifests", "m")
+    """`MemEngineManifests` answers every call as the reference's."""
+    def run(pkg, c):
+        B = PKGS[pkg]["base"]
+        dao = c.get_data_object("engine_manifests", "m")
+        m1 = B.EngineManifest("e", "1", "n1", "d", ("a.json",), "f")
+        m2 = B.EngineManifest("e", "2", "n2")
+        out = [dao.insert(m1), dao.insert(m2), dao.get("e", "1"),
+               dao.get("e", "3"), dao.get_all(),
+               dao.update(B.EngineManifest("x", "1", "x")), dao.get("x", "1"),
+               dao.update(B.EngineManifest("x", "1", "x"), upsert=True),
+               dao.get("x", "1"), dao.update(B.EngineManifest("e", "2", "r")),
+               dao.get("e", "2"), dao.delete("e", "1"), dao.delete("e", "1"),
+               dao.get_all()]
+        return [repr(x) for x in out]
+    r = both(mem_pair, run)
+    assert r["jax"] == r["port"]
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +492,24 @@ def test_remotefs_models_and_scheme_registry(tmp_path):
             m["rfs"]._SCHEMES.pop("memtest", None)
 
 
+def test_every_type_of_the_jax_registry_resolves():
+    """The port's registry refuses no source type the JAX registry knows
+    (the known types as its refusal lists them), and maps each to the
+    port's module of the same name."""
+    import ast
+    with pytest.raises(JReg.StorageError) as e:
+        JReg._backend_module("no-such-type")
+    known = ast.literal_eval(str(e.value).split("Known types: ", 1)[1])
+    assert {"docindex", "pgsql", "mysql", "nativelog"} <= set(known)
+    assert sorted(TReg.BACKENDS) == sorted(known)
+    for type_ in known:
+        want = JReg._backend_module(type_).__name__.replace(
+            "predictionio_tpu.", "predictionio_tpu_torch.")
+        assert TReg._backend_module(type_).__name__ == want, type_
+    with pytest.raises(TReg.StorageError, match="Unknown storage source"):
+        TReg._backend_module("no-such-type")
+
+
 def test_registry_serves_the_new_types(tmp_path, monkeypatch):
     """The port's registry hands out each new type as the JAX one does;
     `clear_cache` stops nativelog's committers; `PIO_FAULTS` wraps its
@@ -523,9 +553,10 @@ def test_registry_serves_the_new_types(tmp_path, monkeypatch):
         monkeypatch.delenv("PIO_FAULTS")
         TReg.clear_cache()
         assert [e.event_id for e in S.get_events().find(1)] == ["r1"]
-        monkeypatch.setenv("PIO_STORAGE_SOURCES_NL_TYPE", "pgsql")
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_NL_TYPE", "cassandra")
         TReg.clear_cache()
-        with pytest.raises(TReg.StorageError, match="not ported"):
+        with pytest.raises(TReg.StorageError,
+                           match="Unknown storage source type"):
             S.get_events()
     finally:
         TReg.clear_cache()

@@ -209,12 +209,15 @@ def test_metadata_reads_back_through_the_other_package(stores, writer):
 
 
 def test_unported_backend_types_raise(stores, monkeypatch):
-    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "PG")
-    monkeypatch.setenv("PIO_STORAGE_SOURCES_PG_TYPE", "pgsql")
-    monkeypatch.setenv("PIO_STORAGE_SOURCES_PG_URL", "localhost:1")
-    TReg.clear_cache()
-    with pytest.raises(TReg.StorageError, match="not ported"):
-        TReg.Storage.get_events()
+    """A source type neither registry knows raises `StorageError` in
+    both."""
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "CS")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_CS_TYPE", "cassandra")
+    for reg in (JReg, TReg):
+        reg.clear_cache()
+        with pytest.raises(reg.StorageError,
+                           match="Unknown storage source type: cassandra"):
+            reg.Storage.get_events()
 
 
 def test_registry_defaults_match_the_reference(monkeypatch, tmp_path):
