@@ -34,7 +34,7 @@ PyTorch version at the shapes its path gives it. Then:
   iterations), every solve through the Newton-Schulz kernel, served over
   `POST /queries.json`;
 - the product path (`pio train` -> `pio deploy`): a SQLite event store
-  populated through the bulk import with 3M synthetic `rate` events
+  populated through the bulk import with 2M synthetic `rate` events
   (138,493 users x 26,744 items, seed 0) and one `$set` per item
   (categories, creationYear); `create_workflow_main` on an engine.json
   variant trains rank-200 ALS (lam 0.05, 2 iterations, every solve
@@ -49,7 +49,7 @@ PyTorch version at the shapes its path gives it. Then:
   first train: the same train with `"stream": true` (`stream_train`:
   chunked store cursors, a reader thread and pinned double-buffered
   copies to the card; every solve a CG launch, the factor tables and id
-  maps bit-equal to the batch train's, 3,000,000 rows streamed, no kernel
+  maps bit-equal to the batch train's, 2,000,000 rows streamed, no kernel
   build mid-stream); `BulkLoadExecutor` on the card over the first
   1,000,000 rate events (`dataplane`: every segment a CUDA tensor on the
   bucket ladder copied from a pinned buffer, the rows copied back
@@ -120,9 +120,9 @@ PyTorch version at the shapes its path gives it. Then:
   algorithm (the [26,744+, 26,744+] item Gram on the card, 2.9 GB,
   persisted by the model itself; 64 rows held to float64 rows made with
   scipy.sparse from the store's pairs, 64 queries to the float64 top-k);
-  the e-commerce template after 326,148 `view`/`buy` events
-  (`synthetic_ml20m` asked for 150,000 and 30,000 gives every user at
-  least one: 186,240 and 139,567, and 341 views of 64 new users) and two
+  the e-commerce template after 288,599 `view`/`buy` events
+  (`synthetic_ml20m` asked for 75,000 and 15,000 gives every user at
+  least one: 149,988 and 138,611, and 341 views of 64 new users) and two
   `unavailableItems` lists land (rank-200 implicit ALS,
   every solve through the CG kernel, its last half-sweep held to the
   kernel's plain version and read against float64; 240 queries held to
@@ -165,6 +165,28 @@ PyTorch version at the shapes its path gives it. Then:
   (index, txt/html/json results, `/telemetry` reading the deploy), the
   admin server's `/cmd/app` through the docindex, `servers` seeing the
   engine, dashboard and admin server UP, and `unregister` (then exit 1);
+- many engines on one card (`tenancy`): host A, an in-process
+  `ServingHost`, serves the store's recommendation instance and its
+  similar-product instance as tenants `rec` and `sp` (answers held to
+  float64 through `/engines/<t>/queries.json`; one byte-identical body to
+  both tenants never answered from the other's cache); `tenants
+  list|status|pin|evict` in process (the operator eviction drops `rec`'s
+  CUDA graphs, `torch.cuda.memory_allocated()` falls by its `bytesFreed`,
+  and its next answers are the same bytes); one forced fold tick on each
+  tenant through the host's `FoldTickGate` (every solve a CG launch, both
+  tenants in `pio_fold_tick_wait_seconds`); a `PIO_AUTH=on` host answers
+  a real access key and refuses a wrong one with 401. Host B, `python -m
+  predictionio_tpu_torch bootstrap ru --snapshot nl_follows --serve
+  --port 0`, restores `snapshot_train`'s snapshot into a fresh nativelog
+  app, trains the recommended-user template (every solve a CG launch; the
+  tables bit-equal to `recuser_train`'s blob) and serves it. With host
+  A's budget set so that `ru` cannot join without an eviction, host B is
+  SIGKILLed and `placement apply` fails `ru` over onto host A under
+  generation 1: a `TenantRouter` client is answered before and after the
+  kill with no 5xx, a stale-generation admit is refused, one
+  `host_failover` incident is captured, `rec` (unpinned, coldest) is
+  evicted for `budget` and `sp` (pinned) is not, and
+  `pio_engine_hbm_bytes{tenant}` equals each tenant's live storages;
 - the example engines, last (`examples`): the quickstart's
   recommendation family as a subprocess with MODELDATA on a `remotefs`
   `file://` source (4 items answered, the blob under the URL); SimRank
@@ -238,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
 import os
@@ -316,11 +339,10 @@ KAPPA_HARD = 1e3          # the half-steps fault is held where kappa' =
 SCHULZ_QUERIES = 8        # Schulz-trained model's queries served
 # the product path: events in the store -> `pio train` -> persisted
 # instance -> `pio deploy` (bench.py's bench_product_path at full scale)
-# users, items, rate events: 3M since the storage-backend and example
-# phases came in (5M, then 4M, before): with only the classification and
-# follows cuts a slow host took the smoke past its 1,200 s limit (PERF.md
-# §6, PR 17)
-STORE_DATA = (138_493, 26_744, 3_000_000)
+# users, items, rate events: 2M since the tenancy phase came in (5M, 4M,
+# then 3M before): each time a slow host took the smoke past its 1,200 s
+# limit (PERF.md §5, §6, PRs 17 and 19)
+STORE_DATA = (138_493, 26_744, 2_000_000)
 STORE_LAM = 0.05
 STORE_SEEDS = (1, 2)      # the first train's, and the retrain's /reload
 STORE_APP = "smokeapp"
@@ -371,8 +393,8 @@ DIMSUM_ROWS = 64                 # seeded rows of the [I, I] table held
 DIMSUM_QUERIES = 64
 DIMSUM_TABLE_ATOL = 1e-6         # float32 counts are exact; the cosine's
 #                                  normalization rounds at 2^-24 relative
-ECOM_VIEWS = (150_000, 7)        # (events, synthetic_ml20m seed)
-ECOM_BUYS = (30_000, 8)
+ECOM_VIEWS = (75_000, 7)         # (events asked, synthetic_ml20m seed;
+ECOM_BUYS = (15_000, 8)          # it gives each user one at least)
 ECOM_NEW_USERS = 64              # users with 1-10 views and no rating
 ECOM_UNAVAILABLE = 500           # items in each unavailableItems $set
 ECOM_HELD = (160, 48, 32)        # ecom_deploy: known, new, unknown users
@@ -1734,7 +1756,7 @@ def store_truth(model) -> tuple:
 
 def populate_store(app_id: int) -> int:
     """The product path's events, through the bulk import
-    (`insert_columnar`): synthetic_ml20m's 3M ratings as `rate` events
+    (`insert_columnar`): synthetic_ml20m's 2M ratings as `rate` events
     (one millisecond apart), then one `$set` per item with 1-3 of 20
     categories and a creationYear. The rate events carry ids in
     insertion order, so the primary-key index grows by appends (the
@@ -1884,14 +1906,14 @@ BLOB_PROBES = {
         lambda m: (m.als.user_factors, m.als.item_factors)),
     "ecommercerecommendation": (
         "predictionio_tpu_torch.models.ecommerce", "ECommerceEngineFactory",
-        "m.device, m._als, m._normalized, m.user_factors.shape, "
+        "m.device, m._als, m.user_factors.shape, "
         "m.item_factors.shape",
         lambda m: (m.user_factors, m.item_factors,
                    m.item_factors_normalized)),
     "recommendeduser": (
         "predictionio_tpu_torch.models.recommendeduser",
         "RecommendedUserEngineFactory",
-        "m.device, m._table, m.followed_factors_normalized.shape",
+        "m.device, m.followed_factors_normalized.shape",
         lambda m: (m.followed_factors_normalized,)),
 }
 
@@ -3079,7 +3101,9 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
     cache (`cache_bench`), under a fold (`cache_fold`) and as a guarded
     deploy (`canary`), and the similar-product instance folded in
     process (`fold_inprocess`). Returns the similar-product train's
-    Cholesky kernel launches and the folds' CG kernel launches."""
+    Cholesky kernel launches, the folds' CG kernel launches and (the
+    served recommendation instance, the similar-product variant and its
+    instance), which `tenancy` serves again."""
     from predictionio_tpu_torch.data.storage.registry import Storage
     from predictionio_tpu_torch.models import recommendation as TR
     from predictionio_tpu_torch.models import similarproduct as TS
@@ -3141,7 +3165,7 @@ def serve_plane_phases(rec_path: str, rec_model, workdir: str) -> tuple:
     fold_launches += phase_cache_fold(rec_path, rec_iid, rec_model)
     fold_launches += phase_canary(rec_path, rec_iid, rec_model)
     fold_launches += phase_fold_inprocess(sim_path, workdir)
-    return launches, fold_launches
+    return launches, fold_launches, (rec_iid, sim_path, sim_iid)
 
 
 def fold_systems(B: int, K: int, n_inert: int, gen: torch.Generator):
@@ -5264,7 +5288,7 @@ def precision_at_k(tops, qa, k: int) -> tuple:
 
 
 def phase_rec_eval(workdir: str) -> int:
-    """`pio eval` on the 3M-event store: `create_workflow_main` on
+    """`pio eval` on the 2M-event store: `create_workflow_main` on
     `chip_smoke.RecEval` / `chip_smoke.RecSweep` (one read, EVAL_K folds,
     two lam settings, every solve a CG launch). Each setting's score is
     held to the PrecisionAtK of a float64 top-10 of the same tables,
@@ -6995,6 +7019,553 @@ def phase_snapshot_train(workdir: str, recuser: dict) -> int:
     return launches
 
 
+TENANCY_APP = "pio_follows_boot"   # tenancy: host B's fresh nativelog app
+TENANCY_FOLD_RATES = 64            # ... rates appended for the gated ticks
+TENANCY_QUERIES = 16               # ... held answers a tenant and a check
+TENANCY_SLACK = 8 << 20            # ... bytes an eviction's fall in
+#                                    memory_allocated may miss bytesFreed
+#                                    by, and a re-upload's rise may miss
+#                                    the tenant's gauge by (the static
+#                                    inputs of the captures it schedules,
+#                                    allocations of other threads: none
+#                                    are expected)
+TENANCY_ROUTER_AFTER = 8           # ... router answers after the failover
+TENANCY_KEY = "smoke-tenancy-key"  # ... the PIO_AUTH host's access key
+
+
+def labelled(samples: dict, name: str) -> list:
+    """[(labels, value)] of the samples of `name` in a `scrape`."""
+    return [(dict(labels), v) for (n, labels), v in samples.items()
+            if n == name]
+
+
+def allocated() -> int:
+    """`torch.cuda.memory_allocated()` once this stream's work is done:
+    the bytes of the tensors alive on the card (not the caching
+    allocator's reserve)."""
+    sync()
+    return torch.cuda.memory_allocated()
+
+
+def settled_allocated() -> int:
+    """`allocated()` once it holds still: the same over three readings
+    0.2 s apart (a background capture's warm-up runs may be in flight),
+    at most 10 s."""
+    last, same = allocated(), 0
+    deadline = time.perf_counter() + 10
+    while same < 2 and time.perf_counter() < deadline:
+        time.sleep(0.2)
+        now = allocated()
+        same = same + 1 if now == last else 0
+        last = now
+    return last
+
+
+def hbm_gauge(url: str) -> dict:
+    """tenant -> `pio_engine_hbm_bytes{tenant}` on the host at `url`."""
+    return {lab["tenant"]: v for lab, v in labelled(
+        scrape(url)[1], "pio_engine_hbm_bytes")}
+
+
+def owned_graphs(owner) -> int:
+    """Executables of the registry keyed on `owner`."""
+    from predictionio_tpu_torch.compile.aot import get_aot
+    aot = get_aot()
+    return sum(1 for k, refs in list(aot._refs.items())
+               if k in aot._compiled and any(r() is owner for r in refs))
+
+
+def ask_fresh(url: str, slot, queries: list) -> list:
+    """Each query's answer bytes, computed: the tenant's cache namespace
+    is cleared first, so none is a stored answer."""
+    slot.server.result_cache.invalidate_all("smoke")
+    out = []
+    for q in queries:
+        code, data, _ = post_raw(url + "/queries.json",
+                                 json.dumps(q).encode())
+        check(code == 200, f"{url} answered {code} to {q}: {data[:200]}")
+        out.append(data)
+    return out
+
+
+def start_host_b(workdir: str, uri: str, path: str) -> dict:
+    """`python -m predictionio_tpu_torch bootstrap ru --snapshot SNAPSHOT
+    --serve --port 0` on `nativelog_env` (metadata on the same SQLite
+    file, models on the same localfs, so host A can load what it
+    trains), started now and awaited by `await_host_b`."""
+    env = dict(os.environ, **nativelog_env(workdir))
+    env.pop("PIO_SERVE_PACK", None)
+    log = os.path.join(workdir, "host_b.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch", "bootstrap",
+             "ru", "--snapshot", SNAPSHOT, "--uri", uri, "-v", path,
+             "--force", "--serve", "--ip", "127.0.0.1", "--port", "0"],
+            cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def await_host_b(b: dict) -> dict:
+    """Wait for host B's "serving host live" line: its report (the line
+    before), url and seconds to it."""
+    live = re.compile(r"Tenant 'ru' admitted; serving host live at "
+                      r"(http://127\.0\.0\.1:\d+)\.")
+    while True:
+        check(b["proc"].poll() is None, f"host B exited "
+              f"{b['proc'].returncode}: {log_tail(b['log'])}")
+        with open(b["log"], errors="replace") as f:
+            lines = f.read().splitlines()
+        for k, line in enumerate(lines):
+            m = live.fullmatch(line)
+            if m:
+                b.update(url=m.group(1), report=json.loads(lines[k - 1]),
+                         live_s=time.perf_counter() - b["t0"])
+                return b
+        check(time.perf_counter() - b["t0"] < DEPLOY_TIMEOUT_S,
+              f"host B not live in {DEPLOY_TIMEOUT_S} s: "
+              f"{log_tail(b['log'])}")
+        time.sleep(0.25)
+
+
+def phase_tenancy(workdir: str, recuser: dict, rec_path: str, rec_iid: str,
+                  sim_path: str, sim_iid: str) -> int:
+    """Many engines under one HBM budget on the card (`tenancy`), after
+    `snapshot_train`, on what the smoke persisted: see the module's
+    docstring. The budget is set on host A once its two tenants are
+    resident and folded, halfway between the sum of the two largest
+    `estimate_padded_bytes` and the sum of all three: the planner then
+    places `ru` by pre-empting the cold `rec` (`ru`'s durable priority
+    is 1), the first query of `ru` makes the budget evict `rec`, and
+    `rec`'s next query evicts `ru`; the resident bytes stay within the
+    budget after each. Returns the CG launches (the gated ticks' and host
+    B's train, which its report counts)."""
+    from predictionio_tpu_torch.compile.aot import capture_quiesced
+    from predictionio_tpu_torch.data.columnar import ColumnarBatch
+    from predictionio_tpu_torch.data.event import (format_event_time,
+                                                   parse_event_time, utcnow)
+    from predictionio_tpu_torch.data.storage import registry
+    from predictionio_tpu_torch.data.storage.base import AccessKey
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendeduser import \
+        RecommendedUserEngineFactory
+    from predictionio_tpu_torch.obs import get_incidents
+    from predictionio_tpu_torch.online import SchedulerConfig
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    from predictionio_tpu_torch.resilience import RetryPolicy
+    from predictionio_tpu_torch.tenancy import (HostConfig,
+                                                PlacementController,
+                                                ServingHost, TenantRouter,
+                                                TenantSpec,
+                                                estimate_padded_bytes)
+    from predictionio_tpu_torch.tenancy import props as tenant_props
+    t_phase = time.perf_counter()
+    uri = "file://" + os.path.join(workdir, "snapshots")
+    nl_env = nativelog_env(workdir)
+    os.environ.update(nl_env)
+    registry.clear_cache()
+    try:
+        boot_app = int(cli_value(r"App ID: (\d+)", "app", "new",
+                                 TENANCY_APP))
+    finally:
+        for k in nl_env:
+            os.environ.pop(k, None)
+        registry.clear_cache()
+    boot_path = os.path.join(workdir, "recuser_boot.json")
+    recuser_variant(boot_path, TENANCY_APP)
+    # `ru` outranks host A's tenants: the planner may pre-empt for it
+    tenant_props.save_props("ru", priority=1)
+    b = start_host_b(workdir, uri, boot_path)
+    host = ServingHost(HostConfig(ip="127.0.0.1", port=0))
+    host_c = client = None
+    stop_client = threading.Event()
+    try:
+        # PIO_AUTH=on: a host armed at construction. Stopped before host
+        # A starts: two hosts of one process share one fleet record
+        app = Storage.get_meta_data_apps().get_by_name(STORE_APP)
+        Storage.get_meta_data_access_keys().insert(AccessKey(
+            TENANCY_KEY, app.id, ()))
+        os.environ["PIO_AUTH"] = "on"
+        try:
+            host_c = ServingHost(HostConfig(ip="127.0.0.1", port=0))
+        finally:
+            del os.environ["PIO_AUTH"]
+        host_c.add_tenant(TenantSpec(key="sp-auth",
+                                     engine_instance_id=sim_iid,
+                                     engine_variant=sim_path))
+        host_c.start()
+        url_c = f"http://127.0.0.1:{host_c.config.port}/engines/sp-auth"
+        sp_auth = host_c.slots["sp-auth"].server.models[0]
+        body = json.dumps({"items": [sp_auth.item_ix.id_of(3)],
+                           "num": SERVE_NUM}).encode()
+        auth = {name: post_raw(url_c + f"/queries.json{suffix}", body)[0]
+                for name, suffix in (("none", ""),
+                                     ("wrong", "?accessKey=nope"),
+                                     ("real", f"?accessKey={TENANCY_KEY}"))}
+        check(auth == {"none": 401, "wrong": 401, "real": 200},
+              f"the PIO_AUTH host answered {auth}")
+        host_c.stop()
+        host_c = None
+        t0 = time.perf_counter()
+        host.add_tenant(TenantSpec(key="rec", engine_instance_id=rec_iid,
+                                   engine_variant=rec_path))
+        host.add_tenant(TenantSpec(key="sp", engine_instance_id=sim_iid,
+                                   engine_variant=sim_path))
+        host.start()
+        admit_s = time.perf_counter() - t0
+        url_a = f"http://127.0.0.1:{host.config.port}"
+        rec_url, sp_url = url_a + "/engines/rec", url_a + "/engines/sp"
+
+        # each hold computes: the tenant's cache namespace is cleared
+        # first (a fold leaves untouched entries, stale by design)
+        def hold_rec(what: str) -> int:
+            host.slots["rec"].server.result_cache.invalidate_all("smoke")
+            model = host.slots["rec"].server.models[0]
+            truth = store_truth(model)
+            qs = store_queries(model, truth, np.random.default_rng(31))
+            U64 = model.als.user_factors.astype(np.float64)
+            V64 = model.als.item_factors.astype(np.float64)
+            exact = 0
+            for q in qs[::len(qs) // TENANCY_QUERIES][:TENANCY_QUERIES]:
+                code, body = post(rec_url + "/queries.json",
+                                  json.dumps(q).encode())
+                check(code == 200, f"{what}: {q} answered {code}")
+                exact += hold_served(body, q, model, U64, V64, truth,
+                                     f"{what} query {q}", f16=True)
+            return exact
+
+        def hold_sp(what: str) -> int:
+            host.slots["sp"].server.result_cache.invalidate_all("smoke")
+            model = host.slots["sp"].server.models[0]
+            T64 = model.item_factors_normalized.astype(np.float64)
+            cats = store_truth(model)[0]
+            exact = 0
+            for q in similar_plane_queries(model, np.random.default_rng(
+                    32))[0][:TENANCY_QUERIES]:
+                code, body = post(sp_url + "/queries.json",
+                                  json.dumps(q).encode())
+                check(code == 200, f"{what}: {q} answered {code}")
+                exact += hold_similar(body, q, model, T64, cats,
+                                      f"{what} query {q}")
+            return exact
+
+        held = {"rec": hold_rec("tenancy rec"), "sp": hold_sp("tenancy sp")}
+        # one body both tenants read (the user for rec, the items for
+        # sp): each answers from its own namespace, never the other's
+        rec_model = host.slots["rec"].server.models[0]
+        sp_model = host.slots["sp"].server.models[0]
+        shared = json.dumps({"user": rec_model.user_ix.id_of(7),
+                             "items": [sp_model.item_ix.id_of(7)],
+                             "num": SERVE_NUM}).encode()
+        hits0 = host.result_cache.stats()["hits"]
+        first = {k: post_raw(u + "/queries.json", shared)[1]
+                 for k, u in (("rec", rec_url), ("sp", sp_url))}
+        again = {k: post_raw(u + "/queries.json", shared)[1]
+                 for k, u in (("rec", rec_url), ("sp", sp_url))}
+        check(first == again and first["rec"] != first["sp"]
+              and b"itemScores" in first["sp"]
+              and host.result_cache.stats()["hits"] == hits0 + 2,
+              "a byte-identical body crossed tenants in the result cache")
+
+        # the CLI in process, and the operator eviction of rec
+        rc, out = cli_out("tenants", "list", "--url", url_a)
+        check(rc == 0 and "2 tenant(s)" in out and re.search(
+            r"^  rec\s+v=", out, re.M), f"tenants list: {rc} {out}")
+        rc, out = cli_out("tenants", "status", "rec", "--url", url_a)
+        check(rc == 0 and json.loads(out)["modelVersion"] == rec_iid,
+              f"tenants status rec: {rc} {out}")
+        rc, out = cli_out("tenants", "pin", "sp", "--url", url_a)
+        check(rc == 0 and json.loads(out)["persisted"], f"tenants pin: "
+              f"{rc} {out}")
+        evictions = []
+        budget_evict = host.budget.evict
+
+        def timed_evict(tenant, reason="operator"):
+            # memory_allocated around one eviction (no other traffic)
+            before = allocated()
+            out = budget_evict(tenant, reason=reason)
+            evictions.append(dict(out, allocatedFall=before - allocated()))
+            return out
+        host.budget.evict = timed_evict
+        rec_q = store_queries(rec_model, store_truth(rec_model),
+                              np.random.default_rng(33))[:TENANCY_QUERIES]
+        rec_slot = host.slots["rec"]
+        before = ask_fresh(rec_url, rec_slot, rec_q)
+        graphs = owned_graphs(rec_model.als)
+        rc, out = cli_out("tenants", "evict", "rec", "--url", url_a)
+        check(rc == 0 and json.loads(out)["bytesFreed"] > 0,
+              f"tenants evict rec: {rc} {out}")
+        operator = evictions[-1]
+        check(owned_graphs(rec_model.als) == 0 < graphs
+              and host.budget.sizes()["rec"] == 0,
+              f"the eviction left {owned_graphs(rec_model.als)} of rec's "
+              f"{graphs} graphs and {host.budget.sizes().get('rec')} "
+              f"bytes")
+        check(operator["allocatedFall"] >= operator["bytesFreed"]
+              - TENANCY_SLACK, f"memory_allocated fell by "
+              f"{operator['allocatedFall']} on an eviction that reported "
+              f"{operator['bytesFreed']} bytes freed")
+        # the gauge against the card: what rec's re-upload adds to
+        # memory_allocated, its captures held off (their graphs' pools
+        # are not tables), is what pio_engine_hbm_bytes{rec} then reads
+        with capture_quiesced():
+            a0 = allocated()
+            again = ask_fresh(rec_url, rec_slot, rec_q)
+            reupload = {"allocatedRise": settled_allocated() - a0,
+                        "gauge": hbm_gauge(url_a)["rec"]}
+        check(again == before,
+              "rec's answers after the operator eviction differ")
+        check(abs(reupload["allocatedRise"] - reupload["gauge"])
+              <= TENANCY_SLACK, f"rec's re-upload raised memory_allocated "
+              f"by {reupload['allocatedRise']}, its pio_engine_hbm_bytes "
+              f"reads {reupload['gauge']}")
+
+        # one fold tick a tenant, each scheduler's own loop through the
+        # host's gate (the ticks fold at TENANCY_FOLD_RATES deltas). The
+        # fold swaps new models in: nothing here may keep the old ones
+        # (their graphs would keep what a later eviction reports freed)
+        users, items = rec_model.user_ix, rec_model.item_ix
+        del rec_model, sp_model
+        cursor = utcnow()
+        rng = np.random.default_rng(34)
+        users = users.ids_of(rng.integers(0, len(users),
+                                          TENANCY_FOLD_RATES))
+        items = items.ids_of(rng.integers(0, len(items),
+                                          TENANCY_FOLD_RATES))
+        t_rates = cursor + datetime.timedelta(seconds=1)
+        Storage.get_events().insert_columnar(ColumnarBatch(
+            TENANCY_FOLD_RATES, "rate", "user", list(users), "item",
+            list(items), [{"rating": float(r)} for r in rng.integers(
+                1, 6, TENANCY_FOLD_RATES)],
+            [format_event_time(t_rates + datetime.timedelta(milliseconds=j))
+             for j in range(TENANCY_FOLD_RATES)]), app.id)
+        scheds = {k: host.attach_scheduler(k, SchedulerConfig(
+            app_name=STORE_APP, event_names=("rate",),
+            max_deltas=TENANCY_FOLD_RATES, poll_interval_s=0.2),
+            cursor=cursor) for k in ("rec", "sp")}
+        COUNTS.reset()
+        t0 = time.perf_counter()
+        for sched in scheds.values():
+            sched.start()
+        try:
+            deadline = time.perf_counter() + DEPLOY_TIMEOUT_S
+            while not all(sc.last_report is not None or sc.last_error
+                          for sc in scheds.values()):
+                check(time.perf_counter() < deadline, "the schedulers' "
+                      "loops folded nothing")
+                time.sleep(0.05)
+        finally:
+            for sched in scheds.values():
+                sched.stop()
+        sync()
+        ticks_s = time.perf_counter() - t0
+        counts = dict(vars(COUNTS))
+        reports = {k: sc.last_report for k, sc in scheds.items()}
+        check(not any(sc.last_error for sc in scheds.values()),
+              f"a scheduler's tick failed: "
+              f"{[sc.last_error for sc in scheds.values()]}")
+        solves = 0
+        for k, rep in reports.items():
+            check(rep is not None and rep["gateReport"]["passed"]
+                  and rep["events"] == TENANCY_FOLD_RATES,
+                  f"{k}'s gated tick: {rep}")
+            solves += sum(a["solverCalls"] for a in rep["algorithms"])
+        fold_launches = counts["cg_solve"]
+        check(fold_launches == solves > 0
+              and sum(counts.values()) == fold_launches,
+              f"the gated ticks launched {counts} for {solves} solves")
+        waited = {lab.get("tenant") for lab, _ in labelled(
+            scrape(url_a)[1], "pio_fold_tick_wait_seconds_count")}
+        check({"rec", "sp"} <= waited, f"pio_fold_tick_wait_seconds "
+              f"has tenants {waited}")
+        held_after_fold = {"rec": hold_rec("tenancy rec after fold"),
+                           "sp": hold_sp("tenancy sp after fold")}
+
+        # host B: the bootstrap's train, its catch-up and its answers.
+        # The catch-up tails every restored event dated at or after the
+        # snapshot's creation: the follows are dated 2030, so all of
+        # them. The recommended-user template has no fold, so the
+        # scheduler counts them and drops them (the reference's does
+        # too) and the tables stay the train's.
+        await_host_b(b)
+        rep_b = b["report"]
+        launches_b = rep_b["kernel_launches"]
+        os.environ.update(nl_env)
+        registry.clear_cache()
+        try:
+            t_boot = Storage.get_events().find_columnar(boot_app)["t"]
+        finally:
+            for k in nl_env:
+                os.environ.pop(k, None)
+            registry.clear_cache()
+        tail = int((np.asarray(t_boot) >= int(parse_event_time(
+            rep_b["cutover"]).timestamp() * 1000)).sum())
+        check(rep_b["admitted"] and rep_b["catchup_events"] == tail
+              and rep_b["restored_files"] == NL_PARTITIONS
+              and set(launches_b) == {"cg_solve"}
+              and launches_b["cg_solve"] > 0,
+              f"host B's bootstrap report: {rep_b}")
+        iid_b = rep_b["engine_instance_id"]
+        (model_b,) = RecommendedUserEngineFactory.apply().deserialize_models(
+            Storage.get_model_data_models().get(iid_b).models, iid_b)
+        (ref,) = RecommendedUserEngineFactory.apply().deserialize_models(
+            Storage.get_model_data_models().get(recuser["instance"]).models,
+            recuser["instance"])
+        check(list(model_b.followed_ix.ids) == list(ref.followed_ix.ids)
+              and np.array_equal(model_b.followed_factors_normalized,
+                                 ref.followed_factors_normalized),
+              f"host B's tables differ from {recuser['instance']}'s")
+        ru_q = recuser_queries(model_b)[:TENANCY_QUERIES]
+        exact_b, _ = hold_recuser(b["url"] + "/engines/ru", model_b, ru_q,
+                                  "tenancy host B")
+        rc, status_out = cli_out("placement", "status")
+        check(rc == 0 and len(re.findall(r"^serving_host-\d+\s+UP",
+                                         status_out, re.M)) == 2,
+              f"placement status: {rc} {status_out}")
+        rc, plan_out = cli_out("placement", "plan")
+        check(rc == 0, f"placement plan: {rc} {plan_out}")
+
+        # the budget: any two tenants fit, all three do not, so ru
+        # cannot join host A without an eviction
+        est = {"rec": estimate_padded_bytes(host.slots["rec"].server.models),
+               "sp": estimate_padded_bytes(host.slots["sp"].server.models),
+               "ru": estimate_padded_bytes([model_b])}
+        two_largest = sum(sorted(est.values())[1:])
+        budget = (two_largest + sum(est.values())) // 2
+        sizes = host.budget.sizes()
+        check(sum(sizes.values()) <= budget, f"rec and sp hold {sizes}, "
+              f"over the budget {budget} (padded {est})")
+        host.budget.budget_bytes = budget
+
+        def within_budget(what: str) -> int:
+            n = host.budget.resident_bytes()
+            check(n <= budget, f"{what}: the tenants hold {n} bytes "
+                  f"({host.budget.sizes()}), over the budget {budget}")
+            return n
+        rec_q2 = rec_q[::-1]
+        rec_before = ask_fresh(rec_url, rec_slot, rec_q2)
+        sp_before = host.budget.sizes()["sp"]
+
+        # a router client through the kill
+        ctl = PlacementController()
+        ctl.refresh_routes()
+        check(ctl.route_for("ru") is not None and ctl.route_for("ru")[0]
+              == b["url"], f"the route of ru: {ctl.route_for('ru')}")
+        router = TenantRouter(ctl, policy=RetryPolicy(
+            max_attempts=200, base_delay_s=0.05, max_delay_s=0.5,
+            deadline_s=float(DEPLOY_TIMEOUT_S)))
+        answers, failures = [], []
+
+        def ride():
+            k = 0
+            while not stop_client.is_set():
+                try:
+                    out = router.query("ru", ru_q[k % len(ru_q)])
+                    answers.append((time.perf_counter(), out))
+                except Exception as e:
+                    failures.append(repr(e))
+                k += 1
+        client = threading.Thread(target=ride, daemon=True)
+        client.start()
+        deadline = time.perf_counter() + 60
+        while len(answers) < 4 and not failures:
+            check(time.perf_counter() < deadline, "the router client got "
+                  "no answers from host B")
+            time.sleep(0.05)
+        n_before = len(answers)
+        pid_b = b["proc"].pid
+        b["proc"].kill()
+        b["proc"].wait()
+        t_kill = time.perf_counter()
+        rc, apply_out = cli_out("placement", "apply")
+        apply_s = time.perf_counter() - t_kill
+        check(rc == 0 and f"failover executed for serving_host-{pid_b}"
+              in apply_out, f"placement apply: {rc} {apply_out}")
+        deadline = time.perf_counter() + DEPLOY_TIMEOUT_S
+        while sum(1 for t, _ in answers if t > t_kill) \
+                < TENANCY_ROUTER_AFTER and not failures:
+            check(time.perf_counter() < deadline, "the router client got "
+                  "no answers after the failover")
+            time.sleep(0.05)
+        stop_client.set()
+        client.join(timeout=120)
+        check(not failures, f"the router client failed: {failures[:3]}")
+        after = [t for t, _ in answers if t > t_kill]
+        first_after_s = min(after) - t_kill
+        plc = get_json(url_a + "/placement.json")
+        check(plc["tenants"]["ru"]["generation"] == 1
+              and plc["tenants"]["ru"]["priority"] == 1,
+              f"ru on host A: {plc['tenants'].get('ru')}")
+        code, body = post(url_a + "/tenants/ru/admit",
+                          json.dumps({"generation": 0}).encode())
+        check(code == 409 and body["message"] == "stale placement "
+              "generation", f"a stale admit answered {code} {body}")
+        incidents = [r for r in get_incidents().list_incidents()
+                     if r.get("kind") == "host_failover"]
+        check(len(incidents) == 1
+              and f"serving_host-{pid_b}" in incidents[0]["reason"],
+              f"host_failover incidents: {incidents}")
+        budget_ev = [e for e in evictions if e["reason"] == "budget"]
+        check(budget_ev and budget_ev[0]["tenant"] == "rec"
+              and all(e["tenant"] != "sp" for e in evictions)
+              and host.budget.sizes()["sp"] == sp_before,
+              f"the evictions: {evictions}")
+        ev = budget_ev[0]
+        check(ev["bytesFreed"] > 0 and ev["allocatedFall"]
+              >= ev["bytesFreed"] - TENANCY_SLACK,
+              f"memory_allocated fell by {ev['allocatedFall']} on the "
+              f"budget eviction of {ev['bytesFreed']} bytes")
+        exact_a, _ = hold_recuser(url_a + "/engines/ru", model_b, ru_q,
+                                  "tenancy after failover")
+        resident_after = {
+            "ru_uploaded": within_budget("ru's upload on host A")}
+        # rec's re-upload makes room by evicting ru (sp is pinned)
+        check(ask_fresh(rec_url, rec_slot, rec_q2) == rec_before,
+              "rec's answers after the budget eviction differ")
+        resident_after["rec_reuploaded"] = within_budget("rec's re-upload")
+        check([e["tenant"] for e in evictions if e["reason"] == "budget"]
+              == ["rec", "ru"], f"the budget evictions: {evictions}")
+        samples = scrape(url_a)[1]
+        gauge = {lab["tenant"]: v for lab, v in labelled(
+            samples, "pio_engine_hbm_bytes")}
+        evicted = {f"{lab['tenant']}/{lab['reason']}": v
+                   for lab, v in labelled(samples,
+                                          "pio_tenant_evictions_total")}
+        evictions = list(evictions)    # the removals at teardown apart
+    finally:
+        stop_client.set()
+        if client is not None:
+            client.join(timeout=120)
+        if b["proc"].poll() is None:
+            b["proc"].kill()
+            b["proc"].wait()
+        for h in (host_c, host):
+            if h is not None:
+                h.stop()
+    launches = fold_launches + launches_b["cg_solve"]
+    emit("tenancy", tenants=sorted(gauge), admit_s=admit_s,
+         held_ids_equal_f64=held, held_after_fold=held_after_fold,
+         host_b_live_s=b["live_s"], host_b_restore_s=rep_b["restore_s"],
+         host_b_train_s=rep_b["train_s"],
+         host_b_catchup_s=rep_b["bootstrap_catchup_s"],
+         host_b_catchup_events=rep_b["catchup_events"],
+         host_b_catchup_folds=rep_b["catchup_folds"],
+         host_b_streamed=rep_b["load"] is not None,
+         host_b_cg_launches=launches_b["cg_solve"],
+         bit_equal_to=recuser["instance"], host_b_ids_equal_f64=exact_b,
+         fold_ticks_s=ticks_s, fold_cg_launches=fold_launches,
+         auth=auth, padded=est, resident_before_failover=sizes,
+         budget_bytes=budget, two_largest_padded=two_largest,
+         all_padded=sum(est.values()), resident_after=resident_after,
+         reupload=reupload,
+         evictions=evictions, evictions_total=evicted,
+         graphs_dropped=graphs, router_answers_before=n_before,
+         router_answers_after=len(after), placement_apply_s=apply_s,
+         first_answer_after_failover_s=first_after_s,
+         ru_ids_equal_f64_on_a=exact_a, hbm_bytes=gauge,
+         incident=incidents[0]["id"], phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def simrank_graph() -> tuple:
     """The recommended-user follows among their SIMRANK_NODES most-followed
     accounts (ties by id): (edges [E, 3] as (follower, followed, 1),
@@ -7257,7 +7828,7 @@ def main() -> int:
             cg_launches += retrain_launches
             del trained
             cg_launches += phase_rec_eval(workdir)
-            sim_launches, fold_launches = serve_plane_phases(
+            sim_launches, fold_launches, tenants = serve_plane_phases(
                 path, rec_model, workdir)
             chol_launches += sim_launches
             cg_launches += fold_launches
@@ -7270,6 +7841,7 @@ def main() -> int:
             cg_launches += phase_nativelog_train(workdir, follows_path,
                                                  n_follows, recuser)
             cg_launches += phase_snapshot_train(workdir, recuser)
+            cg_launches += phase_tenancy(workdir, recuser, path, *tenants)
             phase_examples(workdir)
         finally:
             from predictionio_tpu_torch.data.storage import registry

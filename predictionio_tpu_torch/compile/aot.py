@@ -22,10 +22,16 @@ static input and output buffers:
   libraries set up their handles), and is captured with
   `capture_error_mode="thread_local"`, so a capture in a background
   thread (`ensure(background=True)`) does not stop the serving threads'
-  work. A capture counts as a compile (`obs/torchmon`) under its label.
-  `capture_quiesced()` waits for the captures in flight and holds new
-  ones off (a device trace's start and stop, `obs/profiler.py`: a
-  device-wide synchronize would invalidate a capture in flight).
+  work; that thread runs in the caller's context, so what it uploads
+  carries the caller's tenant tag. A capture counts as a compile
+  (`obs/torchmon`) under its label. Since a graph holds what it
+  captured, its tables are freed only with it: `drop_owners` drops the
+  executables of given owners (a serving host's eviction; the
+  reference's tenants share one executable per shape, the port's keep
+  their own). `capture_quiesced()` waits for the captures in flight and
+  holds new ones off (a device trace's start and stop,
+  `obs/profiler.py`: a device-wide synchronize would invalidate a
+  capture in flight).
 - **Dispatch.** `dispatch(label, dims, fallback, *args, bound=)` copies
   the arguments (device tensors: a host copy cannot be captured, so the
   caller stages them) into the static inputs, replays the graph and
@@ -55,6 +61,7 @@ warm-up always has.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import logging
 import os
 import threading
@@ -324,9 +331,12 @@ class AOTRegistry:
                 return self._compiled.get(key)
             return None
         if background:
+            # the capture thread enters the caller's context: its uploads
+            # carry the caller's tenant tag (utils/device_cache)
+            ctx = contextvars.copy_context()
             t = threading.Thread(
-                target=self._compile_one,
-                args=(label, dims, bound, key, tag),
+                target=ctx.run,
+                args=(self._compile_one, label, dims, bound, key, tag),
                 name=f"pio-aot-{label}", daemon=True)
             with self._lock:
                 self._threads.add(t)
@@ -375,6 +385,28 @@ class AOTRegistry:
                 self._threads.discard(threading.current_thread())
             if ev is not None:
                 ev.set()
+
+    def drop_owners(self, owners: Iterable[Any]) -> int:
+        """Drop every executable (and memoized failure) keyed on one of
+        `owners`, after waiting out their captures in flight (another
+        owner's are not waited for), so the graphs release the tables
+        they captured: the serving host's evictor. Returns the
+        executables dropped."""
+        owners = [o for o in owners if o is not None]
+        ids = {id(o) for o in owners}
+        with self._lock:
+            pending = [ev for key, ev in self._inflight.items()
+                       if ids.intersection(key[2])]
+        for ev in pending:
+            ev.wait(timeout=30.0)
+        dropped = 0
+        with self._lock:
+            for key, refs in list(self._refs.items()):
+                held = [r() for r in refs]
+                if any(h is o for h in held for o in owners):
+                    dropped += key in self._compiled
+                    self._evict(key)
+        return dropped
 
     def failure(self, label: str, dims: Dict[str, int], bound: tuple = ()
                 ) -> Optional[BaseException]:

@@ -56,6 +56,7 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_top_k_batch,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
+from predictionio_tpu_torch.utils.device_cache import cached_table
 
 logger = logging.getLogger(__name__)
 
@@ -199,8 +200,6 @@ class ECommerceModel:
     device: Optional[torch.device] = None
     _als: Optional[ALSModel] = field(default=None, repr=False,
                                      compare=False)
-    _normalized: Optional[torch.Tensor] = field(default=None, repr=False,
-                                                compare=False)
 
     def _require_device(self) -> torch.device:
         if self.device is None:
@@ -217,11 +216,10 @@ class ECommerceModel:
         return self._als
 
     def table(self) -> torch.Tensor:
-        """The normalized item table on the model's device."""
-        if self._normalized is None:
-            self._normalized = torch.tensor(self.item_factors_normalized,
-                                            device=self._require_device())
-        return self._normalized
+        """The normalized item table on the model's device (a view of its
+        cached padded upload, `utils/device_cache.cached_table`)."""
+        return cached_table(self.item_factors_normalized,
+                            self._require_device())
 
     def place(self) -> None:
         """Upload every table serving reads (once)."""

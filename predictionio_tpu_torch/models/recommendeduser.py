@@ -19,7 +19,7 @@ through one `masked_top_k_batch`.
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +40,7 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_top_k_batch,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
+from predictionio_tpu_torch.utils.device_cache import cached_table
 
 logger = logging.getLogger(__name__)
 
@@ -165,19 +166,16 @@ class RecommendedUserModel:
     followed_factors_normalized: np.ndarray   # [F, R] L2-normalized rows
     followed_ix: EntityIdIxMap
     device: Optional[torch.device] = None
-    _table: Optional[torch.Tensor] = field(default=None, repr=False,
-                                           compare=False)
 
     def table(self) -> torch.Tensor:
-        """The normalized table on the model's device (uploaded once)."""
-        if self._table is None:
-            if self.device is None:
-                raise RuntimeError(
-                    "this RecommendedUserModel was restored without a "
-                    "device; its algorithm's place_model puts it on one")
-            self._table = torch.tensor(self.followed_factors_normalized,
-                                       device=self.device)
-        return self._table
+        """The normalized table on the model's device: a view of its
+        padded upload, which the upload cache holds (uploaded once,
+        `utils/device_cache.cached_table`)."""
+        if self.device is None:
+            raise RuntimeError(
+                "this RecommendedUserModel was restored without a "
+                "device; its algorithm's place_model puts it on one")
+        return cached_table(self.followed_factors_normalized, self.device)
 
 
 class RecommendedUserALSAlgorithm(P2LAlgorithm):

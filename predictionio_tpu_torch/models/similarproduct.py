@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import logging
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,6 +71,7 @@ from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
                                                    masked_topk_dims,
                                                    normalize_rows,
                                                    unpack_top_k_rows)
+from predictionio_tpu_torch.utils.device_cache import cached_table
 from predictionio_tpu_torch.compile import buckets as B
 
 logger = logging.getLogger(__name__)
@@ -366,20 +367,16 @@ class SimilarProductModel(ItemMetadataModel):
     item_factors_raw: Optional[np.ndarray] = None   # [I, R]
     user_factors: Optional[np.ndarray] = None       # [U, R]
     user_ix: Optional[EntityIdIxMap] = None
-    _table: Optional[torch.Tensor] = field(default=None, repr=False,
-                                           compare=False)
 
     def table(self) -> torch.Tensor:
-        """The normalized item table on the model's device (uploaded
-        once)."""
-        if self._table is None:
-            if self.device is None:
-                raise RuntimeError(
-                    "this SimilarProductModel was restored without a "
-                    "device; its algorithm's place_model puts it on one")
-            self._table = torch.tensor(self.item_factors_normalized,
-                                       device=self.device)
-        return self._table
+        """The normalized item table on the model's device: a view of its
+        padded upload, which the upload cache holds (uploaded once,
+        `utils/device_cache.cached_table`)."""
+        if self.device is None:
+            raise RuntimeError(
+                "this SimilarProductModel was restored without a "
+                "device; its algorithm's place_model puts it on one")
+        return cached_table(self.item_factors_normalized, self.device)
 
 
 class ALSAlgorithm(P2LAlgorithm):

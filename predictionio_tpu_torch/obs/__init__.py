@@ -45,6 +45,7 @@ from predictionio_tpu_torch.obs.incidents import (INCIDENTS,
                                                   IncidentManager,
                                                   get_incidents)
 from predictionio_tpu_torch.obs.slo import (SLOEngine, SLOSpec,
+                                            default_controller_specs,
                                             default_engine_specs,
                                             default_event_specs,
                                             health_response)
@@ -68,7 +69,8 @@ __all__ = [
     "costmon", "fleet", "torchmon",
     "FLIGHT", "FlightRecorder", "flight_response", "get_flight",
     "INCIDENTS", "IncidentManager", "get_incidents",
-    "SLOEngine", "SLOSpec", "default_engine_specs",
+    "SLOEngine", "SLOSpec", "default_controller_specs",
+    "default_engine_specs",
     "default_event_specs", "health_response",
     "PROFILER", "SamplingProfiler", "get_profiler",
     "SLOWLOG", "SlowQueryLog", "get_slowlog", "slow_response",

@@ -440,6 +440,17 @@ def device_time_by_tenant() -> Dict[str, float]:
     return {t: round(v, 4) for t, v in out.items()}
 
 
+def tenant_device_time_share() -> Dict[str, float]:
+    """{tenant: fraction of all attributed device seconds}, the `""`
+    untenanted share included (the values sum to 1 once any device time
+    was booked): the serving host's `deviceTimeShare`."""
+    by_tenant = device_time_by_tenant()
+    total = sum(by_tenant.values())
+    if total <= 0:
+        return {}
+    return {t: round(v / total, 4) for t, v in by_tenant.items()}
+
+
 def device_time_by_executable() -> Dict[str, float]:
     """{label: estimated device seconds}."""
     _harvest()

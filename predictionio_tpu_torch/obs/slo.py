@@ -2,7 +2,7 @@
 
 The port's copy of `predictionio_tpu/obs/slo.py` (`SLOSpec`,
 `SLOEngine`, `default_engine_specs`, `default_event_specs`,
-`health_response`, `lock_probe`,
+`default_controller_specs`, `health_response`, `lock_probe`,
 `timed_acquire`). Each `SLOSpec` names a registry family and an
 objective; the engine samples the family at every evaluation, keeps a
 bounded history, and derives each objective's burn rate over a fast and
@@ -170,6 +170,20 @@ def default_event_specs() -> List[SLOSpec]:
         SLOSpec("ingest_durability", "counter_budget",
                 ("pio_ingest_spilled_total",),
                 budget=_env_f("PIO_SLO_SPILL_BUDGET", 0.0)),
+    ]
+
+
+def default_controller_specs() -> List[SLOSpec]:
+    """The placement controller's objectives: failovers and refused
+    placements against a budget (default 0, so the first one inside a
+    fast window turns the SLO to burning)."""
+    return [
+        SLOSpec("placement_failovers", "counter_budget",
+                ("pio_placement_failovers_total",),
+                budget=_env_f("PIO_SLO_FAILOVER_BUDGET", 0.0)),
+        SLOSpec("placement_refusals", "counter_budget",
+                ("pio_placement_refusals_total",),
+                budget=_env_f("PIO_SLO_REFUSAL_BUDGET", 0.0)),
     ]
 
 

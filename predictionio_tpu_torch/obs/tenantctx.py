@@ -4,10 +4,13 @@ The port's copy of `predictionio_tpu/obs/tenantctx.py`: one contextvar
 (`tenant_scope`, `current_tenant`) and the registered-tenant set that
 bounds the `tenant` metric label (`register_tenant`,
 `metric_tenant_label`). `obs.costmon.device_timed` books device seconds
-by `{executable,tenant}` through it. Tenancy is not ported yet, so no
-tenant is registered and every series books under `""`, as the
-reference's untenanted series do. The scope follows the call stack
-across locks, not into threads created inside it.
+by `{executable,tenant}` through it, and `utils/device_cache` tags the
+uploads and residency slots made under it for the serving host's HBM
+budget (`tenancy/`). A tenant is registered when a serving host's slot,
+a tenant-tagged engine server or scheduler is made; an untenanted series
+books under `""`. The scope follows the call stack across locks, not
+into threads created inside it: a thread a tenant's path starts enters
+the tenant itself.
 """
 
 from __future__ import annotations

@@ -20,12 +20,13 @@ from predictionio_tpu_torch.online.registry import (ONLINE_BATCH_TAG,
                                                     ModelVersionRegistry)
 from predictionio_tpu_torch.online.scheduler import (DeltaTrainingScheduler,
                                                      EntityDelta,
+                                                     FoldTickGate,
                                                      SchedulerConfig,
                                                      attach_scheduler)
 
 __all__ = [
     "FoldInConfig", "FoldInStats", "fold_in_coo", "solve_rows",
     "ModelVersionRegistry", "ONLINE_BATCH_TAG", "ROLLEDBACK_STATUS",
-    "DeltaTrainingScheduler", "EntityDelta", "SchedulerConfig",
-    "attach_scheduler",
+    "DeltaTrainingScheduler", "EntityDelta", "FoldTickGate",
+    "SchedulerConfig", "attach_scheduler",
 ]

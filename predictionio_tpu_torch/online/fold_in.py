@@ -543,9 +543,12 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
             {"U": U_dev, "V": V_dev, "GU": gram_u, "GV": gram_v,
              "device": dev, "implicit": implicit, "incr": incr + 1},
             sharding="replicated")
+    # the tick's tables are the published model's padded serve copies
+    # too: every update is out of place, so none changes them
+    device_cache.adopt_rows(U_host, U_dev, dev)
+    device_cache.adopt_rows(V_host, V_dev, dev)
     stats.wall_s = time.perf_counter() - t0
-    out = ALSModel(U_host, V_host, rank, dev,
-                   _tables=(U_dev[:n_users], V_dev[:n_items]))
+    out = ALSModel(U_host, V_host, rank, dev)
     if sentinel is not None:
         out._pio_guard_norm = sentinel.observed_max
     return out, stats

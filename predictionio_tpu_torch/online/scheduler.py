@@ -41,7 +41,8 @@ A tick's wall, its events, its upload bytes (`obs/torchmon`'s per-thread
 total, the report's `h2dBytes`), the rows it read by read path, its
 failures and the gate rejects are counted in the reference's
 `pio_fold_*` and `pio_guard_gate_rejects_total` families on the
-process-wide registry, under the untenanted `tenant=""` series. The
+process-wide registry, under the scheduler's `tenant` label (`""` for a
+scheduler that follows no tenant slot). The
 report also carries the stage walls (`readS`, `publishS`, `reloadS`,
 `tickS`) and the process's device time by executable label
 (`deviceTime`: the sampled CUDA-event seconds and sample counts,
@@ -58,12 +59,20 @@ event maps (`fleet.resolve_event_traces`); the fold tick links those
 ingest traces and each of them links the tick back. Gate verdicts,
 publishes and the retrain escalation are flight records; a gate
 rejection captures an incident bundle, and the scheduler's `stats()`
-rides every bundle. The reference's tenant scopes and fold-tick gate
-belong to a later slice.
+rides every bundle.
+
+A scheduler that follows a serving host's tenant slot (`tenant=`) runs
+each tick under the tenant's attribution scope, so its uploads and
+residency slots are tagged for the host's HBM budget (and evicted with
+the tenant). The schedulers a host attaches share the host's
+`FoldTickGate` (`tick_gate=`): the loop's ticks take turns through it,
+the tenant whose last turn is oldest first, and each tenant's wait is
+observed in `pio_fold_tick_wait_seconds{tenant}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime as _dt
 import json
 import logging
@@ -71,7 +80,7 @@ import threading
 import time
 import urllib.request
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Set
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from predictionio_tpu_torch.data.event import (Event, parse_event_time,
                                                utcnow)
@@ -80,6 +89,7 @@ from predictionio_tpu_torch.guard.gates import (GateConfig, GateRejected,
                                                 QualityGatekeeper)
 from predictionio_tpu_torch.obs import (FLIGHT, TRACER, costmon, fleet,
                                         get_incidents, get_registry,
+                                        register_tenant, tenant_scope,
                                         torchmon, trace_context_headers)
 from predictionio_tpu_torch.online.registry import ONLINE_BATCH_TAG
 from predictionio_tpu_torch.resilience import (CircuitBreaker,
@@ -149,6 +159,73 @@ class SchedulerConfig:
     gate_config: GateConfig = GateConfig()
 
 
+class FoldTickGate:
+    """One fold tick at a time for the schedulers of one serving host
+    (the reference's gate). `turn(tenant)` admits one tick; among the
+    waiters the grant goes to the tenant whose last grant is oldest
+    (never granted first, then arrival order), so each tenant's fold
+    lag is bounded by tenants x tick time. Each turn's wait is observed
+    in `pio_fold_tick_wait_seconds{tenant}`."""
+
+    def __init__(self, registry=None):
+        reg = registry or get_registry()
+        self._h_wait = reg.histogram(
+            "pio_fold_tick_wait_seconds",
+            "Time a tenant's fold tick waited for its turn at the "
+            "shared per-host tick gate",
+            labelnames=("tenant",))
+        self._cond = threading.Condition()
+        self._busy: Optional[str] = None
+        self._seq = 0
+        self._waiters: List[Tuple[str, int]] = []
+        self._last_grant: Dict[str, float] = {}
+        self._children: Dict[str, Any] = {}
+
+    def _child(self, tenant: str):
+        c = self._children.get(tenant)
+        if c is None:
+            if len(self._children) >= 4096:
+                self._children.clear()
+            c = self._children[tenant] = self._h_wait.labels(tenant=tenant)
+        return c
+
+    def _pick(self) -> Optional[Tuple[str, int]]:
+        """The waiter whose tenant has gone longest without a grant."""
+        if not self._waiters:
+            return None
+        return min(self._waiters, key=lambda w: (
+            self._last_grant.get(w[0], float("-inf")), w[1]))
+
+    @contextlib.contextmanager
+    def turn(self, tenant: str):
+        tenant = tenant or ""
+        t0 = time.monotonic()
+        with self._cond:
+            me = (tenant, self._seq)
+            self._seq += 1
+            self._waiters.append(me)
+            while self._busy is not None or self._pick() != me:
+                self._cond.wait(timeout=1.0)
+            self._waiters.remove(me)
+            self._busy = tenant
+        self._child(tenant).observe(time.monotonic() - t0)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._busy = None
+                if len(self._last_grant) >= 4096:
+                    self._last_grant.clear()
+                self._last_grant[tenant] = time.monotonic()
+                self._cond.notify_all()
+
+    def stats(self) -> dict:
+        with self._cond:
+            return {"busy": self._busy,
+                    "waiting": [w[0] for w in sorted(self._waiters,
+                                                     key=lambda w: w[1])]}
+
+
 class DeltaTrainingScheduler:
     """Follows one deployed engine. `server`: an in-process
     `EngineServer` to hot-swap. `registry` + `reload_url`: publish each
@@ -159,7 +236,13 @@ class DeltaTrainingScheduler:
                  algorithms: Sequence[Any], models: Sequence[Any],
                  config: SchedulerConfig, server=None, registry=None,
                  reload_url: Optional[str] = None,
-                 event_store=None, cursor: Optional[_dt.datetime] = None):
+                 event_store=None, cursor: Optional[_dt.datetime] = None,
+                 tenant: Optional[str] = None,
+                 tick_gate: Optional[FoldTickGate] = None):
+        # a serving host's tenant slot: its ticks run under the tenant's
+        # attribution scope; the host's gate orders the loop's ticks
+        self.tenant = str(tenant) if tenant is not None else None
+        self._tick_gate = tick_gate
         self.engine = engine
         self.engine_params = engine_params
         self.instance = instance
@@ -208,8 +291,10 @@ class DeltaTrainingScheduler:
         self.consecutive_failures = 0
         self.last_error: Optional[str] = None
         # process-wide fold instruments (schedulers in one process share
-        # the families); the untenanted series until tenancy is ported
-        self._metric_tenant = ""
+        # the families), each under this scheduler's tenant series
+        if self.tenant is not None:
+            register_tenant(self.tenant)
+        self._metric_tenant = self.tenant or ""
         reg = get_registry()
         self._h_tick = reg.histogram(
             "pio_fold_tick_seconds",
@@ -648,7 +733,11 @@ class DeltaTrainingScheduler:
         Returns the fold report (its `tickS` the step's wall time), or
         None when no fold ran. A tick that saw fresh events or folded is
         a `fold_tick` trace; an idle one is discarded, so the poll loop
-        does not flood the ring."""
+        does not flood the ring. A tenant's tick runs under its scope."""
+        with tenant_scope(self.tenant):
+            return self._tick_inner(force)
+
+    def _tick_inner(self, force: bool) -> Optional[dict]:
         t0 = time.perf_counter()
         with TRACER.trace("fold_tick") as tr:
             with TRACER.span("tail_read") as sp:
@@ -692,7 +781,11 @@ class DeltaTrainingScheduler:
             delay = cfg.poll_interval_s
             while not self._stop.wait(delay):
                 try:
-                    self.tick()
+                    if self._tick_gate is not None:
+                        with self._tick_gate.turn(self.tenant or ""):
+                            self.tick()
+                    else:
+                        self.tick()
                     self.consecutive_failures = 0
                     self.last_error = None
                     delay = cfg.poll_interval_s

@@ -69,6 +69,7 @@ import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
 from predictionio_tpu_torch.obs import costmon
+from predictionio_tpu_torch.obs.tenantctx import current_tenant
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
                                                 plan_for_items,
@@ -173,9 +174,11 @@ class ALSConfig:
 @dataclass
 class ALSModel:
     """Trained factorization: host numpy tables plus their copies on
-    `device`, which serving reads (uploaded at most once). A model
-    restored from storage has no device (`utils/arrays.to_host` drops it
-    with `_tables`) until its algorithm places it."""
+    `device`, which serving reads. `_tables` holds the train's own device
+    tables; otherwise the copies are the upload cache's (uploaded at most
+    once, `utils/device_cache.cached_table`). A model restored from
+    storage has no device (`utils/arrays.to_host` drops it with
+    `_tables`) until its algorithm places it."""
     user_factors: np.ndarray   # [n_users, rank] in the train's dtype
     item_factors: np.ndarray   # [n_items, rank] (float32 unless asked)
     rank: int
@@ -192,16 +195,19 @@ class ALSModel:
         return self.item_factors.shape[0]
 
     def tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(U, V) on the model's device."""
-        if self._tables is None:
-            if self.device is None:
-                raise RuntimeError(
-                    "this ALSModel was restored without a device; its "
-                    "algorithm's place_model puts it on one")
-            self._tables = (
-                torch.tensor(self.user_factors, device=self.device),
-                torch.tensor(self.item_factors, device=self.device))
-        return self._tables
+        """(U, V) on the model's device: the train's tables, else views of
+        the serve path's padded uploads, which the upload cache holds
+        (tagged with the tenant in scope; a tenant's eviction drops
+        them)."""
+        if self._tables is not None:
+            return self._tables
+        if self.device is None:
+            raise RuntimeError(
+                "this ALSModel was restored without a device; its "
+                "algorithm's place_model puts it on one")
+        from predictionio_tpu_torch.utils.device_cache import cached_table
+        return (cached_table(self.user_factors, self.device),
+                cached_table(self.item_factors, self.device))
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +767,8 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
     executable registry (`compile/aot.py`): a bucket captured for this
     model replays its graph, another runs eagerly and is captured in the
     background. A model whose items or users near their bucket has the
-    next bucket captured in the background too. The result rides
+    next bucket captured in the background too, outside a tenant's slot.
+    The result rides
     `PIO_SERVE_PACK`'s payload (`ops/readback.py`). `finish` may run on
     another thread; it is the only wait."""
     from predictionio_tpu_torch.compile.aot import get_aot
@@ -785,12 +792,16 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
             readback.to_device(ixs, U.device), bound=(model,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
-    if B.should_promote(model.n_items, dims["i"]):
+    # not in a tenant's slot: a graph is keyed on this model, whose
+    # buckets never change, and the next bucket's would hold a padded
+    # table that the host's HBM budget does not count
+    promote = current_tenant() is None
+    if promote and B.should_promote(model.n_items, dims["i"]):
         nxt = B.next_bucket(dims["i"])
         aot.ensure(costmon.BATCH_PREDICT,
                    dict(dims, i=nxt, k=min(k_b, nxt)), (model,),
                    background=True)
-    if B.should_promote(model.n_users, dims["u"]):
+    if promote and B.should_promote(model.n_users, dims["u"]):
         aot.ensure(costmon.BATCH_PREDICT,
                    dict(dims, u=B.next_bucket(dims["u"])), (model,),
                    background=True)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
+from predictionio_tpu_torch.obs.tenantctx import current_tenant
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.compile import buckets as B
 
@@ -173,7 +174,8 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
     batch pads to its bucket, and padding rows and columns are masked
     out. The work dispatches through the executable registry
     (`compile/aot.py`), keyed on the item table, and a table near its
-    bucket has the next bucket captured in the background."""
+    bucket has the next bucket captured in the background (outside a
+    tenant's slot)."""
     from predictionio_tpu_torch.compile.aot import get_aot
     from predictionio_tpu_torch.obs import costmon
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
@@ -199,7 +201,8 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
             readback.to_device(mp, dev), bound=(item_table,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
-    if B.should_promote(n_items, dims["i"]):
+    # outside a tenant's slot only, as the plain serve path's
+    if current_tenant() is None and B.should_promote(n_items, dims["i"]):
         nxt = B.next_bucket(dims["i"])
         aot.ensure(costmon.BATCH_PREDICT_MASKED,
                    dict(dims, i=nxt, k=min(k_b, nxt)), (item_table,),

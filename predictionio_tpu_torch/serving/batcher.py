@@ -46,8 +46,13 @@ members carry traces runs under a `batch_predict` trace of its own
 both ways to its members' traces, begun on the formation thread and
 resumed and committed by the completion thread. A shed query leaves a
 coalesced `shed` flight record, and the admission lock's waits go into
-`pio_lock_wait_seconds{lock="batcher_inflight"}`. The reference's tenant
-scopes belong to a later slice.
+`pio_lock_wait_seconds{lock="batcher_inflight"}`.
+
+A serving host's tenant slot names its `tenant`: the formation and
+completion threads are started outside any request's context, so each
+enters the tenant's attribution scope itself (`obs/tenantctx`) for its
+whole life, and the uploads, device time and records of its windows
+carry the tenant.
 """
 
 from __future__ import annotations
@@ -150,11 +155,14 @@ class MicroBatcher:
                  latency_budget_ms: Optional[float] = None,
                  process_batch_begin: Optional[Callable] = None,
                  inflight: Optional[int] = None,
-                 adaptive: bool = True, metrics=None):
+                 adaptive: bool = True, metrics=None,
+                 tenant: Optional[str] = None):
         """process_batch: fn(List[query]) -> List[result].
         `process_batch_begin`: fn(List[query]) -> finish() -> results,
         the two-stage split the pipelined executor runs (with `inflight`
-        > 1). `metrics`: a registry to mount the counters on."""
+        > 1). `metrics`: a registry to mount the counters on. `tenant`:
+        the attribution scope of the batcher's threads."""
+        self.tenant = str(tenant) if tenant is not None else None
         self.process_batch = process_batch
         self.process_batch_begin = process_batch_begin
         self.max_batch = max_batch
@@ -390,7 +398,15 @@ class MicroBatcher:
         return deadline
 
     # -- formation loop -------------------------------------------------------
+    def _enter_tenant(self) -> None:
+        """Set this thread's tenant for its lifetime: the formation and
+        completion threads serve one tenant only."""
+        if self.tenant is not None:
+            from predictionio_tpu_torch.obs.tenantctx import _tenant_var
+            _tenant_var.set(self.tenant)
+
     def _loop(self):
+        self._enter_tenant()
         while not self._stop.is_set():
             try:
                 first = self._q.get(timeout=0.1)
@@ -534,6 +550,7 @@ class MicroBatcher:
         self._completions.put(_InFlight(batch, finish, bt, t_dispatch))
 
     def _completion_loop(self):
+        self._enter_tenant()
         while True:
             item = self._completions.get()
             if item is None:        # stop() sentinel

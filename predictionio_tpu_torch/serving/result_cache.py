@@ -27,8 +27,13 @@ ranks a touched item.
 Budget: entry and byte caps, LRU eviction, O(1) a lookup. `stats()`
 carries the counters, and with a `metrics` registry (the engine
 server's) they are also the reference's `pio_serve_cache_*` families.
-The tenant-namespaced view (`TenantResultCache`) rides with the tenancy
-plane.
+
+`TenantResultCache` is one tenant's view of a cache a serving host
+shares between its tenants: every key, raw-bytes alias and entity tag is
+prefixed with the tenant and `NS_SEP`, so two tenants' byte-identical
+queries never answer from each other's entries, while all share one
+entry and byte budget. Its generation fence is its own: a neighbour's
+invalidation never refuses this tenant's store.
 """
 
 from __future__ import annotations
@@ -329,3 +334,60 @@ class ResultCache:
                 "evictions": self.evictions,
                 "invalidations": dict(self.invalidations),
             }
+
+
+class TenantResultCache:
+    """A tenant-namespaced view over a shared `ResultCache` (the
+    reference's `TenantResultCache`, with the same prefixing and
+    per-namespace generation)."""
+
+    def __init__(self, inner: ResultCache, tenant: str):
+        tenant = str(tenant)
+        if NS_SEP in tenant:
+            raise ValueError("tenant id must not contain NS_SEP")
+        self.inner = inner
+        self.tenant = tenant
+        self._kp = tenant + NS_SEP
+        self._rp = self._kp.encode("utf-8")
+        # bumped by this namespace's invalidations only: the store-time
+        # fence of this tenant's misses
+        self._generation = 0
+
+    @property
+    def generation(self) -> int:
+        return self._generation
+
+    def get(self, key: Optional[str]) -> Optional[bytes]:
+        return self.inner.get(None if key is None else self._kp + key)
+
+    def get_raw(self, raw: bytes) -> Optional[bytes]:
+        return self.inner.get_raw(self._rp + raw)
+
+    def put(self, key: Optional[str], body: bytes,
+            entities: Tuple[str, ...],
+            result_items: Tuple[str, ...] = (),
+            generation: Optional[int] = None,
+            raw: Optional[bytes] = None) -> bool:
+        # the fence against this namespace's counter; the shared cache's
+        # own generation (every tenant's) is not consulted
+        if generation is not None and generation != self._generation:
+            return False
+        return self.inner.put(
+            None if key is None else self._kp + key, body,
+            tuple(self._kp + t for t in entities),
+            result_items=result_items, generation=None,
+            raw=None if raw is None else self._rp + raw)
+
+    def invalidate_entities(self, tags: Iterable[str],
+                            reason: str = "fold_swap") -> int:
+        self._generation += 1
+        return self.inner.invalidate_entities(
+            [self._kp + t for t in tags], reason=reason)
+
+    def invalidate_all(self, reason: str = "full") -> int:
+        """Clear this tenant's namespace only."""
+        self._generation += 1
+        return self.inner.invalidate_prefix(self._kp, reason=reason)
+
+    def stats(self) -> dict:
+        return dict(self.inner.stats(), tenant=self.tenant, shared=True)

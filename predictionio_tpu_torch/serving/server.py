@@ -108,6 +108,16 @@ and deregisters in `stop`; `/fleet/status.json`, `/fleet/health.json`,
 The routes are served by `utils/http` (`Router`, `HttpServer`), as the
 event server's are: an unknown path answers 404 and a known path asked
 with another method 405.
+
+A serving host's tenant slot (`tenancy/host.py`) is a server made with
+`tenant=` and the host's `shared_result_cache`: its query, batch, load
+and swap paths (and the micro-batcher's threads) run under the tenant's
+attribution scope (`obs/tenantctx.tenant_scope`), so its uploads are
+tagged for the HBM budget and its device time is booked to it; its
+result cache is the tenant's namespace of the shared one
+(`TenantResultCache`); its SLOs read the tenant's thresholds and
+series; its incident state registers as `engine_server.<tenant>`; and
+`/stats.json` carries `tenant`.
 """
 
 from __future__ import annotations
@@ -138,7 +148,8 @@ from predictionio_tpu_torch.obs import (FLIGHT, MetricsRegistry, SLOEngine,
                                         default_engine_specs, fleet,
                                         flight_response, get_incidents,
                                         get_registry, health_response,
-                                        ingress_trace_kwargs, slow_response,
+                                        ingress_trace_kwargs, register_tenant,
+                                        slow_response, tenant_scope,
                                         torchmon, trace_context_headers,
                                         traces_response)
 from predictionio_tpu_torch.obs.slowlog import (capture_slow_query,
@@ -220,8 +231,16 @@ class EngineServer:
     def __init__(self, config: ServerConfig, engine: Optional[Engine] = None,
                  engine_params: Optional[EngineParams] = None,
                  trained: Optional[TrainResult] = None,
-                 plugin_context: Optional[EngineServerPluginContext] = None):
+                 plugin_context: Optional[EngineServerPluginContext] = None,
+                 tenant: Optional[str] = None,
+                 shared_result_cache: Optional[RC.ResultCache] = None):
         self.config = config
+        # a serving host's tenant slot: its query, batch, load and swap
+        # paths run under the tenant's attribution scope, and its result
+        # cache is the tenant's namespace of the host's shared one
+        self.tenant = str(tenant) if tenant is not None else None
+        if self.tenant is not None:
+            register_tenant(self.tenant)
         self.plugin_context = (
             plugin_context if plugin_context is not None
             else EngineServerPluginContext.load_from_env())
@@ -275,13 +294,14 @@ class EngineServer:
         # reads this server's families, the burn-rate SLOs answer
         # /health.json, and incident bundles freeze _incident_state
         FLIGHT.add_source(self.metrics)
-        self.slo = SLOEngine(default_engine_specs(),
-                             registries=[self.metrics])
+        self.slo = SLOEngine(default_engine_specs(self.tenant),
+                             registries=[self.metrics], tenant=self.tenant)
         # the last status of each SLO: an ok -> breached transition of
         # a latency SLO captures an incident
         self._slo_status: dict = {}
-        get_incidents().register_provider("engine_server",
-                                          self._incident_state)
+        get_incidents().register_provider(
+            "engine_server" if self.tenant is None
+            else f"engine_server.{self.tenant}", self._incident_state)
         self.canary = CanaryController(CanaryConfig(
             fraction=config.canary_fraction,
             window_s=config.canary_window_s,
@@ -292,10 +312,14 @@ class EngineServer:
             registry=self.metrics)
         self.result_cache: Optional[RC.ResultCache] = None
         if config.result_cache and RC.cache_enabled():
-            self.result_cache = RC.ResultCache(
-                max_entries=config.result_cache_max_entries,
-                max_bytes=config.result_cache_max_bytes,
-                metrics=self.metrics)
+            if shared_result_cache is not None and self.tenant is not None:
+                self.result_cache = RC.TenantResultCache(
+                    shared_result_cache, self.tenant)
+            else:
+                self.result_cache = RC.ResultCache(
+                    max_entries=config.result_cache_max_entries,
+                    max_bytes=config.result_cache_max_bytes,
+                    metrics=self.metrics)
         self._lock = threading.Lock()
         self._stop_lock = threading.Lock()
         self._httpd: Optional[HttpServer] = None
@@ -309,7 +333,8 @@ class EngineServer:
                 latency_budget_ms=config.micro_batch_latency_budget_ms,
                 process_batch_begin=self.handle_query_batch_begin,
                 inflight=config.serve_inflight,
-                adaptive=config.adaptive_batching, metrics=self.metrics)
+                adaptive=config.adaptive_batching, metrics=self.metrics,
+                tenant=self.tenant)
         self._register_metrics()
 
     def _register_metrics(self) -> None:
@@ -441,7 +466,9 @@ class EngineServer:
                 "algorithms": json.loads(instance.algorithms_params or "[]"),
                 "serving": json.loads(instance.serving_params or "{}"),
             })
-        result = engine.prepare_deploy(engine_params, persisted, instance.id)
+        with self._tenant_cm():
+            result = engine.prepare_deploy(engine_params, persisted,
+                                           instance.id)
         serving = engine.make_serving(engine_params)
         warm = self._warm_aot(result.algorithms, result.models, instance.id)
         with self._lock:
@@ -474,6 +501,10 @@ class EngineServer:
                     warm["wallS"])
         return self
 
+    def _tenant_cm(self):
+        """The tenant's attribution scope (a no-op scope without one)."""
+        return tenant_scope(self.tenant)
+
     # -- the compile plane --------------------------------------------------
     def _warm_aot(self, algorithms, models, version: Optional[str]) -> dict:
         """Capture the serving executables of `models` before they take a
@@ -481,9 +512,10 @@ class EngineServer:
         ladder): the caller (a load, a swap, a canary stage) pays the
         captures, never a query. Raises what a capture raises."""
         from predictionio_tpu_torch.compile.aot import warm_models
-        summary = warm_models(algorithms, models,
-                              batch_hint=max(self.config.micro_batch, 1),
-                              version=version)
+        with self._tenant_cm():
+            summary = warm_models(algorithms, models,
+                                  batch_hint=max(self.config.micro_batch, 1),
+                                  version=version)
         if summary.get("compiled"):
             FLIGHT.record("aot_warm", model_version=version,
                           **{k: summary[k] for k in
@@ -708,16 +740,18 @@ class EngineServer:
             models = canary_models
         query = self.decode(query_dict, algorithms)
         try:
-            with TRACER.span("supplement"):
-                supplemented = serving.supplement(query)
-            tp = time.perf_counter()
-            with TRACER.span("predict", algorithms=len(algorithms)):
-                predictions = [algo.predict(model, supplemented)
-                               for algo, model in zip(algorithms, models)]
-            predict_dt = time.perf_counter() - tp
-            with TRACER.span("post_process"):
-                out = self._to_dict(serving.serve(query, predictions))
-                out = self._post_process(query_dict, out)
+            with self._tenant_cm():
+                with TRACER.span("supplement"):
+                    supplemented = serving.supplement(query)
+                tp = time.perf_counter()
+                with TRACER.span("predict", algorithms=len(algorithms)):
+                    predictions = [algo.predict(model, supplemented)
+                                   for algo, model in zip(algorithms,
+                                                          models)]
+                predict_dt = time.perf_counter() - tp
+                with TRACER.span("post_process"):
+                    out = self._to_dict(serving.serve(query, predictions))
+                    out = self._post_process(query_dict, out)
         except Exception:
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0)
@@ -757,23 +791,24 @@ class EngineServer:
             models = canary_models
         n = len(queries)
         try:
-            with TRACER.span("supplement"):
-                indexed = [(i, serving.supplement(q))
-                           for i, q in enumerate(queries)]
-            tp = time.perf_counter()
-            # the dispatch: a replayed graph's (or the eager program's)
-            # launch, not its device time
-            with TRACER.span("predict", batch=n,
-                             algorithms=len(algorithms)):
-                fetchers = []
-                for algo, model in zip(algorithms, models):
-                    begin = getattr(algo, "batch_predict_begin", None)
-                    if begin is not None:
-                        fetchers.append(begin(model, indexed))
-                    else:
-                        res = algo.batch_predict(model, indexed)
-                        fetchers.append(lambda res=res: res)
-            dispatch_dt = time.perf_counter() - tp
+            with self._tenant_cm():
+                with TRACER.span("supplement"):
+                    indexed = [(i, serving.supplement(q))
+                               for i, q in enumerate(queries)]
+                tp = time.perf_counter()
+                # the dispatch: a replayed graph's (or the eager
+                # program's) launch, not its device time
+                with TRACER.span("predict", batch=n,
+                                 algorithms=len(algorithms)):
+                    fetchers = []
+                    for algo, model in zip(algorithms, models):
+                        begin = getattr(algo, "batch_predict_begin", None)
+                        if begin is not None:
+                            fetchers.append(begin(model, indexed))
+                        else:
+                            res = algo.batch_predict(model, indexed)
+                            fetchers.append(lambda res=res: res)
+                dispatch_dt = time.perf_counter() - tp
         except Exception:
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0, n=n)
@@ -852,6 +887,8 @@ class EngineServer:
         if self.canary.enabled:
             self._apply_canary_decision()
         out = self.status()
+        if self.tenant is not None:
+            out["tenant"] = self.tenant
         out["microBatch"] = self.config.micro_batch
         with self._lock:
             n = self.request_count
@@ -1026,7 +1063,8 @@ class EngineServer:
             capture_slow_query(qt, total_s, query=query_dict,
                                model_version=self.model_version,
                                serialize_s=serialize_s,
-                               batch_trace_id=next(iter(qt.links), None))
+                               batch_trace_id=next(iter(qt.links), None),
+                               tenant=self.tenant)
         except Exception:
             logger.debug("slow-query capture failed", exc_info=True)
 
@@ -1097,14 +1135,16 @@ class EngineServer:
             self._slo_status[name] = status
             if status == "breached" and prev != "breached" \
                     and s.get("kind") == "latency":
-                FLIGHT.record("slo_breach", slo=name,
-                              burnFast=s.get("burnFast"),
-                              burnSlow=s.get("burnSlow"))
-                get_incidents().capture(
-                    "slo_breach",
-                    f"latency SLO {name} breached (burn fast/slow = "
-                    f"{s.get('burnFast')}/{s.get('burnSlow')})",
-                    context={"slo": s})
+                # a tenant slot's record and bundle name the tenant
+                with self._tenant_cm():
+                    FLIGHT.record("slo_breach", slo=name,
+                                  burnFast=s.get("burnFast"),
+                                  burnSlow=s.get("burnSlow"))
+                    get_incidents().capture(
+                        "slo_breach",
+                        f"latency SLO {name} breached (burn fast/slow = "
+                        f"{s.get('burnFast')}/{s.get('burnSlow')})",
+                        context={"slo": s}, tenant=self.tenant)
 
     def _profile_route(self, req: Request) -> Response:
         from predictionio_tpu_torch.obs import profiler

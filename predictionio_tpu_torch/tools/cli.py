@@ -3,7 +3,8 @@
 The port's counterpart of `version`, `status`, `build`, `unregister`,
 `train`, `eval`, `deploy`, `undeploy`, `update`, `rollback`,
 `eventserver`, `dashboard`, `adminserver`, `app`, `accesskey`, `export`,
-`import`, `trim`, `servers`, `snapshot`, `run`, `upgrade` and `cache` of
+`import`, `trim`, `servers`, `snapshot`, `run`, `upgrade`, `cache`,
+`bootstrap`, `tenants` and `placement` of
 `predictionio_tpu/tools/cli.py` (the reference's Console,
 Console.scala:186-651), with the same flags and messages. `build` checks
 engine.json's factory and params and registers the engine manifest;
@@ -69,10 +70,17 @@ admin ports at once (exit 0 when any is up); `snapshot
 and back (`data/storage/snapshot.py`); `run` runs a Python file as
 `__main__`; `upgrade` reports the version of this offline build.
 
-The commands still only in the JAX package's `bin/pio` are `bootstrap`,
-`tenants`, `placement`, `lint` and deploy's sharded-serving option
-(`--mesh-broadcast-bytes`): run them through that `bin/pio` on a machine
-that has JAX, against the same store.
+`bootstrap <tenant> --snapshot NAME --uri ROOT` stands a tenant up from
+a snapshot (restore, streamed train, fold-tail catch-up) and with
+`--serve` admits it on a serving host served in the foreground (`--port
+0` binds any free port and prints it); `tenants
+{list,status,signals,evict,pin,unpin}` reads and steers a serving host
+(`--url`); `placement {status,plan,apply}` reads the fleet's placements
+and fails dead hosts' tenants over (`tenancy/`).
+
+The commands still only in the JAX package's `bin/pio` are `lint` and
+deploy's sharded-serving option (`--mesh-broadcast-bytes`): run them
+through that `bin/pio` on a machine that has JAX, against the same store.
 """
 
 from __future__ import annotations
@@ -93,8 +101,8 @@ DESCRIPTION = (
     "here: version, status, build, unregister, train, eval, deploy, "
     "undeploy, update, rollback, eventserver, dashboard, adminserver, app, "
     "accesskey, export, import, trim, servers, snapshot, run, upgrade, "
-    "cache, incidents, profile, fleet, faults, spill, template. Still only "
-    "in the JAX package's bin/pio: bootstrap, tenants, placement, lint and "
+    "cache, incidents, profile, fleet, faults, spill, template, bootstrap, "
+    "tenants, placement. Still only in the JAX package's bin/pio: lint and "
     "the sharded serving of deploy.")
 
 
@@ -773,6 +781,216 @@ def cmd_snapshot(args) -> int:
         return 1
 
 
+def cmd_bootstrap(args) -> int:
+    """`bootstrap <tenant> --snapshot NAME --uri ROOT`: stand a tenant up
+    from a snapshot (`dataplane/bootstrap.py`): restore the shard files,
+    train from the restored store through the streamed read, catch up
+    the fold tail from the snapshot's creation, and with `--serve` admit
+    the tenant on a serving host, bound before the report is printed
+    (`--port 0`: any free port, printed), served in the foreground."""
+    from predictionio_tpu_torch.data.storage.registry import StorageError
+    from predictionio_tpu_torch.data.storage.snapshot import SnapshotError
+    from predictionio_tpu_torch.dataplane import bootstrap_from_snapshot
+    from predictionio_tpu_torch.models import get_engine_factory
+    from predictionio_tpu_torch.workflow.create_workflow import load_variant
+    variant = load_variant(args.engine_json)
+    factory_name = args.engine_factory or variant.get("engineFactory")
+    if not factory_name:
+        print(f"Bootstrap failed: {args.engine_json} names no "
+              "engineFactory; give one with --engine-factory")
+        return 1
+    engine = get_engine_factory(factory_name).apply()
+    engine_params = engine.json_to_engine_params(variant)
+    host = None
+    if args.serve:
+        from predictionio_tpu_torch.tenancy import HostConfig, ServingHost
+        host = ServingHost(HostConfig(ip=args.ip, port=args.port))
+    try:
+        report = bootstrap_from_snapshot(
+            args.tenant, args.uri, args.snapshot, engine, engine_params,
+            app_name=args.app_name, host=host,
+            engine_id=variant.get("id") or None,
+            engine_variant=args.engine_json,
+            engine_factory=factory_name,
+            force=args.force, stream=not args.no_stream,
+            start_scheduler=args.serve)
+    except (SnapshotError, StorageError, ValueError) as e:
+        print(f"Bootstrap failed: {e}")
+        if host is not None:
+            host.stop()
+        return 1
+    if host is not None:
+        host.bind()
+    print(json.dumps(report.to_dict(), default=str), flush=True)
+    if host is None:
+        return 0
+    print(f"Tenant {args.tenant!r} admitted; serving host live at "
+          f"http://{args.ip}:{host.config.port}.", flush=True)
+    return _serve_foreground(host, "serving host")
+
+
+def cmd_tenants(args) -> int:
+    """`tenants {list,status,signals,evict,pin,unpin}`: a serving host's
+    operator surface (`--url`): the tenants packed on the card, their
+    HBM bytes, the evict and pin levers, and each tenant's signals row
+    (traffic, latency, burn, device-time share)."""
+    from predictionio_tpu_torch.utils.http import fetch_json
+    base = args.url.rstrip("/")
+    sub = args.tenants_command
+
+    def _post(path):
+        try:
+            req = urllib.request.Request(base + path, data=b"",
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            try:
+                return e.code, json.loads(e.read())
+            except Exception:
+                return e.code, {"error": str(e)}
+        except Exception as e:
+            return None, {"error": str(e)}
+
+    if sub in ("list", "status"):
+        out = fetch_json(base + "/stats.json", timeout=10)
+        if "error" in out:
+            print(f"serving host unreachable at {base}: {out['error']}")
+            return 1
+        tenants = out.get("tenants") or {}
+        if getattr(args, "tenant", None):
+            t = tenants.get(args.tenant)
+            if t is None:
+                print(f"unknown tenant {args.tenant!r}; admitted: "
+                      f"{sorted(tenants)}")
+                return 1
+            print(json.dumps(t, indent=2, default=str))
+            return 0
+        budget = out.get("budget") or {}
+        bb = budget.get("budgetBytes")
+        print(f"Serving host at {base}: {len(tenants)} tenant(s), "
+              f"{budget.get('residentBytes', 0)} HBM bytes resident"
+              + (f" of {bb} budget" if bb else " (no budget)"))
+        if sub == "list":
+            for k in sorted(tenants):
+                t = tenants[k]
+                pin = " pinned" if t.get("pinned") else ""
+                print(f"  {k:20s} v={t.get('modelVersion') or '-':<18} "
+                      f"hbm={t.get('hbmBytes', 0):>10} "
+                      f"req={t.get('requests', 0):<8} "
+                      f"evictions={t.get('evictions', 0)}{pin}")
+            return 0
+        print(json.dumps(tenants, indent=2, default=str))
+        return 0
+    if sub == "signals":
+        out = fetch_json(base + "/tenants/signals.json", timeout=10)
+        if "error" in out:
+            print(f"serving host unreachable at {base}: {out['error']}")
+            return 1
+        tenants = out.get("tenants") or {}
+        if getattr(args, "tenant", None):
+            t = tenants.get(args.tenant)
+            if t is None:
+                print(f"unknown tenant {args.tenant!r}; admitted: "
+                      f"{sorted(tenants)}")
+                return 1
+            print(json.dumps(t, indent=2, default=str))
+            return 0
+        print(f"Serving host at {base}: {len(tenants)} tenant(s), "
+              f"{out.get('residentBytes', 0)} HBM bytes resident")
+        for k in sorted(tenants):
+            t = tenants[k]
+            p99 = t.get("serveP99Ms")
+            print(f"  {k:20s} {t.get('sloStatus', '?'):8s} "
+                  f"rps={t.get('trafficEwmaRps', 0):<8} "
+                  f"p99={'%.1fms' % p99 if p99 is not None else '-':<9} "
+                  f"burn={t.get('burnFast')}/{t.get('burnSlow')} "
+                  f"dev={t.get('deviceTimeShare', 0):<7} "
+                  f"occ={t.get('occupancyShare', 0):<7} "
+                  f"hbm={t.get('hbmBytes', 0):>10} "
+                  f"stale={t.get('modelStalenessS', 0):.0f}s "
+                  f"evictions={t.get('evictions', 0)}")
+        return 0
+    st, out = _post(f"/tenants/{args.tenant}/{sub}")
+    print(json.dumps(out, indent=2, default=str))
+    return 0 if st == 200 else 1
+
+
+def cmd_placement(args) -> int:
+    """`placement {status,plan,apply}`: the fleet's tenant control plane
+    (`tenancy/controller.py`) over the fleet registry (`--dir`): where
+    every tenant is placed and under which generation, the rebalance
+    plan, and `apply`, which fails a dead host's tenants over and then
+    runs the planned migrations one observed step at a time."""
+    from predictionio_tpu_torch.obs import fleet as F
+    from predictionio_tpu_torch.tenancy.controller import \
+        PlacementController
+    reg = (F.FleetRegistry(fleet_dir=args.dir) if getattr(args, "dir", None)
+           else F.get_fleet())
+    ctl = PlacementController(registry=reg)
+    sub = args.placement_command
+    if sub == "status":
+        st = ctl.status()
+        if getattr(args, "json", False):
+            print(json.dumps(st, indent=2, default=str))
+            return 0
+        hosts = st["hosts"]
+        if not hosts:
+            print("no serving hosts registered (are they running with "
+                  "this PIO_FS_BASEDIR?)")
+            return 1
+        for h in hosts:
+            bb = h.get("budgetBytes")
+            print(f"{h['memberId']:28s} "
+                  f"{'UP' if h['alive'] else 'DEAD':5s} "
+                  f"{h.get('url') or '-':<26} hbm={h['usedBytes']}"
+                  + (f"/{bb}" if bb else " (no budget)"))
+            for k, t in h["tenants"].items():
+                pin = " pinned" if t.get("pinned") else ""
+                print(f"    {k:20s} gen={t['generation']:<4} "
+                      f"prio={t['priority']:<3} "
+                      f"hbm={t['hbmBytes']:>10} "
+                      f"rps={t['trafficEwmaRps']:<8} "
+                      f"slo={t['sloStatus']}{pin}")
+        slo = st.get("slo") or {}
+        print(f"controller SLO: {slo.get('status', 'no_data')}")
+        dead_with_tenants = [h["memberId"] for h in hosts
+                             if not h["alive"] and h["tenants"]]
+        if dead_with_tenants:
+            print(f"DEAD hosts still holding tenants: {dead_with_tenants} "
+                  f"(run a controller, or `pio placement apply` after it "
+                  f"fails them over)")
+            return 1
+        return 0
+    if sub == "plan":
+        out = ctl.plan()
+        decisions = out["rebalance"]["decisions"]
+        if getattr(args, "json", False):
+            print(json.dumps(out, indent=2, default=str))
+            return 0
+        if not decisions:
+            print("nothing to do: no live host is under budget pressure")
+            return 0
+        for d in decisions:
+            print(f"  {d['action']:8s} {d['tenant']:20s} "
+                  f"{d.get('fromHost', '-')} -> {d.get('host', '-')} "
+                  f"({d.get('reason', '')})")
+        return 0
+    # apply: a failover pass first (a dead host's stranded tenants come
+    # before budget pressure), then the rebalance's migrations
+    step = ctl.step()
+    for a in step.get("actions", ()):
+        print(f"failover executed for {a['failover']}")
+    moves = ctl.apply_rebalance()
+    if not moves and not step.get("actions"):
+        print("nothing to do")
+        return 0
+    for m in moves:
+        print(f"migrated {m['tenant']}: {m['from']} -> {m['to']} "
+              f"(generation {m['generation']})")
+    return 0
+
+
 def cmd_cache(args) -> int:
     """`cache {status,clear [--all]}`: the salted build directory."""
     from predictionio_tpu_torch.compile.cache import (cache_status,
@@ -1390,6 +1608,73 @@ def build_parser() -> argparse.ArgumentParser:
     sl = snsub.add_parser("list")
     sl.add_argument("--uri", required=True)
     sn.set_defaults(func=cmd_snapshot)
+
+    bs = sub.add_parser(
+        "bootstrap", help="stand up a new tenant from a snapshot: "
+        "restore, train through the streamed data plane, catch up the "
+        "fold tail, then admit")
+    bs.add_argument("tenant", help="tenant key for the new slot")
+    bs.add_argument("--snapshot", required=True, help="snapshot name")
+    bs.add_argument("--uri", required=True,
+                    help="snapshot blob root, e.g. file:///backups")
+    _add_variant_arg(bs)
+    bs.add_argument("--engine-factory")
+    bs.add_argument("--app-name",
+                    help="app to restore and train into (default: the "
+                         "variant's datasource app_name)")
+    bs.add_argument("--force", action="store_true",
+                    help="replace an existing non-empty namespace")
+    bs.add_argument("--no-stream", action="store_true",
+                    help="train through the batch read instead of the "
+                         "streamed data plane")
+    bs.add_argument("--serve", action="store_true",
+                    help="start a serving host and admit the tenant once "
+                         "caught up (default: report only)")
+    bs.add_argument("--ip", default="0.0.0.0")
+    bs.add_argument("--port", type=int, default=8100)
+    bs.set_defaults(func=cmd_bootstrap)
+
+    tn = sub.add_parser(
+        "tenants", help="a serving host's tenants: list the engines on "
+        "the card, their HBM bytes and signals, evict and pin them")
+    tnsub = tn.add_subparsers(dest="tenants_command", required=True)
+    tnl = tnsub.add_parser("list")
+    tns = tnsub.add_parser("status")
+    tns.add_argument("tenant", nargs="?",
+                     help="one tenant's full status (default: all)")
+    tne = tnsub.add_parser("evict")
+    tne.add_argument("tenant")
+    tnp = tnsub.add_parser("pin")
+    tnp.add_argument("tenant")
+    tnu = tnsub.add_parser("unpin")
+    tnu.add_argument("tenant")
+    tng = tnsub.add_parser(
+        "signals", help="per-tenant signals: traffic, serve p50/p99, "
+        "burn rates, HBM bytes, device-time and occupancy shares, "
+        "staleness, evictions")
+    tng.add_argument("tenant", nargs="?",
+                     help="one tenant's signals row (default: all)")
+    for tsp in (tnl, tns, tne, tnp, tnu, tng):
+        tsp.add_argument("--url", default="http://localhost:8100",
+                         help="serving host base URL")
+    tn.set_defaults(func=cmd_tenants)
+
+    pl = sub.add_parser(
+        "placement", help="the fleet's tenant control plane: placements "
+        "and generations by host, the rebalance plan, failover and "
+        "migration")
+    plsub = pl.add_subparsers(dest="placement_command", required=True)
+    pls = plsub.add_parser("status")
+    pls.add_argument("--dir", help="fleet registry dir (default: "
+                     "<PIO_FS_BASEDIR>/fleet)")
+    pls.add_argument("--json", action="store_true",
+                     help="the whole status as JSON")
+    plp = plsub.add_parser("plan")
+    plp.add_argument("--dir")
+    plp.add_argument("--json", action="store_true")
+    pla = plsub.add_parser("apply")
+    pla.add_argument("--dir")
+    pl.set_defaults(func=cmd_placement)
 
     r = sub.add_parser("run", help="run a Python file as __main__")
     r.add_argument("main_py")

@@ -25,9 +25,21 @@ A slot dies with its key arrays (weakref callbacks), so a model that is
 no longer served never pins device memory. One version per name.
 
 `PIO_TABLE_BUDGET_BYTES` caps the bytes one factor table may take on the
-device; unset, nothing is checked. The reference's tenant attribution
-(`tenant_device_arrays`, `tenant_sizes`, `evict_tenant`) comes with
-tenancy.
+device; unset, nothing is checked.
+
+Tenant attribution (the serving host's HBM budget, `tenancy/budget.py`):
+every upload stored in the cache and every residency slot is tagged with
+the tenant of `obs/tenantctx.tenant_scope` active at put time; an upload
+stored outside any scope is tagged by the first scope that reads it.
+`tenant_device_arrays` lists the tensors held for each tenant,
+`tenant_sizes` sums their bytes and `evict_tenant` drops one tenant's
+entries and slots. The sums go by storage, not by object: two tensors
+that view one storage (a padded copy's slice, a payload that shares a
+cache entry's tensor) count the storage's bytes once, and what a tenant
+holds is what its live storages hold. A dropped entry frees its memory
+only once nothing else holds the storage: a captured CUDA graph does
+(`compile/aot.py`), so the serving host's evictor drops the tenant's
+graphs too.
 """
 
 from __future__ import annotations
@@ -39,11 +51,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from predictionio_tpu_torch.obs.tenantctx import (_tenant_var,  # noqa: F401
+                                                  current_tenant,
+                                                  tenant_scope)
+
 _lock = threading.Lock()
 _cache: Dict[tuple, Tuple[Any, Any]] = {}
 # cache key -> (weak ref to the host array, device tensor)
 _resident: Dict[str, Tuple[tuple, dict, Any]] = {}
 # name -> (weak refs to the key arrays, payload, layout token)
+_tenant_keys: Dict[tuple, str] = {}
+# cache key -> the tenant whose scope stored it
+_tenant_slots: Dict[str, str] = {}
+# residency slot name -> the tenant whose scope stored it
 
 
 class TableBudgetExceeded(RuntimeError):
@@ -105,6 +125,7 @@ def put_resident(name: str, key_arrays, payload: dict,
         entry = _resident.get(name)
         if entry is not None and entry[0] is refs:
             _resident.pop(name, None)
+            _tenant_slots.pop(name, None)
 
     try:
         refs = tuple(weakref.ref(a, evict) for a in key_arrays)
@@ -112,13 +133,21 @@ def put_resident(name: str, key_arrays, payload: dict,
         return    # not weakref-able: no residency rather than a leak
     with _lock:
         _resident[name] = (refs, payload, sharding)
-
+        t = _tenant_var.get()
+        if t is not None:
+            _tenant_slots[name] = t
+        else:
+            _tenant_slots.pop(name, None)
 
 
 def _evict_cache_key(key):
     """Weak-reference callback body: lock-free (the garbage collector may
-    run it while this thread holds `_lock`; a dict pop is atomic)."""
+    run it while this thread holds `_lock`; a dict pop is atomic). At
+    interpreter exit the module's dicts may be gone already."""
+    if _cache is None or _tenant_keys is None:
+        return
     _cache.pop(key, None)
+    _tenant_keys.pop(key, None)
 
 
 def _device_key(device) -> str:
@@ -129,9 +158,14 @@ def _device_key(device) -> str:
 def _lookup(key, arr):
     with _lock:
         entry = _cache.get(key)
-    if entry is not None and entry[0]() is arr:
-        return entry[1]
-    return None
+        if entry is None or entry[0]() is not arr:
+            return None
+        t = _tenant_var.get()
+        if t is not None and key not in _tenant_keys:
+            # stored outside any scope (a model placed before its tenant
+            # was admitted): the first tenant to read it holds it
+            _tenant_keys[key] = t
+    return entry[1]
 
 
 def _store(key, arr, dev):
@@ -141,6 +175,11 @@ def _store(key, arr, dev):
         return dev      # not weakref-able: no caching
     with _lock:
         _cache[key] = (ref, dev)
+        t = _tenant_var.get()
+        if t is not None:
+            _tenant_keys[key] = t
+        else:
+            _tenant_keys.pop(key, None)
     return dev
 
 
@@ -224,6 +263,36 @@ def cached_put_rows(arr, target_rows: int, device=None):
     return _store(key, arr, padded)
 
 
+def cached_table(arr, device=None):
+    """`arr` on `device` as the first rows of its bucket-padded upload
+    (`cached_put_rows` at `bucket_rows`): a view that shares the serve
+    path's padded copy, the same object while that upload lives. The
+    view is registered as already padded, so a ranking that pads it to
+    its row bucket (`cached_put_rows(view, bucket_rows(n))`) reads the
+    same storage and copies nothing."""
+    from predictionio_tpu_torch.compile.buckets import bucket_rows
+    n = arr.shape[0]
+    target = max(bucket_rows(n), n)
+    padded = cached_put_rows(arr, target, device)
+    key = (id(arr), "table", _device_key(device))
+    view = _lookup(key, arr)
+    if view is not None:
+        return view
+    view = _store(key, arr, padded[:n])
+    _store((id(view), "rows", target, str(view.device)), view, padded)
+    return view
+
+
+def adopt_rows(arr, table, device=None) -> None:
+    """Hold the device tensor `table` as `arr`'s padded upload at
+    `table`'s rows (`cached_put_rows(arr, len(table), device)` returns it
+    from now on): a fold's resident tables serve the model it publishes
+    without a second copy. `table` must hold `arr` in its first rows and
+    must not be written in place afterwards."""
+    key = (id(arr), "rows", int(table.shape[0]), _device_key(device))
+    _store(key, arr, table)
+
+
 def cache_size() -> int:
     with _lock:
         return len(_cache)
@@ -234,11 +303,14 @@ def clear() -> None:
     with _lock:
         _cache.clear()
         _resident.clear()
+        _tenant_keys.clear()
+        _tenant_slots.clear()
 
 
 def drop_resident(name: str) -> None:
     with _lock:
         _resident.pop(name, None)
+        _tenant_slots.pop(name, None)
 
 
 def _device_nbytes(arr) -> int:
@@ -268,3 +340,91 @@ def resident_sizes() -> Dict[str, int]:
         items = list(_resident.items())
     return {name: _payload_nbytes(payload)
             for name, (_refs, payload, _tok) in items}
+
+
+def _payload_arrays(obj):
+    """The array-like leaves of a residency payload (the walk of
+    `_payload_nbytes`)."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from _payload_arrays(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _payload_arrays(v)
+    elif obj is not None and _device_nbytes(obj):
+        yield obj
+
+
+def storage_of(arr) -> Tuple[Any, int]:
+    """(identity, bytes) of the memory `arr` holds: a tensor's untyped
+    storage (its device and address; the whole storage's bytes, views
+    included), anything else by object identity and `nbytes`."""
+    storage = getattr(arr, "untyped_storage", None)
+    if storage is not None:
+        st = storage()
+        return ((str(arr.device), st.data_ptr()), int(st.nbytes()))
+    return (("id", id(arr)), _device_nbytes(arr))
+
+
+def storage_nbytes(arrays) -> int:
+    """Bytes the distinct storages behind `arrays` hold (None skipped)."""
+    seen = set()
+    total = 0
+    for a in arrays:
+        if a is None:
+            continue
+        key, nbytes = storage_of(a)
+        if key not in seen:
+            seen.add(key)
+            total += nbytes
+    return total
+
+
+def tenant_device_arrays() -> Dict[str, list]:
+    """tenant -> the tensors this cache and the residency slots hold for
+    it (cache entries and residency payload leaves)."""
+    with _lock:
+        devs = [(t, _cache[k][1]) for k, t in list(_tenant_keys.items())
+                if k in _cache]
+        payloads = [(t, _resident[n][1])
+                    for n, t in list(_tenant_slots.items())
+                    if n in _resident]
+    out: Dict[str, list] = {}
+    for t, dev in devs:
+        out.setdefault(t, []).append(dev)
+    for t, payload in payloads:
+        out.setdefault(t, []).extend(_payload_arrays(payload))
+    return out
+
+
+def tenant_sizes() -> Dict[str, int]:
+    """tenant -> bytes of the distinct live storages this cache and the
+    residency slots hold for it; a tenant holding nothing has no entry."""
+    return {t: storage_nbytes(arrs)
+            for t, arrs in tenant_device_arrays().items()}
+
+
+def evict_tenant(tenant: str) -> Tuple[int, int]:
+    """Drop every cache entry and residency slot attributed to `tenant`.
+    Returns (entries dropped, bytes of the distinct storages they held).
+    The host arrays stay: the next use re-uploads through `cached_put*`.
+    A tensor a dispatched window still holds lives until the window ends;
+    a graph holding one keeps it (the serving host drops those)."""
+    tenant = str(tenant)
+    dropped = 0
+    held = []
+    with _lock:
+        for k in [k for k, t in list(_tenant_keys.items()) if t == tenant]:
+            entry = _cache.pop(k, None)
+            _tenant_keys.pop(k, None)
+            if entry is not None:
+                dropped += 1
+                held.append(entry[1])
+        for n in [n for n, t in list(_tenant_slots.items())
+                  if t == tenant]:
+            entry = _resident.pop(n, None)
+            _tenant_slots.pop(n, None)
+            if entry is not None:
+                dropped += 1
+                held.extend(_payload_arrays(entry[1]))
+    return dropped, storage_nbytes(held)

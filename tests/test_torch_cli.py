@@ -270,5 +270,5 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
         "undeploy, update, rollback, eventserver, dashboard, adminserver, " \
         "app, accesskey, export, import, trim, servers, snapshot, run, " \
         "upgrade, cache, incidents, profile, fleet, faults, spill, " \
-        "template. Still only in the JAX package's bin/pio: bootstrap, " \
-        "tenants, placement, lint and the sharded serving of deploy." in text
+        "template, bootstrap, tenants, placement. Still only in the JAX " \
+        "package's bin/pio: lint and the sharded serving of deploy." in text

@@ -311,6 +311,28 @@ def test_the_serve_path_promotes_the_next_bucket(monkeypatch):
         s1["dispatchHits"].get(TC.BATCH_PREDICT, 0) + 1
 
 
+def test_a_tenant_slot_captures_no_next_bucket(monkeypatch):
+    """Under a tenant's scope the port's serve path captures no next
+    bucket: the graph would be keyed on this model, whose buckets never
+    change, and would hold a padded table outside the host's budget."""
+    from predictionio_tpu_torch.obs.tenantctx import tenant_scope
+    monkeypatch.setenv("PIO_SERVE_PACK", "exact")
+    rng = np.random.default_rng(1)
+    m = TALS.ALSModel(rng.standard_normal((40, 4)).astype(np.float32),
+                      rng.standard_normal((50, 4)).astype(np.float32), 4,
+                      torch.device("cpu"))
+    aot = TA.get_aot()
+    dims = TALS.batch_predict_dims(m, 3, 5)
+    assert TB.should_promote(m.n_items, dims["i"])
+    with tenant_scope("slot"):
+        TALS.users_topk_serve(m, [0, 1, 2], 5)
+    for t in list(aot._threads):
+        t.join(10)
+    assert aot.lookup(TC.BATCH_PREDICT, dims, (m,)) is not None
+    assert aot.lookup(TC.BATCH_PREDICT, dict(dims, i=128, k=16),
+                      (m,)) is None
+
+
 def test_warm_models_follows_the_switches(monkeypatch):
     from predictionio_tpu_torch.models import recommendation as TR
     rng = np.random.default_rng(2)

@@ -19,8 +19,10 @@ device time inside its dispatch's wall; the diagnostics plane: the
 torch.profiler device trace of a fold naming the CG kernel once a launch,
 and a slow window's waterfall, its `device_sync` stage included, built
 with no synchronize; the example engines: SimRank and the stock
-engine's batched OLS on the card against float64; and an ALS train fed
-by a nativelog `find_columnar`, every solve a CG kernel launch.
+engine's batched OLS on the card against float64; an ALS train fed
+by a nativelog `find_columnar`, every solve a CG kernel launch; and a
+serving host's tenant eviction, whose fall in `memory_allocated` covers
+the `bytesFreed` it reports once its graphs are dropped.
 
 These tests need a CUDA card (a CUDA kernel has no CPU mode) and skip
 without one. On a machine with a card and without JAX, run them with
@@ -1122,17 +1124,21 @@ def test_the_cuda_event_device_time_is_inside_the_sampled_wall(cuda):
     """A sampled dispatch books its CUDA-event time: above 0 and below
     the wall from the call to the end of its work."""
     import time
+    from predictionio_tpu_torch.compile.aot import capture_quiesced
     from predictionio_tpu_torch.obs import costmon
     # no random draw: a capture in flight in another thread puts the
     # default generator in capture mode
     a = torch.full((4096, 4096), 0.5, device=cuda)
     st = costmon._device_state("cuda_event_probe")
     st.every = 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    costmon.device_timed("cuda_event_probe", torch.matmul, a, a)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # an earlier test's background capture (a bucket promotion) may be
+    # in flight: a device-wide synchronize would invalidate it and fail
+    with capture_quiesced():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costmon.device_timed("cuda_event_probe", torch.matmul, a, a)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     costmon.flush()
     booked = costmon.device_time_by_executable()["cuda_event_probe"]
     assert 0 < booked < wall, (booked, wall)
@@ -1385,3 +1391,100 @@ def test_a_restored_snapshot_trains_through_the_cg_kernel(cuda, tmp_path,
     assert list(model.followed_ix.ids) == list(ref.followed_ix.ids)
     assert np.array_equal(model.followed_factors_normalized,
                           ref.followed_factors_normalized)
+
+
+# an eviction's fall in memory_allocated may miss its bytesFreed by this
+# much: nothing else allocates while it runs, so only the allocator's
+# own bookkeeping could (its blocks are the storages' sizes rounded up,
+# which can only add to the fall)
+EVICT_SLACK = 1 << 20
+
+
+def test_a_tenant_eviction_frees_what_it_reports(cuda, tmp_path,
+                                                 monkeypatch):
+    """A serving host's tenant on the card, its serve graphs captured
+    (the warm ladder, under the tenant's scope) and queried: an eviction
+    lowers `torch.cuda.memory_allocated()` by at least its `bytesFreed`
+    (less EVICT_SLACK), drops the tenant's graphs, and the next query
+    (eager, then captured again) answers the same bytes."""
+    import gc
+    import urllib.request
+    import weakref
+    from predictionio_tpu_torch.compile.aot import get_aot, warm_models
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.core import TrainResult
+    from predictionio_tpu_torch.models import recommendation as TR
+    from predictionio_tpu_torch.obs import tenant_scope
+    from predictionio_tpu_torch.serving import server as TSrv
+    from predictionio_tpu_torch.tenancy import (HostConfig, ServingHost,
+                                                TenantSpec)
+    from predictionio_tpu_torch.weights import from_jax_model
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "pio"))
+    monkeypatch.setenv("PIO_FLEET_DIR", str(tmp_path / "fleet"))
+    monkeypatch.setenv("PIO_AOT_WARM", "on")
+    rng = np.random.default_rng(5)
+    n_users, n_items, rank = 20_000, 5_000, 64
+    model = from_jax_model(
+        rng.standard_normal((n_users, rank)).astype(np.float32),
+        rng.standard_normal((n_items, rank)).astype(np.float32),
+        [f"u{k}" for k in range(n_users)], [f"i{k}" for k in range(n_items)],
+        rank)
+    host = ServingHost(HostConfig(ip="127.0.0.1", port=0))
+    server = TSrv.EngineServer(
+        TSrv.ServerConfig(port=0, result_cache=False),
+        TR.RecommendationEngineFactory.apply(),
+        TR.RecommendationEngineFactory.engine_params(
+            TR.RatingsData([], [], [])),
+        TrainResult(models=[model], algorithms=[
+            TR.ALSAlgorithm(TR.ALSAlgorithmParams(rank=rank))]),
+        tenant="a", shared_result_cache=host.result_cache)
+    with tenant_scope("a"):
+        warm = warm_models(server.algorithms, server.models, batch_hint=16)
+    assert warm["compiled"] > 0
+    aot = get_aot()
+    # the owners of the tenant's graphs: the model, and the table its
+    # filtered ranking reads (weakly, or this test would keep it alive)
+    owners = [weakref.ref(model.als)] + [weakref.ref(t)
+                                         for t in model.als.tables()]
+
+    def graphs():
+        alive = [o() for o in owners]
+        return sum(1 for k, refs in list(aot._refs.items())
+                   if k in aot._compiled and any(
+                       r() is o for r in refs for o in alive
+                       if o is not None))
+
+    def ask(users):
+        out = []
+        for u in users:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{host.config.port}/engines/a/"
+                "queries.json", method="POST",
+                data=json.dumps({"user": f"u{u}", "num": 10}).encode())
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out.append(resp.read())
+        return out
+    try:
+        host.admit_server(TenantSpec(key="a", engine_id="a"), server)
+        host.start()
+        users = rng.integers(0, n_users, 8)
+        before = ask(users)
+        assert graphs() == warm["compiled"]
+        # nothing else may allocate while the eviction is measured: wait
+        # out the registry's background captures (of earlier tests'
+        # models too), book the sampled replays, collect
+        for t in list(aot._threads):
+            t.join(timeout=60)
+        costmon.flush()
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        out = host.evict_tenant("a")
+        torch.cuda.synchronize()
+        fall = allocated - torch.cuda.memory_allocated()
+        assert out["bytesFreed"] > 0 and graphs() == 0
+        assert fall >= out["bytesFreed"] - EVICT_SLACK, (fall, out)
+        assert host.budget.sizes()["a"] == 0
+        assert ask(users) == before
+    finally:
+        host.stop()

@@ -218,7 +218,7 @@ def test_blob_of_a_model_with_device_tables_drops_them():
     U_dev, V_dev = als.tables()
     engine = TR.RecommendationEngineFactory.apply()
     blob = engine.serialize_models([als])
-    assert als._tables[0] is U_dev      # the live model keeps its tables
+    assert als.tables()[0] is U_dev     # the live model keeps its tables
     (back,) = engine.deserialize_models(blob, "x")
     assert back._tables is None and back.device is None
     np.testing.assert_array_equal(back.user_factors, U)
@@ -455,7 +455,7 @@ def test_similarproduct_model_round_trips_and_is_placed():
     model.table()
     engine = TS.SimilarProductEngineFactory.apply()
     (back,) = engine.deserialize_models(engine.serialize_models([model]))
-    assert back._table is None and back.device is None
+    assert back.device is None
     result = engine.prepare_deploy(
         EngineParams(algorithm_params_list=[("als", algo.params)]), [back],
         "x")

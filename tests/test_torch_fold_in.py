@@ -198,6 +198,31 @@ def test_second_tick_hits_the_residency_slot(implicit):
             assert (g.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+def test_a_fold_serves_its_resident_tables():
+    """The port's fold publishes a model whose padded serve copies are
+    the tick's device tables (no second upload, one storage with the
+    residency slot), zero past its rows, and whose `tables()` are views
+    of them equal to its host tables."""
+    U, V, coo, tu, ti = fold_case(seed=3, implicit=False)
+    cfg = TF.FoldInConfig(lam=0.1, sweeps=1, work_budget=512)
+    m, _ = TF.fold_in_coo(TA.ALSModel(U, V, RANK, None), TCOO(*coo), tu,
+                          ti, cfg, device="cpu", resident_key="test-serve")
+    slot = device_cache.get_resident("test-serve", (m.user_factors,
+                                                    m.item_factors),
+                                     sharding="replicated")
+    h0 = torchmon.thread_h2d_total()
+    for host, dev in ((m.user_factors, slot["U"]),
+                      (m.item_factors, slot["V"])):
+        n = host.shape[0]
+        served = device_cache.cached_put_rows(
+            host, TBuckets.bucket_rows(n), m.device)
+        assert served is dev and not dev[n:].any()
+    for host, view in zip((m.user_factors, m.item_factors), m.tables()):
+        assert np.array_equal(view.numpy(), host)
+    assert torchmon.thread_h2d_total() == h0
+    device_cache.drop_resident("test-serve")
+
+
 def test_vocabulary_growth_inside_its_bucket_hits_the_slot():
     U, V, coo, tu, ti = fold_case(seed=3)
     ui, ii, vv, n_u, n_i = coo

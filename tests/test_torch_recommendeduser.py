@@ -206,7 +206,7 @@ def test_the_model_survives_serialization(store):
     blob = engine.serialize_models(
         engine.make_serializable_models(tr, "inst", ep))
     (host,) = engine.deserialize_models(blob, "inst")
-    assert host.device is None and host._table is None
+    assert host.device is None
     deployed = engine.prepare_deploy(ep, [host], "inst")
     for q in QUERIES:
         q = TU.Query.from_dict(q)
