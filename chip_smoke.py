@@ -196,7 +196,13 @@ PyTorch version at the shapes its path gives it. Then:
   which the same fixed point with TF32 products must miss;
   the keyword engine's scores for 16,384 users x 4,096 items against
   float64; the walk-forward backtest at 500 tickers over 2,520 days
-  (retrain every 20), one retrain's batched OLS held to float64 `lstsq`.
+  (retrain every 20), one retrain's batched OLS held to float64 `lstsq`;
+- then the static analyzer (`lint`): `python -m predictionio_tpu_torch
+  lint --json` as a subprocess, clean against the port's own baseline
+  (no new finding, no stale entry, no parse error), and
+  `costmon.analyze_jit` on the card over the serve path's batched top-k
+  program at the store model's bucket dims (seeded tables), its FLOPs at
+  least 2*b*i*r and its gauges carrying them.
 
 Inside `rest_fold`, on its running event server, `eventserver_client`
 reads the rec app through the `eventserver` storage type with the app's
@@ -211,7 +217,8 @@ eager program, and prints each bucket's capture seconds; its queries
 must all replay. Each deploy's warm-up (`aotWarm`) captured its
 template's ladder, or nothing for a template without `aot_warm_specs`.
 After `serve_plane`'s bursts each deployed process must show hit rate
-1.0, no miss and no failed bucket, the p50 of its sampled CUDA-event
+1.0, no miss and no failed bucket (and `serve_plane` prints its
+`torch.cuda.memory_allocated()` from `/metrics`), the p50 of its sampled CUDA-event
 device ms a window within 5x of this script's own readings of the same
 program at 1 and 16 queries, an occupancy above 0, and a strictly parsed
 `/metrics` carrying every engine family; `fold_update` and `rest_fold` hold that the `/reload`
@@ -261,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import io
 import json
 import os
@@ -493,11 +501,12 @@ EVENT_FAMILIES = (
 KERNEL_LIBRARIES = ["cg_solve.so", "chol_solve.so", "schulz_solve.so"]
 HOST_LIBRARY = "eventlog.so"     # csrc/eventlog.cpp, built at first use
 # the diagnostics plane (obs/): the serve-plane deploys' slow-query bound
-# (the reference's default is the serve-p99 SLO's 250 ms; 100 ms makes
-# the 32-client bursts yield a sample of waterfalls), the spans of a
-# window's batch_predict trace, the stages a waterfall may hold, and the
-# CG kernels' names in a device trace
-SLOW_QUERY_MS = 100
+# (the reference's default is the serve-p99 SLO's 250 ms; 50 ms makes
+# the 32-client bursts yield a sample of waterfalls: at 100 ms the
+# similar-product deploy's server side recorded 0 to 7 slow queries a
+# burst), the spans of a window's batch_predict trace, the stages a
+# waterfall may hold, and the CG kernels' names in a device trace
+SLOW_QUERY_MS = 50
 WINDOW_SPANS = ["supplement", "predict", "readback", "post_process"]
 SLOW_STAGES = ("queue_wait", "batch_formation", "supplement", "dispatch",
                "device_sync", "completion_wait", "d2h_wait", "unpack",
@@ -2801,6 +2810,10 @@ def compile_plane_check(name: str, dep: dict, stats: dict,
     check_families(families, ENGINE_FAMILIES, name)
     hits = samples[("pio_aot_dispatch_hits_total",
                     (("executable", label),))]
+    # the deployed process's torch.cuda.memory_allocated()
+    in_use = [v for lab, v in labelled(samples, "pio_jax_device_memory_bytes")
+              if lab.get("kind") == "bytes_in_use"]
+    check(len(in_use) == 1, f"{name}: device memory samples {in_use}")
     check(hits == aot["dispatchHits"][label],
           f"{name}: /metrics counts {hits} hits, /stats.json "
           f"{aot['dispatchHits'][label]}")
@@ -2814,7 +2827,8 @@ def compile_plane_check(name: str, dep: dict, stats: dict,
             "sampled_ms": dt["sampledWallMs"], "occupancy": dt["occupancy"],
             "swap_to_first_query_ms": stats["swapToFirstQueryMs"],
             "aot_warm": stats["aotWarm"], "metrics_families": len(families),
-            "metrics_samples": len(samples), "scrape_ms": scrape_ms}
+            "metrics_samples": len(samples), "scrape_ms": scrape_ms,
+            "memory_allocated": int(in_use[0])}
 
 
 def diag_queries(name: str, model, rng) -> list:
@@ -2958,6 +2972,7 @@ def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
     """32 closed-loop clients x 20 queries against a deployed process;
     every answer held after the load (`hold`), the serve plane's counters
     read from /stats.json around it."""
+    t_phase = time.perf_counter()
     before = get_json(dep["url"] + "/stats.json")
     results, wall = closed_loop(dep["url"], per_client)
     after = get_json(dep["url"] + "/stats.json")
@@ -2984,7 +2999,9 @@ def phase_serve_plane(name: str, dep: dict, algo, model, per_client,
          wall_s=wall, qps=len(results) / wall,
          p50_ms=float(np.percentile(ms, 50)),
          p99_ms=float(np.percentile(ms, 99)), max_ms=float(ms.max()),
-         **d, window=window, compile_plane=plane)
+         **d, window=window, compile_plane=plane,
+         memory_allocated=plane["memory_allocated"],
+         phase_s=time.perf_counter() - t_phase)
     check(d["batchedQueries"] + hits == len(results),
           f"{d['batchedQueries']} queries went through the micro-batcher "
           f"and {hits} were cache hits, of {len(results)}")
@@ -7306,11 +7323,18 @@ def phase_tenancy(workdir: str, recuser: dict, rec_path: str, rec_iid: str,
               f"{operator['bytesFreed']} bytes freed")
         # the gauge against the card: what rec's re-upload adds to
         # memory_allocated, its captures held off (their graphs' pools
-        # are not tables), is what pio_engine_hbm_bytes{rec} then reads
+        # are not tables), is what pio_engine_hbm_bytes{rec} then reads.
+        # A held capture's warm-up on a side stream the process has not
+        # run cuBLAS on yet allocates that stream's cuBLAS workspace (32
+        # MiB on Hopper), which is not a table either: both readings are
+        # taken with the cached workspaces released
         with capture_quiesced():
+            torch._C._cuda_clearCublasWorkspaces()
             a0 = allocated()
             again = ask_fresh(rec_url, rec_slot, rec_q)
-            reupload = {"allocatedRise": settled_allocated() - a0,
+            settled_allocated()
+            torch._C._cuda_clearCublasWorkspaces()
+            reupload = {"allocatedRise": allocated() - a0,
                         "gauge": hbm_gauge(url_a)["rec"]}
         check(again == before,
               "rec's answers after the operator eviction differ")
@@ -7767,6 +7791,80 @@ def phase_examples(workdir: str) -> None:
          solve_device_ms=solve_ms)
 
 
+def phase_lint() -> None:
+    """The port's static analyzer and its cost analysis. `python -m
+    predictionio_tpu_torch lint --json` runs as a subprocess on the card's
+    host and must report the port clean against its own baseline (`ok`,
+    no new finding, no stale baseline entry, no parse error); meanwhile
+    `costmon.analyze_jit` runs the serve path's batched top-k program
+    (`ops/als._users_topk_b`) once on the card at the store model's
+    bucket dims (seeded tables of its padded shapes), and must count at
+    least the product's 2*b*i*r FLOPs and the item table's bytes, and
+    its gauges must carry both."""
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.ops import als as TA
+    t_phase = time.perf_counter()
+    # the analyzer runs on the host while the cost analysis runs on the
+    # card
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch", "lint", "--json"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cost, dims, analyze_s = lint_cost_analysis(costmon, TA)
+        stdout, stderr = lint.communicate(timeout=300)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    check(lint.returncode == 0, f"lint exited {lint.returncode}: "
+          f"{stdout[-2000:]} {stderr[-2000:]}")
+    rep = json.loads(stdout)
+    check(rep["ok"] is True and rep["findings"] == []
+          and rep["staleBaselineEntries"] == [] and rep["parseErrors"] == [],
+          f"lint is not clean: {json.dumps(rep)[:2000]}")
+    b, i, r = dims["b"], dims["i"], dims["r"]
+    flops_floor = 2 * b * i * r
+    check(cost is not None and cost["flops"] >= flops_floor
+          and cost["bytes_accessed"] >= 4 * i * r,
+          f"analyze_jit counted {cost} on the card, against at least "
+          f"{flops_floor} FLOPs and {4 * i * r} bytes")
+    gauges = {name: {lab["executable"]: v for lab, v in
+                     get_registry().get(name).samples() if lab}
+              for name in ("pio_executable_flops",
+                           "pio_executable_bytes_accessed")}
+    check(gauges["pio_executable_flops"][costmon.BATCH_PREDICT]
+          == cost["flops"]
+          and gauges["pio_executable_bytes_accessed"][costmon.BATCH_PREDICT]
+          == cost["bytes_accessed"], f"the cost gauges read {gauges}")
+    emit("lint", files=rep["files"], analyzer_s=rep["elapsedS"], suppressed=rep["suppressed"],
+         analyze_jit={"label": costmon.BATCH_PREDICT, "dims": dims,
+                      "flops": cost["flops"],
+                      "bytes_accessed": cost["bytes_accessed"],
+                      "flops_floor": flops_floor, "wall_s": analyze_s},
+         phase_s=time.perf_counter() - t_phase)
+
+
+def lint_cost_analysis(costmon, TA) -> tuple:
+    """`analyze_jit` of the batched top-k program on the card at the
+    store model's bucket dims: (its cost, the dims, its wall seconds)."""
+    n_u, n_i, _ = STORE_DATA
+    dims = TA.batch_predict_dims(
+        types.SimpleNamespace(n_users=n_u, n_items=n_i, rank=RANK),
+        SERVE_CLIENTS // 2, SERVE_NUM)
+    i, r = dims["i"], dims["r"]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    U = torch.randn(dims["u"], r, device="cuda", generator=gen)
+    V = torch.randn(i, r, device="cuda", generator=gen)
+    ixs = torch.randint(0, n_u, (dims["b"],), device="cuda", generator=gen)
+    fn = functools.partial(TA._users_topk_b, U, V, n_items=n_i,
+                           k=dims["k"], p=dims["p"])
+    t0 = time.perf_counter()
+    cost = costmon.analyze_jit(costmon.BATCH_PREDICT, fn, ixs)
+    sync()
+    return cost, dims, time.perf_counter() - t0
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  max_abs_err: float, max_rel_err: float, timed: dict,
                  timed_shape: dict) -> dict:
@@ -7843,6 +7941,7 @@ def main() -> int:
             cg_launches += phase_snapshot_train(workdir, recuser)
             cg_launches += phase_tenancy(workdir, recuser, path, *tenants)
             phase_examples(workdir)
+            phase_lint()
         finally:
             from predictionio_tpu_torch.data.storage import registry
             registry.clear_cache()

@@ -15,8 +15,15 @@ ALS on the hand-written Hopper solve kernels, `csrc/`) to `deploy`, whose
 server micro-batches queries as the reference's does.
 """
 
-from predictionio_tpu_torch.device import resolve_device
-
 __version__ = "0.1.0"
 
 __all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    # `resolve_device` on first use, so importing the package (the
+    # command line's `lint`, `version`) does not import torch
+    if name == "resolve_device":
+        from predictionio_tpu_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

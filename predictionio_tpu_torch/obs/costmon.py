@@ -44,8 +44,16 @@ as the reference's annotates the span after its sync.
 `install()` also mounts `pio_hbm_table_bytes{table}`, the device bytes
 of each residency slot of `utils/device_cache`.
 
-The reference's `analyze_jit` and `record_cost_analysis` read XLA's
-`cost_analysis()`, which has no counterpart here yet.
+Cost analysis. `analyze_jit(label, fn, *args)` banks a program's FLOPs
+and bytes per label (`pio_executable_flops{executable}`,
+`pio_executable_bytes_accessed{executable}`), the reference's reading of
+XLA's `cost_analysis()`. torch has no compiled program to ask, so the
+port runs `fn` once under `executable(label)`, on the tensors' own
+device, and counts: FLOPs with `torch.utils.flop_counter.FlopCounterMode`,
+bytes as each aten op's input and output tensor bytes (view ops, which
+move none, are skipped). Like the reference's, it pays one run, meant for
+bench and smoke paths, never a serving path. `record_cost_analysis(label,
+compiled)` banks anything exposing `cost_analysis()`, as the reference's.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from __future__ import annotations
 import collections
 import contextvars
 import itertools
+import logging
 import os
 import threading
 import time
@@ -63,6 +72,8 @@ from predictionio_tpu_torch.obs import torchmon
 from predictionio_tpu_torch.obs.metrics import get_registry
 from predictionio_tpu_torch.obs.tenantctx import metric_tenant_label
 from predictionio_tpu_torch.obs.trace import TRACER
+
+logger = logging.getLogger(__name__)
 
 #: the canonical labels
 ALS_SWEEP = "als_sweep"
@@ -87,13 +98,15 @@ _c_device_s = None
 _c_device_syncs = None
 _g_occupancy = None
 _g_tenant_occ = None
+_g_flops = None
+_g_bytes = None
 
 
 def install(registry=None):
     """Register the families and the compile listeners. Idempotent."""
     global _installed, _c_seconds, _c_hits, _c_misses, _c_pc_hits, \
         _c_pc_misses, _c_dispatch_s, _c_device_s, _c_device_syncs, \
-        _g_occupancy, _g_tenant_occ
+        _g_occupancy, _g_tenant_occ, _g_flops, _g_bytes
     with _lock:
         if _installed:
             return
@@ -112,6 +125,14 @@ def install(registry=None):
             "pio_compile_cache_misses_total",
             "executable() scopes that ran an nvcc build or a graph "
             "capture", labelnames=("executable",))
+        _g_flops = reg.gauge(
+            "pio_executable_flops",
+            "FLOPs of the last analyzed run of each executable label "
+            "(torch.utils.flop_counter)", labelnames=("executable",))
+        _g_bytes = reg.gauge(
+            "pio_executable_bytes_accessed",
+            "Bytes its aten ops read and wrote in the last analyzed run of "
+            "each executable label", labelnames=("executable",))
         _c_pc_hits = reg.counter(
             "pio_compile_pcache_hits_total",
             "kernel libraries found built in the salted build directory "
@@ -509,6 +530,82 @@ def device_snapshot() -> Dict[str, object]:
     out["sampledWallMs"] = {k: v for k, v in pct.items()
                             if v is not None}
     return out
+
+
+# -- cost analysis ----------------------------------------------------------
+
+class CostAnalysis:
+    """One counted run's cost, read as the reference reads a compiled
+    program's: `cost_analysis()` -> {"flops", "bytes accessed"}."""
+
+    __slots__ = ("flops", "bytes_accessed")
+
+    def __init__(self, flops: float, bytes_accessed: float):
+        self.flops = float(flops)
+        self.bytes_accessed = float(bytes_accessed)
+
+    def cost_analysis(self) -> dict:
+        return {"flops": self.flops, "bytes accessed": self.bytes_accessed}
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _byte_counter():
+    """A dispatch mode that sums each non-view aten op's input and output
+    tensor bytes into `.nbytes`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ByteCounter(TorchDispatchMode):
+        nbytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                self.nbytes += _tensor_bytes((args, kwargs)) \
+                    + _tensor_bytes(out)
+            return out
+    return ByteCounter()
+
+
+def record_cost_analysis(label: str, compiled) -> Optional[dict]:
+    """Bank `compiled.cost_analysis()` FLOPs and bytes under `label`.
+    Accepts anything exposing `cost_analysis` (a `CostAnalysis`); returns
+    the extracted {"flops", "bytes_accessed"}, or None when it has
+    none."""
+    if not _installed:
+        install()
+    try:
+        cost = compiled.cost_analysis()
+        if isinstance(cost, (list, tuple)):
+            cost = cost[0] if cost else {}
+        flops = float(cost.get("flops", 0.0))
+        nbytes = float(cost.get("bytes accessed", 0.0))
+    except Exception as e:
+        logger.debug("cost_analysis unavailable for %s: %s", label, e)
+        return None
+    _g_flops.labels(executable=label).set(flops)
+    _g_bytes.labels(executable=label).set(nbytes)
+    return {"flops": flops, "bytes_accessed": nbytes}
+
+
+def analyze_jit(label: str, fn, *args, **kwargs) -> Optional[dict]:
+    """Run `fn(*args, **kwargs)` once under `executable(label)`, count
+    its FLOPs and bytes, and bank them (`record_cost_analysis`). The run
+    is on the arguments' own device (a CUDA tensor stays on the card);
+    an error of `fn` raises. Pays one run: bench and smoke only, never a
+    serving path."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with executable(label):
+        with FlopCounterMode(display=False) as flops, \
+                _byte_counter() as nbytes:
+            fn(*args, **kwargs)
+    return record_cost_analysis(
+        label, CostAnalysis(flops.get_total_flops(), nbytes.nbytes))
 
 
 # -- bench/JSON views -------------------------------------------------------

@@ -69,7 +69,6 @@ import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
 from predictionio_tpu_torch.obs import costmon
-from predictionio_tpu_torch.obs.tenantctx import current_tenant
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolvePlan,
                                                 plan_for_items,
@@ -766,11 +765,13 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
     -inf, which the callers drop. The work dispatches through the
     executable registry (`compile/aot.py`): a bucket captured for this
     model replays its graph, another runs eagerly and is captured in the
-    background. A model whose items or users near their bucket has the
-    next bucket captured in the background too, outside a tenant's slot.
-    The result rides
-    `PIO_SERVE_PACK`'s payload (`ops/readback.py`). `finish` may run on
-    another thread; it is the only wait."""
+    background. No next row bucket is captured ahead of growth (the
+    reference's promotion): a graph is keyed on this model, whose buckets
+    never change, and bakes in the addresses of its tables, so a grown
+    model (a new object with new uploads) could never replay it; its
+    first window misses and is captured under its own key. The result
+    rides `PIO_SERVE_PACK`'s payload (`ops/readback.py`). `finish` may
+    run on another thread; it is the only wait."""
     from predictionio_tpu_torch.compile.aot import get_aot
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
     register_aot_specs()
@@ -782,29 +783,15 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
     U = cached_put_rows(model.user_factors, dims["u"], model.device)
     V = cached_put_rows(model.item_factors, dims["i"], model.device)
     k_b, p = dims["k"], dims["p"]
-    aot = get_aot()
     # a gates probe's dispatch keeps its gates_probe attribution
     with costmon.executable(costmon.BATCH_PREDICT, defer_to_outer=True):
-        out = aot.dispatch(
+        out = get_aot().dispatch(
             costmon.BATCH_PREDICT, dims,
             functools.partial(_users_topk_b, U, V, n_items=model.n_items,
                               k=k_b, p=p),
             readback.to_device(ixs, U.device), bound=(model,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
-    # not in a tenant's slot: a graph is keyed on this model, whose
-    # buckets never change, and the next bucket's would hold a padded
-    # table that the host's HBM budget does not count
-    promote = current_tenant() is None
-    if promote and B.should_promote(model.n_items, dims["i"]):
-        nxt = B.next_bucket(dims["i"])
-        aot.ensure(costmon.BATCH_PREDICT,
-                   dict(dims, i=nxt, k=min(k_b, nxt)), (model,),
-                   background=True)
-    if promote and B.should_promote(model.n_users, dims["u"]):
-        aot.ensure(costmon.BATCH_PREDICT,
-                   dict(dims, u=B.next_bucket(dims["u"])), (model,),
-                   background=True)
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device, synchronize
-from predictionio_tpu_torch.obs.tenantctx import current_tenant
 from predictionio_tpu_torch.ops import readback
 from predictionio_tpu_torch.compile import buckets as B
 
@@ -173,9 +172,9 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
     device) is padded to its row bucket once (`cached_put_rows`); the
     batch pads to its bucket, and padding rows and columns are masked
     out. The work dispatches through the executable registry
-    (`compile/aot.py`), keyed on the item table, and a table near its
-    bucket has the next bucket captured in the background (outside a
-    tenant's slot)."""
+    (`compile/aot.py`), keyed on the item table; no next row bucket is
+    captured ahead of growth, since a graph keyed on this table could
+    never replay for a grown one (`ops/als.users_topk_serve_begin`)."""
     from predictionio_tpu_torch.compile.aot import get_aot
     from predictionio_tpu_torch.obs import costmon
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
@@ -190,10 +189,9 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
     mp[:n, :n_items] = masks
     table = cached_put_rows(item_table, dims["i"])
     k_b, p = dims["k"], dims["p"]
-    aot = get_aot()
     with costmon.executable(costmon.BATCH_PREDICT_MASKED,
                             defer_to_outer=True):
-        out = aot.dispatch(
+        out = get_aot().dispatch(
             costmon.BATCH_PREDICT_MASKED, dims,
             functools.partial(_masked_topk_b, table, k=k_b,
                               filter_positive=filter_positive, p=p),
@@ -201,12 +199,6 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
             readback.to_device(mp, dev), bound=(item_table,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
-    # outside a tenant's slot only, as the plain serve path's
-    if current_tenant() is None and B.should_promote(n_items, dims["i"]):
-        nxt = B.next_bucket(dims["i"])
-        aot.ensure(costmon.BATCH_PREDICT_MASKED,
-                   dict(dims, i=nxt, k=min(k_b, nxt)), (item_table,),
-                   background=True)
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()

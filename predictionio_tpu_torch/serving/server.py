@@ -695,12 +695,12 @@ class EngineServer:
         from predictionio_tpu_torch.online.registry import \
             ModelVersionRegistry
         try:
-            reg = ModelVersionRegistry()
             if decision["decision"] == "promote":
-                reg.pin_last_good(inst.engine_id, inst.engine_version,
-                                  inst.engine_variant, version)
+                ModelVersionRegistry().pin_last_good(
+                    inst.engine_id, inst.engine_version,
+                    inst.engine_variant, version)
             else:
-                reg.demote_version(version)
+                ModelVersionRegistry().demote_version(version)
         except Exception:
             logger.exception("durable canary verdict failed")
 

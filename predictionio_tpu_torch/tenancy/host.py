@@ -15,9 +15,9 @@ tenant's graphs are its own (`compile/aot.py` keys them on their owner
 models) and hold its tables. An eviction therefore drops, once the
 slot's windows have drained, the tenant's graphs as well as its upload
 cache entries and residency slots (the models' device tables are views
-of those); only then are the bytes released. A tenant's slot captures
-no next row bucket ahead of growth: its graphs are keyed on models
-whose buckets never change. The next query uploads from the host
+of those); only then are the bytes released. No serve path captures a
+next row bucket ahead of growth (graphs are keyed on models whose
+buckets never change). The next query uploads from the host
 mirrors again, runs eagerly and captures in the background. A slot
 whose windows do not drain within `evict_quiesce_timeout_s` is not
 evicted (the drop is skipped and a warning says so).

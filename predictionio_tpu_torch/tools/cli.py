@@ -4,7 +4,7 @@ The port's counterpart of `version`, `status`, `build`, `unregister`,
 `train`, `eval`, `deploy`, `undeploy`, `update`, `rollback`,
 `eventserver`, `dashboard`, `adminserver`, `app`, `accesskey`, `export`,
 `import`, `trim`, `servers`, `snapshot`, `run`, `upgrade`, `cache`,
-`bootstrap`, `tenants` and `placement` of
+`bootstrap`, `tenants`, `placement` and `lint` of
 `predictionio_tpu/tools/cli.py` (the reference's Console,
 Console.scala:186-651), with the same flags and messages. `build` checks
 engine.json's factory and params and registers the engine manifest;
@@ -78,9 +78,15 @@ a snapshot (restore, streamed train, fold-tail catch-up) and with
 (`--url`); `placement {status,plan,apply}` reads the fleet's placements
 and fails dead hosts' tenants over (`tenancy/`).
 
-The commands still only in the JAX package's `bin/pio` are `lint` and
-deploy's sharded-serving option (`--mesh-broadcast-bytes`): run them
-through that `bin/pio` on a machine that has JAX, against the same store.
+`lint` runs the static analyzer over the port (`analysis/`: lock
+discipline, torch hot-path hygiene, hot-path cost) against its own
+baseline, `analysis/lint_baseline.json`, with `bin/pio lint`'s flags and
+JSON report; it exits 0 only with no new finding, no parse error and no
+stale baseline entry.
+
+The only option still only in the JAX package's `bin/pio` is deploy's
+sharded serving (`--mesh-broadcast-bytes`): run it through that
+`bin/pio` on a machine that has JAX, against the same store.
 """
 
 from __future__ import annotations
@@ -102,7 +108,7 @@ DESCRIPTION = (
     "undeploy, update, rollback, eventserver, dashboard, adminserver, app, "
     "accesskey, export, import, trim, servers, snapshot, run, upgrade, "
     "cache, incidents, profile, fleet, faults, spill, template, bootstrap, "
-    "tenants, placement. Still only in the JAX package's bin/pio: lint and "
+    "tenants, placement, lint. Still only in the JAX package's bin/pio: "
     "the sharded serving of deploy.")
 
 
@@ -1002,6 +1008,27 @@ def cmd_cache(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    """`lint`: the static concurrency and torch hot-path analyzer over
+    the port (`analysis/`), the whole-package AST pass behind the
+    zero-new-findings gate. This forwards the parsed flags to
+    `analysis/runner.main`, so `lint --json` and the runner agree
+    exactly."""
+    from predictionio_tpu_torch.analysis.runner import main as lint_main
+    argv = []
+    if args.json:
+        argv.append("--json")
+    if args.root:
+        argv.extend(["--root", args.root])
+    if args.baseline:
+        argv.extend(["--baseline", args.baseline])
+    if args.no_baseline:
+        argv.append("--no-baseline")
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    return lint_main(argv)
+
+
 def cmd_incidents(args) -> int:
     """`incidents {list,show,export}`: the incident bundles under
     `<PIO_FS_BASEDIR>/incidents/` (`--dir`), or a server's over `--url`:
@@ -1692,6 +1719,28 @@ def build_parser() -> argparse.ArgumentParser:
     cacl.add_argument("--all", action="store_true",
                       help="also remove the other salts' directories")
     ca.set_defaults(func=cmd_cache)
+
+    ln = sub.add_parser(
+        "lint", help="static concurrency + torch hot-path analyzer: "
+        "lock-order cycles, locks held across blocking calls, unguarded "
+        "background-thread mutation, implicit host syncs, CUDA graphs "
+        "captured per call, hot-path cost. Exit 0 = zero findings "
+        "outside predictionio_tpu_torch/analysis/lint_baseline.json")
+    ln.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    ln.add_argument("--root", default=None,
+                    help="directory to analyze (default: the "
+                         "predictionio_tpu_torch package)")
+    ln.add_argument("--baseline", default=None,
+                    help="baseline file (default: predictionio_tpu_torch/"
+                         "analysis/lint_baseline.json)")
+    ln.add_argument("--no-baseline", action="store_true",
+                    help="report every finding, suppressing nothing")
+    ln.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline to the current finding "
+                         "set (new entries get TODO justifications "
+                         "you must edit)")
+    ln.set_defaults(func=cmd_lint)
 
     inc = sub.add_parser("incidents", help="browse the incident bundles "
                          "(canary rollbacks, sentinel breaches, gate "

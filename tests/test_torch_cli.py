@@ -263,12 +263,12 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
     for word in ("train", "deploy", "undeploy", "app", "accesskey",
                  "import", "eventserver", "build", "unregister", "dashboard",
                  "adminserver", "servers", "snapshot", "run", "upgrade",
-                 "template"):
+                 "template", "lint"):
         assert word in text
     assert "Still only in the JAX package's bin/pio" in text
     assert "version, status, build, unregister, train, eval, deploy, " \
         "undeploy, update, rollback, eventserver, dashboard, adminserver, " \
         "app, accesskey, export, import, trim, servers, snapshot, run, " \
         "upgrade, cache, incidents, profile, fleet, faults, spill, " \
-        "template, bootstrap, tenants, placement. Still only in the JAX " \
-        "package's bin/pio: lint and the sharded serving of deploy." in text
+        "template, bootstrap, tenants, placement, lint. Still only in the " \
+        "JAX package's bin/pio: the sharded serving of deploy." in text

@@ -14,8 +14,9 @@
   dispatch with no executable misses, runs the fallback and adopts the
   bucket in the background, the next hits; a failed capture is memoized
   and not retried while the fallback serves; a blocking `ensure` waits
-  for a capture in flight; the serve path's bucket promotion captures
-  the next bucket in the background; an executable goes with its owner.
+  for a capture in flight; the serve path captures no next bucket ahead
+  of growth (a grown model is captured under its own key at its first
+  window); an executable goes with its owner.
   The same miss/hit/failed sequence gives the reference's registry the
   same counts, and the snapshots carry the reference's keys.
 - The build directory: its salt covers every kernel source and the
@@ -281,10 +282,12 @@ def test_a_blocking_ensure_waits_for_the_capture_in_flight():
     assert reg.compile_count == 1
 
 
-def test_the_serve_path_promotes_the_next_bucket(monkeypatch):
-    """A model whose items fill 3/4 of their row bucket has the next
-    bucket's executable captured in the background at its first window;
-    the window itself misses and answers through the eager program."""
+def test_the_serve_path_captures_no_next_bucket(monkeypatch):
+    """A model whose items fill 3/4 of their row bucket has no next
+    bucket captured: a graph is keyed on its model, whose buckets never
+    change, so it could never replay. A grown model (a new object) misses
+    at its first window, answers through the eager program, and is then
+    captured under its own key, which its next window replays."""
     monkeypatch.setenv("PIO_SERVE_PACK", "exact")
     rng = np.random.default_rng(1)
     m = TALS.ALSModel(rng.standard_normal((40, 4)).astype(np.float32),
@@ -293,20 +296,32 @@ def test_the_serve_path_promotes_the_next_bucket(monkeypatch):
     aot = TA.get_aot()
     dims = TALS.batch_predict_dims(m, 3, 5)
     assert TB.should_promote(m.n_items, dims["i"])
-    s0 = aot.snapshot()
-    s, i = TALS.users_topk_serve(m, [0, 1, 2], 5)
+    TALS.users_topk_serve(m, [0, 1, 2], 5)
     for t in list(aot._threads):
         t.join(10)
     promoted = dict(dims, i=128, k=16)
-    assert aot.lookup(TC.BATCH_PREDICT, promoted, (m,)) is not None
     assert aot.lookup(TC.BATCH_PREDICT, dims, (m,)) is not None
+    assert aot.lookup(TC.BATCH_PREDICT, promoted, (m,)) is None
+    grown = TALS.ALSModel(
+        m.user_factors,
+        np.concatenate([m.item_factors, rng.standard_normal(
+            (30, 4)).astype(np.float32)]), 4, torch.device("cpu"))
+    gdims = TALS.batch_predict_dims(grown, 3, 5)
+    assert gdims["i"] == 128
+    s0 = aot.snapshot()
+    s, i = TALS.users_topk_serve(grown, [0, 1, 2], 5)
+    for t in list(aot._threads):
+        t.join(10)
     s1 = aot.snapshot()
     assert s1["dispatchMisses"][TC.BATCH_PREDICT] == \
         s0["dispatchMisses"].get(TC.BATCH_PREDICT, 0) + 1
-    S = m.user_factors[:3] @ m.item_factors.T
+    assert aot.lookup(TC.BATCH_PREDICT, gdims, (grown,)) is not None
+    assert aot.lookup(TC.BATCH_PREDICT, gdims, (m,)) is None
+    S = grown.user_factors[:3] @ grown.item_factors.T
     np.testing.assert_array_equal(i[:, :5], np.argsort(-S, axis=1)[:, :5])
-    # the next window of the bucket replays (on the CPU: the held callable)
-    TALS.users_topk_serve(m, [3, 4, 5], 5)
+    # the grown model's next window replays (on the CPU: the held
+    # callable)
+    TALS.users_topk_serve(grown, [3, 4, 5], 5)
     assert aot.snapshot()["dispatchHits"][TC.BATCH_PREDICT] == \
         s1["dispatchHits"].get(TC.BATCH_PREDICT, 0) + 1
 

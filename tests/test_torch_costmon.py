@@ -22,6 +22,9 @@ reference's, on the CPU.
 - The transfer counters keep per-thread totals apart, and the device
   memory gauge renders no sample without a card, as the reference's
   renders none on CPU devices. The views' keys equal the reference's.
+- `analyze_jit` reads what XLA's `cost_analysis()` reads for the same
+  product (512 FLOPs, 512 bytes) and both packages' gauges carry it; the
+  serve program counts at least its product's FLOPs.
 No test bounds a wall-clock time.
 """
 
@@ -49,7 +52,7 @@ class Clock:
 @pytest.fixture()
 def fresh(monkeypatch):
     """Both cost monitors installed, with their occupancy windows, EWMAs,
-    per-label states and device seconds by tenant reset, and
+    per-label states and tenant-labelled families reset, and
     `time.monotonic` a scripted clock."""
     clock = Clock()
     monkeypatch.setattr("time.monotonic", clock)
@@ -61,11 +64,15 @@ def fresh(monkeypatch):
         monkeypatch.setattr(mod, "_occ_acc_tenant", {})
         monkeypatch.setattr(mod, "_occ_share_ewma", {})
         monkeypatch.setattr(mod, "_dev_state", {})
-        # the device seconds by tenant, which `device_time_by_tenant`
-        # reads: an empty family, so no earlier test's tenant time shows
-        fam = mod._c_device_s
-        monkeypatch.setattr(mod, "_c_device_s",
-                            type(fam)(fam.name, fam.help, fam.labelnames))
+        # the tenant-labelled families (`device_time_by_tenant` reads
+        # one): empty and off the process registries, so no earlier
+        # test's tenant time shows here and no tenant these tests book
+        # (`a`, `b`) stays in a registry a later test scrapes
+        for name in ("_c_device_s", "_c_dispatch_s", "_c_device_syncs",
+                     "_g_tenant_occ"):
+            fam = getattr(mod, name)
+            monkeypatch.setattr(mod, name, type(fam)(fam.name, fam.help,
+                                                     fam.labelnames))
     monkeypatch.setattr(TC, "_pending", [])
     return clock
 
@@ -313,3 +320,62 @@ def test_a_stamping_graph_books_its_sampled_replays(fresh, monkeypatch):
     TC.flush()
     assert TC.device_samples_by_executable()["stamp_probe"] == 3
     assert TC._pending == []
+
+
+def test_analyze_jit_counts_what_xla_counts():
+    """`analyze_jit` on the reference test's 8x4 @ 4x8 f32 product: XLA's
+    `cost_analysis()` on the CPU reads 512 FLOPs and 512 bytes accessed;
+    the port's counted run reads the same, and both packages' gauges
+    carry the values under the label."""
+    import jax.numpy as jnp
+    import torch
+
+    from predictionio_tpu.obs import get_registry as j_reg
+    from predictionio_tpu_torch.obs import get_registry as t_reg
+    j = JC.analyze_jit("analysis_parity", lambda a, b: a @ b,
+                       jnp.ones((8, 4)), jnp.ones((4, 8)))
+    t = TC.analyze_jit("analysis_parity", lambda a, b: a @ b,
+                       torch.ones(8, 4), torch.ones(4, 8))
+    assert j == t == {"flops": 512.0, "bytes_accessed": 512.0}
+    for reg in (j_reg(), t_reg()):
+        for name, key in (("pio_executable_flops", "flops"),
+                          ("pio_executable_bytes_accessed",
+                           "bytes_accessed")):
+            fam = reg.get(name)
+            assert fam.labelnames == ("executable",)
+            got = {labels["executable"]: v
+                   for labels, v in fam.samples() if labels}
+            assert got["analysis_parity"] == t[key]
+
+
+def test_cost_analysis_without_a_cost_and_a_failing_program():
+    """Something without `cost_analysis()` banks nothing and reads None
+    in both packages; a program that fails raises in the port (its run is
+    the analysis), where the reference's lowering failure reads None."""
+    import torch
+    assert JC.record_cost_analysis("analysis_none", object()) is None
+    assert TC.record_cost_analysis("analysis_none", object()) is None
+    assert TC.record_cost_analysis(
+        "analysis_obj", TC.CostAnalysis(7, 9)) == {
+            "flops": 7.0, "bytes_accessed": 9.0}
+    with pytest.raises(RuntimeError):
+        TC.analyze_jit("analysis_bad", lambda a, b: a @ b,
+                       torch.ones(8, 4), torch.ones(5, 8))
+
+
+def test_analyze_jit_counts_the_serve_program():
+    """The serve path's batched top-k program: at least the product's
+    2*b*i*r FLOPs, and the bytes of its non-view aten ops (a view moves
+    nothing), on the tensors' own device."""
+    import functools
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als as TA
+    b, i, r = 4, 32, 8
+    U, V = torch.ones(64, r), torch.ones(i, r)
+    fn = functools.partial(TA._users_topk_b, U, V, n_items=30, k=16, p=0)
+    got = TC.analyze_jit("analysis_serve", fn,
+                         torch.zeros(b, dtype=torch.int64))
+    assert got["flops"] == 2 * b * i * r
+    assert got["bytes_accessed"] >= 4 * i * r

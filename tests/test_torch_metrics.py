@@ -41,10 +41,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # the families of planes the port has not ported yet, which the
 # reference's servers register and the port's do not (ROADMAP.md lists
-# each by name)
-UNPORTED_ENGINE = {
-    "pio_executable_flops", "pio_executable_bytes_accessed",   # analyze_jit
-}
+# each by name): none left
+UNPORTED_ENGINE = set()
 # the diagnostics plane's families, registered by both packages' servers
 DIAGNOSTICS = (
     "pio_flight_records_total", "pio_flight_dropped_total",
