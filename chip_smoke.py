@@ -44,7 +44,22 @@ PyTorch version at the shapes its path gives it. Then:
   float64 top-k under the reference's mask, built from the items' seeded
   metadata; a retrain through the command line (`cli.main(["train",
   ...])`, what `python -m predictionio_tpu_torch train` runs) then swaps
-  in on `POST /reload`;
+  in on `POST /reload`; that deploy's AOT warm is read for the
+  `memory_allocated` it adds and the capture streams the process has
+  used (one: every capture runs on the device's one capture stream);
+- the sharded plane on that store, right after its first train
+  (`sharded_*`): the same engine with the `als-mesh` algorithm
+  (`factor_sharding='model'`, 2 shards on the card, the same seed) through
+  the command line, its tables against `store_train`'s and every bucket
+  solve a CG launch, as many as `store_train`'s; the shard files of its
+  `ShardedALSModelCheckpoint` restored by a deploy bit-equal; the store's
+  queries through that deploy (the two-phase top-k of `ops/topk.py`)
+  held to float64, one window's device ms beside the replicated
+  layout's; one fold tick of each layout, the rows within tolerance;
+  then `deploy` as two processes on the card over gloo, each holding one
+  shard, 16 answers held to float64 and the collective bytes a query,
+  and the worker SIGKILLed: 503 within the 5 s broadcast timeout, and
+  `/stats.json` and `/metrics` read poisoned;
 - the bulk data plane and the e2 library on that store, right after its
   first train: the same train with `"stream": true` (`stream_train`:
   chunked store cursors, a reader thread and pinned double-buffered
@@ -186,7 +201,9 @@ PyTorch version at the shapes its path gives it. Then:
   kill with no 5xx, a stale-generation admit is refused, one
   `host_failover` incident is captured, `rec` (unpinned, coldest) is
   evicted for `budget` and `sp` (pinned) is not, and
-  `pio_engine_hbm_bytes{tenant}` equals each tenant's live storages;
+  `pio_engine_hbm_bytes{tenant}` equals each tenant's live storages, and
+  the rise of `memory_allocated` over `rec`'s re-upload equals its gauge
+  with no cuBLAS workspace released first;
 - the example engines, last (`examples`): the quickstart's
   recommendation family as a subprocess with MODELDATA on a `remotefs`
   `file://` source (4 items answered, the blob under the URL); SimRank
@@ -362,6 +379,13 @@ SERVE_PER_CLIENT = 20     # queries each client sends
 SERVE_NUM = 10            # num of every serve_plane query: top-k bucket 16
 SERVE_K_BUCKET = 16
 DEPLOY_TIMEOUT_S = 300    # a deploy subprocess answers GET / by then
+SHARDS = 2                # sharded: the model axis on the one card (S)
+SHARDED_QUERIES = 16      # sharded_mesh: queries the two processes answer
+MESH_TIMEOUT_S = 5.0      # sharded_mesh: the broadcast watchdog
+SHARDED_FOLD = (32, 16)   # sharded_fold: touched users, touched items
+SHARDED_TOL = 4e-4        # of the factor scale: the ALS parity tolerance
+#                           at lam 0.01 (ROADMAP); the store's lam is 0.05
+WINDOW_REPS = 20          # sharded_serve: windows timed on each layout
 F16_REL = 2.0 ** -11      # f16 rounding to nearest, relative
 # inflight_bench: the reference's REST bench shape (bench.py
 # bench_rest_latency: 16 concurrent clients, 320 unfiltered queries,
@@ -2351,18 +2375,43 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
     queries over HTTP, then hot-swaps on /reload to a retrain through the
     command line. Returns the retrain's CG kernel launches and the
     reloaded model."""
+    from predictionio_tpu_torch.compile.aot import capture_streams
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
+    # memory_allocated around the deploy's AOT warm (its captures), and
+    # the capture streams the process has used: one a device
+    warm_allocated = {}
+    warm_aot = EngineServer._warm_aot
+
+    def measured_warm(self, *args, **kwargs):
+        sync()
+        before = torch.cuda.memory_allocated()
+        out = warm_aot(self, *args, **kwargs)
+        sync()
+        warm_allocated.update(before=before,
+                              after=torch.cuda.memory_allocated())
+        return out
+
+    EngineServer._warm_aot = measured_warm
     t0 = time.perf_counter()
-    server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
-                                       engine_variant=path)).load()
+    try:
+        server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                           engine_variant=path)).load()
+    finally:
+        EngineServer._warm_aot = warm_aot
     sync()
     load_s = time.perf_counter() - t0
+    warm_allocated.update(rise=warm_allocated["after"]
+                          - warm_allocated["before"],
+                          capture_streams=capture_streams())
     server.start(background=True)
     url = f"http://127.0.0.1:{server.config.port}"
     try:
         check(server.engine_instance.id == iid,
               f"deployed {server.engine_instance.id}, trained {iid}")
+        check(warm_allocated["capture_streams"] == 1,
+              f"the process captured on {warm_allocated['capture_streams']} "
+              "streams, not one")
         (model,) = server.models
         U, V = model.als.tables()
         U0, V0 = trained.models[0].als.tables()
@@ -2385,7 +2434,8 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
             status, _ = post(url + "/queries.json", bad)
             check(status == 400, f"malformed body {bad} answered {status}")
         emit("store_deploy", instance=iid, load_s=load_s,
-             warm=server.last_aot_warm, tables_bit_equal=True,
+             warm=server.last_aot_warm, warm_allocated=warm_allocated,
+             tables_bit_equal=True,
              unknown_user_empty=True,
              unknown_category_empty=True, malformed_400=True, **out)
 
@@ -2409,6 +2459,317 @@ def phase_store_deploy(path: str, iid: str, trained) -> tuple:
         return launches, model
     finally:
         server.stop()
+
+
+def sharded_variant(path: str, seed: int) -> None:
+    """`store_variant`'s engine with the `als-mesh` algorithm: the same
+    params, the factor tables split over SHARDS shards on the card and
+    persisted through `ShardedALSModelCheckpoint`."""
+    store_variant(path, seed)
+    with open(path) as f:
+        variant = json.load(f)
+    algo = variant["algorithms"][0]
+    algo["name"] = "als-mesh"
+    algo["params"].update(factor_sharding="model", model_shards=SHARDS)
+    with open(path, "w") as f:
+        json.dump(variant, f)
+
+
+def host_view(model, U: np.ndarray, V: np.ndarray):
+    """A recommendation model's id maps with whole host tables: what
+    `serve_and_hold` holds a sharded model's answers to."""
+    return types.SimpleNamespace(
+        als=types.SimpleNamespace(user_factors=U, item_factors=V),
+        user_ix=model.user_ix, item_ix=model.item_ix)
+
+
+def held_close(got: np.ndarray, want: np.ndarray) -> dict:
+    """Bit-equality, else the largest difference, of two factor tables
+    against SHARDED_TOL of the reference's scale."""
+    diff = float(np.abs(got - want).max()) if got.size else 0.0
+    scale = float(np.abs(want).max()) if want.size else 1.0
+    return {"bit_equal": bool(np.array_equal(got, want)),
+            "max_abs_diff": diff, "within_tol": diff <= SHARDED_TOL * scale}
+
+
+def dir_bytes(path: str) -> tuple:
+    """(files, bytes) under `path`."""
+    n = total = 0
+    for root, _, files in os.walk(path):
+        for name in files:
+            n += 1
+            total += os.path.getsize(os.path.join(root, name))
+    return n, total
+
+
+def phase_sharded(workdir: str, trained, store_launches: int) -> int:
+    """The sharded plane at the store model's widths (rank 200, the
+    `store_variant` engine, the loaded store):
+
+    - `sharded_train`: the `als-mesh` engine through `cli.main(["train"])`
+      with `factor_sharding='model'`, S = SHARDS on the card and the store
+      train's seed: its tables against the replicated `store_train`'s
+      (bit-equal, or within SHARDED_TOL), every bucket solve a
+      `cg_solve.cu` launch, as many as the replicated train's;
+    - `sharded_checkpoint`: the tables went to disk through
+      `ShardedALSModelCheckpoint` (one file a shard), and a deploy
+      restores them bit-equal (save and restore seconds, bytes);
+    - `sharded_serve`: the store's queries through that deploy (the
+      plain ones through `_users_topk_serve_sharded_begin`, the filtered
+      ones through the sharded masked top-k), held to the float64 top-k;
+      one window's device ms beside the replicated layout's;
+    - `sharded_fold`: one fold tick of the sharded model against the
+      same tick of the replicated one (rows within SHARDED_TOL), every
+      solve a `cg_solve.cu` launch;
+    - `sharded_mesh`: `deploy` as two processes on the one card over gloo
+      (S = 2, P = 2) answering SHARDED_QUERIES queries held to float64,
+      the collective bytes a query; then the worker is SIGKILLed: the next
+      query answers 503 within MESH_TIMEOUT_S, and `/stats.json` and
+      `/metrics` read poisoned.
+
+    Returns the CG launches of the train and the fold."""
+    from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.models.recommendation import \
+        MeshALSAlgorithm
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.online.fold_in import fold_in_coo
+    from predictionio_tpu_torch.ops import als as ALS
+    from predictionio_tpu_torch.ops.solve import COUNTS
+    from predictionio_tpu_torch.parallel.sharded_table import is_sharded
+    from predictionio_tpu_torch.serving.server import (EngineServer,
+                                                       ServerConfig)
+    from predictionio_tpu_torch.utils.checkpoint import checkpoint_dir
+    rep = trained.models[0].als
+    path = os.path.join(workdir, "engine_sharded.json")
+    sharded_variant(path, STORE_SEEDS[0])
+    kept = {}
+    mesh_train = MeshALSAlgorithm.train
+
+    def keep(self, pd):
+        kept["pd"] = pd
+        kept["algo"] = self
+        return mesh_train(self, pd)
+
+    MeshALSAlgorithm.train = keep
+    tel = {}
+    try:
+        iid, res, launches = workflow_train(path, "sharded_train",
+                                            tel_out=tel)
+    finally:
+        MeshALSAlgorithm.train = mesh_train
+    sh = res.models[0].als
+    check(is_sharded(sh.user_factors) and sh.user_factors.n_shards == SHARDS
+          and len(sh.item_factors._dev.tensors) == SHARDS
+          and all(t.device.type == sh.device.type
+                  for t in sh.item_factors._dev.tensors),
+          f"the sharded train's tables are {sh.user_factors!r}, "
+          f"{sh.item_factors!r}")
+    U_sh, V_sh = sh.user_factors.to_numpy(), sh.item_factors.to_numpy()
+    held = {"user_factors": held_close(U_sh, rep.user_factors),
+            "item_factors": held_close(V_sh, rep.item_factors)}
+    emit("sharded_hold", shards=SHARDS, replicated_launches=store_launches,
+         sharded_launches=launches, tables=held)
+    check(all(h["within_tol"] for h in held.values()),
+          f"the sharded train's tables are off the replicated train's: "
+          f"{held}")
+    check(launches == store_launches, f"the sharded train launched "
+          f"cg_solve {launches} times, the replicated {store_launches}")
+
+    # the checkpoint, and a deploy that restores it
+    files, nbytes = dir_bytes(checkpoint_dir(iid))
+    t0 = time.perf_counter()
+    server = EngineServer(ServerConfig(ip="127.0.0.1", port=0,
+                                       engine_variant=path)).load()
+    sync()
+    restore_s = time.perf_counter() - t0
+    server.start(background=True)
+    url = f"http://127.0.0.1:{server.config.port}"
+    cg = launches
+    try:
+        (model,) = server.models
+        back = (model.als.user_factors.to_numpy(),
+                model.als.item_factors.to_numpy())
+        restored_equal = (np.array_equal(back[0], U_sh)
+                          and np.array_equal(back[1], V_sh))
+        emit("sharded_checkpoint", instance=iid, files=files, bytes=nbytes,
+             save_s=tel.get("serialize_s"), restore_s=restore_s,
+             restored_bit_equal=restored_equal,
+             note="save_s: the train's serialize stage, which writes the "
+                  "shard files; restore_s: the deploy's load()")
+        check(restored_equal, "the restored sharded tables differ from the "
+              "trained ones")
+        check(files == 2 * SHARDS + 3, f"the checkpoint holds {files} "
+              "files: one a shard of each table, the manifest, the vocab "
+              "and the item properties")
+
+        with exact_pack():
+            out = serve_and_hold(url, host_view(model, *back),
+                                 np.random.default_rng(8), "sharded_serve")
+            users = np.arange(16)
+            dims = {}
+            for name, m in (("replicated", rep), ("sharded", model.als)):
+                dims[name] = ALS.batch_predict_dims(m, len(users), SERVE_NUM)
+                get_aot().ensure(costmon.BATCH_PREDICT, dims[name], (m,))
+                out[f"{name}_window_ms"] = cuda_ms(
+                    lambda m=m: ALS.users_topk_serve_begin(m, users,
+                                                           SERVE_NUM),
+                    WINDOW_REPS)
+        emit("sharded_serve", dims=dims, **out,
+             note="*_window_ms: one 16-query window's device time (CUDA "
+                  "events around its enqueue, the graph replayed)")
+
+        # one fold tick, each layout
+        pd, algo = kept["pd"], kept["algo"]
+        rng = np.random.default_rng(12)
+        tu = rng.choice(pd.ratings_coo.n_users, SHARDED_FOLD[0],
+                        replace=False)
+        ti = rng.choice(pd.ratings_coo.n_items, SHARDED_FOLD[1],
+                        replace=False)
+        ticks = {}
+        for name, m in (("replicated", rep), ("sharded", model.als)):
+            COUNTS.reset()
+            t0 = time.perf_counter()
+            folded, st = fold_in_coo(m, pd.ratings_coo, tu, ti,
+                                     algo.fold_config(is_sharded(
+                                         m.user_factors)))
+            sync()
+            ticks[name] = (folded, st, dict(vars(COUNTS)),
+                           time.perf_counter() - t0)
+        (f_r, st_r, c_r, s_r), (f_s, st_s, c_s, s_s) = (
+            ticks["replicated"], ticks["sharded"])
+        rows = {"user_rows": held_close(f_s.user_factors.rows(tu),
+                                        f_r.user_factors[tu]),
+                "item_rows": held_close(f_s.item_factors.rows(ti),
+                                        f_r.item_factors[ti])}
+        emit("sharded_fold", touched=list(SHARDED_FOLD), sharded=st_s.sharded,
+             solver_calls=st_s.solver_calls, launch_counts=c_s,
+             replicated_launch_counts=c_r, sharded_s=s_s, replicated_s=s_r,
+             rows=rows)
+        check(st_s.sharded and is_sharded(f_s.user_factors),
+              "the sharded fold tick did not run the sharded layout")
+        check(all(h["within_tol"] for h in rows.values()),
+              f"the sharded tick's rows are off the replicated tick's: "
+              f"{rows}")
+        check(c_s.get("cg_solve", 0) == st_s.solver_calls > 0
+              and all(n == 0 for k, n in c_s.items() if k != "cg_solve"),
+              f"the sharded fold's solves: {c_s} for {st_s.solver_calls} "
+              "solver calls; every one must be the cg_solve kernel")
+        cg += c_s["cg_solve"]
+    finally:
+        server.stop()
+    del server, model, res, sh
+    phase_sharded_mesh(path, workdir, (U_sh, V_sh), kept["pd"])
+    return cg
+
+
+def phase_sharded_mesh(path: str, workdir: str, tables, pd) -> None:
+    """`deploy` of the sharded instance as two processes of one group on
+    the one card (gloo: NCCL takes no two ranks on one device), each
+    holding one of the two shards; the queries held to the float64 top-k
+    of the whole tables; then the worker's SIGKILL (module docstring of
+    `serving/mesh_serving.py`)."""
+    import signal
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = sock.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for pid in range(2):
+        env = dict(os.environ, PIO_COORDINATOR=f"127.0.0.1:{coord}",
+                   PIO_NUM_PROCESSES="2", PIO_PROCESS_ID=str(pid),
+                   PIO_SERVE_PACK="exact")
+        logs.append(os.path.join(workdir, f"deploy_mesh{pid}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch", "deploy",
+                 "-v", path, "--ip", "127.0.0.1", "--port", "0",
+                 "--mesh-broadcast-timeout", str(MESH_TIMEOUT_S)],
+                cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT))
+    live = re.compile(r"Engine API is live at http://127\.0\.0\.1:(\d+)\.")
+    url = None
+    try:
+        while url is None:
+            check(all(p.poll() is None for p in procs),
+                  "a mesh deploy process exited: "
+                  + " | ".join(log_tail(log) for log in logs))
+            check(time.perf_counter() - t0 < DEPLOY_TIMEOUT_S,
+                  "the mesh deploy is not live: "
+                  + " | ".join(log_tail(log) for log in logs))
+            with open(logs[0], errors="replace") as f:
+                m = live.search(f.read())
+            if m:
+                url = f"http://127.0.0.1:{m.group(1)}"
+            else:
+                time.sleep(0.25)
+        alive_s = time.perf_counter() - t0
+        U, V = tables
+        view = host_view(types.SimpleNamespace(
+            user_ix=pd.user_ix, item_ix=pd.item_ix), U, V)
+        truth = store_truth(view)
+        U64, V64 = U.astype(np.float64), V.astype(np.float64)
+        rng = np.random.default_rng(9)
+        before = get_json(url + "/stats.json")["meshCollectives"]
+        exact, lat = 0, []
+        for _ in range(SHARDED_QUERIES):
+            q = {"user": pd.user_ix.id_of(int(rng.integers(len(pd.user_ix)))),
+                 "num": SERVE_NUM}
+            t1 = time.perf_counter()
+            status, body = post(url + "/queries.json", json.dumps(q).encode())
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(status == 200, f"sharded_mesh: {q} answered {status} {body}")
+            exact += hold_served(body, q, view, U64, V64, truth,
+                                 f"sharded_mesh query {q}")
+        stats = get_json(url + "/stats.json")
+        after = stats["meshCollectives"]
+        per_query = {k: (after[k]["bytes"] - before.get(k, {}).get(
+            "bytes", 0)) / SHARDED_QUERIES for k in after if k != "total"}
+        check(stats["meshCoordinator"] == {"processes": 2,
+                                           "poisoned": False,
+                                           "shutdown": False},
+              f"the mesh coordinator reads {stats['meshCoordinator']}")
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait(timeout=60)
+        t1 = time.perf_counter()
+        status, body = post(url + "/queries.json", json.dumps(
+            {"user": pd.user_ix.id_of(1), "num": SERVE_NUM}).encode())
+        first_503_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        status2, _ = post(url + "/queries.json", json.dumps(
+            {"user": pd.user_ix.id_of(2), "num": SERVE_NUM}).encode())
+        second_503_s = time.perf_counter() - t1
+        poisoned = get_json(url + "/stats.json")["meshCoordinator"]
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        emit("sharded_mesh", processes=2, shards=SHARDS, alive_s=alive_s,
+             queries=SHARDED_QUERIES, ids_equal_f64=exact,
+             p50_ms=float(np.percentile(lat[1:], 50)),
+             first_query_ms=lat[0], collective_bytes_per_query=per_query,
+             after_kill={"status": status, "s": first_503_s,
+                         "next_status": status2, "next_s": second_503_s,
+                         "message": body.get("message")},
+             coordinator=poisoned)
+        check(status == 503 and first_503_s <= MESH_TIMEOUT_S + 1.0,
+              f"after the worker's SIGKILL a query answered {status} in "
+              f"{first_503_s:.2f} s, not 503 within {MESH_TIMEOUT_S} s")
+        check(status2 == 503 and second_503_s < 1.0,
+              f"the next query answered {status2} in {second_503_s:.2f} s")
+        check(poisoned["poisoned"] is True,
+              f"/stats.json meshCoordinator reads {poisoned}")
+        check("\npio_engine_mesh_poisoned 1\n" in metrics,
+              "/metrics does not read pio_engine_mesh_poisoned 1")
+    finally:
+        if url is not None:
+            try:
+                post(url + "/stop", b"")
+            except OSError:
+                pass
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
 
 
 def get_json(url: str) -> dict:
@@ -7324,16 +7685,13 @@ def phase_tenancy(workdir: str, recuser: dict, rec_path: str, rec_iid: str,
         # the gauge against the card: what rec's re-upload adds to
         # memory_allocated, its captures held off (their graphs' pools
         # are not tables), is what pio_engine_hbm_bytes{rec} then reads.
-        # A held capture's warm-up on a side stream the process has not
-        # run cuBLAS on yet allocates that stream's cuBLAS workspace (32
-        # MiB on Hopper), which is not a table either: both readings are
-        # taken with the cached workspaces released
+        # Every capture and its warm-up run on the process's one capture
+        # stream, whose cuBLAS workspace exists by now: none is allocated
+        # inside the reading
         with capture_quiesced():
-            torch._C._cuda_clearCublasWorkspaces()
             a0 = allocated()
             again = ask_fresh(rec_url, rec_slot, rec_q)
             settled_allocated()
-            torch._C._cuda_clearCublasWorkspaces()
             reupload = {"allocatedRise": allocated() - a0,
                         "gauge": hbm_gauge(url_a)["rec"]}
         check(again == before,
@@ -7850,7 +8208,8 @@ def lint_cost_analysis(costmon, TA) -> tuple:
     store model's bucket dims: (its cost, the dims, its wall seconds)."""
     n_u, n_i, _ = STORE_DATA
     dims = TA.batch_predict_dims(
-        types.SimpleNamespace(n_users=n_u, n_items=n_i, rank=RANK),
+        types.SimpleNamespace(n_users=n_u, n_items=n_i, rank=RANK,
+                              item_factors=None),
         SERVE_CLIENTS // 2, SERVE_NUM)
     i, r = dims["i"], dims["r"]
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -7915,6 +8274,7 @@ def main() -> int:
             path, iid, trained, store_launches, batch_read_s = \
                 phase_store_train(workdir)
             cg_launches += store_launches
+            cg_launches += phase_sharded(workdir, trained, store_launches)
             stream_launches, stream_stats = phase_stream_train(
                 workdir, iid, batch_read_s)
             cg_launches += stream_launches

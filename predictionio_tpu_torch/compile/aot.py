@@ -18,8 +18,8 @@ static input and output buffers:
   (`warm_models`); the retired model's go with it, and no replay ever
   reads freed tables.
 - **Capture.** On the card, the example arguments are cloned into static
-  inputs, `fn` runs twice on a side stream (the warm-up that lets
-  libraries set up their handles), and is captured with
+  inputs, `fn` runs twice on the device's capture stream (the warm-up
+  that lets libraries set up their handles), and is captured with
   `capture_error_mode="thread_local"`, so a capture in a background
   thread (`ensure(background=True)`) does not stop the serving threads'
   work; that thread runs in the caller's context, so what it uploads
@@ -32,6 +32,16 @@ static input and output buffers:
   holds new ones off (a device trace's start and stop,
   `obs/profiler.py`: a device-wide synchronize would invalidate a
   capture in flight).
+- **One capture stream a device.** Every warm-up and capture of the
+  process runs on one side stream per device (`capture_stream`), never
+  on a fresh pool stream: cuBLAS keeps a workspace (32 MiB on Hopper)
+  for each stream it has run on, so a fresh stream a capture would
+  leave up to one workspace a pool stream (32 of them) outside any
+  tenant's budget. Because the stream is shared, captures never
+  interleave on it:
+  `capture_slot()` admits one thread at a time (re-entrant within that
+  thread), through the same `_capture_cv` accounting that
+  `capture_quiesced()` reads, so `_captures_inflight` is 0 or 1.
 - **Dispatch.** `dispatch(label, dims, fallback, *args, bound=)` copies
   the arguments (device tensors: a host copy cannot be captured, so the
   caller stages them) into the static inputs, replays the graph and
@@ -92,10 +102,13 @@ def warm_enabled() -> bool:
         "off", "0", "false", "no")
 
 
-# captures in flight, and callers holding new ones off
+# captures in flight (at most one: `capture_slot`), and callers holding
+# new ones off
 _capture_cv = threading.Condition()
 _captures_inflight = 0
 _capture_holds = 0
+_slot_owner = threading.local()
+_capture_streams: Dict[Any, Any] = {}
 
 
 @contextlib.contextmanager
@@ -115,23 +128,68 @@ def capture_quiesced():
             _capture_cv.notify_all()
 
 
-def capture(graph, fn: Callable, device, pool=None, stream=None):
-    """Capture `fn()` into `graph` on a side stream (`stream`, else a new
-    one) with `capture_error_mode="thread_local"`, and return what `fn`
-    returned. Unlike `torch.cuda.graph` it neither synchronizes the
-    device nor empties the allocator's cache: a capture in one thread
-    must not stop another thread's work, and a device-wide synchronize
-    while another thread captures would invalidate that capture (so the
-    port synchronizes streams, `device.synchronize`, never the device).
-    `pool` shares a memory pool between graphs."""
+def capture_stream(device):
+    """The process's one capture stream for `device` (created at first
+    use and kept): every warm-up and capture runs on it, so cuBLAS sets
+    up one workspace for captures, not one per pool stream."""
     import torch
-    global _captures_inflight
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
     with _capture_cv:
-        while _capture_holds:
+        stream = _capture_streams.get(dev)
+        if stream is None:
+            stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+        return stream
+
+
+def capture_streams() -> int:
+    """How many capture streams the process has made (one a device)."""
+    with _capture_cv:
+        return len(_capture_streams)
+
+
+@contextlib.contextmanager
+def capture_slot():
+    """Hold the process's capture slot: one thread at a time warms up
+    and captures on the shared capture streams. Re-entrant in the
+    holding thread (a fused train captures several graphs in one slot);
+    waits while `capture_quiesced()` holds captures off."""
+    global _captures_inflight
+    if getattr(_slot_owner, "depth", 0):
+        _slot_owner.depth += 1
+        try:
+            yield
+        finally:
+            _slot_owner.depth -= 1
+        return
+    with _capture_cv:
+        while _capture_holds or _captures_inflight:
             _capture_cv.wait()
         _captures_inflight += 1
+    _slot_owner.depth = 1
     try:
-        side = stream if stream is not None else torch.cuda.Stream(device)
+        yield
+    finally:
+        _slot_owner.depth = 0
+        with _capture_cv:
+            _captures_inflight -= 1
+            _capture_cv.notify_all()
+
+
+def capture(graph, fn: Callable, device, pool=None):
+    """Capture `fn()` into `graph` on the device's capture stream with
+    `capture_error_mode="thread_local"`, inside the capture slot, and
+    return what `fn` returned. Unlike `torch.cuda.graph` it neither
+    synchronizes the device nor empties the allocator's cache: a
+    capture in one thread must not stop another thread's work, and a
+    device-wide synchronize while another thread captures would
+    invalidate that capture (so the port synchronizes streams,
+    `device.synchronize`, never the device). `pool` shares a memory
+    pool between graphs."""
+    import torch
+    with capture_slot():
+        side = capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             graph.capture_begin(pool=pool,
@@ -141,10 +199,6 @@ def capture(graph, fn: Callable, device, pool=None, stream=None):
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(side)
-    finally:
-        with _capture_cv:
-            _captures_inflight -= 1
-            _capture_cv.notify_all()
     return out
 
 
@@ -178,11 +232,6 @@ class GraphExecutable:
         self._marks = (torch.cuda.Event(enable_timing=True, external=True),
                        torch.cuda.Event(enable_timing=True, external=True))
         self._sample: Optional[Callable[[float], None]] = None
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                fn(*self.static_in)
 
         def stamped():
             self._marks[0].record()
@@ -190,7 +239,13 @@ class GraphExecutable:
             self._marks[1].record()
             return out
         self.graph = torch.cuda.CUDAGraph()
-        self.static_out = capture(self.graph, stamped, dev, stream=side)
+        with capture_slot():
+            side = capture_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    fn(*self.static_in)
+            self.static_out = capture(self.graph, stamped, dev)
         self._lock = threading.Lock()
 
     def _read_sample(self) -> None:
@@ -566,6 +621,19 @@ def get_aot() -> AOTRegistry:
 def shared_jit(key: str, impl: Callable, **kwargs):
     """Module-level convenience for `AOTRegistry.shared_jit`."""
     return get_aot().shared_jit(key, impl, **kwargs)
+
+
+def sharded_aval(shape, dtype, *axes, mesh=None):
+    """An example argument of `shape` and `dtype` (zeros) on `mesh`'s
+    device, split as `axes` names per dim (`parallel/mesh.put`): a
+    tensor when no dim is split, else the `DeviceShards` a sharded
+    program takes. A builder's example arguments are the static inputs
+    of the graph captured from them, so a model-sharded executable is
+    captured for its shard layout and keyed on it (the `s` dim)."""
+    import numpy as np
+    from predictionio_tpu_torch.parallel.mesh import current_mesh
+    ctx = mesh or current_mesh()
+    return ctx.put(np.zeros(shape, dtype=dtype), ctx.sharding(*axes))
 
 
 def warm_models(algorithms, models, batch_hint: int = 16,

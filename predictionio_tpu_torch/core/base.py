@@ -4,9 +4,9 @@ The port's counterpart of `predictionio_tpu/core/base.py`, cut to what
 the templates need to train, evaluate, persist and serve. An algorithm
 decides how its model persists (`make_persistent_model`) and puts a
 restored model on its device (`place_model`). `LAlgorithm` (model and
-predict on the host) and `P2LAlgorithm` (trained on the device) name
-where a model lives, as in the reference; the sharded `PAlgorithm` is a
-later slice.
+predict on the host), `P2LAlgorithm` (trained on the device) and
+`PAlgorithm` (its tables split over the mesh, `parallel/`) name where a
+model lives (`placement`), as in the reference.
 """
 
 from __future__ import annotations
@@ -108,10 +108,23 @@ class Algorithm(abc.ABC):
 
 class LAlgorithm(Algorithm):
     """Model in host memory; predict runs on the host."""
+    placement = "host"
 
 
 class P2LAlgorithm(Algorithm):
     """Model trained and served on one device."""
+    placement = "device"
+
+
+class PAlgorithm(Algorithm):
+    """Model split over the mesh (`parallel/`): its tables stay sharded
+    from the train to the serve path."""
+    placement = "mesh"
+
+    def batch_predict(self, model, queries):
+        raise NotImplementedError(
+            "PAlgorithm does not support batch_predict by default; "
+            "override it for evaluation.")
 
 
 class Serving(abc.ABC):
@@ -133,6 +146,13 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """The mean of the algorithms' numeric predictions."""
+
+    def serve(self, query, predictions):
+        return sum(predictions) / len(predictions)
 
 
 def run_sanity_check(obj: Any, enabled: bool) -> None:

@@ -62,6 +62,7 @@ _MODEL_MODULES = ("predictionio_tpu_torch.models.",
                   "predictionio_tpu_torch.ops.forest.",
                   "predictionio_tpu_torch.ops.naive_bayes.",
                   "predictionio_tpu_torch.ops.ratings.",
+                  "predictionio_tpu_torch.parallel.sharded_table.",
                   "predictionio_tpu_torch.data.bimap.",
                   "predictionio_tpu_torch.data.datamap.",
                   "predictionio_tpu_torch.core.persistence.")
@@ -74,6 +75,17 @@ class StopAfterReadInterruption(Exception):
 class StopAfterPrepareInterruption(Exception):
     """`Engine.train(stop_after_prepare=True)` stopped after the
     prepare."""
+
+
+@dataclass
+class WorkflowParams:
+    """A workflow run's switches (the reference's WorkflowParams)."""
+    batch: str = ""
+    verbose: int = 10
+    save_model: bool = True
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
 
 
 @dataclass(frozen=True)

@@ -165,3 +165,13 @@ def params_to_dict(p: Optional[Params]) -> Dict[str, Any]:
                 "has no JSON form; an engine instance records its params "
                 "as JSON") from None
     return d
+
+
+def params_to_json(p: Optional[Params]) -> str:
+    """`params_to_dict` as JSON with sorted keys."""
+    return json.dumps(params_to_dict(p), sort_keys=True)
+
+
+def params_from_json(cls: Optional[Type[Params]], s: str):
+    """`params_from_dict` of a JSON string (empty: no fields)."""
+    return params_from_dict(cls, json.loads(s) if s else {})

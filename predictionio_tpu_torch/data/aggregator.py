@@ -139,3 +139,14 @@ def aggregate_properties(events: Iterable[Event]) -> Dict[str, PropertyMap]:
             out[entity_id] = pm
     return out
 
+
+def merge_aggregations(parts: Iterable[Dict[str, EventOp]]
+                       ) -> Dict[str, EventOp]:
+    """Merge per-partition aggregation states (entity -> `EventOp`), as
+    the reference's aggregateByKey combines its partitions."""
+    merged: Dict[str, EventOp] = {}
+    for part in parts:
+        for k, op in part.items():
+            prev = merged.get(k)
+            merged[k] = op if prev is None else prev.merge(op)
+    return merged

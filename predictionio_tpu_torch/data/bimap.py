@@ -10,7 +10,7 @@ so a grown map is no longer sorted.
 
 from __future__ import annotations
 
-from typing import Hashable, Iterable, List, Mapping
+from typing import Generic, Hashable, Iterable, List, Mapping, TypeVar
 
 import numpy as np
 
@@ -152,3 +152,32 @@ class EntityIdIxMap:
             fwd[e] = base + i
         return (EntityIdIxMap(BiMap(fwd)),
                 np.arange(base, base + len(fresh), dtype=np.int32))
+
+
+V = TypeVar("V")
+
+
+class EntityMap(Generic[V]):
+    """Entity-id-keyed data with dense-index access (the reference's
+    EntityMap)."""
+
+    def __init__(self, data: Mapping[str, V],
+                 ix_map: "EntityIdIxMap" = None):
+        self._data = dict(data)
+        self._ix = ix_map or EntityIdIxMap.build(list(self._data))
+
+    def __getitem__(self, entity_id: str) -> V:
+        return self._data[entity_id]
+
+    def __contains__(self, entity_id: str) -> bool:
+        return entity_id in self._data
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def get_by_index(self, ix: int) -> V:
+        return self._data[self._ix.id_of(ix)]
+
+    @property
+    def ix_map(self) -> "EntityIdIxMap":
+        return self._ix

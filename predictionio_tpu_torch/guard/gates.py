@@ -103,7 +103,30 @@ def _score_pair(tables: Dict[str, np.ndarray]
     return u, v
 
 
-def _max_row_norm(t: np.ndarray) -> float:
+def _is_sharded(t) -> bool:
+    from predictionio_tpu_torch.parallel.sharded_table import is_sharded
+    return is_sharded(t)
+
+
+def _all_finite(t) -> bool:
+    """Finiteness over either layout: a `ShardedTable`'s host shards
+    scanned one by one (no device involved), numpy otherwise."""
+    if _is_sharded(t):
+        return t.all_finite()
+    return bool(np.isfinite(t).all())
+
+
+def _probe_rows(t, idx) -> np.ndarray:
+    """Sampled rows for the score probe, from a sharded table's host
+    shards or by indexing: the gates run the same statistics over both
+    layouts."""
+    from predictionio_tpu_torch.parallel.sharded_table import table_rows
+    return table_rows(t, idx)
+
+
+def _max_row_norm(t) -> float:
+    if _is_sharded(t):
+        return t.max_row_norm()
     if t.size == 0:
         return 0.0
     with np.errstate(over="ignore", invalid="ignore"):
@@ -170,7 +193,7 @@ class QualityGatekeeper:
             return {"gate": "finite", "verdict": "skip",
                     "detail": "no factor tables"}
         bad = [name for name, t in cand_tables.items()
-               if t.size and not bool(np.isfinite(t).all())]
+               if t.size and not _all_finite(t)]
         if bad:
             return {"gate": "finite", "verdict": "fail",
                     "detail": f"non-finite values in {', '.join(bad)}"}
@@ -216,8 +239,8 @@ class QualityGatekeeper:
         iv = rng.choice(ni, size=min(cfg.sample_entities, ni),
                         replace=False)
         with np.errstate(over="ignore", invalid="ignore"):
-            s_live = lu[iu] @ lv[iv].T
-            s_cand = cu[iu] @ cv[iv].T
+            s_live = _probe_rows(lu, iu) @ _probe_rows(lv, iv).T
+            s_cand = _probe_rows(cu, iu) @ _probe_rows(cv, iv).T
         if not np.isfinite(s_cand).all():
             return {"gate": "score_drift", "verdict": "fail",
                     "detail": "candidate probe scores non-finite"}

@@ -39,3 +39,8 @@ def get_engine_factory(name: str):
         return getattr(importlib.import_module(module_name), attr)
     raise KeyError(
         f"Unknown engineFactory {name!r}; registered: {sorted(reg)}")
+
+
+def list_engine_factories():
+    """The registered engineFactory names, sorted."""
+    return sorted(_registry())

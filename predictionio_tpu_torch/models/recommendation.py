@@ -35,12 +35,20 @@ cursors decoded chunk by chunk while the interned ids, values and times
 double-buffer onto `DataSourceParams.device` (the card unless the caller
 names the CPU). The `RatingsData` is built from the decoded host chunks,
 row for row the batch read, as in the reference; the staged segments are
-not used by the train. The sharded factor tables are a later slice
-(ROADMAP.md).
+not used by the train.
+
+The sharded layout: `ALSAlgorithmParams.factor_sharding='model'` trains,
+folds and serves the factor tables as `parallel/sharded_table.
+ShardedTable`s split `model_shards` ways (0: one shard a process) over
+`parallel/mesh.model_mesh`; `MeshALSAlgorithm` (algorithm name
+`als-mesh`) always does, and persists them through
+`ShardedALSModelCheckpoint` (one file a shard and a manifest,
+`utils/checkpoint.py`) instead of the model blob.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from dataclasses import dataclass
@@ -50,7 +58,9 @@ import numpy as np
 
 from predictionio_tpu_torch.core import (DataSource, Engine, EngineFactory,
                                          EngineParams, FirstServing, Metric,
-                                         P2LAlgorithm, Params, Preparator,
+                                         P2LAlgorithm, Params,
+                                         PersistentModel,
+                                         PersistentModelLoader, Preparator,
                                          SanityCheck)
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.bimap import EntityIdIxMap
@@ -63,7 +73,10 @@ from predictionio_tpu_torch.models.common import (ItemScoreResult,
 from predictionio_tpu_torch.online.fold_in import FoldInConfig, fold_in_coo
 from predictionio_tpu_torch.ops.als import (ALSConfig, ALSModel, als_rmse,
                                             als_train, recommend_products,
+                                            recommend_products_sharded,
                                             users_topk_serve_begin)
+from predictionio_tpu_torch.parallel.sharded_table import (gather_rows,
+                                                           is_sharded)
 from predictionio_tpu_torch.ops.ratings import RatingsCOO, dedup_ratings
 from predictionio_tpu_torch.ops.solve import COUNTS
 from predictionio_tpu_torch.ops.similarity import (build_filter_mask,
@@ -379,6 +392,11 @@ class ALSAlgorithmParams(Params):
     fuse_iteration: bool = False   # ALSConfig.fuse_iteration
     solver: str = "auto"           # ops/solve.py spd_solve
     device: Optional[str] = None   # None = the card; "cpu" only if asked
+    # 'model' trains, folds and serves the factor tables split by rows
+    # over the mesh's model axis (module docstring); 'replicated' keeps
+    # one whole table
+    factor_sharding: str = "replicated"
+    model_shards: int = 0          # S with 'model'; 0 = one a process
 
 
 @dataclass
@@ -443,6 +461,20 @@ class ALSAlgorithm(P2LAlgorithm):
         super().__init__(params or ALSAlgorithmParams())
         self.last_train_telemetry: dict = {}
 
+    @property
+    def sharded(self) -> bool:
+        """Whether this algorithm trains the model-sharded layout."""
+        return self.params.factor_sharding == "model"
+
+    def mesh(self):
+        """The process-wide mesh of the sharded layout on this
+        algorithm's device: `model_shards` wide, or one shard a
+        process."""
+        from predictionio_tpu_torch.parallel.mesh import (model_mesh,
+                                                          world_size)
+        return model_mesh(self.params.model_shards or world_size(),
+                          self.params.device)
+
     def train(self, pd: PreparedData) -> RecommendationModel:
         p = self.params
         if pd.ratings_coo.nnz == 0:
@@ -452,10 +484,14 @@ class ALSAlgorithm(P2LAlgorithm):
                         solver=p.solver,
                         compute_dtype=p.compute_dtype or "float32",
                         sweep_chunk=p.sweep_chunk,
-                        fuse_iteration=p.fuse_iteration)
+                        fuse_iteration=p.fuse_iteration,
+                        factor_sharding=("model" if self.sharded
+                                         else "replicated"),
+                        keep_sharded=self.sharded)
         self.last_train_telemetry = {"ratings": pd.ratings_coo.nnz}
+        mesh = {"mesh": self.mesh()} if self.sharded else {}
         model = als_train(pd.ratings_coo, cfg, device=p.device,
-                          telemetry=self.last_train_telemetry)
+                          telemetry=self.last_train_telemetry, **mesh)
         item_properties = None
         if pd.items is not None:
             item_properties = [pd.items.get(pd.item_ix.id_of(ix))
@@ -468,10 +504,25 @@ class ALSAlgorithm(P2LAlgorithm):
     def place_model(self, model: RecommendationModel
                     ) -> RecommendationModel:
         """Upload a restored model's tables to this algorithm's device
-        (`params.device`; None = the card), once, before it serves."""
-        model.als.device = resolve_device(self.params.device)
-        model.als.tables()
+        (`params.device`; None = the card), once, before it serves. A
+        sharded model uploads its item table's shards; its user rows are
+        read from the host mirrors."""
+        als = model.als
+        als.device = resolve_device(self.params.device)
+        if is_sharded(als.item_factors):
+            from predictionio_tpu_torch.parallel.mesh import model_mesh
+            als.item_factors.device(model_mesh(als.item_factors.n_shards,
+                                               als.device))
+        else:
+            als.tables()
         return model
+
+    @staticmethod
+    def _item_table(als: ALSModel):
+        """The item table the masked top-k ranks: the sharded table
+        itself, or the whole table on the device."""
+        return (als.item_factors if is_sharded(als.item_factors)
+                else als.tables()[1])
 
     def predict(self, model: RecommendationModel, query: Query
                 ) -> ItemScoreResult:
@@ -482,12 +533,16 @@ class ALSAlgorithm(P2LAlgorithm):
         props_of = model.properties_of(self.params.return_properties)
         mask = model.allowed_mask(query)
         if mask is None:
-            scores, idx = recommend_products(model.als, uix, query.num)
+            top = (recommend_products_sharded
+                   if is_sharded(model.als.item_factors)
+                   else recommend_products)
+            scores, idx = top(model.als, uix, query.num)
             return top_scores_to_result(model.item_ix, scores, idx,
                                         properties_of=props_of)
         scores, idx = masked_top_k_batch(
-            model.als.tables()[1], model.als.user_factors[[uix]],
-            mask[None], query.num, filter_positive=False)
+            self._item_table(model.als),
+            gather_rows(model.als.user_factors, [uix]), mask[None],
+            query.num, filter_positive=False, device=model.als.device)
         s, i = unpack_top_k_rows(scores[0], idx[0], query.num)
         return top_scores_to_result(model.item_ix, s, i,
                                     properties_of=props_of)
@@ -528,10 +583,12 @@ class ALSAlgorithm(P2LAlgorithm):
                 min(max(q.num for _, q, _, _ in plain), model.als.n_items))))
         if masked:
             fetches.append((masked, masked_top_k_batch_begin(
-                model.als.tables()[1],
-                model.als.user_factors[[uix for _, _, uix, _ in masked]],
+                self._item_table(model.als),
+                gather_rows(model.als.user_factors,
+                            [uix for _, _, uix, _ in masked]),
                 np.stack([mask for _, _, _, mask in masked]),
-                max(q.num for _, q, _, _ in masked), filter_positive=False)))
+                max(q.num for _, q, _, _ in masked), filter_positive=False,
+                device=model.als.device)))
 
         def finish():
             for rows, fetch in fetches:
@@ -577,14 +634,17 @@ class ALSAlgorithm(P2LAlgorithm):
         ti = item_ix.to_indices([str(i) for i in touched_items])
         return user_ix, item_ix, coo, tu[tu >= 0], ti[ti >= 0]
 
-    def fold_config(self) -> FoldInConfig:
+    def fold_config(self, sharded: bool = False) -> FoldInConfig:
         """The fold's solve config from this algorithm's params: two
         sweeps, the solver left at 'auto' as the reference's template
-        leaves it (so the card's CG kernel), the train's compute dtype."""
+        leaves it (so the card's CG kernel), the train's compute dtype,
+        and the layout of the model it folds into."""
         p = self.params
         return FoldInConfig(lam=p.lam, sweeps=2,
                             compute_dtype=p.compute_dtype or "float32",
-                            sweep_chunk=p.sweep_chunk)
+                            sweep_chunk=p.sweep_chunk,
+                            factor_sharding=("model" if sharded
+                                             else "replicated"))
 
     def fold_in(self, model: RecommendationModel, td: TrainingData,
                 touched_users, touched_items,
@@ -603,7 +663,8 @@ class ALSAlgorithm(P2LAlgorithm):
             model, td, touched_users, touched_items, preparator_params)
         before = dict(vars(COUNTS))
         new_als, stats = fold_in_coo(
-            model.als, coo, tu, ti, self.fold_config(),
+            model.als, coo, tu, ti,
+            self.fold_config(is_sharded(model.als.user_factors)),
             device=resolve_device(self.params.device),
             resident_key=f"fold:{type(self).__name__}:{id(self)}")
         if stats.degenerate:
@@ -620,7 +681,7 @@ class ALSAlgorithm(P2LAlgorithm):
         new_model = RecommendationModel(
             new_als, user_ix, item_ix, item_properties=item_properties,
             item_categories=cats, item_years=years)
-        return new_model, {
+        report = {
             "algorithm": type(self).__name__,
             "loss": als_rmse(new_als, coo),
             "userRows": stats.n_user_rows, "itemRows": stats.n_item_rows,
@@ -631,6 +692,10 @@ class ALSAlgorithm(P2LAlgorithm):
             "solverCalls": stats.solver_calls,
             "launches": {k: v - before[k] for k, v in vars(COUNTS).items()
                          if v != before[k]}}
+        if stats.sharded:
+            report["sharding"] = {"layout": "model",
+                                  "shards": new_als.user_factors.n_shards}
+        return new_model, report
 
     def aot_warm_specs(self, model: RecommendationModel,
                        batch_hint: int = 16) -> list:
@@ -639,23 +704,113 @@ class ALSAlgorithm(P2LAlgorithm):
         top-k bucket: what `compile.aot.warm_models` captures at deploy
         and swap time, before the model takes a query. The reference
         warms the plain top-k only; the port also warms the masked one a
-        filtered query takes, as its deploy warm-up always has."""
+        filtered query takes, as its deploy warm-up always has. A sharded
+        model's rows carry its shard layout (`s`); across processes the
+        ranking gathers its candidates by a collective, which no graph
+        holds, so nothing is warmed."""
         from predictionio_tpu_torch.obs import costmon
         from predictionio_tpu_torch.ops import als as ALS
         from predictionio_tpu_torch.ops import similarity as SIM
+        from predictionio_tpu_torch.parallel.mesh import world_size
+        if world_size() > 1:
+            return []
         ALS.register_aot_specs()
         SIM.register_aot_specs()
         als = model.als
         ladder = B.batch_ladder(batch_hint)
-        table = als.tables()[1]
+        table = self._item_table(als)
+
+        def masked_dims(b):
+            dims = SIM.masked_topk_dims(als.n_items, als.rank, b,
+                                        B.K_FLOOR, filter_positive=False)
+            if is_sharded(table):
+                i_b = ALS.batch_predict_dims(als, b, B.K_FLOOR)["i"]
+                dims.update(i=i_b, k=min(dims["k"], i_b), s=table.n_shards)
+            return dims
         return ([(costmon.BATCH_PREDICT,
                   ALS.batch_predict_dims(als, b, B.K_FLOOR), (als,))
                  for b in ladder]
-                + [(costmon.BATCH_PREDICT_MASKED,
-                    SIM.masked_topk_dims(als.n_items, als.rank, b,
-                                         B.K_FLOOR, filter_positive=False),
-                    (table,))
+                + [(costmon.BATCH_PREDICT_MASKED, masked_dims(b), (table,))
                    for b in ladder])
+
+
+class ShardedALSModelCheckpoint(PersistentModel, PersistentModelLoader):
+    """The sharded layout's persistence: the factor tables are written
+    one file a shard with a manifest (`utils/checkpoint.save_sharded`,
+    under `checkpoint_dir(instance_id)`), the id maps beside them, and
+    only a manifest naming this loader goes into the model store. The
+    item properties go beside them (`items.json`; the reference's
+    checkpoint drops them, so its restored model serves no filter), and
+    the query filters are derived from them again on a restore. A
+    restore re-shards to the reader's shard count (its algorithm's
+    `model_shards`, else the saved count) and keeps the shards its
+    process holds."""
+
+    def __init__(self, model: Optional[RecommendationModel] = None):
+        self.model = model
+
+    def save(self, instance_id: str, params) -> bool:
+        from predictionio_tpu_torch.parallel.mesh import process_index
+        from predictionio_tpu_torch.utils.checkpoint import (checkpoint_dir,
+                                                             save_sharded)
+        d = checkpoint_dir(instance_id)
+        ok = save_sharded(os.path.join(d, "factors"),
+                          {"user_factors": self.model.als.user_factors,
+                           "item_factors": self.model.als.item_factors})
+        if process_index() == 0:
+            np.savez(os.path.join(d, "vocab.npz"),
+                     users=np.asarray(self.model.user_ix.ids, dtype=str),
+                     items=np.asarray(self.model.item_ix.ids, dtype=str))
+            if self.model.item_properties is not None:
+                with open(os.path.join(d, "items.json"), "w") as f:
+                    json.dump(self.model.item_properties, f)
+        return ok
+
+    def load(self, instance_id: str, params) -> RecommendationModel:
+        from predictionio_tpu_torch.data.bimap import BiMap
+        from predictionio_tpu_torch.parallel.mesh import model_mesh
+        from predictionio_tpu_torch.utils.checkpoint import (
+            MANIFEST, checkpoint_dir, restore_sharded)
+        d = checkpoint_dir(instance_id)
+        path = os.path.join(d, "factors")
+        shards = getattr(params, "model_shards", 0)
+        if not shards:
+            with open(os.path.join(path, MANIFEST)) as f:
+                shards = max(ent.get("shards", 1)
+                             for ent in json.load(f).values())
+        mesh = model_mesh(shards, getattr(params, "device", None))
+        tables = restore_sharded(path, {"user_factors": mesh,
+                                        "item_factors": mesh})
+        with np.load(os.path.join(d, "vocab.npz")) as z:
+            user_ix = EntityIdIxMap(BiMap(
+                {str(u): i for i, u in enumerate(z["users"])}))
+            item_ix = EntityIdIxMap(BiMap(
+                {str(it): i for i, it in enumerate(z["items"])}))
+        props = None
+        if os.path.exists(os.path.join(d, "items.json")):
+            with open(os.path.join(d, "items.json")) as f:
+                props = json.load(f)
+        cats, years = RecommendationModel.derive_filters(props)
+        uf, vf = tables["user_factors"], tables["item_factors"]
+        return RecommendationModel(ALSModel(uf, vf, uf.rank, None),
+                                   user_ix, item_ix, item_properties=props,
+                                   item_categories=cats, item_years=years)
+
+
+class MeshALSAlgorithm(ALSAlgorithm):
+    """The sharded placement (the reference's PAlgorithm role,
+    engine.json algorithm name `als-mesh`): the factor tables are
+    trained, folded and served split over the mesh's model axis whatever
+    `factor_sharding` says, and persist through
+    `ShardedALSModelCheckpoint` rather than the model blob."""
+    placement = "mesh"
+
+    @property
+    def sharded(self) -> bool:
+        return True
+
+    def make_persistent_model(self, model: RecommendationModel):
+        return ShardedALSModelCheckpoint(model)
 
 
 class PrecisionAtK(Metric):
@@ -692,7 +847,7 @@ class RecommendationEngineFactory(EngineFactory):
     def apply(cls) -> Engine:
         return Engine({"": RecommendationDataSource},
                       {"": RecommendationPreparator},
-                      {"als": ALSAlgorithm},
+                      {"als": ALSAlgorithm, "als-mesh": MeshALSAlgorithm},
                       {"": FirstServing})
 
     @classmethod

@@ -4,8 +4,8 @@ The port's counterpart of `predictionio_tpu/online/fold_in.py`
 (`FoldInConfig`, `FoldInStats`, `_als_config`, `solve_rows`,
 `_pad_batch_rows`, `_pad_plan_batches`, `_prep_side`, `_solve_side`, the
 scatter with its rank-k Gram correction, `_solver_gram` (here
-`ops/als.solver_gram`), `fold_in_coo`)
-on the replicated layout. The per-entity least-squares step of ALS with
+`ops/als.solver_gram`), `fold_in_coo`, and the sharded layout's `_fetch_rows` and
+`_sharded_jit`). The per-entity least-squares step of ALS with
 the counterpart table held fixed is the batched solve the training sweep
 already runs, so absorbing fresh events costs one mini-sweep over the
 touched entities: the same solve plans (`ops/ratings.build_solve_plan`),
@@ -51,8 +51,18 @@ Differences from the reference, by design:
 - The fold runs in its tables' dtype: float64 host tables on the CPU give
   the float64 reading of the same sweeps (`chip_smoke.py` replays the
   card's fold so).
-- The model-sharded layout (`factor_sharding='model'`) and the chaos
-  hooks are later slices (ROADMAP.md).
+
+The model-sharded layout: a model whose tables are `ShardedTable`s folds
+on `model_mesh(n_shards)`. The tick gathers each table's resident shards
+into one device table (an in-process concat on one process, an
+`all_gather` across processes), runs the same solves and scatters, and
+publishes copy-on-write: only the touched rows cross to the host, where
+`ShardedTable.with_rows` patches the shards that hold them, and the new
+tables' device handles reuse the untouched shard tensors and copy the
+touched ones out of the tick's table. A bucket promotion re-partitions
+(`ShardedTable.grown`), the one O(table) host reshuffle a 2x growth. The
+residency slot is keyed by the layout token (`layout_of`), so a
+replicated and a sharded tick of one model never share it.
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ from predictionio_tpu_torch.ops.ratings import (RatingsCOO, SolveBatch,
 from predictionio_tpu_torch.ops.solve import resolve_solver
 from predictionio_tpu_torch.resilience.faults import maybe_corrupt_array
 from predictionio_tpu_torch.utils import device_cache
+from predictionio_tpu_torch.compile import buckets as B
 from predictionio_tpu_torch.compile.buckets import bucket_batch, bucket_rows
 
 
@@ -86,9 +97,9 @@ from predictionio_tpu_torch.compile.buckets import bucket_batch, bucket_rows
 class FoldInConfig:
     """Hyperparameters of the touched-row solves; the defaults are
     `ops/als.ALSConfig`'s, so a fold against a model trained with
-    default params runs the train's math. The reference's
-    `factor_sharding` is not here: the port runs the replicated layout
-    only."""
+    default params runs the train's math. `factor_sharding` names the
+    layout a caller expects; the tick folds the layout its model's
+    tables have (module docstring)."""
     lam: float = 0.01
     implicit_prefs: bool = False
     alpha: float = 1.0
@@ -113,6 +124,7 @@ class FoldInConfig:
     sentinel: bool = True
     sentinel_norm_ratio: float = 1e3
     sentinel_norm_floor: float = 1e4
+    factor_sharding: str = "replicated"   # 'replicated' | 'model'
 
 
 @dataclass
@@ -131,6 +143,7 @@ class FoldInStats:
     sentinel_rollback: bool = False
     guard_wall_s: float = 0.0      # wall seconds of the sentinel's work
     solver_calls: int = 0          # batched solves run (the port's count)
+    sharded: bool = False          # the tick ran the model-sharded layout
 
 
 #: incremental Gram corrections before a recompute from the table
@@ -382,6 +395,56 @@ def _solve_side(prep: _SidePrep, counter_dev: torch.Tensor,
     return _scatter(out_dev, out_gram, solved, prep)
 
 
+def _sharded_jit(name: str, impl, mesh):
+    """The process-wide callable of a sharded tick's program for `mesh`
+    (`compile/aot.shared_jit`, keyed on the mesh and its shard count)."""
+    from predictionio_tpu_torch.compile.aot import shared_jit
+    return shared_jit(f"fold.{name}.sharded:{id(mesh)}:"
+                      f"{mesh.model_parallelism}", impl)
+
+
+def _take_rows_impl(table: torch.Tensor, idx: torch.Tensor):
+    return table[idx]
+
+
+def _fetch_rows(table_dev: torch.Tensor, idx: np.ndarray, mesh
+                ) -> np.ndarray:
+    """The touched rows only, to the host: the one device-to-host copy a
+    steady sharded tick makes (the publish patches them into the host
+    shard mirrors)."""
+    if idx.size == 0:
+        return np.zeros((0, table_dev.shape[1]), dtype=np.float32)
+    take = _sharded_jit("take_rows", _take_rows_impl, mesh)
+    rows = _to_host(take(table_dev, torch.as_tensor(
+        np.asarray(idx, dtype=np.int64), device=table_dev.device)))
+    torchmon.record_d2h(int(rows.nbytes))
+    return rows.astype(np.float32, copy=False)
+
+
+def _republished_shards(table: torch.Tensor, before, idx: np.ndarray,
+                        mesh):
+    """The device shards of a tick's published table: the shard tensors
+    of `before` (the tick's starting `DeviceShards`) that hold no touched
+    row, and copies out of the tick's whole table `table` for those that
+    do (all of them after a bucket promotion)."""
+    from predictionio_tpu_torch.parallel.mesh import DeviceShards
+    n_b = int(table.shape[0])
+    n_shards = mesh.model_parallelism
+    per = n_b // n_shards
+    touched = set((np.asarray(idx, dtype=np.int64) // per).tolist())
+    same = before is not None and before.shape[0] == n_b
+    old = dict(zip(before.offsets, before.tensors)) if same else {}
+    owned = mesh.owned_parts(mesh.MODEL_AXIS)
+    parts = []
+    for j in owned:
+        if j not in touched and j * per in old:
+            parts.append(old[j * per])
+        else:
+            parts.append(table[j * per:(j + 1) * per].clone())
+    return DeviceShards(parts, [j * per for j in owned],
+                        (n_b, int(table.shape[1])), n_shards, 0, mesh)
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy that shares no memory with `t` (on the CPU too)."""
     return t.detach().to("cpu", copy=True).numpy()
@@ -405,8 +468,19 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
     tables (and implicit Grams) are reused and the tick uploads only its
     plans. Returns (the folded model, its stats); a degenerate tick
     returns the model itself."""
+    from predictionio_tpu_torch.parallel.mesh import model_mesh
+    from predictionio_tpu_torch.parallel.sharded_table import (is_sharded,
+                                                               layout_of)
     t0 = time.perf_counter()
     dev = resolve_device(device if device is not None else als.device)
+    sharded = is_sharded(als.user_factors)
+    if sharded != is_sharded(als.item_factors):
+        raise ValueError(
+            "fold_in_coo needs both factor tables in one layout; got "
+            f"user={type(als.user_factors).__name__} "
+            f"item={type(als.item_factors).__name__}")
+    mesh = model_mesh(als.user_factors.n_shards, dev) if sharded else None
+    layout = layout_of(als.user_factors)
     rank = als.rank
     n_users = max(coo.n_users, als.n_users)
     n_items = max(coo.n_items, als.n_items)
@@ -444,19 +518,48 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
 
     # the tables on the device, at pow2 row buckets: once a tick, or not
     # at all when the slot holds them
-    n_users_b, n_items_b = bucket_rows(n_users), bucket_rows(n_items)
+    U_sh = V_sh = None
+    if sharded:
+        stats.sharded = True
+        n_shards = mesh.model_parallelism
+        U_tab, V_tab = als.user_factors, als.item_factors
+        n_users_b = max(B.bucket_rows_sharded(n_users, n_shards),
+                        U_tab.padded_rows)
+        n_items_b = max(B.bucket_rows_sharded(n_items, n_shards),
+                        V_tab.padded_rows)
+        # a bucket promotion: the one O(table) host reshuffle
+        if n_users_b > U_tab.padded_rows:
+            U_tab = U_tab.grown(als.n_users, n_users_b)
+        if n_items_b > V_tab.padded_rows:
+            V_tab = V_tab.grown(als.n_items, n_items_b)
+    else:
+        n_users_b, n_items_b = bucket_rows(n_users), bucket_rows(n_items)
     payload = (device_cache.get_resident(
         resident_key, (als.user_factors, als.item_factors),
-        sharding="replicated") if resident_key else None)
+        sharding=layout) if resident_key else None)
     if (payload is not None and payload["device"] == dev
             and payload["implicit"] == implicit
-            and payload["U"].dtype == dtype):
-        U_dev = _grown_dev(payload["U"], n_users_b)
-        V_dev = _grown_dev(payload["V"], n_items_b)
+            and payload["U"].dtype == dtype
+            and (not sharded or (payload["U"].shape[0] == n_users_b
+                                 and payload["V"].shape[0] == n_items_b))):
+        if sharded:
+            U_sh, V_sh = payload["U"], payload["V"]
+            U_dev, V_dev = U_sh.full(), V_sh.full()
+        else:
+            U_dev = _grown_dev(payload["U"], n_users_b)
+            V_dev = _grown_dev(payload["V"], n_items_b)
         # appended zero rows add nothing to a Gram: carry it
         gram_u, gram_v = payload["GU"], payload["GV"]
         incr = payload["incr"]
         stats.resident_hit = True
+    elif sharded:
+        # the tables' own resident shards (a just-trained or just-swapped
+        # table arrives with them), else a per-shard upload, each shard
+        # held to the table budget
+        U_sh, V_sh = U_tab.device(mesh), V_tab.device(mesh)
+        U_dev, V_dev = U_sh.full(), V_sh.full()
+        gram_u = gram_v = None
+        incr = 0
     else:
         U_host = _grown_table(als.user_factors, n_users_b)
         V_host = _grown_table(als.item_factors, n_items_b)
@@ -479,7 +582,10 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
         # an O(model) baseline only on a lineage's first tick: a folded
         # model carries the largest norm its checks saw
         baseline = getattr(als, "_pio_guard_norm", None)
-        if baseline is None:
+        if baseline is None and sharded:
+            baseline = max(als.user_factors.max_row_norm(),
+                           als.item_factors.max_row_norm())
+        elif baseline is None:
             baseline = host_max_norm(als.user_factors, als.item_factors)
         sentinel = SweepSentinel("fold_in", baseline,
                                  norm_ratio=cfg.sentinel_norm_ratio,
@@ -524,6 +630,36 @@ def fold_in_coo(als: ALSModel, coo: RatingsCOO,
             raise fault    # the scheduler restores the tick's deltas
         U_dev, V_dev, gram_u, gram_v = ckpt
         stats.sentinel_rollback = True
+
+    if sharded:
+        # only the touched rows cross to the host, patched copy-on-write
+        # into the shards that hold them
+        idx_u = (prep_u.dst_real if prep_u is not None
+                 else np.zeros(0, dtype=np.int32))
+        idx_v = (prep_i.dst_real if prep_i is not None
+                 else np.zeros(0, dtype=np.int32))
+        rows_u, cu = maybe_corrupt_array(
+            "fold.factors", _fetch_rows(U_dev, idx_u, mesh))
+        rows_v, cv = maybe_corrupt_array(
+            "fold.factors", _fetch_rows(V_dev, idx_v, mesh))
+        U_out = U_tab.with_rows(idx_u, rows_u, n_rows=n_users)
+        V_out = V_tab.with_rows(idx_v, rows_v, n_rows=n_items)
+        if not (cu or cv):
+            U_out.attach_device(_republished_shards(U_dev, U_sh, idx_u,
+                                                    mesh))
+            V_out.attach_device(_republished_shards(V_dev, V_sh, idx_v,
+                                                    mesh))
+            if resident_key:
+                device_cache.put_resident(
+                    resident_key, (U_out, V_out),
+                    {"U": U_out._dev, "V": V_out._dev, "GU": gram_u,
+                     "GV": gram_v, "device": dev, "implicit": implicit,
+                     "incr": incr + 1}, sharding=layout)
+        stats.wall_s = time.perf_counter() - t0
+        out = ALSModel(U_out, V_out, rank, dev)
+        if sentinel is not None and not (cu or cv):
+            out._pio_guard_norm = sentinel.observed_max
+        return out, stats
 
     # published models carry exact-size host tables; the bucket padding
     # is the device's alone

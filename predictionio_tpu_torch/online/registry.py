@@ -74,6 +74,13 @@ class ModelVersionRegistry:
         now = _now()
         lineage = dict(meta or {})
         lineage["baseInstance"] = base_instance.id
+        # a version with sharded factor tables records its layout, so a
+        # reader tells the layouts apart without loading the models
+        from predictionio_tpu_torch.parallel.sharded_table import \
+            sharding_meta
+        info = sharding_meta(models)
+        if info is not None:
+            lineage.setdefault("sharding", info)
         instance = base_instance.with_(
             id="", status="INIT", start_time=now, end_time=now,
             batch=f"{ONLINE_BATCH_TAG}:"

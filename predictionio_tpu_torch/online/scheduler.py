@@ -576,6 +576,12 @@ class DeltaTrainingScheduler:
             "h2dBytes": torchmon.h2d_delta(h2d_before),
             **read_info,
         }
+        # a sharded tick's layout rides the report and the trace
+        sharding = next((r.get("sharding") for r in reports
+                         if r.get("sharding")), None)
+        if sharding is not None:
+            report["sharding"] = sharding
+            TRACER.annotate(sharding=sharding)
         TRACER.annotate(h2dBytes=report["h2dBytes"])
         if read_info.get("readRows") is not None:
             self._c_fold_read_rows.labels(

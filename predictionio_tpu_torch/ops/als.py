@@ -7,7 +7,8 @@ The port's counterpart of `predictionio_tpu/ops/als.py` (train:
 `register_aot_specs`, `users_topk_serve[_begin]` computing
 `_users_topk_b` (the batched serve path, dispatched through the
 executable registry of `compile/aot.py`), `predict_ratings`,
-`als_rmse`).
+`als_rmse`; the sharded layout: `recommend_products_sharded`,
+`_users_topk_serve_sharded_begin`).
 
 Math parity with the reference (MLlib 1.3):
   explicit  ALS-WR: minimize sum (r - x.v)^2 + lam * (n_u |x|^2 + ...).
@@ -46,7 +47,19 @@ Differences from the reference, by design:
   the counterpart of the reference's one XLA program per iteration
   (`_FusedIteration`); the CPU has no graphs and runs the same loop
   eagerly.
-- The sharded layouts are a later slice (ROADMAP.md).
+- `factor_sharding='model'` trains on whole tables in every process
+  (the gathers of a batch read any counterpart row) and, with
+  `keep_sharded`, hands the tables out as `parallel/sharded_table.
+  ShardedTable`s split S ways, each process keeping its shards as
+  tensors of their own. Every bucket's solve runs through the process's
+  own kernel ('auto' -> 'cg_cuda' on the card); the reference falls back
+  to its jnp CG on a multi-device mesh because `pallas_call` cannot take
+  GSPMD-sharded operands, a limit the port does not have.
+- With P > 1 processes (`parallel/mesh.init_distributed`) the train is
+  data-parallel: process p solves the batches p, p + P, ... of each
+  half-sweep, and a sum over the processes (`mesh.all_reduce`, each row
+  solved by exactly one process) hands every process the solved rows,
+  so every process ends the half-sweep with the single-process table.
 
 `ALSConfig.factor_dtype='bfloat16'` keeps the factor tables in bf16 on
 the device: gathered rows are widened to the train's dtype before the
@@ -82,6 +95,7 @@ logger = logging.getLogger(__name__)
 
 FACTOR_DTYPES = ("float32", "bfloat16")
 DUAL_SOLVES = ("auto", "never")
+FACTOR_SHARDINGS = ("replicated", "model")
 
 
 @dataclass(frozen=True)
@@ -133,6 +147,13 @@ class ALSConfig:
     # the implicit Grams) as CUDA graphs and replay them each iteration
     # (`_FusedIteration`); a capture that fails raises. On the CPU the
     # same loop runs eagerly.
+    factor_sharding: str = "replicated"
+    # 'model' splits the trained tables' rows over the mesh's model axis
+    # (module docstring); 'replicated' keeps one whole table.
+    keep_sharded: bool = False
+    # With factor_sharding='model': return the tables as ShardedTables
+    # (per-shard host slices, the trained device shards attached), not
+    # whole host arrays.
 
     def __post_init__(self):
         if self.dual_iters_cap is not None and self.dual_iters_cap < 1:
@@ -162,6 +183,10 @@ class ALSConfig:
         if self.dual_solve not in DUAL_SOLVES:
             raise ValueError(f"dual_solve must be one of {DUAL_SOLVES}, got "
                              f"{self.dual_solve!r}")
+        if self.factor_sharding not in FACTOR_SHARDINGS:
+            raise ValueError(f"factor_sharding must be one of "
+                             f"{FACTOR_SHARDINGS}, got "
+                             f"{self.factor_sharding!r}")
 
     @property
     def dual(self) -> bool:
@@ -200,6 +225,12 @@ class ALSModel:
         them)."""
         if self._tables is not None:
             return self._tables
+        from predictionio_tpu_torch.parallel.sharded_table import is_sharded
+        if is_sharded(self.user_factors) or is_sharded(self.item_factors):
+            raise TypeError(
+                "a model with sharded tables has no whole device tables; "
+                "serve it through users_topk_serve or "
+                "recommend_products_sharded")
         if self.device is None:
             raise RuntimeError(
                 "this ALSModel was restored without a device; its "
@@ -458,18 +489,57 @@ def _run_side(batches: Sequence[DeviceBatch], factors: torch.Tensor,
                      solver, gram)
 
 
+class _SideSync:
+    """One half-sweep of a data-parallel train (P > 1 processes): the
+    batches this process solves (every P-th, from its rank), and the sum
+    over the processes that hands each process the rows the others
+    solved. Each row is solved by exactly one batch, so the sum is
+    exact: every process ends the half-sweep with the single-process
+    table."""
+
+    def __init__(self, batches: Sequence[DeviceBatch], mesh):
+        n, r = mesh.n_processes, mesh.process
+        self.mine = list(batches[r::n])
+
+        def rows_of(bs):
+            if not bs:
+                return torch.zeros(0, dtype=torch.long, device=mesh.device)
+            rows = torch.cat([b[0] for b in bs])
+            return torch.unique(rows[rows >= 0])
+        self.my_rows = rows_of(self.mine)
+        self.all_rows = rows_of(list(batches))
+
+    def run(self, table: torch.Tensor, counter: torch.Tensor,
+            cfg: ALSConfig, solver: str, gram=None) -> None:
+        from predictionio_tpu_torch.parallel.mesh import all_reduce
+        _run_side(self.mine, table, counter, cfg, solver, gram)
+        wide = torch.float32 if table.dtype == torch.bfloat16 \
+            else table.dtype
+        buf = torch.zeros(table.shape, dtype=wide, device=table.device)
+        buf[self.my_rows] = table[self.my_rows].to(wide)
+        all_reduce(buf)
+        table[self.all_rows] = buf[self.all_rows].to(table.dtype)
+
+
 def _iteration(U: torch.Tensor, V: torch.Tensor,
                user_batches: Sequence[DeviceBatch],
                item_batches: Sequence[DeviceBatch], cfg: ALSConfig,
                solver: str, n_users: int, n_items: int,
-               dtype: torch.dtype) -> None:
+               dtype: torch.dtype, syncs=None) -> None:
     """One iteration in place: the user side against V, then the item
     side against the updated U (implicit: each after its counterpart's
-    Gram)."""
+    Gram). `syncs`, a data-parallel train's (user, item) `_SideSync`s,
+    solve this process's share of each side and share the rows."""
     gram_v = gram_of(V, n_items, cfg, dtype) if cfg.implicit_prefs else None
-    _run_side(user_batches, U, V, cfg, solver, gram_v)
+    if syncs is None:
+        _run_side(user_batches, U, V, cfg, solver, gram_v)
+    else:
+        syncs[0].run(U, V, cfg, solver, gram_v)
     gram_u = gram_of(U, n_users, cfg, dtype) if cfg.implicit_prefs else None
-    _run_side(item_batches, V, U, cfg, solver, gram_u)
+    if syncs is None:
+        _run_side(item_batches, V, U, cfg, solver, gram_u)
+    else:
+        syncs[1].run(V, U, cfg, solver, gram_u)
 
 
 def _gram_into(bufs: Tuple[torch.Tensor, ...], table: torch.Tensor,
@@ -490,7 +560,8 @@ class _FusedIteration:
     graph reads. Every other iteration is one graph.
 
     Before capture, `warmup` runs one iteration on copies of the tables
-    on a side stream, so the lazy set-up of libraries and handles happens
+    on the device's capture stream (`compile/aot.capture_stream`), inside
+    the process's capture slot, so the lazy set-up of libraries and handles happens
     outside the capture. Capture records without running; the kernel
     wrappers count their launches in Python as they are recorded, so the
     counts of the capture are taken back and `replay` adds them once a
@@ -501,26 +572,29 @@ class _FusedIteration:
     executable label (`als_sweep` in `als_train`)."""
 
     def __init__(self, parts, warmup, device: torch.device):
-        from predictionio_tpu_torch.compile.aot import capture
+        from predictionio_tpu_torch.compile.aot import (capture,
+                                                        capture_slot,
+                                                        capture_stream)
         from predictionio_tpu_torch.obs import torchmon
         from predictionio_tpu_torch.ops.solve import COUNTS
         t0 = time.perf_counter()
         self.parts = parts
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            warmup()
-        torch.cuda.current_stream(device).wait_stream(side)
-        synchronize(device)
-        before = COUNTS.snapshot()
-        pool = torch.cuda.graph_pool_handle()
-        self.graphs = []
-        for captured, fn in parts:
-            graph = None
-            if captured:
-                graph = torch.cuda.CUDAGraph()
-                capture(graph, fn, device, pool=pool, stream=side)
-            self.graphs.append(graph)
+        with capture_slot():
+            side = capture_stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                warmup()
+            torch.cuda.current_stream(device).wait_stream(side)
+            synchronize(device)
+            before = COUNTS.snapshot()
+            pool = torch.cuda.graph_pool_handle()
+            self.graphs = []
+            for captured, fn in parts:
+                graph = None
+                if captured:
+                    graph = torch.cuda.CUDAGraph()
+                    capture(graph, fn, device, pool=pool)
+                self.graphs.append(graph)
         self.launches = COUNTS.since(before)
         COUNTS.add(self.launches, -1)
         torchmon.record_compile(time.perf_counter() - t0)
@@ -570,9 +644,58 @@ def _init_factors(n: int, rank: int, seed: int, salt: int) -> np.ndarray:
     return np.abs(f) / np.sqrt(rank)
 
 
+def _to_sharded(table: torch.Tensor, n_rows: int, mesh):
+    """The first `n_rows` rows of a trained device table as a
+    `ShardedTable` over `mesh`'s model axis, padded to its sharded row
+    bucket: this process's shards, each a tensor of its own, attached as
+    the resident handle. The host mirrors hold every shard: a train
+    ends with the whole table in every process, so process 0 can persist
+    it alone; a deployed process restores only its own."""
+    from predictionio_tpu_torch.parallel.mesh import DeviceShards
+    from predictionio_tpu_torch.parallel.sharded_table import ShardedTable
+    n_shards = mesh.model_parallelism
+    target = B.bucket_rows_sharded(n_rows, n_shards)
+    per = target // n_shards
+    owned = mesh.owned_parts(mesh.MODEL_AXIS)
+    parts = []
+    for j in owned:
+        lo, hi = j * per, min((j + 1) * per, n_rows)
+        part = table.new_zeros((per, table.shape[1]), dtype=torch.float32)
+        if hi > lo:
+            part[:hi - lo] = table[lo:hi]
+        parts.append(part)
+    dev = DeviceShards(parts, [j * per for j in owned],
+                       (target, table.shape[1]), n_shards, 0, mesh)
+    host = table.to("cpu", torch.float32).numpy()
+    return ShardedTable.from_host(host, n_shards,
+                                  padded_rows=target).attach_device(dev)
+
+
+def _train_mesh(mesh, dev: torch.device, cfg: ALSConfig):
+    """The mesh a train runs on: the one given, else the thread's active
+    mesh on `dev`, else the process-wide mesh with one model shard a
+    process; None for a replicated single-process train."""
+    from predictionio_tpu_torch.parallel import mesh as M
+    if mesh is not None:
+        return mesh
+    if cfg.factor_sharding != "model" and M.world_size() == 1:
+        return None
+    active = M.active_mesh()
+    if active is not None and M._same_device(active.device, dev):
+        return active
+    return M.model_mesh(M.world_size(), dev)
+
+
 def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
-              telemetry: Optional[dict] = None) -> ALSModel:
-    """Train explicit or implicit ALS on `device` (default: the card).
+              telemetry: Optional[dict] = None, mesh=None) -> ALSModel:
+    """Train explicit or implicit ALS on `device` (default: the mesh's,
+    else the card).
+
+    `mesh` (`parallel/mesh.MeshContext`) matters with
+    `factor_sharding='model'` (its model axis splits the tables) and
+    with more than one process (the train is data-parallel over them,
+    module docstring); without one the thread's active mesh, else one
+    model shard a process, is used.
 
     `telemetry`, when a dict, receives per-phase wall times (plan_s,
     upload_s, iters_s, s_per_iter, fetch_s, and iter_s, one per
@@ -582,7 +705,9 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
     and the capture), `replays`, `warmup_calls` (the warm-up iteration's
     solves, launched on copies of the tables) and `captured_launches`
     (the kernel launches of one replay)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
+    mesh = _train_mesh(mesh, dev, cfg)
     solver = resolve_solver(cfg.solver, dev)
     t0 = time.perf_counter()
     user_plan = plan_for_users(ratings, work_budget=cfg.work_budget,
@@ -614,13 +739,19 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
     chunk = resolve_sweep_chunk(cfg.sweep_chunk)
     user_batches = _upload_plan(user_plan, dev, dtype, chunk)
     item_batches = _upload_plan(item_plan, dev, dtype, chunk)
+    syncs = None
+    if mesh is not None and mesh.n_processes > 1:
+        syncs = (_SideSync(user_batches, mesh), _SideSync(item_batches,
+                                                          mesh))
     synchronize(dev)
     tel["upload_s"] = time.perf_counter() - t0
-    calls_per_iter = len(user_batches) + len(item_batches)
+    calls_per_iter = (len(user_batches) + len(item_batches) if syncs is None
+                      else len(syncs[0].mine) + len(syncs[1].mine))
     step = functools.partial(_iteration, U, V, user_batches, item_batches,
                              cfg, solver, ratings.n_users, ratings.n_items,
-                             dtype)
-    if cfg.fuse_iteration and dev.type == "cuda":
+                             dtype, syncs)
+    # a graph holds no collective: a data-parallel train runs eagerly
+    if cfg.fuse_iteration and dev.type == "cuda" and syncs is None:
         t0 = time.perf_counter()
         with costmon.executable(costmon.ALS_SWEEP, defer_to_outer=True):
             fused = _FusedIteration(
@@ -686,6 +817,12 @@ def als_train(ratings: RatingsCOO, cfg: ALSConfig, device=None,
     # copy (as the reference's) and the serving copy
     U_dev = U[:ratings.n_users].to(dtype)
     V_dev = V[:ratings.n_items].to(dtype)
+    if cfg.factor_sharding == "model" and cfg.keep_sharded:
+        model = ALSModel(_to_sharded(U_dev, ratings.n_users, mesh),
+                         _to_sharded(V_dev, ratings.n_items, mesh),
+                         cfg.rank, dev)
+        tel["fetch_s"] = time.perf_counter() - t0
+        return model
     model = ALSModel(U_dev.cpu().numpy(), V_dev.cpu().numpy(), cfg.rank,
                      dev, _tables=(U_dev, V_dev))
     tel["fetch_s"] = time.perf_counter() - t0
@@ -710,12 +847,28 @@ def _users_topk_b(U: torch.Tensor, V: torch.Tensor, ixs: torch.Tensor,
 
 
 def _aot_batch_predict_builder(bound, u: int = 0, i: int = 0, b: int = 0,
-                               k: int = 0, r: int = 0, p: int = 0):
+                               k: int = 0, r: int = 0, p: int = 0,
+                               s: int = 0):
     """(program, example arguments) of one `batch_predict` bucket for the
     model `bound` names: its tables uploaded at the (u, i) row buckets,
-    the batch of user indices the static input."""
+    the batch of user indices the static input. `s` > 0 is the
+    model-sharded layout: the item table's `s` shards at the row bucket
+    `i`, the two-phase top-k (`ops/topk.py`), and the batch of user
+    vectors (gathered from the host mirrors) the static input."""
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
     (model,) = bound
+    if s:
+        from predictionio_tpu_torch.compile.aot import sharded_aval
+        from predictionio_tpu_torch.ops.topk import (
+            _bound_program, make_batched_sharded_topk, sharded_k_split)
+        from predictionio_tpu_torch.parallel.mesh import model_mesh
+        mesh = model_mesh(s, model.device)
+        k_local, k_final = sharded_k_split(k, i, s)
+        fn = make_batched_sharded_topk(mesh, k_local, k_final, False,
+                                       False, pack=p)
+        V = model.item_factors.device(mesh, target_rows=i)
+        return (functools.partial(_bound_program, fn, V, model.n_items),
+                (sharded_aval((b, r), np.float32, mesh=mesh),))
     U = cached_put_rows(model.user_factors, u, model.device)
     V = cached_put_rows(model.item_factors, i, model.device)
     fn = functools.partial(_users_topk_b, U, V, n_items=model.n_items, k=k,
@@ -741,7 +894,20 @@ def batch_predict_dims(model: ALSModel, batch: int, k: int) -> dict:
     """The shape-bucket dims of one batched serve top-k over `model`,
     shared by the serve dispatch and the deploy warm-up: the tables' row
     buckets `u` and `i`, the batch bucket `b`, the top-k bucket `k` (a
-    pow2 from 16, at most `i`), the rank `r` and the pack mode `p`."""
+    pow2 from 16, at most `i`), the rank `r` and the pack mode `p`. A
+    model-sharded item table gets the sharded layout's dims: `s` (its
+    shard count), `i` its sharded row bucket and no `u` (the user rows
+    come from the host mirrors), so the two layouts never share a
+    bucket."""
+    from predictionio_tpu_torch.parallel.sharded_table import is_sharded
+    if is_sharded(model.item_factors):
+        V = model.item_factors
+        i_b = max(V.padded_rows,
+                  B.bucket_rows_sharded(model.n_items, V.n_shards))
+        return {"i": i_b, "b": B.bucket_batch(batch),
+                "k": min(B.bucket_batch(k, floor=B.K_FLOOR), i_b),
+                "r": model.rank, "s": V.n_shards,
+                "p": readback.pack_flag()}
     i_b = B.bucket_rows(model.n_items)
     return {"u": B.bucket_rows(model.n_users), "i": i_b,
             "b": B.bucket_batch(batch),
@@ -773,11 +939,14 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
     rides `PIO_SERVE_PACK`'s payload (`ops/readback.py`). `finish` may
     run on another thread; it is the only wait."""
     from predictionio_tpu_torch.compile.aot import get_aot
+    from predictionio_tpu_torch.parallel.sharded_table import is_sharded
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
     register_aot_specs()
     user_ixs = np.asarray(user_ixs, dtype=np.int64)
     n = user_ixs.shape[0]
     dims = batch_predict_dims(model, n, k)
+    if is_sharded(model.item_factors):
+        return _users_topk_serve_sharded_begin(model, user_ixs, dims)
     ixs = np.zeros(dims["b"], dtype=np.int64)
     ixs[:n] = user_ixs
     U = cached_put_rows(model.user_factors, dims["u"], model.device)
@@ -792,6 +961,36 @@ def users_topk_serve_begin(model: ALSModel, user_ixs, k: int):
             readback.to_device(ixs, U.device), bound=(model,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
+
+    def finish() -> Tuple[np.ndarray, np.ndarray]:
+        s, i = fetch()
+        return s[:n], i[:n]
+    return finish
+
+
+def _users_topk_serve_sharded_begin(model: ALSModel, user_ixs: np.ndarray,
+                                    dims: dict):
+    """The sharded route of `users_topk_serve_begin`: the query vectors
+    gathered from the user table's host mirrors (the user table takes no
+    serving memory on the device), the item table's resident shards
+    (uploaded at the bucket `i` when the table is padded below it; the
+    published model is never changed from the serve path), and the
+    two-phase top-k (`ops/topk.batched_sharded_top_k_begin`) dispatched
+    under the same `batch_predict` label, keyed on the model and its
+    shard layout. Returns `finish() -> (scores, idx)`."""
+    from predictionio_tpu_torch.ops.topk import batched_sharded_top_k_begin
+    from predictionio_tpu_torch.parallel.mesh import model_mesh
+    from predictionio_tpu_torch.parallel.sharded_table import gather_rows
+    V = model.item_factors
+    mesh = model_mesh(V.n_shards, model.device)
+    n = user_ixs.shape[0]
+    q = np.zeros((dims["b"], model.rank), dtype=np.float32)
+    q[:n] = gather_rows(model.user_factors, user_ixs)
+    with costmon.executable(costmon.BATCH_PREDICT, defer_to_outer=True):
+        fetch = batched_sharded_top_k_begin(
+            V.device(mesh, target_rows=dims["i"]), q, model.n_items,
+            dims["k"], mesh, label=costmon.BATCH_PREDICT, dims=dims,
+            bound=(model,))
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()
@@ -814,10 +1013,61 @@ def recommend_products(model: ALSModel, user_ix: int, k: int,
     return s.cpu().numpy(), i.cpu().numpy()
 
 
+def recommend_products_sharded(model: ALSModel, user_ix: int, k: int,
+                               mesh=None,
+                               exclude: Optional[np.ndarray] = None,
+                               allowed_mask: Optional[np.ndarray] = None
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k items for one user with the item table split over the
+    mesh's model axis (a `ShardedTable`'s resident shards, or a whole
+    host table's split upload at its sharded row bucket, made once,
+    `cached_put_rows`): the user row from the host mirrors
+    (`gather_rows`), then the two-phase top-k (`ops/topk.sharded_top_k`).
+    `exclude`d items and those `allowed_mask` leaves out score -inf.
+    Returns host (scores, item indices)."""
+    from predictionio_tpu_torch.ops.topk import sharded_top_k
+    from predictionio_tpu_torch.parallel.mesh import model_mesh
+    from predictionio_tpu_torch.parallel.sharded_table import (gather_rows,
+                                                               is_sharded)
+    from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    V = model.item_factors
+    if mesh is None:
+        mesh = model_mesh(V.n_shards if is_sharded(V) else 1, model.device)
+    if is_sharded(V):
+        V_dev = V.device(mesh)
+    else:
+        V_dev = cached_put_rows(
+            V, B.bucket_rows_sharded(model.n_items, mesh.model_parallelism),
+            sharding=mesh.model_sharded(2))
+    mask = np.zeros(V_dev.shape[0], dtype=bool)
+    mask[:model.n_items] = (True if allowed_mask is None
+                            else np.asarray(allowed_mask,
+                                            dtype=bool)[:model.n_items])
+    if exclude is not None and len(np.atleast_1d(exclude)):
+        mask[np.asarray(exclude, dtype=np.int64)] = False
+    mask_dev = mesh.put(mask, mesh.sharding(mesh.MODEL_AXIS))
+    u = gather_rows(model.user_factors, [int(user_ix)])[0]
+    k_eff = min(k, model.n_items)
+    scores, idx = sharded_top_k(V_dev, u, k_eff, mesh,
+                                allowed_mask_sharded=mask_dev)
+    return scores[:k_eff], idx[:k_eff]
+
+
 def predict_ratings(model: ALSModel, user_ix: np.ndarray,
                     item_ix: np.ndarray, chunk: int = 1 << 20
                     ) -> np.ndarray:
-    """Pointwise r_hat = u . v for parallel (user, item) index arrays."""
+    """Pointwise r_hat = u . v for parallel (user, item) index arrays. A
+    model with sharded tables gathers the rows from its host mirrors."""
+    from predictionio_tpu_torch.parallel.sharded_table import (is_sharded,
+                                                               table_rows)
+    if is_sharded(model.user_factors) or is_sharded(model.item_factors):
+        out = np.empty(len(user_ix), dtype=np.float32)
+        for lo in range(0, len(user_ix), chunk):
+            sl = slice(lo, lo + chunk)
+            out[sl] = np.sum(
+                table_rows(model.user_factors, user_ix[sl])
+                * table_rows(model.item_factors, item_ix[sl]), axis=-1)
+        return out
     U, V = model.tables()
     out = np.empty(len(user_ix), dtype=np.float32)
     for lo in range(0, len(user_ix), chunk):

@@ -14,8 +14,10 @@ and `torch.topk` over the item table resident on the device. The batched
 path pads the table's rows, its batch and its top-k to pow2 buckets
 (`compile/buckets.py`), dispatches through the executable registry
 (`compile/aot.py`: a captured CUDA graph, replayed) and returns its
-result through the packed readback (`ops/readback.py`). The sharded
-route is a later slice (ROADMAP.md, queue A).
+result through the packed readback (`ops/readback.py`). An item table
+split over the mesh's model axis (a `ShardedTable`) takes the sharded
+route, `_masked_top_k_batch_sharded_begin`: its masks split by item over
+the shards and the two-phase top-k of `ops/topk.py`.
 """
 
 from __future__ import annotations
@@ -114,12 +116,30 @@ def _masked_topk_b(table: torch.Tensor, q: torch.Tensor,
 
 
 def _aot_masked_topk_builder(bound, b: int = 0, i: int = 0, r: int = 0,
-                             k: int = 0, fp: int = 0, p: int = 0):
+                             k: int = 0, fp: int = 0, p: int = 0,
+                             s: int = 0):
     """(program, example arguments) of one `batch_predict_masked` bucket
     over the item table `bound` names, padded to the row bucket `i` on
-    its device; the query vectors and masks are the static inputs."""
+    its device; the query vectors and masks are the static inputs. `s` >
+    0: a `ShardedTable`'s `s` shards on the mesh of its resident handle,
+    the two-phase top-k, and the masks' per-shard parts."""
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
     (item_table,) = bound
+    if s:
+        from predictionio_tpu_torch.compile.aot import sharded_aval
+        from predictionio_tpu_torch.ops.topk import (
+            _bound_program, make_batched_sharded_topk, sharded_k_split)
+        from predictionio_tpu_torch.parallel.mesh import model_mesh
+        held = item_table._dev
+        mesh = held.mesh if held is not None else model_mesh(s)
+        k_local, k_final = sharded_k_split(k, i, s)
+        fn = make_batched_sharded_topk(mesh, k_local, k_final, True,
+                                       bool(fp), pack=p)
+        V = item_table.device(mesh, target_rows=i)
+        masks = sharded_aval((b, i), bool, None, mesh.MODEL_AXIS, mesh=mesh)
+        return (functools.partial(_bound_program, fn, V, item_table.n_rows),
+                (sharded_aval((b, r), np.float32, mesh=mesh),
+                 *masks.tensors))
     table = cached_put_rows(item_table, i)
     fn = functools.partial(_masked_topk_b, table, k=k,
                            filter_positive=bool(fp), p=p)
@@ -143,9 +163,9 @@ def register_aot_specs() -> None:
     _aot_specs_registered = True
 
 
-def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
+def masked_top_k_batch(item_table, query_vecs: np.ndarray,
                        masks: np.ndarray, k: int,
-                       filter_positive: bool = True
+                       filter_positive: bool = True, device=None
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Batched masked dot top-k in one matmul for B queries.
 
@@ -157,14 +177,16 @@ def masked_top_k_batch(item_table: torch.Tensor, query_vecs: np.ndarray,
     [B, k']) with k' the bucketed k (at most the table's row bucket);
     callers drop the -inf slots and cut to their own num
     (`unpack_top_k_rows`). The scores are those `PIO_SERVE_PACK` sends
-    (f16 by default)."""
+    (f16 by default). `device` places a `ShardedTable` item table (None
+    = the card); a tensor table ranks on its own device."""
     return masked_top_k_batch_begin(item_table, query_vecs, masks, k,
-                                    filter_positive=filter_positive)()
+                                    filter_positive=filter_positive,
+                                    device=device)()
 
 
-def masked_top_k_batch_begin(item_table: torch.Tensor,
-                             query_vecs: np.ndarray, masks: np.ndarray,
-                             k: int, filter_positive: bool = True):
+def masked_top_k_batch_begin(item_table, query_vecs: np.ndarray,
+                             masks: np.ndarray, k: int,
+                             filter_positive: bool = True, device=None):
     """`masked_top_k_batch` in two stages: upload the padded queries and
     masks, enqueue the ranking and the copy of its result now, and
     return `finish() -> (scores [B, k'], idx [B, k'])`, which waits for
@@ -177,7 +199,11 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
     never replay for a grown one (`ops/als.users_topk_serve_begin`)."""
     from predictionio_tpu_torch.compile.aot import get_aot
     from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.parallel.sharded_table import is_sharded
     from predictionio_tpu_torch.utils.device_cache import cached_put_rows
+    if is_sharded(item_table):
+        return _masked_top_k_batch_sharded_begin(
+            item_table, query_vecs, masks, k, filter_positive, device)
     register_aot_specs()
     dev = item_table.device
     n_items, rank = item_table.shape
@@ -199,6 +225,46 @@ def masked_top_k_batch_begin(item_table: torch.Tensor,
             readback.to_device(mp, dev), bound=(item_table,))
     fetch = (readback.begin_fetch_packed(out, p) if p
              else readback.begin_fetch(*out))
+
+    def finish() -> Tuple[np.ndarray, np.ndarray]:
+        s, i = fetch()
+        return s[:n], i[:n]
+    return finish
+
+
+def _masked_top_k_batch_sharded_begin(item_table, query_vecs: np.ndarray,
+                                      masks: np.ndarray, k: int,
+                                      filter_positive: bool, device=None):
+    """The sharded route of `masked_top_k_batch_begin`: the item table's
+    resident shards (uploaded at its sharded row bucket), the padded
+    [B, I] masks split by item over the shards, and the two-phase top-k
+    (`ops/topk.batched_sharded_top_k_begin`) under the same
+    `batch_predict_masked` label; the `s` dim keeps the sharded and
+    replicated buckets apart. The executable is keyed on the table.
+    Returns `finish() -> (scores, idx)`."""
+    from predictionio_tpu_torch.obs import costmon
+    from predictionio_tpu_torch.ops.topk import batched_sharded_top_k_begin
+    from predictionio_tpu_torch.parallel.mesh import model_mesh
+    mesh = model_mesh(item_table.n_shards, device)
+    n_items = item_table.shape[0]
+    n, rank = query_vecs.shape
+    i_b = max(item_table.padded_rows,
+              B.bucket_rows_sharded(n_items, item_table.n_shards))
+    dims = {"b": B.bucket_batch(n), "i": i_b, "r": int(rank),
+            "k": min(B.bucket_batch(k, floor=B.K_FLOOR), i_b),
+            "fp": int(bool(filter_positive)), "s": item_table.n_shards,
+            "p": readback.pack_flag()}
+    qp = np.zeros((dims["b"], rank), dtype=np.float32)
+    qp[:n] = query_vecs
+    mp = np.zeros((dims["b"], i_b), dtype=bool)
+    mp[:n, :n_items] = masks
+    with costmon.executable(costmon.BATCH_PREDICT_MASKED,
+                            defer_to_outer=True):
+        fetch = batched_sharded_top_k_begin(
+            item_table.device(mesh, target_rows=i_b), qp, n_items,
+            dims["k"], mesh, masks=mp, filter_positive=filter_positive,
+            label=costmon.BATCH_PREDICT_MASKED, dims=dims,
+            bound=(item_table,))
 
     def finish() -> Tuple[np.ndarray, np.ndarray]:
         s, i = fetch()

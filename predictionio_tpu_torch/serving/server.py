@@ -109,6 +109,24 @@ The routes are served by `utils/http` (`Router`, `HttpServer`), as the
 event server's are: an unknown path answers 404 and a known path asked
 with another method 405.
 
+A sharded deploy across P processes (`parallel/mesh.init_distributed`;
+`python -m predictionio_tpu_torch deploy` under `PIO_COORDINATOR`): every
+process builds its server, which makes a `serving/mesh_serving.
+MeshQueryCoordinator`. Process 0 serves HTTP and broadcasts each query's
+JSON body (or its window's list of them) before the device work
+(`_spmd_guard`, held until the window's readback); the others run
+`serve_mesh_worker`, answering the same payloads on their shards. Under
+more than one process the result cache is off (a hit on the primary
+would skip the collective the workers wait in, and keep answering after
+a worker died), windows are not pipelined (`serve_inflight` 1), a canary
+is not staged and `/reload` answers 400: each would run different
+programs on different processes. `/stats.json` carries
+`meshCoordinator`, `meshCollectives` (this process's collective calls
+and bytes by kind, `parallel/collective_stats`) and `modelSharding`,
+`/metrics`
+`pio_engine_mesh_processes` and `pio_engine_mesh_poisoned`; a poisoned
+coordinator answers every query 503.
+
 A serving host's tenant slot (`tenancy/host.py`) is a server made with
 `tenant=` and the host's `shared_result_cache`: its query, batch, load
 and swap paths (and the micro-batcher's threads) run under the tenant's
@@ -123,6 +141,7 @@ series; its incident state registers as `engine_server.<tenant>`; and
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import threading
@@ -207,6 +226,12 @@ class ServerConfig:
     canary_max_error_ratio: float = 2.0
     canary_max_latency_ratio: float = 3.0
     canary_nan_tolerance: int = 0
+    # a sharded deploy across processes: the query broadcast's buffer
+    # (every broadcast ships all of it; raise it for large windows of
+    # filter-heavy queries) and the seconds after which a broadcast that
+    # has not completed poisons the coordinator (503 from then on)
+    mesh_broadcast_bytes: int = 1 << 16
+    mesh_broadcast_timeout_s: float = 30.0
 
 
 def _request_deadline_s(headers) -> Optional[float]:
@@ -233,8 +258,18 @@ class EngineServer:
                  trained: Optional[TrainResult] = None,
                  plugin_context: Optional[EngineServerPluginContext] = None,
                  tenant: Optional[str] = None,
-                 shared_result_cache: Optional[RC.ResultCache] = None):
+                 shared_result_cache: Optional[RC.ResultCache] = None,
+                 mesh_coordinator=None):
         self.config = config
+        # a sharded deploy across processes (module docstring)
+        if mesh_coordinator is None:
+            from predictionio_tpu_torch.serving.mesh_serving import \
+                MeshQueryCoordinator
+            mesh_coordinator = MeshQueryCoordinator.create_if_distributed(
+                max_bytes=config.mesh_broadcast_bytes,
+                broadcast_timeout_s=config.mesh_broadcast_timeout_s)
+        self.coordinator = mesh_coordinator
+        single_process = self._single_process()
         # a serving host's tenant slot: its query, batch, load and swap
         # paths run under the tenant's attribution scope, and its result
         # cache is the tenant's namespace of the host's shared one
@@ -311,7 +346,7 @@ class EngineServer:
             nan_tolerance=config.canary_nan_tolerance),
             registry=self.metrics)
         self.result_cache: Optional[RC.ResultCache] = None
-        if config.result_cache and RC.cache_enabled():
+        if config.result_cache and RC.cache_enabled() and single_process:
             if shared_result_cache is not None and self.tenant is not None:
                 self.result_cache = RC.TenantResultCache(
                     shared_result_cache, self.tenant)
@@ -332,15 +367,27 @@ class EngineServer:
                 max_wait_ms=config.micro_batch_wait_ms,
                 latency_budget_ms=config.micro_batch_latency_budget_ms,
                 process_batch_begin=self.handle_query_batch_begin,
-                inflight=config.serve_inflight,
+                inflight=config.serve_inflight if single_process else 1,
                 adaptive=config.adaptive_batching, metrics=self.metrics,
                 tenant=self.tenant)
         self._register_metrics()
+
+    def _single_process(self) -> bool:
+        return self.coordinator is None or not self.coordinator.multi_process
 
     def _register_metrics(self) -> None:
         """Mount the serving counters on the registry: func collectors
         read the live attributes at scrape time."""
         m = self.metrics
+        if self.coordinator is not None:
+            m.gauge_func("pio_engine_mesh_processes",
+                         "Processes in the serving mesh",
+                         lambda: self.coordinator.health()["processes"])
+            m.gauge_func("pio_engine_mesh_poisoned",
+                         "1 when a mesh broadcast failed and every query "
+                         "answers 503 until the mesh is redeployed",
+                         lambda: int(
+                             self.coordinator.health()["poisoned"]))
         m.counter_func("pio_engine_requests_total", "Queries served",
                        lambda: self.request_count)
         m.counter_func("pio_engine_serving_seconds_total",
@@ -585,7 +632,8 @@ class EngineServer:
             raise ValueError(f"swap_models got {len(models)} models for "
                              f"{len(algorithms)} algorithms")
         warm = self._warm_aot(algorithms, models, version)
-        if self.canary.stage(models, version, int(fold_in_events)):
+        if self._single_process() and self.canary.stage(
+                models, version, int(fold_in_events)):
             with self._lock:
                 self.last_aot_warm = warm
             self._arm_swap_marker(version, candidate_only=True)
@@ -740,7 +788,7 @@ class EngineServer:
             models = canary_models
         query = self.decode(query_dict, algorithms)
         try:
-            with self._tenant_cm():
+            with self._tenant_cm(), self._spmd_guard(query_dict):
                 with TRACER.span("supplement"):
                     supplemented = serving.supplement(query)
                 tp = time.perf_counter()
@@ -782,7 +830,9 @@ class EngineServer:
         every algorithm's batch predict. Returns `finish() -> List[dict]`,
         the second stage: wait for the results, serve, post the feedback
         events and run the output plugins (`_post_process`); a candidate
-        window's answers carry `CANARY_TAG`."""
+        window's answers carry `CANARY_TAG`. Under a multi-process mesh
+        the window's bodies are broadcast first, and the slot is held
+        until `finish` has read the results back."""
         t0 = time.perf_counter()
         queries = [q for q, _ in items]
         algorithms, models, serving = self._snapshot()
@@ -790,7 +840,9 @@ class EngineServer:
         if canary_models is not None:
             models = canary_models
         n = len(queries)
+        guard = contextlib.ExitStack()
         try:
+            guard.enter_context(self._spmd_guard([d for _, d in items]))
             with self._tenant_cm():
                 with TRACER.span("supplement"):
                     indexed = [(i, serving.supplement(q))
@@ -810,6 +862,7 @@ class EngineServer:
                             fetchers.append(lambda res=res: res)
                 dispatch_dt = time.perf_counter() - tp
         except Exception:
+            guard.close()
             self._canary_observe(arm, error=True,
                                  latency_s=time.perf_counter() - t0, n=n)
             raise
@@ -819,7 +872,8 @@ class EngineServer:
                 tr = time.perf_counter()
                 w0 = readback.thread_wait_s()
                 b0 = readback.thread_d2h_bytes()
-                with TRACER.span("readback") as rb_span:
+                # a mesh's slot is held until the results are back
+                with guard, TRACER.span("readback") as rb_span:
                     # the wait on the window's copy (in flight since the
                     # dispatch) and the host unpack
                     per_algo = [dict(f()) for f in fetchers]
@@ -857,6 +911,56 @@ class EngineServer:
                 return [dict(d, **tag) for d in out]
             return out
         return finish
+
+    def _spmd_guard(self, payload):
+        """Broadcast `payload` to the mesh's workers and hold the slot
+        for its device work; a no-op in a single process and on a
+        worker (whose order is its loop's)."""
+        if self.coordinator is None:
+            return contextlib.nullcontext()
+        return self.coordinator.serialized(payload)
+
+    def serve_mesh_worker(self) -> None:
+        """Run this process as a mesh worker: answer every payload the
+        primary broadcasts with the same predict, on this process's
+        shards, until the primary shuts the loop down. Feedback and
+        output plugins stay the primary's (a worker posting them too
+        would post every answer P times)."""
+        if self.coordinator is None or self.coordinator.is_primary:
+            raise RuntimeError("serve_mesh_worker needs a multi-process "
+                               "mesh and a process rank above 0")
+        if self.config.feedback:
+            import dataclasses
+            self.config = dataclasses.replace(self.config, feedback=False)
+        self.plugin_context = EngineServerPluginContext()
+
+        def handler(obj):
+            if isinstance(obj, list):
+                self.handle_query_batch([(self.decode(d), d) for d in obj])
+            else:
+                self.handle_query(obj)
+
+        logger.info("mesh serve worker ready (%d processes)",
+                    self.coordinator.n_processes)
+        self.coordinator.worker_loop(handler)
+
+    def _model_sharding(self) -> list:
+        """Each algorithm's factor-table layout for `/stats.json`: a
+        sharded item table's shard count, rows, one shard's bytes and
+        whether it is resident; else 'replicated'."""
+        from predictionio_tpu_torch.parallel.sharded_table import is_sharded
+        out = []
+        for m in list(self.models):
+            als = getattr(m, "als", None) or m
+            t = getattr(als, "item_factors", None)
+            if is_sharded(t):
+                out.append({"layout": "model", "shards": t.n_shards,
+                            "rows": t.n_rows,
+                            "perShardBytes": t.per_shard_nbytes,
+                            "resident": t._dev is not None})
+            else:
+                out.append({"layout": "replicated"})
+        return out
 
     def status(self) -> dict:
         with self._lock:
@@ -921,6 +1025,12 @@ class EngineServer:
         out["aot"] = get_aot().snapshot()
         out["buildCache"] = cache_status()
         out["deviceTime"] = costmon.device_snapshot()
+        out["modelSharding"] = self._model_sharding()
+        if self.coordinator is not None:
+            from predictionio_tpu_torch.parallel.collective_stats import \
+                collective_stats
+            out["meshCoordinator"] = self.coordinator.health()
+            out["meshCollectives"] = collective_stats()
         return out
 
     def answer(self, query_dict, deadline_s: Optional[float] = None) -> dict:
@@ -1087,6 +1197,12 @@ class EngineServer:
         return self._reload_inner()
 
     def _reload_inner(self) -> Response:
+        if not self._single_process():
+            # a reload on the primary alone would rank against other
+            # shards than the workers'
+            return Response(400, {
+                "message": "reload is not supported under a "
+                           "multi-process mesh; redeploy all processes"})
         try:
             self.reload()
         except Exception as e:   # keep serving the old models
@@ -1231,8 +1347,9 @@ class EngineServer:
     def stop(self) -> None:
         """Deregister from the fleet, stop listening, then stop the
         micro-batcher (windows already dispatched complete; queued
-        queries fail with 503). Stops run one at a time, so a second
-        `stop` returns only once the first has finished."""
+        queries fail with 503), then release a mesh's workers. Stops run
+        one at a time, so a second `stop` returns only once the first has
+        finished."""
         with self._stop_lock:
             with self._lock:
                 fleet_id, self._fleet_id = self._fleet_id, None
@@ -1242,3 +1359,5 @@ class EngineServer:
                 httpd.stop()
             if self.batcher is not None:
                 self.batcher.stop()
+            if self.coordinator is not None:
+                self.coordinator.shutdown()

@@ -20,8 +20,8 @@ exports:
 
 Where the port differs on purpose: a tenant's CUDA graphs are its own
 (a graph bakes in the addresses of the tables it read), so an eviction
-drops them with the tables; resident bytes are summed by storage; and
-there are no sharded tables until the sharded plane is ported.
+drops them with the tables, and a sharded table's resident shards with
+them; resident bytes are summed by storage.
 """
 
 from predictionio_tpu_torch.tenancy.budget import (HBMBudgetManager,

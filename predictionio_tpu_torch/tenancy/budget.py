@@ -27,9 +27,10 @@ may stay there.
   `tenant_eviction` flight record. The host mirrors (the models' numpy
   tables) stay: the next hit uploads again.
 
-The port has no sharded tables until the sharded plane is ported
-(ROADMAP A8): `is_sharded` says so, and every table is replicated, its
-padded bytes counted whole.
+A sharded table (`parallel/sharded_table.ShardedTable`) is estimated at
+its padded bytes / n_shards, as the reference's is: one logical device's
+share. Its resident shard tensors reach `sizes` through the host's
+sizer, by storage like every other tensor.
 """
 
 from __future__ import annotations
@@ -51,9 +52,10 @@ __all__ = ["HBMBudgetManager", "TableBudgetExceeded",
 
 
 def is_sharded(table: Any) -> bool:
-    """False: the port has no sharded factor tables until the sharded
-    plane (ROADMAP A8) is ported, so every table is replicated."""
-    return False
+    """True for a `ShardedTable`."""
+    from predictionio_tpu_torch.parallel.sharded_table import \
+        is_sharded as _is_sharded
+    return _is_sharded(table)
 
 
 def _model_objects(models: Sequence[Any]) -> List[Any]:
@@ -87,12 +89,18 @@ def _iter_tables(models: Sequence[Any]):
 
 def estimate_padded_bytes(models: Sequence[Any]) -> int:
     """Bytes the models' tables take once resident at their row buckets:
-    the admission estimate (the reference's, on the port's buckets)."""
+    the admission estimate (the reference's, on the port's buckets). A
+    sharded table costs its padded bytes / n_shards."""
     from predictionio_tpu_torch.compile import buckets as B
     total = 0
     for t in _iter_tables(models):
         n, width = t.shape
-        total += B.bucket_rows(n) * width * np.dtype(t.dtype).itemsize
+        itemsize = np.dtype(t.dtype).itemsize
+        if is_sharded(t):
+            padded = B.bucket_rows_sharded(n, t.n_shards)
+            total += (padded // t.n_shards) * width * itemsize
+        else:
+            total += B.bucket_rows(n) * width * itemsize
     return int(total)
 
 

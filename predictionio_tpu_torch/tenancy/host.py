@@ -170,9 +170,7 @@ class TenantSlot:
             "cold": self.cold,
             "scheduler": self.scheduler is not None,
             "canary": srv.canary.stats(),
-            "modelSharding": [
-                "sharded" if any(is_sharded(t) for t in _iter_tables([m]))
-                else "replicated" for m in srv.models],
+            "modelSharding": srv._model_sharding(),
             "admittedAt": self.admitted_at,
         }
 
@@ -256,6 +254,7 @@ class ServingHost:
         self.budget.admit(
             spec.key, server.models, priority=spec.priority,
             pinned=spec.pinned,
+            sizer=lambda s=slot: self._sharded_devs(s),
             evictor=lambda s=slot: self._evict_slot(s))
         with self._lock:
             self.slots[spec.key] = slot
@@ -358,6 +357,17 @@ class ServingHost:
         models.extend(slot.server.canary._candidate_models or ())
         return models
 
+    def _sharded_tables(self, slot: TenantSlot) -> List:
+        return [t for t in _iter_tables(self._slot_models(slot))
+                if is_sharded(t)]
+
+    def _sharded_devs(self, slot: TenantSlot) -> List:
+        """The shard tensors the slot's sharded tables hold resident:
+        tensors, not bytes, so the budget counts each storage once
+        beside the residency payloads that hold the same ones."""
+        return [d for t in self._sharded_tables(slot)
+                for d in t.device_tensors()]
+
     def _evict_slot(self, slot: TenantSlot) -> None:
         """The budget's evictor for one slot: quiesce its windows, then
         drop its graphs (each holds the tables it captured; their owners
@@ -380,8 +390,12 @@ class ServingHost:
                       for o in (m, getattr(m, "als", None))]
             owners.extend(
                 device_cache.tenant_device_arrays().get(slot.key, ()))
+            sharded = self._sharded_tables(slot)
+            owners.extend(sharded)
             get_aot().drop_owners(owners)
             device_cache.evict_tenant(slot.key)
+            for t in sharded:
+                t.drop_device()
             slot.cold = True
 
     def evict_tenant(self, key: str, reason: str = "operator") -> dict:

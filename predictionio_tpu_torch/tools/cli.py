@@ -84,9 +84,14 @@ baseline, `analysis/lint_baseline.json`, with `bin/pio lint`'s flags and
 JSON report; it exits 0 only with no new finding, no parse error and no
 stale baseline entry.
 
-The only option still only in the JAX package's `bin/pio` is deploy's
-sharded serving (`--mesh-broadcast-bytes`): run it through that
-`bin/pio` on a machine that has JAX, against the same store.
+A sharded engine trains and deploys across P processes: start each
+process with `PIO_COORDINATOR=host:port`, `PIO_NUM_PROCESSES=P` and
+`PIO_PROCESS_ID=p` (`parallel/mesh.init_distributed`). `train` is then
+data-parallel and process 0 records the instance; `deploy` serves HTTP
+from process 0, which broadcasts every query to the others
+(`--mesh-broadcast-bytes`, `--mesh-broadcast-timeout`), and they answer
+it on their shards (`serving/mesh_serving.py`). `status` prints the
+mesh the environment names.
 """
 
 from __future__ import annotations
@@ -108,8 +113,7 @@ DESCRIPTION = (
     "undeploy, update, rollback, eventserver, dashboard, adminserver, app, "
     "accesskey, export, import, trim, servers, snapshot, run, upgrade, "
     "cache, incidents, profile, fleet, faults, spill, template, bootstrap, "
-    "tenants, placement, lint. Still only in the JAX package's bin/pio: "
-    "the sharded serving of deploy.")
+    "tenants, placement, lint.")
 
 
 def cmd_version(args) -> int:
@@ -140,6 +144,14 @@ def cmd_status(args) -> int:
     else:
         print("  no CUDA device: the port's entry points need a card "
               "(or device=\"cpu\" by name).")
+    print("Inspecting the mesh...")
+    coordinator = os.environ.get("PIO_COORDINATOR")
+    if coordinator:
+        print(f"  process {os.environ.get('PIO_PROCESS_ID', '?')} of "
+              f"{os.environ.get('PIO_NUM_PROCESSES', '?')} via "
+              f"tcp://{coordinator}")
+    else:
+        print("  one process (PIO_COORDINATOR is not set)")
     if args.telemetry:
         _print_telemetry(args)
     if args.slo:
@@ -302,11 +314,29 @@ def cmd_unregister(args) -> int:
     return 1
 
 
+def _train_mesh_worker(config) -> int:
+    """A process above rank 0 of a multi-process train: the same read,
+    prepare and data-parallel train as process 0, whose collectives it
+    joins; process 0 alone records the instance and persists."""
+    from predictionio_tpu_torch.models import get_engine_factory
+    from predictionio_tpu_torch.workflow.create_workflow import load_variant
+    variant = load_variant(config.engine_variant)
+    engine = get_engine_factory(config.engine_factory
+                                or variant["engineFactory"]).apply()
+    engine.train(engine.json_to_engine_params(variant),
+                 not config.skip_sanity_check)
+    print("Mesh train worker: done.", flush=True)
+    return 0
+
+
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.core.engine import (
         StopAfterPrepareInterruption, StopAfterReadInterruption)
+    from predictionio_tpu_torch.parallel.mesh import (init_distributed,
+                                                      process_index)
     from predictionio_tpu_torch.workflow import (WorkflowConfig,
                                                  create_workflow_main)
+    init_distributed()   # a no-op unless PIO_COORDINATOR is set
     config = WorkflowConfig(
         batch=args.batch or "",
         engine_variant=args.engine_json,
@@ -317,6 +347,8 @@ def cmd_train(args) -> int:
         stop_after_read=args.stop_after_read,
         stop_after_prepare=args.stop_after_prepare,
         verbose=args.verbose)
+    if process_index() > 0:
+        return _train_mesh_worker(config)
     try:
         instance_id = create_workflow_main(config)
     except (StopAfterReadInterruption, StopAfterPrepareInterruption) as e:
@@ -393,9 +425,15 @@ def _stop_stale_server(ip: str, port: int) -> None:
 
 
 def cmd_deploy(args) -> int:
+    from predictionio_tpu_torch.parallel.mesh import (init_distributed,
+                                                      process_index)
     from predictionio_tpu_torch.serving.server import (EngineServer,
                                                        ServerConfig)
-    if args.port:
+    init_distributed()   # a no-op unless PIO_COORDINATOR is set
+    primary = process_index() == 0
+    # the primary only: a worker owns no port, and a probe from every
+    # process could stop a peer's live server
+    if args.port and primary:
         _stop_stale_server(args.ip, args.port)
     config = ServerConfig(
         ip=args.ip, port=args.port,
@@ -408,8 +446,18 @@ def cmd_deploy(args) -> int:
         event_server_port=args.event_server_port,
         accesskey=args.accesskey or "",
         canary_fraction=args.canary_fraction,
-        canary_window_s=args.canary_window)
-    server = EngineServer(config).load().bind()
+        canary_window_s=args.canary_window,
+        mesh_broadcast_bytes=args.mesh_broadcast_bytes,
+        mesh_broadcast_timeout_s=args.mesh_broadcast_timeout)
+    server = EngineServer(config).load()
+    if not primary:
+        # a mesh worker: no HTTP front end; it answers each query the
+        # primary broadcasts on its own shards
+        print("Mesh serve worker: mirroring the primary's query path.",
+              flush=True)
+        server.serve_mesh_worker()
+        return 0
+    server.bind()
     print(f"Engine is deployed and running. Engine API is live at "
           f"http://{config.ip}:{config.port}.", flush=True)
     return _serve_foreground(server, "engine server")
@@ -1443,6 +1491,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "on a watchdog breach (0 = swap at once)")
     d.add_argument("--canary-window", type=float, default=30.0,
                    help="the watchdog's decision window, seconds")
+    d.add_argument("--mesh-broadcast-bytes", type=int, default=1 << 16,
+                   help="a multi-process deploy's query broadcast buffer")
+    d.add_argument("--mesh-broadcast-timeout", type=float, default=30.0,
+                   help="seconds after which a query broadcast that has "
+                        "not completed poisons the mesh (503 from then "
+                        "on)")
     d.set_defaults(func=cmd_deploy)
 
     u = sub.add_parser("undeploy", help="stop a deployed engine server")

@@ -11,7 +11,11 @@ weak reference's callback), so a retired model pins no device memory.
 `cached_put_rows` pads dim 0 with zeros to a shape bucket
 (`compile/buckets.bucket_rows`): the serve path's tables, whose padding
 rows the top-k masks. It also takes a tensor already on its device and
-pads it there. Every upload counts its bytes in `obs/torchmon`.
+pads it there, and with a `sharding` (`parallel/mesh.MeshContext.
+model_sharded`) uploads a `DeviceShards` split by rows instead, held to
+the budget one shard at a time (`_row_shards`). The layout is part of
+every key (`_sharding_key`), so a whole and a split copy of one host
+array never alias. Every upload counts its bytes in `obs/torchmon`.
 
 The residency slots (`get_resident`, `put_resident`, `drop_resident`,
 `resident_sizes`, which `obs/costmon`'s `pio_hbm_table_bytes` reads). A
@@ -94,6 +98,23 @@ def check_table_budget(per_device_bytes: int, table: str = "table") -> None:
             "(PIO_TABLE_BUDGET_BYTES); raise the budget")
 
 
+def _sharding_key(sharding) -> Any:
+    """The cache-key part of a layout (`parallel/mesh.Sharding`): None
+    for a whole tensor, else the mesh's identity and the axis of each
+    dim, so equal layouts share an entry and no two layouts alias."""
+    if sharding is None:
+        return None
+    return (id(sharding.mesh), tuple(sharding.spec))
+
+
+def _row_shards(sharding) -> int:
+    """How many ways a layout splits dim 0 (1 for none): the divisor from
+    a table's bytes to one shard's."""
+    if sharding is None or not sharding.spec or sharding.spec[0] is None:
+        return 1
+    return sharding.mesh.axis_size(sharding.spec[0])
+
+
 def get_resident(name: str, key_arrays, sharding: Any = None
                  ) -> Optional[dict]:
     """The slot's payload if it was stored against exactly these host
@@ -121,7 +142,10 @@ def put_resident(name: str, key_arrays, payload: dict,
     def evict(_ref):
         # runs from the garbage collector, maybe while this thread holds
         # the lock: a plain dict operation, and only if the slot is still
-        # the one these references key (a newer version stays)
+        # the one these references key (a newer version stays); at
+        # interpreter exit the module's dicts may be gone already
+        if _resident is None or _tenant_slots is None:
+            return
         entry = _resident.get(name)
         if entry is not None and entry[0] is refs:
             _resident.pop(name, None)
@@ -232,19 +256,25 @@ def cached_put_padded(arr, device, row_multiple: int):
                                     device or "cuda"))
 
 
-def cached_put_rows(arr, target_rows: int, device=None):
+def cached_put_rows(arr, target_rows: int, device=None, sharding=None):
     """`cached_put` with dim 0 zero-padded to `target_rows`: the
     shape-bucket upload of the serve path, so a table's rows grow inside
     their bucket without changing a shape the card sees. Memoized on
-    (array identity, rows, device); a `target_rows` below the array's
-    rows uploads it unpadded. A `torch.Tensor` is copied, padded, on its
-    own device (no upload; `device` is ignored). The padded table is
+    (array identity, rows, device, layout); a `target_rows` below the
+    array's rows uploads it unpadded. A `torch.Tensor` is copied, padded,
+    on its own device (no upload; `device` is ignored). With a
+    `sharding` (a host array only) the padded table uploads split as it
+    says, on its mesh's device. The padded table, or one shard of it, is
     checked against `PIO_TABLE_BUDGET_BYTES`."""
     import torch
     target = max(int(target_rows), arr.shape[0])
     on_device = isinstance(arr, torch.Tensor)
+    if sharding is not None:
+        device = sharding.mesh.device
     key = (id(arr), "rows", target,
            str(arr.device) if on_device else _device_key(device))
+    if sharding is not None:
+        key = key + (_sharding_key(sharding),)
     dev = _lookup(key, arr)
     if dev is not None:
         return dev
@@ -252,7 +282,11 @@ def cached_put_rows(arr, target_rows: int, device=None):
                  * arr.element_size() if on_device
                  else int(np.prod(arr.shape[1:], dtype=np.int64))
                  * arr.dtype.itemsize)
-    check_table_budget(target * row_bytes, table="cached_put_rows")
+    check_table_budget(target * row_bytes // _row_shards(sharding),
+                       table="cached_put_rows")
+    if sharding is not None:
+        return _store(key, arr, sharding.mesh.put(_pad_rows(arr, target),
+                                                  sharding))
     if on_device:
         # always a distinct tensor: the cache keeps it while `arr` lives,
         # and what holds it (a captured graph) must not keep `arr` alive
@@ -314,9 +348,15 @@ def drop_resident(name: str) -> None:
 
 
 def _device_nbytes(arr) -> int:
-    """Bytes the device holds for `arr` (a tensor's storage in use, a
-    host array's nbytes; anything else 0). The port has no sharded
-    tables yet, so a table costs its whole size on its one device."""
+    """Bytes one device holds for `arr` (a tensor's storage in use, a
+    host array's nbytes; anything else 0). A `DeviceShards` split by
+    rows counts its largest shard: what one logical device of the mesh
+    holds, so the table gauge reads 1/S of a sharded table, as the
+    reference's does (on one card the card holds every shard)."""
+    parts = getattr(arr, "tensors", None)
+    if parts is not None and getattr(arr, "dim", 0) == 0:
+        return max((int(t.numel() * t.element_size()) for t in parts),
+                   default=0)
     nbytes = getattr(arr, "nbytes", None)
     if nbytes is None and hasattr(arr, "element_size"):
         return int(arr.numel() * arr.element_size())
@@ -351,6 +391,9 @@ def _payload_arrays(obj):
     elif isinstance(obj, (list, tuple)):
         for v in obj:
             yield from _payload_arrays(v)
+    elif getattr(obj, "tensors", None) is not None:
+        # a DeviceShards: its shard tensors, each a storage of its own
+        yield from _payload_arrays(list(obj.tensors))
     elif obj is not None and _device_nbytes(obj):
         yield obj
 
@@ -391,7 +434,7 @@ def tenant_device_arrays() -> Dict[str, list]:
                     if n in _resident]
     out: Dict[str, list] = {}
     for t, dev in devs:
-        out.setdefault(t, []).append(dev)
+        out.setdefault(t, []).extend(_payload_arrays(dev))
     for t, payload in payloads:
         out.setdefault(t, []).extend(_payload_arrays(payload))
     return out
@@ -419,7 +462,7 @@ def evict_tenant(tenant: str) -> Tuple[int, int]:
             _tenant_keys.pop(k, None)
             if entry is not None:
                 dropped += 1
-                held.append(entry[1])
+                held.extend(_payload_arrays(entry[1]))
         for n in [n for n, t in list(_tenant_slots.items())
                   if t == tenant]:
             entry = _resident.pop(n, None)

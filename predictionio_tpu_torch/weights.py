@@ -17,6 +17,14 @@ the host, as it serves there). `from_jax_nb_model` and
 (predicting on `device`), `CategoricalNBModel` and `BinaryVectorizer`.
 All take plain arrays and dicts, so this module imports nothing of the
 reference package.
+
+The sharded layout: `from_jax_model` also takes the reference's
+`ShardedTable`s (anything with its `shards`, `offsets`, `n_rows`,
+`padded_rows` and `n_shards`: the per-shard host slices) and builds the
+port's `ShardedTable`s from the same slices, or splits whole tables into
+`n_shards`; `from_jax_sharded_checkpoint` reads the directory the
+reference's `ShardedALSModelCheckpoint` wrote (its npz form,
+`factors/arrays.npz` beside `vocab.npz`) into a sharded model.
 """
 
 from __future__ import annotations
@@ -38,20 +46,44 @@ from predictionio_tpu_torch.ops.markov import MarkovChainModel
 from predictionio_tpu_torch.ops.naive_bayes import (CategoricalNBModel,
                                                     MultinomialNBModel)
 from predictionio_tpu_torch.ops.vectorizer import BinaryVectorizer
+from predictionio_tpu_torch.parallel.sharded_table import ShardedTable
+
+
+def _sharded_of(table, n_shards: int):
+    """The port's `ShardedTable` of a reference one (its slices as they
+    are), or of a whole table split `n_shards` ways; None for a whole
+    table when `n_shards` is 0."""
+    if all(hasattr(table, a) for a in ("shards", "offsets", "n_rows",
+                                       "padded_rows", "n_shards")):
+        return ShardedTable([np.asarray(x) for x in table.shards],
+                            table.offsets, table.n_rows, table.padded_rows,
+                            table.n_shards)
+    if n_shards:
+        return ShardedTable.from_host(
+            np.ascontiguousarray(table, dtype=np.float32), n_shards)
+    return None
 
 
 def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
                    item_ids: Sequence[str], rank: int, device=None,
-                   item_properties: Optional[Sequence[Optional[dict]]] = None
-                   ) -> RecommendationModel:
+                   item_properties: Optional[Sequence[Optional[dict]]] = None,
+                   n_shards: int = 0) -> RecommendationModel:
     """Row i of `user_factors` belongs to `user_ids[i]` (likewise for
     items). `item_properties` is the reference model's list of item
     property dicts by dense index (None where an item has none); the
     query filters' categories and years are derived from it as the
     reference derives them. The tables are uploaded to `device` (default:
-    the card)."""
-    U = np.ascontiguousarray(user_factors, dtype=np.float32)
-    V = np.ascontiguousarray(item_factors, dtype=np.float32)
+    the card). Reference `ShardedTable`s come over shard for shard, and
+    `n_shards` > 0 splits whole tables so; a sharded model uploads its
+    item table's shards (module docstring)."""
+    U_sh = _sharded_of(user_factors, n_shards)
+    V_sh = _sharded_of(item_factors, n_shards)
+    if (U_sh is None) != (V_sh is None):
+        raise ValueError("both tables must be sharded, or neither")
+    U = (np.ascontiguousarray(user_factors, dtype=np.float32)
+         if U_sh is None else U_sh)
+    V = (np.ascontiguousarray(item_factors, dtype=np.float32)
+         if V_sh is None else V_sh)
     if U.shape != (len(user_ids), rank) or V.shape != (len(item_ids), rank):
         raise ValueError(
             f"tables {U.shape}/{V.shape} do not match {len(user_ids)} users, "
@@ -60,13 +92,39 @@ def from_jax_model(user_factors, item_factors, user_ids: Sequence[str],
         raise ValueError(f"{len(item_properties)} item property maps for "
                          f"{len(item_ids)} items")
     als = ALSModel(U, V, rank, resolve_device(device))
-    als.tables()
+    if V_sh is None:
+        als.tables()
+    else:
+        from predictionio_tpu_torch.parallel.mesh import model_mesh
+        V_sh.device(model_mesh(V_sh.n_shards, als.device))
     props = None if item_properties is None else list(item_properties)
     cats, years = RecommendationModel.derive_filters(props)
     return RecommendationModel(als, EntityIdIxMap.from_ids(user_ids),
                                EntityIdIxMap.from_ids(item_ids),
                                item_properties=props, item_categories=cats,
                                item_years=years)
+
+
+def from_jax_sharded_checkpoint(path: str, n_shards: int, device=None
+                                ) -> RecommendationModel:
+    """The model in a reference `ShardedALSModelCheckpoint` directory
+    (`checkpoint_dir(instance_id)`): its `factors/arrays.npz` (the form
+    the reference writes without orbax) and `vocab.npz`, split
+    `n_shards` ways. An orbax checkpoint needs orbax to read: restore it
+    with the reference and pass the arrays to `from_jax_model`."""
+    import os
+    npz = os.path.join(path, "factors", "arrays.npz")
+    if not os.path.exists(npz):
+        raise ValueError(
+            f"{path} holds no factors/arrays.npz (an orbax checkpoint?); "
+            f"restore it with the reference and use from_jax_model")
+    with np.load(npz) as z:
+        U, V = z["user_factors"], z["item_factors"]
+    with np.load(os.path.join(path, "vocab.npz")) as z:
+        users, items = [str(u) for u in z["users"]], \
+            [str(i) for i in z["items"]]
+    return from_jax_model(U, V, users, items, int(U.shape[1]),
+                          device=device, n_shards=n_shards)
 
 
 def from_jax_similarproduct_model(

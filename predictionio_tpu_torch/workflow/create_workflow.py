@@ -42,6 +42,7 @@ class WorkflowConfig:
     stop_after_read: bool = False
     stop_after_prepare: bool = False
     verbose: bool = False        # log the extracted engine params
+    verbosity: int = 0
 
 
 def load_variant(path: str) -> dict:
@@ -54,6 +55,16 @@ def resolve_class(dotted: str):
     if not module_name:
         raise ValueError(f"not a dotted class path: {dotted!r}")
     return getattr(importlib.import_module(module_name), attr)
+
+
+def workflow_params_from_config(config: WorkflowConfig):
+    """The `core.engine.WorkflowParams` of a workflow config."""
+    from predictionio_tpu_torch.core.engine import WorkflowParams
+    return WorkflowParams(
+        batch=config.batch, verbose=config.verbosity,
+        skip_sanity_check=config.skip_sanity_check,
+        stop_after_read=config.stop_after_read,
+        stop_after_prepare=config.stop_after_prepare)
 
 
 def create_workflow_main(config: WorkflowConfig,

@@ -11,8 +11,8 @@ port it bound is read from the line it prints); `undeploy` stops it and
 the process exits 0; a deploy onto a port a stale server holds stops
 that server first. `--stop-after-read/-prepare` stop the train
 there and leave the instance ABORTED. `version` prints the port's
-version, and `--help` names the port's commands and those still only in
-the JAX package; a deployed server answers a repeated query from its
+version, and `--help` names the port's commands (none is left only in
+the JAX package); a deployed server answers a repeated query from its
 result cache.
 """
 
@@ -265,10 +265,14 @@ def test_help_names_the_commands_still_in_the_jax_package(capsys):
                  "adminserver", "servers", "snapshot", "run", "upgrade",
                  "template", "lint"):
         assert word in text
-    assert "Still only in the JAX package's bin/pio" in text
+    # nothing is left only in the JAX package's bin/pio: the sharded
+    # serving of deploy is the port's too (`--mesh-broadcast-bytes`)
+    assert "Still only in the JAX package" not in text
     assert "version, status, build, unregister, train, eval, deploy, " \
         "undeploy, update, rollback, eventserver, dashboard, adminserver, " \
         "app, accesskey, export, import, trim, servers, snapshot, run, " \
         "upgrade, cache, incidents, profile, fleet, faults, spill, " \
-        "template, bootstrap, tenants, placement, lint. Still only in the " \
-        "JAX package's bin/pio: the sharded serving of deploy." in text
+        "template, bootstrap, tenants, placement, lint." in text
+    with pytest.raises(SystemExit):
+        cli.main(["deploy", "--help"])
+    assert "--mesh-broadcast-bytes" in capsys.readouterr().out

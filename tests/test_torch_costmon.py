@@ -203,6 +203,12 @@ def test_the_adaptive_target_follows_the_cost_monitor(
         b = mod.MicroBatcher(lambda qs: qs, max_batch=16, max_wait_ms=100,
                              adaptive=True)
         try:
+            # hold the formation thread before the state is built: running,
+            # it takes the queued items before `_window_deadline` reads
+            # the depth
+            b._stop.set()
+            b._thread.join(timeout=10)
+            assert not b._thread.is_alive()
             b._undispatched = undispatched
             for _ in range(queued):
                 b._q.put(None)

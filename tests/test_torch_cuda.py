@@ -1488,3 +1488,40 @@ def test_a_tenant_eviction_frees_what_it_reports(cuda, tmp_path,
         assert ask(users) == before
     finally:
         host.stop()
+
+
+#: cuBLAS's workspace for one stream on Hopper
+CUBLAS_WORKSPACE_BYTES = 33_554_432
+
+
+def test_forty_captures_hold_at_most_one_cublas_workspace(cuda):
+    """Every capture of the process runs on the device's one capture
+    stream: 40 captures of a program that runs a cuBLAS matmul, each
+    graph dropped after its replay, leave `memory_allocated` at most one
+    cuBLAS workspace above where it was (a fresh stream a capture would
+    leave one workspace a pool stream, up to 32)."""
+    import gc
+    from predictionio_tpu_torch.compile.aot import (GraphExecutable,
+                                                    capture_quiesced,
+                                                    capture_streams)
+    a = torch.full((256, 256), 0.25, device=cuda)
+    b = torch.full((256, 256), 0.5, device=cuda)
+
+    def program(x):
+        return torch.matmul(x, b) + 1.0
+
+    expected = program(a)       # the current stream's own workspace
+    with capture_quiesced():
+        torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    for _ in range(40):
+        exe = GraphExecutable(program, (a,))
+        out = exe(a)
+        torch.testing.assert_close(out, expected, rtol=0, atol=0)
+        del exe, out
+    gc.collect()
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    assert rise <= CUBLAS_WORKSPACE_BYTES, rise
+    assert capture_streams() == 1

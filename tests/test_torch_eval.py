@@ -587,12 +587,12 @@ def test_precision_at_k_and_best_json_equal_the_reference(rec_store,
         [s.score for _, s in jres.engine_params_scores]
     port_best = json.loads((tmp_path / "p" / "best.json").read_text())
     ref_best = json.loads((tmp_path / "r" / "best.json").read_text())
-    # the port's params add `device`, `solver`, the store-free `ratings`
-    # and the stager's `device`; the reference's `factor_sharding` belongs
-    # to a plane the port has not taken yet (ROADMAP.md A8)
+    # the port's params add `device`, `solver`, `model_shards`, the
+    # store-free `ratings` and the stager's `device`; `factor_sharding`
+    # round-trips in both
     for block, port_only, ref_only in (
-            (lambda b: b["algorithms"][0]["params"], ("device", "solver"),
-             ("factor_sharding",)),
+            (lambda b: b["algorithms"][0]["params"],
+             ("device", "solver", "model_shards"), ()),
             (lambda b: b["datasource"]["params"], ("ratings", "device"),
              ())):
         for k in port_only:
